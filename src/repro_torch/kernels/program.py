@@ -1,0 +1,207 @@
+"""GemmProgram (port of ``repro/kernels/program.py``): the static
+description of one streamed-A GEMM pipeline.
+
+* one streamed **A** operand, optionally decorated by a
+  :class:`PrologueSpec` (the rms_norm feeding a projection, folded into
+  the A-tile fetch);
+* 1..2 **B** operands (*branches*), each with its own accumulator and
+  :class:`~repro_torch.kernels.epilogue.EpilogueSpec`;
+* a **combiner**: ``combine="glu"`` drains ``act(v_gate) * v_up`` as one
+  output — SwiGLU's gate and up GEMMs share one pass over x.
+
+Tag grammar (byte-identical to the reference's, because tuning caches key
+on it)::
+
+    tag      := [prologue ">"] body
+    prologue := "rms" | "dact." act ["@b"]
+    body     := epitag                      # single branch
+              | "glu." act "(" epitag "|" epitag ")"
+              | "dual(" epitag "|" epitag ")"
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.epilogue import (ACTIVATIONS, EpilogueSpec,
+                                          IDENTITY, spec_from_tag)
+
+PROLOGUE_KINDS = ("none", "rms", "dact")
+COMBINES = ("none", "glu")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrologueSpec:
+    """Elementwise producer folded into a streamed operand's tile fetch.
+
+    ``kind="rms"`` multiplies the A tile by a per-row scale
+    (``rsqrt(mean(x²) + eps)``, computed outside the kernel) and a
+    per-column gain.  ``kind="dact"`` (activation backward) parses for tag
+    parity; the kernels of this slice do not run it.
+    """
+
+    kind: str = "none"
+    activation: str = "none"   # dact: which activation's derivative
+    operand: str = "a"
+
+    def __post_init__(self):
+        if self.kind not in PROLOGUE_KINDS:
+            raise ValueError(f"unknown prologue kind {self.kind!r} "
+                             f"(valid: {PROLOGUE_KINDS})")
+        if self.operand not in ("a", "b"):
+            raise ValueError(f"unknown prologue operand {self.operand!r}")
+        if self.kind == "dact":
+            if self.activation not in ACTIVATIONS:
+                raise ValueError(
+                    f"unknown dact activation {self.activation!r}")
+        elif self.activation != "none":
+            raise ValueError(
+                f"prologue kind {self.kind!r} takes no activation, got "
+                f"{self.activation!r}")
+        if self.kind == "rms" and self.operand != "a":
+            raise ValueError("rms_norm decorates the A stream")
+
+    @property
+    def is_identity(self) -> bool:
+        return self.kind == "none"
+
+    def tag(self) -> str:
+        if self.kind == "none":
+            return ""
+        if self.kind == "rms":
+            return "rms"
+        t = f"dact.{self.activation}"
+        return t + ("@b" if self.operand == "b" else "")
+
+
+NO_PROLOGUE = PrologueSpec()
+
+
+def _prologue_from_tag(tag: str) -> PrologueSpec:
+    if tag == "rms":
+        return PrologueSpec(kind="rms")
+    if tag.startswith("dact."):
+        body = tag[len("dact."):]
+        operand = "a"
+        if body.endswith("@b"):
+            operand, body = "b", body[:-2]
+        return PrologueSpec(kind="dact", activation=body, operand=operand)
+    raise ValueError(f"unknown prologue tag {tag!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmProgramSpec:
+    """Static shape of one streamed-A GEMM program.
+
+    With two branches the per-branch chains are restricted to the
+    pre-combine stages (dequant + bias): the combiner owns the
+    nonlinearity.
+    """
+
+    prologue: PrologueSpec = NO_PROLOGUE
+    branches: Tuple[EpilogueSpec, ...] = (IDENTITY,)
+    combine: str = "none"
+    combine_activation: str = "silu"
+
+    def __post_init__(self):
+        if self.combine not in COMBINES:
+            raise ValueError(f"unknown combine {self.combine!r} "
+                             f"(valid: {COMBINES})")
+        if not 1 <= len(self.branches) <= 2:
+            raise ValueError(
+                f"a program has 1 or 2 branches, got {len(self.branches)}")
+        if self.combine == "glu":
+            if len(self.branches) != 2:
+                raise ValueError("glu combines two branches, got "
+                                 f"{len(self.branches)}")
+            if self.combine_activation not in ACTIVATIONS:
+                raise ValueError(f"unknown glu activation "
+                                 f"{self.combine_activation!r}")
+        if len(self.branches) == 2:
+            for b in self.branches:
+                if b.activation != "none" or b.has_mul or b.has_residual:
+                    raise ValueError(
+                        "multi-branch epilogues are dequant/bias only, "
+                        f"got {b.tag()!r}")
+            if self.prologue.kind == "dact":
+                raise ValueError("dact prologue is single-branch (one "
+                                 "gradient operand)")
+
+    @property
+    def n_b(self) -> int:
+        return len(self.branches)
+
+    @property
+    def n_out(self) -> int:
+        """Drained (m, n) outputs."""
+        return 1 if self.combine == "glu" else len(self.branches)
+
+    def tag(self) -> str:
+        return program_tag(self)
+
+
+PLAIN = GemmProgramSpec()
+
+
+def program_tag(spec: GemmProgramSpec) -> str:
+    """Canonical cache-key fragment (see module docstring for grammar)."""
+    if spec.combine == "glu":
+        body = (f"glu.{spec.combine_activation}"
+                f"({spec.branches[0].tag()}|{spec.branches[1].tag()})")
+    elif len(spec.branches) == 2:
+        body = f"dual({spec.branches[0].tag()}|{spec.branches[1].tag()})"
+    else:
+        body = spec.branches[0].tag()
+    pro = spec.prologue.tag()
+    return f"{pro}>{body}" if pro else body
+
+
+def program_from_tag(tag: str) -> GemmProgramSpec:
+    """Inverse of :func:`program_tag`; unknown fragments raise."""
+    prologue = NO_PROLOGUE
+    if ">" in tag:
+        pro_s, tag = tag.split(">", 1)
+        prologue = _prologue_from_tag(pro_s)
+    if tag.startswith("glu.") or tag.startswith("dual("):
+        if tag.startswith("glu."):
+            act, _, rest = tag[len("glu."):].partition("(")
+            combine = "glu"
+        else:
+            act, rest = "silu", tag[len("dual("):]
+            combine = "none"
+        if not rest.endswith(")") or "|" not in rest:
+            raise ValueError(f"malformed program tag {tag!r}")
+        t0, t1 = rest[:-1].split("|")
+        return GemmProgramSpec(
+            prologue=prologue, combine=combine, combine_activation=act,
+            branches=(spec_from_tag(t0), spec_from_tag(t1)))
+    return GemmProgramSpec(prologue=prologue, branches=(spec_from_tag(tag),))
+
+
+@dataclasses.dataclass
+class RmsPrologue:
+    """rms_norm folded into the A-tile fetch: ``gain`` is the norm's (k,)
+    scale; the per-row ``rsqrt(mean(x²) + eps)`` factor is computed by
+    the wrapper, outside the kernel."""
+
+    gain: torch.Tensor
+    eps: float = 1e-5
+
+
+def rms_row_scale(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The per-row factor of rms_norm: ``rsqrt(mean(x², -1) + eps)``,
+    (..., 1) fp32."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return torch.rsqrt(var + eps)
+
+
+def apply_rms_reference(x: torch.Tensor, row_scale: torch.Tensor,
+                        gain: torch.Tensor) -> torch.Tensor:
+    """Oracle semantics of the rms prologue (== models.common.rms_norm):
+    fp32 multiply chain, cast back to the operand dtype."""
+    out = x.float() * row_scale.float() * gain.float()
+    return out.to(x.dtype)

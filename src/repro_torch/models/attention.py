@@ -1,0 +1,217 @@
+"""Attention, the GQA path (port of ``repro/models/attention.py``): the
+chunked online-softmax ("flash") attention for prefill, dense attention
+for decode, the slab KV cache and the GQA layer.
+
+Attention on the slab cache is plain torch, as it is plain JAX in the
+reference: scores and the PV product accumulate in fp32 from operands in
+the compute dtype, with the reference's masks and its 1e-30 clamp.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gemm import ca_matmul
+from repro_torch.kernels.epilogue import Epilogue
+from repro_torch.models import common as cm
+from repro_torch.models.common import Defs, ParamDef
+
+NEG = -1e30
+
+
+def _mask(q_positions, kv_positions, causal: bool, window: Optional[int]):
+    """(B, Lq, S) validity: kv slot in use, causal, inside the window."""
+    mask = (kv_positions[:, None, :] >= 0).expand(
+        -1, q_positions.shape[1], -1)
+    if causal:
+        mask = mask & (kv_positions[:, None, :] <= q_positions[:, :, None])
+    if window is not None:
+        mask = mask & (kv_positions[:, None, :]
+                       > q_positions[:, :, None] - window)
+    return mask
+
+
+def flash_attention(
+    q: torch.Tensor,             # (B, Lq, H, Dq)
+    k: torch.Tensor,             # (B, S, Hkv, Dq)
+    v: torch.Tensor,             # (B, S, Hkv, Dv)
+    *,
+    q_positions: torch.Tensor,   # (B, Lq)
+    kv_positions: torch.Tensor,  # (B, S); -1 marks invalid slots
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Scores are produced and consumed per (q-chunk, kv-chunk) tile while
+    the running max, denominator and output accumulator stay resident.
+    The chunk boundaries are the reference's, so the online-softmax
+    rescales happen at the same places; a ragged last chunk is sliced
+    rather than padded (padded slots are masked out in the reference)."""
+    B, Lq, H, Dq = q.shape
+    _, S, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // Hkv
+    scale = Dq ** -0.5 if scale is None else scale
+    dt = q.dtype
+    qc = min(q_chunk, Lq)
+    kc = min(kv_chunk, S)
+    qg = q.reshape(B, Lq, Hkv, G, Dq)
+    outs = []
+    for q0 in range(0, Lq, qc):
+        q_i = qg[:, q0:q0 + qc].float()
+        qpos_i = q_positions[:, q0:q0 + qc]
+        c = q_i.shape[1]
+        m = torch.full((B, Hkv, G, c), NEG, device=q.device)
+        l = torch.zeros((B, Hkv, G, c), device=q.device)
+        acc = torch.zeros((B, Hkv, G, c, Dv), device=q.device)
+        for k0 in range(0, S, kc):
+            k_j = k[:, k0:k0 + kc].float()
+            v_j = v[:, k0:k0 + kc].float()
+            mask = _mask(qpos_i, kv_positions[:, k0:k0 + kc], causal,
+                         window)[:, None, None]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where(mask, p, 0.0)
+            alpha = torch.exp(m - m_new)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(dt).float(), v_j)
+            acc = acc * alpha[..., None] + pv
+            l = l * alpha + p.sum(dim=-1)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(dt))               # (B, Hkv, G, c, Dv)
+    out = torch.cat(outs, dim=3)              # (B, Hkv, G, Lq, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, Dv)
+
+
+def dense_attention(q, k, v, *, q_positions, kv_positions, causal=True,
+                    window=None, scale=None) -> torch.Tensor:
+    """Unchunked scores — used for decode (Lq == 1)."""
+    B, Lq, H, Dq = q.shape
+    _, S, Hkv, _ = k.shape
+    G = H // Hkv
+    scale = Dq ** -0.5 if scale is None else scale
+    qf = q.reshape(B, Lq, Hkv, G, Dq).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    mask = _mask(q_positions, kv_positions, causal, window)[:, None, None]
+    s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask, p, 0.0)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype).float(),
+                       v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, v.shape[-1]) \
+        .to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Slab KV cache (rolling for sliding-window archs)
+# ---------------------------------------------------------------------------
+
+def make_kv_cache(B: int, cache_len: int, n_kv: int, dk: int, dv: int,
+                  dtype, device=None) -> Dict[str, torch.Tensor]:
+    return {
+        "k": torch.zeros((B, cache_len, n_kv, dk), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((B, cache_len, n_kv, dv), dtype=dtype,
+                         device=device),
+        "pos": torch.full((B, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def kv_cache_insert(cache, k_new, v_new, step: int):
+    """Insert one token (B, 1, Hkv, D) at rolling slot ``step % C``.
+
+    Unlike the reference (which returns an updated copy), this writes the
+    slab **in place** and returns the same dict: decode then never copies
+    the cache, and a layer's slab may be a view into the model's stacked
+    cache."""
+    slot = step % cache["k"].shape[1]
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["pos"][:, slot] = step
+    return cache
+
+
+def kv_cache_from_prefill(k, v, positions, cache_len: int):
+    """Build a cache from full-sequence prefill k/v: keeps the last
+    ``cache_len`` entries or pads with free slots (pos = -1)."""
+    S = k.shape[1]
+    positions = positions.to(torch.int32)
+    if S > cache_len:
+        k, v = k[:, -cache_len:], v[:, -cache_len:]
+        positions = positions[:, -cache_len:]
+    elif S < cache_len:
+        pad = cache_len - S
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        positions = F.pad(positions, (0, pad), value=-1)
+    return {"k": k.contiguous(), "v": v.contiguous(),
+            "pos": positions.contiguous()}
+
+
+# ---------------------------------------------------------------------------
+# GQA / MQA attention layer
+# ---------------------------------------------------------------------------
+
+def gqa_defs(cfg: ModelConfig, depth_scale: float = 1.0) -> Defs:
+    d = cfg.d_model
+    Dh = cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((d, cfg.n_heads * Dh), ("embed", "qkv")),
+        "wk": ParamDef((d, cfg.n_kv_heads * Dh), ("embed", "qkv")),
+        "wv": ParamDef((d, cfg.n_kv_heads * Dh), ("embed", "qkv")),
+        "wo": ParamDef((cfg.n_heads * Dh, d), ("qkv", "embed"),
+                       scale=depth_scale),
+    }
+
+
+def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
+              step: Optional[int] = None, mode: str = "train",
+              max_len: Optional[int] = None, residual=None):
+    """mode: train | prefill (returns a cache) | decode (uses and updates
+    ``cache`` in place).  ``residual`` is added in the output projection's
+    drain."""
+    B, L, _ = x.shape
+    Dh = cfg.resolved_head_dim
+    H, Kv = cfg.n_heads, cfg.n_kv_heads
+    q = ca_matmul(x, p["wq"]).reshape(B, L, H, Dh)
+    k = ca_matmul(x, p["wk"]).reshape(B, L, Kv, Dh)
+    v = ca_matmul(x, p["wv"]).reshape(B, L, Kv, Dh)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+
+    if mode == "decode":
+        if cache is None or step is None:
+            raise ValueError("decode needs a cache and a step")
+        cache = kv_cache_insert(cache, k, v, step)
+        out = dense_attention(
+            q, cache["k"], cache["v"], q_positions=positions,
+            kv_positions=cache["pos"], causal=True,
+            window=cfg.sliding_window)
+        new_cache = cache
+    else:
+        out = flash_attention(
+            q, k, v, q_positions=positions, kv_positions=positions,
+            causal=True, window=cfg.sliding_window,
+            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        new_cache = None
+        if mode == "prefill":
+            C = cache_len_for(cfg, max_len or L)
+            new_cache = kv_cache_from_prefill(k, v, positions, C)
+    epi = Epilogue(residual=residual) if residual is not None else None
+    y = ca_matmul(out.reshape(B, L, H * Dh), p["wo"], epilogue=epi)
+    return y, new_cache

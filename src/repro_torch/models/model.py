@@ -1,0 +1,170 @@
+"""Decoder LM (port of ``repro/models/model.py``), dense GQA family.
+
+The layers' parameters are stacked along a leading axis, as in the
+reference; a Python loop over layers takes the place of ``lax.scan`` and
+threads each layer's slab KV cache through prefill and decode.
+
+Serving parameters hold projection matrices and the embedding table in the
+compute dtype — cast **once**, at load or init, where the reference casts
+at every call (same rounding) — and norm gains in fp32, which is how the
+rms chain reads them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import blocks as blk
+from repro_torch.models import common as cm
+from repro_torch.models.common import Defs
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card; it raises when CUDA is absent.  Only an
+    explicit ``device="cpu"`` runs the plain path on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: pass device='cpu' "
+                               "to run the plain path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def model_defs(cfg: ModelConfig) -> Defs:
+    if cfg.frontend != "tokens" or cfg.n_codebooks != 1 \
+            or cfg.shared_attn_every or cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name}: only a token-frontend LM with one "
+                         "untied head is ported")
+    defs: Defs = {}
+    defs.update(cm.prefix_defs(
+        "embed", cm.embed_defs(cfg.padded_vocab, cfg.d_model)))
+    defs.update(cm.prefix_defs(
+        "blocks", cm.stack_defs(blk.transformer_block_defs(cfg),
+                                cfg.n_layers)))
+    defs.update(cm.prefix_defs("norm_f", cm.rms_norm_def(cfg.d_model)))
+    defs.update(cm.prefix_defs(
+        "head", cm.unembed_defs(cfg.d_model, cfg.padded_vocab)))
+    return defs
+
+
+def _serving_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
+    return torch.float32 if name.endswith("/scale") else cfg.dtype()
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Random serving parameters drawn from a ``torch.Generator`` seeded
+    with ``seed``, by the reference's init laws (in its param dtype, then
+    cast to the serving dtypes one tensor at a time)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    defs = model_defs(cfg)
+    return {name: cm.init_one(defs[name], gen, cfg.pdtype(), device)
+            .to(_serving_dtype(name, cfg))
+            for name in sorted(defs)}
+
+
+def params_from_jax(np_params: Mapping[str, np.ndarray], cfg: ModelConfig,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The reference's flat parameter dict (numpy arrays, e.g.
+    ``blocks/attn/wq`` of shape (L, d, H·Dh)) as serving parameters."""
+    device = resolve_device(device)
+    defs = model_defs(cfg)
+    if set(np_params) != set(defs):
+        raise ValueError(
+            f"parameter keys differ: missing {sorted(set(defs) - set(np_params))}"
+            f", unexpected {sorted(set(np_params) - set(defs))}")
+    out = {}
+    for name, arr in np_params.items():
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        if tuple(t.shape) != defs[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{defs[name].shape}")
+        out[name] = t.to(device=device, dtype=_serving_dtype(name, cfg))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None):
+    """Decode-time slab cache, stacked over layers."""
+    dtype = dtype or cfg.dtype()
+    C = attn.cache_len_for(cfg, max_len)
+    Dh = cfg.resolved_head_dim
+    one = attn.make_kv_cache(batch, C, cfg.n_kv_heads, Dh, Dh, dtype,
+                             resolve_device(device))
+    return {"layers": {k: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
+                       for k, t in one.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def forward(params: Dict[str, torch.Tensor],
+            batch_in: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            mode: str = "train", cache: Optional[Dict] = None,
+            step: Optional[int] = None, max_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (logits_fp32, new_cache_or_None).  In decode the cache is
+    updated in place and returned."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown forward mode {mode!r}")
+    if mode == "decode" and (cache is None or step is None):
+        raise ValueError("decode needs a cache and a step")
+    tokens = batch_in["tokens"]
+    x = cm.embed_apply(cm.subtree(params, "embed"), tokens, cfg.dtype())
+    B, L, _ = x.shape
+    positions = batch_in.get("positions")
+    if positions is None:
+        offset = step if mode == "decode" else 0
+        positions = (torch.arange(L, device=x.device)[None, :]
+                     + offset).expand(B, L)
+
+    blocks = cm.subtree(params, "blocks")
+    layers = cache["layers"] if cache is not None else None
+    new_layers = []
+    for i in range(cfg.n_layers):
+        p_i = {k: v[i] for k, v in blocks.items()}
+        cache_i = {k: v[i] for k, v in layers.items()} \
+            if layers is not None else None
+        x, c_i = blk.transformer_block_apply(
+            p_i, x, cfg, positions=positions, cache=cache_i, step=step,
+            mode=mode, max_len=max_len)
+        new_layers.append(c_i)
+
+    x = cm.rms_norm(x, params["norm_f/scale"], cfg.norm_eps)
+    logits = cm.unembed_apply(cm.subtree(params, "head"), x)
+    new_cache = None
+    if mode == "prefill":
+        new_cache = {"layers": {k: torch.stack([c[k] for c in new_layers])
+                                for k in new_layers[0]}}
+    elif mode == "decode":
+        new_cache = cache
+    return logits.float(), new_cache
+
+
+def prefill(params, batch_in, cfg: ModelConfig,
+            max_len: Optional[int] = None):
+    logits, cache = forward(params, batch_in, cfg, mode="prefill",
+                            max_len=max_len)
+    return logits, cache
+
+
+def decode_step(params, token_in, cache, step: int, cfg: ModelConfig):
+    """One decode step.  token_in: {"tokens": (B, 1)}; ``step`` is the
+    position of the new token."""
+    return forward(params, token_in, cfg, mode="decode", cache=cache,
+                   step=step)

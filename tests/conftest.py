@@ -20,6 +20,11 @@ import pytest
 from repro.core import set_gemm_fallback, set_gemm_mode
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips with a reason without one)")
+
+
 @pytest.fixture(autouse=True)
 def _default_gemm_mode():
     """xla dispatch, kernel->XLA fallback OFF (a kernel bug must fail its

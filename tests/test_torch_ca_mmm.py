@@ -1,0 +1,136 @@
+"""The port's CA-GEMM program on the CPU (its plain version) against the
+reference kernel run in Pallas interpret mode, on ragged shapes.  The CUDA
+kernel itself is held against the plain version in test_torch_cuda.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ca_mmm import ca_gemm_program as jax_program
+from repro.kernels.program import program_from_tag as jax_from_tag
+from repro_torch.kernels import ca_mmm as K
+from repro_torch.kernels.program import program_from_tag, rms_row_scale
+
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _operands(tag, m, n, k, dtype, seed=0):
+    """numpy operands for one program: A, the B branches, the rms
+    prologue's gain and each branch's drain operands."""
+    r = np.random.RandomState(seed)
+    spec = program_from_tag(tag)
+    ops = {"a": r.randn(m, k),
+           "bs": [r.randn(k, n) / np.sqrt(k) for _ in range(spec.n_b)],
+           "gain": r.rand(k) + 0.5 if spec.prologue.kind == "rms" else None,
+           "branch": []}
+    for b in spec.branches:
+        d = {}
+        if b.has_bias:
+            d["bias"] = r.randn(n)
+        if b.has_mul:
+            d["mul"] = r.randn(m, n)
+        if b.has_residual:
+            d["residual"] = r.randn(m, n)
+        ops["branch"].append(d)
+    return ops
+
+
+def _run_jax(tag, ops, dtype, out_dtype=None):
+    jdt = jnp.dtype(dtype)
+    a = jnp.asarray(ops["a"], jdt)
+    kw = {}
+    if ops["gain"] is not None:
+        kw["gain"] = jnp.asarray(ops["gain"], jnp.float32)
+        xf = a.astype(jnp.float32)
+        kw["row_scale"] = 1.0 / jnp.sqrt(
+            jnp.mean(xf * xf, axis=-1, keepdims=True) + 1e-5)
+    out = jax_program(
+        a, [jnp.asarray(b, jdt) for b in ops["bs"]], spec=jax_from_tag(tag),
+        bm=8, bn=128, bk=128, interpret=True, out_dtype=out_dtype,
+        branch_operands=[{k: jnp.asarray(v, jdt) for k, v in d.items()}
+                         for d in ops["branch"]], **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _run_torch(tag, ops, dtype, out_dtype=None):
+    tdt = TORCH_DT[dtype]
+    t = lambda x, dt=tdt: torch.as_tensor(x).to(dtype=dt)
+    a = t(ops["a"])
+    kw = {}
+    if ops["gain"] is not None:
+        kw["gain"] = t(ops["gain"], torch.float32)
+        kw["row_scale"] = rms_row_scale(a, 1e-5)
+    return K.ca_gemm_program(
+        a, [t(b) for b in ops["bs"]], spec=program_from_tag(tag),
+        out_dtype=out_dtype,
+        branch_operands=[{k: t(v) for k, v in d.items()}
+                         for d in ops["branch"]], **kw)
+
+
+FLOAT_TAGS = ["none", "res", "rms>glu.silu(none|none)", "bias+gelu+mul+res"]
+
+
+@pytest.mark.parametrize("m", [1, 5, 37])
+@pytest.mark.parametrize("tag", FLOAT_TAGS)
+def test_fp32_matches_reference_kernel(tag, m):
+    # n = 200 is not a multiple of 128; bk = 128 does not divide k = 300.
+    n, k = 200, 300
+    ops = _operands(tag, m, n, k, "float32", seed=m)
+    want = _run_jax(tag, ops, "float32")
+    got = _run_torch(tag, ops, "float32").numpy()
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_rms_glu_matches_reference_kernel():
+    # The rms prologue re-rounds A to bf16 and the fp32 sums run in another
+    # order, so one bf16 ulp of the output may flip: 2e-2 of max|ref|.
+    tag, m, n, k = "rms>glu.silu(none|none)", 37, 200, 300
+    ops = _operands(tag, m, n, k, "bfloat16", seed=3)
+    want = _run_jax(tag, ops, "bfloat16")
+    got = _run_torch(tag, ops, "bfloat16")
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2e-2 * np.abs(want).max(), err
+
+
+def test_fp32_out_of_bf16_operands_matches_reference_kernel():
+    # The logits head: bf16 operands, fp32 out.
+    ops = _operands("none", 5, 200, 300, "bfloat16", seed=4)
+    want = _run_jax("none", ops, "bfloat16", out_dtype=jnp.float32)
+    got = _run_torch("none", ops, "bfloat16", out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tag,kw,slice_", [
+    ("dqb+res", {}, "K1d"),
+    ("dact.silu>none", {}, "K1f"),
+    ("none", {"transpose_a": True}, "K1f"),
+    ("none", {"transpose_b": True}, "K1f"),
+    ("none", {"save_preact": True}, "K1f"),
+    ("none", {"semiring": "min_plus"}, "K1g"),
+    ("dual(none|none)", {}, "dual"),
+])
+def test_unported_programs_raise(tag, kw, slice_):
+    spec = program_from_tag(tag)
+    a = torch.ones(4, 8)
+    bs = [torch.ones(8, 6)] * spec.n_b
+    with pytest.raises(ValueError, match=slice_):
+        K.ca_gemm_program(a, bs, spec=spec, **kw)
+
+
+def test_bad_operands_raise_and_cpu_never_counts():
+    K.reset_launch_counts()
+    a = torch.ones(4, 8)
+    with pytest.raises(ValueError, match="B must be"):
+        K.ca_gemm_program(a, [torch.ones(8, 6, dtype=torch.bfloat16)])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ca_gemm_program(a, [torch.ones(6, 8).t()])
+    with pytest.raises(ValueError, match="row_scale"):
+        K.ca_gemm_program(a, [torch.ones(8, 6)],
+                          spec=program_from_tag("rms>none"))
+    K.ca_gemm_program(a, [torch.ones(8, 6)])
+    assert K.launch_counts == {}
+

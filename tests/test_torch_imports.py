@@ -1,0 +1,65 @@
+"""The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
+imports JAX or the reference package ``repro``."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _module_name(path):
+    rel = path.relative_to(REPO / "src").with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    return ".".join(parts)
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports_in_source():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(str(f.relative_to(REPO)), root) for f in files
+           for root in _imported_roots(ast.parse(f.read_text()))
+           if root in FORBIDDEN]
+    assert bad == []
+
+
+_BLOCKER = """
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+import importlib
+for mod in {modules!r}:
+    importlib.import_module(mod)
+print("imported", len({modules!r}))
+"""
+
+
+def test_every_port_module_imports_with_jax_and_repro_blocked():
+    modules = [_module_name(f) for f in sorted(PORT.rglob("*.py"))]
+    code = _BLOCKER.format(forbidden=FORBIDDEN, modules=modules)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(modules)}" in out.stdout
