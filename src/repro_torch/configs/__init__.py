@@ -8,12 +8,7 @@ import dataclasses
 from typing import List
 
 from repro_torch.configs import stablelm_1_6b
-from repro_torch.configs.base import (
-    SHAPES,
-    ModelConfig,
-    ShapeConfig,
-    applicable_shapes,
-)
+from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "stablelm-1.6b": stablelm_1_6b,
@@ -42,5 +37,4 @@ def get_reduced(name: str, compute_dtype: str = "float32") -> ModelConfig:
                                compute_dtype=compute_dtype)
 
 
-__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "applicable_shapes",
-           "get_config", "get_reduced", "list_archs"]
+__all__ = ["ModelConfig", "get_config", "get_reduced", "list_archs"]

@@ -47,7 +47,7 @@ class ServeEngine:
     queue in order."""
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-                 batch_size: int, max_len: int, seed: int = 0,
+                 max_len: int, seed: int = 0,
                  device=None, paged_kv: bool = False,
                  quantize_activations: bool = False, tp_local=None,
                  max_queue: int = 0):
@@ -67,7 +67,6 @@ class ServeEngine:
                                  f"engine on {self.device}")
         self.params = params
         self.cfg = cfg
-        self.B = batch_size
         self.max_len = max_len
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.queue: Deque[Request] = collections.deque()

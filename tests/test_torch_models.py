@@ -97,6 +97,15 @@ def test_init_params_laws_and_layout():
     assert all(torch.equal(p[k], again[k]) for k in p)
 
 
+def test_unported_init_law_raises():
+    from repro_torch.models.common import ParamDef, init_one
+
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(ValueError, match="not ported"):
+        init_one(ParamDef((4,), ("heads",), init="a_log"), gen,
+                 torch.float32, "cpu")
+
+
 def test_dense_attention_agrees_with_flash_for_several_queries():
     # dense_attention serves decode (Lq = 1); for Lq > 1 it must still
     # put each query's heads in its own row, as the chunked path does.

@@ -31,7 +31,7 @@ def test_greedy_tokens_identical_to_reference_engine(params):
     jeng = JServeEngine(jp, jax_reduced(ARCH), batch_size=1, max_len=32)
     jeng.submit(JRequest(uid=1, prompt=prompt, max_new_tokens=5))
     want = jeng.run()[1].generated
-    eng = ServeEngine(tp, cfg, batch_size=1, max_len=32, device="cpu")
+    eng = ServeEngine(tp, cfg, max_len=32, device="cpu")
     eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=5))
     done = eng.run()
     assert done[1].status == "done"
@@ -44,7 +44,7 @@ def test_temperature_sampling_is_deterministic_per_seed(params):
     prompt = np.arange(6) % cfg.vocab_size
     outs = []
     for seed in (7, 7, 8):
-        eng = ServeEngine(tp, cfg, batch_size=1, max_len=24, seed=seed,
+        eng = ServeEngine(tp, cfg, max_len=24, seed=seed,
                           device="cpu")
         eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=6,
                            temperature=0.8))
@@ -57,7 +57,7 @@ def test_default_device_needs_cuda(params, monkeypatch):
     _, tp = params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        ServeEngine(tp, get_reduced(ARCH), batch_size=1, max_len=16)
+        ServeEngine(tp, get_reduced(ARCH), max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         TM.init_params(get_reduced(ARCH))
 
@@ -68,5 +68,5 @@ def test_default_device_needs_cuda(params, monkeypatch):
 def test_later_slice_options_raise(params, kw):
     _, tp = params
     with pytest.raises(ValueError, match="not ported"):
-        ServeEngine(tp, get_reduced(ARCH), batch_size=1, max_len=16,
+        ServeEngine(tp, get_reduced(ARCH), max_len=16,
                     device="cpu", **kw)
