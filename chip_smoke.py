@@ -6,23 +6,43 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. card: prints the card's name and power limit; CUDA must be available.
-2. build: compiles the CA-GEMM program kernel with nvcc into build/.
+2. build: compiles both kernels (the CA-GEMM program kernel and the paged
+   decode-attention kernel) with nvcc into build/, one nvcc per source,
+   both started together.
 3. kernel parity: each ported program (none, res, rms>glu.silu(none|none))
    on the kernel against its plain version, in bf16 at the main path's
-   shapes (m = 1, 37, 128) and in fp32 on a ragged shape.
+   shapes (m = 1, 37, 128; h2o-danube-3-4b's at m = 1) and in fp32 on a
+   ragged shape; the paged attention kernel against its plain version in
+   fp32 and bf16 at stablelm-1.6b's and danube's serve shapes, at a ragged
+   windowed danube batch and at B = 8, S = 4096 for both head geometries,
+   and bit-identical when the pool's free pages are poisoned.
 4. slice: full-width stablelm-1.6b, all 24 layers, random weights from a
-   seed, served through ServeEngine (3 requests); the kernel must launch
-   exactly 145 times per prefill and per decode step.  torch.profiler then
-   splits decode steps' device time by kernel (device busy share), and a
-   4-layer full-width model is held against the plain path on the CPU
-   (prefill logits, and greedy tokens up to a near tie).
-5. times: kernel, plain version, library call and bound per program (each
-   timed by replaying a CUDA graph of 20 calls), and the end-to-end
-   prefill / decode times of phase 4.
+   seed, served through ServeEngine (3 requests) on the slab cache; the
+   kernel must launch exactly 145 times per prefill and per decode step.
+   torch.profiler then splits decode steps' device time by kernel (device
+   busy share), and a 4-layer full-width model is held against the plain
+   path on the CPU (prefill logits, and greedy tokens up to a near tie).
+5. paged slice: the same model serves 4 requests on the slab cache and
+   with paged_kv=True (int8 pages, decode attention on the paged kernel):
+   prefill logits bit-equal, greedy tokens equal up to a near tie, exactly
+   24 paged-attention and 145 GEMM launches per decode step and none of
+   the first in prefill; one paged-attention call of the run is replayed
+   on the kernel and its plain version.  Host timers split decode steps'
+   host time (KV insert, decode attention) slab vs paged, alternating
+   over 3 rounds, and count the torch ops of each.  A 4-layer model's
+   paged decode logits on the card are held against the CPU's, and
+   torch.profiler splits paged decode steps' device time by kernel; then
+   full-width h2o-danube-3-4b (GQA, head_dim 120) serves one request both
+   ways with the same checks.
+6. times: kernel, plain version, library call and bound per GEMM program
+   and for the paged kernel (each timed by replaying a CUDA graph of 20
+   calls), and the end-to-end prefill / decode times of phases 4 and 5.
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
+import collections
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -36,15 +56,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+from repro_torch import kvcache as kvc  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
+from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels.program import (program_from_tag,  # noqa: E402
                                          rms_row_scale)
+from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.tuning import resolve_page_size  # noqa: E402
 
 ARCH = "stablelm-1.6b"
+DANUBE = "h2o-danube-3-4b"
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
             torch.float32: 67e12}             # fp32 outside the tensor cores
@@ -58,6 +85,8 @@ TOL_BF16, TOL_F32 = 2e-2, 1e-4
 TOL_MODEL = 5e-2
 SOURCE = "src/repro_torch/csrc/ca_gemm_program.cu"
 REPLACES = "src/repro/kernels/ca_mmm.py:297"
+ATTN_SOURCE = "src/repro_torch/csrc/paged_flash_attn.cu"
+ATTN_REPLACES = "src/repro/kernels/flash_attn.py:241"
 
 GLU = "rms>glu.silu(none|none)"
 # (program, GEMM, k, n, out_dtype) of one stablelm-1.6b forward step.
@@ -66,8 +95,23 @@ GEMMS = [("none", "wq/wk/wv", 2048, 2048, None),
          ("res", "wo", 2048, 2048, None),
          ("res", "w_down", 5632, 2048, None),
          (GLU, "gate+up", 2048, 5632, None)]
+# h2o-danube-3-4b's GEMMs, held against the plain version at m = 1.
+DANUBE_GEMMS = [("none", "danube q", 3840, 3840, None),
+                ("none", "danube k/v", 3840, 960, None),
+                (GLU, "danube gate+up", 3840, 10240, None),
+                ("res", "danube down", 10240, 3840, None),
+                ("none", "danube head", 3840, 32000, torch.float32)]
 # The shape each program's JSON record is timed at (decode, m = 1).
 RECORD_GEMM = {"none": "wq/wk/wv", "res": "w_down", GLU: "gate+up"}
+# Paged attention shapes (lens, page, H, Hkv, D, window): stablelm-1.6b's
+# heads at its serve path's length and page (a), danube's GQA heads over
+# ragged lengths crossing pages with a window (b), danube's serve shape
+# (B = 1, S = 316, its analytic page 128), and B = 8, S = 4096 for both.
+ATTN_CASES = {"a stablelm": ([1016], 128, 32, 32, 64, None),
+              "b danube": ([19, 200, 1000], 16, 32, 8, 120, 48),
+              "danube serve": ([316], 128, 32, 8, 120, None),
+              "stablelm B8 S4096": ([4096] * 8, 128, 32, 32, 64, None),
+              "danube B8 S4096": ([4096] * 8, 128, 32, 8, 120, None)}
 
 
 def phase(name):
@@ -93,9 +137,18 @@ def card():
 
 def build():
     phase("build")
+
+    def timed(src):
+        t0 = time.perf_counter()
+        return _build.build(src), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path = K.build()
-    print(f"built {path.name} in {time.perf_counter() - t0:.3f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(timed, (K.SOURCE, FA.SOURCE)))
+    for path, seconds in built:
+        print(f"built {path.name} in {seconds:.3f} s")
+    print(f"build wall {time.perf_counter() - t0:.3f} s (one nvcc per "
+          "source, started together)")
 
 
 def program_inputs(tag, m, k, n, dtype, gen, copies=1):
@@ -127,6 +180,8 @@ def parity():
     worst = {}
     cases = [(tag, name, m, k, n, od, torch.bfloat16)
              for m in (1, 37, 128) for tag, name, k, n, od in GEMMS]
+    cases += [(tag, name, 1, k, n, od, torch.bfloat16)
+              for tag, name, k, n, od in DANUBE_GEMMS]
     cases += [(tag, "ragged", 5, 300, 200, None, torch.float32)
               for tag in ("none", "res", GLU)]
     for tag, name, m, k, n, od, dtype in cases:
@@ -142,13 +197,256 @@ def parity():
         # version only in summation order; bf16 output may flip one ulp.
         tol = TOL_F32 * (1 + scale) if (od or dtype) == torch.float32 \
             else TOL_BF16 * scale
-        print(f"parity {tag:24s} {name:9s} m={m:<4d} k={k:<5d} n={n:<6d} "
+        print(f"parity {tag:24s} {name:14s} m={m:<4d} k={k:<5d} n={n:<6d} "
               f"{str(dtype)[6:]:8s} max_abs_err={err:.3e} tol={tol:.3e}")
         if not err <= tol:
             raise AssertionError(f"{tag} {name} m={m}: kernel disagrees "
                                  f"with the plain version ({err} > {tol})")
         worst[tag] = max(worst.get(tag, 0.0), err)
     return worst
+
+
+def attn_pool(lens, page, Hkv, D, gen, *, extra_pages=0, copies=1):
+    """Random int8 page pools on the card for sequences of ``lens`` tokens.
+    Each sequence maps ceil(len / page) pages in a shuffled order (-1 past
+    them in its table row); ``extra_pages`` more pages no table names.
+    ``copies`` pools (k, v, k_scale, v_scale) share the tables; also
+    returns the unmapped page ids."""
+    B = len(lens)
+    counts = [-(-L // page) for L in lens]
+    NP, need = max(counts), sum(counts)
+    P = need + extra_pages
+    perm = torch.randperm(P, generator=gen, device="cuda").to(torch.int32)
+    tables = torch.full((B, NP), -1, dtype=torch.int32, device="cuda")
+    off = 0
+    for b, n in enumerate(counts):
+        tables[b, :n] = perm[off:off + n]
+        off += n
+    pools = []
+    for _ in range(copies):
+        pools.append(tuple(
+            torch.randint(-127, 128, (P, page, Hkv, D), generator=gen,
+                          device="cuda", dtype=torch.int8)
+            for _ in range(2)) + tuple(
+            torch.rand(P, generator=gen, device="cuda") * 0.03 + 0.005
+            for _ in range(2)))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return pools, tables, lens_t, perm[need:].long()
+
+
+def check_attn(label, q, pool, tables, lens_t, **kw):
+    """The paged kernel against its plain version on the same inputs;
+    returns the kernel's output and its max abs error."""
+    got = FA.paged_flash_attention(q, *pool, tables, lens_t, **kw)
+    want = FA.paged_flash_attention_reference(q, *pool, tables, lens_t, **kw)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != q.dtype \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"paged attention {label}: bad output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = TOL_F32 * (1 + scale) if q.dtype == torch.float32 \
+        else TOL_BF16 * scale
+    print(f"parity paged_flash_attention {label} {str(q.dtype)[6:]:8s} "
+          f"max_abs_err={err:.3e} tol={tol:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"paged attention {label}: kernel disagrees "
+                             f"({err} > {tol})")
+    return got, err
+
+
+def attn_parity():
+    phase("paged attention parity (kernel vs plain version)")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for name, (lens, page, H, Hkv, D, window) in ATTN_CASES.items():
+        (pool,), tables, lens_t, unmapped = attn_pool(
+            lens, page, Hkv, D, gen, extra_pages=16)
+        label = (f"{name:17s} B={len(lens)} S={max(lens)} page={page} H={H} "
+                 f"Hkv={Hkv} D={D} window={window}")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(len(lens), H, D, generator=gen,
+                            device="cuda").to(dtype)
+            got, err = check_attn(label, q, pool, tables, lens_t,
+                                  window=window)
+            worst = max(worst, err)
+            # (c) free pages poisoned with 127 at scale 1e6: bit-identical.
+            bad = [t.clone() for t in pool]
+            for t in bad[:2]:
+                t[unmapped] = 127
+            for t in bad[2:]:
+                t[unmapped] = 1e6
+            again = FA.paged_flash_attention(q, *bad, tables, lens_t,
+                                             window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"paged attention {name}: poisoned "
+                                     "free pages changed the output")
+            print(f"parity paged_flash_attention {name:17s} "
+                  f"{str(dtype)[6:]:8s} poisoned free pages: bit-identical")
+    return worst
+
+
+class Capture:
+    """While active, counts the paged attention calls of the serve path
+    and keeps a copy of the operands of call number ``at``."""
+
+    def __init__(self, at):
+        self.at, self.calls, self.args = at, 0, None
+
+    def __enter__(self):
+        self._orig = kvc.paged.paged_flash_attention
+
+        def attend(*a, **k):
+            if self.calls == self.at:
+                self.args = ([t.clone() for t in a], dict(k))
+            self.calls += 1
+            return self._orig(*a, **k)
+
+        kvc.paged.paged_flash_attention = attend
+        return self
+
+    def __exit__(self, *exc):
+        kvc.paged.paged_flash_attention = self._orig
+
+
+class Recorder:
+    """While active, wraps M.prefill and M.decode_step (the engine calls
+    them through the module) and keeps each prefill's whole logits and
+    each step's sampled row."""
+
+    def __enter__(self):
+        self.prefill, self.rows = [], []
+        self._orig = (M.prefill, M.decode_step)
+
+        def prefill(*a, **k):
+            logits, cache = self._orig[0](*a, **k)
+            self.prefill.append(logits.clone())
+            self.rows.append(logits[0, -1].clone())
+            return logits, cache
+
+        def decode_step(*a, **k):
+            logits, cache = self._orig[1](*a, **k)
+            self.rows.append(logits[0, -1].clone())
+            return logits, cache
+
+        M.prefill, M.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        M.prefill, M.decode_step = self._orig
+
+
+def serve_both(cfg, prompts, max_len, profile=False):
+    """Full-width ``cfg`` (random weights, seed 0) serves the same greedy
+    requests on the slab cache, then with ``paged_kv=True``; checks the
+    launch counts, bit-equal prefill logits and greedy tokens up to a
+    near tie, and the paged kernel against its plain version on the
+    operands of the first request's last paged-attention call.  Returns
+    the paged run's paged-attention launches, that call's error, both
+    runs' end-to-end times, the host split and (``profile``) the paged
+    decode profile."""
+    phase(f"paged slice: full-width {cfg.name}, {cfg.n_layers} layers, "
+          "slab vs paged_kv=True")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"init {sum(p.numel() for p in params.values())} params in "
+          f"{time.perf_counter() - t0:.3f} s")
+    runs = {}
+    for paged in (False, True):
+        eng = ServeEngine(params, cfg, max_len=max_len, paged_kv=paged)
+        eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
+        eng.run()
+        reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            if not eng.submit(r):
+                raise AssertionError(f"request {r.uid} rejected: {r.error}")
+        K.reset_launch_counts()
+        FA.reset_launch_counts()
+        t0 = time.perf_counter()
+        # The first request's last decode step, last layer.
+        last = cfg.n_layers * (reqs[0].max_new_tokens - 1) - 1
+        with Recorder() as rec, Capture(last) as cap:
+            eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[paged] = {"reqs": reqs, "k1": dict(K.launch_counts),
+                       "k2": dict(FA.launch_counts), "rec": rec,
+                       "wall": wall, "call": cap.args}
+        if paged:
+            pool = eng.kv_pool
+            print(f"paged pool: {pool.n_pages} pages of {pool.page_size} "
+                  f"tokens, {pool.n_free} free after the run")
+            if pool.n_free != pool.n_pages:
+                raise AssertionError("pages leaked after the run")
+        del eng
+    (q, *pool, tables, lens_t), kw = runs[True]["call"]
+    _, call_err = check_attn(
+        f"{cfg.name} serve call B={q.shape[0]} lens={lens_t.tolist()} "
+        f"page={pool[0].shape[1]} H={q.shape[1]} Hkv={pool[0].shape[2]} "
+        f"D={q.shape[2]} window={kw.get('window')}",
+        q, pool, tables, lens_t, **kw)
+    split = host_split(params, cfg)
+    paged_profile = profile_decode(params, cfg, paged=True) if profile \
+        else None
+    del params
+    torch.cuda.empty_cache()
+
+    L = cfg.n_layers
+    reqs = runs[False]["reqs"]
+    steps = sum(r.max_new_tokens for r in reqs)
+    decodes = steps - len(reqs)
+    per_step = {"none": 3 * L + 1, "res": 2 * L, GLU: L}
+    for paged, run in runs.items():
+        label = "paged" if paged else "slab"
+        print(f"{label} launches over {steps} forward steps: "
+              f"K1 {run['k1']} K2 {run['k2']}")
+        if run["k1"] != {tag: n * steps for tag, n in per_step.items()}:
+            raise AssertionError(f"{label}: K1 launches {run['k1']}, "
+                                 f"expected {per_step} x {steps}")
+        want_k2 = {FA.NAME: L * decodes} if paged else {}
+        if run["k2"] != want_k2:
+            raise AssertionError(f"{label}: K2 launches {run['k2']}, "
+                                 f"expected {want_k2} (none in prefill)")
+    slab, paged = runs[False]["rec"], runs[True]["rec"]
+    for r, a, b in zip(reqs, slab.prefill, paged.prefill):
+        if not torch.equal(a, b):
+            raise AssertionError(f"request {r.uid}: prefill logits of the "
+                                 "slab and paged engines differ")
+    print(f"prefill logits bit-equal for all {len(reqs)} requests")
+    off = 0
+    for r, rp in zip(reqs, runs[True]["reqs"]):
+        if r.status != "done" or rp.status != "done":
+            raise AssertionError(f"request {r.uid}: {r.status}/{rp.status}")
+        agree = sum(a == b for a, b in zip(r.generated, rp.generated))
+        print(f"request {r.uid} prompt={len(r.prompt)} slab={r.generated} "
+              f"paged={rp.generated} agreement={agree}/{len(r.generated)}")
+        if r.generated != rp.generated:
+            i = next(j for j, (a, b) in enumerate(zip(r.generated,
+                                                      rp.generated)) if a != b)
+            row = slab.rows[off + i][:cfg.vocab_size].float()
+            gap = (row.max() - row[rp.generated[i]]).item()
+            limit = 2 * TOL_MODEL * row.abs().max().item()
+            print(f"first disagreement at token {i}: slab logit gap "
+                  f"{gap:.4e} (limit {limit:.4e})")
+            if not gap <= limit:
+                raise AssertionError("slab and paged greedy tokens disagree "
+                                     "beyond a near tie")
+        off += r.max_new_tokens
+    e2e = []
+    for r, rp in zip(reqs, runs[True]["reqs"]):
+        row = {"uid": r.uid, "prompt": len(r.prompt),
+               "slab_prefill_ms": r.prefill_s * 1e3,
+               "paged_prefill_ms": rp.prefill_s * 1e3,
+               "slab_decode_ms_per_token":
+                   r.decode_s * 1e3 / (r.max_new_tokens - 1),
+               "paged_decode_ms_per_token":
+                   rp.decode_s * 1e3 / (rp.max_new_tokens - 1)}
+        e2e.append(row)
+        print(f"{cfg.name} " + json.dumps(row))
+    return runs[True]["k2"][FA.NAME], call_err, e2e, split, paged_profile
 
 
 def serve_slice(cfg):
@@ -214,38 +512,55 @@ def _device_us(event):
     return t if t is not None else event.self_cuda_time_total
 
 
-def profile_decode(params, cfg, steps=8):
+def decode_run(params, cfg, steps, paged=False, prof=None, device="cuda"):
+    """A 37-token prefill (``max_len`` 160), then ``steps`` greedy decode
+    steps on the slab cache or (``paged``) on a paged int8 cache of the
+    analytic page; ``prof`` (a torch.profiler) records only the steps.
+    Returns the steps' wall seconds."""
+    prompt = torch.as_tensor(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, 37), device=device)[None]
+    with torch.inference_mode():
+        cache = None
+        if paged:
+            page = resolve_page_size(160)
+            n_pages = kvc.pages_for(160, page)
+            cache = M.make_paged_model_cache(
+                cfg, 1, n_pages=n_pages, page_size=page, max_pages=n_pages,
+                device=device)
+            kvc.model_assign_sequence(cache, 0, list(range(n_pages)))
+        logits, cache = M.prefill(params, {"tokens": prompt}, cfg,
+                                  max_len=160, cache=cache)
+        nxt = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+        _sync(device)
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        for s in range(steps):
+            logits, cache = M.decode_step(
+                params, {"tokens": torch.full((1, 1), nxt, device=device)},
+                cache, prompt.shape[1] + s, cfg)
+            nxt = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+        _sync(device)
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+    return wall
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_decode(params, cfg, steps=8, paged=False):
     """Device time by kernel over ``steps`` decode steps (torch.profiler),
-    and the unprofiled wall time of the same steps."""
+    and the unprofiled wall time of the same steps, on the slab cache or
+    (``paged``) on the paged int8 cache."""
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = torch.as_tensor(np.random.RandomState(2).randint(
-        0, cfg.vocab_size, 37), device="cuda")[None]
-
-    def decode(n, prof=None):
-        with torch.inference_mode():
-            logits, cache = M.prefill(params, {"tokens": prompt}, cfg,
-                                      max_len=160)
-            nxt = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
-            torch.cuda.synchronize()
-            if prof is not None:
-                prof.start()
-            t0 = time.perf_counter()
-            for s in range(n):
-                logits, cache = M.decode_step(
-                    params, {"tokens": torch.full((1, 1), nxt,
-                                                  device="cuda")},
-                    cache, prompt.shape[1] + s, cfg)
-                nxt = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if prof is not None:
-                prof.stop()
-            return wall
-
-    wall = decode(steps)
+    wall = decode_run(params, cfg, steps, paged)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    decode(steps, prof)
+    decode_run(params, cfg, steps, paged, prof)
     by_kernel = {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -259,9 +574,104 @@ def profile_decode(params, cfg, steps=8):
            "device_ms_per_step": total_ms,
            "gemm_kernel_ms_per_step": gemm_ms,
            "device_busy_share": total_ms / wall_ms}
-    print("profile " + json.dumps(out))
+    if paged:
+        out["paged_attention_kernel_ms_per_step"] = sum(
+            v for k, v in by_kernel.items()
+            if "paged_fa_kernel" in k) / 1e3 / steps
+    print(f"profile {'paged' if paged else 'slab'} " + json.dumps(out))
     for name, us in top:
         print(f"profile top {us / 1e3 / steps:9.4f} ms/step {name[:90]}")
+    return out
+
+
+class _OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+class HostTimers:
+    """While active, wraps the decode step and, inside it, the KV-cache
+    insert and the decode attention that gqa_apply calls (slab:
+    kv_cache_insert, dense_attention; paged: kvcache.paged_decode_insert,
+    kvcache.paged_attention), adding the host seconds spent in each.  No
+    sync sits inside them, so this is the time spent issuing their work.
+    With ``count`` set it also counts the aten ops each dispatches."""
+
+    TARGETS = ((M, "decode_step", "step"),
+               (A, "kv_cache_insert", "insert"),
+               (A, "dense_attention", "attention"),
+               (kvc, "paged_decode_insert", "insert"),
+               (kvc, "paged_attention", "attention"))
+
+    def __enter__(self):
+        self.count = False
+        self.reset()
+        self._orig = [getattr(mod, name) for mod, name, _ in self.TARGETS]
+        for (mod, name, key), fn in zip(self.TARGETS, self._orig):
+            setattr(mod, name, self._wrap(fn, key))
+        return self
+
+    def reset(self):
+        self.seconds = collections.Counter()
+        self.ops = collections.Counter()
+
+    def _wrap(self, fn, key):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            if self.count:
+                with _OpCount() as ops:
+                    out = fn(*a, **k)
+                self.ops[key] += ops.n
+            else:
+                out = fn(*a, **k)
+            self.seconds[key] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.TARGETS, self._orig):
+            setattr(mod, name, fn)
+
+
+def host_split(params, cfg, rounds=3, steps=8, device="cuda"):
+    """Host ms per decode step spent issuing the whole step, its KV-cache
+    inserts and its decode attention, slab vs paged in the same call:
+    ``rounds`` rounds of ``steps`` unprofiled steps each, alternating
+    slab and paged; then one counted step of each gives their aten ops.
+    Returns the medians over rounds and the op counts."""
+    phase(f"host split: {cfg.name} decode steps, slab vs paged")
+    rows = {"slab": [], "paged": []}
+    with HostTimers() as timers:
+        for r in range(rounds):
+            for mode in rows:
+                timers.reset()
+                wall = decode_run(params, cfg, steps, mode == "paged",
+                                  device=device)
+                row = {"wall_ms_per_step": wall * 1e3 / steps}
+                row.update({f"{k}_host_ms_per_step": v * 1e3 / steps
+                            for k, v in sorted(timers.seconds.items())})
+                rows[mode].append(row)
+                print(f"host split {cfg.name} round {r} {mode} "
+                      + json.dumps(row))
+        ops = {}
+        for mode in rows:
+            timers.reset()
+            timers.count = True
+            decode_run(params, cfg, 1, mode == "paged", device=device)
+            timers.count = False
+            ops[mode] = dict(timers.ops)
+    out = {mode: {k: float(np.median([row[k] for row in rs]))
+                  for k in rs[0]} for mode, rs in rows.items()}
+    for mode in rows:
+        out[mode]["aten_ops_per_step"] = ops[mode]
+    print(f"host split {cfg.name} median " + json.dumps(out))
     return out
 
 
@@ -305,6 +715,39 @@ def cross_check(cfg):
         if not gap <= limit:
             raise AssertionError("card and CPU greedy tokens disagree "
                                  "beyond a near tie")
+
+
+def cross_check_paged(cfg):
+    phase("4-layer full width, paged path: card vs CPU plain path")
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    p_gpu = M.init_params(cfg4, seed=1)
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    rng = np.random.RandomState(3)
+    prompt = rng.randint(0, cfg.vocab_size, 12)
+    nxt = rng.randint(0, cfg.vocab_size, 4)
+    outs = []
+    for params, dev in ((p_gpu, "cuda"), (p_cpu, "cpu")):
+        cache = M.make_paged_model_cache(cfg4, 1, n_pages=3, page_size=8,
+                                         max_pages=2, device=dev)
+        kvc.model_assign_sequence(cache, 0, [2, 0])
+        rows = []
+        with torch.inference_mode():
+            _, cache = M.prefill(params, {"tokens": torch.as_tensor(
+                prompt, device=dev)[None]}, cfg4, cache=cache)
+            for s, t in enumerate(nxt):
+                lg, cache = M.decode_step(
+                    params, {"tokens": torch.full((1, 1), int(t),
+                                                  device=dev)},
+                    cache, len(prompt) + s, cfg4)
+                rows.append(lg[0, -1].cpu())
+        outs.append(torch.stack(rows))
+    err = (outs[0] - outs[1]).abs().max().item()
+    scale = outs[1].abs().max().item()
+    print(f"paged decode logits over {len(nxt)} steps max_abs_err="
+          f"{err:.4e} max|cpu|={scale:.4e} tol={TOL_MODEL * scale:.4e}")
+    if not (bool(torch.isfinite(outs[0]).all())
+            and err <= TOL_MODEL * scale):
+        raise AssertionError("card and CPU paged decode logits disagree")
 
 
 def _time_ms(fn, n_sets, iters=20, reps=5):
@@ -393,15 +836,75 @@ def times():
     return rows
 
 
+def attn_bound(lens, page, H, Hkv, D, window, dtype):
+    """Least time for one call: the int8 K/V bytes of the tokens it must
+    attend (each read once) plus scales, tables, lengths, q and the
+    output, over the memory rate; or its fp32 operations (q.k and p.v for
+    every query head and token; the kernel widens int8 to fp32) over the
+    fp32 rate, whichever is larger."""
+    B = len(lens)
+    NP = max(-(-L // page) for L in lens)
+    tokens = sum(min(L, NP * page) - (max(0, L - window) if window else 0)
+                 for L in lens)
+    pages = sum(-(-L // page) for L in lens)
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (tokens * Hkv * 2 * D + pages * 2 * 4 + B * NP * 4 + B * 4
+              + 2 * B * H * D * es)
+    ops = 2 * 2 * tokens * (H // Hkv) * Hkv * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attn_times():
+    phase("paged attention times (CUDA graph replay; pools rotated past "
+          "the 50 MB L2)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for name in ("a stablelm", "stablelm B8 S4096", "danube B8 S4096"):
+        lens, page, H, Hkv, D, window = ATTN_CASES[name]
+        per_copy = sum(-(-L // page) for L in lens) * page * Hkv * 2 * D
+        copies = max(2, math.ceil(120e6 / per_copy))
+        pools, tables, lens_t, _ = attn_pool(lens, page, Hkv, D, gen,
+                                             copies=copies)
+        q = torch.randn(len(lens), H, D, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ms = _time_ms(lambda i: FA.paged_flash_attention(
+            q, *pools[i], tables, lens_t, window=window), copies)
+        plain = _time_ms(lambda i: FA.paged_flash_attention_reference(
+            q, *pools[i], tables, lens_t, window=window), copies)
+        b_ms, b_by = attn_bound(lens, page, H, Hkv, D, window,
+                                torch.bfloat16)
+        row = {"kernel": FA.NAME, "case": name, "B": len(lens),
+               "S": max(lens), "page": page, "H": H, "Hkv": Hkv, "D": D,
+               "ms": ms, "plain_ms": plain, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        print("time " + json.dumps(row))
+        del pools, tables, lens_t, q
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     card_line = card()
     build()
     worst = parity()
+    worst_attn = attn_parity()
     cfg = get_config(ARCH)
     counts, e2e = serve_slice(cfg)
     cross_check(cfg)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (1000, 128, 37, 8)]
+    attn_launches, call_err, paged_e2e, split, paged_profile = serve_both(
+        cfg, prompts, max_len=1056, profile=True)
+    cross_check_paged(cfg)
+    dcfg = get_config(DANUBE)
+    _, danube_call_err, danube_e2e, danube_split, _ = serve_both(
+        dcfg, [rng.randint(0, dcfg.vocab_size, 300)], max_len=320)
+    worst_attn = max(worst_attn, call_err, danube_call_err)
     rows = times()
+    attn_rows = attn_times()
     phase("summary")
     print(f"card: {card_line}")
     for r in e2e["requests"]:
@@ -411,6 +914,17 @@ def main():
     print(f"e2e tokens/s {e2e['tokens_per_s']:.3f} over "
           f"{e2e['run_s']:.3f} s; weight-byte bound 0.86 ms/token")
     print("e2e decode profile " + json.dumps(e2e["profile"]))
+    print("e2e paged decode profile " + json.dumps(paged_profile))
+    for name, sp in ((ARCH, split), (DANUBE, danube_split)):
+        print(f"e2e {name} host split (median of 3 rounds) "
+              + json.dumps(sp))
+    for name, runs in ((ARCH, paged_e2e), (DANUBE, danube_e2e)):
+        for r in runs:
+            print(f"e2e {name} request {r['uid']} prompt={r['prompt']}: "
+                  f"decode slab {r['slab_decode_ms_per_token']:.3f} / paged "
+                  f"{r['paged_decode_ms_per_token']:.3f} ms/token, prefill "
+                  f"slab {r['slab_prefill_ms']:.3f} / paged "
+                  f"{r['paged_prefill_ms']:.3f} ms")
     kernels = []
     for tag, gemm in RECORD_GEMM.items():
         row = next(r for r in rows if r["program"] == tag
@@ -423,6 +937,15 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": f"{gemm} m=1 k={row['k']} n={row['n']} bf16"})
+    arow = attn_rows[0]
+    kernels.append({
+        "name": FA.NAME, "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": attn_launches,
+        "max_abs_err": worst_attn, "ms": arow["ms"],
+        "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
+        "bound_by": arow["bound_by"], "library_ms": None,
+        "shape": f"B={arow['B']} S={arow['S']} page={arow['page']} "
+                 f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

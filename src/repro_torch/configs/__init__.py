@@ -1,17 +1,19 @@
 """Architecture registry (port of ``repro.configs``).
 
-This slice of the port serves stablelm-1.6b only; the other architectures
-of the reference join as their model code is ported (ROADMAP queue 1).
+The port serves the dense GQA archs stablelm-1.6b and h2o-danube-3-4b;
+the other architectures of the reference join as their model code is
+ported (ROADMAP queue 1).
 """
 
 import dataclasses
 from typing import List
 
-from repro_torch.configs import stablelm_1_6b
+from repro_torch.configs import h2o_danube_3_4b, stablelm_1_6b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "stablelm-1.6b": stablelm_1_6b,
+    "h2o-danube-3-4b": h2o_danube_3_4b,
 }
 
 

@@ -12,31 +12,23 @@ Dispatch depends only on where the operands lie: a CPU tensor runs the
 plain-torch version :func:`ca_gemm_program_reference`; a CUDA tensor
 launches the kernel or raises.  The kernel is compiled with ``nvcc`` at
 first use into ``build/`` at the repository root and bound through
-``ctypes`` (a plain C entry point, no PyTorch headers).
+``ctypes`` (a plain C entry point, no PyTorch headers), by
+:mod:`repro_torch.kernels._build`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 from typing import Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import act_fn, apply_reference
 from repro_torch.kernels.program import (GemmProgramSpec, PLAIN,
                                          apply_rms_reference)
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" \
-    / "ca_gemm_program.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = _build.CSRC / "ca_gemm_program.cu"
 
 # Launches of the CUDA kernel, by program tag.  Only the kernel launch
 # below adds to it; the plain version never does.
@@ -44,52 +36,21 @@ launch_counts: Dict[str, int] = {}
 
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _FLOATS = (torch.float32, torch.bfloat16)
-_lib_lock = threading.Lock()
-_lib: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in "
-                       "/usr/local/cuda/bin): the CUDA kernel cannot be built")
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel into ``build/`` (keyed by the source's hash) and
-    return the shared library's path; a fresh build only when missing."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"ca_gemm_program-{digest[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.ca_gemm_program_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
-    with _lib_lock:
-        lib = _lib.get("lib")
-        if lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.ca_gemm_program_launch
-            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib["lib"] = lib
-    return lib
+    return _build.load(SOURCE, _bind)
 
 
 # ---------------------------------------------------------------------------

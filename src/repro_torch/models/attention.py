@@ -4,7 +4,9 @@ for decode, the slab KV cache and the GQA layer.
 
 Attention on the slab cache is plain torch, as it is plain JAX in the
 reference: scores and the PV product accumulate in fp32 from operands in
-the compute dtype, with the reference's masks and its 1e-30 clamp.
+the compute dtype, with the reference's masks and its 1e-30 clamp.  On a
+paged cache (:mod:`repro_torch.kvcache`) decode attention runs the paged
+int8 kernel instead.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gemm import ca_matmul
 from repro_torch.kernels.epilogue import Epilogue
@@ -148,12 +151,21 @@ def kv_cache_insert(cache, k_new, v_new, step: int):
 
 def kv_cache_from_prefill(k, v, positions, cache_len: int):
     """Build a cache from full-sequence prefill k/v: keeps the last
-    ``cache_len`` entries or pads with free slots (pos = -1)."""
+    ``cache_len`` entries or pads with free slots (pos = -1).
+
+    Kept entries go to their rolling slots, position ``p`` at slot
+    ``p % cache_len``, which is where :func:`kv_cache_insert` later
+    overwrites the oldest one (prefill positions run 0..S-1, so the kept
+    slice rolls by ``S % cache_len``).  The reference keeps them in order
+    instead, so for a prompt longer than a sliding window (and not a
+    multiple of it) its decode overwrites positions still inside the
+    window."""
     S = k.shape[1]
     positions = positions.to(torch.int32)
     if S > cache_len:
-        k, v = k[:, -cache_len:], v[:, -cache_len:]
-        positions = positions[:, -cache_len:]
+        shift = S % cache_len
+        k, v, positions = (torch.roll(t[:, -cache_len:], shift, dims=1)
+                           for t in (k, v, positions))
     elif S < cache_len:
         pad = cache_len - S
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -184,7 +196,12 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
               max_len: Optional[int] = None, residual=None):
     """mode: train | prefill (returns a cache) | decode (uses and updates
     ``cache`` in place).  ``residual`` is added in the output projection's
-    drain."""
+    drain.
+
+    A paged ``cache`` (one layer's view of the model's pool) is written in
+    place in both modes: prefill attends over the unquantized k/v and then
+    bulk-inserts them into the pre-assigned pages; decode appends the
+    token, then attends over the int8 pages."""
     B, L, _ = x.shape
     Dh = cfg.resolved_head_dim
     H, Kv = cfg.n_heads, cfg.n_kv_heads
@@ -197,11 +214,17 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     if mode == "decode":
         if cache is None or step is None:
             raise ValueError("decode needs a cache and a step")
-        cache = kv_cache_insert(cache, k, v, step)
-        out = dense_attention(
-            q, cache["k"], cache["v"], q_positions=positions,
-            kv_positions=cache["pos"], causal=True,
-            window=cfg.sliding_window)
+        if kvc.is_paged(cache):
+            # Positions are implicit in the block table and the length,
+            # so ``step`` goes unused here.
+            cache = kvc.paged_decode_insert(cache, k, v)
+            out = kvc.paged_attention(q, cache, window=cfg.sliding_window)
+        else:
+            cache = kv_cache_insert(cache, k, v, step)
+            out = dense_attention(
+                q, cache["k"], cache["v"], q_positions=positions,
+                kv_positions=cache["pos"], causal=True,
+                window=cfg.sliding_window)
         new_cache = cache
     else:
         out = flash_attention(
@@ -210,8 +233,11 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
         new_cache = None
         if mode == "prefill":
-            C = cache_len_for(cfg, max_len or L)
-            new_cache = kv_cache_from_prefill(k, v, positions, C)
+            if cache is not None and kvc.is_paged(cache):
+                new_cache = kvc.paged_prefill_insert(cache, k, v)
+            else:
+                C = cache_len_for(cfg, max_len or L)
+                new_cache = kv_cache_from_prefill(k, v, positions, C)
     epi = Epilogue(residual=residual) if residual is not None else None
     y = ca_matmul(out.reshape(B, L, H * Dh), p["wo"], epilogue=epi)
     return y, new_cache

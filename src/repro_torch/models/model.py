@@ -2,7 +2,9 @@
 
 The layers' parameters are stacked along a leading axis, as in the
 reference; a Python loop over layers takes the place of ``lax.scan`` and
-threads each layer's slab KV cache through prefill and decode.
+threads each layer's KV cache through prefill and decode.  Caches are
+stacked over layers too: the slab cache, or the paged int8 cache whose
+pool persists across requests and is only ever written in place.
 
 Serving parameters hold projection matrices and the embedding table in the
 compute dtype — cast **once**, at load or init, where the reference casts
@@ -17,6 +19,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
@@ -109,6 +112,25 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                        for k, t in one.items()}}
 
 
+def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
+                           page_size: int, max_pages: int, device=None):
+    """Paged decode cache: per-layer int8 page pools sharing one block
+    table of page *ids*, stacked over layers like :func:`make_cache`'s
+    slabs — page id ``p`` addresses slot ``p`` in every layer, so the host
+    allocator hands out one id list per sequence regardless of depth.
+    GQA-family transformers only."""
+    if (cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid")
+            or cfg.shared_attn_every):
+        raise ValueError(
+            f"paged caches are GQA-transformer only, got "
+            f"attn_kind={cfg.attn_kind!r} family={cfg.family!r} [KV005]")
+    Dh = cfg.resolved_head_dim
+    one = kvc.make_paged_cache(n_pages, page_size, cfg.n_kv_heads, Dh, Dh,
+                               batch, max_pages, resolve_device(device))
+    return {"layers": {k: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
+                       for k, t in one.items()}}
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -119,7 +141,9 @@ def forward(params: Dict[str, torch.Tensor],
             step: Optional[int] = None, max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (logits_fp32, new_cache_or_None).  In decode the cache is
-    updated in place and returned."""
+    updated in place and returned; so is a paged cache in prefill, whose
+    per-layer views are written in place (restacking them would copy the
+    whole pool).  A slab prefill builds its cache from the layers'."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown forward mode {mode!r}")
     if mode == "decode" and (cache is None or step is None):
@@ -148,18 +172,21 @@ def forward(params: Dict[str, torch.Tensor],
     x = cm.rms_norm(x, params["norm_f/scale"], cfg.norm_eps)
     logits = cm.unembed_apply(cm.subtree(params, "head"), x)
     new_cache = None
-    if mode == "prefill":
+    if mode == "decode" or (mode == "prefill" and layers is not None
+                            and kvc.is_paged(layers)):
+        new_cache = cache
+    elif mode == "prefill":
         new_cache = {"layers": {k: torch.stack([c[k] for c in new_layers])
                                 for k in new_layers[0]}}
-    elif mode == "decode":
-        new_cache = cache
     return logits.float(), new_cache
 
 
 def prefill(params, batch_in, cfg: ModelConfig,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, cache: Optional[Dict] = None):
+    """``cache`` is only passed on the paged path: prefill *inserts into*
+    pre-assigned pages instead of building a fresh slab cache."""
     logits, cache = forward(params, batch_in, cfg, mode="prefill",
-                            max_len=max_len)
+                            max_len=max_len, cache=cache)
     return logits, cache
 
 

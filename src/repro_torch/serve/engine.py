@@ -1,12 +1,12 @@
 """Serving engine (port of ``repro/serve/engine.py``): per-request prefill
-on a batch of 1, then the decode loop over the slab KV cache.
+on a batch of 1, then the decode loop over the slab KV cache or, with
+``paged_kv=True``, over the paged int8 KV cache.
 
 Sampling is greedy (argmax over the real vocabulary) or temperature-based,
 drawn from a ``torch.Generator`` seeded with ``seed`` — deterministic,
-though its numbers are not ``jax.random``'s.  The reference's paged KV
-cache, w8a8 calibration, tensor parallelism, bounded admission, metrics
-and fault handling are later slices (ROADMAP) and raise here when asked
-for.
+though its numbers are not ``jax.random``'s.  The reference's w8a8
+calibration, tensor parallelism, bounded admission, metrics and fault
+handling are later slices (ROADMAP) and raise here when asked for.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.tuning import resolve_page_size
 
 
 class NonFiniteLogits(RuntimeError):
@@ -34,7 +36,10 @@ class Request:
     max_new_tokens: int = 16
     temperature: float = 0.0
     generated: Optional[List[int]] = None
-    status: str = "pending"         # pending -> queued -> running -> done
+    # pending -> queued -> running -> done; a request rejected at
+    # admission goes straight to done with status "rejected" and ``error``.
+    status: str = "pending"
+    error: Optional[str] = None
     # Host wall seconds of prefill + first sample, and of the decode loop;
     # both end in the sample's device-to-host read, so they cover the
     # device work.
@@ -44,15 +49,23 @@ class Request:
 
 class ServeEngine:
     """Single-card engine: ``submit`` requests, then ``run`` serves the
-    queue in order."""
+    queue in order.
+
+    With ``paged_kv=True`` the KV cache is a pool of int8 pages
+    (:mod:`repro_torch.kvcache`) that admits requests by pages instead of
+    a ``max_len`` slab: ``kv_page_size`` tokens per page (0: the analytic
+    page for ``max_len``, :func:`repro_torch.tuning.resolve_page_size`),
+    and the pages one sequence of ``max_len`` tokens needs, since requests
+    are served one at a time.  The pool lives on the engine's device for
+    its whole life and is written in place.
+    """
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: ModelConfig, *,
                  max_len: int, seed: int = 0,
-                 device=None, paged_kv: bool = False,
+                 device=None, paged_kv: bool = False, kv_page_size: int = 0,
                  quantize_activations: bool = False, tp_local=None,
                  max_queue: int = 0):
-        later = {"paged_kv": (paged_kv, "queue 1 item 6"),
-                 "quantize_activations": (quantize_activations,
+        later = {"quantize_activations": (quantize_activations,
                                           "queue 1 item 7"),
                  "tp_local": (tp_local, "queue 1 item 14"),
                  "max_queue": (max_queue, "queue 1 item 9")}
@@ -71,9 +84,31 @@ class ServeEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.queue: Deque[Request] = collections.deque()
         self.done: Dict[int, Request] = {}
+        self.kv_pool: Optional[kvc.PagePool] = None
+        self.kv_cache = None
+        if paged_kv:
+            page = kv_page_size or resolve_page_size(max_len)
+            n_pages = kvc.pages_for(max_len, page)
+            self.kv_pool = kvc.PagePool(n_pages, page)
+            self.kv_cache = M.make_paged_model_cache(
+                cfg, 1, n_pages=n_pages, page_size=page, max_pages=n_pages,
+                device=self.device)
 
     def submit(self, req: Request) -> bool:
+        """Queue a request (True).  On the paged path a request whose
+        prompt plus full generation budget can never fit the pool is
+        rejected instead (False): it lands in ``done``
+        with status ``"rejected"`` and the reason in ``error``."""
         req.generated = []
+        if self.kv_pool is not None:
+            need = self.kv_pool.pages_for(
+                len(req.prompt) + req.max_new_tokens)
+            if need > self.kv_pool.n_pages:
+                req.status = "rejected"
+                req.error = (f"kv pages: need {need} pages, pool holds "
+                             f"{self.kv_pool.n_pages}")
+                self.done[req.uid] = req
+                return False
         req.status = "queued"
         self.queue.append(req)
         return True
@@ -104,20 +139,35 @@ class ServeEngine:
                                device=self.device).reshape(1, -1)
 
     def _serve_one(self, req: Request) -> None:
-        t0 = time.perf_counter()
-        toks = self._tokens(req.prompt)
-        logits, cache = M.prefill(self.params, {"tokens": toks}, self.cfg,
-                                  max_len=self.max_len)
-        nxt = self._sample(logits, req.temperature)
-        t1 = time.perf_counter()
-        req.prefill_s = t1 - t0
-        req.generated.append(nxt)
-        pos = toks.shape[1]
-        for _ in range(req.max_new_tokens - 1):
-            logits, cache = M.decode_step(self.params,
-                                          {"tokens": self._tokens([nxt])},
-                                          cache, pos, self.cfg)
+        """Prefill and sample, then one decode step per further token.  On
+        the paged path the request's pages (prompt plus full generation
+        budget) are allocated before prefill and held for exactly this
+        call: the ``finally`` unmaps and frees them whatever happens."""
+        try:
+            t0 = time.perf_counter()
+            toks = self._tokens(req.prompt)
+            cache = None
+            if self.kv_pool is not None:
+                page_ids = self.kv_pool.alloc(
+                    req.uid, len(req.prompt) + req.max_new_tokens)
+                cache = kvc.model_assign_sequence(self.kv_cache, 0, page_ids)
+            logits, cache = M.prefill(self.params, {"tokens": toks},
+                                      self.cfg, max_len=self.max_len,
+                                      cache=cache)
             nxt = self._sample(logits, req.temperature)
+            t1 = time.perf_counter()
+            req.prefill_s = t1 - t0
             req.generated.append(nxt)
-            pos += 1
-        req.decode_s = time.perf_counter() - t1
+            pos = toks.shape[1]
+            for _ in range(req.max_new_tokens - 1):
+                logits, cache = M.decode_step(
+                    self.params, {"tokens": self._tokens([nxt])}, cache, pos,
+                    self.cfg)
+                nxt = self._sample(logits, req.temperature)
+                req.generated.append(nxt)
+                pos += 1
+            req.decode_s = time.perf_counter() - t1
+        finally:
+            if self.kv_pool is not None:
+                kvc.model_release_sequence(self.kv_cache, 0)
+                self.kv_pool.free(req.uid)

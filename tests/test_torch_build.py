@@ -1,0 +1,55 @@
+"""The port's kernel build helper with a stand-in compiler: libraries keyed
+by the source's hash, errors raised with the compiler's output.  (The
+real nvcc runs only on the card's host, in chip_smoke.py.)"""
+
+import pytest
+
+from repro_torch.kernels import _build
+
+FAKE_NVCC = """#!/bin/sh
+# Stand-in for nvcc: ... -o OUT SRC; logs each call, fails on 'boom'.
+while [ $# -gt 2 ]; do shift; done
+echo "$2" >> "{log}"
+if grep -q boom "$2"; then echo "error: boom in $2"; exit 2; fi
+cp "$2" "$1"
+"""
+
+
+@pytest.fixture
+def fake_build(tmp_path, monkeypatch):
+    log = tmp_path / "calls.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    return tmp_path, lambda: log.read_text().split()
+
+
+def test_build_is_keyed_by_the_source_hash(fake_build):
+    tmp, calls = fake_build
+    src = tmp / "a.cu"
+    src.write_text("// a\n")
+    first = _build.build(src)
+    assert first.exists() and first.name.startswith("a-")
+    assert _build.build(src) == first and calls() == [str(src)]
+    src.write_text("// a, edited\n")
+    again = _build.build(src)
+    assert again != first and calls() == [str(src)] * 2
+
+
+def test_build_raises_with_the_compiler_output(fake_build):
+    tmp, _ = fake_build
+    bad = tmp / "bad.cu"
+    bad.write_text("// boom\n")
+    with pytest.raises(RuntimeError, match="bad.cu") as err:
+        _build.build(bad)
+    assert "error: boom" in str(err.value)
+    assert not list((tmp / "build").glob("*.so"))
+
+
+def test_kernel_sources_live_in_csrc():
+    from repro_torch.kernels import ca_mmm, flash_attn
+
+    for src in (ca_mmm.SOURCE, flash_attn.SOURCE):
+        assert src.parent == _build.CSRC and src.exists()

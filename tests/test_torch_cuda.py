@@ -1,4 +1,5 @@
-"""The CUDA CA-GEMM kernel against its plain version, on a card.
+"""The CUDA kernels (CA-GEMM program, paged decode attention) against their
+plain versions, on a card.
 
 Imports neither JAX nor ``repro``, so it runs on a GPU host without JAX:
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ca_mmm as K
+from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels.program import program_from_tag, rms_row_scale
 
 TAGS = ["none", "res", "rms>glu.silu(none|none)", "bias+gelu+mul+res",
@@ -56,6 +58,99 @@ def test_cuda_kernel_matches_plain_version(tag, dtype, m, n, k):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     # fp32: the sums run in another order; bf16: one output ulp may flip.
+    scale = want.float().abs().max().item()
+    tol = 1e-4 * (1 + scale) if dtype == torch.float32 else 2e-2 * scale
+    assert err <= tol, (err, tol)
+
+
+# Random paged int8 KV pools, numpy only, so both the card's tests here
+# and the JAX-side CPU tests (test_torch_flash_attn.py) build their
+# inputs from them.  Keys and values are N(0, 1), quantized per page
+# under the page's absmax scale as the paged cache stores them.
+
+def random_pool(seed, lens, *, page, n_pages, Hkv, D, Dv=None,
+                shuffle=True):
+    """A pool holding ``len(lens)`` sequences; sequence ``b`` maps
+    ``ceil(lens[b] / page)`` pages (ids drawn in a shuffled order), the
+    rest of its block-table row is -1.  Pages no table maps stay zero."""
+    Dv = Dv or D
+    rng = np.random.RandomState(seed)
+    B = len(lens)
+    NP = max(1, max(-(-L // page) for L in lens))
+    order = rng.permutation(n_pages) if shuffle else np.arange(n_pages)
+    pool = {"k": np.zeros((n_pages, page, Hkv, D), np.int8),
+            "v": np.zeros((n_pages, page, Hkv, Dv), np.int8),
+            "k_scale": np.zeros(n_pages, np.float32),
+            "v_scale": np.zeros(n_pages, np.float32),
+            "tables": np.full((B, NP), -1, np.int32),
+            "lens": np.asarray(lens, np.int32)}
+    nxt = 0
+    for b, L in enumerate(lens):
+        for j in range(-(-L // page)):
+            pid = order[nxt]
+            nxt += 1
+            pool["tables"][b, j] = pid
+            for name, d in (("k", D), ("v", Dv)):
+                x = rng.randn(page, Hkv, d).astype(np.float32)
+                sc = np.float32(max(np.abs(x).max(), 1e-12) / 127.0)
+                pool[name][pid] = np.clip(np.round(x / sc), -127, 127)
+                pool[name + "_scale"][pid] = sc
+    return pool
+
+
+def poisoned(pool):
+    """A copy whose unmapped pages (no table row names them) hold 127 at
+    scale 1e6: a freed page's stale bytes, which must never score."""
+    out = {k: v.copy() for k, v in pool.items()}
+    mapped = set(pool["tables"].ravel().tolist()) - {-1}
+    unmapped = [p for p in range(pool["k"].shape[0]) if p not in mapped]
+    for name in ("k", "v"):
+        out[name][unmapped] = 127
+        out[name + "_scale"][unmapped] = 1e6
+    return out
+
+
+def query(seed, B, H, D):
+    return np.random.RandomState(seed + 1000).randn(B, H, D).astype(
+        np.float32)
+
+
+# (lens, page, n_pages, H, Hkv, D, window) of the paged attention cases:
+# stablelm-1.6b's heads at the serve path's length, danube's GQA heads
+# (D = 120) over ragged lengths crossing page boundaries, with a window,
+# and danube's serve shape (its analytic page 128 at max_len 320).
+PAGED_CASES = {"stablelm": ([1016], 128, 8, 32, 32, 64, None),
+               "danube": ([19, 200, 1000], 16, 96, 32, 8, 120, 48),
+               "danube serve": ([316], 128, 4, 32, 8, 120, None)}
+POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["stablelm", "danube", "danube serve",
+                                  "poisoned"])
+def test_paged_attention_kernel_matches_plain_version(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    lens, page, n_pages, H, Hkv, D, window = \
+        PAGED_CASES["danube" if case == "poisoned" else case]
+    pool = random_pool(11, lens, page=page, n_pages=n_pages, Hkv=Hkv, D=D)
+    dev = lambda p: [torch.as_tensor(p[k]).cuda() for k in POOL_KEYS]  # noqa: E731
+    q = torch.as_tensor(query(11, len(lens), H, D)).to("cuda", dtype)
+    FA.reset_launch_counts()
+    got = FA.paged_flash_attention(q, *dev(pool), window=window)
+    assert FA.launch_counts == {FA.NAME: 1}
+    if case == "poisoned":
+        again = FA.paged_flash_attention(q, *dev(poisoned(pool)),
+                                         window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        return
+    want = FA.paged_flash_attention_reference(q, *dev(pool), window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (len(lens), H, D)
+    err = (got.float() - want.float()).abs().max().item()
+    # fp32: sums in another order; bf16: the output may flip one ulp.
     scale = want.float().abs().max().item()
     tol = 1e-4 * (1 + scale) if dtype == torch.float32 else 2e-2 * scale
     assert err <= tol, (err, tol)

@@ -152,3 +152,63 @@ def test_decode_from_empty_cache_matches_reference(setup):
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(_np(tc["layers"]["pos"]),
                                   _np(jc["layers"]["pos"]))
+
+
+DANUBE = "h2o-danube-3-4b"
+
+
+def _arch_setup(arch):
+    jcfg, cfg = jax_reduced(arch), get_reduced(arch)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = TM.params_from_jax({k: np.asarray(v) for k, v in jp.items()}, cfg,
+                            device="cpu")
+    return jcfg, cfg, jp, tp
+
+
+def test_danube_forward_logits_match_reference():
+    # 37 tokens run past the reduced config's 32-token window.
+    jcfg, cfg, jp, tp = _arch_setup(DANUBE)
+    toks = np.random.RandomState(5).randint(0, cfg.vocab_size, (2, 37))
+    want, _, _ = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                            jcfg)
+    got, _ = TM.forward(tp, {"tokens": torch.as_tensor(toks)}, cfg)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", [ARCH, DANUBE])
+def test_paged_prefill_and_decode_match_reference(arch):
+    """Prefill into assigned pages, then decode steps on the paged cache:
+    logits at 1e-4 and the int8 pools equal to the reference's, with the
+    port's cache returned as the same dict, written in place."""
+    from repro import kvcache as jkvc
+    from repro_torch import kvcache as tkvc
+
+    jcfg, cfg, jp, tp = _arch_setup(arch)
+    geo = dict(n_pages=6, page_size=8, max_pages=5)
+    jc = jkvc.model_assign_sequence(
+        JM.make_paged_model_cache(jcfg, 1, **geo), 0, [4, 0, 5, 2, 1])
+    tc = tkvc.model_assign_sequence(
+        TM.make_paged_model_cache(cfg, 1, device="cpu", **geo), 0,
+        [4, 0, 5, 2, 1])
+    r = np.random.RandomState(6)
+    prompt = r.randint(0, cfg.vocab_size, (1, 27))
+    want, jc = JM.prefill(jp, {"tokens": jnp.asarray(prompt, jnp.int32)},
+                          jcfg, cache=jc)
+    got, tc2 = TM.prefill(tp, {"tokens": torch.as_tensor(prompt)}, cfg,
+                          cache=tc)
+    assert tc2 is tc
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    for s in range(6):
+        nxt = r.randint(0, cfg.vocab_size, (1, 1))
+        want, jc = JM.decode_step(jp, {"tokens": jnp.asarray(nxt, jnp.int32)},
+                                  jc, jnp.int32(27 + s), jcfg)
+        got, tc = TM.decode_step(tp, {"tokens": torch.as_tensor(nxt)}, tc,
+                                 27 + s, cfg)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                   atol=1e-4)
+    lay, jlay = tc["layers"], jc["layers"]
+    assert lay["len"].tolist() == [[33]] * cfg.n_layers
+    for key in ("k", "v", "tables", "len"):
+        np.testing.assert_array_equal(_np(lay[key]), _np(jlay[key]))
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(_np(lay[key]), _np(jlay[key]), rtol=1e-6)
