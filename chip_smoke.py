@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
 2. build: compiles both kernels (the CA-GEMM program kernel and the paged
    decode-attention kernel) with nvcc into build/, one nvcc per source,
    both started together.
-3. kernel parity: each ported program (none, res, rms>glu.silu(none|none))
+3. kernel parity: each float program (none, res, rms>glu.silu(none|none))
    on the kernel against its plain version, in bf16 at the main path's
    shapes (m = 1, 37, 128; h2o-danube-3-4b's at m = 1) and in fp32 on a
    ragged shape; the paged attention kernel against its plain version in
@@ -34,9 +34,23 @@ Phases (any failure raises and the script exits non-zero):
    torch.profiler splits paged decode steps' device time by kernel; then
    full-width h2o-danube-3-4b (GQA, head_dim 120) serves one request both
    ways with the same checks.
-6. times: kernel, plain version, library call and bound per GEMM program
-   and for the paged kernel (each timed by replaying a CUDA graph of 20
-   calls), and the end-to-end prefill / decode times of phases 4 and 5.
+6. int8 parity: every dqb (int8 weights, K1d) and dqab (w8a8, K1e)
+   program against its plain version: the main path's shapes at m = 1, 5,
+   37, 128 with per-channel scales, ragged n and k with per-tile scales
+   (g = 128, 256, ragged last block; per-k-tile activation scales), fp32 A
+   and out, and w8a8 at k = 4096 with saturated operands, bit-exact.
+7. int8 slice: full-width stablelm-1.6b quantized on the card
+   (models.common.quantize_params) serves the phase-4 requests in int8w,
+   then w8a8 (ServeEngine(quantize_activations=True), 4 calibration
+   prompts): exactly 145 dq* launches per forward step; calibration sites
+   and seconds, end-to-end times, decode profile and the cosine of
+   prefill logits against the bf16 model.  A 4-layer model's int8w and
+   w8a8 (scales calibrated once on the card, percentile, per k-tile) are
+   held against the CPU.
+8. times: kernel, plain version, library call (torch._weight_int8pack_mm
+   for a per-channel dqb) and bound per GEMM program (float and int8) and
+   for the paged kernel (each timed by replaying a
+   CUDA graph of 20 calls), and the end-to-end times of the serve phases.
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -66,7 +80,9 @@ from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels.program import (program_from_tag,  # noqa: E402
                                          rms_row_scale)
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import common as CM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.quant import QTensor, QuantConfig  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.tuning import resolve_page_size  # noqa: E402
 
@@ -74,7 +90,8 @@ ARCH = "stablelm-1.6b"
 DANUBE = "h2o-danube-3-4b"
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
-            torch.float32: 67e12}             # fp32 outside the tensor cores
+            torch.float32: 67e12,             # fp32 outside the tensor cores
+            torch.int8: 1979e12}              # dense tensor-core int8
 # Kernel vs plain version: fp32 sums in another order.  A bf16 output may
 # flip one ulp (2^-8 relative), so 2e-2 of max|ref|; an fp32 output,
 # whatever the inputs' dtype, 1e-4 of (1 + max|ref|).
@@ -103,6 +120,11 @@ DANUBE_GEMMS = [("none", "danube q", 3840, 3840, None),
                 ("none", "danube head", 3840, 32000, torch.float32)]
 # The shape each program's JSON record is timed at (decode, m = 1).
 RECORD_GEMM = {"none": "wq/wk/wv", "res": "w_down", GLU: "gate+up"}
+# The quantized programs of each float one: int8 weights (K1d) and w8a8
+# (K1e, the norm applied before the quantize on entry, so no prologue).
+QUANT = {"none": ("dqb", "dqab"), "res": ("dqb+res", "dqab+res"),
+         GLU: ("rms>glu.silu(dqb|dqb)", "glu.silu(dqab|dqab)")}
+QUANT_TAGS = [t for pair in QUANT.values() for t in pair]
 # Paged attention shapes (lens, page, H, Hkv, D, window): stablelm-1.6b's
 # heads at its serve path's length and page (a), danube's GQA heads over
 # ragged lengths crossing pages with a window (b), danube's serve shape
@@ -680,24 +702,30 @@ def cross_check(cfg):
     cfg4 = dataclasses.replace(cfg, n_layers=4)
     p_gpu = M.init_params(cfg4, seed=1)
     p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
-    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, 12)
+    card_vs_cpu(p_gpu, p_cpu, cfg4)
+
+
+def card_vs_cpu(p_gpu, p_cpu, cfg4, label=""):
+    """The same parameters on the card and on the CPU: prefill logits
+    within TOL_MODEL, greedy tokens equal up to a near tie."""
+    prompt = np.random.RandomState(1).randint(0, cfg4.vocab_size, 12)
     toks = torch.as_tensor(prompt)[None]
     with torch.inference_mode():
         lg, _ = M.prefill(p_gpu, {"tokens": toks.cuda()}, cfg4, max_len=32)
         lc, _ = M.prefill(p_cpu, {"tokens": toks}, cfg4, max_len=32)
     err = (lg.cpu() - lc).abs().max().item()
     scale = lc.abs().max().item()
-    print(f"prefill logits max_abs_err={err:.4e} max|cpu|={scale:.4e} "
-          f"tol={TOL_MODEL * scale:.4e}")
+    print(f"{label}prefill logits max_abs_err={err:.4e} "
+          f"max|cpu|={scale:.4e} tol={TOL_MODEL * scale:.4e}")
     if not (bool(torch.isfinite(lg).all()) and err <= TOL_MODEL * scale):
-        raise AssertionError("card and CPU prefill logits disagree")
+        raise AssertionError(f"{label}card and CPU prefill logits disagree")
     outs = []
     for params, dev in ((p_gpu, None), (p_cpu, "cpu")):
         eng = ServeEngine(params, cfg4, max_len=32, device=dev)
         eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=8))
         outs.append(eng.run()[1].generated)
     agree = sum(a == b for a, b in zip(*outs))
-    print(f"greedy tokens card={outs[0]} cpu={outs[1]} "
+    print(f"{label}greedy tokens card={outs[0]} cpu={outs[1]} "
           f"agreement={agree}/{len(outs[0])}")
     if outs[0] != outs[1]:
         # Past the first disagreement the two runs decode different
@@ -706,15 +734,15 @@ def cross_check(cfg):
         seq = torch.as_tensor(np.concatenate([prompt, outs[1][:i]]))[None]
         with torch.inference_mode():
             row, _ = M.prefill(p_cpu, {"tokens": seq}, cfg4, max_len=32)
-        row = row[0, -1, :cfg.vocab_size]
+        row = row[0, -1, :cfg4.vocab_size]
         gap = (row.max() - row[outs[0][i]]).item()
         # Each of the two logits may be off by the prefill tolerance.
         limit = 2 * TOL_MODEL * row.abs().max().item()
-        print(f"first disagreement at token {i}: CPU logit gap {gap:.4e} "
-              f"(limit {limit:.4e})")
+        print(f"{label}first disagreement at token {i}: CPU logit gap "
+              f"{gap:.4e} (limit {limit:.4e})")
         if not gap <= limit:
-            raise AssertionError("card and CPU greedy tokens disagree "
-                                 "beyond a near tie")
+            raise AssertionError(f"{label}card and CPU greedy tokens "
+                                 "disagree beyond a near tie")
 
 
 def cross_check_paged(cfg):
@@ -885,15 +913,359 @@ def attn_times():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# int8 weights (K1d, dqb) and w8a8 (K1e, dqab)
+# ---------------------------------------------------------------------------
+
+def quant_inputs(tag, m, k, n, dtype, gen, copies=1, block_b=0, block_a=0):
+    """Operands of one dqb/dqab program call on the card: A in ``dtype``
+    (dqb) or int8 (dqab), int8 weights N(0, 1/k) quantized on the grid,
+    positive fp32 scales per channel / per row or per tile of
+    ``block_b``/``block_a`` rows of k; ``copies`` weight sets."""
+    spec = program_from_tag(tag)
+    deq = spec.branches[0].dequant
+    dev = "cuda"
+    if deq == "ab":
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    nblk_b = -(-k // block_b) if block_b else 0
+    sets, scales = [], []
+    for _ in range(copies):
+        sets.append([torch.randint(-127, 128, (k, n), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(spec.n_b)])
+        scales.append([(torch.rand(*((nblk_b, n) if block_b else (n,)),
+                                   generator=gen, device=dev) + 0.5)
+                       * (3.0 / 127 / math.sqrt(k))
+                       for _ in range(spec.n_b)])
+    kw = {"spec": spec, "scale_b_block": block_b,
+          "scale_a_block": block_a if deq == "ab" else 0}
+    if spec.prologue.kind == "rms":
+        kw["gain"] = torch.rand(k, generator=gen, device=dev) + 0.5
+        kw["row_scale"] = rms_row_scale(a, 1e-5)
+    sa = None
+    if deq == "ab":
+        sa = (torch.rand(-(-k // block_a) if block_a else m, generator=gen,
+                         device=dev) + 0.5) * (3.0 / 127)
+    res = (torch.randn(m, n, generator=gen, device=dev).to(dtype)
+           if spec.branches[0].has_residual else None)
+
+    def ops(i):
+        out = []
+        for sb in scales[i]:
+            d = {"scale_b": sb}
+            if sa is not None:
+                d["scale_a"] = sa
+            if res is not None:
+                d["residual"] = res
+            out.append(d)
+        return out
+    return a, sets, kw, ops
+
+
+def quant_parity():
+    phase("int8 kernel parity (dqb, dqab vs plain version)")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    cases = []
+    # The main path's shapes, per-channel scales, bf16 A (dqb) or int8 A
+    # (dqab), bf16 out and the head's fp32 out.
+    for m in (1, 5, 37, 128):
+        for tag, name, k, n, od in GEMMS:
+            for qtag in QUANT[tag]:
+                cases.append((qtag, name, m, k, n, od, torch.bfloat16, 0, 0))
+    # Ragged n and k (1000 = 7 x 128 + 104 = 3 x 256 + 232) with per-tile
+    # weight scales, and for dqab per-tile activation scales; n = 1008 takes
+    # the vector B loads, n = 1000 the scalar ones.
+    for m in (1, 5, 37, 128):
+        for qtag in QUANT_TAGS:
+            for bb, ba in ((128, 0), (256, 256), (0, 128)):
+                if not bb and "dqab" not in qtag:
+                    continue    # dqb has no activation scale to tile
+                for n in (1000, 1008):
+                    cases.append((qtag, "ragged", m, 1000, n, None,
+                                  torch.bfloat16, bb, ba))
+    # fp32 A and out (dqb) / fp32 out (dqab), ragged.
+    for qtag in QUANT_TAGS:
+        cases.append((qtag, "ragged f32", 37, 1000, 1000, None,
+                      torch.float32, 128, 0))
+        cases.append((qtag, "ragged f32", 5, 300, 200, None,
+                      torch.float32, 0, 0))
+    for qtag, name, m, k, n, od, dtype, bb, ba in cases:
+        a, (bs,), kw, ops = quant_inputs(qtag, m, k, n, dtype, gen,
+                                         block_b=bb, block_a=ba)
+        out = od or dtype
+        got = K.ca_gemm_program(a, bs, out_dtype=out,
+                                branch_operands=ops(0), **kw)
+        want = K.ca_gemm_program_reference(a, bs, out_dtype=out,
+                                           branch_operands=ops(0), **kw)
+        torch.cuda.synchronize()
+        if got.shape != (m, n) or got.dtype != out \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{qtag} {name} m={m}: bad output")
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = TOL_F32 * (1 + scale) if out == torch.float32 \
+            else TOL_BF16 * scale
+        print(f"parity {qtag:22s} {name:10s} m={m:<4d} k={k:<5d} n={n:<6d} "
+              f"A={str(a.dtype)[6:]:8s} out={str(out)[6:]:8s} "
+              f"blocks=({kw['scale_b_block']},{kw['scale_a_block']}) "
+              f"max_abs_err={err:.3e} tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"{qtag} {name} m={m}: kernel disagrees "
+                                 f"with the plain version ({err} > {tol})")
+        worst[qtag] = max(worst.get(qtag, 0.0), err)
+    # w8a8 headroom: k = 4096, every product 127 * +-127; the int32 sum
+    # must be exact, so the output equals s_a * s_b * sum(a_q * b_q) bit for
+    # bit after the fp32 rescale.
+    m, n, k = 4, 128, 4096
+    a = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    sign = torch.where(torch.arange(k, device="cuda") % 2 == 1, 1, -1)
+    b = (sign[:, None] * 127).expand(k, n).clone()
+    b[:k // 4] = 127
+    b = b.to(torch.int8)
+    sa = torch.full((m,), 4.0 / 127, device="cuda")
+    sb = torch.rand(n, generator=gen, device="cuda") + 0.5
+    got = K.ca_gemm_program(a, [b], spec=program_from_tag("dqab"),
+                            branch_operands=[{"scale_a": sa, "scale_b": sb}])
+    want = ((a.double() @ b.double()).float() * sb[None]) * sa[:, None]
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    print(f"parity dqab headroom k={k} saturated: bit-identical={exact} "
+          f"max_abs_err={(got - want).abs().max().item():.3e}")
+    if not exact:
+        raise AssertionError("w8a8 headroom case is not exact")
+    return worst
+
+
+def _cosine(a, b):
+    a, b = a.double(), b.double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)))
+
+
+def serve_int8(cfg):
+    """Full-width ``cfg`` (random weights, seed 0), quantized to int8 on
+    the card, serves the slice's three greedy requests in int8w, then
+    w8a8 (calibrated on 4 sample prompts): launches per forward step,
+    calibration sites and seconds, end-to-end times and the cosine of
+    prefill logits against the bf16 model on the same prompt."""
+    phase(f"int8 slice: full-width {cfg.name}, {cfg.n_layers} layers, "
+          "int8w then w8a8")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    qparams = CM.quantize_params(params)
+    torch.cuda.synchronize()
+    print(f"init + quantize_params in {time.perf_counter() - t0:.3f} s; "
+          f"quantized {sorted(k for k, v in qparams.items()
+                               if isinstance(v, QTensor))}")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (128, 37, 8)]
+    probe = torch.as_tensor(prompts[1], device="cuda")[None]
+    with torch.inference_mode():
+        dense, _ = M.prefill(params, {"tokens": probe}, cfg, max_len=160)
+    dense = dense[0, :, :cfg.vocab_size]
+    dense_ops = step_ops(params, cfg)
+    print(f"bf16: {dense_ops} aten ops per decode step")
+    del params
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    out = {}
+    for mode in ("int8w", "w8a8"):
+        w8a8 = mode == "w8a8"
+        eng = ServeEngine(qparams, cfg, max_len=160,
+                          quantize_activations=w8a8, calibration_batches=4,
+                          act_qconfig=QuantConfig(act_fmt="int8"))
+        print(f"{mode}: calibration sites {eng.calibration_sites} in "
+              f"{eng.calibration_s:.3f} s")
+        eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
+        eng.run()
+        reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        steps = sum(r.max_new_tokens for r in reqs)
+        q = {f: QUANT[f][w8a8] for f in QUANT}
+        per_step = {q["none"]: 3 * L + 1, q["res"]: 2 * L, q[GLU]: L}
+        print(f"{mode} launches over {steps} forward steps: {counts} "
+              f"(per step {per_step}, {sum(per_step.values())})")
+        if counts != {t: n * steps for t, n in per_step.items()}:
+            raise AssertionError(f"{mode}: launches {counts}, expected "
+                                 f"{per_step} x {steps}")
+        for r in reqs:
+            if r.status != "done" or len(r.generated) != r.max_new_tokens:
+                raise AssertionError(f"{mode} request {r.uid}: {r.status}")
+            print(f"{mode} request {r.uid} prompt={len(r.prompt)} "
+                  f"tokens={r.generated}")
+        with torch.inference_mode():
+            lq, _ = M.prefill(eng.params, {"tokens": probe}, cfg,
+                              max_len=160)
+        cos = _cosine(lq[0, :, :cfg.vocab_size], dense)
+        if not bool(torch.isfinite(lq).all()):
+            raise AssertionError(f"{mode}: non-finite prefill logits")
+        row = {"mode": mode, "calibration_sites": eng.calibration_sites,
+               "calibration_s": eng.calibration_s,
+               "requests": [{"uid": r.uid, "prompt": len(r.prompt),
+                             "prefill_ms": r.prefill_s * 1e3,
+                             "decode_ms_per_token":
+                                 r.decode_s * 1e3 / (r.max_new_tokens - 1)}
+                            for r in reqs],
+               "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+               "run_s": wall, "launches": counts,
+               "cosine_vs_bf16_min": cos.min().item(),
+               "cosine_vs_bf16_mean": cos.mean().item()}
+        row["profile"] = profile_decode(eng.params, cfg)
+        row["aten_ops_per_decode_step"] = step_ops(eng.params, cfg)
+        row["bf16_aten_ops_per_decode_step"] = dense_ops
+        print(f"{cfg.name} {mode} " + json.dumps(row))
+        out[mode] = row
+        del eng
+    del qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_ops(params, cfg):
+    """The aten ops one decode step dispatches (after a 37-token
+    prefill): the host work the step issues."""
+    with HostTimers() as timers:
+        timers.count = True
+        decode_run(params, cfg, 1)
+    return timers.ops["step"]
+
+
+def cross_check_int8(cfg):
+    """int8w, then w8a8 calibrated once on the card with the other
+    calibration options than the serve phase's (2 prompts, percentile,
+    per-k-tile activation scales): card vs CPU on the same QTensors."""
+    phase("4-layer full width, int8w and w8a8: card vs CPU plain path")
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    q_gpu = CM.quantize_params(M.init_params(cfg4, seed=1))
+    for mode in ("int8w", "w8a8"):
+        if mode == "w8a8":
+            q_gpu = ServeEngine(
+                q_gpu, cfg4, max_len=32, quantize_activations=True,
+                calibration_batches=2, act_qconfig=QuantConfig(
+                    act_fmt="int8", method="percentile", act_block=128)
+            ).params
+        q_cpu = {k: v.to("cpu") for k, v in q_gpu.items()}
+        card_vs_cpu(q_gpu, q_cpu, cfg4, label=f"{mode}: ")
+
+
+def quant_bound(tag, m, k, n, od, dtype):
+    """Least time: int8 B bytes + A (bf16, or int8 for dqab) + output +
+    scales (+ residual, rms operands) over the memory rate, or the
+    operations over the bf16 (dqb) or int8 (dqab) tensor-core rate."""
+    spec = program_from_tag(tag)
+    ab = spec.branches[0].dequant == "ab"
+    es = 1 if ab else torch.finfo(dtype).bits // 8
+    oes = torch.finfo(od or dtype).bits // 8
+    nbytes = (m * k * es + spec.n_b * k * n + m * n * oes
+              + spec.n_b * n * 4 + (4 * m if ab else 0))
+    if spec.branches[0].has_residual:
+        nbytes += m * n * torch.finfo(dtype).bits // 8
+    if spec.prologue.kind == "rms":
+        nbytes += 4 * m + 4 * k
+    ops = 2 * m * n * k * spec.n_b
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[torch.int8 if ab else dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _int_mm_ms(a, sets, copies):
+    """``torch._int_mm``'s time for one branch's int8 x int8 -> int32, or
+    None (with the reason printed) where it refuses the operands."""
+    try:
+        torch._int_mm(a, sets[0][0])
+    except RuntimeError as e:
+        print(f"torch._int_mm refused ({a.shape[0]}x{a.shape[1]} @ "
+              f"{tuple(sets[0][0].shape)}): {str(e).splitlines()[0]}")
+        return None
+    return _time_ms(lambda i: torch._int_mm(a, sets[i][0]), copies)
+
+
+def _int8pack_ms(a, sets, ops, copies):
+    """``torch._weight_int8pack_mm``'s time for a per-channel ``dqb``:
+    bf16 A times an (n, k) int8 weight (a transposed copy) times bf16
+    per-channel scales, bf16 out; None (with the reason printed) where it
+    refuses the operands."""
+    wt = [s[0].t().contiguous() for s in sets]
+    sc = [ops(i)[0]["scale_b"].to(a.dtype) for i in range(copies)]
+    try:
+        torch._weight_int8pack_mm(a, wt[0], sc[0])
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"torch._weight_int8pack_mm refused ({a.shape[0]}x"
+              f"{a.shape[1]} @ {tuple(wt[0].shape)}^T): "
+              f"{str(e).splitlines()[0]}")
+        return None
+    ms = _time_ms(lambda i: torch._weight_int8pack_mm(a, wt[i], sc[i]),
+                  copies)
+    del wt, sc
+    return ms
+
+
+def quant_times(float_rows):
+    phase("int8 times (CUDA graph replay; weights rotated past the 50 MB L2)")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    shapes = [g for g in GEMMS if g[1] != "wo"]      # wq, head, w_down, glu
+    for m in (1, 128):
+        for tag, name, k, n, od in shapes:
+            nb = program_from_tag(tag).n_b
+            copies = max(2, math.ceil(120e6 / (nb * k * n)))
+            k1a = next(r["ms"] for r in float_rows if r["program"] == tag
+                       and r["gemm"] == name and r["m"] == m)
+            for qtag in QUANT[tag]:
+                a, sets, kw, ops = quant_inputs(qtag, m, k, n,
+                                                torch.bfloat16, gen, copies)
+                out = od or torch.bfloat16
+                ms = _time_ms(lambda i: K.ca_gemm_program(
+                    a, sets[i], out_dtype=out, branch_operands=ops(i),
+                    **kw), copies)
+                plain = _time_ms(lambda i: K.ca_gemm_program_reference(
+                    a, sets[i], out_dtype=out, branch_operands=ops(i),
+                    **kw), copies)
+                b_ms, b_by = quant_bound(qtag, m, k, n, od, torch.bfloat16)
+                # One library call computes a per-channel dqb (no res, no
+                # GLU); it returns bf16 where the head's program writes fp32.
+                lib = (_int8pack_ms(a, sets, ops, copies) if qtag == "dqb"
+                       else None)
+                row = {"program": qtag, "gemm": name, "m": m, "k": k,
+                       "n": n, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": b_ms,
+                       "bound_by": b_by, "k1a_ms_same_shape": k1a}
+                if "dqab" in qtag and m == 128:
+                    # The int32 contraction alone (one branch, no dequant):
+                    # a note, not a library equivalent.
+                    row["int_mm_ms_one_branch"] = _int_mm_ms(a, sets, copies)
+                rows.append(row)
+                print("time " + json.dumps(row))
+                del a, sets, kw, ops
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     card_line = card()
     build()
     worst = parity()
+    worst.update(quant_parity())
     worst_attn = attn_parity()
     cfg = get_config(ARCH)
     counts, e2e = serve_slice(cfg)
     cross_check(cfg)
+    int8 = serve_int8(cfg)
+    for row in int8.values():
+        counts.update(row["launches"])
+    cross_check_int8(cfg)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (1000, 128, 37, 8)]
     attn_launches, call_err, paged_e2e, split, paged_profile = serve_both(
@@ -904,6 +1276,7 @@ def main():
         dcfg, [rng.randint(0, dcfg.vocab_size, 300)], max_len=320)
     worst_attn = max(worst_attn, call_err, danube_call_err)
     rows = times()
+    qrows = quant_times(rows)
     attn_rows = attn_times()
     phase("summary")
     print(f"card: {card_line}")
@@ -914,6 +1287,20 @@ def main():
     print(f"e2e tokens/s {e2e['tokens_per_s']:.3f} over "
           f"{e2e['run_s']:.3f} s; weight-byte bound 0.86 ms/token")
     print("e2e decode profile " + json.dumps(e2e["profile"]))
+    for mode, row in int8.items():
+        for r in row["requests"]:
+            print(f"e2e {mode} request {r['uid']} prompt={r['prompt']}: "
+                  f"prefill {r['prefill_ms']:.3f} ms, decode "
+                  f"{r['decode_ms_per_token']:.3f} ms/token")
+        print(f"e2e {mode} tokens/s {row['tokens_per_s']:.3f} over "
+              f"{row['run_s']:.3f} s; calibration {row['calibration_s']:.3f} "
+              f"s over {len(row['calibration_sites'])} sites; prefill logits "
+              f"cosine vs bf16 min {row['cosine_vs_bf16_min']:.6f} mean "
+              f"{row['cosine_vs_bf16_mean']:.6f}; weight-byte bound 0.43 "
+              "ms/token")
+        print(f"e2e {mode} decode profile " + json.dumps(row["profile"])
+              + f"; aten ops per decode step {row['aten_ops_per_decode_step']}"
+              f" (bf16 {row['bf16_aten_ops_per_decode_step']})")
     print("e2e paged decode profile " + json.dumps(paged_profile))
     for name, sp in ((ARCH, split), (DANUBE, danube_split)):
         print(f"e2e {name} host split (median of 3 rounds) "
@@ -937,6 +1324,19 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": f"{gemm} m=1 k={row['k']} n={row['n']} bf16"})
+    for tag, gemm in RECORD_GEMM.items():
+        for qtag in QUANT[tag]:
+            row = next(r for r in qrows if r["program"] == qtag
+                       and r["gemm"] == gemm and r["m"] == 1)
+            kernels.append({
+                "name": f"ca_gemm_program[{qtag}]", "route": "cuda",
+                "source": SOURCE, "replaces": REPLACES,
+                "launches": counts[qtag], "max_abs_err": worst[qtag],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "shape": f"{gemm} m=1 k={row['k']} n={row['n']} int8 B, "
+                         + ("int8 A" if "dqab" in qtag else "bf16 A")})
     arow = attn_rows[0]
     kernels.append({
         "name": FA.NAME, "route": "cuda", "source": ATTN_SOURCE,

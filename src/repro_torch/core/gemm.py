@@ -5,8 +5,15 @@ Leading batch dims collapse into the GEMM's m dim, the (..., n) epilogue
 operands with them, and the program runs on the CA-GEMM kernel — on the
 card for CUDA tensors, its plain version for CPU tensors.  An epilogue or
 prologue the kernel does not take raises; nothing is re-dispatched to
-another path.  The reference's dispatch modes, tuning registry, ledger,
-fault hooks and quantized branches are later slices (ROADMAP).
+another path.
+
+A :class:`~repro_torch.quant.QTensor` weight routes to the quantized
+programs: int8 weights (``dqb``), or with a calibrated ``act_scale`` the
+w8a8 programs (``dqab``), which quantize the activation on entry.  While
+an :class:`~repro_torch.quant.ActivationCalibration` is active, each such
+call records its input activation first.  The reference's dispatch modes
+(its XLA oracle path), tuning registry, ledger and fault hooks are later
+slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -17,7 +24,10 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.epilogue import Epilogue
-from repro_torch.kernels.program import RmsPrologue
+from repro_torch.kernels.program import (RmsPrologue, apply_rms_reference,
+                                         rms_row_scale)
+from repro_torch.quant.calibrate import active_calibration
+from repro_torch.quant.scales import QTensor
 
 
 def _flatten_epilogue(epilogue: Optional[Epilogue], m: int, n: int):
@@ -49,43 +59,95 @@ def _lead(x: torch.Tensor, k_w: int):
     return lead, m
 
 
+def _apply_rms(x: torch.Tensor, prologue: RmsPrologue) -> torch.Tensor:
+    """The rms prologue's chain applied up front (the standalone
+    ``rms_norm``)."""
+    return apply_rms_reference(x, rms_row_scale(x, prologue.eps),
+                               prologue.gain)
+
+
+def _record_activation(quant: QTensor, x: torch.Tensor,
+                       prologue: Optional[RmsPrologue]) -> None:
+    """Hand this GEMM's input activation to an active calibration context
+    (the w8a8 observe phase): the *normalized* activation when an rms
+    prologue precedes the projection, since that is what the serve path
+    will quantize."""
+    ctx = active_calibration()
+    if ctx is None:
+        return
+    ctx.record(quant.shape, _apply_rms(x, prologue) if prologue is not None
+               else x)
+
+
 def ca_matmul(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w,
     *,
     out_dtype=None,
     epilogue: Optional[Epilogue] = None,
     prologue: Optional[RmsPrologue] = None,
 ) -> torch.Tensor:
     """``epilogue(prologue(x) @ w)``: x (..., K), w (K, N) -> (..., N) in
-    ``out_dtype`` (default: x's dtype)."""
+    ``out_dtype`` (default: x's dtype).  ``w`` may be an int8
+    :class:`QTensor`; one carrying an ``act_scale`` serves w8a8, with an
+    rms prologue applied up front (an int8 stream cannot carry it)."""
+    quantized = isinstance(w, QTensor)
+    if quantized:
+        kops.check_qweight(w)
     k_w, n = w.shape
     lead, m = _lead(x, k_w)
     out_dtype = out_dtype or x.dtype
-    y = kops.fused_matmul(  # repro: noqa RPR001 -- port dispatch layer
-        x.reshape(m, k_w).contiguous(), w, _flatten_epilogue(epilogue, m, n),
-        out_dtype=out_dtype, prologue=prologue)
+    if not quantized:
+        y = kops.fused_matmul(  # repro: noqa RPR001 -- port dispatch layer
+            x.reshape(m, k_w).contiguous(), w,
+            _flatten_epilogue(epilogue, m, n), out_dtype=out_dtype,
+            prologue=prologue)
+        return y.reshape(*lead, n)
+    _record_activation(w, x, prologue)
+    if w.act_scale is not None and prologue is not None:
+        x, prologue = _apply_rms(x, prologue), None
+    y = kops.quant_matmul(  # repro: noqa RPR001 -- port dispatch layer
+        x.reshape(m, k_w).contiguous(), w,
+        _flatten_epilogue(epilogue, m, n), out_dtype=out_dtype,
+        prologue=prologue, act_scale=w.act_scale, act_block=w.act_block)
     return y.reshape(*lead, n)
 
 
 def ca_glu_matmul(
     x: torch.Tensor,
-    w_gate: torch.Tensor,
-    w_up: torch.Tensor,
+    w_gate,
+    w_up,
     *,
     activation: str = "silu",
     out_dtype=None,
     prologue: Optional[RmsPrologue] = None,
 ) -> torch.Tensor:
     """``act(x @ Wg) · (x @ Wu)`` as one dual-branch program (x streams
-    once); ``prologue`` folds the pre-FFN rms_norm into the same fetch."""
+    once); ``prologue`` folds the pre-FFN rms_norm into the same fetch.
+    Both weights are dense or both int8 :class:`QTensor` s; with the gate's
+    ``act_scale`` the program runs w8a8, the norm applied up front."""
+    quantized = isinstance(w_gate, QTensor)
+    if quantized != isinstance(w_up, QTensor):
+        raise ValueError("quantize both GLU weights or neither")
+    if quantized:
+        kops.check_qweight(w_gate)
+        kops.check_qweight(w_up)
     k_w, n = w_gate.shape
     if tuple(w_up.shape) != (k_w, n):
         raise ValueError(f"w_up {tuple(w_up.shape)} vs w_gate "
                          f"{tuple(w_gate.shape)}")
     lead, m = _lead(x, k_w)
     out_dtype = out_dtype or x.dtype
-    y = kops.glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
+    if not quantized:
+        y = kops.glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
+            x.reshape(m, k_w).contiguous(), w_gate, w_up,
+            activation=activation, prologue=prologue, out_dtype=out_dtype)
+        return y.reshape(*lead, n)
+    _record_activation(w_gate, x, prologue)
+    if w_gate.act_scale is not None and prologue is not None:
+        x, prologue = _apply_rms(x, prologue), None
+    y = kops.quant_glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
         x.reshape(m, k_w).contiguous(), w_gate, w_up, activation=activation,
-        prologue=prologue, out_dtype=out_dtype)
+        prologue=prologue, out_dtype=out_dtype, act_scale=w_gate.act_scale,
+        act_block=w_gate.act_block)
     return y.reshape(*lead, n)

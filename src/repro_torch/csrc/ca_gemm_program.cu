@@ -1,20 +1,36 @@
 // CA-GEMM program kernel for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces the TPU kernel repro/kernels/ca_mmm.py:ca_gemm_program (body
-// _program_kernel), for its float, 'nn'-layout programs:
+// _program_kernel), for its 'nn'-layout plus_times programs:
 //   none                      wq / wk / wv and the logits head
 //   res (and bias/act/mul)    wo and w_down, residual added in the drain
 //   rms>glu.<act>(b0|b1)      SwiGLU gate+up as one dual-branch pass, the
 //                             pre-FFN rms_norm folded into the A fetch
+//   dqb...                    the same with int8 weights (K1d): int8 B tiles
+//                             streamed and widened to fp32 in registers
+//   dqab...                   w8a8 (K1e): int8 A and B, int32 products
 //
 // Schedule (the paper's, as on the TPU): one CTA owns a (BM, BN) C tile and
-// keeps one fp32 accumulator per B branch in registers for the whole k loop;
+// keeps one accumulator per B branch in registers for the whole k loop;
 // A and B panels stream through shared memory one BK slab at a time, the
 // next slab's global loads in flight (registers) while the current one is
 // multiplied.  The loop over k inside the block takes the place of the TPU's
 // sequential k grid axis.  The drain runs once, after the last slab:
-// act(z + bias) * mul + residual (one branch) or act(z0 + bias0) * (z1 + bias1)
-// (glu), all in fp32, then a single predicated store per C element.
+// dequant, then act(z + bias) * mul + residual (one branch) or
+// act(z0 + bias0) * (z1 + bias1) (glu), all in fp32, then a single
+// predicated store per C element.
+//
+// Quantized programs.  The products accumulate in a per-thread partial: fp32
+// for float A (int8 B widens exactly), int32 for int8 A, exact for any
+// k < 2^31 / 127^2 = 133,000 (the reference's headroom case is k = 4096).
+// The partial is folded into an fp32 accumulator at the end of each
+// quantization block (every `scale_block` rows of k, a multiple of 128, so
+// each BK slab lies in one block) and at the last slab: converted to fp32,
+// times the block's per-tile weight scale row and per-tile activation scale
+// where those are per tile (ca_mmm.py:239-248, on every branch).  Without
+// per-tile scales there is one fold, at the end.  Per-channel weight scales
+// and per-row activation scales multiply the accumulator in the drain, before
+// bias, act, mul and residual (ca_mmm.py:272-275).
 //
 // Ragged m, n and k: out-of-range A and B loads read 0 (the plus_times k
 // mask), and the C store is predicated, so each C element is written once.
@@ -24,34 +40,47 @@
 //
 // What bounds it on the H100: at decode (m = 1) every program is bound by
 // the weight bytes it must stream.  The GLU streams 2 x 2048 x 5632 x 2 B =
-// 46 MB: 13.8 us at 3.35 TB/s.  This is a simple SIMT kernel (fp32 FMAs,
-// no tensor cores): with BN = 64 on n = 2048 it would launch only 32 CTAs on
-// 132 SMs, so for m <= 8 it takes BN = 16 (128 CTAs on n = 2048), which
-// still leaves it limited by shared-memory reads and by the few bytes each
-// SM keeps in flight, far below that bound.  The measured times stand in
-// PERF.md; wgmma, TMA and a split-k decode path are later work.
+// 46 MB in bf16 (13.8 us at 3.35 TB/s), half that in int8 (6.9 us).  This
+// is a simple SIMT kernel (fp32 FMAs or int32 multiply-adds, no tensor
+// cores): with BN = 64 on n = 2048 it would launch only 32 CTAs on 132 SMs,
+// so for m <= 8 it takes BN = 16 (128 CTAs on n = 2048), which still leaves
+// it limited by shared-memory reads and by the few bytes each SM keeps in
+// flight, far below that bound.  The measured times stand in PERF.md; wgmma
+// (s8 wgmma for w8a8), TMA and a split-k decode path are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
+// Element types of A and B (the wrapper's _TYPE_CODES).
+enum Type { TYPE_F32 = 0, TYPE_BF16 = 1, TYPE_I8 = 2 };
 
 struct Params {
-  const void* a;          // (m, k) row-major, T
-  const void* b[2];       // (k, n) row-major, T, one per branch
+  const void* a;          // (m, k) row-major, TA
+  const void* b[2];       // (k, n) row-major, TB, one per branch
   const float* row_scale; // (m,) fp32 rms row factor, or null (no prologue)
   const void* gain;       // (k,) rms gain, fp32 or bf16
   const void* bias[2];    // (n,) per-branch bias, or null
   const void* mul;        // (m, n) gate multiplied after the activation, or null
   const void* residual;   // (m, n) added last, or null
   void* out;              // (m, n), fp32 or bf16
+  // Dequant (int8 B only): per branch, the weight scale, (n,) per channel or
+  // (ceil(k / scale_block), n) per tile, and for int8 A the activation
+  // scale, (m,) per row or (ceil(k / scale_block),) per k-tile; null when
+  // the branch has none.
+  const float* scale_b[2];
+  const float* scale_a[2];
   int m, n, k;
   int gain_f32, bias_f32, mul_f32, res_f32, out_f32;
   int act;                // single-branch activation
   int glu_act;            // activation of the glu combine (two branches)
+  int scale_block;        // k rows per per-tile scale (0: none per tile)
+  int sb_tile, sa_tile;   // scale_b / scale_a per tile
 };
 
 template <typename T>
@@ -70,6 +99,24 @@ struct Cvt<__nv_bfloat16> {
     return __float2bfloat16_rn(v);
   }
 };
+template <>
+struct Cvt<int8_t> {
+  static __device__ __forceinline__ float to(int8_t v) { return static_cast<float>(v); }
+  static __device__ __forceinline__ int8_t from(float v) { return static_cast<int8_t>(v); }
+};
+
+// A product operand widened to the accumulator's type: fp32 for float
+// sums, int for the int32 sums of int8 x int8.
+template <typename Acc, typename T>
+__device__ __forceinline__ Acc widen(T v) {
+  if constexpr (std::is_same<Acc, int>::value)
+    return static_cast<int>(v);
+  else
+    return Cvt<T>::to(v);
+}
+
+__device__ __forceinline__ float mac(float acc, float a, float b) { return fmaf(a, b, acc); }
+__device__ __forceinline__ int mac(int acc, int a, int b) { return acc + a * b; }
 
 __device__ __forceinline__ float load_f32(const void* p, long long i, int is_f32) {
   return is_f32 ? static_cast<const float*>(p)[i]
@@ -91,46 +138,85 @@ __device__ __forceinline__ float act_fn(float x, int act) {
   }
 }
 
+// Bytes of one vector B load: 16 where each thread's share of a B slab
+// allows it, else 8 (int8 B in the 64 x 64 x 32 tile: 8 elements a thread).
+__host__ __device__ constexpr int vec_bytes(int bytes_per_thread) {
+  return bytes_per_thread >= 16 ? 16 : 8;
+}
+
+template <int BYTES>
+struct VecOf;
+template <>
+struct VecOf<16> {
+  using type = uint4;
+};
+template <>
+struct VecOf<8> {
+  using type = uint2;
+};
+
+// Dequant of one accumulator element in the drain: per-channel weight scale,
+// then per-row activation scale, each where it is not per tile.
+__device__ __forceinline__ float drain_scale(const Params& p, int b, float z, int r, int c) {
+  if (p.scale_b[b] != nullptr && !p.sb_tile) z = __fmul_rn(z, p.scale_b[b][c]);
+  if (p.scale_a[b] != nullptr && !p.sa_tile) z = __fmul_rn(z, p.scale_a[b][r]);
+  return z;
+}
+
 // Threads: (BM / TM) x (BN / TN).  Thread (tr, tc) owns rows tr + i*(BM/TM)
 // and columns tc + j*(BN/TN) of the C tile, so neighbouring threads read
 // neighbouring shared-memory words and store neighbouring C elements.
-template <typename T, int BM, int BN, int BK, int TM, int TN, int NB, bool VEC_B>
+template <typename TA, typename TB, int BM, int BN, int BK, int TM, int TN, int NB,
+          bool VEC_B>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     ca_gemm_program_kernel(const Params p) {
+  constexpr bool QUANT = std::is_same<TB, int8_t>::value;   // dqb or dqab
+  constexpr bool INT_A = std::is_same<TA, int8_t>::value;   // dqab
+  using Acc = typename std::conditional<INT_A, int, float>::type;
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int TCOLS = BN / TN;
   constexpr int RSTEP = BM / TM;
-  constexpr int VW = 16 / sizeof(T);  // elements in one 16-byte vector
   constexpr int A_PER = BM * BK / NT;
   constexpr int B_PER = BK * BN / NT;
+  constexpr int VB = vec_bytes(B_PER * static_cast<int>(sizeof(TB)));
+  using VecB = typename VecOf<VB>::type;
+  constexpr int VW = VB / sizeof(TB);  // elements in one vector
   constexpr int BV_PER = VEC_B ? B_PER / VW : 1;
   constexpr int BS_PER = VEC_B ? 1 : B_PER;
   static_assert((BM * BK) % NT == 0 && (BK * BN) % NT == 0,
                 "a tile must split evenly over the threads");
   static_assert(!VEC_B || (B_PER % VW == 0 && BN % VW == 0),
                 "vector B loads must split evenly over the threads");
+  static_assert(!INT_A || QUANT, "int8 A pairs with int8 B only");
 
-  __shared__ T As[BM][BK + 1];
-  __shared__ __align__(16) T Bs[NB][BK][BN];
+  __shared__ TA As[BM][BK + 1];
+  __shared__ __align__(16) TB Bs[NB][BK][BN];
 
-  const T* __restrict__ A = static_cast<const T*>(p.a);
+  const TA* __restrict__ A = static_cast<const TA*>(p.a);
   const int m = p.m, n = p.n, k = p.k;
   const int tid = threadIdx.x;
   const int tr = tid / TCOLS, tc = tid % TCOLS;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const T zero = Cvt<T>::from(0.f);
+  const TA zero_a = Cvt<TA>::from(0.f);
+  const TB zero_b = Cvt<TB>::from(0.f);
 
+  // part: the products of the current quantization block (all of k for a
+  // float program); acc: the folded, rescaled sum (quantized programs only).
+  Acc part[NB][TM][TN];
   float acc[NB][TM][TN];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) acc[b][i][j] = 0.f;
+      for (int j = 0; j < TN; ++j) {
+        part[b][i][j] = Acc(0);
+        acc[b][i][j] = 0.f;
+      }
 
-  T ra[A_PER];
-  uint4 rbv[NB][BV_PER];
-  T rbs[NB][BS_PER];
+  TA ra[A_PER];
+  VecB rbv[NB][BV_PER];
+  TB rbs[NB][BS_PER];
 
   // Global -> registers for the slab starting at k0; out of range reads 0.
   auto load_slab = [&](int k0) {
@@ -138,11 +224,11 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     for (int i = 0; i < A_PER; ++i) {
       const int e = tid + i * NT;
       const int r = row0 + e / BK, c = k0 + e % BK;
-      ra[i] = (r < m && c < k) ? A[(long long)r * k + c] : zero;
+      ra[i] = (r < m && c < k) ? A[(long long)r * k + c] : zero_a;
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
-      const T* __restrict__ B = static_cast<const T*>(p.b[b]);
+      const TB* __restrict__ B = static_cast<const TB*>(p.b[b]);
       if constexpr (VEC_B) {
 #pragma unroll
         for (int i = 0; i < BV_PER; ++i) {
@@ -150,15 +236,15 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
           const int r = k0 + v / (BN / VW), c = col0 + (v % (BN / VW)) * VW;
           // n % VW == 0, so a vector lies wholly inside or wholly outside.
           rbv[b][i] = (r < k && c < n)
-                          ? *reinterpret_cast<const uint4*>(B + (long long)r * n + c)
-                          : make_uint4(0u, 0u, 0u, 0u);
+                          ? *reinterpret_cast<const VecB*>(B + (long long)r * n + c)
+                          : VecB{};
         }
       } else {
 #pragma unroll
         for (int i = 0; i < BS_PER; ++i) {
           const int e = tid + i * NT;
           const int r = k0 + e / BN, c = col0 + e % BN;
-          rbs[b][i] = (r < k && c < n) ? B[(long long)r * n + c] : zero;
+          rbs[b][i] = (r < k && c < n) ? B[(long long)r * n + c] : zero_b;
         }
       }
     }
@@ -170,13 +256,15 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     for (int i = 0; i < A_PER; ++i) {
       const int e = tid + i * NT;
       const int rl = e / BK, cl = e % BK;
-      T v = ra[i];
-      if (p.row_scale != nullptr) {
-        const int r = row0 + rl, c = k0 + cl;
-        if (r < m && c < k) {
-          const float f = __fmul_rn(__fmul_rn(Cvt<T>::to(v), p.row_scale[r]),
-                                    load_f32(p.gain, c, p.gain_f32));
-          v = Cvt<T>::from(f);  // rounded back to A's type before the product
+      TA v = ra[i];
+      if constexpr (!INT_A) {
+        if (p.row_scale != nullptr) {
+          const int r = row0 + rl, c = k0 + cl;
+          if (r < m && c < k) {
+            const float f = __fmul_rn(__fmul_rn(Cvt<TA>::to(v), p.row_scale[r]),
+                                      load_f32(p.gain, c, p.gain_f32));
+            v = Cvt<TA>::from(f);  // rounded back to A's type before the product
+          }
         }
       }
       As[rl][cl] = v;
@@ -187,7 +275,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
         for (int i = 0; i < BV_PER; ++i) {
           const int v = tid + i * NT;
-          *reinterpret_cast<uint4*>(&Bs[b][v / (BN / VW)][(v % (BN / VW)) * VW]) =
+          *reinterpret_cast<VecB*>(&Bs[b][v / (BN / VW)][(v % (BN / VW)) * VW]) =
               rbv[b][i];
         }
       } else {
@@ -200,6 +288,27 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     }
   };
 
+  // End of a quantization block: acc += part (to fp32, times the block's
+  // per-tile scales), part = 0.
+  auto fold = [&](int blk) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = col0 + tc + j * TCOLS;
+        const float sb = (p.sb_tile && c < n) ? p.scale_b[b][(long long)blk * n + c] : 1.f;
+        const float sa = p.sa_tile ? p.scale_a[b][blk] : 1.f;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          float v = static_cast<float>(part[b][i][j]);
+          if (p.sb_tile) v = __fmul_rn(v, sb);
+          if (p.sa_tile) v = __fmul_rn(v, sa);
+          acc[b][i][j] = __fadd_rn(acc[b][i][j], v);
+          part[b][i][j] = Acc(0);
+        }
+      }
+  };
+
   const int nslabs = (k + BK - 1) / BK;
   if (nslabs > 0) load_slab(0);
   for (int s = 0; s < nslabs; ++s) {
@@ -209,17 +318,22 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     if (s + 1 < nslabs) load_slab((s + 1) * BK);  // in flight during the products
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
-      float av[TM];
+      Acc av[TM];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = Cvt<T>::to(As[tr + i * RSTEP][kk]);
+      for (int i = 0; i < TM; ++i) av[i] = widen<Acc>(As[tr + i * RSTEP][kk]);
 #pragma unroll
       for (int b = 0; b < NB; ++b)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          const float bv = Cvt<T>::to(Bs[b][kk][tc + j * TCOLS]);
+          const Acc bv = widen<Acc>(Bs[b][kk][tc + j * TCOLS]);
 #pragma unroll
-          for (int i = 0; i < TM; ++i) acc[b][i][j] = fmaf(av[i], bv, acc[b][i][j]);
+          for (int i = 0; i < TM; ++i) part[b][i][j] = mac(part[b][i][j], av[i], bv);
         }
+    }
+    if constexpr (QUANT) {
+      const int kend = (s + 1) * BK;
+      if (s + 1 == nslabs || (p.scale_block > 0 && kend % p.scale_block == 0))
+        fold(p.scale_block > 0 ? s * BK / p.scale_block : 0);
     }
   }
 
@@ -233,10 +347,18 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int c = col0 + tc + j * TCOLS;
       if (c >= n) continue;
       const long long idx = (long long)r * n + c;
-      float y = acc[0][i][j];
+      float y;
+      if constexpr (QUANT)
+        y = drain_scale(p, 0, acc[0][i][j], r, c);
+      else
+        y = part[0][i][j];
       if (p.bias[0] != nullptr) y = __fadd_rn(y, load_f32(p.bias[0], c, p.bias_f32));
       if constexpr (NB == 2) {
-        float u = acc[1][i][j];
+        float u;
+        if constexpr (QUANT)
+          u = drain_scale(p, 1, acc[1][i][j], r, c);
+        else
+          u = part[1][i][j];
         if (p.bias[1] != nullptr) u = __fadd_rn(u, load_f32(p.bias[1], c, p.bias_f32));
         y = __fmul_rn(act_fn(y, p.glu_act), u);
       } else {
@@ -252,49 +374,55 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, int NB, bool VEC_B>
+// One tile shape: vector B loads where n and the B pointers allow them.
+template <typename TA, typename TB, int BM, int BN, int BK, int TM, int TN, int NB>
 void launch_tile(const Params& p, cudaStream_t stream) {
+  constexpr int NT = (BM / TM) * (BN / TN);
+  constexpr int VB = vec_bytes(BK * BN / NT * static_cast<int>(sizeof(TB)));
+  constexpr int VW = VB / sizeof(TB);
+  const bool vec_b = p.n % VW == 0 && reinterpret_cast<uintptr_t>(p.b[0]) % VB == 0 &&
+                     reinterpret_cast<uintptr_t>(p.b[1]) % VB == 0;
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
-  ca_gemm_program_kernel<T, BM, BN, BK, TM, TN, NB, VEC_B>
-      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p);
+  if (vec_b)
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true><<<grid, NT, 0, stream>>>(p);
+  else
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false><<<grid, NT, 0, stream>>>(p);
 }
 
 // Fixed tiles chosen for the card: decode and short prompts (m <= 8) take
 // narrow 8 x 16 tiles so that n = 2048 still spreads over 128 CTAs; longer
-// prompts take 64 x 64 tiles with a 4 x 4 register block per thread.
-template <typename T, int NB, bool VEC_B>
+// prompts take 64 x 64 tiles with a 4 x 4 register block per thread.  Both
+// slab depths (128, 32) divide every per-tile scale block (a multiple of 128).
+template <typename TA, typename TB, int NB>
 void launch_program(const Params& p, cudaStream_t stream) {
   if (p.m <= 8)
-    launch_tile<T, 8, 16, 128, 1, 1, NB, VEC_B>(p, stream);
+    launch_tile<TA, TB, 8, 16, 128, 1, 1, NB>(p, stream);
   else
-    launch_tile<T, 64, 64, 32, 4, 4, NB, VEC_B>(p, stream);
+    launch_tile<TA, TB, 64, 64, 32, 4, 4, NB>(p, stream);
 }
 
-template <typename T>
-void launch_typed(const Params& p, bool two_branches, bool vec_b, cudaStream_t stream) {
-  if (two_branches) {
-    if (vec_b)
-      launch_program<T, 2, true>(p, stream);
-    else
-      launch_program<T, 2, false>(p, stream);
-  } else {
-    if (vec_b)
-      launch_program<T, 1, true>(p, stream);
-    else
-      launch_program<T, 1, false>(p, stream);
-  }
+template <typename TA, typename TB>
+void launch_typed(const Params& p, bool two_branches, cudaStream_t stream) {
+  if (two_branches)
+    launch_program<TA, TB, 2>(p, stream);
+  else
+    launch_program<TA, TB, 1>(p, stream);
 }
 
 }  // namespace
 
-// C entry point.  The caller checks shapes, types and contiguity; m, n > 0.
-// Launches on `stream` without synchronising and returns cudaGetLastError().
+// C entry point.  The caller checks shapes, types, scales and contiguity;
+// m, n > 0.  A and B types (TYPE_*): float A with B of the same type, float A
+// with int8 B (dqb), or int8 A with int8 B (dqab); any other pair returns
+// cudaErrorInvalidValue.  Launches on `stream` without synchronising and
+// returns cudaGetLastError().
 extern "C" int ca_gemm_program_launch(
     const void* a, const void* b0, const void* b1, const void* row_scale,
     const void* gain, const void* bias0, const void* bias1, const void* mul,
-    const void* residual, void* out, int m, int n, int k, int in_bf16,
-    int gain_f32, int bias_f32, int mul_f32, int res_f32, int out_f32,
-    int act, int glu_act, void* stream) {
+    const void* residual, void* out, const void* scale_b0, const void* scale_b1,
+    const void* scale_a0, const void* scale_a1, int m, int n, int k, int a_type,
+    int b_type, int gain_f32, int bias_f32, int mul_f32, int res_f32, int out_f32,
+    int act, int glu_act, int scale_block, int sb_tile, int sa_tile, void* stream) {
   Params p;
   p.a = a;
   p.b[0] = b0;
@@ -306,6 +434,10 @@ extern "C" int ca_gemm_program_launch(
   p.mul = mul;
   p.residual = residual;
   p.out = out;
+  p.scale_b[0] = static_cast<const float*>(scale_b0);
+  p.scale_b[1] = static_cast<const float*>(scale_b1);
+  p.scale_a[0] = static_cast<const float*>(scale_a0);
+  p.scale_a[1] = static_cast<const float*>(scale_a1);
   p.m = m;
   p.n = n;
   p.k = k;
@@ -316,14 +448,22 @@ extern "C" int ca_gemm_program_launch(
   p.out_f32 = out_f32;
   p.act = act;
   p.glu_act = glu_act;
+  p.scale_block = scale_block;
+  p.sb_tile = sb_tile;
+  p.sa_tile = sa_tile;
   const bool two = b1 != nullptr;
-  const int vw = in_bf16 ? 8 : 4;
-  const bool vec_b = (n % vw == 0) && (reinterpret_cast<uintptr_t>(b0) % 16 == 0) &&
-                     (!two || reinterpret_cast<uintptr_t>(b1) % 16 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_bf16)
-    launch_typed<__nv_bfloat16>(p, two, vec_b, s);
+  if (a_type == TYPE_F32 && b_type == TYPE_F32)
+    launch_typed<float, float>(p, two, s);
+  else if (a_type == TYPE_BF16 && b_type == TYPE_BF16)
+    launch_typed<__nv_bfloat16, __nv_bfloat16>(p, two, s);
+  else if (a_type == TYPE_F32 && b_type == TYPE_I8)
+    launch_typed<float, int8_t>(p, two, s);
+  else if (a_type == TYPE_BF16 && b_type == TYPE_I8)
+    launch_typed<__nv_bfloat16, int8_t>(p, two, s);
+  else if (a_type == TYPE_I8 && b_type == TYPE_I8)
+    launch_typed<int8_t, int8_t>(p, two, s);
   else
-    launch_typed<float>(p, two, vec_b, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

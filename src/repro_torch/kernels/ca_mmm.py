@@ -5,8 +5,18 @@ The kernel is hand-written CUDA C++ for Hopper,
 ``repro_torch/csrc/ca_gemm_program.cu``: one CTA keeps its output tile's
 fp32 accumulators (one per B branch) resident for the whole k loop, streams
 the A and B panels through shared memory, folds the rms prologue into the
-A fetch and runs the whole drain chain (bias → act → mul → residual, or
-the ``glu`` combine) before the single write-back of each C element.
+A fetch and runs the whole drain chain (dequant → bias → act → mul →
+residual, or the ``glu`` combine) before the single write-back of each C
+element.
+
+Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
+activations) streams int8 B tiles and widens them in registers; ``dqab``
+(w8a8) streams int8 A and B and contracts in int32.  Per-channel weight
+scales ((n,)) and per-row activation scales ((m,)) are drain stages;
+per-tile scales (a (ceil(k/g), n) weight scale, or a (ceil(k/g),)
+activation scale, ``scale_b_block``/``scale_a_block`` = g) rescale each
+k-block's partial product before it joins the fp32 accumulator, on every
+dequant branch.
 
 Dispatch depends only on where the operands lie: a CPU tensor runs the
 plain-torch version :func:`ca_gemm_program_reference`; a CUDA tensor
@@ -19,6 +29,7 @@ first use into ``build/`` at the repository root and bound through
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -36,6 +47,11 @@ launch_counts: Dict[str, int] = {}
 
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _FLOATS = (torch.float32, torch.bfloat16)
+# Element type codes of the C entry point's A and B operands.
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# The kernel streams k in slabs of 32 or 128 rows, so a per-tile scale
+# block must be a multiple of 128 for each slab to lie in one block.
+SCALE_BLOCK_QUANTUM = 128
 
 
 def reset_launch_counts() -> None:
@@ -44,7 +60,7 @@ def reset_launch_counts() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ca_gemm_program_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -70,13 +86,54 @@ def _check_program(spec: GemmProgramSpec, semiring: str,
         raise _unsupported("transposed layouts and save_preact", "K1f")
     if spec.prologue.kind == "dact":
         raise _unsupported("the dact prologue", "K1f")
-    if any(b.dequant != "none" for b in spec.branches):
-        raise _unsupported("dequant epilogues", "K1d/K1e")
+    if len({b.dequant for b in spec.branches}) > 1:
+        raise ValueError(f"the branches of {spec.tag()!r} must share one "
+                         "dequant stage")
     if spec.n_b == 2 and spec.combine != "glu":
         raise _unsupported("two-output 'dual' programs", "K1c follow-up")
 
 
-def _check_operands(a, bs, spec, row_scale, gain, branch_operands):
+def _check_types(a, bs, spec) -> str:
+    """A and B element types against the program's dequant stage; returns
+    the stage ("none", "b" or "ab")."""
+    deq = spec.branches[0].dequant
+    want = {"none": (_FLOATS, "the same float type as A"),
+            "b": (_FLOATS, "int8"), "ab": ((torch.int8,), "int8")}[deq]
+    if a.dim() != 2 or a.dtype not in want[0]:
+        raise ValueError(
+            f"A must be a 2-D {'/'.join(str(t)[6:] for t in want[0])} "
+            f"tensor for {spec.tag()!r}, got {tuple(a.shape)} {a.dtype}")
+    m, k = a.shape
+    n = bs[0].shape[-1]
+    b_dtype = a.dtype if deq == "none" else torch.int8
+    for b in bs:
+        if b.dim() != 2 or tuple(b.shape) != (k, n) or b.dtype != b_dtype:
+            raise ValueError(f"B must be ({k}, {n}) {want[1]} for "
+                             f"{spec.tag()!r}, got {tuple(b.shape)} "
+                             f"{b.dtype}")
+    return deq
+
+
+def _check_scales(ops, deq, m, n, k, scale_b_block, scale_a_block):
+    """The dequant operands of one branch; returns them as tensors."""
+    shapes = {"scale_b": ((-(-k // scale_b_block), n) if scale_b_block
+                          else (n,))}
+    if deq == "ab":
+        shapes["scale_a"] = ((-(-k // scale_a_block),) if scale_a_block
+                             else (m,))
+    out = []
+    for name, shape in shapes.items():
+        t = ops.get(name)
+        if t is None or tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be a {shape} float32 tensor, got "
+                f"{None if t is None else (tuple(t.shape), t.dtype)}")
+        out.append(t)
+    return out
+
+
+def _check_operands(a, bs, spec, row_scale, gain, branch_operands,
+                    scale_b_block=0, scale_a_block=0):
     """Shapes, dtypes, devices and contiguity the kernel takes; returns
     (m, n, k)."""
     if len(bs) != spec.n_b:
@@ -84,18 +141,29 @@ def _check_operands(a, bs, spec, row_scale, gain, branch_operands):
                          f"got {len(bs)}")
     if len(branch_operands) != spec.n_b:
         raise ValueError("one branch_operands dict per B operand")
-    if a.dim() != 2 or a.dtype not in _FLOATS:
-        raise ValueError(f"A must be a 2-D float32/bfloat16 tensor, got "
-                         f"{tuple(a.shape)} {a.dtype}")
+    deq = _check_types(a, bs, spec)
     m, k = a.shape
     n = bs[0].shape[-1]
-    tensors = [a]
-    for b in bs:
-        if b.dim() != 2 or tuple(b.shape) != (k, n) or b.dtype != a.dtype:
-            raise ValueError(f"B must be ({k}, {n}) {a.dtype}, got "
-                             f"{tuple(b.shape)} {b.dtype}")
-        tensors.append(b)
+    tensors = [a, *bs]
+    for name, g in (("scale_b_block", scale_b_block),
+                    ("scale_a_block", scale_a_block)):
+        if g < 0 or g % SCALE_BLOCK_QUANTUM:
+            raise ValueError(f"{name} = {g} must be a multiple of "
+                             f"{SCALE_BLOCK_QUANTUM} (the kernel's k slab)")
+    if scale_b_block and deq == "none":
+        raise ValueError("per-tile weight scales need a dequant stage")
+    if scale_a_block and deq != "ab":
+        raise ValueError("per-tile activation scales need an 'ab' dequant "
+                         "stage")
+    if scale_a_block and scale_b_block and scale_a_block != scale_b_block:
+        raise ValueError(f"per-tile activation and weight scales must share "
+                         f"one block, got {scale_a_block} and "
+                         f"{scale_b_block}")
     if spec.prologue.kind == "rms":
+        if deq == "ab":
+            raise ValueError("the rms prologue composes with float "
+                             "activations, not an int8 A stream: normalize "
+                             "before quantizing")
         if row_scale is None or gain is None:
             raise ValueError("the rms prologue needs row_scale and gain")
         if tuple(row_scale.shape) != (m, 1) or row_scale.dtype != torch.float32:
@@ -109,13 +177,17 @@ def _check_operands(a, bs, spec, row_scale, gain, branch_operands):
         raise ValueError("row_scale/gain given without an rms prologue")
     for bspec, ops in zip(spec.branches, branch_operands):
         want = {"bias": bspec.has_bias, "mul": bspec.has_mul,
-                "residual": bspec.has_residual}
+                "residual": bspec.has_residual,
+                "scale_b": deq != "none", "scale_a": deq == "ab"}
         extra = set(ops) - {name for name, on in want.items() if on}
         if extra:
             raise ValueError(f"operands {sorted(extra)} not in program "
                              f"{spec.tag()!r}")
-        for name, on in want.items():
-            if not on:
+        if deq != "none":
+            tensors += _check_scales(ops, deq, m, n, k, scale_b_block,
+                                     scale_a_block)
+        for name in ("bias", "mul", "residual"):
+            if not want[name]:
                 continue
             t = ops.get(name)
             shape = (n,) if name == "bias" else (m, n)
@@ -134,9 +206,9 @@ def _check_operands(a, bs, spec, row_scale, gain, branch_operands):
 
 
 def _out_dtype(a: torch.Tensor, out_dtype) -> torch.dtype:
-    # ca_mmm.py:445-452 for float operands: the output defaults to A's
-    # dtype, glu included.
-    out = out_dtype or a.dtype
+    # ca_mmm.py:445-452: the output defaults to A's dtype, glu included,
+    # and to fp32 when A is int8 (w8a8).
+    out = out_dtype or (torch.float32 if a.dtype == torch.int8 else a.dtype)
     if out not in _FLOATS:
         raise ValueError(f"out_dtype must be float32/bfloat16, got {out}")
     return out
@@ -145,6 +217,42 @@ def _out_dtype(a: torch.Tensor, out_dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # Plain version
 # ---------------------------------------------------------------------------
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 product of A and B over one k range.  Float A: fp32 operands
+    (int8 B widens exactly).  int8 A and B: an exact integer contraction
+    rounded once to fp32, as the kernel's int32 sum is — int64 on the CPU
+    (``kernels/ref.py``), fp64 on the card, where ``torch.matmul`` has no
+    integer kernel (exact while 127²·k < 2^53)."""
+    if a.dtype != torch.int8:
+        return a.float() @ b.float()
+    if a.device.type == "cpu":
+        return (a.long() @ b.long()).float()
+    return (a.double() @ b.double()).float()
+
+
+def _dequant_product(a, b, deq, ops, scale_b_block, scale_a_block):
+    """One branch's product in real units: per-tile scales rescale each
+    k-block's partial before it is summed (blocks in order), per-channel
+    and per-row scales multiply the sum."""
+    g = scale_b_block or scale_a_block
+    if not g:
+        z = _dot(a, b)
+    else:
+        z = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+        for i, start in enumerate(range(0, a.shape[1], g)):
+            part = _dot(a[:, start:start + g], b[start:start + g])
+            if scale_b_block:
+                part = part * ops["scale_b"][i]
+            if scale_a_block:
+                part = part * ops["scale_a"][i]
+            z = z + part
+    if not scale_b_block:
+        z = z * ops["scale_b"].reshape(1, -1)
+    if deq == "ab" and not scale_a_block:
+        z = z * ops["scale_a"].reshape(-1, 1)
+    return z
+
 
 def ca_gemm_program_reference(
     a: torch.Tensor,
@@ -155,22 +263,31 @@ def ca_gemm_program_reference(
     row_scale: Optional[torch.Tensor] = None,
     gain: Optional[torch.Tensor] = None,
     branch_operands: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+    scale_b_block: int = 0,
+    scale_a_block: int = 0,
 ) -> torch.Tensor:
-    """The same program in plain torch: prologue, fp32 products, drain
-    chain and combine, in the kernel's order."""
+    """The same program in plain torch: prologue, fp32 (or exact integer)
+    products, dequant, drain chain and combine, in the kernel's order."""
     bs = tuple(bs)
     branch_operands = list(branch_operands or [{} for _ in bs])
     _check_program(spec, "plus_times", False, False, False)
-    _check_operands(a, bs, spec, row_scale, gain, branch_operands)
+    _check_operands(a, bs, spec, row_scale, gain, branch_operands,
+                    scale_b_block, scale_a_block)
     out_dtype = _out_dtype(a, out_dtype)
     if spec.prologue.kind == "rms":
         a = apply_rms_reference(a, row_scale, gain)
-    af = a.float()
     vals = []
     for b, bspec, ops in zip(bs, spec.branches, branch_operands):
-        z = af @ b.float()
-        vals.append(z if bspec.is_identity
-                    else apply_reference(z, bspec, ops))
+        if bspec.dequant == "none":
+            z = _dot(a, b)
+            vals.append(z if bspec.is_identity
+                        else apply_reference(z, bspec, ops))
+            continue
+        z = _dequant_product(a, b, bspec.dequant, ops, scale_b_block,
+                             scale_a_block)
+        vals.append(apply_reference(
+            z, dataclasses.replace(bspec, dequant="none"),
+            {k: v for k, v in ops.items() if not k.startswith("scale_")}))
     if spec.combine == "glu":
         y = act_fn(spec.combine_activation)(vals[0]) * vals[1]
     else:
@@ -187,7 +304,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
-            branch_operands, m: int, n: int, k: int) -> torch.Tensor:
+            branch_operands, m: int, n: int, k: int, scale_b_block: int,
+            scale_a_block: int) -> torch.Tensor:
     if m > 65535 * 64:
         raise ValueError(f"m = {m} exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -195,8 +313,8 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         return out
     single = spec.branches[0]
     ops0 = branch_operands[0]
-    bias0 = ops0.get("bias")
-    bias1 = branch_operands[1].get("bias") if spec.n_b == 2 else None
+    ops1 = branch_operands[1] if spec.n_b == 2 else {}
+    bias0, bias1 = ops0.get("bias"), ops1.get("bias")
     biases = [t for t in (bias0, bias1) if t is not None]
     if len({t.dtype for t in biases}) > 1:
         raise ValueError("the two branches' biases must share one dtype")
@@ -207,14 +325,17 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         _ptr(a), _ptr(bs[0]), _ptr(bs[1]) if spec.n_b == 2 else None,
         _ptr(row_scale), _ptr(gain), _ptr(bias0), _ptr(bias1),
         _ptr(mul), _ptr(res), _ptr(out),
-        m, n, k, int(a.dtype == torch.bfloat16),
+        _ptr(ops0.get("scale_b")), _ptr(ops1.get("scale_b")),
+        _ptr(ops0.get("scale_a")), _ptr(ops1.get("scale_a")),
+        m, n, k, _TYPE_CODES[a.dtype], _TYPE_CODES[bs[0].dtype],
         int(gain is not None and gain.dtype == f32),
         int(bool(biases) and biases[0].dtype == f32),
         int(mul is not None and mul.dtype == f32),
         int(res is not None and res.dtype == f32),
         int(out_dtype == f32),
         _ACT_CODES[single.activation], _ACT_CODES[spec.combine_activation],
-        stream)
+        scale_b_block or scale_a_block, int(scale_b_block > 0),
+        int(scale_a_block > 0), stream)
     if err != 0:
         raise RuntimeError(f"ca_gemm_program kernel launch failed: CUDA "
                            f"error {err}")
@@ -236,27 +357,38 @@ def ca_gemm_program(
     row_scale: Optional[torch.Tensor] = None,
     gain: Optional[torch.Tensor] = None,
     branch_operands: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+    scale_b_block: int = 0,
+    scale_a_block: int = 0,
 ) -> torch.Tensor:
     """Execute a :class:`GemmProgramSpec`: ``a`` (m, k) is the streamed A
     operand, ``bs`` the 1..2 (k, n) B operands; ``row_scale`` ((m, 1)
     fp32) and ``gain`` ((k,)) feed the rms prologue; ``branch_operands[i]``
-    holds branch ``i``'s ``bias``/``mul``/``residual``.
+    holds branch ``i``'s ``bias``/``mul``/``residual`` and, for a dequant
+    branch, ``scale_b`` and (``dqab``) ``scale_a``.
+
+    A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
+    ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per
+    tile ((ceil(k/g), n)); ``scale_a`` per row ((m,)) or, with
+    ``scale_a_block=g``, per k-tile ((ceil(k/g),)).  g is a multiple of
+    128, and the same for both when both are per tile.  The output
+    defaults to A's dtype, fp32 for int8 A.
 
     CPU operands run :func:`ca_gemm_program_reference`; CUDA operands
-    launch the kernel.  Programs this slice does not port (dequant, dact,
+    launch the kernel.  Programs this slice does not port (dact,
     transposed layouts, ``save_preact``, ``min_plus``) raise ValueError.
     """
     bs = tuple(bs)
     branch_operands = list(branch_operands or [{} for _ in bs])
     _check_program(spec, semiring, transpose_a, transpose_b, save_preact)
-    m, n, k = _check_operands(a, bs, spec, row_scale, gain, branch_operands)
+    m, n, k = _check_operands(a, bs, spec, row_scale, gain, branch_operands,
+                              scale_b_block, scale_a_block)
     out_dtype = _out_dtype(a, out_dtype)
     if a.device.type == "cpu":
         return ca_gemm_program_reference(
             a, bs, spec=spec, out_dtype=out_dtype, row_scale=row_scale,
-            gain=gain, branch_operands=branch_operands)
+            gain=gain, branch_operands=branch_operands,
+            scale_b_block=scale_b_block, scale_a_block=scale_a_block)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     return _launch(a, bs, spec, out_dtype, row_scale, gain,
-                   branch_operands, m, n, k)
-
+                   branch_operands, m, n, k, scale_b_block, scale_a_block)

@@ -18,6 +18,8 @@ from repro_torch.core.gemm import ca_glu_matmul, ca_matmul
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.program import (RmsPrologue, apply_rms_reference,
                                          rms_row_scale)
+from repro_torch.quant.calibrate import QuantConfig, quantize_tensor
+from repro_torch.quant.scales import QTensor
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +83,49 @@ def subtree(params: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
+# Weight quantization (repro_torch.quant)
+# ---------------------------------------------------------------------------
+
+# Projection weights that flow through ``ca_matmul`` as plain (k, n)
+# operands (the reference's list; embedding tables, norm gains and other
+# vectors stay dense).
+QUANTIZABLE_SUFFIXES = (
+    "wq", "wk", "wv", "wo", "wq_a", "wq_b", "wkv_a",
+    "w_up", "w_gate", "w_down", "w_in", "in_proj", "out_proj",
+)
+
+
+def default_quant_predicate(key: str, leaf) -> bool:
+    """2-D (k, n) or layer-stacked 3-D (L, k, n) projection matrices; the
+    logits head (``head/w``) in its single-head 2-D form."""
+    ndim = leaf.dim()
+    if ndim not in (2, 3):
+        return False
+    if key.rsplit("/", 1)[-1] in QUANTIZABLE_SUFFIXES:
+        return True
+    return key.endswith("head/w") and ndim == 2
+
+
+def quantize_params(params: Dict[str, torch.Tensor],
+                    qconfig: Optional[QuantConfig] = None,
+                    predicate=None) -> Dict[str, object]:
+    """Weight-quantize a parameter dict for serving: every eligible
+    projection matrix becomes an int8 :class:`QTensor` along its
+    contraction axis (per-channel by default, per-tile with
+    ``qconfig.block``), on the weight's own device; everything else is
+    passed through.  The input dict is not modified."""
+    qconfig = qconfig or QuantConfig()
+    predicate = predicate or default_quant_predicate
+    out = {}
+    for key, leaf in params.items():
+        if not isinstance(leaf, QTensor) and predicate(key, leaf):
+            out[key] = quantize_tensor(leaf, qconfig, axis=-2)
+        else:
+            out[key] = leaf
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------
 
@@ -139,7 +184,8 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
     """SwiGLU / GELU MLP as GemmPrograms: SwiGLU's gate and up run as one
     dual-branch program with the pre-FFN rms_norm folded into the x fetch;
     ``residual`` rides the down projection's single write-back.  Weights
-    arrive in the compute dtype (cast once, at load)."""
+    arrive in the compute dtype (cast once, at load) or as int8
+    :class:`QTensor` s, which pass to the GEMMs as they are."""
     dt = x.dtype
     pro = RmsPrologue(gain=norm_gain, eps=norm_eps) \
         if norm_gain is not None else None
@@ -172,5 +218,5 @@ def unembed_defs(d: int, vocab: int) -> Defs:
 
 def unembed_apply(p: Dict[str, torch.Tensor],
                   x: torch.Tensor) -> torch.Tensor:
-    """One logits head, fp32 out."""
+    """One logits head, fp32 out (a QTensor head included)."""
     return ca_matmul(x, p["w"], out_dtype=torch.float32)

@@ -9,7 +9,9 @@ pool persists across requests and is only ever written in place.
 Serving parameters hold projection matrices and the embedding table in the
 compute dtype — cast **once**, at load or init, where the reference casts
 at every call (same rounding) — and norm gains in fp32, which is how the
-rms chain reads them.
+rms chain reads them.  Projection matrices may instead be int8
+:class:`~repro_torch.quant.QTensor` s (``models.common.quantize_params``):
+layer indexing slices their payload and scales together.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
 from repro_torch.models.common import Defs
+from repro_torch.quant.scales import QTensor
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,10 +79,41 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             for name in sorted(defs)}
 
 
-def params_from_jax(np_params: Mapping[str, np.ndarray], cfg: ModelConfig,
-                    device=None) -> Dict[str, torch.Tensor]:
+_QFIELDS = ("data", "scale", "axis", "block", "fmt", "act_scale",
+            "act_block")
+
+
+def _qtensor_from_fields(name: str, fields: Mapping, shape, device) -> QTensor:
+    """A quantized leaf given as its fields (numpy arrays and ints), with
+    its payload and scales unchanged."""
+    missing = {"data", "scale"} - set(fields)
+    extra = set(fields) - set(_QFIELDS)
+    if missing or extra:
+        raise ValueError(f"{name}: quantized leaf fields missing "
+                         f"{sorted(missing)}, unexpected {sorted(extra)}")
+    data = torch.from_numpy(np.array(fields["data"], dtype=np.int8))
+    if tuple(data.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(data.shape)}, expected "
+                         f"{shape}")
+    act = fields.get("act_scale")
+    f32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.array(a, dtype=np.float32)).to(device)
+    return QTensor(data=data.to(device), scale=f32(fields["scale"]),
+                   axis=int(fields.get("axis", -2)),
+                   block=int(fields.get("block", 0)),
+                   fmt=str(fields.get("fmt", "int8")),
+                   act_scale=None if act is None else f32(act),
+                   act_block=int(fields.get("act_block", 0)))
+
+
+def params_from_jax(np_params: Mapping[str, object], cfg: ModelConfig,
+                    device=None) -> Dict[str, object]:
     """The reference's flat parameter dict (numpy arrays, e.g.
-    ``blocks/attn/wq`` of shape (L, d, H·Dh)) as serving parameters."""
+    ``blocks/attn/wq`` of shape (L, d, H·Dh)) as serving parameters.  A
+    quantized leaf of the reference's ``quantize_params`` comes as a
+    mapping of its fields (``data``, ``scale``, ``axis``, ``block``,
+    ``fmt``, ``act_scale``, ``act_block``) and becomes a
+    :class:`QTensor` with the same payload and scales."""
     device = resolve_device(device)
     defs = model_defs(cfg)
     if set(np_params) != set(defs):
@@ -88,6 +122,10 @@ def params_from_jax(np_params: Mapping[str, np.ndarray], cfg: ModelConfig,
             f", unexpected {sorted(set(np_params) - set(defs))}")
     out = {}
     for name, arr in np_params.items():
+        if isinstance(arr, Mapping):
+            out[name] = _qtensor_from_fields(name, arr, defs[name].shape,
+                                             device)
+            continue
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
         if tuple(t.shape) != defs[name].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "

@@ -4,9 +4,15 @@ on a batch of 1, then the decode loop over the slab KV cache or, with
 
 Sampling is greedy (argmax over the real vocabulary) or temperature-based,
 drawn from a ``torch.Generator`` seeded with ``seed`` — deterministic,
-though its numbers are not ``jax.random``'s.  The reference's w8a8
-calibration, tensor parallelism, bounded admission, metrics and fault
-handling are later slices (ROADMAP) and raise here when asked for.
+though its numbers are not ``jax.random``'s.
+
+Weight-quantized parameters (``models.common.quantize_params``) serve
+int8 weights; with ``quantize_activations=True`` the engine first runs a
+static calibration pass over sample prompts and then serves w8a8; a
+failed calibration raises.  The reference's degradation ladder (w8a8 →
+int8w → dense), tensor parallelism, bounded admission, metrics and fault
+handling are later slices (ROADMAP), and those with an argument raise
+here when asked for.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import torch
 from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.quant.calibrate import (ActivationCalibration, QuantConfig,
+                                         attach_act_scales)
+from repro_torch.quant.scales import QTensor
 from repro_torch.tuning import resolve_page_size
 
 
@@ -60,14 +69,14 @@ class ServeEngine:
     its whole life and is written in place.
     """
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+    def __init__(self, params: Dict[str, object], cfg: ModelConfig, *,
                  max_len: int, seed: int = 0,
                  device=None, paged_kv: bool = False, kv_page_size: int = 0,
-                 quantize_activations: bool = False, tp_local=None,
+                 quantize_activations: bool = False,
+                 calibration_batches: int = 4,
+                 act_qconfig: Optional[QuantConfig] = None, tp_local=None,
                  max_queue: int = 0):
-        later = {"quantize_activations": (quantize_activations,
-                                          "queue 1 item 7"),
-                 "tp_local": (tp_local, "queue 1 item 14"),
+        later = {"tp_local": (tp_local, "queue 1 item 14"),
                  "max_queue": (max_queue, "queue 1 item 9")}
         for name, (value, where) in later.items():
             if value:
@@ -81,6 +90,25 @@ class ServeEngine:
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
+        self.quantized = any(isinstance(t, QTensor) for t in params.values())
+        # Static activation quantization (w8a8): calibrate on sample
+        # prompts first, then every quantized GEMM runs int8 x int8.
+        self.w8a8 = False
+        self.calibration_sites: List[str] = []
+        self.calibration_s = 0.0
+        if quantize_activations:
+            if not self.quantized:
+                raise ValueError(
+                    "quantize_activations requires weight-quantized params "
+                    "(models.common.quantize_params first)")
+            self.act_qconfig = act_qconfig or QuantConfig(act_fmt="int8")
+            if not self.act_qconfig.quantize_activations:
+                raise ValueError("act_qconfig has no activation format: "
+                                 f"{self.act_qconfig}")
+            t0 = time.perf_counter()
+            self.params = self._calibrate_activations(calibration_batches)
+            self.calibration_s = time.perf_counter() - t0
+            self.w8a8 = True
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.queue: Deque[Request] = collections.deque()
         self.done: Dict[int, Request] = {}
@@ -93,6 +121,27 @@ class ServeEngine:
             self.kv_cache = M.make_paged_model_cache(
                 cfg, 1, n_pages=n_pages, page_size=page, max_pages=n_pages,
                 device=self.device)
+
+    def _calibrate_activations(self, n_batches: int) -> Dict[str, object]:
+        """Post-training static calibration: prefill ``n_batches`` sample
+        prompts (the reference's: ``RandomState(1234)``, length
+        ``max(2, min(8, max_len - 1))``) under an
+        :class:`ActivationCalibration` recording every quantized GEMM's
+        input, then return the params with each site's static a-scale
+        attached to its weights."""
+        rng = np.random.RandomState(1234)
+        length = max(2, min(8, self.max_len - 1))
+        with torch.inference_mode(), \
+                ActivationCalibration(self.act_qconfig) as ctx:
+            for _ in range(max(1, n_batches)):
+                toks = self._tokens(rng.randint(0, self.cfg.vocab_size,
+                                                (1, length)))
+                M.prefill(self.params, {"tokens": toks}, self.cfg,
+                          max_len=self.max_len)
+            scales = ctx.scales()
+        self.calibration_sites = sorted(ctx.calibrators)
+        return attach_act_scales(self.params, scales,
+                                 block=self.act_qconfig.act_block)
 
     def submit(self, req: Request) -> bool:
         """Queue a request (True).  On the paged path a request whose

@@ -105,7 +105,8 @@ def test_fp32_out_of_bf16_operands_matches_reference_kernel():
 
 
 @pytest.mark.parametrize("tag,kw,slice_", [
-    ("dqb+res", {}, "K1d"),
+    # K1d is ported: what still raises is a dqb program with a float B.
+    pytest.param("dqb+res", {}, "must be .* int8", id="dqb+res-kw0-K1d"),
     ("dact.silu>none", {}, "K1f"),
     ("none", {"transpose_a": True}, "K1f"),
     ("none", {"transpose_b": True}, "K1f"),
@@ -134,3 +135,58 @@ def test_bad_operands_raise_and_cpu_never_counts():
     K.ca_gemm_program(a, [torch.ones(8, 6)])
     assert K.launch_counts == {}
 
+
+
+def _quant_operands(tag, m, n, k, block_b, block_a, seed):
+    """numpy operands of one dqb/dqab program: float or int8 A, int8 B
+    branches and their positive fp32 scales, per channel / row or per
+    tile."""
+    r = np.random.RandomState(seed)
+    spec = program_from_tag(tag)
+    ab = spec.branches[0].dequant == "ab"
+    i8 = lambda *s: r.randint(-127, 128, s).astype(np.int8)  # noqa: E731
+    ops = {"a": i8(m, k) if ab else r.randn(m, k).astype(np.float32),
+           "bs": [i8(k, n) for _ in range(spec.n_b)], "branch": []}
+    sa = (r.rand(-(-k // block_a) if block_a else m) * 0.05 + 0.01
+          ).astype(np.float32)
+    for b in spec.branches:
+        d = {"scale_b": (r.rand(*((-(-k // block_b), n) if block_b
+                                  else (n,))) * 0.01 + 1e-3
+                         ).astype(np.float32)}
+        if ab:
+            d["scale_a"] = sa
+        for name, shape in (("bias", (n,)), ("mul", (m, n)),
+                            ("residual", (m, n))):
+            if getattr(b, "has_" + name):
+                d[name] = r.randn(*shape).astype(np.float32)
+        ops["branch"].append(d)
+    return ops
+
+
+@pytest.mark.parametrize("tag,blocks", [
+    ("dqb+bias+silu+mul+res", (0, 0)), ("dqb+res", (128, 0)),
+    ("glu.gelu(dqb+bias|dqb+bias)", (128, 0)), ("dqab", (0, 0)),
+    ("dqab+res", (128, 128)), ("dqab", (0, 128)),
+    ("glu.silu(dqab|dqab)", (0, 0))])
+@pytest.mark.parametrize("m", [1, 37])
+def test_quant_programs_match_reference_kernel(tag, blocks, m):
+    # Ragged n and k: 300 = 128 + 128 + 44 rows of k.
+    n, k = 200, 300
+    block_b, block_a = blocks
+    ops = _quant_operands(tag, m, n, k, block_b, block_a, seed=m)
+    want = jax_program(
+        jnp.asarray(ops["a"]), [jnp.asarray(b) for b in ops["bs"]],
+        spec=jax_from_tag(tag), bm=8, bn=128, bk=128, interpret=True,
+        branch_operands=[{k_: jnp.asarray(v) for k_, v in d.items()}
+                         for d in ops["branch"]],
+        scale_b_block=block_b, scale_a_block=block_a)
+    got = K.ca_gemm_program(
+        torch.as_tensor(ops["a"]), [torch.as_tensor(b) for b in ops["bs"]],
+        spec=program_from_tag(tag),
+        branch_operands=[{k_: torch.as_tensor(v) for k_, v in d.items()}
+                         for d in ops["branch"]],
+        scale_b_block=block_b, scale_a_block=block_a)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
+                               atol=2e-3 * np.abs(want).max())

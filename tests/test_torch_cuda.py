@@ -154,3 +154,104 @@ def test_paged_attention_kernel_matches_plain_version(case, dtype):
     scale = want.float().abs().max().item()
     tol = 1e-4 * (1 + scale) if dtype == torch.float32 else 2e-2 * scale
     assert err <= tol, (err, tol)
+
+
+# Quantized programs (K1d: dqb, int8 weights; K1e: dqab, w8a8), numpy
+# operands: int8 payloads, positive fp32 scales per channel / per row or
+# per tile of g rows of k.
+QUANT_TAGS = ["dqb", "dqb+res", "rms>glu.silu(dqb|dqb)",
+              "dqb+bias+gelu+mul+res", "dqab", "dqab+res",
+              "glu.silu(dqab|dqab)"]
+
+
+def quant_program_inputs(tag, m, n, k, dtype, seed, *, block_b=0,
+                         block_a=0, device="cuda"):
+    """(a, bs, kwargs) of one dqb/dqab program call: float A of ``dtype``
+    for dqb, int8 A for dqab; ``block_b``/``block_a`` select per-tile
+    weight / activation scales."""
+    r = np.random.RandomState(seed)
+    spec = program_from_tag(tag)
+    deq = spec.branches[0].dequant
+    t = lambda x, dt: torch.as_tensor(x).to(device=device, dtype=dt)  # noqa: E731
+    i8 = lambda *shape: t(r.randint(-127, 128, shape), torch.int8)  # noqa: E731
+    a = i8(m, k) if deq == "ab" else t(r.randn(m, k), dtype)
+    bs = [i8(k, n) for _ in range(spec.n_b)]
+    kw = {"spec": spec, "scale_b_block": block_b,
+          "scale_a_block": block_a if deq == "ab" else 0}
+    if spec.prologue.kind == "rms":
+        kw["gain"] = t(r.rand(k) + 0.5, torch.float32)
+        kw["row_scale"] = rms_row_scale(a, 1e-5)
+    ops = []
+    for b in spec.branches:
+        d = {"scale_b": t((r.rand(-(-k // block_b), n) if block_b
+                           else r.rand(n)) * 0.02 / np.sqrt(k) + 1e-3,
+                          torch.float32)}
+        if deq == "ab":
+            d["scale_a"] = t((r.rand(-(-k // block_a)) if block_a
+                              else r.rand(m)) * 0.05 + 0.01, torch.float32)
+        if b.has_bias:
+            d["bias"] = t(r.randn(n), dtype)
+        if b.has_mul:
+            d["mul"] = t(r.randn(m, n), dtype)
+        if b.has_residual:
+            d["residual"] = t(r.randn(m, n), dtype)
+        ops.append(d)
+    if deq == "ab":      # both branches share the activation's scales
+        for d in ops[1:]:
+            d["scale_a"] = ops[0]["scale_a"]
+    kw["branch_operands"] = ops
+    kw["out_dtype"] = dtype
+    return a, bs, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(0, 0), (128, 0), (256, 256), (0, 128)],
+                         ids=["channel", "tile128", "tile256", "a-tile128"])
+@pytest.mark.parametrize("dtype,m,n,k", [(torch.float32, 5, 200, 300),
+                                         (torch.bfloat16, 37, 203, 301),
+                                         (torch.bfloat16, 1, 256, 640),
+                                         (torch.float32, 40, 264, 520)])
+@pytest.mark.parametrize("tag", QUANT_TAGS)
+def test_cuda_quant_kernel_matches_plain_version(tag, dtype, m, n, k, blocks):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    block_b, block_a = blocks
+    if block_a and not block_b and "dqab" not in tag:
+        pytest.skip("per-tile activation scales belong to dqab programs")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, bs, kw = quant_program_inputs(tag, m, n, k, dtype, seed=8,
+                                     block_b=block_b, block_a=block_a)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    assert K.launch_counts == {tag: 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, n)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = 1e-4 * (1 + scale) if dtype == torch.float32 else 2e-2 * scale
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_w8a8_int32_headroom_k4096():
+    """Every product at the grid's extreme (127 · ±127) over k = 4096:
+    the int32 sum must be exact, so the output equals
+    s_a · s_b · sum(a_q · b_q) up to the fp32 rescale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    m, n, k = 4, 128, 4096
+    a = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    sign = torch.where(torch.arange(k) % 2 == 1, 1, -1)
+    b = (sign[:, None] * 127 * torch.ones(k, n, dtype=torch.long)).to(
+        device="cuda", dtype=torch.int8)
+    b[: k // 4] = 127                      # a sum far from 0: 127² · k/4
+    sa = torch.full((m,), 4.0 / 127, device="cuda")
+    sb = torch.rand(n, device="cuda") + 0.5
+    got = K.ca_gemm_program(a, [b], spec=program_from_tag("dqab"),
+                            branch_operands=[{"scale_a": sa,
+                                              "scale_b": sb}])
+    exact = (a.double() @ b.double())
+    want = (exact.float() * sb[None, :]) * sa[:, None]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -2,6 +2,8 @@
 mode: leading (B, L) dims, the residual epilogue, the rms prologue and an
 fp32 out_dtype."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,3 +114,94 @@ def test_ref_matmul_matches_reference(dtype):
     got = tref(torch.as_tensor(a), torch.as_tensor(b))
     assert str(got.dtype) == f"torch.{want.dtype}"
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# QTensor weights: int8w (dqb) and w8a8 (dqab), against the reference's
+# xla path (dequantize up front, fake-quant activations).
+# ---------------------------------------------------------------------------
+
+def _qweights(d, act_scale=None):
+    """The reference's quantization of d["w"] / d["w2"], in both
+    packages, with an optional static activation scale."""
+
+    from repro.quant import quantize as jquantize
+    from repro_torch.quant import QTensor
+
+    out = []
+    for name in ("w", "w2"):
+        jq = jquantize(jnp.asarray(d[name], jnp.float32), axis=-2)
+        tq = QTensor(data=torch.as_tensor(np.array(jq.data)),
+                     scale=torch.as_tensor(np.array(jq.scale)))
+        if act_scale is not None:
+            jq = dataclasses.replace(jq, act_scale=jnp.float32(act_scale))
+            tq = dataclasses.replace(tq, act_scale=torch.tensor(
+                act_scale, dtype=torch.float32))
+        out.append((jq, tq))
+    return out
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8w", "w8a8"])
+def test_ca_matmul_qtensor_residual_epilogue(w8a8, prologue):
+    d = _inputs(6)
+    (jq, tq), _ = _qweights(d, 0.03 if w8a8 else None)
+    jpro = JRms(jnp.asarray(d["gain"], jnp.float32)) if prologue else None
+    tpro = TRms(torch.tensor(d["gain"]).float()) if prologue else None
+    want = jg.ca_matmul(jnp.asarray(d["x"], jnp.float32), jq, mode="xla",
+                        epilogue=JEpilogue(residual=jnp.asarray(
+                            d["res"], jnp.float32)), prologue=jpro)
+    got = tg.ca_matmul(torch.tensor(d["x"]).float(), tq,
+                       epilogue=TEpilogue(residual=torch.tensor(
+                           d["res"]).float()), prologue=tpro)
+    _close(got, want, rtol=2e-4, atol=2e-3 * float(jnp.abs(want).max()))
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8w", "w8a8"])
+def test_ca_glu_matmul_qtensor_rms_prologue(w8a8):
+    d = _inputs(7)
+    (jg_, tg_), (ju, tu) = _qweights(d, 0.03 if w8a8 else None)
+    want = jg.ca_glu_matmul(
+        jnp.asarray(d["x"], jnp.float32), jg_, ju, mode="xla",
+        prologue=JRms(jnp.asarray(d["gain"], jnp.float32)))
+    got = tg.ca_glu_matmul(torch.tensor(d["x"]).float(), tg_, tu,
+                           prologue=TRms(torch.tensor(d["gain"]).float()))
+    _close(got, want, rtol=2e-4, atol=2e-3 * float(jnp.abs(want).max()))
+
+
+def test_calibration_records_the_normalized_activation():
+    from repro_torch.quant import ActivationCalibration
+
+    d = _inputs(8)
+    (_, tq), (_, tu) = _qweights(d)
+    x = torch.tensor(d["x"]).float()
+    gain = torch.tensor(d["gain"]).float()
+    with ActivationCalibration() as ctx:
+        tg.ca_matmul(x, tq)
+        tg.ca_glu_matmul(x, tq, tu, prologue=TRms(gain))
+    assert list(ctx.calibrators) == [f"k{K}n{N}"]
+    cal = ctx.calibrators[f"k{K}n{N}"]
+    normed = tg._apply_rms(x, TRms(gain))
+    assert cal.n_observed == 2
+    want = torch.maximum(x.abs().amax(dim=(0, 1)),
+                         normed.abs().amax(dim=(0, 1)))
+    assert torch.equal(cal._amax, want)
+    with pytest.raises(ValueError, match="both GLU weights"):
+        tg.ca_glu_matmul(x, tq, torch.tensor(d["w2"]).float())
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"fmt": "fp8_e4m3"}, "not ported"),
+    ({"axis": -1}, "axis"),
+    ("stacked", "must be"),
+], ids=["fp8", "axis", "stacked"])
+def test_quantized_weight_contract_raises(change, match):
+    from repro_torch.quant import QTensor
+
+    d = _inputs(8)
+    (_, tq), _ = _qweights(d)
+    x = torch.tensor(d["x"]).float()
+    bad = (QTensor(data=tq.data[None], scale=tq.scale[None])
+           if change == "stacked" else dataclasses.replace(tq, **change))
+    with pytest.raises(ValueError, match=match):
+        tg.ca_matmul(x, bad)

@@ -212,3 +212,88 @@ def test_paged_prefill_and_decode_match_reference(arch):
         np.testing.assert_array_equal(_np(lay[key]), _np(jlay[key]))
     for key in ("k_scale", "v_scale"):
         np.testing.assert_allclose(_np(lay[key]), _np(jlay[key]), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# int8 weights (K1d) and w8a8 (K1e) on reduced stablelm-1.6b
+# ---------------------------------------------------------------------------
+
+def as_numpy_params(tree):
+    """The reference's params as numpy, each quantized leaf as the mapping
+    of its fields that ``params_from_jax`` takes."""
+    from repro.quant import QTensor as JQTensor
+
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, JQTensor):
+            d = {"data": np.asarray(v.data), "scale": np.asarray(v.scale),
+                 "axis": v.axis, "block": v.block, "fmt": v.fmt,
+                 "act_block": v.act_block}
+            if v.act_scale is not None:
+                d["act_scale"] = np.asarray(v.act_scale)
+            out[key] = d
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("block", [0, 128], ids=["channel", "tile128"])
+def test_quantize_params_matches_reference(setup, block):
+    from repro.models import common as jcm
+    from repro.quant import QuantConfig as JQC
+    from repro_torch.models import common as tcm
+    from repro_torch.quant import QTensor, QuantConfig
+
+    jcfg, cfg, jp, tp = setup
+    jq = jcm.quantize_params(jp, JQC(block=block))
+    tq = tcm.quantize_params(tp, QuantConfig(block=block))
+    jkeys = {k for k, v in jq.items() if not isinstance(v, jax.Array)}
+    tkeys = {k for k, v in tq.items() if isinstance(v, QTensor)}
+    assert tkeys == jkeys and "head/w" in tkeys
+    assert "embed/table" not in tkeys and "norm_f/scale" not in tkeys
+    for key in tkeys:
+        np.testing.assert_array_equal(tq[key].data.numpy(),
+                                      np.asarray(jq[key].data))
+        np.testing.assert_allclose(tq[key].scale.numpy(),
+                                   np.asarray(jq[key].scale), rtol=1e-6)
+        assert (tq[key].axis, tq[key].block) == (jq[key].axis, block)
+    # params_from_jax carries the reference's quantized leaves unchanged.
+    carried = TM.params_from_jax(as_numpy_params(jq), cfg, device="cpu")
+    for key in tkeys:
+        assert isinstance(carried[key], QTensor)
+        assert torch.equal(carried[key].data, tq[key].data)
+        np.testing.assert_allclose(carried[key].scale.numpy(),
+                                   tq[key].scale.numpy(), rtol=1e-6)
+    for key in set(tq) - tkeys:
+        assert torch.equal(carried[key], tq[key])
+
+
+@pytest.mark.parametrize("mode", ["int8w", "w8a8"])
+def test_quantized_prefill_and_decode_match_reference(setup, mode):
+    """The reference's quantized weights (and, for w8a8, its calibrated
+    static activation scales) in both packages: the reference dequantizes
+    up front (its xla oracle path), the port runs the dqb / dqab
+    programs' plain versions."""
+    from repro.models import common as jcm
+    from repro.serve.engine import ServeEngine as JServeEngine
+
+    jcfg, cfg, jp, _ = setup
+    jq = jcm.quantize_params(jp)
+    if mode == "w8a8":
+        jq = JServeEngine(jq, jcfg, batch_size=1, max_len=16,
+                          warmup_gemms=False,
+                          quantize_activations=True).params
+    tq = TM.params_from_jax(as_numpy_params(jq), cfg, device="cpu")
+    r = np.random.RandomState(5)
+    prompt = r.randint(0, cfg.vocab_size, (1, 9))
+    want, jc = JM.prefill(jq, {"tokens": jnp.asarray(prompt, jnp.int32)},
+                          jcfg, max_len=16)
+    got, tc = TM.prefill(tq, {"tokens": torch.as_tensor(prompt)}, cfg,
+                         max_len=16)
+    tol = dict(rtol=2e-4, atol=2e-3 * np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    nxt = r.randint(0, cfg.vocab_size, (1, 1))
+    want, _ = JM.decode_step(jq, {"tokens": jnp.asarray(nxt, jnp.int32)},
+                             jc, jnp.int32(9), jcfg)
+    got, _ = TM.decode_step(tq, {"tokens": torch.as_tensor(nxt)}, tc, 9, cfg)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)

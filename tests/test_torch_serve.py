@@ -67,13 +67,17 @@ def test_default_device_needs_cuda(params, monkeypatch):
         TM.init_params(get_reduced(ARCH))
 
 
-@pytest.mark.parametrize("kw", [{"paged_kv": True,
-                                 "quantize_activations": True},
-                                {"quantize_activations": True},
-                                {"tp_local": (1, 2)}, {"max_queue": 4}])
-def test_later_slice_options_raise(params, kw):
+# w8a8 is ported: quantize_activations over dense params raises, as the
+# reference's test_w8a8_requires_weight_quantized_params checks.
+@pytest.mark.parametrize("kw,match", [
+    ({"paged_kv": True, "quantize_activations": True},
+     "quantize_activations"),
+    ({"quantize_activations": True}, "quantize_activations"),
+    ({"tp_local": (1, 2)}, "not ported"), ({"max_queue": 4}, "not ported")],
+    ids=["kw0", "kw1", "kw2", "kw3"])
+def test_later_slice_options_raise(params, kw, match):
     _, tp = params
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         ServeEngine(tp, get_reduced(ARCH), max_len=16,
                     device="cpu", **kw)
 
@@ -161,3 +165,127 @@ def test_greedy_past_the_window_matches_full_forward(paged):
     with torch.inference_mode():
         logits, _ = TM.forward(tp, {"tokens": seq}, cfg)
     assert got == logits[0, 39:, :cfg.vocab_size].argmax(-1).tolist()
+
+
+# ---------------------------------------------------------------------------
+# int8 weights (K1d) and w8a8 (K1e)
+# ---------------------------------------------------------------------------
+
+def _quantized(arch):
+    """The reference's quantized params and the same tree in the port."""
+    from repro.models import common as jcm
+    from test_torch_models import as_numpy_params
+
+    jq = jcm.quantize_params(JM.init_params(jax_reduced(arch),
+                                            jax.random.PRNGKey(0)))
+    return jq, TM.params_from_jax(as_numpy_params(jq), get_reduced(arch),
+                                  device="cpu")
+
+
+@pytest.fixture(scope="module")
+def qparams():
+    return _quantized(ARCH)
+
+
+def test_w8a8_calibration_matches_reference_engine(qparams):
+    from repro_torch.quant import QTensor
+
+    jq, tq = qparams
+    jeng = JServeEngine(jq, jax_reduced(ARCH), batch_size=1, max_len=32,
+                        warmup_gemms=False, quantize_activations=True)
+    eng = ServeEngine(tq, get_reduced(ARCH), max_len=32, device="cpu",
+                      quantize_activations=True)
+    assert eng.quantized and eng.w8a8 and eng.calibration_s > 0
+    assert eng.calibration_sites == jeng.calibration_sites
+    assert len(eng.calibration_sites) == 4     # k64n64 is shared by wq..wo
+    for key, q in eng.params.items():
+        if not isinstance(q, QTensor):
+            continue
+        want = np.asarray(jeng.params[key].act_scale)
+        assert q.act_scale is not None and q.act_scale.shape == want.shape
+        np.testing.assert_allclose(q.act_scale.numpy(), want, rtol=1e-5)
+    assert all(q.act_scale is None for q in tq.values()
+               if isinstance(q, QTensor))          # input left as it was
+
+
+@pytest.mark.parametrize("act_block", [0, 128], ids=["per_tensor",
+                                                   "per_k_tile"])
+def test_w8a8_calibration_options_match_reference_engine(qparams, act_block):
+    """``calibration_batches`` and a percentile ``act_qconfig`` (per
+    tensor or per k-tile) give the reference engine's scales and tokens."""
+    from repro.quant import QuantConfig as JQuantConfig
+    from repro_torch.quant import QTensor, QuantConfig
+
+    jq, tq = qparams
+    cfg = get_reduced(ARCH)
+    kw = dict(act_fmt="int8", method="percentile", percentile=99.0,
+              act_block=act_block)
+    jeng = JServeEngine(jq, jax_reduced(ARCH), batch_size=1, max_len=32,
+                        warmup_gemms=False, quantize_activations=True,
+                        calibration_batches=2,
+                        act_qconfig=JQuantConfig(**kw))
+    eng = ServeEngine(tq, cfg, max_len=32, device="cpu",
+                      quantize_activations=True, calibration_batches=2,
+                      act_qconfig=QuantConfig(**kw))
+    assert eng.calibration_sites == jeng.calibration_sites
+    for key, q in eng.params.items():
+        if isinstance(q, QTensor):
+            assert q.act_block == act_block
+            np.testing.assert_allclose(
+                q.act_scale.numpy(), np.asarray(jeng.params[key].act_scale),
+                rtol=1e-5)
+    prompt = np.random.RandomState(8).randint(0, cfg.vocab_size, 11)
+    jeng.submit(JRequest(uid=0, prompt=prompt, max_new_tokens=5))
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=5))
+    assert eng.run()[0].generated == jeng.run()[0].generated
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8w", "w8a8"])
+def test_quantized_greedy_tokens_identical_to_reference_engine(qparams,
+                                                                w8a8):
+    jq, tq = qparams
+    cfg = get_reduced(ARCH)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (8, 13)]
+    jeng = JServeEngine(jq, jax_reduced(ARCH), batch_size=1, max_len=32,
+                        warmup_gemms=False, quantize_activations=w8a8)
+    eng = ServeEngine(tq, cfg, max_len=32, device="cpu",
+                      quantize_activations=w8a8)
+    assert eng.w8a8 == w8a8 and jeng.w8a8 == w8a8
+    for e, R in ((jeng, JRequest), (eng, Request)):
+        for uid, p in enumerate(prompts):
+            e.submit(R(uid=uid, prompt=p, max_new_tokens=5))
+    want, got = jeng.run(), eng.run()
+    for uid in range(len(prompts)):
+        assert got[uid].status == "done"
+        assert got[uid].generated == want[uid].generated, uid
+
+
+def _paged_quantized_tokens(qparams, w8a8):
+    jq, tq = qparams
+    cfg = get_reduced(ARCH)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (12, 5)]
+    jeng = JServeEngine(jq, jax_reduced(ARCH), batch_size=1, max_len=48,
+                        warmup_gemms=False, paged_kv=True, kv_page_size=8,
+                        quantize_activations=w8a8)
+    eng = ServeEngine(tq, cfg, max_len=48, device="cpu", paged_kv=True,
+                      kv_page_size=8, quantize_activations=w8a8)
+    assert eng.w8a8 == w8a8
+    for e, R in ((jeng, JRequest), (eng, Request)):
+        for uid, p in enumerate(prompts):
+            assert e.submit(R(uid=uid, prompt=p, max_new_tokens=5))
+    want, got = jeng.run(), eng.run()
+    for uid in range(len(prompts)):
+        assert got[uid].generated == want[uid].generated, uid
+    assert eng.kv_pool.n_free == eng.kv_pool.n_pages
+
+
+def test_int8w_paged_greedy_tokens_identical_to_reference_paged(qparams):
+    _paged_quantized_tokens(qparams, w8a8=False)
+
+
+def test_w8a8_paged_greedy_tokens_identical_to_reference_paged(qparams):
+    """Calibration prefills on a slab cache; serving then runs on the
+    paged pool."""
+    _paged_quantized_tokens(qparams, w8a8=True)

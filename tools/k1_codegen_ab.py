@@ -1,0 +1,272 @@
+"""Compare two versions of the CA-GEMM program kernel's float path on the
+card: the generated code and the time of the same launch.
+
+Builds each given ``ca_gemm_program.cu`` with the port's nvcc flags plus
+``-Xptxas -v``, and for the float bf16 instantiations of both tiles
+(8 x 16 x 128 for m <= 8, 64 x 64 x 32 above; one and two B branches,
+vector B loads) prints
+
+* ptxas's registers, stack frame, spills and shared memory;
+* the SASS instruction count, the opcode histogram and the opcodes whose
+  counts differ between the two builds;
+
+then times both builds' launches at the decode shapes (m = 1: wq, w_down
+with its residual, the rms GLU) and at m = 128 (wq, w_down) in one
+process, each call captured 20 at
+a time in a CUDA graph over weight copies that together exceed the 50 MB
+L2, the builds alternating A, B, B, A for ``--rounds`` rounds.
+
+The C entry point changed between the port's slices: ``--abi`` names each
+build's argument list, ``float`` (10 pointers, 11 ints) or ``quant``
+(14 pointers, 15 ints).  Run from the repository root on the card::
+
+    python3 tools/k1_codegen_ab.py A.cu:float B.cu:quant --out DIR
+
+The SASS of the compared functions is written under ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import difflib
+import json
+import math
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import torch
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# The two tiles' template arguments (BM, BN, BK, TM, TN), as demangled.
+TILES = {"8x16x128": "8, 16, 128, 1, 1", "64x64x32": "64, 64, 32, 4, 4"}
+SILU = 3
+
+
+def _tool(name):
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}",
+                 f"/usr/bin/{name}"):
+        if cand and pathlib.Path(cand).exists():
+            return cand
+    raise RuntimeError(f"{name} not found")
+
+
+def build(src: pathlib.Path, out_dir: pathlib.Path, tag: str):
+    lib = out_dir / f"{tag}.so"
+    proc = subprocess.run(
+        [_tool("nvcc"), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
+         str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    return lib, proc.stderr
+
+
+def demangle(names):
+    proc = subprocess.run([_tool("c++filt")], input="\n".join(names),
+                          capture_output=True, text=True, check=True)
+    return dict(zip(names, proc.stdout.splitlines()))
+
+
+def ptxas_info(log: str):
+    """{mangled name: {registers, stack, spill_stores, spill_loads,
+    smem}} from ptxas's -v lines."""
+    info, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = info.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return info
+
+
+def sass_functions(lib: pathlib.Path):
+    """{mangled name: [SASS instruction lines]} of the library."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        if cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            cur.append(line.strip())
+    return funcs
+
+
+def opcode(line: str) -> str:
+    body = re.sub(r"^/\*[0-9a-f]+\*/\s*", "", line)
+    body = re.sub(r"^@!?U?P\w+\s+", "", body)       # predicate guard
+    return body.split()[0].rstrip(";") if body.split() else ""
+
+
+def select(demangled, tile: str, nb: int, two_types: bool):
+    ty = "__nv_bfloat16, __nv_bfloat16" if two_types else "__nv_bfloat16"
+    want = f"ca_gemm_program_kernel<{ty}, {TILES[tile]}, {nb}, true>"
+    hits = [k for k, v in demangled.items() if want in v]
+    if len(hits) != 1:
+        raise RuntimeError(f"{want}: {len(hits)} matches")
+    return hits[0]
+
+
+class Entry:
+    """One build's C entry point, called with the float programs'
+    arguments in its own argument list."""
+
+    def __init__(self, lib: pathlib.Path, abi: str):
+        self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
+        self.abi = abi
+        n_ptr, n_int = (10, 11) if abi == "float" else (14, 15)
+        self.fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                            + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+        self.fn.restype = ctypes.c_int
+
+    def __call__(self, a, b0, b1, row_scale, gain, residual, out, glu_act):
+        m, k = a.shape
+        n = out.shape[1]
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        ptrs = [ptr(a), ptr(b0), ptr(b1), ptr(row_scale), ptr(gain), None,
+                None, None, ptr(residual), ptr(out)]
+        flags = [int(gain is not None and gain.dtype == torch.float32), 0,
+                 0, 0, 0, 0, glu_act]      # gain, bias, mul, res, out, act
+        if self.abi == "float":
+            args = ptrs + [m, n, k, 1] + flags
+        else:
+            args = ptrs + [None] * 4 + [m, n, k, 1, 1] + flags + [0, 0, 0]
+        err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch returned {err}")
+
+
+def time_ms(fn, n_sets, iters=20, reps=5):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i % n_sets)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for i in range(iters):
+            fn(i % n_sets)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def shapes(gen):
+    """(name, m, k, n, operands(i) -> kwargs, copies) of the timed GEMMs."""
+    dev, bf = "cuda", torch.bfloat16
+    out = []
+    for name, m, k, n, nb in (("wq", 1, 2048, 2048, 1),
+                              ("w_down", 1, 5632, 2048, 1),
+                              ("gate+up", 1, 2048, 5632, 2),
+                              ("wq", 128, 2048, 2048, 1),
+                              ("w_down", 128, 5632, 2048, 1)):
+        copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
+        a = torch.randn(m, k, generator=gen, device=dev).to(bf)
+        ws = [[(torch.randn(k, n, generator=gen, device=dev)
+                / math.sqrt(k)).to(bf) for _ in range(nb)]
+              for _ in range(copies)]
+        o = torch.empty(m, n, device=dev, dtype=bf)
+        res = (torch.randn(m, n, generator=gen, device=dev).to(bf)
+               if name == "w_down" else None)
+        rs = (torch.rand(m, generator=gen, device=dev) + 0.5
+              if nb == 2 else None)
+        gain = (torch.rand(k, generator=gen, device=dev) + 0.5
+                if nb == 2 else None)
+
+        def ops(i, a=a, ws=ws, o=o, res=res, rs=rs, gain=gain, nb=nb):
+            return dict(a=a, b0=ws[i][0], b1=ws[i][1] if nb == 2 else None,
+                        row_scale=rs, gain=gain, residual=res, out=o,
+                        glu_act=SILU if nb == 2 else 0)
+        out.append((name, m, k, n, ops, copies))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("builds", nargs=2, metavar="SRC.cu:ABI")
+    ap.add_argument("--out", default="chiprun_out/k1_codegen")
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    builds = []
+    for tag, spec in zip("AB", args.builds):
+        src, abi = spec.rsplit(":", 1)
+        lib, log = build(pathlib.Path(src), out_dir, tag)
+        funcs = sass_functions(lib)
+        dem = demangle(list(funcs))
+        builds.append(dict(tag=tag, src=src, abi=abi, lib=lib,
+                           ptxas=ptxas_info(log), funcs=funcs, dem=dem))
+        print(f"build {tag}: {src} ({abi} entry point), "
+              f"{len(funcs)} kernels")
+    for tile in TILES:
+        for nb in (1, 2):
+            hist, seqs = [], []
+            for b in builds:
+                name = select(b["dem"], tile, nb, b["abi"] != "float")
+                lines = b["funcs"][name]
+                (out_dir / f"{b['tag']}_{tile}_nb{nb}.sass").write_text(
+                    b["dem"][name] + "\n" + "\n".join(lines) + "\n")
+                seqs.append([opcode(x) for x in lines])
+                hist.append(collections.Counter(seqs[-1]))
+                print(f"{tile} nb={nb} build {b['tag']}: {b['dem'][name]}")
+                print(f"  ptxas {json.dumps(b['ptxas'].get(name, {}))}; "
+                      f"{len(lines)} SASS instructions")
+            diff = {op: (hist[0][op], hist[1][op])
+                    for op in sorted(set(hist[0]) | set(hist[1]))
+                    if hist[0][op] != hist[1][op]}
+            same = sum(blk.size for blk in difflib.SequenceMatcher(
+                None, seqs[0], seqs[1], autojunk=False).get_matching_blocks())
+            print(f"{tile} nb={nb} opcode counts A vs B where they differ: "
+                  + json.dumps(diff) + f"; opcodes in order shared: {same}")
+    entries = [Entry(b["lib"], b["abi"]) for b in builds]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, m, k, n, ops, copies in shapes(gen):
+        outs = []
+        for e in entries:
+            e(**ops(0))
+            outs.append(ops(0)["out"].clone())
+        same = torch.equal(outs[0], outs[1])
+        times = {"A": [], "B": []}
+        for _ in range(args.rounds):
+            for tag in "ABBA":
+                e = entries["AB".index(tag)]
+                times[tag].append(time_ms(lambda i: e(**ops(i)), copies))
+        print(f"time {name} m={m} k={k} n={n}: outputs bit-equal {same}; "
+              + json.dumps(times))
+        if not same:
+            raise AssertionError(f"{name}: the two builds disagree")
+
+
+if __name__ == "__main__":
+    main()
