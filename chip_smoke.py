@@ -47,10 +47,24 @@ Phases (any failure raises and the script exits non-zero):
    prefill logits against the bf16 model.  A 4-layer model's int8w and
    w8a8 (scales calibrated once on the card, percentile, per k-tile) are
    held against the CPU.
-8. times: kernel, plain version, library call (torch._weight_int8pack_mm
-   for a per-channel dqb) and bound per GEMM program (float and int8) and
-   for the paged kernel (each timed by replaying a
-   CUDA graph of 20 calls), and the end-to-end times of the serve phases.
+8. K1f parity: each backward program of training (nt, tn, dact@a on nt,
+   dact@b on tn) and each save_preact program (the forward GLU, bias+gelu)
+   on the kernel against its plain version at stablelm-1.6b's training
+   shapes with 1024 tokens, in bf16, and on a ragged fp32 shape.
+9. train: full-width stablelm-1.6b, all 24 layers, fp32 masters from seed
+   0, remat as configured, trains 3 steps of 4 x 256 SyntheticLM tokens
+   through repro_torch.train.step (AdamW, lr 1e-3): finite loss and
+   gradient norm at every step, and exactly the K1 launches the model's
+   structure gives per step (627, by program and layout); step times,
+   tokens/s, peak memory, the share of the model's work, and
+   torch.profiler's split of one more step.  Then a 4-layer full-width
+   model, the same fp32 masters on the card and on the CPU, one batch of
+   2 x 64 tokens: the loss and every leaf's gradient, card vs CPU.
+10. times: kernel, plain version, library call (torch._weight_int8pack_mm
+   for a per-channel dqb; torch.matmul for the plain nt/tn programs) and
+   bound per GEMM program (float, int8 and the K1f programs at 1024
+   tokens) and for the paged kernel (each timed by replaying a CUDA graph
+   of 20 calls), and the end-to-end times of the serve and train phases.
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -74,6 +88,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import kvcache as kvc  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
@@ -82,8 +97,10 @@ from repro_torch.kernels.program import (program_from_tag,  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import common as CM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.quant import QTensor, QuantConfig  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.train import step as T  # noqa: E402
 from repro_torch.tuning import resolve_page_size  # noqa: E402
 
 ARCH = "stablelm-1.6b"
@@ -125,6 +142,40 @@ RECORD_GEMM = {"none": "wq/wk/wv", "res": "w_down", GLU: "gate+up"}
 QUANT = {"none": ("dqb", "dqab"), "res": ("dqb+res", "dqab+res"),
          GLU: ("rms>glu.silu(dqb|dqb)", "glu.silu(dqab|dqab)")}
 QUANT_TAGS = [t for pair in QUANT.values() for t in pair]
+# K1f, the training programs of one stablelm-1.6b step at TOKENS tokens, in
+# the kernel's terms: (launch key, GEMM, m, n, k, out dtype).  nt gives a
+# layer input's gradient (tokens x k_fwd, over n_fwd, fp32); tn a weight's
+# gradient (k_fwd x n_fwd, over the tokens, in the weight's bf16); the
+# GLU's gate side folds g·silu'(h0) into the fetch (dact); the forward
+# programs of training drain their fp32 pre-activations (save_preact).
+TOKENS = 1024
+# The train phase: steps of GLOBAL_BATCH x SEQ_LEN = TOKENS tokens.
+TRAIN_STEPS, SEQ_LEN, GLOBAL_BATCH = 3, 256, 4
+GLU_SAVE = K.launch_key(GLU, "nn", True)
+K1F_GEMMS = [("none nt", "wq/wk/wv dx", TOKENS, 2048, 2048, torch.float32),
+             ("none tn", "wq/wk/wv dW", 2048, 2048, TOKENS, None),
+             ("none nt", "w_down dx", TOKENS, 5632, 2048, torch.float32),
+             ("none tn", "w_down dW", 5632, 2048, TOKENS, None),
+             ("none nt", "head dx", TOKENS, 2048, 100352, torch.float32),
+             ("none tn", "head dW", 2048, 100352, TOKENS, None),
+             ("dact.silu>none nt", "gate dx", TOKENS, 2048, 5632,
+              torch.float32),
+             ("none nt", "up dx", TOKENS, 2048, 5632, torch.float32),
+             ("dact.silu@b>none tn", "gate dW", 2048, 5632, TOKENS, None),
+             ("none tn", "up dW", 2048, 5632, TOKENS, None),
+             (GLU_SAVE, "gate+up fwd", TOKENS, 5632, 2048, None),
+             ("bias+gelu save_preact", "bias+gelu fwd", TOKENS, 5632, 2048,
+              None)]
+# The shape each K1f program's JSON record is timed at.
+RECORD_K1F = {"none nt": "w_down dx", "none tn": "w_down dW",
+              "dact.silu>none nt": "gate dx",
+              "dact.silu@b>none tn": "gate dW", GLU_SAVE: "gate+up fwd"}
+# 4-layer bf16 training, card vs CPU: every GEMM output rounds to bf16 and
+# the sums run in another order, so a flipped ulp (2^-8) propagates through
+# four layers, the head and the backward: each gradient leaf within a
+# relative L2 error of 5e-2, the loss within 1e-2 relative.
+TOL_GRAD, TOL_LOSS = 5e-2, 1e-2
+
 # Paged attention shapes (lens, page, H, Hkv, D, window): stablelm-1.6b's
 # heads at its serve path's length and page (a), danube's GQA heads over
 # ragged lengths crossing pages with a window (b), danube's serve shape
@@ -1252,12 +1303,291 @@ def quant_times(float_rows):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Training (K1f)
+# ---------------------------------------------------------------------------
+
+def _parse_key(key):
+    """(tag, transpose_a, transpose_b, save_preact) of a launch key."""
+    tag, *rest = key.split(" ")
+    layout = next((r for r in rest if r in ("nt", "tn", "tt")), "nn")
+    return tag, layout[0] == "t", layout[1] == "t", "save_preact" in rest
+
+
+def k1f_inputs(key, m, n, k, dtype, gen, copies=1):
+    """Operands of one K1f program call on the card, A and B in their
+    stored layouts (A (k, m) for tn, B (n, k) for nt), the dact prologue's
+    fp32 pre-activation shaped like its operand; ``copies`` B sets."""
+    tag, ta, tb, save = _parse_key(key)
+    spec = program_from_tag(tag)
+    dev = "cuda"
+    a = torch.randn(*((k, m) if ta else (m, k)), generator=gen,
+                    device=dev).to(dtype)
+    sets = [[(torch.randn(*((n, k) if tb else (k, n)), generator=gen,
+                          device=dev) / math.sqrt(k)).to(dtype)
+             for _ in range(spec.n_b)] for _ in range(copies)]
+    kw = {"spec": spec, "transpose_a": ta, "transpose_b": tb,
+          "save_preact": save}
+    pro = spec.prologue
+    if pro.kind == "dact":
+        shape = (m, k) if pro.operand == "a" else (k, n)
+        kw["preact"] = torch.randn(*shape, generator=gen, device=dev)
+    if pro.kind == "rms":
+        kw["gain"] = torch.rand(k, generator=gen, device=dev) + 0.5
+        kw["row_scale"] = rms_row_scale(a, 1e-5)
+    ops = [{} for _ in spec.branches]
+    if spec.branches[0].has_bias:
+        ops[0]["bias"] = torch.randn(n, generator=gen, device=dev).to(dtype)
+    kw["branch_operands"] = ops
+    return a, sets, kw
+
+
+def k1f_parity():
+    phase("K1f parity: training programs vs plain version")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = {}
+    cases = [(key, name, m, n, k, od, torch.bfloat16)
+             for key, name, m, n, k, od in K1F_GEMMS]
+    cases += [(key, "ragged f32", 37, 64, 50, None, torch.float32)
+              for key in dict.fromkeys(g[0] for g in K1F_GEMMS)]
+    for key, name, m, n, k, od, dtype in cases:
+        a, (bs,), kw = k1f_inputs(key, m, n, k, dtype, gen)
+        got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
+        want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
+        torch.cuda.synchronize()
+        if not kw["save_preact"]:
+            got, want = (got,), (want,)
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != (m, n) or g.dtype != w.dtype \
+                    or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{key} {name}: bad output {i}")
+            err = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            # fp32 outputs (nt's dx, the preacts) differ from the plain
+            # version only in summation order; a bf16 output may flip an ulp.
+            tol = TOL_F32 * (1 + scale) if g.dtype == torch.float32 \
+                else TOL_BF16 * scale
+            if not err <= tol:
+                raise AssertionError(f"{key} {name} output {i}: kernel "
+                                     f"disagrees ({err} > {tol})")
+            errs.append(f"{err:.3e}/{tol:.3e}")
+            worst[key] = max(worst.get(key, 0.0), err)
+        print(f"parity {key:38s} {name:14s} m={m:<5d} n={n:<6d} k={k:<6d} "
+              f"{str(dtype)[6:]:8s} max_abs_err/tol " + " ".join(errs))
+    return worst
+
+
+def train_counts_per_step(cfg):
+    """K1 launches of one train step, by launch key: per layer 3 ``none``,
+    2 ``res`` and the GLU with save_preact forward (twice with remat), and
+    backward nt + tn per one-branch program and 4 for the GLU; the head's
+    ``none`` forward and its nt + tn."""
+    L, fwd = cfg.n_layers, 2 if cfg.remat else 1
+    return {"none": 3 * L * fwd + 1, "res": 2 * L * fwd, GLU_SAVE: L * fwd,
+            "none nt": 6 * L + 1, "none tn": 6 * L + 1,
+            "dact.silu>none nt": L, "dact.silu@b>none tn": L}
+
+
+def train_slice(cfg):
+    steps = TRAIN_STEPS
+    phase(f"train: full-width {cfg.name}, {cfg.n_layers} layers, {steps} "
+          f"steps of {GLOBAL_BATCH} x {SEQ_LEN} tokens, remat={cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = T.init_state(cfg, seed=0)            # device=None: the card
+    torch.cuda.synchronize()
+    print(f"init {sum(p.numel() for p in state.params.values())} fp32 "
+          f"master params in {time.perf_counter() - t0:.3f} s")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
+                          global_batch=GLOBAL_BATCH, seed=0)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=max(steps // 20, 1),
+                                total_steps=steps)
+    step_fn = T.build_train_step(cfg, opt_cfg, microbatches=1)
+    want = train_counts_per_step(cfg)
+    print(f"expected K1 launches per step: {sum(want.values())} {want}")
+    tokens = SEQ_LEN * GLOBAL_BATCH
+    rows = []
+    K.reset_launch_counts()
+    for i in range(steps):
+        batch = T.cast_batch(batch_for_model(cfg, data_cfg, i), cfg)
+        before = dict(K.launch_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        row = {"step": i + 1, "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"])}
+        torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t) * 1e3
+        row["tokens_per_s"] = tokens / row["ms"] * 1e3
+        delta = {key: n - before.get(key, 0)
+                 for key, n in K.launch_counts.items()
+                 if n != before.get(key, 0)}
+        print("train " + json.dumps(row) + f" launches {delta}")
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"step {i + 1}: non-finite loss or norm")
+        if delta != want:
+            raise AssertionError(f"step {i + 1}: K1 launches {delta}, "
+                                 f"expected {want}")
+        rows.append(row)
+    counts = dict(K.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    n_mult = cfg.n_params() - cfg.padded_vocab * cfg.d_model
+    n_layers_mult = n_mult - cfg.d_model * cfg.padded_vocab
+    bound_ms = 6 * n_mult * tokens / PEAK_OPS[torch.bfloat16] * 1e3
+    remat_ms = (2 * n_layers_mult * tokens / PEAK_OPS[torch.bfloat16] * 1e3
+                if cfg.remat else 0.0)
+    summary = {"steps": rows, "step_ms_steps_2_3": [r["ms"] for r in rows[1:]],
+               "tokens_per_s_steps_2_3": [r["tokens_per_s"] for r in rows[1:]],
+               "peak_memory_gb": peak / 1e9,
+               "model_work_share": bound_ms / step_ms,
+               "model_bound_ms": bound_ms, "remat_work_ms": remat_ms,
+               "launches_per_step": sum(want.values())}
+    summary["profile"] = profile_train_step(step_fn, state, cfg, data_cfg,
+                                            steps, step_ms)
+    print("train summary " + json.dumps(summary))
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def profile_train_step(step_fn, state, cfg, data_cfg, step, step_ms):
+    """torch.profiler over one more step: device time by kernel, its busy
+    share of the unprofiled step time, and K1's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = T.cast_batch(batch_for_model(cfg, data_cfg, step), cfg)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    _, metrics = step_fn(state, batch)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    prof.stop()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + _device_us(ev)
+    device_ms = sum(by_kernel.values()) / 1e3
+    k1_ms = sum(v for k, v in by_kernel.items()
+                if "ca_gemm_program_kernel" in k) / 1e3
+    out = {"device_ms": device_ms, "k1_ms": k1_ms,
+           "device_busy_share": device_ms / step_ms,
+           "k1_share_of_step": k1_ms / step_ms,
+           "k1_share_of_device": k1_ms / device_ms if device_ms else None}
+    print("profile train step " + json.dumps(out))
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"profile train top {us / 1e3:10.3f} ms {name[:90]}")
+    return out
+
+
+def cross_check_train(cfg):
+    """The same fp32 masters (4 layers, full width) and one batch of
+    2 x 64 tokens on the card and on the CPU (plain versions): the loss and
+    each leaf's gradient of the step's bf16 compute copy."""
+    phase("4-layer full width training: card vs CPU plain path")
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    masters = M.init_params(cfg4, seed=1, masters=True)
+    batch = batch_for_model(cfg4, DataConfig(
+        vocab_size=cfg4.vocab_size, seq_len=64, global_batch=2, seed=1), 0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = T.cast_params({k: v.to(dev) for k, v in masters.items()},
+                               cfg4)
+        t0 = time.perf_counter()
+        loss, _ = T.loss_fn(params, T.cast_batch(batch, cfg4, dev), cfg4)
+        keys = sorted(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        out[dev] = (loss.item(), {k: g.float().cpu()
+                                  for k, g in zip(keys, grads)})
+        print(f"{dev}: loss {out[dev][0]:.6f} and {len(keys)} gradients in "
+              f"{time.perf_counter() - t0:.3f} s")
+        del params, grads
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    rel_loss = abs(lg - lc) / abs(lc)
+    print(f"loss card {lg:.6f} cpu {lc:.6f} relative {rel_loss:.3e} "
+          f"(tol {TOL_LOSS})")
+    if not (math.isfinite(lg) and rel_loss <= TOL_LOSS):
+        raise AssertionError("card and CPU training losses disagree")
+    worst = 0.0
+    for k in sorted(gc):
+        a, b = gg[k].double(), gc[k].double()
+        rel = ((a - b).norm() / b.norm()).item()
+        cos = (a.flatten() @ b.flatten() / (a.norm() * b.norm())).item()
+        print(f"grad {k:24s} rel_l2={rel:.3e} cosine={cos:.6f}")
+        if not (bool(torch.isfinite(a).all()) and rel <= TOL_GRAD):
+            raise AssertionError(f"{k}: card and CPU gradients disagree "
+                                 f"({rel} > {TOL_GRAD})")
+        worst = max(worst, rel)
+    print(f"gradients: worst relative L2 error {worst:.3e} (tol {TOL_GRAD})")
+    return {"loss_rel_err": rel_loss, "grad_rel_l2_worst": worst}
+
+
+def k1f_bound(key, m, n, k, od, dtype):
+    """Least time: A, B, the output, the preact operand and outputs (fp32)
+    and the bias or rms operands over the memory rate; or 2 m n k per
+    branch over the bf16 tensor-core rate, whichever is larger."""
+    tag, _, _, save = _parse_key(key)
+    spec = program_from_tag(tag)
+    es = torch.finfo(dtype).bits // 8
+    oes = torch.finfo(od or dtype).bits // 8
+    nbytes = m * k * es + spec.n_b * k * n * es + m * n * oes
+    if spec.prologue.kind == "dact":
+        nbytes += 4 * (m * k if spec.prologue.operand == "a" else k * n)
+    if spec.prologue.kind == "rms":
+        nbytes += 4 * m + 4 * k
+    if save:
+        nbytes += spec.n_b * m * n * 4
+    if spec.branches[0].has_bias:
+        nbytes += n * es
+    ops = 2 * m * n * k * spec.n_b
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k1f_times():
+    phase("K1f times at 1024 tokens (CUDA graph replay; B operands rotated "
+          "past the 50 MB L2)")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for key, name, m, n, k, od in K1F_GEMMS:
+        tag, ta, tb, save = _parse_key(key)
+        nb = program_from_tag(tag).n_b
+        copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
+        a, sets, kw = k1f_inputs(key, m, n, k, torch.bfloat16, gen, copies)
+        ms = _time_ms(lambda i: K.ca_gemm_program(a, sets[i], out_dtype=od,
+                                                  **kw), copies)
+        plain = _time_ms(lambda i: K.ca_gemm_program_reference(
+            a, sets[i], out_dtype=od, **kw), copies)
+        # One PyTorch call for the plain nt/tn programs (bf16 out where the
+        # nt program writes fp32); none computes dact or save_preact.
+        lib = None
+        if tag == "none" and tb:
+            lib = _time_ms(lambda i: torch.matmul(a, sets[i][0].T), copies)
+        elif tag == "none" and ta:
+            lib = _time_ms(lambda i: torch.matmul(a.T, sets[i][0]), copies)
+        b_ms, b_by = k1f_bound(key, m, n, k, od, torch.bfloat16)
+        row = {"program": key, "gemm": name, "m": m, "n": n, "k": k,
+               "out": str(od or torch.bfloat16)[6:], "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by, "tflops": 2 * m * n * k * nb / ms / 1e9}
+        rows.append(row)
+        print("time " + json.dumps(row))
+        del a, sets, kw
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     card_line = card()
     build()
     worst = parity()
     worst.update(quant_parity())
+    worst.update(k1f_parity())
     worst_attn = attn_parity()
     cfg = get_config(ARCH)
     counts, e2e = serve_slice(cfg)
@@ -1275,9 +1605,12 @@ def main():
     _, danube_call_err, danube_e2e, danube_split, _ = serve_both(
         dcfg, [rng.randint(0, dcfg.vocab_size, 300)], max_len=320)
     worst_attn = max(worst_attn, call_err, danube_call_err)
+    train_launches, train = train_slice(cfg)
+    train_check = cross_check_train(cfg)
     rows = times()
     qrows = quant_times(rows)
     attn_rows = attn_times()
+    frows = k1f_times()
     phase("summary")
     print(f"card: {card_line}")
     for r in e2e["requests"]:
@@ -1337,6 +1670,18 @@ def main():
                 "library_ms": row["library_ms"],
                 "shape": f"{gemm} m=1 k={row['k']} n={row['n']} int8 B, "
                          + ("int8 A" if "dqab" in qtag else "bf16 A")})
+    for key, gemm in RECORD_K1F.items():
+        row = next(r for r in frows if r["program"] == key
+                   and r["gemm"] == gemm)
+        kernels.append({
+            "name": f"ca_gemm_program[{key}]", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": train_launches[key], "max_abs_err": worst[key],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": f"{gemm} m={row['m']} n={row['n']} k={row['k']} bf16, "
+                     f"{row['out']} out"})
     arow = attn_rows[0]
     kernels.append({
         "name": FA.NAME, "route": "cuda", "source": ATTN_SOURCE,
@@ -1346,6 +1691,14 @@ def main():
         "bound_by": arow["bound_by"], "library_ms": None,
         "shape": f"B={arow['B']} S={arow['S']} page={arow['page']} "
                  f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
+    print(f"e2e train step ms (steps 2-3) {train['step_ms_steps_2_3']}, "
+          f"tokens/s {train['tokens_per_s_steps_2_3']}, peak memory "
+          f"{train['peak_memory_gb']:.3f} GB, model-work share "
+          f"{train['model_work_share']:.4f} (bound {train['model_bound_ms']:.3f}"
+          f" ms per step, remat adds {train['remat_work_ms']:.3f} ms), "
+          f"{train['launches_per_step']} K1 launches per step")
+    print("e2e train step profile " + json.dumps(train["profile"]))
+    print("e2e train 4-layer card vs CPU " + json.dumps(train_check))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,15 @@ Leading batch dims collapse into the GEMM's m dim, the (..., n) epilogue
 operands with them, and the program runs on the CA-GEMM kernel — on the
 card for CUDA tensors, its plain version for CPU tensors.  An epilogue or
 prologue the kernel does not take raises; nothing is re-dispatched to
-another path.
+another path.  Dense weights go through the trainable entry points
+(``kernels.ops.fused_matmul``/``glu_matmul``), so gradients flow through
+the K1f backward programs whenever an operand requires grad.
 
 A :class:`~repro_torch.quant.QTensor` weight routes to the quantized
 programs: int8 weights (``dqb``), or with a calibrated ``act_scale`` the
-w8a8 programs (``dqab``), which quantize the activation on entry.  While
+w8a8 programs (``dqab``), which quantize the activation on entry; these
+have no backward, as in the reference, so an activation that requires
+grad raises there.  While
 an :class:`~repro_torch.quant.ActivationCalibration` is active, each such
 call records its input activation first.  The reference's dispatch modes
 (its XLA oracle path), tuning registry, ledger and fault hooks are later
@@ -66,6 +70,14 @@ def _apply_rms(x: torch.Tensor, prologue: RmsPrologue) -> torch.Tensor:
                                prologue.gain)
 
 
+def _check_serve_only(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("the quantized programs have no backward (serving "
+                         "only, as in the reference): run them under "
+                         "torch.no_grad() or on an activation that does "
+                         "not require grad")
+
+
 def _record_activation(quant: QTensor, x: torch.Tensor,
                        prologue: Optional[RmsPrologue]) -> None:
     """Hand this GEMM's input activation to an active calibration context
@@ -94,6 +106,7 @@ def ca_matmul(
     quantized = isinstance(w, QTensor)
     if quantized:
         kops.check_qweight(w)
+        _check_serve_only(x)
     k_w, n = w.shape
     lead, m = _lead(x, k_w)
     out_dtype = out_dtype or x.dtype
@@ -132,6 +145,7 @@ def ca_glu_matmul(
     if quantized:
         kops.check_qweight(w_gate)
         kops.check_qweight(w_up)
+        _check_serve_only(x)
     k_w, n = w_gate.shape
     if tuple(w_up.shape) != (k_w, n):
         raise ValueError(f"w_up {tuple(w_up.shape)} vs w_gate "

@@ -1,7 +1,7 @@
 // CA-GEMM program kernel for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces the TPU kernel repro/kernels/ca_mmm.py:ca_gemm_program (body
-// _program_kernel), for its 'nn'-layout plus_times programs:
+// _program_kernel), for its plus_times programs, in the 'nn' layout:
 //   none                      wq / wk / wv and the logits head
 //   res (and bias/act/mul)    wo and w_down, residual added in the drain
 //   rms>glu.<act>(b0|b1)      SwiGLU gate+up as one dual-branch pass, the
@@ -9,6 +9,16 @@
 //   dqb...                    the same with int8 weights (K1d): int8 B tiles
 //                             streamed and widened to fp32 in registers
 //   dqab...                   w8a8 (K1e): int8 A and B, int32 products
+// and the backward programs of training (K1f, the float programs only):
+//   nt, tn layouts            dA = dC B^T with B stored (n, k), dB = A^T dC
+//                             with A stored (k, m), each read in its stored
+//                             layout (no transposed copy)
+//   dact.<act>[@b]>...        g * act'(h) folded into the fetch of the
+//                             decorated operand (A, or B with @b), h the
+//                             saved fp32 pre-activation streamed beside it
+//   save_preact               each branch's fp32 value after bias, before
+//                             the activation, drained as extra outputs (the
+//                             forward GLU of training writes two)
 //
 // Schedule (the paper's, as on the TPU): one CTA owns a (BM, BN) C tile and
 // keeps one accumulator per B branch in registers for the whole k loop;
@@ -38,6 +48,26 @@
 // row_scale[row] * gain[col] and rounds it back to A's type before the
 // product, as ca_mmm.py:204-207 does.
 //
+// Training programs (K1f) run in their own instantiations of the 64 x 64
+// tile, one per float type and branch count (TRAIN below): the layout, the
+// dact operand and save_preact are uniform run-time flags there, so every
+// combination the reference takes (nn, nt, tn, tt; dact on A or B;
+// save_preact on one or two branches) shares 4 instantiations and the
+// serving instantiations keep their code.  A transposed operand is loaded
+// with neighbouring threads on neighbouring addresses of its stored layout
+// (along m for A stored (k, m), along k for B stored (n, k)), and written
+// into shared memory in the orientation the product reads; B's shared rows
+// are padded by one element so that the column-wise writes of a transposed
+// B do not all fall in one bank.  The dact prologue loads the fp32
+// pre-activation with the same offsets as the decorated element (0 out of
+// range, so the product stays 0 at the k edge), multiplies in fp32 and
+// rounds back to the operand's type before the slab enters shared memory,
+// as the rms prologue does.  At training shapes (m = 1024 tokens) these
+// programs are bound by operations, 2 m n k over 989 TFLOP/s in bf16 (the
+// tn program of w_down, 1024 x 5632 x 2048: 24 us); this SIMT kernel
+// (fp32 FMAs, no tensor cores) runs far from that: wgmma and TMA are later
+// work.
+//
 // What bounds it on the H100: at decode (m = 1) every program is bound by
 // the weight bytes it must stream.  The GLU streams 2 x 2048 x 5632 x 2 B =
 // 46 MB in bf16 (13.8 us at 3.35 TB/s), half that in int8 (6.9 us).  This
@@ -59,6 +89,8 @@ namespace {
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3 };
 // Element types of A and B (the wrapper's _TYPE_CODES).
 enum Type { TYPE_F32 = 0, TYPE_BF16 = 1, TYPE_I8 = 2 };
+// Operand the dact prologue decorates.
+enum Dact { DACT_NONE = 0, DACT_A = 1, DACT_B = 2 };
 
 struct Params {
   const void* a;          // (m, k) row-major, TA
@@ -75,12 +107,19 @@ struct Params {
   // the branch has none.
   const float* scale_b[2];
   const float* scale_a[2];
+  // Training programs: the dact prologue's fp32 pre-activation, shaped like
+  // the decorated operand ((m, k) for A, (k, n) for B), or null; the fp32
+  // (m, n) pre-activation outputs of save_preact, per branch, or null.
+  const float* preact;
+  float* pre_out[2];
   int m, n, k;
   int gain_f32, bias_f32, mul_f32, res_f32, out_f32;
   int act;                // single-branch activation
   int glu_act;            // activation of the glu combine (two branches)
   int scale_block;        // k rows per per-tile scale (0: none per tile)
   int sb_tile, sa_tile;   // scale_b / scale_a per tile
+  int trans_a, trans_b;   // A stored (k, m) / B stored (n, k)
+  int dact, dact_act;     // Dact operand and its activation
 };
 
 template <typename T>
@@ -138,6 +177,33 @@ __device__ __forceinline__ float act_fn(float x, int act) {
   }
 }
 
+// d act(x) / dx in closed form (relu's is 0 at 0, as the reference's is),
+// one rounding per operation in the order of the plain version's torch ops
+// (kernels/epilogue.py:act_grad): the product with the gradient is rounded
+// to the operand's type next, and a last-bit difference here would flip
+// that rounding.
+__device__ __forceinline__ float act_grad(float x, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return x > 0.f ? 1.f : 0.f;
+    case ACT_GELU: {
+      const float c = 0.7978845608028654f;
+      const float x2 = __fmul_rn(x, x);
+      const float t = tanhf(__fmul_rn(c, __fadd_rn(x, __fmul_rn(__fmul_rn(0.044715f, x2), x))));
+      const float lhs = __fmul_rn(0.5f, __fadd_rn(1.f, t));
+      const float d = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(0.5f, x), __fsub_rn(1.f, __fmul_rn(t, t))), c),
+                                __fadd_rn(1.f, __fmul_rn(static_cast<float>(3.0 * 0.044715), x2)));
+      return __fadd_rn(lhs, d);
+    }
+    case ACT_SILU: {
+      const float sg = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
+      return __fmul_rn(sg, __fadd_rn(1.f, __fmul_rn(x, __fsub_rn(1.f, sg))));
+    }
+    default:
+      return 1.f;
+  }
+}
+
 // Bytes of one vector B load: 16 where each thread's share of a B slab
 // allows it, else 8 (int8 B in the 64 x 64 x 32 tile: 8 elements a thread).
 __host__ __device__ constexpr int vec_bytes(int bytes_per_thread) {
@@ -166,8 +232,10 @@ __device__ __forceinline__ float drain_scale(const Params& p, int b, float z, in
 // Threads: (BM / TM) x (BN / TN).  Thread (tr, tc) owns rows tr + i*(BM/TM)
 // and columns tc + j*(BN/TN) of the C tile, so neighbouring threads read
 // neighbouring shared-memory words and store neighbouring C elements.
+// TRAIN instantiations (float, scalar B loads) also take the training
+// programs' run-time flags: layouts, dact and save_preact.
 template <typename TA, typename TB, int BM, int BN, int BK, int TM, int TN, int NB,
-          bool VEC_B>
+          bool VEC_B, bool TRAIN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     ca_gemm_program_kernel(const Params p) {
   constexpr bool QUANT = std::is_same<TB, int8_t>::value;   // dqb or dqab
@@ -188,9 +256,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   static_assert(!VEC_B || (B_PER % VW == 0 && BN % VW == 0),
                 "vector B loads must split evenly over the threads");
   static_assert(!INT_A || QUANT, "int8 A pairs with int8 B only");
+  static_assert(!TRAIN || (!QUANT && !VEC_B), "training programs are float, scalar B");
+  // A transposed B is written column-wise: pad its rows off one bank.
+  constexpr int BPAD = TRAIN ? 1 : 0;
 
   __shared__ TA As[BM][BK + 1];
-  __shared__ __align__(16) TB Bs[NB][BK][BN];
+  __shared__ __align__(16) TB Bs[NB][BK][BN + BPAD];
 
   const TA* __restrict__ A = static_cast<const TA*>(p.a);
   const int m = p.m, n = p.n, k = p.k;
@@ -217,19 +288,64 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   TA ra[A_PER];
   VecB rbv[NB][BV_PER];
   TB rbs[NB][BS_PER];
+  // The dact prologue's pre-activations of this thread's A or B elements.
+  float pa[TRAIN ? A_PER : 1];
+  float pb[TRAIN ? B_PER : 1];
+
+  // Tile position (row, col) of the A element in load slot e: slots walk
+  // the stored layout's contiguous axis (k, or m for A stored (k, m)).
+  auto a_pos = [&](int e, int& rl, int& cl) {
+    if (TRAIN && p.trans_a) {
+      rl = e % BM;
+      cl = e / BM;
+    } else {
+      rl = e / BK;
+      cl = e % BK;
+    }
+  };
+  // Tile position (k row, n col) of the B element in load slot e (n, or k
+  // for B stored (n, k)).
+  auto b_pos = [&](int e, int& rl, int& cl) {
+    if (TRAIN && p.trans_b) {
+      rl = e % BK;
+      cl = e / BK;
+    } else {
+      rl = e / BN;
+      cl = e % BN;
+    }
+  };
 
   // Global -> registers for the slab starting at k0; out of range reads 0.
   auto load_slab = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
       const int e = tid + i * NT;
-      const int r = row0 + e / BK, c = k0 + e % BK;
-      ra[i] = (r < m && c < k) ? A[(long long)r * k + c] : zero_a;
+      if constexpr (TRAIN) {
+        int rl, cl;
+        a_pos(e, rl, cl);
+        const int r = row0 + rl, c = k0 + cl;
+        const bool in = r < m && c < k;
+        ra[i] = in ? A[p.trans_a ? (long long)c * m + r : (long long)r * k + c] : zero_a;
+        if (p.dact == DACT_A) pa[i] = in ? p.preact[(long long)r * k + c] : 0.f;
+      } else {
+        const int r = row0 + e / BK, c = k0 + e % BK;
+        ra[i] = (r < m && c < k) ? A[(long long)r * k + c] : zero_a;
+      }
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
       const TB* __restrict__ B = static_cast<const TB*>(p.b[b]);
-      if constexpr (VEC_B) {
+      if constexpr (TRAIN) {
+#pragma unroll
+        for (int i = 0; i < BS_PER; ++i) {
+          int rl, cl;
+          b_pos(tid + i * NT, rl, cl);
+          const int r = k0 + rl, c = col0 + cl;
+          const bool in = r < k && c < n;
+          rbs[b][i] = in ? B[p.trans_b ? (long long)c * k + r : (long long)r * n + c] : zero_b;
+          if (b == 0 && p.dact == DACT_B) pb[i] = in ? p.preact[(long long)r * n + c] : 0.f;
+        }
+      } else if constexpr (VEC_B) {
 #pragma unroll
         for (int i = 0; i < BV_PER; ++i) {
           const int v = tid + i * NT;
@@ -250,12 +366,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     }
   };
 
-  // Registers -> shared memory, with the rms prologue on the A elements.
+  // Registers -> shared memory, with the rms or dact prologue on the
+  // decorated elements.
   auto store_slab = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
-      const int e = tid + i * NT;
-      const int rl = e / BK, cl = e % BK;
+      int rl, cl;
+      a_pos(tid + i * NT, rl, cl);
       TA v = ra[i];
       if constexpr (!INT_A) {
         if (p.row_scale != nullptr) {
@@ -267,11 +384,23 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
           }
         }
       }
+      if constexpr (TRAIN) {
+        if (p.dact == DACT_A) v = Cvt<TA>::from(__fmul_rn(Cvt<TA>::to(v), act_grad(pa[i], p.dact_act)));
+      }
       As[rl][cl] = v;
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
-      if constexpr (VEC_B) {
+      if constexpr (TRAIN) {
+#pragma unroll
+        for (int i = 0; i < BS_PER; ++i) {
+          int rl, cl;
+          b_pos(tid + i * NT, rl, cl);
+          TB v = rbs[b][i];
+          if (p.dact == DACT_B) v = Cvt<TB>::from(__fmul_rn(Cvt<TB>::to(v), act_grad(pb[i], p.dact_act)));
+          Bs[b][rl][cl] = v;
+        }
+      } else if constexpr (VEC_B) {
 #pragma unroll
         for (int i = 0; i < BV_PER; ++i) {
           const int v = tid + i * NT;
@@ -353,6 +482,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       else
         y = part[0][i][j];
       if (p.bias[0] != nullptr) y = __fadd_rn(y, load_f32(p.bias[0], c, p.bias_f32));
+      if constexpr (TRAIN) {
+        if (p.pre_out[0] != nullptr) p.pre_out[0][idx] = y;
+      }
       if constexpr (NB == 2) {
         float u;
         if constexpr (QUANT)
@@ -360,6 +492,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         else
           u = part[1][i][j];
         if (p.bias[1] != nullptr) u = __fadd_rn(u, load_f32(p.bias[1], c, p.bias_f32));
+        if constexpr (TRAIN) {
+          if (p.pre_out[1] != nullptr) p.pre_out[1][idx] = u;
+        }
         y = __fmul_rn(act_fn(y, p.glu_act), u);
       } else {
         y = act_fn(y, p.act);
@@ -384,17 +519,29 @@ void launch_tile(const Params& p, cudaStream_t stream) {
                      reinterpret_cast<uintptr_t>(p.b[1]) % VB == 0;
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
   if (vec_b)
-    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true><<<grid, NT, 0, stream>>>(p);
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true, false><<<grid, NT, 0, stream>>>(p);
   else
-    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false><<<grid, NT, 0, stream>>>(p);
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false, false><<<grid, NT, 0, stream>>>(p);
+}
+
+bool is_training_program(const Params& p) {
+  return p.trans_a || p.trans_b || p.dact != DACT_NONE || p.pre_out[0] != nullptr;
 }
 
 // Fixed tiles chosen for the card: decode and short prompts (m <= 8) take
 // narrow 8 x 16 tiles so that n = 2048 still spreads over 128 CTAs; longer
 // prompts take 64 x 64 tiles with a 4 x 4 register block per thread.  Both
 // slab depths (128, 32) divide every per-tile scale block (a multiple of 128).
+// Training programs (float only) take the 64 x 64 tile at every m.
 template <typename TA, typename TB, int NB>
 void launch_program(const Params& p, cudaStream_t stream) {
+  if constexpr (!std::is_same<TB, int8_t>::value) {
+    if (is_training_program(p)) {
+      const dim3 grid((p.n + 63) / 64, (p.m + 63) / 64);
+      ca_gemm_program_kernel<TA, TB, 64, 64, 32, 4, 4, NB, false, true><<<grid, 256, 0, stream>>>(p);
+      return;
+    }
+  }
   if (p.m <= 8)
     launch_tile<TA, TB, 8, 16, 128, 1, 1, NB>(p, stream);
   else
@@ -413,16 +560,19 @@ void launch_typed(const Params& p, bool two_branches, cudaStream_t stream) {
 
 // C entry point.  The caller checks shapes, types, scales and contiguity;
 // m, n > 0.  A and B types (TYPE_*): float A with B of the same type, float A
-// with int8 B (dqb), or int8 A with int8 B (dqab); any other pair returns
-// cudaErrorInvalidValue.  Launches on `stream` without synchronising and
-// returns cudaGetLastError().
+// with int8 B (dqb), or int8 A with int8 B (dqab); any other pair, or a
+// training program (transposed layout, dact or save_preact) on int8
+// operands, returns cudaErrorInvalidValue.  Launches on `stream` without
+// synchronising and returns cudaGetLastError().
 extern "C" int ca_gemm_program_launch(
     const void* a, const void* b0, const void* b1, const void* row_scale,
     const void* gain, const void* bias0, const void* bias1, const void* mul,
     const void* residual, void* out, const void* scale_b0, const void* scale_b1,
-    const void* scale_a0, const void* scale_a1, int m, int n, int k, int a_type,
-    int b_type, int gain_f32, int bias_f32, int mul_f32, int res_f32, int out_f32,
-    int act, int glu_act, int scale_block, int sb_tile, int sa_tile, void* stream) {
+    const void* scale_a0, const void* scale_a1, const void* preact, void* pre_out0,
+    void* pre_out1, int m, int n, int k, int a_type, int b_type, int gain_f32,
+    int bias_f32, int mul_f32, int res_f32, int out_f32, int act, int glu_act,
+    int scale_block, int sb_tile, int sa_tile, int trans_a, int trans_b, int dact,
+    int dact_act, void* stream) {
   Params p;
   p.a = a;
   p.b[0] = b0;
@@ -451,7 +601,16 @@ extern "C" int ca_gemm_program_launch(
   p.scale_block = scale_block;
   p.sb_tile = sb_tile;
   p.sa_tile = sa_tile;
+  p.preact = static_cast<const float*>(preact);
+  p.pre_out[0] = static_cast<float*>(pre_out0);
+  p.pre_out[1] = static_cast<float*>(pre_out1);
+  p.trans_a = trans_a;
+  p.trans_b = trans_b;
+  p.dact = dact;
+  p.dact_act = dact_act;
   const bool two = b1 != nullptr;
+  if (is_training_program(p) && (a_type == TYPE_I8 || b_type == TYPE_I8))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_type == TYPE_F32 && b_type == TYPE_F32)
     launch_typed<float, float>(p, two, s);

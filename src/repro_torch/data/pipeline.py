@@ -1,0 +1,72 @@
+"""Deterministic synthetic LM data (port of ``repro/data/pipeline.py``), in
+numpy: the same batches, byte for byte, as the reference's.
+
+The stream has learnable structure (a noisy affine-mod-vocab next-token
+process), so training shows a real loss decrease, and it is deterministic
+across restarts: the batch of step N depends only on the config and N.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 1234
+    noise: float = 0.1          # fraction of uniformly random tokens
+    n_hosts: int = 1
+    host_id: int = 0
+
+
+class SyntheticLM:
+    """Affine next-token process: x_{t+1} = (a*x_t + b) % V with noise."""
+
+    def __init__(self, cfg: DataConfig):
+        if cfg.global_batch % cfg.n_hosts != 0:
+            raise ValueError(f"global_batch={cfg.global_batch} must "
+                             f"divide over n_hosts={cfg.n_hosts}")
+        self.cfg = cfg
+        self.local_batch = cfg.global_batch // cfg.n_hosts
+        self.a = 31
+        self.b = 17
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """Deterministic batch for a given global step (restart-safe)."""
+        c = self.cfg
+        rng = np.random.RandomState(
+            (c.seed + step * 1_000_003 + c.host_id * 7919) % (2 ** 31))
+        B, L, V = self.local_batch, c.seq_len, c.vocab_size
+        x = np.empty((B, L + 1), np.int32)
+        x[:, 0] = rng.randint(0, V, B)
+        noise = rng.rand(B, L) < c.noise
+        rand_tok = rng.randint(0, V, (B, L))
+        for t in range(L):
+            nxt = (self.a * x[:, t] + self.b) % V
+            x[:, t + 1] = np.where(noise[:, t], rand_tok[:, t], nxt)
+        return {
+            "tokens": x[:, :-1],
+            "labels": x[:, 1:],
+            "mask": np.ones((B, L), np.float32),
+        }
+
+
+def batch_for_model(cfg: ModelConfig, data_cfg: DataConfig,
+                    step: int) -> Dict[str, np.ndarray]:
+    """The token stream for a token-frontend LM.  The reference's other
+    frontends (hashed embeddings for the stubbed modalities, musicgen's
+    codebook labels) come with their architectures (ROADMAP queue 1,
+    item 12)."""
+    if cfg.frontend != "tokens" or cfg.n_codebooks != 1:
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} with "
+                         f"{cfg.n_codebooks} codebooks is not ported yet "
+                         "(ROADMAP queue 1, item 12)")
+    return SyntheticLM(data_cfg).batch_at(step)

@@ -9,6 +9,13 @@ A fetch and runs the whole drain chain (dequant → bias → act → mul →
 residual, or the ``glu`` combine) before the single write-back of each C
 element.
 
+The backward programs of training (K1f) ride it too: ``transpose_a``
+(A stored (k, m)) and ``transpose_b`` (B stored (n, k)) stream an operand
+from its stored layout with no transposed copy; the ``dact`` prologue
+multiplies the decorated operand (A, or B with ``@b``) by ``act'`` of a
+saved fp32 pre-activation as it is fetched; ``save_preact`` drains each
+branch's fp32 value after bias and before the activation as extra outputs.
+
 Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
 activations) streams int8 B tiles and widens them in registers; ``dqab``
 (w8a8) streams int8 A and B and contracts in int32.  Per-channel weight
@@ -37,12 +44,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import act_fn, apply_reference
 from repro_torch.kernels.program import (GemmProgramSpec, PLAIN,
+                                         apply_dact_reference,
                                          apply_rms_reference)
 
 SOURCE = _build.CSRC / "ca_gemm_program.cu"
 
-# Launches of the CUDA kernel, by program tag.  Only the kernel launch
-# below adds to it; the plain version never does.
+# Launches of the CUDA kernel, by :func:`launch_key`.  Only the kernel
+# launch below adds to it; the plain version never does.
 launch_counts: Dict[str, int] = {}
 
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
@@ -54,13 +62,33 @@ _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 SCALE_BLOCK_QUANTUM = 128
 
 
+# The dact prologue's operand codes in the C entry point.
+_DACT_CODES = {"none": 0, "a": 1, "b": 2}
+
+
 def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
+def layout_tag(transpose_a: bool, transpose_b: bool) -> str:
+    """Canonical operand-layout key: 'nn' | 'nt' | 'tn' | 'tt'."""
+    return ("t" if transpose_a else "n") + ("t" if transpose_b else "n")
+
+
+def launch_key(tag: str, layout: str = "nn",
+               save_preact: bool = False) -> str:
+    """The key a launch counts under: the program tag (the reference's
+    tags carry no layout), then the layout where it is not ``nn`` and
+    ``save_preact`` where the program drains its pre-activations, e.g.
+    ``"none"``, ``"dact.silu>none nt"``,
+    ``"rms>glu.silu(none|none) save_preact"``."""
+    key = tag if layout == "nn" else f"{tag} {layout}"
+    return f"{key} save_preact" if save_preact else key
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ca_gemm_program_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 19
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -79,23 +107,48 @@ def _unsupported(what: str, slice_: str) -> ValueError:
 
 def _check_program(spec: GemmProgramSpec, semiring: str,
                    transpose_a: bool, transpose_b: bool,
-                   save_preact: bool) -> None:
+                   save_preact: bool, preact) -> None:
+    """The reference's contracts (``ca_mmm.py:363-397``) and what the port
+    does not take yet."""
     if semiring != "plus_times":
         raise _unsupported(f"semiring {semiring!r}", "K1g")
-    if transpose_a or transpose_b or save_preact:
-        raise _unsupported("transposed layouts and save_preact", "K1f")
-    if spec.prologue.kind == "dact":
-        raise _unsupported("the dact prologue", "K1f")
     if len({b.dequant for b in spec.branches}) > 1:
         raise ValueError(f"the branches of {spec.tag()!r} must share one "
                          "dequant stage")
     if spec.n_b == 2 and spec.combine != "glu":
         raise _unsupported("two-output 'dual' programs", "K1c follow-up")
+    transposed = transpose_a or transpose_b
+    if spec.n_b > 1 and transposed:
+        raise ValueError("multi-branch programs stream the plain 'nn' "
+                         "layout")
+    quant = spec.branches[0].dequant != "none"
+    if quant and transposed:
+        raise ValueError("quantized streaming supports the plain 'nn' "
+                         "layout")
+    if quant and save_preact:
+        raise _unsupported("save_preact on a dequant program",
+                           "K1f follow-up")
+    pro = spec.prologue
+    if pro.kind == "rms" and transpose_a:
+        raise ValueError("the rms prologue decorates the natural A layout")
+    if pro.kind == "dact":
+        if quant:
+            raise _unsupported("the dact prologue on a dequant program",
+                               "K1f follow-up")
+        if pro.operand == "a" and transpose_a:
+            raise ValueError("dact@a decorates a non-transposed A")
+        if pro.operand == "b" and transpose_b:
+            raise ValueError("dact@b decorates a non-transposed B")
+        if preact is None:
+            raise ValueError("the dact prologue needs preact")
+    elif preact is not None:
+        raise ValueError("preact given without a dact prologue")
 
 
-def _check_types(a, bs, spec) -> str:
-    """A and B element types against the program's dequant stage; returns
-    the stage ("none", "b" or "ab")."""
+def _check_types(a, bs, spec, transpose_a=False, transpose_b=False):
+    """A and B element types against the program's dequant stage, and
+    their shapes in the stored layouts; returns the stage ("none", "b" or
+    "ab") and (m, n, k)."""
     deq = spec.branches[0].dequant
     want = {"none": (_FLOATS, "the same float type as A"),
             "b": (_FLOATS, "int8"), "ab": ((torch.int8,), "int8")}[deq]
@@ -103,15 +156,16 @@ def _check_types(a, bs, spec) -> str:
         raise ValueError(
             f"A must be a 2-D {'/'.join(str(t)[6:] for t in want[0])} "
             f"tensor for {spec.tag()!r}, got {tuple(a.shape)} {a.dtype}")
-    m, k = a.shape
-    n = bs[0].shape[-1]
+    k, m = a.shape if transpose_a else a.shape[::-1]
+    n = bs[0].shape[0 if transpose_b else -1] if bs[0].dim() else 0
+    want_shape = (n, k) if transpose_b else (k, n)
     b_dtype = a.dtype if deq == "none" else torch.int8
     for b in bs:
-        if b.dim() != 2 or tuple(b.shape) != (k, n) or b.dtype != b_dtype:
-            raise ValueError(f"B must be ({k}, {n}) {want[1]} for "
+        if tuple(b.shape) != want_shape or b.dtype != b_dtype:
+            raise ValueError(f"B must be {want_shape} {want[1]} for "
                              f"{spec.tag()!r}, got {tuple(b.shape)} "
                              f"{b.dtype}")
-    return deq
+    return deq, m, n, k
 
 
 def _check_scales(ops, deq, m, n, k, scale_b_block, scale_a_block):
@@ -133,7 +187,8 @@ def _check_scales(ops, deq, m, n, k, scale_b_block, scale_a_block):
 
 
 def _check_operands(a, bs, spec, row_scale, gain, branch_operands,
-                    scale_b_block=0, scale_a_block=0):
+                    scale_b_block=0, scale_a_block=0, transpose_a=False,
+                    transpose_b=False, preact=None):
     """Shapes, dtypes, devices and contiguity the kernel takes; returns
     (m, n, k)."""
     if len(bs) != spec.n_b:
@@ -141,10 +196,15 @@ def _check_operands(a, bs, spec, row_scale, gain, branch_operands,
                          f"got {len(bs)}")
     if len(branch_operands) != spec.n_b:
         raise ValueError("one branch_operands dict per B operand")
-    deq = _check_types(a, bs, spec)
-    m, k = a.shape
-    n = bs[0].shape[-1]
+    deq, m, n, k = _check_types(a, bs, spec, transpose_a, transpose_b)
     tensors = [a, *bs]
+    if preact is not None:
+        shape = (m, k) if spec.prologue.operand == "a" else (k, n)
+        if tuple(preact.shape) != shape or preact.dtype != torch.float32:
+            raise ValueError(f"preact must be {shape} float32 (shaped like "
+                             f"the decorated operand), got "
+                             f"{tuple(preact.shape)} {preact.dtype}")
+        tensors.append(preact)
     for name, g in (("scale_b_block", scale_b_block),
                     ("scale_a_block", scale_a_block)):
         if g < 0 or g % SCALE_BLOCK_QUANTUM:
@@ -260,26 +320,45 @@ def ca_gemm_program_reference(
     *,
     spec: GemmProgramSpec = PLAIN,
     out_dtype=None,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    save_preact: bool = False,
     row_scale: Optional[torch.Tensor] = None,
     gain: Optional[torch.Tensor] = None,
+    preact: Optional[torch.Tensor] = None,
     branch_operands: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
     scale_b_block: int = 0,
     scale_a_block: int = 0,
-) -> torch.Tensor:
+):
     """The same program in plain torch: prologue, fp32 (or exact integer)
     products, dequant, drain chain and combine, in the kernel's order."""
     bs = tuple(bs)
     branch_operands = list(branch_operands or [{} for _ in bs])
-    _check_program(spec, "plus_times", False, False, False)
+    _check_program(spec, "plus_times", transpose_a, transpose_b,
+                   save_preact, preact)
     _check_operands(a, bs, spec, row_scale, gain, branch_operands,
-                    scale_b_block, scale_a_block)
+                    scale_b_block, scale_a_block, transpose_a, transpose_b,
+                    preact)
     out_dtype = _out_dtype(a, out_dtype)
-    if spec.prologue.kind == "rms":
+    if transpose_a:
+        a = a.t()
+    if transpose_b:
+        bs = tuple(b.t() for b in bs)
+    pro = spec.prologue
+    if pro.kind == "rms":
         a = apply_rms_reference(a, row_scale, gain)
-    vals = []
+    elif pro.kind == "dact" and pro.operand == "a":
+        a = apply_dact_reference(a, preact, pro.activation)
+    elif pro.kind == "dact":
+        bs = tuple(apply_dact_reference(b, preact, pro.activation)
+                   for b in bs)
+    vals, preacts = [], []
     for b, bspec, ops in zip(bs, spec.branches, branch_operands):
         if bspec.dequant == "none":
             z = _dot(a, b)
+            if save_preact:
+                preacts.append(z + ops["bias"].float() if bspec.has_bias
+                               else z)
             vals.append(z if bspec.is_identity
                         else apply_reference(z, bspec, ops))
             continue
@@ -292,7 +371,8 @@ def ca_gemm_program_reference(
         y = act_fn(spec.combine_activation)(vals[0]) * vals[1]
     else:
         y = vals[0]
-    return y.to(out_dtype)
+    y = y.to(out_dtype)
+    return (y, *preacts) if save_preact else y
 
 
 # ---------------------------------------------------------------------------
@@ -305,12 +385,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
             branch_operands, m: int, n: int, k: int, scale_b_block: int,
-            scale_a_block: int) -> torch.Tensor:
+            scale_a_block: int, transpose_a: bool, transpose_b: bool,
+            save_preact: bool, preact):
     if m > 65535 * 64:
         raise ValueError(f"m = {m} exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    pres = [torch.empty((m, n), dtype=torch.float32, device=a.device)
+            for _ in range(spec.n_b if save_preact else 0)]
+    result = (out, *pres) if save_preact else out
     if m == 0 or n == 0:
-        return out
+        return result
     single = spec.branches[0]
     ops0 = branch_operands[0]
     ops1 = branch_operands[1] if spec.n_b == 2 else {}
@@ -320,6 +404,7 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         raise ValueError("the two branches' biases must share one dtype")
     mul, res = ops0.get("mul"), ops0.get("residual")
     f32 = torch.float32
+    pro = spec.prologue
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _library().ca_gemm_program_launch(
         _ptr(a), _ptr(bs[0]), _ptr(bs[1]) if spec.n_b == 2 else None,
@@ -327,6 +412,8 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         _ptr(mul), _ptr(res), _ptr(out),
         _ptr(ops0.get("scale_b")), _ptr(ops1.get("scale_b")),
         _ptr(ops0.get("scale_a")), _ptr(ops1.get("scale_a")),
+        _ptr(preact), _ptr(pres[0]) if pres else None,
+        _ptr(pres[1]) if len(pres) == 2 else None,
         m, n, k, _TYPE_CODES[a.dtype], _TYPE_CODES[bs[0].dtype],
         int(gain is not None and gain.dtype == f32),
         int(bool(biases) and biases[0].dtype == f32),
@@ -335,13 +422,16 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         int(out_dtype == f32),
         _ACT_CODES[single.activation], _ACT_CODES[spec.combine_activation],
         scale_b_block or scale_a_block, int(scale_b_block > 0),
-        int(scale_a_block > 0), stream)
+        int(scale_a_block > 0), int(transpose_a), int(transpose_b),
+        _DACT_CODES[pro.operand if pro.kind == "dact" else "none"],
+        _ACT_CODES[pro.activation], stream)
     if err != 0:
         raise RuntimeError(f"ca_gemm_program kernel launch failed: CUDA "
                            f"error {err}")
-    tag = spec.tag()
-    launch_counts[tag] = launch_counts.get(tag, 0) + 1
-    return out
+    key = launch_key(spec.tag(), layout_tag(transpose_a, transpose_b),
+                     save_preact)
+    launch_counts[key] = launch_counts.get(key, 0) + 1
+    return result
 
 
 def ca_gemm_program(
@@ -356,15 +446,23 @@ def ca_gemm_program(
     save_preact: bool = False,
     row_scale: Optional[torch.Tensor] = None,
     gain: Optional[torch.Tensor] = None,
+    preact: Optional[torch.Tensor] = None,
     branch_operands: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
     scale_b_block: int = 0,
     scale_a_block: int = 0,
-) -> torch.Tensor:
+):
     """Execute a :class:`GemmProgramSpec`: ``a`` (m, k) is the streamed A
     operand, ``bs`` the 1..2 (k, n) B operands; ``row_scale`` ((m, 1)
     fp32) and ``gain`` ((k,)) feed the rms prologue; ``branch_operands[i]``
     holds branch ``i``'s ``bias``/``mul``/``residual`` and, for a dequant
     branch, ``scale_b`` and (``dqab``) ``scale_a``.
+
+    ``transpose_a`` takes A stored (k, m), ``transpose_b`` B stored
+    (n, k) (one-branch float programs).  A ``dact`` prologue takes
+    ``preact``, the fp32 pre-activation shaped like the decorated operand
+    ((m, k) for A, (k, n) for ``@b``), which must not be transposed.  With
+    ``save_preact`` the call returns ``(out, *preacts)``: each branch's
+    fp32 value after bias, before the activation.
 
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
     ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per
@@ -374,21 +472,27 @@ def ca_gemm_program(
     defaults to A's dtype, fp32 for int8 A.
 
     CPU operands run :func:`ca_gemm_program_reference`; CUDA operands
-    launch the kernel.  Programs this slice does not port (dact,
-    transposed layouts, ``save_preact``, ``min_plus``) raise ValueError.
+    launch the kernel.  Programs the port does not take yet (``min_plus``,
+    ``dual``, dequant with ``save_preact`` or ``dact``) and the
+    reference's refused combinations raise ValueError.
     """
     bs = tuple(bs)
     branch_operands = list(branch_operands or [{} for _ in bs])
-    _check_program(spec, semiring, transpose_a, transpose_b, save_preact)
+    _check_program(spec, semiring, transpose_a, transpose_b, save_preact,
+                   preact)
     m, n, k = _check_operands(a, bs, spec, row_scale, gain, branch_operands,
-                              scale_b_block, scale_a_block)
+                              scale_b_block, scale_a_block, transpose_a,
+                              transpose_b, preact)
     out_dtype = _out_dtype(a, out_dtype)
     if a.device.type == "cpu":
         return ca_gemm_program_reference(
-            a, bs, spec=spec, out_dtype=out_dtype, row_scale=row_scale,
-            gain=gain, branch_operands=branch_operands,
+            a, bs, spec=spec, out_dtype=out_dtype, transpose_a=transpose_a,
+            transpose_b=transpose_b, save_preact=save_preact,
+            row_scale=row_scale, gain=gain, preact=preact,
+            branch_operands=branch_operands,
             scale_b_block=scale_b_block, scale_a_block=scale_a_block)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     return _launch(a, bs, spec, out_dtype, row_scale, gain,
-                   branch_operands, m, n, k, scale_b_block, scale_a_block)
+                   branch_operands, m, n, k, scale_b_block, scale_a_block,
+                   transpose_a, transpose_b, save_preact, preact)

@@ -7,6 +7,8 @@ activation / gating / residual riding the drain phase's single write-back.
 * :class:`Epilogue` — the user-facing bundle: spec + the actual tensors.
 * :func:`apply_reference` — the fp32 oracle semantics the kernel's drain
   and the plain version share.
+* :func:`act_grad` — each activation's derivative in closed form, which
+  the backward programs' ``dact`` prologue applies.
 """
 
 from __future__ import annotations
@@ -28,6 +30,37 @@ DEQUANTS = ("none", "b", "ab")
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch defaults to erf.
     return F.gelu(x, approximate="tanh")
+
+
+# The derivatives below are written op for op as the kernel's act_grad
+# evaluates them (csrc/ca_gemm_program.cu), so that on the card both round
+# alike before the dact prologue's cast.
+
+def _gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
+    c = 0.7978845608028654          # sqrt(2 / pi)
+    x2 = x * x
+    t = torch.tanh(c * (x + 0.044715 * x2 * x))
+    return 0.5 * (1 + t) + 0.5 * x * (1 - t * t) * c * (1 + 3 * 0.044715 * x2)
+
+
+def _silu_grad(x: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(x)
+    return s * (1 + x * (1 - s))
+
+
+def act_grad(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """fp32 derivative of :func:`act_fn` by name, in closed form (the
+    formulas the kernel's ``dact`` prologue evaluates).  ``relu``'s is 0 at
+    0, as JAX's is."""
+    if name == "none":
+        return torch.ones_like
+    if name == "relu":
+        return lambda x: (x > 0).to(x.dtype)
+    if name == "gelu":
+        return _gelu_tanh_grad
+    if name == "silu":
+        return _silu_grad
+    raise ValueError(f"unknown activation {name!r}; expected {ACTIVATIONS}")
 
 
 def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -70,6 +103,12 @@ class EpilogueSpec:
         return (self.activation == "none" and not self.has_bias
                 and not self.has_mul and not self.has_residual
                 and self.dequant == "none")
+
+    @property
+    def needs_preact(self) -> bool:
+        """Backward needs the saved pre-activation z+bias iff some stage is
+        nonlinear in it (activation) or re-reads it (the mul gate's grad)."""
+        return self.activation != "none" or self.has_mul
 
     def tag(self) -> str:
         """Canonical cache-key fragment, e.g. ``dqb+bias+silu+mul+res``."""

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.epilogue import (ACTIVATIONS, EpilogueSpec,
-                                          IDENTITY, spec_from_tag)
+                                          IDENTITY, act_grad, spec_from_tag)
 
 PROLOGUE_KINDS = ("none", "rms", "dact")
 COMBINES = ("none", "glu")
@@ -39,8 +39,9 @@ class PrologueSpec:
 
     ``kind="rms"`` multiplies the A tile by a per-row scale
     (``rsqrt(mean(x²) + eps)``, computed outside the kernel) and a
-    per-column gain.  ``kind="dact"`` (activation backward) parses for tag
-    parity; the kernels of this slice do not run it.
+    per-column gain.  ``kind="dact"`` (activation backward) multiplies the
+    decorated operand (A, or B with ``operand="b"``) by ``act'`` of the
+    saved fp32 pre-activation streamed beside it.
     """
 
     kind: str = "none"
@@ -205,3 +206,10 @@ def apply_rms_reference(x: torch.Tensor, row_scale: torch.Tensor,
     fp32 multiply chain, cast back to the operand dtype."""
     out = x.float() * row_scale.float() * gain.float()
     return out.to(x.dtype)
+
+
+def apply_dact_reference(g: torch.Tensor, h: torch.Tensor,
+                         activation: str) -> torch.Tensor:
+    """Oracle semantics of the dact prologue: ``g · act'(h)`` in fp32,
+    cast back to the gradient operand's dtype."""
+    return (g.float() * act_grad(activation)(h.float())).to(g.dtype)

@@ -11,7 +11,14 @@ compute dtype — cast **once**, at load or init, where the reference casts
 at every call (same rounding) — and norm gains in fp32, which is how the
 rms chain reads them.  Projection matrices may instead be int8
 :class:`~repro_torch.quant.QTensor` s (``models.common.quantize_params``):
-layer indexing slices their payload and scales together.
+layer indexing slices their payload and scales together.  Training keeps
+fp32 masters (``init_params(..., masters=True)``) and casts them to those
+same dtypes once per step (``train.step``).
+
+In ``mode="train"`` with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint``: only the layer's input is kept, and the
+backward recomputes the layer's forward.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
@@ -62,20 +70,23 @@ def model_defs(cfg: ModelConfig) -> Defs:
     return defs
 
 
-def _serving_dtype(name: str, cfg: ModelConfig) -> torch.dtype:
+def _leaf_dtype(name: str, cfg: ModelConfig, masters: bool) -> torch.dtype:
+    if masters:
+        return cfg.pdtype()
     return torch.float32 if name.endswith("/scale") else cfg.dtype()
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device=None) -> Dict[str, torch.Tensor]:
-    """Random serving parameters drawn from a ``torch.Generator`` seeded
-    with ``seed``, by the reference's init laws (in its param dtype, then
-    cast to the serving dtypes one tensor at a time)."""
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, *,
+                masters: bool = False) -> Dict[str, torch.Tensor]:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed``, by the reference's init laws, in its param dtype: the fp32
+    masters of training with ``masters=True``, else cast to the serving
+    dtypes one tensor at a time."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     defs = model_defs(cfg)
     return {name: cm.init_one(defs[name], gen, cfg.pdtype(), device)
-            .to(_serving_dtype(name, cfg))
+            .to(_leaf_dtype(name, cfg, masters))
             for name in sorted(defs)}
 
 
@@ -107,9 +118,11 @@ def _qtensor_from_fields(name: str, fields: Mapping, shape, device) -> QTensor:
 
 
 def params_from_jax(np_params: Mapping[str, object], cfg: ModelConfig,
-                    device=None) -> Dict[str, object]:
+                    device=None, *, masters: bool = False
+                    ) -> Dict[str, object]:
     """The reference's flat parameter dict (numpy arrays, e.g.
-    ``blocks/attn/wq`` of shape (L, d, H·Dh)) as serving parameters.  A
+    ``blocks/attn/wq`` of shape (L, d, H·Dh)) as serving parameters, or
+    with ``masters=True`` as fp32 (param dtype) masters for training.  A
     quantized leaf of the reference's ``quantize_params`` comes as a
     mapping of its fields (``data``, ``scale``, ``axis``, ``block``,
     ``fmt``, ``act_scale``, ``act_block``) and becomes a
@@ -130,7 +143,8 @@ def params_from_jax(np_params: Mapping[str, object], cfg: ModelConfig,
         if tuple(t.shape) != defs[name].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{defs[name].shape}")
-        out[name] = t.to(device=device, dtype=_serving_dtype(name, cfg))
+        out[name] = t.to(device=device,
+                         dtype=_leaf_dtype(name, cfg, masters))
     return out
 
 
@@ -195,11 +209,15 @@ def forward(params: Dict[str, torch.Tensor],
         positions = (torch.arange(L, device=x.device)[None, :]
                      + offset).expand(B, L)
 
-    blocks = cm.subtree(params, "blocks")
     layers = cache["layers"] if cache is not None else None
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_layers = []
-    for i in range(cfg.n_layers):
-        p_i = {k: v[i] for k, v in blocks.items()}
+    for i, p_i in enumerate(_layer_params(cm.subtree(params, "blocks"),
+                                          cfg.n_layers)):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _train_layer, p_i, x, cfg, positions, use_reentrant=False)
+            continue
         cache_i = {k: v[i] for k, v in layers.items()} \
             if layers is not None else None
         x, c_i = blk.transformer_block_apply(
@@ -217,6 +235,46 @@ def forward(params: Dict[str, torch.Tensor],
         new_cache = {"layers": {k: torch.stack([c[k] for c in new_layers])
                                 for k in new_layers[0]}}
     return logits.float(), new_cache
+
+
+def _layer_params(blocks, n_layers: int):
+    """Each layer's parameters, as views of the stacked leaves: a tensor
+    is unbound once (so a backward gathers each stacked gradient in one
+    stack, where indexing would add a full-size zero-padded gradient per
+    layer); a QTensor is indexed."""
+    out = [{} for _ in range(n_layers)]
+    for k, v in blocks.items():
+        parts = v.unbind(0) if isinstance(v, torch.Tensor) \
+            else [v[i] for i in range(n_layers)]
+        for p_i, t in zip(out, parts):
+            p_i[k] = t
+    return out
+
+
+def _train_layer(p_i, x, cfg: ModelConfig, positions):
+    return blk.transformer_block_apply(p_i, x, cfg, positions=positions,
+                                       mode="train")[0]
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal LM cross-entropy over (B, L, V) fp32 logits and (B, L)
+    labels: the padded vocab entries held at -1e9, an fp32 log-softmax,
+    and the mean over ``mask`` (or over all tokens)."""
+    V = cfg.padded_vocab
+    if cfg.vocab_size < V:
+        pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def prefill(params, batch_in, cfg: ModelConfig,

@@ -1,0 +1,143 @@
+"""Train step builder (port of ``repro/train/step.py``): loss, microbatch
+gradient accumulation, mixed precision and remat.
+
+The fp32 master parameters are cast to the compute dtype **once per
+step** (matrices only; norm gains and other vectors stay fp32), gradients
+are taken with respect to that cast copy, and AdamW updates the masters.
+Every dense GEMM of the forward and of the backward runs on the CA-GEMM
+kernel (``kernels.ops``' trainable programs); remat follows ``cfg.remat``
+(``models.model.forward``).  Microbatches run as a Python loop over a
+strided split of the batch, their gradients summed in fp32 and divided by
+the count.
+
+The reference's sharding hooks (``reshard_params``/``reshard_grads``)
+come with the distributed slice (ROADMAP queue 1, item 14), and its
+tile-plan warm-up (``warmup_gemm_rows``) with the tuning registry
+(item 4); passing either raises.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.optim import adamw
+
+Batch = Dict[str, torch.Tensor]
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor             # int32 scalar
+    params: Dict[str, torch.Tensor]
+    opt: adamw.AdamWState
+
+
+def init_state(cfg: ModelConfig, seed: int = 0, device=None) -> TrainState:
+    """fp32 masters drawn from ``seed`` (``M.init_params(masters=True)``;
+    ``device=None`` is the card) and zero AdamW moments."""
+    params = M.init_params(cfg, seed, device, masters=True)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=next(iter(params.values())).device)
+    return TrainState(step=step, params=params, opt=adamw.init(params))
+
+
+def loss_fn(params, batch: Batch, cfg: ModelConfig):
+    """(loss + aux, {"loss", "aux"}); the dense family has no auxiliary
+    loss, so aux is 0."""
+    logits, _ = M.forward(params, batch, cfg, mode="train")
+    loss = M.lm_loss(logits, batch["labels"], cfg, batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"loss": loss, "aux": aux}
+
+
+def cast_params(params, cfg: ModelConfig):
+    """The step's compute copy of the masters: float matrices (ndim ≥ 2)
+    in the compute dtype, vectors as they are; every float leaf a new
+    autograd leaf that requires grad."""
+    dt = cfg.dtype()
+    return {k: (v.detach().to(dt) if v.dim() >= 2 and v.is_floating_point()
+                else v.detach()).requires_grad_(v.is_floating_point())
+            for k, v in params.items()}
+
+
+def _split_mb(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of the strided split (rows i, i+n, ...):
+    the reference's (B//n, n) reshape with the scan axis swapped first."""
+    if x.shape[0] % n:
+        raise ValueError(f"batch of {x.shape[0]} rows does not split into "
+                         f"{n} microbatches")
+    return x.reshape(x.shape[0] // n, n, *x.shape[1:])[:, i]
+
+
+def build_train_step(
+    cfg: ModelConfig,
+    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+    microbatches: int = 1,
+    reshard_params: Optional[Callable] = None,
+    reshard_grads: Optional[Callable] = None,
+    warmup_gemm_rows: Optional[int] = None,
+) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    The batch's leading dim must divide by ``microbatches``; metrics are
+    0-dim tensors (``loss``, ``aux``, ``grad_norm``, ``lr``)."""
+    if reshard_params is not None or reshard_grads is not None:
+        raise ValueError("reshard_params/reshard_grads are not ported yet "
+                         "(distributed, ROADMAP queue 1, item 14)")
+    if warmup_gemm_rows:
+        raise ValueError("warmup_gemm_rows is not ported yet (the tuning "
+                         "registry, ROADMAP queue 1, item 4)")
+    if microbatches < 1:
+        raise ValueError(f"microbatches = {microbatches}")
+
+    def grads_of(params_c, batch):
+        leaves = sorted(k for k, v in params_c.items() if v.requires_grad)
+        loss, metrics = loss_fn(params_c, batch, cfg)
+        gs = torch.autograd.grad(loss, [params_c[k] for k in leaves],
+                                 allow_unused=True)
+        grads = {k: torch.zeros_like(params_c[k]) if g is None else g
+                 for k, g in zip(leaves, gs)}
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state: TrainState, batch: Batch):
+        params_c = cast_params(state.params, cfg)
+        if microbatches == 1:
+            grads, metrics = grads_of(params_c, batch)
+        else:
+            grads, metrics = None, None
+            for i in range(microbatches):
+                g, m = grads_of(params_c, {k: _split_mb(v, microbatches, i)
+                                           for k, v in batch.items()})
+                if grads is None:
+                    grads = {k: v.float() for k, v in g.items()}
+                    metrics = m
+                    continue
+                for k in grads:
+                    grads[k] += g[k].float()
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+            grads = {k: g / microbatches for k, g in grads.items()}
+            metrics = {k: v / microbatches for k, v in metrics.items()}
+        del params_c
+        new_params, new_opt, opt_metrics = adamw.update(
+            grads, state.opt, state.params, opt_cfg)
+        return (TrainState(state.step + 1, new_params, new_opt),
+                dict(metrics, **opt_metrics))
+
+    return train_step
+
+
+def cast_batch(batch, cfg: ModelConfig, device=None) -> Batch:
+    """A batch of numpy arrays (or tensors) as tensors on ``device``
+    (``None`` is the card); precomputed ``embeds`` in the compute
+    dtype."""
+    device = M.resolve_device(device)
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v, device=device)
+        if k == "embeds":
+            v = v.to(cfg.dtype())
+        out[k] = v
+    return out

@@ -1,6 +1,9 @@
 """The port's CA-GEMM program on the CPU (its plain version) against the
-reference kernel run in Pallas interpret mode, on ragged shapes.  The CUDA
-kernel itself is held against the plain version in test_torch_cuda.py."""
+reference kernel run in Pallas interpret mode, on ragged shapes: the
+forward programs (K1a–c), the dequant programs (K1d–e) and the backward
+programs of training (K1f: nt/tn layouts, the dact prologue,
+save_preact).  The CUDA kernel itself is held against the plain version in
+test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,10 +110,11 @@ def test_fp32_out_of_bf16_operands_matches_reference_kernel():
 @pytest.mark.parametrize("tag,kw,slice_", [
     # K1d is ported: what still raises is a dqb program with a float B.
     pytest.param("dqb+res", {}, "must be .* int8", id="dqb+res-kw0-K1d"),
-    ("dact.silu>none", {}, "K1f"),
-    ("none", {"transpose_a": True}, "K1f"),
-    ("none", {"transpose_b": True}, "K1f"),
-    ("none", {"save_preact": True}, "K1f"),
+    # K1f is ported: what still raises are the reference's own contracts.
+    ("dact.silu>none", {}, "needs preact"),
+    ("dact.silu>none", {"transpose_a": True}, "dact@a decorates"),
+    ("glu.silu(none|none)", {"transpose_b": True}, "multi-branch"),
+    ("dqb", {"transpose_b": True}, "quantized streaming"),
     ("none", {"semiring": "min_plus"}, "K1g"),
     ("dual(none|none)", {}, "dual"),
 ])
@@ -190,3 +194,109 @@ def test_quant_programs_match_reference_kernel(tag, blocks, m):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
                                atol=2e-3 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# K1f: transposed layouts, the dact prologue, save_preact
+# ---------------------------------------------------------------------------
+
+def _close(got, want, dtype):
+    """fp32: the reference's 1e-4; bf16: one output ulp may flip after the
+    prologue's re-rounding, so 2e-2 of max|ref| (``test_fused_gemm.py``)."""
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("layout", ["nt", "tn"])
+@pytest.mark.parametrize("m,n,k", [(37, 64, 50), (16, 40, 96)])
+def test_transposed_layouts_match_reference_kernel(m, n, k, layout):
+    ta, tb = layout[0] == "t", layout[1] == "t"
+    r = np.random.RandomState(m + n)
+    a = r.randn(*((k, m) if ta else (m, k))).astype(np.float32)
+    b = (r.randn(*((n, k) if tb else (k, n))) / np.sqrt(k)).astype(
+        np.float32)
+    want = jax_program(jnp.asarray(a), [jnp.asarray(b)], bm=8, bn=128,
+                       bk=128, interpret=True, transpose_a=ta,
+                       transpose_b=tb)
+    got = K.ca_gemm_program(torch.as_tensor(a), [torch.as_tensor(b)],
+                            transpose_a=ta, transpose_b=tb)
+    _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("operand", ["a", "b"])
+def test_dact_prologue_matches_reference_kernel(operand, act, dtype):
+    """dact@a on the nt program (dxn = (g·act'(h)) Bᵀ) and dact@b on the
+    tn program (dB = Aᵀ (g·act'(h))): the backward GEMMs of a fused
+    activation."""
+    m, n, k = 37, 64, 50
+    r = np.random.RandomState(len(act) + (operand == "b"))
+    tag = f"dact.{act}{'@b' if operand == 'b' else ''}>none"
+    if operand == "a":      # A = g (m, k), B stored (n, k), h like A
+        a, b, h = r.randn(m, k), r.randn(n, k) / np.sqrt(k), r.randn(m, k)
+        kw = {"transpose_b": True}
+    else:                   # A stored (k, m), B = g (k, n), h like B
+        a, b, h = r.randn(k, m), r.randn(k, n) / np.sqrt(k), r.randn(k, n)
+        kw = {"transpose_a": True}
+    jdt, tdt = jnp.dtype(dtype), TORCH_DT[dtype]
+    want = jax_program(jnp.asarray(a, jdt), [jnp.asarray(b, jdt)],
+                       spec=jax_from_tag(tag), bm=8, bn=128, bk=128,
+                       interpret=True, preact=jnp.asarray(h, jnp.float32),
+                       **kw)
+    got = K.ca_gemm_program(
+        torch.as_tensor(a).to(tdt), [torch.as_tensor(b).to(tdt)],
+        spec=program_from_tag(tag), preact=torch.as_tensor(h).float(), **kw)
+    assert got.dtype == tdt
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("tag", ["bias+gelu", "glu.silu(none|none)",
+                                 "rms>glu.silu(none|none)"])
+def test_save_preact_matches_reference_kernel(tag):
+    """The forward programs of training drain each branch's fp32 value
+    after bias, before the activation, beside the output."""
+    m, n, k = 37, 200, 300
+    ops = _operands(tag, m, n, k, "float32", seed=11)
+    jkw, tkw = {}, {}
+    if ops["gain"] is not None:
+        a32 = torch.as_tensor(ops["a"]).float()
+        tkw = {"gain": torch.as_tensor(ops["gain"]).float(),
+               "row_scale": rms_row_scale(a32, 1e-5)}
+        jkw = {"gain": jnp.asarray(ops["gain"], jnp.float32),
+               "row_scale": jnp.asarray(tkw["row_scale"].numpy())}
+    want = jax_program(
+        jnp.asarray(ops["a"], jnp.float32),
+        [jnp.asarray(b, jnp.float32) for b in ops["bs"]],
+        spec=jax_from_tag(tag), bm=8, bn=128, bk=128, interpret=True,
+        save_preact=True,
+        branch_operands=[{k_: jnp.asarray(v, jnp.float32)
+                          for k_, v in d.items()} for d in ops["branch"]],
+        **jkw)
+    got = K.ca_gemm_program(
+        torch.as_tensor(ops["a"]).float(),
+        [torch.as_tensor(b).float() for b in ops["bs"]],
+        spec=program_from_tag(tag), save_preact=True,
+        branch_operands=[{k_: torch.as_tensor(v).float()
+                          for k_, v in d.items()} for d in ops["branch"]],
+        **tkw)
+    spec = program_from_tag(tag)
+    assert len(got) == len(want) == 1 + spec.n_b
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w, "float32")
+
+
+def test_launch_keys_carry_layout_and_save_preact():
+    assert K.launch_key("none") == "none"
+    assert K.launch_key("dact.silu>none", K.layout_tag(False, True)) \
+        == "dact.silu>none nt"
+    assert K.launch_key("dact.silu@b>none", K.layout_tag(True, False)) \
+        == "dact.silu@b>none tn"
+    assert K.launch_key("rms>glu.silu(none|none)", "nn", True) \
+        == "rms>glu.silu(none|none) save_preact"

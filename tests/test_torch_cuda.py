@@ -1,5 +1,6 @@
 """The CUDA kernels (CA-GEMM program, paged decode attention) against their
-plain versions, on a card.
+plain versions, on a card; the trainable programs' backward on the card
+against the same on the CPU.
 
 Imports neither JAX nor ``repro``, so it runs on a GPU host without JAX:
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -12,7 +13,10 @@ import torch
 
 from repro_torch.kernels import ca_mmm as K
 from repro_torch.kernels import flash_attn as FA
-from repro_torch.kernels.program import program_from_tag, rms_row_scale
+from repro_torch.kernels import ops
+from repro_torch.kernels.epilogue import Epilogue
+from repro_torch.kernels.program import (RmsPrologue, program_from_tag,
+                                         rms_row_scale)
 
 TAGS = ["none", "res", "rms>glu.silu(none|none)", "bias+gelu+mul+res",
         "glu.gelu(bias|bias)"]
@@ -255,3 +259,119 @@ def test_cuda_w8a8_int32_headroom_k4096():
     want = (exact.float() * sb[None, :]) * sa[:, None]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# K1f, the backward programs of training: (tag, layout, save_preact).
+K1F_CASES = [("none", "nt", False), ("none", "tn", False),
+             ("none", "tt", False), ("bias+gelu", "nt", False),
+             ("dact.silu>none", "nt", False), ("dact.gelu>none", "nt", False),
+             ("dact.relu>none", "nt", False),
+             ("dact.silu@b>none", "tn", False),
+             ("dact.gelu@b>none", "tn", False),
+             ("dact.relu@b>none", "tn", False),
+             ("bias+gelu", "nn", True), ("res", "nn", True),
+             ("rms>glu.silu(none|none)", "nn", True)]
+
+
+def k1f_inputs(tag, layout, m, n, k, dtype, seed, save_preact=False):
+    """Operands of one K1f call on the card: A and B in their stored
+    layouts (A (k, m) for ``t?``, B (n, k) for ``?t``), the fp32
+    pre-activation shaped like the dact prologue's operand."""
+    a, bs, kw = _program_inputs(tag, m, n, k, dtype, seed)
+    ta, tb = layout[0] == "t", layout[1] == "t"
+    if ta:
+        a = a.t().contiguous()
+    if tb:
+        bs = [b.t().contiguous() for b in bs]
+    pro = kw["spec"].prologue
+    if pro.kind == "dact":
+        r = np.random.RandomState(seed + 1)
+        shape = (m, k) if pro.operand == "a" else (k, n)
+        kw["preact"] = torch.as_tensor(r.randn(*shape)).to(
+            device="cuda", dtype=torch.float32)
+    kw.update(transpose_a=ta, transpose_b=tb, save_preact=save_preact)
+    return a, bs, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,n,k", [(torch.float32, 37, 64, 50),
+                                         (torch.bfloat16, 130, 203, 301),
+                                         (torch.float32, 5, 200, 300)])
+@pytest.mark.parametrize("tag,layout,save", K1F_CASES)
+def test_cuda_k1f_program_matches_plain_version(tag, layout, save, dtype,
+                                                m, n, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, bs, kw = k1f_inputs(tag, layout, m, n, k, dtype, seed=9,
+                           save_preact=save)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    assert K.launch_counts == {K.launch_key(tag, layout, save): 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    got = got if save else (got,)
+    want = want if save else (want,)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (m, n) and g.dtype == w.dtype
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        # The preacts (i > 0) are fp32 whatever the operands' dtype.
+        f32 = dtype == torch.float32 or i > 0
+        tol = 1e-4 * (1 + scale) if f32 else 2e-2 * scale
+        assert err <= tol, (i, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fused", "glu"])
+def test_cuda_backward_matches_cpu(which):
+    """The trainable programs' gradients on the card (K1f launches only,
+    never a plain version) against the same on the CPU, fp32, with the
+    rms prologue: 1e-4 · (1 + max|cpu|), the sums run in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n, k = 37, 96, 80
+    r = np.random.RandomState(5)
+    data = {"x": r.randn(m, k), "w": r.randn(k, n) / 9, "w2": r.randn(k, n) / 9,
+            "gain": r.rand(k) + 0.5, "bias": r.randn(n), "mul": r.randn(m, n),
+            "res": r.randn(m, n)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = {name: torch.as_tensor(v).to(device=dev, dtype=torch.float32)
+             .requires_grad_() for name, v in data.items()}
+        K.reset_launch_counts()
+        pro = RmsPrologue(t["gain"])
+        if which == "fused":
+            y = ops.fused_matmul(t["x"], t["w"], Epilogue(
+                bias=t["bias"], activation="gelu", mul=t["mul"],
+                residual=t["res"]), prologue=pro)
+        else:
+            y = ops.glu_matmul(t["x"], t["w"], t["w2"], prologue=pro)
+        (y.float() ** 2).sum().backward()
+        out[dev] = {name: v.grad for name, v in t.items()
+                    if v.grad is not None}
+        out[dev]["y"] = y.detach()
+        counts = dict(K.launch_counts)
+    torch.cuda.synchronize()
+    assert counts == {}                                  # the CPU's run
+    assert sorted(out["cuda"]) == sorted(out["cpu"])
+    for name, g in out["cpu"].items():
+        err = (out["cuda"][name].cpu() - g).abs().max().item()
+        assert err <= 1e-4 * (1 + g.abs().max().item()), (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_launches_k1f_programs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x = torch.randn(64, 32, device="cuda", requires_grad=True)
+    wg, wu = (torch.randn(32, 48, device="cuda", requires_grad=True)
+              for _ in range(2))
+    K.reset_launch_counts()
+    ops.glu_matmul(x, wg, wu).sum().backward()
+    glu = "glu.silu(none|none)"
+    assert K.launch_counts == {f"{glu} save_preact": 1,
+                               "dact.silu>none nt": 1, "none nt": 1,
+                               "dact.silu@b>none tn": 1, "none tn": 1}

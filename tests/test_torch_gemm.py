@@ -4,6 +4,7 @@ fp32 out_dtype."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,8 +12,10 @@ import torch
 
 from repro.core import gemm as jg
 from repro.kernels.epilogue import Epilogue as JEpilogue
+from repro.kernels import ops as jops
 from repro.kernels.program import RmsPrologue as JRms
 from repro_torch.core import gemm as tg
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels.epilogue import Epilogue as TEpilogue
 from repro_torch.kernels.program import RmsPrologue as TRms
 
@@ -205,3 +208,91 @@ def test_quantized_weight_contract_raises(change, match):
            if change == "stacked" else dataclasses.replace(tq, **change))
     with pytest.raises(ValueError, match=match):
         tg.ca_matmul(x, bad)
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the trainable programs (K1f backward) against jax.grad of the
+# reference's custom VJPs, run in Pallas interpret mode
+# ---------------------------------------------------------------------------
+
+GRAD_EPILOGUES = [                  # tests/test_fused_gemm.py:131-166
+    ("bias+gelu", {"activation": "gelu", "bias": True}),
+    ("silu+mul", {"activation": "silu", "mul": True}),
+    ("res", {"residual": True}),
+    ("bias+silu+mul+res", {"activation": "silu", "bias": True, "mul": True,
+                           "residual": True}),
+]
+
+
+def _grads_close(got, want):
+    # The reference's own tolerance for its VJPs (rtol/atol 1e-3).
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-3,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("tag,flags", GRAD_EPILOGUES,
+                         ids=[e[0] for e in GRAD_EPILOGUES])
+def test_fused_matmul_grads_match_reference(tag, flags):
+    m, n, k = 21, 40, 33
+    r = np.random.RandomState(12)
+    a, b = r.randn(m, k), r.randn(k, n) / np.sqrt(k)
+    ops = {name: r.randn(*shape) for name, shape in
+           (("bias", (n,)), ("mul", (m, n)), ("residual", (m, n)))
+           if flags.get(name)}
+    act = flags.get("activation", "none")
+
+    def jloss(a, b, ops):
+        epi = JEpilogue(activation=act, **ops)
+        assert epi.spec().tag() == tag
+        return (jops.fused_matmul(a, b, epi, interpret=True) ** 2).sum()
+
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        f32(a), f32(b), {k_: f32(v) for k_, v in ops.items()})
+    ta, tb = (torch.tensor(x).float().requires_grad_() for x in (a, b))
+    tops_ = {k_: torch.tensor(v).float().requires_grad_()
+             for k_, v in ops.items()}
+    y = tops.fused_matmul(ta, tb, TEpilogue(activation=act, **tops_))
+    (y ** 2).sum().backward()
+    _grads_close([ta.grad, tb.grad] + [tops_[k_].grad for k_ in sorted(ops)],
+                 jax.tree.leaves(want))
+
+
+@pytest.mark.parametrize("prologue,m", [(False, 21), (True, 19)])
+def test_glu_matmul_grads_match_reference(prologue, m):
+    """tests/test_program_gemm.py:232-276: the four K1f programs of the
+    GLU backward, with and without the rms prologue (whose row factor
+    autograd closes through ``rms_row_scale``)."""
+    n, k = 48, 64
+    r = np.random.RandomState(m)
+    x, wg, wu = r.randn(m, k), r.randn(k, n) / 8, r.randn(k, n) / 8
+    gain = r.rand(k) + 0.5
+
+    def jloss(x, wg, wu, g):
+        pro = JRms(g) if prologue else None
+        return (jops.glu_matmul(x, wg, wu, prologue=pro, interpret=True)
+                ** 2).sum()
+
+    f32 = lambda v: jnp.asarray(v, jnp.float32)  # noqa: E731
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(f32(x), f32(wg), f32(wu),
+                                                 f32(gain))
+    tx, twg, twu, tgain = (torch.tensor(v).float().requires_grad_()
+                           for v in (x, wg, wu, gain))
+    y = tops.glu_matmul(tx, twg, twu,
+                        prologue=TRms(tgain) if prologue else None)
+    (y ** 2).sum().backward()
+    got = [tx.grad, twg.grad, twu.grad]
+    if prologue:
+        got.append(tgain.grad)
+    _grads_close(got, want[:len(got)])
+
+
+def test_ca_matmul_qtensor_weight_has_no_backward():
+    from repro_torch.quant.calibrate import QuantConfig, quantize_tensor
+    qw = quantize_tensor(torch.randn(K, N), QuantConfig(), axis=-2)
+    x = torch.randn(B, L, K, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        tg.ca_matmul(x, qw)
+    with torch.no_grad():
+        assert tg.ca_matmul(x, qw).shape == (B, L, N)

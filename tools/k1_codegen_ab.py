@@ -6,7 +6,8 @@ Builds each given ``ca_gemm_program.cu`` with the port's nvcc flags plus
 (8 x 16 x 128 for m <= 8, 64 x 64 x 32 above; one and two B branches,
 vector B loads) prints
 
-* ptxas's registers, stack frame, spills and shared memory;
+* ptxas's registers, stack frame, spills and shared memory (of every
+  instantiation, also written to ``ptxas_A.json``/``ptxas_B.json``);
 * the SASS instruction count, the opcode histogram and the opcodes whose
   counts differ between the two builds;
 
@@ -17,10 +18,12 @@ a time in a CUDA graph over weight copies that together exceed the 50 MB
 L2, the builds alternating A, B, B, A for ``--rounds`` rounds.
 
 The C entry point changed between the port's slices: ``--abi`` names each
-build's argument list, ``float`` (10 pointers, 11 ints) or ``quant``
-(14 pointers, 15 ints).  Run from the repository root on the card::
+build's argument list, ``float`` (10 pointers, 11 ints), ``quant`` (14
+pointers, 15 ints) or ``train`` (17 pointers, 19 ints, and a ``TRAIN``
+template flag after ``VEC_B``).  Run from the repository root on the
+card::
 
-    python3 tools/k1_codegen_ab.py A.cu:float B.cu:quant --out DIR
+    python3 tools/k1_codegen_ab.py A.cu:quant B.cu:train --out DIR
 
 The SASS of the compared functions is written under ``--out``.
 """
@@ -117,9 +120,10 @@ def opcode(line: str) -> str:
     return body.split()[0].rstrip(";") if body.split() else ""
 
 
-def select(demangled, tile: str, nb: int, two_types: bool):
-    ty = "__nv_bfloat16, __nv_bfloat16" if two_types else "__nv_bfloat16"
-    want = f"ca_gemm_program_kernel<{ty}, {TILES[tile]}, {nb}, true>"
+def select(demangled, tile: str, nb: int, abi: str):
+    ty = "__nv_bfloat16" if abi == "float" else "__nv_bfloat16, __nv_bfloat16"
+    flags = "true, false" if abi == "train" else "true"
+    want = f"ca_gemm_program_kernel<{ty}, {TILES[tile]}, {nb}, {flags}>"
     hits = [k for k, v in demangled.items() if want in v]
     if len(hits) != 1:
         raise RuntimeError(f"{want}: {len(hits)} matches")
@@ -133,7 +137,8 @@ class Entry:
     def __init__(self, lib: pathlib.Path, abi: str):
         self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
         self.abi = abi
-        n_ptr, n_int = (10, 11) if abi == "float" else (14, 15)
+        n_ptr, n_int = {"float": (10, 11), "quant": (14, 15),
+                        "train": (17, 19)}[abi]
         self.fn.argtypes = ([ctypes.c_void_p] * n_ptr
                             + [ctypes.c_int] * n_int + [ctypes.c_void_p])
         self.fn.restype = ctypes.c_int
@@ -148,8 +153,11 @@ class Entry:
                  0, 0, 0, 0, glu_act]      # gain, bias, mul, res, out, act
         if self.abi == "float":
             args = ptrs + [m, n, k, 1] + flags
-        else:
+        elif self.abi == "quant":
             args = ptrs + [None] * 4 + [m, n, k, 1, 1] + flags + [0, 0, 0]
+        else:       # no preact, no save_preact outputs, nn, no dact
+            args = (ptrs + [None] * 7 + [m, n, k, 1, 1] + flags
+                    + [0, 0, 0] + [0, 0, 0, 0])
         err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch returned {err}")
@@ -227,13 +235,20 @@ def main():
         dem = demangle(list(funcs))
         builds.append(dict(tag=tag, src=src, abi=abi, lib=lib,
                            ptxas=ptxas_info(log), funcs=funcs, dem=dem))
+        table = {dem[name]: info for name, info in
+                 builds[-1]["ptxas"].items() if name in dem}
+        (out_dir / f"ptxas_{tag}.json").write_text(
+            json.dumps(table, indent=1, sort_keys=True))
         print(f"build {tag}: {src} ({abi} entry point), "
               f"{len(funcs)} kernels")
+        for fn, info in sorted(table.items()):
+            print(f"  ptxas {tag} {fn.split('ca_gemm_program_kernel')[-1]}"
+                  f": {json.dumps(info)}")
     for tile in TILES:
         for nb in (1, 2):
             hist, seqs = [], []
             for b in builds:
-                name = select(b["dem"], tile, nb, b["abi"] != "float")
+                name = select(b["dem"], tile, nb, b["abi"])
                 lines = b["funcs"][name]
                 (out_dir / f"{b['tag']}_{tile}_nb{nb}.sass").write_text(
                     b["dem"][name] + "\n" + "\n".join(lines) + "\n")
