@@ -6,9 +6,10 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. card: prints the card's name and power limit; CUDA must be available.
-2. build: compiles both kernels (the CA-GEMM program kernel and the paged
-   decode-attention kernel) with nvcc into build/, one nvcc per source,
-   both started together.
+2. build: compiles the four kernel sources (the CA-GEMM program kernel, the
+   paged decode-attention kernel, the forward flash-attention kernel and
+   the k-outer ablation kernel) with nvcc into build/, one nvcc per
+   source, all started together.
 3. kernel parity: each float program (none, res, rms>glu.silu(none|none))
    on the kernel against its plain version, in bf16 at the main path's
    shapes (m = 1, 37, 128; h2o-danube-3-4b's at m = 1) and in fp32 on a
@@ -65,6 +66,28 @@ Phases (any failure raises and the script exits non-zero):
    bound per GEMM program (float, int8 and the K1f programs at 1024
    tokens) and for the paged kernel (each timed by replaying a CUDA graph
    of 20 calls), and the end-to-end times of the serve and train phases.
+11. K1g, the distance product: all-pairs shortest paths on a random
+   directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
+   repeated min-plus squarings through kernels.ops.distance_product,
+   exactly 12 launches, held against scipy's Dijkstra (the same
+   unreachable pairs, rtol 1e-5 on the rest); the kernel bit-equal to its
+   plain version at 4096^3, on a ragged shape, in bf16 and with +inf and
+   NaN operands; its time against the FP32 issue-rate bound.
+12. K3, forward flash attention: kernels.flash_attn.flash_attention on the
+   card against its plain version in fp32 and bf16 at the served models'
+   full-width prefill shapes (stablelm-1.6b at 1000 tokens, causal;
+   h2o-danube-3-4b at 300, GQA 4, D = 120), stablelm at 4096, danube at
+   16384 with its window of 8192, and a ragged batch with -1 kv slots and
+   a fully masked row (0); one launch per call; at the stablelm shape
+   against the model's own plain prefill attention.  Each output is held
+   to its row's scale (bf16 2^-7, fp32 1e-4 of |want| + the row's max),
+   and a bf16 kernel's mean error to 2^-12 of the mean |want|.  Times
+   beside the bound and scaled_dot_product_attention.
+13. K4, the k-outer ablation: kernels.ca_mmm.ca_mmm_k_outer at
+   m = n = k = 4096 against its plain version (fp32 and bf16 to 1e-4 of
+   max, int8 exactly), k / 32 launches per call; its time beside K1a's
+   (the k-inner kernel, same shape), torch.matmul and both schedules'
+   device-memory traffic by the reference's formula.
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -92,6 +115,7 @@ from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
+from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels.program import (program_from_tag,  # noqa: E402
                                          rms_row_scale)
 from repro_torch.models import attention as A  # noqa: E402
@@ -121,6 +145,25 @@ SOURCE = "src/repro_torch/csrc/ca_gemm_program.cu"
 REPLACES = "src/repro/kernels/ca_mmm.py:297"
 ATTN_SOURCE = "src/repro_torch/csrc/paged_flash_attn.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attn.py:241"
+FWD_SOURCE = "src/repro_torch/csrc/flash_attn_fwd.cu"
+FWD_REPLACES = "src/repro/kernels/flash_attn.py:83"
+K_OUTER_SOURCE = "src/repro_torch/csrc/ca_mmm_k_outer.cu"
+K_OUTER_REPLACES = "src/repro/kernels/ca_mmm.py:616"
+MIN_PLUS = K.launch_key("none", semiring="min_plus")
+# K1g's workload: all-pairs shortest paths over a random directed graph by
+# repeated squaring of its distance matrix.
+APSP_NODES, APSP_DEGREE = 4096, 8
+# K3's shapes (B, Lq, S, H, Hkv, D, window): the served models' full-width
+# prefill (stablelm-1.6b at 1000 tokens, causal; h2o-danube-3-4b at 300
+# tokens under its config's window of 8192), stablelm at 4096, and danube
+# at 16384, where the window binds.
+FWD_SHAPES = {"stablelm prefill": (1, 1000, 1000, 32, 32, 64, None),
+              "danube prefill": (1, 300, 300, 32, 8, 120, 8192),
+              "stablelm S4096": (1, 4096, 4096, 32, 32, 64, None),
+              "danube S16384": (1, 16384, 16384, 32, 8, 120, 8192)}
+FWD_TIMED = ("stablelm prefill", "danube prefill", "stablelm S4096")
+# K4 at m = n = k = K_OUTER_MNK, beside K1a at the same shape.
+K_OUTER_MNK = 4096
 
 GLU = "rms>glu.silu(none|none)"
 # (program, GEMM, k, n, out_dtype) of one stablelm-1.6b forward step.
@@ -216,8 +259,9 @@ def build():
         return _build.build(src), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(timed, (K.SOURCE, FA.SOURCE)))
+    sources = (K.SOURCE, FA.SOURCE, FA.FWD_SOURCE, K.K_OUTER_SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(timed, sources))
     for path, seconds in built:
         print(f"built {path.name} in {seconds:.3f} s")
     print(f"build wall {time.perf_counter() - t0:.3f} s (one nvcc per "
@@ -1581,6 +1625,378 @@ def k1f_times():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K1g (distance product), K3 (forward flash attention), K4 (k-outer)
+# ---------------------------------------------------------------------------
+
+def _event_ms(fn, reps=2):
+    """Device ms per call of a function that launches too many kernels to
+    capture in a graph: one warm-up call, then ``reps`` calls between two
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sm_clock_ghz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) / 1e3
+
+
+def apsp_graph(n, degree, seed):
+    """Distance matrix of a random directed graph: n * degree edges drawn
+    uniformly (self loops dropped, the lighter of two parallel edges
+    kept), fp32 weights in (0, 1], +inf where there is no edge, 0 on the
+    diagonal."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, n, n * degree)
+    dst = rng.randint(0, n, n * degree)
+    w = (1.0 - rng.rand(n * degree)).astype(np.float32)
+    keep = src != dst
+    d = np.full((n, n), np.inf, dtype=np.float32)
+    np.minimum.at(d, (src[keep], dst[keep]), w[keep])
+    np.fill_diagonal(d, 0.0)
+    return d
+
+
+def check_min_plus(label, a, b):
+    """The distance-product kernel against its plain version: bit-equal,
+    NaN where it has NaN; returns the kernel's output and its max abs
+    error over the finite entries."""
+    got = OPS.distance_product(a, b)
+    want = K.ca_gemm_program_reference(a, [b], semiring="min_plus")
+    torch.cuda.synchronize()
+    same = bool(((got == want) | (got.isnan() & want.isnan())).all())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs().max().item() if bool(fin.any()) \
+        else 0.0
+    print(f"parity distance_product {label}: bit-equal {same}, "
+          f"max_abs_err={err:.3e}, {int(got.isinf().sum())} inf, "
+          f"{int(got.isnan().sum())} NaN")
+    if got.shape != want.shape or got.dtype != torch.float32 or not same:
+        raise AssertionError(f"distance_product {label}: the kernel is not "
+                             "bit-equal to its plain version")
+    return got, err
+
+
+def min_plus_phase():
+    phase("K1g: all-pairs shortest paths by repeated min-plus squaring")
+    n = APSP_NODES
+    d0 = apsp_graph(n, APSP_DEGREE, seed=0)
+    steps = math.ceil(math.log2(n - 1))
+    dist = torch.from_numpy(d0).cuda()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        dist = OPS.distance_product(dist, dist)
+        if i == 2:
+            mid = dist              # a dense step's operand, for parity
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(K.launch_counts)
+    print(f"APSP n={n} edges={int(np.isfinite(d0).sum()) - n}: {steps} "
+          f"squarings in {wall_ms:.3f} ms, launches {counts}")
+    if counts != {MIN_PLUS: steps}:
+        raise AssertionError(f"K1g launches {counts}, expected "
+                             f"{ {MIN_PLUS: steps} }")
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    rows, cols = np.nonzero(np.isfinite(d0) & ~np.eye(n, dtype=bool))
+    graph = csr_matrix((d0[rows, cols].astype(np.float64), (rows, cols)),
+                       shape=(n, n))
+    t0 = time.perf_counter()
+    want = shortest_path(graph, method="D", directed=True)
+    scipy_s = time.perf_counter() - t0
+    got = dist.cpu().numpy()
+    fin = np.isfinite(want)
+    same_inf = bool(np.array_equal(np.isinf(got), ~fin)) \
+        and not np.isnan(got).any()
+    rel = float(np.max(np.abs(got[fin] - want[fin])
+                       / np.maximum(want[fin], np.finfo(np.float32).tiny)))
+    print(f"APSP vs scipy Dijkstra ({scipy_s:.3f} s): unreachable pairs "
+          f"{int((~fin).sum())}, same set {same_inf}; max relative error "
+          f"{rel:.3e} (rtol 1e-5)")
+    if not same_inf or not np.allclose(got[fin], want[fin], rtol=1e-5,
+                                       atol=0.0):
+        raise AssertionError("APSP by min-plus squaring disagrees with "
+                             "Dijkstra")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    _, worst = check_min_plus(f"{n}^3 fp32 (squaring 4's operand)", mid,
+                              mid)
+    a = torch.rand(1000, 333, generator=gen, device="cuda")
+    b = torch.rand(333, 777, generator=gen, device="cuda")
+    for label, x, y in (("ragged fp32 (1000, 333, 777)", a, b),
+                        ("ragged bf16 (1000, 333, 777)", a.bfloat16(),
+                         b.bfloat16())):
+        worst = max(worst, check_min_plus(label, x, y)[1])
+    a[torch.rand(a.shape, generator=gen, device="cuda") < 0.3] = math.inf
+    b[torch.rand(b.shape, generator=gen, device="cuda") < 0.3] = math.inf
+    a[5] = math.inf                    # a row that reaches nothing
+    a[7, 11] = math.nan
+    got, err = check_min_plus("ragged fp32, 30 % +inf and one NaN", a, b)
+    worst = max(worst, err)
+    if not (bool(got[7].isnan().all()) and bool(got[5].isinf().all())):
+        raise AssertionError("a NaN (+inf row) in A did not reach its row "
+                             "of C")
+    ms = _time_ms(lambda i: OPS.distance_product(mid, mid), 1, iters=5,
+                  reps=4)
+    plain = _event_ms(lambda: K.ca_gemm_program_reference(
+        mid, [mid], semiring="min_plus"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ghz = sm_clock_ghz()
+    # 2 m n k FP32 instructions (FADD + FMNMX), 128 lanes a clock per SM
+    # (FMNMX's own pipe takes 64: the same m n k / 64 per SM-clock).
+    t_ops = 2 * n ** 3 / (128 * sms * ghz * 1e9)
+    t_bytes = 3 * n * n * 4 / HBM_BYTES_PER_S
+    row = {"case": f"m=n=k={n} fp32", "ms": ms, "plain_ms": plain,
+           "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "sms": sms, "sm_clock_max_ghz": ghz,
+           "issue_bound_ms": t_ops * 1e3, "byte_bound_ms": t_bytes * 1e3}
+    print("time distance_product " + json.dumps(row))
+    del dist, mid, a, b, got
+    torch.cuda.empty_cache()
+    return {"launches": steps, "max_abs_err": worst, "row": row,
+            "apsp_ms": wall_ms, "scipy_s": scipy_s, "max_rel_err": rel}
+
+
+def fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen):
+    """Random q/k/v on the card (N(0, 1) in ``dtype``), kv slot s at
+    position s, queries end-aligned with the keys."""
+    q = torch.randn(B, Lq, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
+    kpos = torch.arange(S, dtype=torch.int32, device="cuda").repeat(B, 1)
+    qpos = (torch.arange(Lq, dtype=torch.int32, device="cuda")
+            + (S - Lq)).repeat(B, 1)
+    return q, k, v, qpos, kpos
+
+
+# K3 against a plain attention, element by element: each output is held to
+# rtol x (|want| + max |want| over its row's Dv values).  The row's own
+# scale, not the tensor's: under causal masking the first rows (one slot:
+# out = v) are 10-100x the later ones, which average hundreds of slots.
+# bf16: one output ulp, 2^-7; fp32: 1e-4.
+FWD_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
+# bf16 kernel vs plain version only: both round p to bf16 at the same
+# running max (the same kv blocks), so outputs differ only where an fp32
+# sum lands across a rounding point.  The mean error over the tensor must
+# stay under 2^-12 of the mean |want|; p left unrounded moves about a third
+# of the outputs by an ulp and exceeds it several times over.
+FWD_MEAN_TOL = 2.0 ** -12
+
+
+def fwd_within(label, got, want, mean_check):
+    """Hold ``got`` to ``want`` by the K3 bounds above; raises, or returns
+    (max abs error, max error / bound, mean error / mean |want|)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    aw = w.abs()
+    bound = FWD_RTOL[want.dtype] * (aw + aw.amax(dim=-1, keepdim=True))
+    over = err > bound
+    ratio = (err / bound.clamp(min=1e-30)).max().item()
+    mean = err.sum().item() / max(aw.sum().item(), 1e-30)
+    late = aw[:, aw.shape[1] // 2:]
+    print(f"   {label}: max_abs_err={err.max().item():.3e}, worst "
+          f"err/bound={ratio:.3f} (rtol {FWD_RTOL[want.dtype]:.3g}), mean "
+          f"err/mean |want|={mean:.3e}; later half of the rows: median "
+          f"|want|={late.median().item():.3e}, median bound="
+          f"{bound[:, aw.shape[1] // 2:].median().item():.3e}")
+    if bool(over.any()):
+        raise AssertionError(f"{label}: {int(over.sum())} outputs outside "
+                             f"the bound (worst err/bound {ratio})")
+    if mean_check and want.dtype == torch.bfloat16 and mean > FWD_MEAN_TOL:
+        raise AssertionError(f"{label}: mean error {mean} > {FWD_MEAN_TOL} "
+                             "of the mean |want|")
+    return err.max().item(), ratio, mean
+
+
+def check_fwd(label, q, k, v, **kw):
+    """The K3 kernel against its plain version on the same inputs; returns
+    the kernel's output and its max abs error."""
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != q.dtype \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {label}: bad output")
+    print(f"parity flash_attention {label} {str(q.dtype)[6:]}")
+    err, _, _ = fwd_within("kernel vs plain version", got, want, True)
+    return got, err
+
+
+def visible_pairs(qpos, kpos, window):
+    """(query, kv slot) pairs the causal and window masks leave, summed
+    over the batch: the work the attention must do on these inputs."""
+    return sum(int(FA.attention_mask(qpos[:, q0:q0 + 1024], kpos, True,
+                                     window).sum())
+               for q0 in range(0, qpos.shape[1], 1024))
+
+
+def fwd_bound(B, Lq, S, H, Hkv, D, pairs, dtype):
+    """Least time for one call: q, k, v and out once (plus positions)
+    over the memory rate, or 4 D H (visible pairs) operations (q.k and
+    p.v) over the bf16 tensor-core rate, whichever is larger."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * Lq * H * D + 2 * B * S * Hkv * D) * es \
+        + 4 * B * (Lq + S)
+    ops = 4 * D * pairs * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_fwd_phase():
+    phase("K3: forward flash attention (kernel vs plain version)")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    FA.reset_launch_counts()
+    calls, worst, timed = 0, 0.0, {}
+    for name, (B, Lq, S, H, Hkv, D, window) in FWD_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qpos, kpos = fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen)
+            kw = dict(q_positions=qpos, kv_positions=kpos, window=window)
+            got, err = check_fwd(
+                f"{name:16s} B={B} Lq={Lq} S={S} H={H} Hkv={Hkv} D={D} "
+                f"window={window}", q, k, v, **kw)
+            calls += 1
+            worst = max(worst, err)
+            if name == "stablelm prefill":
+                # The model's own plain prefill attention (q chunks of 512,
+                # kv chunks of 1024: other rescale points, same function).
+                # Its p rounds at other running maxima, so the element
+                # bound holds here and the mean one does not.
+                fwd_within("cross-check vs models.attention.flash_attention",
+                           got, A.flash_attention(q, k, v, **kw), False)
+            if dtype == torch.bfloat16 and name in FWD_TIMED:
+                timed[name] = (q, k, v, kw)
+            del got
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, qpos, kpos = fwd_inputs(3, 300, 1000, 32, 32, 64, dtype, gen)
+        kpos[torch.rand(kpos.shape, generator=gen, device="cuda") < 0.1] = -1
+        qpos[2, 0] = -3                # before every kv slot: sees none
+        got, err = check_fwd("ragged B=3 Lq=300 S=1000, -1 slots, a masked "
+                             "row", q, k, v, q_positions=qpos,
+                             kv_positions=kpos)
+        calls += 1
+        worst = max(worst, err)
+        if bool(got[2, 0].any()):
+            raise AssertionError("the fully masked query row is not 0")
+    counts = dict(FA.launch_counts)
+    print(f"K3 launches over {calls} calls: {counts}")
+    if counts != {FA.FWD_NAME: calls}:
+        raise AssertionError(f"K3 launches {counts}, expected {calls}")
+    phase("K3 times (CUDA graph replay)")
+    rows = []
+    for name in FWD_TIMED:
+        B, Lq, S, H, Hkv, D, window = FWD_SHAPES[name]
+        q, k, v, kw = timed[name]
+        ms = _time_ms(lambda i: FA.flash_attention(q, k, v, **kw), 1)
+        plain = _time_ms(lambda i: FA.flash_attention_reference(
+            q, k, v, **kw), 1, iters=5, reps=2)
+        lib = None
+        if window is None or window >= S:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = _time_ms(lambda i: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True),
+                           1)
+        pairs = visible_pairs(kw["q_positions"], kw["kv_positions"], window)
+        b_ms, b_by = fwd_bound(B, Lq, S, H, Hkv, D, pairs, torch.bfloat16)
+        row = {"kernel": FA.FWD_NAME, "case": name, "B": B, "Lq": Lq,
+               "S": S, "H": H, "Hkv": Hkv, "D": D, "window": window,
+               "visible_pairs": pairs, "ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": 4 * D * pairs * H / ms / 1e9}
+        rows.append(row)
+        print("time " + json.dumps(row))
+    del timed
+    torch.cuda.empty_cache()
+    return {"launches": calls, "max_abs_err": worst, "rows": rows}
+
+
+def k_outer_phase():
+    phase(f"K4: the k-outer ablation at m = n = k = {K_OUTER_MNK} (kernel "
+          "vs plain version)")
+    n = K_OUTER_MNK
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    K.reset_launch_counts()
+    worst = 0.0
+    dtypes = (torch.float32, torch.bfloat16, torch.int8)
+    for dtype in dtypes:
+        if dtype == torch.int8:
+            a, b = (torch.randint(-127, 128, (n, n), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                    for _ in range(2))
+        else:
+            a, b = (torch.randn(n, n, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+        # Float inputs: compare the fp32 C before any cast.
+        od = None if dtype == torch.int8 else torch.float32
+        got = K.ca_mmm_k_outer(a, b, out_dtype=od)
+        want = K.ca_mmm_k_outer_reference(a, b, out_dtype=od)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        tol = 0.0 if dtype == torch.int8 \
+            else 1e-4 * want.abs().max().item()
+        print(f"parity ca_mmm_k_outer {str(dtype)[6:]:8s} {n}^3 out "
+              f"{str(got.dtype)[6:]} max_abs_err={err:.3e} tol={tol:.3e}")
+        if got.dtype != want.dtype or not err <= tol:
+            raise AssertionError(f"ca_mmm_k_outer {dtype}: kernel disagrees "
+                                 f"({err} > {tol})")
+        worst = max(worst, err)
+        del a, b, got, want
+    steps = n // K.K_OUTER_TILE[2]
+    counts = dict(K.launch_counts)
+    print(f"K4 launches over {len(dtypes)} calls: {counts}")
+    if counts != {K.K_OUTER: len(dtypes) * steps}:
+        raise AssertionError(f"K4 launches {counts}, expected "
+                             f"{len(dtypes) * steps}")
+    phase("K4 times beside K1a's (CUDA graph replay, bf16)")
+    a, b = (torch.randn(n, n, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    ms = _time_ms(lambda i: K.ca_mmm_k_outer(a, b), 1, iters=5, reps=4)
+    k1_ms = _time_ms(lambda i: K.ca_gemm_program(a, [b]), 1, iters=5, reps=4)
+    plain = _time_ms(lambda i: K.ca_mmm_k_outer_reference(a, b), 1, iters=2,
+                     reps=2)
+    lib = _time_ms(lambda i: torch.matmul(a, b), 1)
+    b_ms, b_by = bound("none", n, n, n, None, torch.bfloat16)
+    # The reference's traffic formulas (benchmarks/bench_intensity.py), in
+    # bytes, at K4's default tile, which is K1a's (64 x 64, 32-row slab,
+    # the tile ca_gemm_program.cu takes for m > 8): the same bf16 panels,
+    # K1's bf16 C written once, K4's fp32 C read and written every k step.
+    es = 2
+    bm, bn, bk = K.K_OUTER_TILE
+    gm, gn, gk = n // bm, n // bn, n // bk
+    panels = gm * gn * gk * (bm * bk + bk * bn) * es
+    q_k4 = panels + 2 * n * n * gk * 4
+    q_k1 = panels + n * n * es
+    row = {"case": f"m=n=k={n} bf16", "tile": [bm, bn, bk],
+           "launches_per_call": steps, "ms": ms, "k1a_ms": k1_ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+           "bound_by": b_by, "traffic_bytes_k_outer": q_k4,
+           "traffic_bytes_k1": q_k1,
+           "traffic_ms_k_outer": q_k4 / HBM_BYTES_PER_S * 1e3,
+           "traffic_ms_k1": q_k1 / HBM_BYTES_PER_S * 1e3}
+    print("time ca_mmm_k_outer " + json.dumps(row))
+    del a, b
+    torch.cuda.empty_cache()
+    return {"launches": len(dtypes) * steps, "max_abs_err": worst,
+            "row": row}
+
+
 def main():
     t_start = time.perf_counter()
     card_line = card()
@@ -1611,6 +2027,9 @@ def main():
     qrows = quant_times(rows)
     attn_rows = attn_times()
     frows = k1f_times()
+    k1g = min_plus_phase()
+    k3 = flash_fwd_phase()
+    k4 = k_outer_phase()
     phase("summary")
     print(f"card: {card_line}")
     for r in e2e["requests"]:
@@ -1691,6 +2110,40 @@ def main():
         "bound_by": arow["bound_by"], "library_ms": None,
         "shape": f"B={arow['B']} S={arow['S']} page={arow['page']} "
                  f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
+    grow = k1g["row"]
+    kernels.append({
+        "name": f"ca_gemm_program[{MIN_PLUS}]", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES, "launches": k1g["launches"],
+        "max_abs_err": k1g["max_abs_err"], "ms": grow["ms"],
+        "plain_ms": grow["plain_ms"], "bound_ms": grow["bound_ms"],
+        "bound_by": grow["bound_by"], "library_ms": None,
+        "shape": grow["case"]})
+    frow = k3["rows"][0]
+    kernels.append({
+        "name": FA.FWD_NAME, "route": "cuda", "source": FWD_SOURCE,
+        "replaces": FWD_REPLACES, "launches": k3["launches"],
+        "max_abs_err": k3["max_abs_err"], "ms": frow["ms"],
+        "plain_ms": frow["plain_ms"], "bound_ms": frow["bound_ms"],
+        "bound_by": frow["bound_by"], "library_ms": frow["library_ms"],
+        "shape": f"{frow['case']} B={frow['B']} Lq={frow['Lq']} "
+                 f"S={frow['S']} H={frow['H']} Hkv={frow['Hkv']} "
+                 f"D={frow['D']} causal bf16"})
+    orow = k4["row"]
+    kernels.append({
+        "name": "ca_mmm_k_outer", "route": "cuda", "source": K_OUTER_SOURCE,
+        "replaces": K_OUTER_REPLACES, "launches": k4["launches"],
+        "max_abs_err": k4["max_abs_err"], "ms": orow["ms"],
+        "plain_ms": orow["plain_ms"], "bound_ms": orow["bound_ms"],
+        "bound_by": orow["bound_by"], "library_ms": orow["library_ms"],
+        "shape": f"{orow['case']}, tile {orow['tile']}, "
+                 f"{orow['launches_per_call']} launches a call"})
+    print(f"e2e K1g APSP {APSP_NODES} nodes: {k1g['launches']} squarings in "
+          f"{k1g['apsp_ms']:.3f} ms (scipy Dijkstra {k1g['scipy_s']:.3f} s "
+          f"on the host), max relative error {k1g['max_rel_err']:.3e}")
+    print(f"e2e K4 vs K1a at {K_OUTER_MNK}^3 bf16: k-outer {orow['ms']:.3f} "
+          f"ms, k-inner {orow['k1a_ms']:.3f} ms; traffic "
+          f"{orow['traffic_bytes_k_outer'] / 1e9:.3f} vs "
+          f"{orow['traffic_bytes_k1'] / 1e9:.3f} GB")
     print(f"e2e train step ms (steps 2-3) {train['step_ms_steps_2_3']}, "
           f"tokens/s {train['tokens_per_s_steps_2_3']}, peak memory "
           f"{train['peak_memory_gb']:.3f} GB, model-work share "

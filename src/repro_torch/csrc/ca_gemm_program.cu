@@ -9,6 +9,8 @@
 //   dqb...                    the same with int8 weights (K1d): int8 B tiles
 //                             streamed and widened to fp32 in registers
 //   dqab...                   w8a8 (K1e): int8 A and B, int32 products
+// the tropical distance product (K1g, semiring="min_plus"):
+//   none, min_plus            C[i,j] = min_k (A[i,k] + B[k,j]) in fp32
 // and the backward programs of training (K1f, the float programs only):
 //   nt, tn layouts            dA = dC B^T with B stored (n, k), dB = A^T dC
 //                             with A stored (k, m), each read in its stored
@@ -68,6 +70,20 @@
 // (fp32 FMAs, no tensor cores) runs far from that: wgmma and TMA are later
 // work.
 //
+// The distance product (K1g) runs in one instantiation of the 64 x 64 tile
+// (MIN_PLUS below): fp32 or bf16 A and B, read through a run-time type flag
+// and widened to fp32 as they are staged; the accumulator starts at +inf;
+// out-of-range A and B elements (the k edge among them) are filled with +inf,
+// not 0, so a padded lane never wins a minimum (ca_mmm.py:175-196); the inner
+// step is acc = min(acc, a + b), with a min that propagates NaN as the
+// reference's jnp.minimum does (PTX min.NaN; fminf would drop it); the drain
+// has no chain and stores fp32.  fp32 adds and minima are exact and
+// order-free, so the result is bit-equal to the plain version.  It runs on
+// no tensor core: it is bound by its 2 m n k FP32 instructions (an FADD and
+// an FMNMX per term), which the SMs issue at 128 lanes a clock each (FMNMX
+// at 64): m n k / 64 per SM-clock, 4.1 ms at m = n = k = 4096 on 132 SMs
+// at 1.98 GHz.
+//
 // What bounds it on the H100: at decode (m = 1) every program is bound by
 // the weight bytes it must stream.  The GLU streams 2 x 2048 x 5632 x 2 B =
 // 46 MB in bf16 (13.8 us at 3.35 TB/s), half that in int8 (6.9 us).  This
@@ -80,6 +96,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -120,6 +137,7 @@ struct Params {
   int sb_tile, sa_tile;   // scale_b / scale_a per tile
   int trans_a, trans_b;   // A stored (k, m) / B stored (n, k)
   int dact, dact_act;     // Dact operand and its activation
+  int a_f32, b_f32;       // min_plus: A / B element type (1 fp32, 0 bf16)
 };
 
 template <typename T>
@@ -156,6 +174,13 @@ __device__ __forceinline__ Acc widen(T v) {
 
 __device__ __forceinline__ float mac(float acc, float a, float b) { return fmaf(a, b, acc); }
 __device__ __forceinline__ int mac(int acc, int a, int b) { return acc + a * b; }
+
+// min(acc, a + b) in fp32; NaN in either propagates (min.NaN, sm_80+).
+__device__ __forceinline__ float min_plus(float acc, float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(acc), "f"(__fadd_rn(a, b)));
+  return r;
+}
 
 __device__ __forceinline__ float load_f32(const void* p, long long i, int is_f32) {
   return is_f32 ? static_cast<const float*>(p)[i]
@@ -233,9 +258,11 @@ __device__ __forceinline__ float drain_scale(const Params& p, int b, float z, in
 // and columns tc + j*(BN/TN) of the C tile, so neighbouring threads read
 // neighbouring shared-memory words and store neighbouring C elements.
 // TRAIN instantiations (float, scalar B loads) also take the training
-// programs' run-time flags: layouts, dact and save_preact.
+// programs' run-time flags: layouts, dact and save_preact.  The MIN_PLUS
+// instantiation (fp32 A, B and sums, one branch, scalar loads) is the
+// distance product.
 template <typename TA, typename TB, int BM, int BN, int BK, int TM, int TN, int NB,
-          bool VEC_B, bool TRAIN>
+          bool VEC_B, bool TRAIN, bool MIN_PLUS>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     ca_gemm_program_kernel(const Params p) {
   constexpr bool QUANT = std::is_same<TB, int8_t>::value;   // dqb or dqab
@@ -257,6 +284,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
                 "vector B loads must split evenly over the threads");
   static_assert(!INT_A || QUANT, "int8 A pairs with int8 B only");
   static_assert(!TRAIN || (!QUANT && !VEC_B), "training programs are float, scalar B");
+  static_assert(!MIN_PLUS || (std::is_same<TA, float>::value && std::is_same<TB, float>::value &&
+                              NB == 1 && !VEC_B && !TRAIN),
+                "the distance product stages fp32, one branch, scalar loads");
   // A transposed B is written column-wise: pad its rows off one bank.
   constexpr int BPAD = TRAIN ? 1 : 0;
 
@@ -281,7 +311,10 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        part[b][i][j] = Acc(0);
+        if constexpr (MIN_PLUS)
+          part[b][i][j] = CUDART_INF_F;
+        else
+          part[b][i][j] = Acc(0);
         acc[b][i][j] = 0.f;
       }
 
@@ -327,6 +360,9 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         const bool in = r < m && c < k;
         ra[i] = in ? A[p.trans_a ? (long long)c * m + r : (long long)r * k + c] : zero_a;
         if (p.dact == DACT_A) pa[i] = in ? p.preact[(long long)r * k + c] : 0.f;
+      } else if constexpr (MIN_PLUS) {
+        const int r = row0 + e / BK, c = k0 + e % BK;
+        ra[i] = (r < m && c < k) ? load_f32(p.a, (long long)r * k + c, p.a_f32) : CUDART_INF_F;
       } else {
         const int r = row0 + e / BK, c = k0 + e % BK;
         ra[i] = (r < m && c < k) ? A[(long long)r * k + c] : zero_a;
@@ -355,6 +391,14 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
                           ? *reinterpret_cast<const VecB*>(B + (long long)r * n + c)
                           : VecB{};
         }
+      } else if constexpr (MIN_PLUS) {
+#pragma unroll
+        for (int i = 0; i < BS_PER; ++i) {
+          const int e = tid + i * NT;
+          const int r = k0 + e / BN, c = col0 + e % BN;
+          rbs[b][i] = (r < k && c < n) ? load_f32(p.b[b], (long long)r * n + c, p.b_f32)
+                                       : CUDART_INF_F;
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < BS_PER; ++i) {
@@ -374,7 +418,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       int rl, cl;
       a_pos(tid + i * NT, rl, cl);
       TA v = ra[i];
-      if constexpr (!INT_A) {
+      if constexpr (!INT_A && !MIN_PLUS) {
         if (p.row_scale != nullptr) {
           const int r = row0 + rl, c = k0 + cl;
           if (r < m && c < k) {
@@ -456,7 +500,12 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         for (int j = 0; j < TN; ++j) {
           const Acc bv = widen<Acc>(Bs[b][kk][tc + j * TCOLS]);
 #pragma unroll
-          for (int i = 0; i < TM; ++i) part[b][i][j] = mac(part[b][i][j], av[i], bv);
+          for (int i = 0; i < TM; ++i) {
+            if constexpr (MIN_PLUS)
+              part[b][i][j] = min_plus(part[b][i][j], av[i], bv);
+            else
+              part[b][i][j] = mac(part[b][i][j], av[i], bv);
+          }
         }
     }
     if constexpr (QUANT) {
@@ -476,6 +525,10 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int c = col0 + tc + j * TCOLS;
       if (c >= n) continue;
       const long long idx = (long long)r * n + c;
+      if constexpr (MIN_PLUS) {
+        static_cast<float*>(p.out)[idx] = part[0][i][j];
+        continue;
+      }
       float y;
       if constexpr (QUANT)
         y = drain_scale(p, 0, acc[0][i][j], r, c);
@@ -519,9 +572,11 @@ void launch_tile(const Params& p, cudaStream_t stream) {
                      reinterpret_cast<uintptr_t>(p.b[1]) % VB == 0;
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
   if (vec_b)
-    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true, false><<<grid, NT, 0, stream>>>(p);
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true, false, false>
+        <<<grid, NT, 0, stream>>>(p);
   else
-    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false, false><<<grid, NT, 0, stream>>>(p);
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false, false, false>
+        <<<grid, NT, 0, stream>>>(p);
 }
 
 bool is_training_program(const Params& p) {
@@ -538,7 +593,8 @@ void launch_program(const Params& p, cudaStream_t stream) {
   if constexpr (!std::is_same<TB, int8_t>::value) {
     if (is_training_program(p)) {
       const dim3 grid((p.n + 63) / 64, (p.m + 63) / 64);
-      ca_gemm_program_kernel<TA, TB, 64, 64, 32, 4, 4, NB, false, true><<<grid, 256, 0, stream>>>(p);
+      ca_gemm_program_kernel<TA, TB, 64, 64, 32, 4, 4, NB, false, true, false>
+          <<<grid, 256, 0, stream>>>(p);
       return;
     }
   }
@@ -608,6 +664,7 @@ extern "C" int ca_gemm_program_launch(
   p.trans_b = trans_b;
   p.dact = dact;
   p.dact_act = dact_act;
+  p.a_f32 = p.b_f32 = 1;
   const bool two = b1 != nullptr;
   if (is_training_program(p) && (a_type == TYPE_I8 || b_type == TYPE_I8))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -624,5 +681,28 @@ extern "C" int ca_gemm_program_launch(
     launch_typed<int8_t, int8_t>(p, two, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point of the distance product (K1g): out (m, n) fp32 =
+// min_k (A[i,k] + B[k,j]), A (m, k) and B (k, n) row-major, each fp32
+// (a_f32 = 1) or bf16 (0).  The caller checks shapes, types and contiguity;
+// m, n > 0.  Launches on `stream` without synchronising and returns
+// cudaGetLastError().
+extern "C" int ca_gemm_min_plus_launch(const void* a, const void* b, void* out, int m, int n,
+                                       int k, int a_f32, int b_f32, void* stream) {
+  Params p = {};
+  p.a = a;
+  p.b[0] = p.b[1] = b;
+  p.out = out;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.out_f32 = 1;
+  p.a_f32 = a_f32;
+  p.b_f32 = b_f32;
+  const dim3 grid((n + 63) / 64, (m + 63) / 64);
+  ca_gemm_program_kernel<float, float, 64, 64, 32, 4, 4, 1, false, false, true>
+      <<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

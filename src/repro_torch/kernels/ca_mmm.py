@@ -16,6 +16,17 @@ multiplies the decorated operand (A, or B with ``@b``) by ``act'`` of a
 saved fp32 pre-activation as it is fetched; ``save_preact`` drains each
 branch's fp32 value after bias and before the activation as extra outputs.
 
+The tropical distance product (K1g, ``semiring="min_plus"``) is one
+more instantiation of the same kernel: plain programs only, fp32 or bf16
+operands widened to fp32, ``C[i, j] = min_k (A[i, k] + B[k, j])`` from a
++inf start with +inf in every out-of-range lane, NaN propagating, fp32
+out.
+
+The k-outer ablation (K4, :func:`ca_mmm_k_outer`) is a kernel of its own,
+``repro_torch/csrc/ca_mmm_k_outer.cu``: the schedule the paper rejects,
+one launch per k step, each reading and writing every C tile through
+device memory.
+
 Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
 activations) streams int8 B tiles and widens them in registers; ``dqab``
 (w8a8) streams int8 A and B and contracts in int32.  Per-channel weight
@@ -42,12 +53,22 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.epilogue import act_fn, apply_reference
-from repro_torch.kernels.program import (GemmProgramSpec, PLAIN,
-                                         apply_dact_reference,
+from repro_torch.kernels.epilogue import (EpilogueSpec, act_fn,
+                                          apply_reference)
+from repro_torch.kernels.program import (GemmProgramSpec, NO_PROLOGUE, PLAIN,
+                                         PrologueSpec, apply_dact_reference,
                                          apply_rms_reference)
+from repro_torch.kernels.ref import ref_distance_product
 
 SOURCE = _build.CSRC / "ca_gemm_program.cu"
+K_OUTER_SOURCE = _build.CSRC / "ca_mmm_k_outer.cu"
+SEMIRINGS = ("plus_times", "min_plus")
+# Launch key of the k-outer ablation kernel (one launch per k step).
+K_OUTER = "k_outer"
+# The k-outer kernel's default tile (bm, bn, bk): K1's 64 x 64 CTA tile
+# and 32-row slab with the k loop moved outermost.  bm and bn are
+# multiples of its 64 x 64 sub-tile, bk of its 32-row slab.
+K_OUTER_TILE = (64, 64, 32)
 
 # Launches of the CUDA kernel, by :func:`launch_key`.  Only the kernel
 # launch below adds to it; the plain version never does.
@@ -75,15 +96,18 @@ def layout_tag(transpose_a: bool, transpose_b: bool) -> str:
     return ("t" if transpose_a else "n") + ("t" if transpose_b else "n")
 
 
-def launch_key(tag: str, layout: str = "nn",
-               save_preact: bool = False) -> str:
+def launch_key(tag: str, layout: str = "nn", save_preact: bool = False,
+               semiring: str = "plus_times") -> str:
     """The key a launch counts under: the program tag (the reference's
-    tags carry no layout), then the layout where it is not ``nn`` and
-    ``save_preact`` where the program drains its pre-activations, e.g.
-    ``"none"``, ``"dact.silu>none nt"``,
-    ``"rms>glu.silu(none|none) save_preact"``."""
+    tags carry no layout), then the layout where it is not ``nn``,
+    ``save_preact`` where the program drains its pre-activations and the
+    semiring where it is not ``plus_times``, e.g. ``"none"``,
+    ``"dact.silu>none nt"``, ``"rms>glu.silu(none|none) save_preact"``,
+    ``"none min_plus"``."""
     key = tag if layout == "nn" else f"{tag} {layout}"
-    return f"{key} save_preact" if save_preact else key
+    if save_preact:
+        key = f"{key} save_preact"
+    return key if semiring == "plus_times" else f"{key} {semiring}"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -91,10 +115,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 19
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.ca_gemm_min_plus_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
+
+
+def _bind_k_outer(lib: ctypes.CDLL) -> None:
+    fn = lib.ca_mmm_k_outer_step
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -110,8 +145,13 @@ def _check_program(spec: GemmProgramSpec, semiring: str,
                    save_preact: bool, preact) -> None:
     """The reference's contracts (``ca_mmm.py:363-397``) and what the port
     does not take yet."""
-    if semiring != "plus_times":
-        raise _unsupported(f"semiring {semiring!r}", "K1g")
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r} (valid: "
+                         f"{SEMIRINGS})")
+    if semiring == "min_plus" and not (
+            spec.is_plain and not (transpose_a or transpose_b
+                                   or save_preact)):
+        raise ValueError("min_plus supports plain (A, B) programs only")
     if len({b.dequant for b in spec.branches}) > 1:
         raise ValueError(f"the branches of {spec.tag()!r} must share one "
                          "dequant stage")
@@ -145,13 +185,16 @@ def _check_program(spec: GemmProgramSpec, semiring: str,
         raise ValueError("preact given without a dact prologue")
 
 
-def _check_types(a, bs, spec, transpose_a=False, transpose_b=False):
-    """A and B element types against the program's dequant stage, and
-    their shapes in the stored layouts; returns the stage ("none", "b" or
-    "ab") and (m, n, k)."""
+def _check_types(a, bs, spec, transpose_a=False, transpose_b=False,
+                 semiring="plus_times"):
+    """A and B element types against the program's dequant stage (any
+    float32/bfloat16 pair for min_plus), and their shapes in the stored
+    layouts; returns the stage ("none", "b" or "ab") and (m, n, k)."""
     deq = spec.branches[0].dequant
     want = {"none": (_FLOATS, "the same float type as A"),
             "b": (_FLOATS, "int8"), "ab": ((torch.int8,), "int8")}[deq]
+    if semiring == "min_plus":
+        want = (_FLOATS, "float32/bfloat16")
     if a.dim() != 2 or a.dtype not in want[0]:
         raise ValueError(
             f"A must be a 2-D {'/'.join(str(t)[6:] for t in want[0])} "
@@ -159,9 +202,12 @@ def _check_types(a, bs, spec, transpose_a=False, transpose_b=False):
     k, m = a.shape if transpose_a else a.shape[::-1]
     n = bs[0].shape[0 if transpose_b else -1] if bs[0].dim() else 0
     want_shape = (n, k) if transpose_b else (k, n)
-    b_dtype = a.dtype if deq == "none" else torch.int8
+    if semiring == "min_plus":
+        b_dtypes = _FLOATS
+    else:
+        b_dtypes = (a.dtype,) if deq == "none" else (torch.int8,)
     for b in bs:
-        if tuple(b.shape) != want_shape or b.dtype != b_dtype:
+        if tuple(b.shape) != want_shape or b.dtype not in b_dtypes:
             raise ValueError(f"B must be {want_shape} {want[1]} for "
                              f"{spec.tag()!r}, got {tuple(b.shape)} "
                              f"{b.dtype}")
@@ -188,7 +234,7 @@ def _check_scales(ops, deq, m, n, k, scale_b_block, scale_a_block):
 
 def _check_operands(a, bs, spec, row_scale, gain, branch_operands,
                     scale_b_block=0, scale_a_block=0, transpose_a=False,
-                    transpose_b=False, preact=None):
+                    transpose_b=False, preact=None, semiring="plus_times"):
     """Shapes, dtypes, devices and contiguity the kernel takes; returns
     (m, n, k)."""
     if len(bs) != spec.n_b:
@@ -196,7 +242,8 @@ def _check_operands(a, bs, spec, row_scale, gain, branch_operands,
                          f"got {len(bs)}")
     if len(branch_operands) != spec.n_b:
         raise ValueError("one branch_operands dict per B operand")
-    deq, m, n, k = _check_types(a, bs, spec, transpose_a, transpose_b)
+    deq, m, n, k = _check_types(a, bs, spec, transpose_a, transpose_b,
+                                semiring)
     tensors = [a, *bs]
     if preact is not None:
         shape = (m, k) if spec.prologue.operand == "a" else (k, n)
@@ -265,9 +312,15 @@ def _check_operands(a, bs, spec, row_scale, gain, branch_operands,
     return m, n, k
 
 
-def _out_dtype(a: torch.Tensor, out_dtype) -> torch.dtype:
+def _out_dtype(a: torch.Tensor, out_dtype,
+               semiring: str = "plus_times") -> torch.dtype:
     # ca_mmm.py:445-452: the output defaults to A's dtype, glu included,
-    # and to fp32 when A is int8 (w8a8).
+    # and to fp32 when A is int8 (w8a8); min_plus writes fp32.
+    if semiring == "min_plus":
+        if out_dtype not in (None, torch.float32):
+            raise ValueError(f"min_plus writes float32, got out_dtype "
+                             f"{out_dtype}")
+        return torch.float32
     out = out_dtype or (torch.float32 if a.dtype == torch.int8 else a.dtype)
     if out not in _FLOATS:
         raise ValueError(f"out_dtype must be float32/bfloat16, got {out}")
@@ -320,6 +373,7 @@ def ca_gemm_program_reference(
     *,
     spec: GemmProgramSpec = PLAIN,
     out_dtype=None,
+    semiring: str = "plus_times",
     transpose_a: bool = False,
     transpose_b: bool = False,
     save_preact: bool = False,
@@ -331,15 +385,18 @@ def ca_gemm_program_reference(
     scale_a_block: int = 0,
 ):
     """The same program in plain torch: prologue, fp32 (or exact integer)
-    products, dequant, drain chain and combine, in the kernel's order."""
+    products, dequant, drain chain and combine, in the kernel's order; for
+    min_plus the distance product of the operands widened to fp32."""
     bs = tuple(bs)
     branch_operands = list(branch_operands or [{} for _ in bs])
-    _check_program(spec, "plus_times", transpose_a, transpose_b,
-                   save_preact, preact)
+    _check_program(spec, semiring, transpose_a, transpose_b, save_preact,
+                   preact)
     _check_operands(a, bs, spec, row_scale, gain, branch_operands,
                     scale_b_block, scale_a_block, transpose_a, transpose_b,
-                    preact)
-    out_dtype = _out_dtype(a, out_dtype)
+                    preact, semiring)
+    out_dtype = _out_dtype(a, out_dtype, semiring)
+    if semiring == "min_plus":
+        return ref_distance_product(a.float(), bs[0].float())
     if transpose_a:
         a = a.t()
     if transpose_b:
@@ -434,6 +491,23 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     return result
 
 
+def _launch_min_plus(a, b, m: int, n: int, k: int) -> torch.Tensor:
+    if m > 65535 * 64:
+        raise ValueError(f"m = {m} exceeds the kernel's grid")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _library().ca_gemm_min_plus_launch(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        int(a.dtype == torch.float32), int(b.dtype == torch.float32), stream)
+    if err != 0:
+        raise RuntimeError(f"min_plus kernel launch failed: CUDA error {err}")
+    key = launch_key(PLAIN.tag(), semiring="min_plus")
+    launch_counts[key] = launch_counts.get(key, 0) + 1
+    return out
+
+
 def ca_gemm_program(
     a: torch.Tensor,
     bs: Sequence[torch.Tensor],
@@ -464,6 +538,11 @@ def ca_gemm_program(
     ``save_preact`` the call returns ``(out, *preacts)``: each branch's
     fp32 value after bias, before the activation.
 
+    ``semiring="min_plus"`` runs the distance product
+    ``C[i, j] = min_k (A[i, k] + B[k, j])`` on a plain program (no
+    prologue, drain or transposed layout): A and B each fp32 or bf16,
+    widened to fp32, fp32 out, NaN propagating.
+
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
     ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per
     tile ((ceil(k/g), n)); ``scale_a`` per row ((m,)) or, with
@@ -472,9 +551,9 @@ def ca_gemm_program(
     defaults to A's dtype, fp32 for int8 A.
 
     CPU operands run :func:`ca_gemm_program_reference`; CUDA operands
-    launch the kernel.  Programs the port does not take yet (``min_plus``,
-    ``dual``, dequant with ``save_preact`` or ``dact``) and the
-    reference's refused combinations raise ValueError.
+    launch the kernel.  Programs the port does not take yet (``dual``,
+    dequant with ``save_preact`` or ``dact``) and the reference's refused
+    combinations raise ValueError.
     """
     bs = tuple(bs)
     branch_operands = list(branch_operands or [{} for _ in bs])
@@ -482,17 +561,172 @@ def ca_gemm_program(
                    preact)
     m, n, k = _check_operands(a, bs, spec, row_scale, gain, branch_operands,
                               scale_b_block, scale_a_block, transpose_a,
-                              transpose_b, preact)
-    out_dtype = _out_dtype(a, out_dtype)
+                              transpose_b, preact, semiring)
+    out_dtype = _out_dtype(a, out_dtype, semiring)
     if a.device.type == "cpu":
         return ca_gemm_program_reference(
-            a, bs, spec=spec, out_dtype=out_dtype, transpose_a=transpose_a,
-            transpose_b=transpose_b, save_preact=save_preact,
-            row_scale=row_scale, gain=gain, preact=preact,
-            branch_operands=branch_operands,
+            a, bs, spec=spec, out_dtype=out_dtype, semiring=semiring,
+            transpose_a=transpose_a, transpose_b=transpose_b,
+            save_preact=save_preact, row_scale=row_scale, gain=gain,
+            preact=preact, branch_operands=branch_operands,
             scale_b_block=scale_b_block, scale_a_block=scale_a_block)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
+    if semiring == "min_plus":
+        return _launch_min_plus(a, bs[0], m, n, k)
     return _launch(a, bs, spec, out_dtype, row_scale, gain,
                    branch_operands, m, n, k, scale_b_block, scale_a_block,
                    transpose_a, transpose_b, save_preact, preact)
+
+
+def ca_mmm(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    bm: Optional[int] = None,
+    bn: Optional[int] = None,
+    bk: Optional[int] = None,
+    out_dtype=None,
+    semiring: str = "plus_times",
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    epilogue: Optional[EpilogueSpec] = None,
+    bias: Optional[torch.Tensor] = None,
+    mul: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    save_preact: bool = False,
+    scale_a: Optional[torch.Tensor] = None,
+    scale_b: Optional[torch.Tensor] = None,
+    scale_b_block: int = 0,
+    scale_a_block: int = 0,
+    prologue: Optional[PrologueSpec] = None,
+    row_scale: Optional[torch.Tensor] = None,
+    gain: Optional[torch.Tensor] = None,
+    preact: Optional[torch.Tensor] = None,
+):
+    """C = op(A) @ op(B) (+ fused prologue/epilogue): the single-branch
+    program with the reference's keyword surface (``ca_mmm.py:565-613``),
+    a thin builder over :func:`ca_gemm_program`.  The kernel's tiles are
+    fixed: ``bm``, ``bn`` and ``bk`` are accepted and not read."""
+    ops = {name: t for name, t in (("bias", bias), ("mul", mul),
+                                   ("residual", residual),
+                                   ("scale_a", scale_a),
+                                   ("scale_b", scale_b)) if t is not None}
+    spec = GemmProgramSpec(prologue=prologue or NO_PROLOGUE,
+                           branches=(epilogue or EpilogueSpec(),))
+    return ca_gemm_program(  # repro: noqa RPR001 -- port dispatch layer
+        a, (b,), spec=spec, out_dtype=out_dtype, semiring=semiring,
+        transpose_a=transpose_a, transpose_b=transpose_b,
+        save_preact=save_preact, row_scale=row_scale, gain=gain,
+        preact=preact, branch_operands=[ops], scale_b_block=scale_b_block,
+        scale_a_block=scale_a_block)
+
+
+# ---------------------------------------------------------------------------
+# The k-outer ablation (K4)
+# ---------------------------------------------------------------------------
+
+_K_OUTER_TYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def _check_k_outer(a, b, bm, bn, bk, out_dtype):
+    """Operands and tiles both paths take; returns (m, n, k, bm, bn, bk,
+    the accumulator's dtype, the output's dtype)."""
+    if a.dim() != 2 or b.dim() != 2 or a.dtype not in _K_OUTER_TYPES \
+            or b.dtype != a.dtype:
+        raise ValueError(f"A and B must be 2-D and share one of "
+                         f"float32/bfloat16/int8, got {tuple(a.shape)} "
+                         f"{a.dtype} and {tuple(b.shape)} {b.dtype}")
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"contraction mismatch {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    n = b.shape[1]
+    d_bm, d_bn, d_bk = K_OUTER_TILE
+    bm, bn, bk = bm or d_bm, bn or d_bn, bk or d_bk
+    if bm < 1 or bn < 1 or bk < 1 or bm % d_bm or bn % d_bn or bk % d_bk:
+        raise ValueError(f"tiles ({bm}, {bn}, {bk}): bm and bn must be "
+                         f"multiples of {d_bm}, bk of {d_bk} (the kernel's "
+                         "sub-tile and slab)")
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"the k-outer ablation takes tile-divisible shapes "
+                         f"only: ({m}, {k}) @ ({k}, {n}) with tiles "
+                         f"({bm}, {bn}, {bk})")
+    if b.device != a.device:
+        raise ValueError(f"operands on {b.device} and {a.device}")
+    acc_t = torch.int32 if a.dtype == torch.int8 else torch.float32
+    out_dtype = out_dtype or (acc_t if a.dtype == torch.int8 else a.dtype)
+    return m, n, k, bm, bn, bk, acc_t, out_dtype
+
+
+def _step_product(a: torch.Tensor, b: torch.Tensor,
+                  acc_t: torch.dtype) -> torch.Tensor:
+    """One k step's product in the accumulator's dtype: fp32 from float
+    operands; exact int32 from int8 ones (int64 on the CPU, fp64 on the
+    card, where torch.matmul has no integer kernel; exact while
+    127^2 k < 2^53)."""
+    if acc_t == torch.float32:
+        return a.float() @ b.float()
+    if a.device.type == "cpu":
+        return (a.long() @ b.long()).to(acc_t)
+    return (a.double() @ b.double()).to(acc_t)
+
+
+def ca_mmm_k_outer_reference(a: torch.Tensor, b: torch.Tensor, *,
+                             bm: Optional[int] = None,
+                             bn: Optional[int] = None,
+                             bk: Optional[int] = None,
+                             out_dtype=None) -> torch.Tensor:
+    """The same schedule in plain torch: C starts at zero and each k step
+    adds one A panel times one B panel, in the accumulator's dtype (fp32,
+    int32 for int8); the cast to ``out_dtype`` follows the last step."""
+    m, n, k, bm, bn, bk, acc_t, out_dtype = _check_k_outer(
+        a, b, bm, bn, bk, out_dtype)
+    c = torch.zeros((m, n), dtype=acc_t, device=a.device)
+    for k0 in range(0, k, bk):
+        c = c + _step_product(a[:, k0:k0 + bk], b[k0:k0 + bk], acc_t)
+    return c.to(out_dtype)
+
+
+def ca_mmm_k_outer(a: torch.Tensor, b: torch.Tensor, *,
+                   bm: Optional[int] = None, bn: Optional[int] = None,
+                   bk: Optional[int] = None,
+                   out_dtype=None) -> torch.Tensor:
+    """Ablation variant: k outermost, C blocks revisited from device memory
+    (port of ``ca_mmm.py:ca_mmm_k_outer``).
+
+    The schedule the paper's model rejects: every k step re-reads and
+    re-writes each (bm, bn) C tile, one launch per step, k / bk launches.
+    A and B share one dtype, fp32, bf16 or int8; C accumulates in fp32
+    (int32 for int8) and is cast to ``out_dtype`` (default: A's dtype,
+    int32 for int8) after the last step.  Tile-divisible shapes only, as
+    in the reference; the tiles default to ``K_OUTER_TILE`` (the
+    reference's default to its registry's plan), bm and bn multiples of
+    64, bk of 32.  CPU operands run :func:`ca_mmm_k_outer_reference`;
+    CUDA operands launch the kernel.
+    """
+    m, n, k, bm, bn, bk, acc_t, out_dtype = _check_k_outer(
+        a, b, bm, bn, bk, out_dtype)
+    if a.device.type == "cpu":
+        return ca_mmm_k_outer_reference(a, b, bm=bm, bn=bn, bk=bk,
+                                        out_dtype=out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the kernel takes contiguous operands")
+    if m // bm > 65535:
+        raise ValueError(f"m / bm = {m // bm} exceeds the kernel's grid")
+    c = torch.empty((m, n), dtype=acc_t, device=a.device)
+    if m == 0 or n == 0 or k == 0:
+        return c.zero_().to(out_dtype)
+    lib = _build.load(K_OUTER_SOURCE, _bind_k_outer)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    for k0 in range(0, k, bk):
+        err = lib.ca_mmm_k_outer_step(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, k0, bk, bm,
+            bn, int(k0 == 0), _TYPE_CODES[a.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"k-outer kernel launch failed: CUDA error "
+                               f"{err}")
+        launch_counts[K_OUTER] = launch_counts.get(K_OUTER, 0) + 1
+    return c.to(out_dtype)

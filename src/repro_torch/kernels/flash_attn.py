@@ -1,7 +1,8 @@
-"""Paged int8 decode attention (port of
-``repro/kernels/flash_attn.py:paged_flash_attention_tpu``, kernel K2).
+"""Flash attention kernels (port of ``repro/kernels/flash_attn.py``):
+paged int8 decode attention (``paged_flash_attention_tpu``, kernel K2) and
+forward flash attention (``flash_attention_tpu``, kernel K3).
 
-The kernel is hand-written CUDA C++ for Hopper,
+K2 is hand-written CUDA C++ for Hopper,
 ``repro_torch/csrc/paged_flash_attn.cu``: one CTA per (sequence, KV head)
 holds that head's G query rows, walks the sequence's int8 pages through the
 block table with the page scales folded into the running softmax (k-scale
@@ -9,9 +10,17 @@ into the logit scale, v-scale into the PV partial), and stores each output
 element once.  It reads the page ids, the lengths and the scales on the
 device; the wrapper never reads them to the host.
 
+K3 is ``repro_torch/csrc/flash_attn_fwd.cu``: one CTA per (batch x KV
+head, q block) holds the G x qc query rows of that block, walks the kv
+slots in blocks through shared memory with the fp32 online softmax and
+stores each output element once; it reads both position arrays on the
+device.  No model calls it: the model's prefill keeps the plain chunked
+attention of :mod:`repro_torch.models.attention`, as the reference's does.
+
 Dispatch depends only on where the operands lie: CPU tensors run the plain
-torch version :func:`paged_flash_attention_reference`; CUDA tensors launch
-the kernel or raise.  The kernel is built and bound by
+torch versions (:func:`paged_flash_attention_reference`,
+:func:`flash_attention_reference`); CUDA tensors launch the kernel or
+raise.  The kernels are built and bound by
 :mod:`repro_torch.kernels._build`.
 """
 
@@ -26,6 +35,8 @@ from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "paged_flash_attn.cu"
 NAME = "paged_flash_attention"
+FWD_SOURCE = _build.CSRC / "flash_attn_fwd.cu"
+FWD_NAME = "flash_attention"
 
 # Launches of the CUDA kernel.  Only the kernel launch below adds to it;
 # the plain version never does.
@@ -35,6 +46,11 @@ NEG = -1e30
 _FLOATS = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128          # the kernel's register accumulator width
 _MAX_GROUP = 8               # query heads per KV head
+# K3's fixed tile: query rows per CTA (G heads x 64 / G positions, so at
+# most 64 query heads per KV head) and kv slots per online-softmax step;
+# the plain version steps through the kv slots in the same blocks.
+FWD_ROWS = 64
+FWD_KV_BLOCK = 64
 
 
 def reset_launch_counts() -> None:
@@ -214,3 +230,200 @@ def paged_flash_attention(
     scale = geometry[2] ** -0.5 if scale is None else scale
     return _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables,
                    seq_lens, window, scale, geometry)
+
+
+# ---------------------------------------------------------------------------
+# Forward flash attention (K3)
+# ---------------------------------------------------------------------------
+
+def _bind_fwd(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_attn_fwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+def _check_fwd(q, k, v, q_positions, kv_positions, window, q_block,
+               kv_block):
+    """Shapes, dtypes and devices both paths take; returns
+    (B, Lq, S, H, Hkv, D, Dv)."""
+    if q.dim() != 4 or q.dtype not in _FLOATS:
+        raise ValueError(f"q must be a (B, Lq, H, D) float32/bfloat16 "
+                         f"tensor, got {tuple(q.shape)} {q.dtype}")
+    B, Lq, H, D = q.shape
+    if k.dim() != 4 or v.dim() != 4 or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"k and v must be (B, S, Hkv, D) {q.dtype}, got "
+                         f"{tuple(k.shape)} {k.dtype} and {tuple(v.shape)} "
+                         f"{v.dtype}")
+    _, S, Hkv, Dk = k.shape
+    Dv = v.shape[-1]
+    if k.shape[0] != B or Dk != D or tuple(v.shape[:3]) != (B, S, Hkv):
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"GQA heads {H} not divisible by kv heads {Hkv}")
+    for name, t, shape in (("q_positions", q_positions, (B, Lq)),
+                           ("kv_positions", kv_positions, (B, S))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be {shape} int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    for name, blk in (("q_block", q_block), ("kv_block", kv_block)):
+        if blk is not None and blk < 1:
+            raise ValueError(f"{name} must be None or >= 1, got {blk}")
+    for t in (k, v, q_positions, kv_positions):
+        if t.device != q.device:
+            raise ValueError(f"operands on {t.device} and {q.device}")
+    return B, Lq, S, H, Hkv, D, Dv
+
+
+def attention_mask(q_positions, kv_positions, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """(B, Lq, S) visibility: kv slot in use, causal, inside the window."""
+    mask = (kv_positions[:, None, :] >= 0).expand(
+        -1, q_positions.shape[1], -1)
+    if causal:
+        mask = mask & (kv_positions[:, None, :] <= q_positions[:, :, None])
+    if window is not None:
+        mask = mask & (kv_positions[:, None, :]
+                       > q_positions[:, :, None] - window)
+    return mask
+
+
+def chunked_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    q_positions: torch.Tensor, kv_positions: torch.Tensor, causal: bool,
+    window: Optional[int], scale: Optional[float], q_chunk: int,
+    kv_chunk: int,
+) -> torch.Tensor:
+    """The TPU kernel's online softmax in plain torch, the model's prefill
+    attention and K3's plain version: scores are produced and consumed per
+    (q-chunk, kv-chunk) tile while the running max, denominator and output
+    accumulator stay resident.  It scales the fp32 dot, masks logits to
+    -1e30, zeroes masked probabilities, rounds them to q's dtype before
+    the PV product and clamps the denominator at 1e-30; a ragged last
+    chunk is sliced rather than padded (padded slots are masked out in the
+    reference).  Returns ``(B, Lq, H, Dv)`` in q's dtype."""
+    B, Lq, H, Dq = q.shape
+    _, S, Hkv, _ = k.shape
+    Dv = v.shape[-1]
+    G = H // Hkv
+    scale = Dq ** -0.5 if scale is None else scale
+    dt = q.dtype
+    qc = min(q_chunk, Lq)
+    kc = max(1, min(kv_chunk, S))
+    qg = q.reshape(B, Lq, Hkv, G, Dq)
+    outs = []
+    for q0 in range(0, Lq, qc):
+        q_i = qg[:, q0:q0 + qc].float()
+        qpos_i = q_positions[:, q0:q0 + qc]
+        c = q_i.shape[1]
+        m = torch.full((B, Hkv, G, c), NEG, device=q.device)
+        l = torch.zeros((B, Hkv, G, c), device=q.device)
+        acc = torch.zeros((B, Hkv, G, c, Dv), device=q.device)
+        for k0 in range(0, S, kc):
+            k_j = k[:, k0:k0 + kc].float()
+            v_j = v[:, k0:k0 + kc].float()
+            mask = attention_mask(qpos_i, kv_positions[:, k0:k0 + kc],
+                                  causal, window)[:, None, None]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where(mask, p, 0.0)
+            alpha = torch.exp(m - m_new)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(dt).float(), v_j)
+            acc = acc * alpha[..., None] + pv
+            l = l * alpha + p.sum(dim=-1)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(dt))               # (B, Hkv, G, c, Dv)
+    out = torch.cat(outs, dim=3)              # (B, Hkv, G, Lq, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, Dv)
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The same function in plain torch: :func:`chunked_attention` over
+    kv blocks of the kernel's size (``FWD_KV_BLOCK``), all query rows at
+    once.  Returns ``(B, Lq, H, Dv)`` in q's dtype."""
+    _check_fwd(q, k, v, q_positions, kv_positions, window, None, None)
+    return chunked_attention(
+        q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+        causal=causal, window=window, scale=scale, q_chunk=q.shape[1],
+        kv_chunk=FWD_KV_BLOCK)
+
+
+def _launch_fwd(q, k, v, q_positions, kv_positions, causal, window, scale,
+                geometry) -> torch.Tensor:
+    B, Lq, S, H, Hkv, D, Dv = geometry
+    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM or H // Hkv > FWD_ROWS:
+        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM} and "
+                         f"<= {FWD_ROWS} query heads per KV head, got D={D} "
+                         f"Dv={Dv} G={H // Hkv}")
+    if B * Hkv > 65535:
+        raise ValueError(f"B x Hkv = {B * Hkv} exceeds the kernel's grid")
+    for t in (q, k, v, q_positions, kv_positions):
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous operands")
+    out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
+    if B == 0 or Lq == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _build.load(FWD_SOURCE, _bind_fwd).flash_attn_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
+        kv_positions.data_ptr(), out.data_ptr(), B, Lq, S, H, Hkv, D, Dv,
+        int(causal), window or 0, scale, int(q.dtype == torch.bfloat16),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launch_counts[FWD_NAME] = launch_counts.get(FWD_NAME, 0) + 1
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor,              # (B, Lq, H, D)
+    k: torch.Tensor,              # (B, S, Hkv, D)
+    v: torch.Tensor,              # (B, S, Hkv, Dv)
+    *,
+    q_positions: torch.Tensor,    # (B, Lq) int32
+    kv_positions: torch.Tensor,   # (B, S) int32, -1 = invalid
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_block: Optional[int] = None,
+    kv_block: Optional[int] = None,
+) -> torch.Tensor:
+    """Forward flash attention with explicit positions (the counterpart of
+    the reference's ``flash_attention_tpu``, same arguments).
+
+    A kv slot is visible to a query when its position is >= 0, and
+    (``causal``) not after the query's, and (``window``) greater than the
+    query's minus ``window``; GQA shares each KV head among H / Hkv query
+    heads.  A query that sees no slot gets 0.  Returns ``(B, Lq, H, Dv)``
+    in q's dtype; q, k and v share one dtype, fp32 or bf16.
+
+    The kernel's tile is fixed (64 query rows, 64 kv slots a step):
+    ``q_block`` and ``kv_block`` are accepted and not read, as results do
+    not depend on the blocking beyond rounding.  CPU operands run
+    :func:`flash_attention_reference`; CUDA operands launch the kernel
+    (head dims <= 128).
+    """
+    geometry = _check_fwd(q, k, v, q_positions, kv_positions, window,
+                          q_block, kv_block)
+    if q.device.type == "cpu":
+        return flash_attention_reference(
+            q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+            causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    scale = geometry[5] ** -0.5 if scale is None else scale
+    return _launch_fwd(q, k, v, q_positions, kv_positions, causal, window,
+                       scale, geometry)

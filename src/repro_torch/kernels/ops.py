@@ -10,6 +10,9 @@ activation scale, int8 weights and activations (``dqab``).  The rms
 prologue's per-row factor is computed here in torch, differentiably, and
 handed in as an (m, 1) fp32 operand.
 
+``ca_mmm_any`` is the bare one-branch program for any shape and either
+semiring; ``distance_product`` the tropical (min, +) product on it (K1g).
+
 ``fused_matmul`` and ``glu_matmul`` are trainable: when grad mode is on
 and an operand requires grad they run as ``torch.autograd.Function`` s
 whose backward products are K1f programs on the same kernel.  dA = dC·Bᵀ
@@ -34,6 +37,15 @@ from repro_torch.kernels.program import (GemmProgramSpec, NO_PROLOGUE,
                                          PLAIN, PrologueSpec, RmsPrologue,
                                          apply_rms_reference, rms_row_scale)
 from repro_torch.quant.scales import QTensor, quantize_activation
+
+
+def ca_mmm_any(a: torch.Tensor, b: torch.Tensor, tile=None, *,
+               out_dtype=None, semiring: str = "plus_times") -> torch.Tensor:
+    """CA-MMM for arbitrary (m, k) x (k, n): masked edge tiles, no padding.
+
+    ``tile`` is accepted and not read: the kernel's tiles are fixed until
+    the tuning registry is ported (the reference resolves it there)."""
+    return kern.ca_mmm(a, b, out_dtype=out_dtype, semiring=semiring)
 
 
 def _rms_operands(x: torch.Tensor, prologue: Optional[RmsPrologue]):
@@ -357,3 +369,13 @@ def quant_glu_matmul(
         row_scale=row_scale, gain=gain, branch_operands=branch_ops,
         scale_b_block=qwg.block,
         scale_a_block=act_block if act_scale is not None else 0)
+
+
+def distance_product(a: torch.Tensor, b: torch.Tensor, *,
+                     tile=None) -> torch.Tensor:
+    """Tropical (min, +) matrix product — paper Sec. 5.2 flexibility demo:
+    ``C[i, j] = min_k (A[i, k] + B[k, j])``, fp32 out, A and B fp32 or
+    bf16.  CPU operands run the plain version; CUDA operands launch the
+    kernel (K1g) or raise.  ``tile`` is accepted and not read (fixed
+    tiles, see :func:`ca_mmm_any`)."""
+    return ca_mmm_any(a, b, tile, semiring="min_plus")

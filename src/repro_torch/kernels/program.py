@@ -140,6 +140,12 @@ class GemmProgramSpec:
         """Drained (m, n) outputs."""
         return 1 if self.combine == "glu" else len(self.branches)
 
+    @property
+    def is_plain(self) -> bool:
+        """Single-branch identity program (the bare CA-MMM)."""
+        return (self.prologue.is_identity and self.combine == "none"
+                and len(self.branches) == 1 and self.branches[0].is_identity)
+
     def tag(self) -> str:
         return program_tag(self)
 

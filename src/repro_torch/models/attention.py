@@ -20,22 +20,11 @@ from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gemm import ca_matmul
 from repro_torch.kernels.epilogue import Epilogue
+from repro_torch.kernels.flash_attn import attention_mask, chunked_attention
 from repro_torch.models import common as cm
 from repro_torch.models.common import Defs, ParamDef
 
 NEG = -1e30
-
-
-def _mask(q_positions, kv_positions, causal: bool, window: Optional[int]):
-    """(B, Lq, S) validity: kv slot in use, causal, inside the window."""
-    mask = (kv_positions[:, None, :] >= 0).expand(
-        -1, q_positions.shape[1], -1)
-    if causal:
-        mask = mask & (kv_positions[:, None, :] <= q_positions[:, :, None])
-    if window is not None:
-        mask = mask & (kv_positions[:, None, :]
-                       > q_positions[:, :, None] - window)
-    return mask
 
 
 def flash_attention(
@@ -52,46 +41,14 @@ def flash_attention(
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
     """Scores are produced and consumed per (q-chunk, kv-chunk) tile while
-    the running max, denominator and output accumulator stay resident.
-    The chunk boundaries are the reference's, so the online-softmax
-    rescales happen at the same places; a ragged last chunk is sliced
-    rather than padded (padded slots are masked out in the reference)."""
-    B, Lq, H, Dq = q.shape
-    _, S, Hkv, _ = k.shape
-    Dv = v.shape[-1]
-    G = H // Hkv
-    scale = Dq ** -0.5 if scale is None else scale
-    dt = q.dtype
-    qc = min(q_chunk, Lq)
-    kc = min(kv_chunk, S)
-    qg = q.reshape(B, Lq, Hkv, G, Dq)
-    outs = []
-    for q0 in range(0, Lq, qc):
-        q_i = qg[:, q0:q0 + qc].float()
-        qpos_i = q_positions[:, q0:q0 + qc]
-        c = q_i.shape[1]
-        m = torch.full((B, Hkv, G, c), NEG, device=q.device)
-        l = torch.zeros((B, Hkv, G, c), device=q.device)
-        acc = torch.zeros((B, Hkv, G, c, Dv), device=q.device)
-        for k0 in range(0, S, kc):
-            k_j = k[:, k0:k0 + kc].float()
-            v_j = v[:, k0:k0 + kc].float()
-            mask = _mask(qpos_i, kv_positions[:, k0:k0 + kc], causal,
-                         window)[:, None, None]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
-            s = torch.where(mask, s, NEG)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            p = torch.where(mask, p, 0.0)
-            alpha = torch.exp(m - m_new)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(dt).float(), v_j)
-            acc = acc * alpha[..., None] + pv
-            l = l * alpha + p.sum(dim=-1)
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.to(dt))               # (B, Hkv, G, c, Dv)
-    out = torch.cat(outs, dim=3)              # (B, Hkv, G, Lq, Dv)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Lq, H, Dv)
+    the running max, denominator and output accumulator stay resident
+    (:func:`repro_torch.kernels.flash_attn.chunked_attention`, plain
+    torch).  The chunk boundaries are the reference's, so the
+    online-softmax rescales happen at the same places."""
+    return chunked_attention(
+        q, k, v, q_positions=q_positions, kv_positions=kv_positions,
+        causal=causal, window=window, scale=scale, q_chunk=q_chunk,
+        kv_chunk=kv_chunk)
 
 
 def dense_attention(q, k, v, *, q_positions, kv_positions, causal=True,
@@ -103,7 +60,8 @@ def dense_attention(q, k, v, *, q_positions, kv_positions, causal=True,
     scale = Dq ** -0.5 if scale is None else scale
     qf = q.reshape(B, Lq, Hkv, G, Dq).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
-    mask = _mask(q_positions, kv_positions, causal, window)[:, None, None]
+    mask = attention_mask(q_positions, kv_positions, causal,
+                          window)[:, None, None]
     s = torch.where(mask, s, NEG)
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask, p, 0.0)

@@ -51,5 +51,6 @@ def test_build_raises_with_the_compiler_output(fake_build):
 def test_kernel_sources_live_in_csrc():
     from repro_torch.kernels import ca_mmm, flash_attn
 
-    for src in (ca_mmm.SOURCE, flash_attn.SOURCE):
+    for src in (ca_mmm.SOURCE, ca_mmm.K_OUTER_SOURCE, flash_attn.SOURCE,
+                flash_attn.FWD_SOURCE):
         assert src.parent == _build.CSRC and src.exists()

@@ -1,8 +1,9 @@
 """The port's CA-GEMM program on the CPU (its plain version) against the
 reference kernel run in Pallas interpret mode, on ragged shapes: the
-forward programs (K1a–c), the dequant programs (K1d–e) and the backward
+forward programs (K1a–c), the dequant programs (K1d–e), the backward
 programs of training (K1f: nt/tn layouts, the dact prologue,
-save_preact).  The CUDA kernel itself is held against the plain version in
+save_preact), the distance product (K1g) and the k-outer ablation (K4).
+The CUDA kernels themselves are held against the plain versions in
 test_torch_cuda.py."""
 
 import jax.numpy as jnp
@@ -10,9 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import distance_product as jax_distance_product
+from repro.kernels import ref as jax_ref
 from repro.kernels.ca_mmm import ca_gemm_program as jax_program
+from repro.kernels.ca_mmm import ca_mmm as jax_ca_mmm
+from repro.kernels.ca_mmm import ca_mmm_k_outer as jax_k_outer
 from repro.kernels.program import program_from_tag as jax_from_tag
 from repro_torch.kernels import ca_mmm as K
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.program import program_from_tag, rms_row_scale
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -115,7 +122,11 @@ def test_fp32_out_of_bf16_operands_matches_reference_kernel():
     ("dact.silu>none", {"transpose_a": True}, "dact@a decorates"),
     ("glu.silu(none|none)", {"transpose_b": True}, "multi-branch"),
     ("dqb", {"transpose_b": True}, "quantized streaming"),
-    ("none", {"semiring": "min_plus"}, "K1g"),
+    # K1g is ported: what still raises is min_plus on anything but a plain
+    # program (the reference's contract) and an unknown semiring.
+    ("res", {"semiring": "min_plus"}, "plain"),
+    ("none", {"semiring": "min_plus", "transpose_b": True}, "plain"),
+    ("none", {"semiring": "max_plus"}, "unknown semiring"),
     ("dual(none|none)", {}, "dual"),
 ])
 def test_unported_programs_raise(tag, kw, slice_):
@@ -300,3 +311,262 @@ def test_launch_keys_carry_layout_and_save_preact():
         == "dact.silu@b>none tn"
     assert K.launch_key("rms>glu.silu(none|none)", "nn", True) \
         == "rms>glu.silu(none|none) save_preact"
+
+
+# ---------------------------------------------------------------------------
+# ca_mmm: the single-branch builder, keyword by keyword
+# ---------------------------------------------------------------------------
+
+def _ca_mmm_operands(case):
+    """One ca_mmm case: numpy A and B, the program tag its epilogue and
+    prologue come from, the operands' dtype (None: keep numpy's), the
+    plain keywords and the array keywords."""
+    r = np.random.RandomState(21)
+    m, n, k = 37, 200, 300
+    f32 = lambda *s: r.randn(*s).astype(np.float32)  # noqa: E731
+    a, b = f32(m, k), f32(k, n) / np.float32(np.sqrt(k))
+    tag, dtype, kw, arrays = "none", "float32", {}, {}
+    if case == "tiles":           # accepted and not read
+        kw = {"bm": 16, "bn": 64, "bk": 32}
+    elif case == "out_dtype":
+        dtype, kw = "bfloat16", {"out_dtype": "float32"}
+    elif case == "transpose_a":
+        a, kw = np.ascontiguousarray(a.T), {"transpose_a": True}
+    elif case == "transpose_b":
+        b, kw = np.ascontiguousarray(b.T), {"transpose_b": True}
+    elif case == "epilogue":
+        tag = "bias+gelu+mul+res"
+        arrays = {"bias": f32(n), "mul": f32(m, n), "residual": f32(m, n)}
+    elif case == "prologue":
+        tag = "rms>none"
+        arrays = {"gain": (r.rand(k) + 0.5).astype(np.float32),
+                  "row_scale": (1.0 / np.sqrt(
+                      (a * a).mean(-1, keepdims=True) + 1e-5)
+                  ).astype(np.float32)}
+    elif case == "save_preact":
+        tag, kw, arrays = "bias+gelu", {"save_preact": True}, {"bias": f32(n)}
+    elif case == "preact":
+        tag, b = "dact.silu>none", np.ascontiguousarray(b.T)
+        kw, arrays = {"transpose_b": True}, {"preact": f32(m, k)}
+    elif case in ("scale_b", "scale_a"):
+        tag, blocks = (("dqb+res", (128, 0)) if case == "scale_b"
+                       else ("dqab", (0, 128)))
+        ops_ = _quant_operands(tag, m, n, k, *blocks, seed=21)
+        a, b, arrays, dtype = ops_["a"], ops_["bs"][0], ops_["branch"][0], None
+        kw = {"scale_b_block": blocks[0], "scale_a_block": blocks[1]}
+    elif case == "semiring":
+        a = (r.rand(m, k) + 1.0).astype(np.float32)
+        b = (r.rand(k, n) + 1.0).astype(np.float32)
+        kw = {"semiring": "min_plus"}
+    return a, b, tag, dtype, kw, arrays
+
+
+CA_MMM_CASES = ["tiles", "out_dtype", "transpose_a", "transpose_b",
+                "epilogue", "prologue", "save_preact", "preact", "scale_b",
+                "scale_a", "semiring"]
+
+
+@pytest.mark.parametrize("case", CA_MMM_CASES)
+def test_ca_mmm_keywords_match_reference_builder(case):
+    """Each keyword of the port's ``ca_mmm`` against the reference's
+    ``ca_mmm`` in interpret mode, on ragged n and k."""
+    a, b, tag, dtype, kw, arrays = _ca_mmm_operands(case)
+    spec, jspec = program_from_tag(tag), jax_from_tag(tag)
+    jkw = {k_: v for k_, v in kw.items() if k_ not in ("bm", "bn", "bk")}
+    tkw = dict(kw)
+    if "out_dtype" in kw:
+        jkw["out_dtype"] = jnp.dtype(kw["out_dtype"])
+        tkw["out_dtype"] = TORCH_DT[kw["out_dtype"]]
+    ja, jb = (jnp.asarray(x, dtype and jnp.dtype(dtype)) for x in (a, b))
+    ta, tb = (torch.as_tensor(x) for x in (a, b))
+    if dtype is not None:
+        ta, tb = ta.to(TORCH_DT[dtype]), tb.to(TORCH_DT[dtype])
+    want = jax_ca_mmm(
+        ja, jb, bm=8, bn=128, bk=128, interpret=True,
+        epilogue=jspec.branches[0], prologue=jspec.prologue,
+        **{k_: jnp.asarray(v) for k_, v in arrays.items()}, **jkw)
+    got = K.ca_mmm(ta, tb, epilogue=spec.branches[0], prologue=spec.prologue,
+                   **{k_: torch.as_tensor(v) for k_, v in arrays.items()},
+                   **tkw)
+    if case == "save_preact":
+        assert len(got) == len(want) == 2
+    else:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        w = np.asarray(jnp.asarray(w, jnp.float32))
+        if case == "semiring":
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), w)
+        elif dtype is None:       # the dequant programs' tolerance
+            np.testing.assert_allclose(g.float().numpy(), w, rtol=2e-4,
+                                       atol=2e-3 * np.abs(w).max())
+        else:
+            _close(g, w, "float32")
+
+
+# ---------------------------------------------------------------------------
+# K1g: the distance product
+# ---------------------------------------------------------------------------
+
+def _min_plus_operands(case):
+    """numpy (A, B) and their dtype for one distance-product case."""
+    r = np.random.RandomState(11)
+    m, k, n = {"ref": (65, 33, 47), "ragged_k": (37, 300, 29)}.get(
+        case, (20, 45, 30))
+    a, b = r.rand(m, k) + 1.0, r.rand(k, n) + 1.0
+    if case == "inf":
+        a[r.rand(m, k) < 0.3] = np.inf
+        b[r.rand(k, n) < 0.3] = np.inf
+        a[3] = np.inf               # a row that reaches nothing
+    if case == "nan":
+        a[4, 7] = np.nan            # row 4 of C is NaN in every column
+        b[9, 2] = np.nan            # and column 2 in every row
+    return a, b, ("bfloat16" if case == "bf16" else "float32")
+
+
+@pytest.mark.parametrize("route", ["distance_product", "ca_gemm_program"])
+@pytest.mark.parametrize("case", ["ref", "ragged_k", "bf16", "inf", "nan"])
+def test_distance_product_matches_reference_kernel_bit_equal(case, route):
+    """fp32 adds and minima are exact and order-free: bit-equal to the
+    reference kernel (NaN where it has NaN); k = 300 is ragged against any
+    bk the reference plans (128, 256 or 384), so its +inf edge fill runs."""
+    a, b, dtype = _min_plus_operands(case)
+    jdt, tdt = jnp.dtype(dtype), TORCH_DT[dtype]
+    want = np.asarray(jax_distance_product(jnp.asarray(a, jdt),
+                                           jnp.asarray(b, jdt),
+                                           interpret=True))
+    ta, tb = torch.as_tensor(a).to(tdt), torch.as_tensor(b).to(tdt)
+    K.reset_launch_counts()
+    if route == "distance_product":
+        got = ops.distance_product(ta, tb)
+    else:
+        got = K.ca_gemm_program(ta, [tb], semiring="min_plus")
+    assert got.dtype == torch.float32 and K.launch_counts == {}
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "nan":
+        assert np.isnan(want[4]).all() and np.isnan(want[:, 2]).all()
+        assert np.isfinite(np.delete(np.delete(want, 4, 0), 2, 1)).all()
+    if case == "inf":
+        assert np.isinf(want[3]).all()
+
+
+def test_ref_distance_product_matches_the_reference_oracle():
+    """The port's oracle, chunked over k, against the reference's full
+    broadcast: bit-equal in fp32 and in bf16 (whose sums round to bf16
+    in both)."""
+    r = np.random.RandomState(12)
+    a, b = r.rand(40, 70) + 1.0, r.rand(70, 30) + 1.0
+    for dtype in ("float32", "bfloat16"):
+        want = jax_ref.ref_distance_product(jnp.asarray(a, dtype),
+                                            jnp.asarray(b, dtype))
+        got = torch_ref.ref_distance_product(
+            torch.as_tensor(a).to(TORCH_DT[dtype]),
+            torch.as_tensor(b).to(TORCH_DT[dtype]))
+        assert str(got.dtype) == f"torch.{dtype}"
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
+def test_distance_product_contract_raises():
+    a = torch.ones(4, 8)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        ops.distance_product(a, torch.ones(8, 6, dtype=torch.int8))
+    with pytest.raises(ValueError, match="writes float32"):
+        K.ca_mmm(a, torch.ones(8, 6), semiring="min_plus",
+                 out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="B must be"):
+        ops.distance_product(a, torch.ones(7, 6))
+
+
+# ---------------------------------------------------------------------------
+# K4: the k-outer ablation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tiles", [(128, 128, 128), (None, None, None)],
+                         ids=["ref_tiles", "port_default"])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_k_outer_matches_reference_kernel(dtype, tiles):
+    """The reference's test shape; fp32 to its 1e-4, int8 exactly (int32
+    sums).  The reference runs its tiles of 128; the port's default tile
+    (64, 64, 32) takes 8 k steps instead of 2 and gives the same sums."""
+    r = np.random.RandomState(2)
+    if dtype == "int8":
+        a = r.randint(-127, 128, (256, 256)).astype(np.int8)
+        b = r.randint(-127, 128, (256, 128)).astype(np.int8)
+    else:
+        a, b = r.randn(256, 256), r.randn(256, 128)
+    jdt = jnp.dtype(dtype)
+    want = np.asarray(jax_k_outer(jnp.asarray(a, jdt), jnp.asarray(b, jdt),
+                                  bm=128, bn=128, bk=128, interpret=True))
+    bm, bn, bk = tiles
+    ta = torch.as_tensor(a).to(getattr(torch, dtype))
+    tb = torch.as_tensor(b).to(getattr(torch, dtype))
+    K.reset_launch_counts()
+    got = K.ca_mmm_k_outer(ta, tb, bm=bm, bn=bn, bk=bk)
+    assert K.launch_counts == {}
+    if dtype == "int8":
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_k_outer_bf16_casts_after_the_last_step():
+    """bf16 operands accumulate in fp32 and the output is cast once at the
+    end, to A's dtype by default or to out_dtype."""
+    r = np.random.RandomState(3)
+    a, b = r.randn(128, 192), r.randn(192, 64)
+    ta, tb = torch.as_tensor(a).bfloat16(), torch.as_tensor(b).bfloat16()
+    want = jax_k_outer(jnp.asarray(a, jnp.bfloat16),
+                       jnp.asarray(b, jnp.bfloat16), bm=64, bn=64, bk=64,
+                       interpret=True)
+    got = K.ca_mmm_k_outer(ta, tb, bm=64, bn=64, bk=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    f32 = K.ca_mmm_k_outer(ta, tb, out_dtype=torch.float32)
+    np.testing.assert_allclose(f32.numpy(), ta.float().numpy()
+                               @ tb.float().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,kw,match", [
+    (((100, 64), (64, 64)), {}, "tile-divisible"),
+    (((64, 64), (64, 64)), {"bm": 32}, "multiples of 64"),
+    (((64, 64), (64, 64)), {"bk": 48}, "bk of 32"),
+    (((64, 64), (32, 64)), {}, "contraction"),
+])
+def test_k_outer_contract_raises(shape, kw, match):
+    with pytest.raises(ValueError, match=match):
+        K.ca_mmm_k_outer(torch.ones(*shape[0]), torch.ones(*shape[1]), **kw)
+
+
+# ---------------------------------------------------------------------------
+# CUDA tensors never reach the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["distance_product", "k_outer"])
+def test_cuda_tensors_never_run_the_plain_version(which, monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises; here,
+    with no card and no nvcc, it raises and never falls back."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_fallback(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for name in ("ca_gemm_program_reference", "ref_distance_product",
+                 "ca_mmm_k_outer_reference", "_step_product"):
+        monkeypatch.setattr(K, name, no_fallback)
+    K.reset_launch_counts()
+    with FakeTensorMode():
+        a = torch.empty(64, 64, device="cuda")
+        b = torch.empty(64, 64, device="cuda")
+        with pytest.raises((RuntimeError, AssertionError)) as err:
+            if which == "distance_product":
+                ops.distance_product(a, b)
+            else:
+                K.ca_mmm_k_outer(a, b)
+    assert "plain version" not in str(err.value)
+    assert K.launch_counts == {}

@@ -1,6 +1,7 @@
-"""The CUDA kernels (CA-GEMM program, paged decode attention) against their
-plain versions, on a card; the trainable programs' backward on the card
-against the same on the CPU.
+"""The CUDA kernels (CA-GEMM program with its distance product, paged
+decode attention, forward flash attention, the k-outer ablation) against
+their plain versions, on a card; the trainable programs' backward on the
+card against the same on the CPU.
 
 Imports neither JAX nor ``repro``, so it runs on a GPU host without JAX:
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -375,3 +376,129 @@ def test_cuda_backward_launches_k1f_programs():
     assert K.launch_counts == {f"{glu} save_preact": 1,
                                "dact.silu>none nt": 1, "none nt": 1,
                                "dact.silu@b>none tn": 1, "none tn": 1}
+
+
+# ---------------------------------------------------------------------------
+# K1g: the distance product
+# ---------------------------------------------------------------------------
+
+def _bit_equal(got, want):
+    """Equal bits, NaN where the other is NaN."""
+    return bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "bf16", "mixed", "inf_nan"])
+def test_cuda_distance_product_bit_equal(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    r = np.random.RandomState(21)
+    m, k, n = (100, 333, 77) if case == "ragged" else (70, 90, 130)
+    a = torch.as_tensor(r.rand(m, k) * 2 - 0.5).float().cuda()
+    b = torch.as_tensor(r.rand(k, n) * 2 - 0.5).float().cuda()
+    if case in ("bf16", "mixed"):
+        a = a.bfloat16()
+        b = b.bfloat16() if case == "bf16" else b
+    if case == "inf_nan":
+        a[torch.as_tensor(r.rand(m, k) < 0.3).cuda()] = float("inf")
+        b[torch.as_tensor(r.rand(k, n) < 0.3).cuda()] = float("inf")
+        a[5] = float("inf")
+        a[6, 40] = float("nan")
+    K.reset_launch_counts()
+    got = ops.distance_product(a, b)
+    assert K.launch_counts == {"none min_plus": 1}
+    want = K.ca_gemm_program_reference(a, [b], semiring="min_plus")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _bit_equal(got, want)
+    if case == "inf_nan":
+        assert bool(got[6].isnan().all()) and bool(got[5].isinf().all())
+
+
+# ---------------------------------------------------------------------------
+# K3: forward flash attention
+# ---------------------------------------------------------------------------
+
+FWD_CASES = {  # B, Lq, S, H, Hkv, D, window, causal, holes
+    "mha causal": (2, 130, 130, 4, 4, 64, None, True, False),
+    "gqa4 window": (1, 100, 300, 8, 2, 120, 37, True, False),
+    "holes ragged": (3, 45, 77, 6, 2, 40, None, True, True),
+    "non-causal window": (1, 64, 200, 4, 1, 32, 50, False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_cuda_flash_attention_matches_plain_version(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B, Lq, S, H, Hkv, D, window, causal, holes = FWD_CASES[case]
+    r = np.random.RandomState(31)
+    t = lambda *shape: torch.as_tensor(  # noqa: E731
+        r.randn(*shape)).to(device="cuda", dtype=dtype)
+    q, k, v = t(B, Lq, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D)
+    kpos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
+    qpos = (torch.arange(Lq, dtype=torch.int32) + (S - Lq)).repeat(B, 1)
+    if holes:
+        kpos[torch.as_tensor(r.rand(B, S) < 0.2)] = -1
+        qpos[-1, 0] = -3           # sees no slot: drains 0
+    kw = dict(q_positions=qpos.cuda(), kv_positions=kpos.cuda(),
+              causal=causal, window=window)
+    FA.reset_launch_counts()
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.launch_counts == {FA.FWD_NAME: 1}
+    want = FA.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    # Each output to its own row's scale (the first causal rows are 10-100x
+    # the later ones): fp32 sums in another order, a bf16 output ulp may
+    # flip.  Both round p to bf16 at the same running max, so a bf16 flip
+    # is rare: the mean error stays under 2^-12 of the mean |want|.
+    err = (got.float() - want.float()).abs()
+    aw = want.float().abs()
+    rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    bound = rtol * (aw + aw.amax(dim=-1, keepdim=True))
+    assert bool((err <= bound).all()), (err - bound).max().item()
+    if dtype == torch.bfloat16:
+        mean = err.sum().item() / aw.sum().item()
+        assert mean <= 2.0 ** -12, mean
+    if holes and causal:
+        assert not bool(got[-1, 0].any())
+
+
+# ---------------------------------------------------------------------------
+# K4: the k-outer ablation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(64, 64, 32), (128, 192, 96)],
+                         ids=["default", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+def test_cuda_k_outer_matches_plain_version(dtype, tiles):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    m, n, k = 384, 576, 288
+    r = np.random.RandomState(41)
+    if dtype == torch.int8:
+        a = torch.as_tensor(r.randint(-127, 128, (m, k))).to(dtype).cuda()
+        b = torch.as_tensor(r.randint(-127, 128, (k, n))).to(dtype).cuda()
+    else:
+        a = torch.as_tensor(r.randn(m, k)).to(dtype).cuda()
+        b = torch.as_tensor(r.randn(k, n)).to(dtype).cuda()
+    # The fp32 C before the cast: both sum in fp32, in another order.
+    kw = dict(bm=tiles[0], bn=tiles[1], bk=tiles[2],
+              out_dtype=None if dtype == torch.int8 else torch.float32)
+    K.reset_launch_counts()
+    got = K.ca_mmm_k_outer(a, b, **kw)
+    assert K.launch_counts == {K.K_OUTER: k // tiles[2]}
+    want = K.ca_mmm_k_outer_reference(a, b, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        assert err <= tol, (err, tol)

@@ -10,6 +10,8 @@ vector B loads) prints
   instantiation, also written to ``ptxas_A.json``/``ptxas_B.json``);
 * the SASS instruction count, the opcode histogram and the opcodes whose
   counts differ between the two builds;
+* for every instantiation the two builds share (named in the ``train``
+  build's terms), whether its SASS opcode sequence is the same in both;
 
 then times both builds' launches at the decode shapes (m = 1: wq, w_down
 with its residual, the rms GLU) and at m = 128 (wq, w_down) in one
@@ -17,13 +19,13 @@ process, each call captured 20 at
 a time in a CUDA graph over weight copies that together exceed the 50 MB
 L2, the builds alternating A, B, B, A for ``--rounds`` rounds.
 
-The C entry point changed between the port's slices: ``--abi`` names each
-build's argument list, ``float`` (10 pointers, 11 ints), ``quant`` (14
-pointers, 15 ints) or ``train`` (17 pointers, 19 ints, and a ``TRAIN``
-template flag after ``VEC_B``).  Run from the repository root on the
-card::
+Both builds take the same C entry point (17 pointers, 19 ints); their
+kernels' template flags differ: ``ABI`` is ``train`` for a build whose last
+flag is ``TRAIN`` (before the distance product) and ``k1g`` for one with a
+``MIN_PLUS`` flag after it (this tree).  Run from the repository root on
+the card::
 
-    python3 tools/k1_codegen_ab.py A.cu:quant B.cu:train --out DIR
+    python3 tools/k1_codegen_ab.py A.cu:train B.cu:k1g --out DIR
 
 The SASS of the compared functions is written under ``--out``.
 """
@@ -48,6 +50,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # The two tiles' template arguments (BM, BN, BK, TM, TN), as demangled.
 TILES = {"8x16x128": "8, 16, 128, 1, 1", "64x64x32": "64, 64, 32, 4, 4"}
+# Each ABI's trailing template flags of the float kernels compared:
+# VEC_B, TRAIN (and MIN_PLUS).
+ABIS = {"train": "true, false", "k1g": "true, false, false"}
 SILU = 3
 
 
@@ -120,10 +125,20 @@ def opcode(line: str) -> str:
     return body.split()[0].rstrip(";") if body.split() else ""
 
 
+def common_name(demangled: str, abi: str) -> str:
+    """A kernel's demangled name in the ``train`` ABI's terms: ``k1g``
+    builds carry one more template flag (``MIN_PLUS``) after ``TRAIN``;
+    None for the instantiation only they have (``MIN_PLUS`` true)."""
+    if abi != "k1g":
+        return demangled
+    if ", true>(" in demangled:
+        return None
+    return demangled.replace(", false>(", ">(")
+
+
 def select(demangled, tile: str, nb: int, abi: str):
-    ty = "__nv_bfloat16" if abi == "float" else "__nv_bfloat16, __nv_bfloat16"
-    flags = "true, false" if abi == "train" else "true"
-    want = f"ca_gemm_program_kernel<{ty}, {TILES[tile]}, {nb}, {flags}>"
+    want = (f"ca_gemm_program_kernel<__nv_bfloat16, __nv_bfloat16, "
+            f"{TILES[tile]}, {nb}, {ABIS[abi]}>")
     hits = [k for k, v in demangled.items() if want in v]
     if len(hits) != 1:
         raise RuntimeError(f"{want}: {len(hits)} matches")
@@ -132,15 +147,12 @@ def select(demangled, tile: str, nb: int, abi: str):
 
 class Entry:
     """One build's C entry point, called with the float programs'
-    arguments in its own argument list."""
+    arguments."""
 
-    def __init__(self, lib: pathlib.Path, abi: str):
+    def __init__(self, lib: pathlib.Path):
         self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
-        self.abi = abi
-        n_ptr, n_int = {"float": (10, 11), "quant": (14, 15),
-                        "train": (17, 19)}[abi]
-        self.fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                            + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+        self.fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 19
+                            + [ctypes.c_void_p])
         self.fn.restype = ctypes.c_int
 
     def __call__(self, a, b0, b1, row_scale, gain, residual, out, glu_act):
@@ -151,13 +163,9 @@ class Entry:
                 None, None, ptr(residual), ptr(out)]
         flags = [int(gain is not None and gain.dtype == torch.float32), 0,
                  0, 0, 0, 0, glu_act]      # gain, bias, mul, res, out, act
-        if self.abi == "float":
-            args = ptrs + [m, n, k, 1] + flags
-        elif self.abi == "quant":
-            args = ptrs + [None] * 4 + [m, n, k, 1, 1] + flags + [0, 0, 0]
-        else:       # no preact, no save_preact outputs, nn, no dact
-            args = (ptrs + [None] * 7 + [m, n, k, 1, 1] + flags
-                    + [0, 0, 0] + [0, 0, 0, 0])
+        # No preact or save_preact outputs, no scales, nn, no dact.
+        args = (ptrs + [None] * 7 + [m, n, k, 1, 1] + flags
+                + [0, 0, 0] + [0, 0, 0, 0])
         err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch returned {err}")
@@ -230,6 +238,8 @@ def main():
     builds = []
     for tag, spec in zip("AB", args.builds):
         src, abi = spec.rsplit(":", 1)
+        if abi not in ABIS:
+            sys.exit(f"ABI {abi!r}: one of {sorted(ABIS)}")
         lib, log = build(pathlib.Path(src), out_dir, tag)
         funcs = sass_functions(lib)
         dem = demangle(list(funcs))
@@ -239,7 +249,7 @@ def main():
                  builds[-1]["ptxas"].items() if name in dem}
         (out_dir / f"ptxas_{tag}.json").write_text(
             json.dumps(table, indent=1, sort_keys=True))
-        print(f"build {tag}: {src} ({abi} entry point), "
+        print(f"build {tag}: {src} ({abi} template flags), "
               f"{len(funcs)} kernels")
         for fn, info in sorted(table.items()):
             print(f"  ptxas {tag} {fn.split('ca_gemm_program_kernel')[-1]}"
@@ -264,7 +274,20 @@ def main():
                 None, seqs[0], seqs[1], autojunk=False).get_matching_blocks())
             print(f"{tile} nb={nb} opcode counts A vs B where they differ: "
                   + json.dumps(diff) + f"; opcodes in order shared: {same}")
-    entries = [Entry(b["lib"], b["abi"]) for b in builds]
+    seqs = []
+    for b in builds:
+        named = {common_name(b["dem"][f], b["abi"]): [opcode(x) for x in ls]
+                 for f, ls in b["funcs"].items()}
+        seqs.append({k: v for k, v in named.items() if k is not None})
+    shared = sorted(set(seqs[0]) & set(seqs[1]))
+    differ = [k for k in shared if seqs[0][k] != seqs[1][k]]
+    print(f"instantiations in both builds: {len(shared)}; identical SASS "
+          f"opcode sequences: {len(shared) - len(differ)}; differing: "
+          + json.dumps(differ) + "; only in A: "
+          + json.dumps(sorted(set(seqs[0]) - set(seqs[1]))) + "; only in B "
+          "(besides the MIN_PLUS one): "
+          + json.dumps(sorted(set(seqs[1]) - set(seqs[0]))))
+    entries = [Entry(b["lib"]) for b in builds]
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, m, k, n, ops, copies in shapes(gen):
         outs = []
