@@ -12,14 +12,20 @@ Phases (any failure raises and the script exits non-zero):
    source, all started together.
 3. kernel parity: each float program (none, res, rms>glu.silu(none|none))
    on the kernel against its plain version, in bf16 at the main path's
-   shapes (m = 1, 37, 128; h2o-danube-3-4b's at m = 1) and in fp32 on a
-   ragged shape; the paged attention kernel against its plain version in
-   fp32 and bf16 at stablelm-1.6b's and danube's serve shapes, at a ragged
-   windowed danube batch and at B = 8, S = 4096 for both head geometries,
-   and bit-identical when the pool's free pages are poisoned.
+   shapes (m = 1, 37, 128 and the 1000-token prefill; h2o-danube-3-4b's at
+   m = 1), on a ragged bf16 shape (m, n, k multiples of 8, not of the
+   tile) and in fp32 on a ragged shape; each call's K1 route is asserted
+   (wgmma for bf16 at m > 8, SIMT otherwise).  The paged attention kernel
+   against its plain version in fp32 and bf16 at stablelm-1.6b's and
+   danube's serve shapes, at a ragged windowed danube batch, at B = 8,
+   S = 4096 for both head geometries and at granite-20b's 48 query heads
+   over one KV head (D = 128), and bit-identical when the pool's free
+   pages are poisoned.
 4. slice: full-width stablelm-1.6b, all 24 layers, random weights from a
    seed, served through ServeEngine (3 requests) on the slab cache; the
-   kernel must launch exactly 145 times per prefill and per decode step.
+   kernel must launch exactly 145 times per prefill and per decode step,
+   each prefill of more than 8 tokens on the wgmma route and the 8-token
+   prefill and every decode step on the SIMT route.
    torch.profiler then splits decode steps' device time by kernel (device
    busy share), and a 4-layer full-width model is held against the plain
    path on the CPU (prefill logits, and greedy tokens up to a near tie).
@@ -27,7 +33,7 @@ Phases (any failure raises and the script exits non-zero):
    with paged_kv=True (int8 pages, decode attention on the paged kernel):
    prefill logits bit-equal, greedy tokens equal up to a near tie, exactly
    24 paged-attention and 145 GEMM launches per decode step and none of
-   the first in prefill; one paged-attention call of the run is replayed
+   the first in prefill, routes as in 4; one paged-attention call of the run is replayed
    on the kernel and its plain version.  Host timers split decode steps'
    host time (KV insert, decode attention) slab vs paged, alternating
    over 3 rounds, and count the torch ops of each.  A 4-layer model's
@@ -45,26 +51,29 @@ Phases (any failure raises and the script exits non-zero):
    then w8a8 (ServeEngine(quantize_activations=True), 4 calibration
    prompts): exactly 145 dq* launches per forward step; calibration sites
    and seconds, end-to-end times, decode profile and the cosine of
-   prefill logits against the bf16 model.  A 4-layer model's int8w and
+   prefill logits against the bf16 model; every launch on the SIMT route.
+   A 4-layer model's int8w and
    w8a8 (scales calibrated once on the card, percentile, per k-tile) are
    held against the CPU.
 8. K1f parity: each backward program of training (nt, tn, dact@a on nt,
    dact@b on tn) and each save_preact program (the forward GLU, bias+gelu)
    on the kernel against its plain version at stablelm-1.6b's training
-   shapes with 1024 tokens, in bf16, and on a ragged fp32 shape.
+   shapes with 1024 tokens, in bf16 (the wgmma route), and on a ragged
+   fp32 shape (SIMT).
 9. train: full-width stablelm-1.6b, all 24 layers, fp32 masters from seed
    0, remat as configured, trains 3 steps of 4 x 256 SyntheticLM tokens
    through repro_torch.train.step (AdamW, lr 1e-3): finite loss and
    gradient norm at every step, and exactly the K1 launches the model's
-   structure gives per step (627, by program and layout); step times,
+   structure gives per step (627, by program and layout), every one on the
+   wgmma route; step times,
    tokens/s, peak memory, the share of the model's work, and
    torch.profiler's split of one more step.  Then a 4-layer full-width
    model, the same fp32 masters on the card and on the CPU, one batch of
    2 x 64 tokens: the loss and every leaf's gradient, card vs CPU.
 10. times: kernel, plain version, library call (torch._weight_int8pack_mm
    for a per-channel dqb; torch.matmul for the plain nt/tn programs) and
-   bound per GEMM program (float, int8 and the K1f programs at 1024
-   tokens) and for the paged kernel (each timed by replaying a CUDA graph
+   bound per GEMM program (float at m = 1, 128 and 1000, int8 and the K1f
+   programs at 1024 tokens) and for the paged kernel (each timed by replaying a CUDA graph
    of 20 calls), and the end-to-end times of the serve and train phases.
 11. K1g, the distance product: all-pairs shortest paths on a random
    directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
@@ -85,9 +94,12 @@ Phases (any failure raises and the script exits non-zero):
    beside the bound and scaled_dot_product_attention.
 13. K4, the k-outer ablation: kernels.ca_mmm.ca_mmm_k_outer at
    m = n = k = 4096 against its plain version (fp32 and bf16 to 1e-4 of
-   max, int8 exactly), k / 32 launches per call; its time beside K1a's
-   (the k-inner kernel, same shape), torch.matmul and both schedules'
-   device-memory traffic by the reference's formula.
+   max, int8 exactly) at each dtype's default tile (bf16: K1's wgmma tile
+   128 x 128 x 64, k / 64 launches on the wgmma step; fp32, int8:
+   64 x 64 x 32 on the SIMT step), and bf16 at a non-default dividing tile
+   (256 x 256 x 128, wgmma) and at the SIMT tile; its times beside K1a's
+   (the k-inner kernel, same shape, wgmma route), torch.matmul and both
+   schedules' device-memory traffic by the reference's formula.
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -227,11 +239,51 @@ ATTN_CASES = {"a stablelm": ([1016], 128, 32, 32, 64, None),
               "b danube": ([19, 200, 1000], 16, 32, 8, 120, 48),
               "danube serve": ([316], 128, 32, 8, 120, None),
               "stablelm B8 S4096": ([4096] * 8, 128, 32, 32, 64, None),
-              "danube B8 S4096": ([4096] * 8, 128, 32, 8, 120, None)}
+              "danube B8 S4096": ([4096] * 8, 128, 32, 8, 120, None),
+              "granite G48": ([1016, 37], 128, 48, 1, 128, None)}
+# Prompt lengths of the prefill shapes the bf16 GEMMs are held and timed
+# at (the served prompts of 37, 128 and 1000 tokens).
+PREFILL_M = (37, 128, 1000)
 
 
 def phase(name):
     print(f"== {name} ({time.strftime('%H:%M:%S')})", flush=True)
+
+
+def route_delta(before):
+    """K1/K4 launches by route and launch key since ``before`` (a copy of
+    ``K.route_counts``)."""
+    return {k: n - before.get(k, 0) for k, n in K.route_counts.items()
+            if n != before.get(k, 0)}
+
+
+def want_route(dtype, m):
+    """The route a float program must take: wgmma for bf16 at m > 8 (all
+    operands here are TMA-aligned), SIMT otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and m > 8 else "simt"
+
+
+def serve_routes(prompt_lens, new_tokens, per_step):
+    """The K1 launches by route of requests served one at a time: each
+    prefill at m = its prompt's length (wgmma above 8 tokens), each decode
+    step at m = 1 (SIMT), ``per_step`` launches a forward step."""
+    steps = {"wgmma": sum(1 for n in prompt_lens if n > 8)}
+    steps["simt"] = len(prompt_lens) - steps["wgmma"] + sum(
+        n - 1 for n in new_tokens)
+    return {f"{route} {tag}": n * k for route, k in steps.items() if k
+            for tag, n in per_step.items()}
+
+
+def check_routes(label, got, want):
+    print(f"{label} launches by route: {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches by route {got}, expected "
+                             f"{want}")
+
+
+def is_k1(kernel_name):
+    return ("ca_gemm_program_kernel" in kernel_name
+            or "ca_gemm_wgmma_kernel" in kernel_name)
 
 
 def card():
@@ -296,14 +348,20 @@ def parity():
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
     cases = [(tag, name, m, k, n, od, torch.bfloat16)
-             for m in (1, 37, 128) for tag, name, k, n, od in GEMMS]
+             for m in (1,) + PREFILL_M for tag, name, k, n, od in GEMMS]
     cases += [(tag, name, 1, k, n, od, torch.bfloat16)
               for tag, name, k, n, od in DANUBE_GEMMS]
+    # Ragged against the wgmma tile in every dim (m, n, k multiples of 8).
+    cases += [(tag, "ragged", 200, 328, 264, None, torch.bfloat16)
+              for tag in ("none", "res", GLU)]
     cases += [(tag, "ragged", 5, 300, 200, None, torch.float32)
               for tag in ("none", "res", GLU)]
     for tag, name, m, k, n, od, dtype in cases:
         a, (bs,), kw = program_inputs(tag, m, k, n, dtype, gen)
+        before = dict(K.route_counts)
         got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
+        check_routes(f"{tag} {name} m={m}", route_delta(before),
+                     {f"{want_route(dtype, m)} {tag}": 1})
         want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
         torch.cuda.synchronize()
         if got.shape != (m, n) or not bool(torch.isfinite(got).all()):
@@ -490,6 +548,7 @@ def serve_both(cfg, prompts, max_len, profile=False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[paged] = {"reqs": reqs, "k1": dict(K.launch_counts),
+                       "routes": dict(K.route_counts),
                        "k2": dict(FA.launch_counts), "rec": rec,
                        "wall": wall, "call": cap.args}
         if paged:
@@ -523,6 +582,9 @@ def serve_both(cfg, prompts, max_len, profile=False):
         if run["k1"] != {tag: n * steps for tag, n in per_step.items()}:
             raise AssertionError(f"{label}: K1 launches {run['k1']}, "
                                  f"expected {per_step} x {steps}")
+        check_routes(f"{cfg.name} {label}", run["routes"], serve_routes(
+            [len(r.prompt) for r in reqs], [r.max_new_tokens for r in reqs],
+            per_step))
         want_k2 = {FA.NAME: L * decodes} if paged else {}
         if run["k2"] != want_k2:
             raise AssertionError(f"{label}: K2 launches {run['k2']}, "
@@ -563,7 +625,8 @@ def serve_both(cfg, prompts, max_len, profile=False):
                    rp.decode_s * 1e3 / (rp.max_new_tokens - 1)}
         e2e.append(row)
         print(f"{cfg.name} " + json.dumps(row))
-    return runs[True]["k2"][FA.NAME], call_err, e2e, split, paged_profile
+    return (runs[True]["k2"][FA.NAME], call_err, e2e, split, paged_profile,
+            runs[True]["routes"])
 
 
 def serve_slice(cfg):
@@ -605,6 +668,10 @@ def serve_slice(cfg):
                                  f"expected {n} x {steps}")
     if set(counts) != set(per_step):
         raise AssertionError(f"unexpected programs launched: {counts}")
+    routes = dict(K.route_counts)
+    check_routes("slab serve", routes, serve_routes(
+        [len(r.prompt) for r in reqs], [r.max_new_tokens for r in reqs],
+        per_step))
     for r in reqs:
         got = done[r.uid]
         if got.status != "done" or len(got.generated) != r.max_new_tokens:
@@ -621,7 +688,7 @@ def serve_slice(cfg):
     e2e["profile"] = profile_decode(params, cfg)
     del eng, params
     torch.cuda.empty_cache()
-    return counts, e2e
+    return counts, routes, e2e
 
 
 def _device_us(event):
@@ -684,7 +751,7 @@ def profile_decode(params, cfg, steps=8, paged=False):
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + _device_us(ev)
     total_ms = sum(by_kernel.values()) / 1e3 / steps
     gemm_ms = sum(v for k, v in by_kernel.items()
-                  if "ca_gemm_program_kernel" in k) / 1e3 / steps
+                  if is_k1(k)) / 1e3 / steps
     wall_ms = wall * 1e3 / steps
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     out = {"decode_wall_ms_per_step": wall_ms,
@@ -937,7 +1004,7 @@ def times():
     phase("times (CUDA graph replay; weights rotated past the 50 MB L2)")
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for m in (1, 128):
+    for m in (1, 128, 1000):
         for tag, name, k, n, od in GEMMS:
             nb = program_from_tag(tag).n_b
             copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
@@ -951,8 +1018,10 @@ def times():
             lib = _time_ms(lib_fn, copies) if lib_fn is not None else None
             b_ms, b_by = bound(tag, m, k, n, od, torch.bfloat16)
             row = {"program": tag, "gemm": name, "m": m, "k": k, "n": n,
+                   "k1_route": want_route(torch.bfloat16, m),
                    "ms": ms, "plain_ms": plain, "library_ms": lib,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "tflops": 2 * m * n * k * nb / ms / 1e9}
             rows.append(row)
             print("time " + json.dumps(row))
             del a, sets, kw
@@ -1062,6 +1131,17 @@ def quant_inputs(tag, m, k, n, dtype, gen, copies=1, block_b=0, block_a=0):
 
 def quant_parity():
     phase("int8 kernel parity (dqb, dqab vs plain version)")
+    before = dict(K.route_counts)
+    worst = _quant_parity()
+    off = {k: n for k, n in route_delta(before).items()
+           if not k.startswith("simt ")}
+    print(f"int8 parity launches off the SIMT route: {off}")
+    if off:
+        raise AssertionError(f"int8 programs off the SIMT route: {off}")
+    return worst
+
+
+def _quant_parity():
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = {}
     cases = []
@@ -1194,6 +1274,8 @@ def serve_int8(cfg):
         if counts != {t: n * steps for t, n in per_step.items()}:
             raise AssertionError(f"{mode}: launches {counts}, expected "
                                  f"{per_step} x {steps}")
+        check_routes(mode, dict(K.route_counts),
+                     {f"simt {t}": n * steps for t, n in per_step.items()})
         for r in reqs:
             if r.status != "done" or len(r.generated) != r.max_new_tokens:
                 raise AssertionError(f"{mode} request {r.uid}: {r.status}")
@@ -1396,7 +1478,10 @@ def k1f_parity():
               for key in dict.fromkeys(g[0] for g in K1F_GEMMS)]
     for key, name, m, n, k, od, dtype in cases:
         a, (bs,), kw = k1f_inputs(key, m, n, k, dtype, gen)
+        before = dict(K.route_counts)
         got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
+        check_routes(f"{key} {name}", route_delta(before),
+                     {f"{want_route(dtype, m)} {key}": 1})
         want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
         torch.cuda.synchronize()
         if not kw["save_preact"]:
@@ -1456,6 +1541,7 @@ def train_slice(cfg):
     for i in range(steps):
         batch = T.cast_batch(batch_for_model(cfg, data_cfg, i), cfg)
         before = dict(K.launch_counts)
+        routes_before = dict(K.route_counts)
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, metrics = step_fn(state, batch)
@@ -1474,6 +1560,8 @@ def train_slice(cfg):
         if delta != want:
             raise AssertionError(f"step {i + 1}: K1 launches {delta}, "
                                  f"expected {want}")
+        check_routes(f"train step {i + 1}", route_delta(routes_before),
+                     {f"wgmma {key}": n for key, n in want.items()})
         rows.append(row)
     counts = dict(K.launch_counts)
     peak = torch.cuda.max_memory_allocated()
@@ -1515,8 +1603,7 @@ def profile_train_step(step_fn, state, cfg, data_cfg, step, step_ms):
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + _device_us(ev)
     device_ms = sum(by_kernel.values()) / 1e3
-    k1_ms = sum(v for k, v in by_kernel.items()
-                if "ca_gemm_program_kernel" in k) / 1e3
+    k1_ms = sum(v for k, v in by_kernel.items() if is_k1(k)) / 1e3
     out = {"device_ms": device_ms, "k1_ms": k1_ms,
            "device_busy_share": device_ms / step_ms,
            "k1_share_of_step": k1_ms / step_ms,
@@ -1711,6 +1798,7 @@ def min_plus_phase():
     if counts != {MIN_PLUS: steps}:
         raise AssertionError(f"K1g launches {counts}, expected "
                              f"{ {MIN_PLUS: steps} }")
+    check_routes("APSP", dict(K.route_counts), {f"simt {MIN_PLUS}": steps})
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import shortest_path
 
@@ -1934,8 +2022,13 @@ def k_outer_phase():
     gen = torch.Generator(device="cuda").manual_seed(17)
     K.reset_launch_counts()
     worst = 0.0
-    dtypes = (torch.float32, torch.bfloat16, torch.int8)
-    for dtype in dtypes:
+    # Each dtype at its default tile; bf16 also at a non-default dividing
+    # tile of whole wgmma blocks and at the SIMT tile.
+    cases = [(torch.float32, None), (torch.bfloat16, None),
+             (torch.int8, None), (torch.bfloat16, (256, 256, 128)),
+             (torch.bfloat16, K.SIMT_TILE)]
+    want = {}
+    for dtype, tiles in cases:
         if dtype == torch.int8:
             a, b = (torch.randint(-127, 128, (n, n), generator=gen,
                                   device="cuda", dtype=torch.int8)
@@ -1943,48 +2036,61 @@ def k_outer_phase():
         else:
             a, b = (torch.randn(n, n, generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
+        bm, bn, bk = tiles or K.K_OUTER_TILES[dtype]
+        route = K.k_outer_route(dtype, bm, bn, bk)
+        rkey = f"{route} {K.K_OUTER}"
+        want[rkey] = want.get(rkey, 0) + n // bk
         # Float inputs: compare the fp32 C before any cast.
         od = None if dtype == torch.int8 else torch.float32
-        got = K.ca_mmm_k_outer(a, b, out_dtype=od)
-        want = K.ca_mmm_k_outer_reference(a, b, out_dtype=od)
+        got = K.ca_mmm_k_outer(a, b, bm=bm, bn=bn, bk=bk, out_dtype=od)
+        ref = K.ca_mmm_k_outer_reference(a, b, bm=bm, bn=bn, bk=bk,
+                                         out_dtype=od)
         torch.cuda.synchronize()
-        err = (got.double() - want.double()).abs().max().item()
+        err = (got.double() - ref.double()).abs().max().item()
         tol = 0.0 if dtype == torch.int8 \
-            else 1e-4 * want.abs().max().item()
-        print(f"parity ca_mmm_k_outer {str(dtype)[6:]:8s} {n}^3 out "
-              f"{str(got.dtype)[6:]} max_abs_err={err:.3e} tol={tol:.3e}")
-        if got.dtype != want.dtype or not err <= tol:
-            raise AssertionError(f"ca_mmm_k_outer {dtype}: kernel disagrees "
-                                 f"({err} > {tol})")
+            else 1e-4 * ref.abs().max().item()
+        print(f"parity ca_mmm_k_outer {str(dtype)[6:]:8s} {n}^3 tile "
+              f"({bm}, {bn}, {bk}) {route} out {str(got.dtype)[6:]} "
+              f"max_abs_err={err:.3e} tol={tol:.3e}")
+        if got.dtype != ref.dtype or not err <= tol:
+            raise AssertionError(f"ca_mmm_k_outer {dtype} {tiles}: kernel "
+                                 f"disagrees ({err} > {tol})")
         worst = max(worst, err)
-        del a, b, got, want
-    steps = n // K.K_OUTER_TILE[2]
-    counts = dict(K.launch_counts)
-    print(f"K4 launches over {len(dtypes)} calls: {counts}")
-    if counts != {K.K_OUTER: len(dtypes) * steps}:
-        raise AssertionError(f"K4 launches {counts}, expected "
-                             f"{len(dtypes) * steps}")
+        del a, b, got, ref
+    calls = sum(want.values())
+    check_routes(f"K4 over {len(cases)} calls", dict(K.route_counts), want)
+    if K.launch_counts != {K.K_OUTER: calls}:
+        raise AssertionError(f"K4 launches {K.launch_counts}, expected "
+                             f"{calls}")
     phase("K4 times beside K1a's (CUDA graph replay, bf16)")
     a, b = (torch.randn(n, n, generator=gen, device="cuda")
             .to(torch.bfloat16) for _ in range(2))
     ms = _time_ms(lambda i: K.ca_mmm_k_outer(a, b), 1, iters=5, reps=4)
+    wide_ms = _time_ms(lambda i: K.ca_mmm_k_outer(
+        a, b, bm=256, bn=256, bk=128), 1, iters=5, reps=4)
+    simt_ms = _time_ms(lambda i: K.ca_mmm_k_outer(
+        a, b, bm=K.SIMT_TILE[0], bn=K.SIMT_TILE[1], bk=K.SIMT_TILE[2]), 1,
+        iters=5, reps=4)
     k1_ms = _time_ms(lambda i: K.ca_gemm_program(a, [b]), 1, iters=5, reps=4)
     plain = _time_ms(lambda i: K.ca_mmm_k_outer_reference(a, b), 1, iters=2,
                      reps=2)
     lib = _time_ms(lambda i: torch.matmul(a, b), 1)
     b_ms, b_by = bound("none", n, n, n, None, torch.bfloat16)
     # The reference's traffic formulas (benchmarks/bench_intensity.py), in
-    # bytes, at K4's default tile, which is K1a's (64 x 64, 32-row slab,
-    # the tile ca_gemm_program.cu takes for m > 8): the same bf16 panels,
-    # K1's bf16 C written once, K4's fp32 C read and written every k step.
+    # bytes, at K4's default bf16 tile, which is K1a's wgmma tile
+    # (128 x 128, 64 rows of k a stage): the same bf16 panels, K1's bf16 C
+    # written once, K4's fp32 C read and written every k step.
     es = 2
-    bm, bn, bk = K.K_OUTER_TILE
+    bm, bn, bk = K.K_OUTER_TILES[torch.bfloat16]
     gm, gn, gk = n // bm, n // bn, n // bk
     panels = gm * gn * gk * (bm * bk + bk * bn) * es
     q_k4 = panels + 2 * n * n * gk * 4
     q_k1 = panels + n * n * es
     row = {"case": f"m=n=k={n} bf16", "tile": [bm, bn, bk],
-           "launches_per_call": steps, "ms": ms, "k1a_ms": k1_ms,
+           "k_outer_route": K.k_outer_route(torch.bfloat16, bm, bn, bk),
+           "launches_per_call": gk, "ms": ms, "k1a_ms": k1_ms,
+           "ms_tile_256_256_128": wide_ms,
+           "ms_simt_tile_64_64_32": simt_ms,
            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
            "bound_by": b_by, "traffic_bytes_k_outer": q_k4,
            "traffic_bytes_k1": q_k1,
@@ -1993,8 +2099,7 @@ def k_outer_phase():
     print("time ca_mmm_k_outer " + json.dumps(row))
     del a, b
     torch.cuda.empty_cache()
-    return {"launches": len(dtypes) * steps, "max_abs_err": worst,
-            "row": row}
+    return {"launches": calls, "max_abs_err": worst, "row": row}
 
 
 def main():
@@ -2006,7 +2111,7 @@ def main():
     worst.update(k1f_parity())
     worst_attn = attn_parity()
     cfg = get_config(ARCH)
-    counts, e2e = serve_slice(cfg)
+    counts, routes, e2e = serve_slice(cfg)
     cross_check(cfg)
     int8 = serve_int8(cfg)
     for row in int8.values():
@@ -2014,11 +2119,11 @@ def main():
     cross_check_int8(cfg)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (1000, 128, 37, 8)]
-    attn_launches, call_err, paged_e2e, split, paged_profile = serve_both(
-        cfg, prompts, max_len=1056, profile=True)
+    (attn_launches, call_err, paged_e2e, split, paged_profile,
+     paged_routes) = serve_both(cfg, prompts, max_len=1056, profile=True)
     cross_check_paged(cfg)
     dcfg = get_config(DANUBE)
-    _, danube_call_err, danube_e2e, danube_split, _ = serve_both(
+    _, danube_call_err, danube_e2e, danube_split, _, _ = serve_both(
         dcfg, [rng.randint(0, dcfg.vocab_size, 300)], max_len=320)
     worst_attn = max(worst_attn, call_err, danube_call_err)
     train_launches, train = train_slice(cfg)
@@ -2074,8 +2179,22 @@ def main():
             "launches": counts[tag], "max_abs_err": worst[tag],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "k1_route": "simt",
             "shape": f"{gemm} m=1 k={row['k']} n={row['n']} bf16"})
+    # The same programs at the 1000-token prefill (the wgmma route); their
+    # launches are the paged slice's prefills of more than 8 tokens.
+    for tag, gemm in RECORD_GEMM.items():
+        row = next(r for r in rows if r["program"] == tag
+                   and r["gemm"] == gemm and r["m"] == 1000)
+        kernels.append({
+            "name": f"ca_gemm_program[{tag}] prefill", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "launches": paged_routes[f"wgmma {tag}"],
+            "max_abs_err": worst[tag], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "k1_route": "wgmma",
+            "shape": f"{gemm} m=1000 k={row['k']} n={row['n']} bf16"})
     for tag, gemm in RECORD_GEMM.items():
         for qtag in QUANT[tag]:
             row = next(r for r in qrows if r["program"] == qtag
@@ -2086,7 +2205,7 @@ def main():
                 "launches": counts[qtag], "max_abs_err": worst[qtag],
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"],
+                "library_ms": row["library_ms"], "k1_route": "simt",
                 "shape": f"{gemm} m=1 k={row['k']} n={row['n']} int8 B, "
                          + ("int8 A" if "dqab" in qtag else "bf16 A")})
     for key, gemm in RECORD_K1F.items():
@@ -2098,7 +2217,7 @@ def main():
             "launches": train_launches[key], "max_abs_err": worst[key],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
+            "library_ms": row["library_ms"], "k1_route": "wgmma",
             "shape": f"{gemm} m={row['m']} n={row['n']} k={row['k']} bf16, "
                      f"{row['out']} out"})
     arow = attn_rows[0]
@@ -2117,7 +2236,7 @@ def main():
         "max_abs_err": k1g["max_abs_err"], "ms": grow["ms"],
         "plain_ms": grow["plain_ms"], "bound_ms": grow["bound_ms"],
         "bound_by": grow["bound_by"], "library_ms": None,
-        "shape": grow["case"]})
+        "k1_route": "simt", "shape": grow["case"]})
     frow = k3["rows"][0]
     kernels.append({
         "name": FA.FWD_NAME, "route": "cuda", "source": FWD_SOURCE,
@@ -2135,13 +2254,16 @@ def main():
         "max_abs_err": k4["max_abs_err"], "ms": orow["ms"],
         "plain_ms": orow["plain_ms"], "bound_ms": orow["bound_ms"],
         "bound_by": orow["bound_by"], "library_ms": orow["library_ms"],
+        "k_outer_route": orow["k_outer_route"],
         "shape": f"{orow['case']}, tile {orow['tile']}, "
                  f"{orow['launches_per_call']} launches a call"})
     print(f"e2e K1g APSP {APSP_NODES} nodes: {k1g['launches']} squarings in "
           f"{k1g['apsp_ms']:.3f} ms (scipy Dijkstra {k1g['scipy_s']:.3f} s "
           f"on the host), max relative error {k1g['max_rel_err']:.3e}")
     print(f"e2e K4 vs K1a at {K_OUTER_MNK}^3 bf16: k-outer {orow['ms']:.3f} "
-          f"ms, k-inner {orow['k1a_ms']:.3f} ms; traffic "
+          f"ms (tile {orow['tile']}; {orow['ms_tile_256_256_128']:.3f} at "
+          f"256 x 256 x 128, {orow['ms_simt_tile_64_64_32']:.3f} on the "
+          f"SIMT step), k-inner {orow['k1a_ms']:.3f} ms; traffic "
           f"{orow['traffic_bytes_k_outer'] / 1e9:.3f} vs "
           f"{orow['traffic_bytes_k1'] / 1e9:.3f} GB")
     print(f"e2e train step ms (steps 2-3) {train['step_ms_steps_2_3']}, "

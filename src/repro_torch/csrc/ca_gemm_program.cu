@@ -66,9 +66,30 @@
 // rounds back to the operand's type before the slab enters shared memory,
 // as the rms prologue does.  At training shapes (m = 1024 tokens) these
 // programs are bound by operations, 2 m n k over 989 TFLOP/s in bf16 (the
-// tn program of w_down, 1024 x 5632 x 2048: 24 us); this SIMT kernel
-// (fp32 FMAs, no tensor cores) runs far from that: wgmma and TMA are later
-// work.
+// tn program of w_down, 1024 x 5632 x 2048: 24 us), which only wgmma
+// reaches: their bf16 launches take the wgmma route below.
+//
+// Two routes.  A bf16 program (A and B bf16, no dequant) at m > 8 whose TMA'd
+// operands have 16-byte aligned bases and row strides runs on the TMA +
+// WGMMA main loop of wgmma_mainloop.cuh (ca_gemm_wgmma_kernel below): one
+// CTA of two consumer warpgroups and a producer warpgroup (which gives its
+// registers to the consumers with setmaxnreg) owns a 128 x 128 C tile
+// (128 x 64 with the GLU's two accumulators), its fp32 accumulators in
+// registers for the whole k loop, A and B through a ring of TMA stages with
+// the 128-byte swizzle; each stored layout (nn, nt, tn, tt) reads its own
+// boxes through wgmma's transpose bits.  The tensor cores sum 4 stages
+// (256 rows of k) at a time, and each such sum joins the fp32 accumulator
+// with a rounded add, so that the error stays within the fp32 tolerance at
+// the head's k = 100352.  The prologues (rms; dact on A or B,
+// its fp32 pre-activation streamed as a third TMA tile) rewrite each arrived
+// stage in shared memory, through the swizzle, before its products, rounding
+// to bf16 in the SIMT kernel's order: the consumer threads rather than an A
+// from registers (wgmma RS), because dact decorates B as well as A and one
+// form serves both.  The drain keeps the SIMT kernel's chain and order.  The
+// route is decided by wgmma_route and its Python twin
+// (kernels/ca_mmm.py:k1_route), nothing else; everything else (fp32,
+// int8, min_plus, decode at m <= 8, misaligned operands) runs the SIMT tile
+// below, whose instantiations and code are unchanged.
 //
 // The distance product (K1g) runs in one instantiation of the 64 x 64 tile
 // (MIN_PLUS below): fp32 or bf16 A and B, read through a run-time type flag
@@ -92,7 +113,7 @@
 // so for m <= 8 it takes BN = 16 (128 CTAs on n = 2048), which still leaves
 // it limited by shared-memory reads and by the few bytes each SM keeps in
 // flight, far below that bound.  The measured times stand in PERF.md; wgmma
-// (s8 wgmma for w8a8), TMA and a split-k decode path are later work.
+// at decode (swap-AB, s8 wgmma for w8a8) and a split-k path are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +121,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma_mainloop.cuh"
 
 namespace {
 
@@ -612,14 +635,234 @@ void launch_typed(const Params& p, bool two_branches, cudaStream_t stream) {
     launch_program<TA, TB, 1>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma route: bf16 programs at m > 8 on the TMA + WGMMA main loop
+// ---------------------------------------------------------------------------
+
+namespace ml = wgmma_ml;
+
+struct WgArgs {
+  ml::Maps maps;
+  Params p;
+};
+
+// C columns a CTA owns: 128 for one branch; 64 for the GLU, whose two fp32
+// accumulators (2 x 32 registers a thread) then take what one branch's 64
+// take, and whose two B tiles fill a stage as one branch's B does.
+template <int NB>
+constexpr int WG_BN = NB == 2 ? 64 : 128;
+
+// The drain of one element pair's chain, in the SIMT kernel's order (bias,
+// save_preact, then act * mul + residual or the glu combine), fp32 values.
+template <int NB>
+__device__ __forceinline__ float wg_chain(const Params& p, float y, float u, int c, long long idx) {
+  if (p.bias[0] != nullptr) y = __fadd_rn(y, load_f32(p.bias[0], c, p.bias_f32));
+  if (p.pre_out[0] != nullptr) p.pre_out[0][idx] = y;
+  if constexpr (NB == 2) {
+    if (p.bias[1] != nullptr) u = __fadd_rn(u, load_f32(p.bias[1], c, p.bias_f32));
+    if (p.pre_out[1] != nullptr) p.pre_out[1][idx] = u;
+    return __fmul_rn(act_fn(y, p.glu_act), u);
+  } else {
+    y = act_fn(y, p.act);
+    if (p.mul != nullptr) y = __fmul_rn(y, load_f32(p.mul, idx, p.mul_f32));
+    if (p.residual != nullptr) y = __fadd_rn(y, load_f32(p.residual, idx, p.res_f32));
+    return y;
+  }
+}
+
+// The prologues on an arrived stage, before its products: rms on A (row
+// factor, then gain, rounded back to bf16), dact on A or B (times act' of
+// the fp32 pre-activation x beside it, rounded back), in the SIMT kernel's
+// order.  The consumer threads rewrite the stage in place, 16-byte chunks
+// at a time; a chunk's logical column comes from undoing the swizzle.
+// Thread t takes chunk t % 8 of rows t / 8 + 32 i, whose logical chunk,
+// (t % 8) ^ (t / 8 % 8), is the same in every row it takes, so it reads
+// its 8 gains once a stage.  Elements past the tensor's edge arrived as
+// zero and stay zero.
+template <int BN, bool TA, bool TB>
+__device__ __forceinline__ void wg_prologue(const Params& p, uint8_t* a, uint8_t* b, const float* x,
+                                            int row0, int col0, int kb) {
+  const int t = threadIdx.x;
+  const int pc = t % 8, lc = pc ^ ((t / 8) % 8);
+  if constexpr (!TA) {
+    if (p.row_scale != nullptr || p.dact == DACT_A) {
+      float g[8];
+      if (p.row_scale != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = kb + lc * 8 + j;
+          g[j] = c < p.k ? load_f32(p.gain, c, p.gain_f32) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < ml::BM * 8 / ml::CONSUMERS; ++i) {
+        const int r = t / 8 + i * (ml::CONSUMERS / 8);
+        uint4* chunk = reinterpret_cast<uint4*>(a + r * 128 + pc * 16);
+        uint4 v = *chunk;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+        if (p.row_scale != nullptr) {
+          const int gr = row0 + r;
+          if (gr < p.m) {
+            const float rs = p.row_scale[gr];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (kb + lc * 8 + j < p.k)
+                e[j] = __float2bfloat16_rn(__fmul_rn(__fmul_rn(__bfloat162float(e[j]), rs), g[j]));
+          }
+        } else {
+          const float* h = x + r * ml::BK + lc * 8;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            e[j] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(e[j]), act_grad(h[j], p.dact_act)));
+        }
+        *chunk = v;
+      }
+      ml::fence_proxy_async();
+      ml::consumer_sync();
+    }
+  }
+  if constexpr (!TB) {
+    if (p.dact == DACT_B) {
+#pragma unroll
+      for (int i = 0; i < BN * 8 / ml::CONSUMERS; ++i) {
+        const int q = t + i * ml::CONSUMERS;
+        const int box = q / 512, r = (q / 8) % 64;
+        uint4* chunk = reinterpret_cast<uint4*>(b + box * ml::BOX_BYTES + r * 128 + pc * 16);
+        uint4 v = *chunk;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+        const float* h = x + r * BN + box * 64 + lc * 8;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          e[j] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(e[j]), act_grad(h[j], p.dact_act)));
+        *chunk = v;
+      }
+      ml::fence_proxy_async();
+      ml::consumer_sync();
+    }
+  }
+}
+
+// One CTA: the (BM, BN) C tile at (blockIdx.x, blockIdx.y); m runs fastest
+// over the grid, so the CTAs of a wave share B panels in L2.  TA: A stored
+// (k, m); TB: B stored (n, k).
+template <int NB, bool TA, bool TB>
+__global__ void __launch_bounds__(ml::WIDE_THREADS, 1)
+    ca_gemm_wgmma_kernel(const __grid_constant__ WgArgs args) {
+  constexpr int BN = WG_BN<NB>;
+  using S = ml::Stage<BN, NB>;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[ml::MAX_STAGES], empty[ml::MAX_STAGES];
+  const Params& p = args.p;
+  const int extra = p.dact == DACT_A ? ml::EXTRA_A : p.dact == DACT_B ? ml::EXTRA_B : ml::EXTRA_NONE;
+  const int nslabs = (p.k + ml::BK - 1) / ml::BK;
+  const ml::Ring ring =
+      ml::make_ring(dyn_smem, full, empty, S::bytes(extra), S::stages(extra, nslabs));
+  const int row0 = blockIdx.x * ml::BM, col0 = blockIdx.y * BN;
+  if (threadIdx.x >= ml::CONSUMERS) {
+    ml::setmaxnreg_dec<ml::PRODUCER_REGS>();
+    if (threadIdx.x == ml::CONSUMERS)
+      ml::produce<BN, NB, TA, TB>(args.maps, extra, ring, row0, col0, 0, nslabs);
+    return;
+  }
+  ml::setmaxnreg_inc<ml::CONSUMER_REGS>();
+  float acc[NB][BN / 2];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.f;
+  ml::consume<BN, NB, TA, TB, true>(acc, ring, nslabs, [&](uint8_t* a, uint8_t* b, uint8_t* x, int s) {
+    wg_prologue<BN, TA, TB>(p, a, b, reinterpret_cast<const float*>(x), row0, col0, s * ml::BK);
+  });
+
+  // Drain: the one write-back of each C element; a thread's two
+  // neighbouring columns go out as one store where n is even.
+  const int t = threadIdx.x;
+  const bool pairs = p.n % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 2; j += 2) {
+    const int r = row0 + ml::acc_row(t, j), c = col0 + ml::acc_col(t, j);
+    if (r >= p.m || c >= p.n) continue;
+    const long long idx = (long long)r * p.n + c;
+    const bool second = c + 1 < p.n;
+    const float y0 = wg_chain<NB>(p, acc[0][j], NB == 2 ? acc[NB - 1][j] : 0.f, c, idx);
+    const float y1 =
+        second ? wg_chain<NB>(p, acc[0][j + 1], NB == 2 ? acc[NB - 1][j + 1] : 0.f, c + 1, idx + 1) : 0.f;
+    if (p.out_f32) {
+      float* o = static_cast<float*>(p.out) + idx;
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+      } else {
+        o[0] = y0;
+        if (second) o[1] = y1;
+      }
+    } else {
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + idx;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
+      } else {
+        o[0] = __float2bfloat16_rn(y0);
+        if (second) o[1] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
+// Which route a launch takes (the twin of kernels/ca_mmm.py:k1_route):
+// wgmma for bf16 A and B at m > 8 whose TMA'd operands (A, B, the dact
+// pre-activation) have 16-byte aligned bases and row strides; the GLU only
+// in the nn layout and without dact.  Everything else, fp32, int8 and
+// decode, stays on the SIMT tile.
+bool wgmma_route(const Params& p, int a_type, int b_type, bool two) {
+  if (a_type != TYPE_BF16 || b_type != TYPE_BF16 || p.m <= 8 || p.k < 1) return false;
+  if (p.n > 65535 * WG_BN<2>) return false;
+  if (two && (p.trans_a || p.trans_b || p.dact != DACT_NONE)) return false;
+  const long long a_row = p.trans_a ? p.m : p.k, b_row = p.trans_b ? p.k : p.n;
+  bool ok = ml::tma_ok(p.a, 2 * a_row) && ml::tma_ok(p.b[0], 2 * b_row) &&
+            ml::tma_ok(p.b[1], 2 * b_row);
+  if (p.dact != DACT_NONE) ok = ok && ml::tma_ok(p.preact, 4LL * (p.dact == DACT_A ? p.k : p.n));
+  return ok;
+}
+
+template <int NB, bool TA, bool TB>
+int launch_wgmma(const Params& p, cudaStream_t stream) {
+  constexpr int BN = WG_BN<NB>;
+  auto kernel = ca_gemm_wgmma_kernel<NB, TA, TB>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ml::SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  WgArgs args{};
+  args.p = p;
+  const void* bs[2] = {p.b[0], p.b[1]};
+  bool ok = ml::encode_operands(&args.maps, p.a, bs, NB, p.m, p.n, p.k, TA, TB, BN);
+  if (p.dact == DACT_A)
+    ok = ok && ml::encode_map(&args.maps.extra, p.preact, true, p.m, p.k, ml::BM, ml::BK);
+  else if (p.dact == DACT_B)
+    ok = ok && ml::encode_map(&args.maps.extra, p.preact, true, p.k, p.n, ml::BK, BN);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int extra = p.dact == DACT_A ? ml::EXTRA_A : p.dact == DACT_B ? ml::EXTRA_B : ml::EXTRA_NONE;
+  const int smem = ml::Stage<BN, NB>::smem_bytes(extra, (p.k + ml::BK - 1) / ml::BK);
+  const dim3 grid((p.m + ml::BM - 1) / ml::BM, (p.n + BN - 1) / BN);
+  kernel<<<grid, ml::WIDE_THREADS, smem, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgmma_program(const Params& p, bool two, cudaStream_t stream) {
+  if (two) return launch_wgmma<2, false, false>(p, stream);
+  if (p.trans_a)
+    return p.trans_b ? launch_wgmma<1, true, true>(p, stream) : launch_wgmma<1, true, false>(p, stream);
+  return p.trans_b ? launch_wgmma<1, false, true>(p, stream) : launch_wgmma<1, false, false>(p, stream);
+}
+
 }  // namespace
 
 // C entry point.  The caller checks shapes, types, scales and contiguity;
 // m, n > 0.  A and B types (TYPE_*): float A with B of the same type, float A
 // with int8 B (dqb), or int8 A with int8 B (dqab); any other pair, or a
 // training program (transposed layout, dact or save_preact) on int8
-// operands, returns cudaErrorInvalidValue.  Launches on `stream` without
-// synchronising and returns cudaGetLastError().
+// operands, returns cudaErrorInvalidValue.  `route` is the caller's route
+// (1 wgmma, 0 SIMT, from kernels/ca_mmm.py:k1_route); one that differs from
+// wgmma_route's returns cudaErrorInvalidValue too.  Launches on `stream`
+// without synchronising and returns cudaGetLastError().
 extern "C" int ca_gemm_program_launch(
     const void* a, const void* b0, const void* b1, const void* row_scale,
     const void* gain, const void* bias0, const void* bias1, const void* mul,
@@ -628,7 +871,7 @@ extern "C" int ca_gemm_program_launch(
     void* pre_out1, int m, int n, int k, int a_type, int b_type, int gain_f32,
     int bias_f32, int mul_f32, int res_f32, int out_f32, int act, int glu_act,
     int scale_block, int sb_tile, int sa_tile, int trans_a, int trans_b, int dact,
-    int dact_act, void* stream) {
+    int dact_act, int route, void* stream) {
   Params p;
   p.a = a;
   p.b[0] = b0;
@@ -669,6 +912,9 @@ extern "C" int ca_gemm_program_launch(
   if (is_training_program(p) && (a_type == TYPE_I8 || b_type == TYPE_I8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wgmma = wgmma_route(p, a_type, b_type, two);
+  if (route != (wgmma ? 1 : 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (wgmma) return launch_wgmma_program(p, two, s);
   if (a_type == TYPE_F32 && b_type == TYPE_F32)
     launch_typed<float, float>(p, two, s);
   else if (a_type == TYPE_BF16 && b_type == TYPE_BF16)

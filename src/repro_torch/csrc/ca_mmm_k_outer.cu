@@ -22,6 +22,17 @@
 // type as they are staged), multiplies with fp32 FMAs or int32
 // multiply-adds, and writes the block back.  No tensor cores.
 //
+// The bf16 step at tiles of whole 128 x 128 x 64 blocks (bm, bn multiples
+// of 128, bk of 64; the default bf16 tile is K1's, 128 x 128 x 64) runs on
+// the TMA + WGMMA main loop K1's bf16 route runs (wgmma_mainloop.cuh): one
+// CTA of two consumer warpgroups and a producer warp per 128 x 128 block of
+// C, the step's bk rows of k streamed through the ring of TMA stages and
+// multiplied by wgmma into fp32 registers from zero; the drain then reads
+// the block's C, adds, and writes it back (step 0 writes the product).  So
+// K4 and K1's bf16 route stream the same panels through the same loop and
+// differ only in where C lives.  fp32 and int8 steps, and bf16 tiles that
+// are not whole blocks (multiples of 64 x 64 x 32), take the SIMT step.
+//
 // What bounds it on the H100.  The product is the GEMM's, 2 m n k operations
 // (4096^3 in bf16: 0.139 ms at 989 TFLOP/s); on top of the operands' bytes
 // the schedule moves C through device memory twice per step,
@@ -35,6 +46,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma_mainloop.cuh"
 
 namespace {
 
@@ -121,20 +134,93 @@ void launch(const void* a, const void* b, void* c, int m, int n, int k, int k0, 
                                                         bm, bn, first);
 }
 
+namespace ml = wgmma_ml;
+
+struct StepArgs {
+  ml::Maps maps;
+  float* c;
+  int n, k0, nslabs, first;
+};
+
+// One bf16 k step of one 128 x 128 block of C: C = (first ? 0 : C) + the
+// step's product, fp32.
+__global__ void __launch_bounds__(ml::THREADS, 1) k_outer_wgmma_kernel(const __grid_constant__ StepArgs args) {
+  using S = ml::Stage<128, 1>;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[ml::MAX_STAGES], empty[ml::MAX_STAGES];
+  const ml::Ring ring = ml::make_ring(dyn_smem, full, empty, S::bytes(ml::EXTRA_NONE),
+                                      S::stages(ml::EXTRA_NONE, args.nslabs));
+  const int row0 = blockIdx.x * ml::BM, col0 = blockIdx.y * 128;
+  if (threadIdx.x >= ml::CONSUMERS) {
+    if (threadIdx.x == ml::CONSUMERS)
+      ml::produce<128, 1, false, false>(args.maps, ml::EXTRA_NONE, ring, row0, col0, args.k0,
+                                        args.nslabs);
+    return;
+  }
+  float acc[1][64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[0][j] = 0.f;
+  ml::consume<128, 1, false, false, false>(acc, ring, args.nslabs,
+                                          [](uint8_t*, uint8_t*, uint8_t*, int) {});
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < 64; j += 2) {
+    const long long idx =
+        (long long)(row0 + ml::acc_row(t, j)) * args.n + col0 + ml::acc_col(t, j);
+    float2* cp = reinterpret_cast<float2*>(args.c + idx);
+    float2 v = make_float2(acc[0][j], acc[0][j + 1]);
+    if (!args.first) {
+      const float2 old = *cp;   // the C read, before the add
+      v = make_float2(__fadd_rn(old.x, v.x), __fadd_rn(old.y, v.y));
+    }
+    *cp = v;
+  }
+}
+
+// The wgmma step's tiles: whole 128 x 128 x 64 blocks.
+bool wgmma_tile(int bm, int bn, int bk) { return bm % 128 == 0 && bn % 128 == 0 && bk % 64 == 0; }
+
+int launch_wgmma(const void* a, const void* b, void* c, int m, int n, int k, int k0, int bk,
+                 int first, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      k_outer_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ml::SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  StepArgs args{};
+  const void* bs[1] = {b};
+  if (!ml::encode_operands(&args.maps, a, bs, 1, m, n, k, false, false, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  args.c = static_cast<float*>(c);
+  args.n = n;
+  args.k0 = k0;
+  args.nslabs = bk / ml::BK;
+  args.first = first;
+  const int smem = ml::Stage<128, 1>::smem_bytes(ml::EXTRA_NONE, args.nslabs);
+  k_outer_wgmma_kernel<<<dim3(m / 128, n / 128), ml::THREADS, smem, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry point: one k step (rows k0 .. k0 + bk of k) of C (m, n) += A (m, k)
 // B (k, n), all row-major; C fp32 for fp32 and bf16 A/B, int32 for int8;
 // first = 1 starts the tiles at zero (step 0) instead of reading C.  The
-// caller checks types, contiguity and divisibility (m % bm, n % bn, k % bk,
-// bm and bn multiples of 64, bk of 32), and m, n, k > 0.  Launches on
-// `stream` without synchronising and returns cudaGetLastError().
+// caller checks types, contiguity and divisibility (m % bm, n % bn, k % bk)
+// and m, n, k > 0, and gives its route (1 wgmma, 0 SIMT, from
+// kernels/ca_mmm.py:k_outer_route): the wgmma step for bf16 at whole
+// 128 x 128 x 64 blocks, else the SIMT step, which takes bm and bn
+// multiples of 64 and bk of 32; another tile, or another route, returns
+// cudaErrorInvalidValue.  Launches on `stream` without synchronising and
+// returns cudaGetLastError().
 extern "C" int ca_mmm_k_outer_step(const void* a, const void* b, void* c, int m, int n, int k,
                                    int k0, int bk, int bm, int bn, int first, int type,
-                                   void* stream) {
-  if (bm <= 0 || bn <= 0 || bk <= 0 || m % bm || n % bn || k % bk || bm % SUB || bn % SUB || bk % BK || k0 % bk)
+                                   int route, void* stream) {
+  if (bm <= 0 || bn <= 0 || bk <= 0 || m % bm || n % bn || k % bk || k0 % bk)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wgmma = type == TYPE_BF16 && wgmma_tile(bm, bn, bk);
+  if (route != (wgmma ? 1 : 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (wgmma) return launch_wgmma(a, b, c, m, n, k, k0, bk, first, s);
+  if (bm % SUB || bn % SUB || bk % BK) return static_cast<int>(cudaErrorInvalidValue);
   if (type == TYPE_F32)
     launch<float, float>(a, b, c, m, n, k, k0, bk, bm, bn, first, s);
   else if (type == TYPE_BF16)

@@ -17,8 +17,10 @@
 // probabilities are forced to 0; the running max and denominator are fp32,
 // and the drain is acc / max(l, 1e-30), so len = 0 drains zeros.
 //
-// Schedule.  One CTA per (sequence, KV head) holds that head's G query rows
-// (GQA), as the TPU kernel folds G heads into the rows of one tile.  Its four
+// Schedule.  One CTA per (sequence, KV head, chunk of up to 8 query heads)
+// holds that chunk's query rows (GQA), as the TPU kernel folds G heads into
+// the rows of one tile; a group of G > 8 (granite-20b's 48 heads over one
+// KV head) takes ceil(G / 8) CTAs, each reading the sequence's pages.  Its four
 // warps walk the sequence's tokens 32 at a time, one token per lane: warp w
 // takes token tiles w, w + 4, w + 8, ... of [first token of the window,
 // min(len, NP * page)), so the CTA stops after ceil(len / page) pages and
@@ -51,7 +53,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;             // tokens per warp step, one per lane
 constexpr int kMaxD = 128;            // largest D and Dv
 constexpr int kMaxRow = kMaxD + 4;    // largest staged row stride (bytes)
-constexpr int kMaxG = 8;              // largest GQA group
+constexpr int kMaxG = 8;              // query heads a CTA holds
 constexpr float kNeg = -1e30f;
 
 struct Params {
@@ -141,7 +143,9 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int G = p.H / p.Hkv;
+  const int Gall = p.H / p.Hkv;          // query heads per KV head
+  const int g0 = blockIdx.z * kMaxG;     // this CTA's first one
+  const int G = min(kMaxG, Gall - g0);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int D4 = (p.D + 3) & ~3;
@@ -158,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
     const int d = i - g * D4;
     float x = 0.f;
     if (d < p.D) {
-      const long long qi = ((long long)b * p.H + (long long)h * G + g) * p.D + d;
+      const long long qi = ((long long)b * p.H + (long long)h * Gall + g0 + g) * p.D + d;
       x = p.is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[qi])
                     : static_cast<const float*>(p.q)[qi];
     }
@@ -295,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
       a += f * accs[(w * kMaxG + g) * kMaxD + dv];
     }
     const float o = a / fmaxf(lsum, 1e-30f);
-    const long long oi = ((long long)b * p.H + (long long)h * G + g) * p.Dv + dv;
+    const long long oi = ((long long)b * p.H + (long long)h * Gall + g0 + g) * p.Dv + dv;
     if (p.is_bf16)
       static_cast<__nv_bfloat16*>(p.out)[oi] = __float2bfloat16_rn(o);
     else
@@ -305,7 +309,8 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
 
 template <int G_MAX>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  paged_fa_kernel<G_MAX><<<dim3(p.Hkv, B), kThreads, 0, stream>>>(p);
+  const int chunks = (p.H / p.Hkv + kMaxG - 1) / kMaxG;
+  paged_fa_kernel<G_MAX><<<dim3(p.Hkv, B, chunks), kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -320,7 +325,7 @@ extern "C" int paged_flash_attn_launch(
     int B, int H, int Hkv, int D, int Dv, int page, int NP, int window,
     float scale, int is_bf16, int vec, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxG || D <= 0 || D > kMaxD ||
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > 65535 * kMaxG || D <= 0 || D > kMaxD ||
       Dv <= 0 || Dv > kMaxD || page <= 0 || NP < 0 || B > 65535 ||
       (vec != 16 && vec != 8 && vec != 4 && vec != 1) || D % vec || Dv % vec)
     return (int)cudaErrorInvalidValue;

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one ``.cu`` file under ``repro_torch/csrc/`` with a plain C
-entry point (no PyTorch headers).  It is compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/`` at the repository root, one shared
-library per source keyed by the hash of the source and the flags, and
+entry point (no PyTorch headers); sources may include the shared headers
+(``*.cuh``) beside them.  It is compiled with ``nvcc`` for ``sm_90a`` at
+first use into ``build/`` at the repository root, one shared library per
+source keyed by the hash of the source, every header and the flags, and
 bound through ``ctypes``.
 """
 
@@ -35,12 +36,21 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernel cannot be built")
 
 
+def library_path(source: pathlib.Path) -> pathlib.Path:
+    """Where ``source``'s library lives in ``build/``: keyed by the hash of
+    the source, of every ``*.cuh`` header beside it (any of them may be
+    included) and of the flags, so that editing a header rebuilds."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
 def build(source: pathlib.Path) -> pathlib.Path:
-    """Compile ``source`` into ``build/`` (keyed by its hash) and return
-    the shared library's path; a fresh build only when missing."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    """Compile ``source`` into ``build/`` (at :func:`library_path`) and
+    return the shared library's path; a fresh build only when missing."""
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

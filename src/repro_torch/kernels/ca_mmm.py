@@ -27,6 +27,16 @@ The k-outer ablation (K4, :func:`ca_mmm_k_outer`) is a kernel of its own,
 one launch per k step, each reading and writing every C tile through
 device memory.
 
+Two routes (:func:`k1_route`, twinned by ``wgmma_route`` in the C entry
+point, which refuses a launch whose route differs).  bf16 programs at
+m > 8 whose TMA'd operands are 16-byte aligned run on a TMA + WGMMA main
+loop (``csrc/wgmma_mainloop.cuh``): 128 x 128 C tiles (128 x 64 for the
+GLU), A and B through a ring of swizzled TMA stages in their stored
+layouts, wgmma into fp32 registers, the same prologues and drain.  fp32,
+int8, min_plus, decode (m <= 8) and misaligned operands stay on the SIMT
+tile.  K4's bf16 step at whole 128 x 128 x 64 blocks runs the same main
+loop (:func:`k_outer_route`).
+
 Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
 activations) streams int8 B tiles and widens them in registers; ``dqab``
 (w8a8) streams int8 A and B and contracts in int32.  Per-channel weight
@@ -65,14 +75,24 @@ K_OUTER_SOURCE = _build.CSRC / "ca_mmm_k_outer.cu"
 SEMIRINGS = ("plus_times", "min_plus")
 # Launch key of the k-outer ablation kernel (one launch per k step).
 K_OUTER = "k_outer"
-# The k-outer kernel's default tile (bm, bn, bk): K1's 64 x 64 CTA tile
-# and 32-row slab with the k loop moved outermost.  bm and bn are
-# multiples of its 64 x 64 sub-tile, bk of its 32-row slab.
-K_OUTER_TILE = (64, 64, 32)
+# The wgmma route's CTA tile (bm, bn, bk) for one branch: two consumer
+# warpgroups of 64 rows, 128 columns, 64 rows of k a TMA stage.
+WGMMA_TILE = (128, 128, 64)
+# The SIMT tile K1 takes for m > 8, and the SIMT k-outer step's sub-tile
+# and slab: bm and bn multiples of 64, bk of 32.
+SIMT_TILE = (64, 64, 32)
+# The k-outer kernel's own tile for each dtype (bm, bn, bk), K1's tile for
+# that dtype with the k loop moved outermost; the default clamps it to the
+# shape as the reference does (``ca_mmm.py:85-111``).
+K_OUTER_TILES = {torch.float32: SIMT_TILE, torch.bfloat16: WGMMA_TILE,
+                 torch.int8: SIMT_TILE}
 
 # Launches of the CUDA kernel, by :func:`launch_key`.  Only the kernel
 # launch below adds to it; the plain version never does.
 launch_counts: Dict[str, int] = {}
+# The same launches by route and launch key: "wgmma none nt",
+# "simt dqb", "wgmma k_outer", ...
+route_counts: Dict[str, int] = {}
 
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -89,6 +109,13 @@ _DACT_CODES = {"none": 0, "a": 1, "b": 2}
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    route_counts.clear()
+
+
+def _count(key: str, route: str) -> None:
+    launch_counts[key] = launch_counts.get(key, 0) + 1
+    rkey = f"{route} {key}"
+    route_counts[rkey] = route_counts.get(rkey, 0) + 1
 
 
 def layout_tag(transpose_a: bool, transpose_b: bool) -> str:
@@ -110,9 +137,40 @@ def launch_key(tag: str, layout: str = "nn", save_preact: bool = False,
     return key if semiring == "plus_times" else f"{key} {semiring}"
 
 
+# The wgmma grid puts n / 64 (at least) on its second axis.
+_WGMMA_MAX_N = 65535 * 64
+
+
+def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
+             b_dtype: torch.dtype, m: int, n: int, k: int, aligned: bool,
+             semiring: str = "plus_times") -> str:
+    """The route a K1 launch takes: ``"wgmma"`` for a bf16 program (A and
+    B bf16, so no dequant) of the plus_times semiring at m > 8 whose TMA'd
+    operands have 16-byte aligned bases and row strides (``aligned``), one
+    branch in any layout or the GLU in ``nn`` without ``dact``;
+    ``"simt"`` otherwise: fp32, int8, min_plus, decode.  The C entry
+    point's ``wgmma_route`` is its twin and refuses a launch whose route
+    differs."""
+    if (semiring != "plus_times" or a_dtype != torch.bfloat16
+            or b_dtype != torch.bfloat16 or m <= 8 or k < 1
+            or n > _WGMMA_MAX_N or not aligned):
+        return "simt"
+    if spec.n_b == 2 and (layout != "nn" or spec.prologue.kind == "dact"):
+        return "simt"
+    return "wgmma"
+
+
+def tma_aligned(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether each given 2-D row-major tensor meets TMA's address rules: a
+    16-byte aligned base and row stride."""
+    return all(t.data_ptr() % 16 == 0
+               and (t.shape[-1] * t.element_size()) % 16 == 0
+               for t in tensors if t is not None)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ca_gemm_program_launch
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 19
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 20
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.ca_gemm_min_plus_launch
@@ -127,7 +185,7 @@ def _library() -> ctypes.CDLL:
 
 def _bind_k_outer(lib: ctypes.CDLL) -> None:
     fn = lib.ca_mmm_k_outer_step
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
@@ -183,6 +241,17 @@ def _check_program(spec: GemmProgramSpec, semiring: str,
             raise ValueError("the dact prologue needs preact")
     elif preact is not None:
         raise ValueError("preact given without a dact prologue")
+
+
+def _min_plus_operands(a, bs, semiring):
+    """min_plus takes fp32 and bf16 operands as they are (the kernel widens
+    bf16) and casts any other numeric type (fp16, int8, int32, ...) to fp32
+    on entry, as the reference's kernel does (``ca_mmm.py:190-191``); both
+    casts are exact or round once, as ``astype`` does."""
+    if semiring != "min_plus":
+        return a, bs
+    cast = lambda t: t if t.dtype in _FLOATS else t.float()  # noqa: E731
+    return cast(a), tuple(cast(b) for b in bs)
 
 
 def _check_types(a, bs, spec, transpose_a=False, transpose_b=False,
@@ -387,7 +456,7 @@ def ca_gemm_program_reference(
     """The same program in plain torch: prologue, fp32 (or exact integer)
     products, dequant, drain chain and combine, in the kernel's order; for
     min_plus the distance product of the operands widened to fp32."""
-    bs = tuple(bs)
+    a, bs = _min_plus_operands(a, tuple(bs), semiring)
     branch_operands = list(branch_operands or [{} for _ in bs])
     _check_program(spec, semiring, transpose_a, transpose_b, save_preact,
                    preact)
@@ -462,6 +531,9 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     mul, res = ops0.get("mul"), ops0.get("residual")
     f32 = torch.float32
     pro = spec.prologue
+    layout = layout_tag(transpose_a, transpose_b)
+    route = k1_route(spec, layout, a.dtype, bs[0].dtype, m, n, k,
+                     tma_aligned(a, *bs, preact))
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _library().ca_gemm_program_launch(
         _ptr(a), _ptr(bs[0]), _ptr(bs[1]) if spec.n_b == 2 else None,
@@ -481,13 +553,11 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         scale_b_block or scale_a_block, int(scale_b_block > 0),
         int(scale_a_block > 0), int(transpose_a), int(transpose_b),
         _DACT_CODES[pro.operand if pro.kind == "dact" else "none"],
-        _ACT_CODES[pro.activation], stream)
+        _ACT_CODES[pro.activation], int(route == "wgmma"), stream)
     if err != 0:
-        raise RuntimeError(f"ca_gemm_program kernel launch failed: CUDA "
-                           f"error {err}")
-    key = launch_key(spec.tag(), layout_tag(transpose_a, transpose_b),
-                     save_preact)
-    launch_counts[key] = launch_counts.get(key, 0) + 1
+        raise RuntimeError(f"ca_gemm_program kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
+    _count(launch_key(spec.tag(), layout, save_preact), route)
     return result
 
 
@@ -503,8 +573,7 @@ def _launch_min_plus(a, b, m: int, n: int, k: int) -> torch.Tensor:
         int(a.dtype == torch.float32), int(b.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"min_plus kernel launch failed: CUDA error {err}")
-    key = launch_key(PLAIN.tag(), semiring="min_plus")
-    launch_counts[key] = launch_counts.get(key, 0) + 1
+    _count(launch_key(PLAIN.tag(), semiring="min_plus"), "simt")
     return out
 
 
@@ -541,7 +610,12 @@ def ca_gemm_program(
     ``semiring="min_plus"`` runs the distance product
     ``C[i, j] = min_k (A[i, k] + B[k, j])`` on a plain program (no
     prologue, drain or transposed layout): A and B each fp32 or bf16,
-    widened to fp32, fp32 out, NaN propagating.
+    widened to fp32 (any other numeric type cast to fp32 on entry, as the
+    reference casts it), fp32 out, NaN propagating.
+
+    bf16 programs at m > 8 with 16-byte aligned operands take the wgmma
+    route, the rest the SIMT tile (:func:`k1_route`); both count in
+    ``launch_counts`` and, by route, in ``route_counts``.
 
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
     ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per
@@ -555,7 +629,7 @@ def ca_gemm_program(
     dequant with ``save_preact`` or ``dact``) and the reference's refused
     combinations raise ValueError.
     """
-    bs = tuple(bs)
+    a, bs = _min_plus_operands(a, tuple(bs), semiring)
     branch_operands = list(branch_operands or [{} for _ in bs])
     _check_program(spec, semiring, transpose_a, transpose_b, save_preact,
                    preact)
@@ -629,9 +703,32 @@ def ca_mmm(
 _K_OUTER_TYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
+def _round_up(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def k_outer_route(dtype: torch.dtype, bm: int, bn: int,
+                  bk: int) -> Optional[str]:
+    """The K4 step that takes a tile on the card: ``"wgmma"`` for bf16 at
+    whole ``WGMMA_TILE`` blocks, ``"simt"`` for bm and bn multiples of 64
+    and bk of 32 (any dtype), None where no step takes it.  The C entry
+    point's check is its twin."""
+    if dtype == torch.bfloat16 and not (bm % WGMMA_TILE[0] or bn % WGMMA_TILE[1]
+                                        or bk % WGMMA_TILE[2]):
+        return "wgmma"
+    if not (bm % SIMT_TILE[0] or bn % SIMT_TILE[1] or bk % SIMT_TILE[2]):
+        return "simt"
+    return None
+
+
 def _check_k_outer(a, b, bm, bn, bk, out_dtype):
-    """Operands and tiles both paths take; returns (m, n, k, bm, bn, bk,
-    the accumulator's dtype, the output's dtype)."""
+    """Operands and tiles both paths take, as the reference takes them
+    (``ca_mmm.py:616-651``): an unset tile dim defaults to the kernel's own
+    tile for the dtype (``K_OUTER_TILES``), and every dim is clamped to
+    the rounded-up shape, ``min(bm, round_up(m, 8))``,
+    ``min(bn, round_up(n, 128))``, ``min(bk, round_up(k, 128))``; the
+    tile must then divide the shape.  Returns (m, n, k, bm, bn, bk, the
+    accumulator's dtype, the output's dtype)."""
     if a.dim() != 2 or b.dim() != 2 or a.dtype not in _K_OUTER_TYPES \
             or b.dtype != a.dtype:
         raise ValueError(f"A and B must be 2-D and share one of "
@@ -642,12 +739,14 @@ def _check_k_outer(a, b, bm, bn, bk, out_dtype):
         raise ValueError(f"contraction mismatch {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     n = b.shape[1]
-    d_bm, d_bn, d_bk = K_OUTER_TILE
+    d_bm, d_bn, d_bk = K_OUTER_TILES[a.dtype]
     bm, bn, bk = bm or d_bm, bn or d_bn, bk or d_bk
-    if bm < 1 or bn < 1 or bk < 1 or bm % d_bm or bn % d_bn or bk % d_bk:
-        raise ValueError(f"tiles ({bm}, {bn}, {bk}): bm and bn must be "
-                         f"multiples of {d_bm}, bk of {d_bk} (the kernel's "
-                         "sub-tile and slab)")
+    if bm < 1 or bn < 1 or bk < 1:
+        raise ValueError(f"tiles ({bm}, {bn}, {bk}) must be positive")
+    # (An empty dim clamps to the quantum, so that it divides.)
+    bm, bn, bk = (min(bm, _round_up(max(m, 1), 8)),
+                  min(bn, _round_up(max(n, 1), 128)),
+                  min(bk, _round_up(max(k, 1), 128)))
     if m % bm or n % bn or k % bk:
         raise ValueError(f"the k-outer ablation takes tile-divisible shapes "
                          f"only: ({m}, {k}) @ ({k}, {n}) with tiles "
@@ -699,11 +798,13 @@ def ca_mmm_k_outer(a: torch.Tensor, b: torch.Tensor, *,
     re-writes each (bm, bn) C tile, one launch per step, k / bk launches.
     A and B share one dtype, fp32, bf16 or int8; C accumulates in fp32
     (int32 for int8) and is cast to ``out_dtype`` (default: A's dtype,
-    int32 for int8) after the last step.  Tile-divisible shapes only, as
-    in the reference; the tiles default to ``K_OUTER_TILE`` (the
-    reference's default to its registry's plan), bm and bn multiples of
-    64, bk of 32.  CPU operands run :func:`ca_mmm_k_outer_reference`;
-    CUDA operands launch the kernel.
+    int32 for int8) after the last step.  As in the reference, any tile
+    that divides the shape (after the reference's clamp to the shape),
+    the default being the kernel's own tile for the dtype
+    (``K_OUTER_TILES``, clamped).  CPU operands run
+    :func:`ca_mmm_k_outer_reference`; CUDA operands launch the kernel's
+    step for the tile (:func:`k_outer_route`), or raise where no step
+    takes it.
     """
     m, n, k, bm, bn, bk, acc_t, out_dtype = _check_k_outer(
         a, b, bm, bn, bk, out_dtype)
@@ -712,10 +813,20 @@ def ca_mmm_k_outer(a: torch.Tensor, b: torch.Tensor, *,
                                         out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
+    route = k_outer_route(a.dtype, bm, bn, bk)
+    if route is None:
+        raise ValueError(
+            f"no k-outer step on the card takes tiles ({bm}, {bn}, {bk}) "
+            f"for ({m}, {k}) @ ({k}, {n}) {str(a.dtype)[6:]}: bm and bn "
+            f"multiples of {SIMT_TILE[0]} and bk of {SIMT_TILE[2]}, or bf16 "
+            f"at multiples of {WGMMA_TILE}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the kernel takes contiguous operands")
-    if m // bm > 65535:
-        raise ValueError(f"m / bm = {m // bm} exceeds the kernel's grid")
+    # Grid: (n / bn, m / bm) for the SIMT step, (m / 128, n / 128) for wgmma.
+    grid_y = n // WGMMA_TILE[1] if route == "wgmma" else m // bm
+    if grid_y > 65535:
+        raise ValueError(f"({m}, {n}) with tiles ({bm}, {bn}) exceeds the "
+                         "kernel's grid")
     c = torch.empty((m, n), dtype=acc_t, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return c.zero_().to(out_dtype)
@@ -724,9 +835,10 @@ def ca_mmm_k_outer(a: torch.Tensor, b: torch.Tensor, *,
     for k0 in range(0, k, bk):
         err = lib.ca_mmm_k_outer_step(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, k0, bk, bm,
-            bn, int(k0 == 0), _TYPE_CODES[a.dtype], stream)
+            bn, int(k0 == 0), _TYPE_CODES[a.dtype], int(route == "wgmma"),
+            stream)
         if err != 0:
-            raise RuntimeError(f"k-outer kernel launch failed: CUDA error "
-                               f"{err}")
-        launch_counts[K_OUTER] = launch_counts.get(K_OUTER, 0) + 1
+            raise RuntimeError(f"k-outer kernel launch failed ({route} "
+                               f"step): CUDA error {err}")
+        _count(K_OUTER, route)
     return c.to(out_dtype)

@@ -3,11 +3,11 @@ paged int8 decode attention (``paged_flash_attention_tpu``, kernel K2) and
 forward flash attention (``flash_attention_tpu``, kernel K3).
 
 K2 is hand-written CUDA C++ for Hopper,
-``repro_torch/csrc/paged_flash_attn.cu``: one CTA per (sequence, KV head)
-holds that head's G query rows, walks the sequence's int8 pages through the
-block table with the page scales folded into the running softmax (k-scale
-into the logit scale, v-scale into the PV partial), and stores each output
-element once.  It reads the page ids, the lengths and the scales on the
+``repro_torch/csrc/paged_flash_attn.cu``: one CTA per (sequence, KV head,
+chunk of up to 8 of its G query heads, so any G) holds those query rows,
+walks the sequence's int8 pages through the block table with the page
+scales folded into the running softmax (k-scale into the logit scale,
+v-scale into the PV partial), and stores each output element once.  It reads the page ids, the lengths and the scales on the
 device; the wrapper never reads them to the host.
 
 K3 is ``repro_torch/csrc/flash_attn_fwd.cu``: one CTA per (batch x KV
@@ -45,7 +45,6 @@ launch_counts: Dict[str, int] = {}
 NEG = -1e30
 _FLOATS = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128          # the kernel's register accumulator width
-_MAX_GROUP = 8               # query heads per KV head
 # K3's fixed tile: query rows per CTA (G heads x 64 / G positions, so at
 # most 64 query heads per KV head) and kv slots per online-softmax step;
 # the plain version steps through the kv slots in the same blocks.
@@ -171,10 +170,9 @@ def _load_width(k_pages: torch.Tensor, v_pages: torch.Tensor, D: int,
 def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
             window, scale, geometry) -> torch.Tensor:
     B, H, D, Dv, page, Hkv, NP = geometry
-    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM or H // Hkv > _MAX_GROUP:
-        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM} and "
-                         f"<= {_MAX_GROUP} query heads per KV head, got "
-                         f"D={D} Dv={Dv} G={H // Hkv}")
+    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM}, "
+                         f"got D={D} Dv={Dv}")
     if B > 65535:
         raise ValueError(f"B = {B} exceeds the kernel's grid")
     for t in (q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens):

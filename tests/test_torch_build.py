@@ -38,6 +38,22 @@ def test_build_is_keyed_by_the_source_hash(fake_build):
     assert again != first and calls() == [str(src)] * 2
 
 
+def test_build_key_covers_the_shared_headers(fake_build):
+    """A source may include any ``*.cuh`` beside it: changing a header's
+    bytes changes the library's key, so the next build compiles anew."""
+    tmp, calls = fake_build
+    src = tmp / "a.cu"
+    src.write_text('#include "loop.cuh"\n')
+    header = tmp / "loop.cuh"
+    header.write_text("// loop, first version\n")
+    first = _build.build(src)
+    assert _build.library_path(src) == first
+    header.write_text("// loop, second version\n")
+    assert _build.library_path(src) != first
+    again = _build.build(src)
+    assert again != first and calls() == [str(src)] * 2
+
+
 def test_build_raises_with_the_compiler_output(fake_build):
     tmp, _ = fake_build
     bad = tmp / "bad.cu"
@@ -54,3 +70,7 @@ def test_kernel_sources_live_in_csrc():
     for src in (ca_mmm.SOURCE, ca_mmm.K_OUTER_SOURCE, flash_attn.SOURCE,
                 flash_attn.FWD_SOURCE):
         assert src.parent == _build.CSRC and src.exists()
+    # The TMA + WGMMA main loop K1 and K4 share.
+    header = _build.CSRC / "wgmma_mainloop.cuh"
+    for src in (ca_mmm.SOURCE, ca_mmm.K_OUTER_SOURCE):
+        assert f'#include "{header.name}"' in src.read_text()

@@ -470,13 +470,38 @@ def test_ref_distance_product_matches_the_reference_oracle():
 
 def test_distance_product_contract_raises():
     a = torch.ones(4, 8)
-    with pytest.raises(ValueError, match="float32/bfloat16"):
-        ops.distance_product(a, torch.ones(8, 6, dtype=torch.int8))
     with pytest.raises(ValueError, match="writes float32"):
         K.ca_mmm(a, torch.ones(8, 6), semiring="min_plus",
                  out_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="B must be"):
         ops.distance_product(a, torch.ones(7, 6))
+
+
+@pytest.mark.parametrize("entry", ["distance_product", "ca_mmm_any",
+                                   "ca_mmm"])
+@pytest.mark.parametrize("dtype", ["float16", "int32", "int8"])
+def test_distance_product_casts_operands_like_the_reference(dtype, entry):
+    """fp16, int32 and int8 operands are cast to fp32 on entry, as the
+    reference's kernel casts them: an fp32 result bit-equal to the
+    reference's ``distance_product`` in interpret mode, through each of
+    the port's three entry points."""
+    r = np.random.RandomState(0)
+    a, b = r.rand(13, 20), r.rand(20, 7)
+    if dtype != "float16":
+        a, b = (a * 100).astype(dtype), (b * 100).astype(dtype)
+    a, b = a.astype(dtype), b.astype(dtype)
+    want = np.asarray(jax_distance_product(jnp.asarray(a), jnp.asarray(b),
+                                           interpret=True))
+    assert want.dtype == np.float32 and want.shape == (13, 7)
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    assert ta.dtype == getattr(torch, dtype)
+    got = {"distance_product": ops.distance_product,
+           "ca_mmm_any": lambda x, y: ops.ca_mmm_any(x, y,
+                                                     semiring="min_plus"),
+           "ca_mmm": lambda x, y: K.ca_mmm(x, y, semiring="min_plus")
+           }[entry](ta, tb)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +514,8 @@ def test_distance_product_contract_raises():
 def test_k_outer_matches_reference_kernel(dtype, tiles):
     """The reference's test shape; fp32 to its 1e-4, int8 exactly (int32
     sums).  The reference runs its tiles of 128; the port's default tile
-    (64, 64, 32) takes 8 k steps instead of 2 and gives the same sums."""
+    for these dtypes (64, 64, 32) takes 8 k steps instead of 2 and gives
+    the same sums."""
     r = np.random.RandomState(2)
     if dtype == "int8":
         a = r.randint(-127, 128, (256, 256)).astype(np.int8)
@@ -527,20 +553,87 @@ def test_k_outer_bf16_casts_after_the_last_step():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
                                rtol=2e-2, atol=2e-2)
-    f32 = K.ca_mmm_k_outer(ta, tb, out_dtype=torch.float32)
+    f32 = K.ca_mmm_k_outer(ta, tb, bm=64, bn=64, bk=64,
+                           out_dtype=torch.float32)
     np.testing.assert_allclose(f32.numpy(), ta.float().numpy()
                                @ tb.float().numpy(), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape,kw,match", [
     (((100, 64), (64, 64)), {}, "tile-divisible"),
-    (((64, 64), (64, 64)), {"bm": 32}, "multiples of 64"),
-    (((64, 64), (64, 64)), {"bk": 48}, "bk of 32"),
+    (((64, 64), (64, 64)), {"bm": 48}, "tile-divisible"),
+    (((64, 64), (64, 64)), {"bk": -32}, "positive"),
     (((64, 64), (32, 64)), {}, "contraction"),
 ])
 def test_k_outer_contract_raises(shape, kw, match):
     with pytest.raises(ValueError, match=match):
         K.ca_mmm_k_outer(torch.ones(*shape[0]), torch.ones(*shape[1]), **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["64^3 tiles 32", "8x128 default",
+                                  "128^3 default"])
+def test_k_outer_takes_any_dividing_tile(case, dtype):
+    """Tiles the reference computes: any tile that divides the shape, and
+    the default clamped to the shape as the reference clamps it (the
+    kernel's own tile for the dtype, e.g. (64, 64, 32) -> (8, 64, 32) at
+    m = 8).  fp32 to 1e-4, bf16 to one output ulp."""
+    (m, k, n), tiles = {"64^3 tiles 32": ((64, 64, 64), (32, 32, 32)),
+                        "8x128 default": ((8, 128, 128), (None,) * 3),
+                        "128^3 default": ((128, 128, 128), (None,) * 3)
+                        }[case]
+    r = np.random.RandomState(4)
+    a, b = r.randn(m, k), r.randn(k, n)
+    jdt = jnp.dtype(dtype)
+    bm, bn, bk = tiles
+    want = np.asarray(jax_k_outer(jnp.asarray(a, jdt), jnp.asarray(b, jdt),
+                                  bm=bm, bn=bn, bk=bk, interpret=True)
+                      .astype(jnp.float32))
+    got = K.ca_mmm_k_outer(torch.as_tensor(a).to(TORCH_DT[dtype]),
+                           torch.as_tensor(b).to(TORCH_DT[dtype]),
+                           bm=bm, bn=bn, bk=bk)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == (m, n)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype,m,k,n,tiles,route", [
+    (torch.bfloat16, 256, 128, 256, (None, None, None), "wgmma"),
+    (torch.bfloat16, 256, 256, 256, (256, 128, 128), "wgmma"),
+    (torch.bfloat16, 128, 96, 192, (64, 64, 32), "simt"),
+    (torch.float32, 256, 256, 256, (128, 128, 64), "simt"),
+    (torch.int8, 128, 128, 128, (None, None, None), "simt"),
+    (torch.float32, 64, 64, 64, (32, 32, 32), None),
+    (torch.bfloat16, 8, 128, 128, (None, None, None), None),
+])
+def test_k_outer_card_routes_and_refusals(dtype, m, k, n, tiles, route,
+                                          monkeypatch):
+    """The step the card takes for a tile: wgmma for bf16 whole
+    128 x 128 x 64 blocks (the default bf16 tile), SIMT for multiples of
+    64 x 64 x 32; a dividing tile neither takes raises naming the tile and
+    the shape, before anything is built or launched."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_build(*a, **k):
+        raise RuntimeError("kernel build reached")
+
+    monkeypatch.setattr(K._build, "load", no_build)
+    bm, bn, bk = tiles
+    with FakeTensorMode():
+        a = torch.empty(m, k, dtype=dtype, device="cuda")
+        b = torch.empty(k, n, dtype=dtype, device="cuda")
+        _, _, _, cbm, cbn, cbk, _, _ = K._check_k_outer(a, b, bm, bn, bk,
+                                                        None)
+        assert K.k_outer_route(dtype, cbm, cbn, cbk) == route
+        with pytest.raises((ValueError, RuntimeError)) as err:
+            K.ca_mmm_k_outer(a, b, bm=bm, bn=bn, bk=bk)
+    if route is None:
+        assert err.type is ValueError
+        assert f"({cbm}, {cbn}, {cbk})" in str(err.value)
+        assert f"({m}, {k}) @ ({k}, {n})" in str(err.value)
+    else:
+        assert "kernel build reached" in str(err.value)
 
 
 # ---------------------------------------------------------------------------
@@ -570,3 +663,89 @@ def test_cuda_tensors_never_run_the_plain_version(which, monkeypatch):
                 K.ca_mmm_k_outer(a, b)
     assert "plain version" not in str(err.value)
     assert K.launch_counts == {}
+
+
+# ---------------------------------------------------------------------------
+# Routes: which K1 launches take the TMA + WGMMA main loop
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+GLU = "rms>glu.silu(none|none)"
+
+
+def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
+           misaligned=False):
+    """k1_route of one call's operands, built as CPU tensors in their
+    stored layouts (A (k, m) for t?, B (n, k) for ?t), with A's base moved
+    off 16 bytes by one element where ``misaligned``."""
+    spec = program_from_tag(tag)
+    a_dt, b_dt = dtypes
+    a_shape = (k, m) if layout[0] == "t" else (m, k)
+    if misaligned:
+        a = torch.empty(a_shape[0] * a_shape[1] + 1, dtype=a_dt)[1:]
+        a = a.view(a_shape)
+    else:
+        a = torch.empty(a_shape, dtype=a_dt)
+    bs = [torch.empty((n, k) if layout[1] == "t" else (k, n), dtype=b_dt)
+          for _ in range(spec.n_b)]
+    pro = spec.prologue
+    preact = None
+    if pro.kind == "dact":
+        preact = torch.empty((m, k) if pro.operand == "a" else (k, n))
+    return K.k1_route(spec, layout, a_dt, b_dt, m, n, k,
+                      K.tma_aligned(a, *bs, preact), semiring)
+
+
+@pytest.mark.parametrize("tag,layout,dtypes,m,n,k,kw,want", [
+    ("none", "nn", (BF16, BF16), 9, 2048, 2048, {}, "wgmma"),
+    ("none", "nn", (BF16, BF16), 8, 2048, 2048, {}, "simt"),
+    ("res", "nn", (BF16, BF16), 1, 2048, 5632, {}, "simt"),
+    (GLU, "nn", (BF16, BF16), 37, 5632, 2048, {}, "wgmma"),
+    ("none", "nn", (torch.float32,) * 2, 1024, 2048, 2048, {}, "simt"),
+    ("none nt", "nt", (torch.float32,) * 2, 1024, 2048, 2048, {}, "simt"),
+    ("dqb", "nn", (BF16, torch.int8), 1024, 2048, 2048, {}, "simt"),
+    ("dqab", "nn", (torch.int8,) * 2, 1024, 2048, 2048, {}, "simt"),
+    ("none", "nn", (BF16, BF16), 1024, 2048, 2048,
+     {"semiring": "min_plus"}, "simt"),
+    ("none", "nn", (BF16, BF16), 1024, 2048, 2052, {}, "simt"),
+    ("none", "nn", (BF16, BF16), 1024, 2048, 2048, {"misaligned": True},
+     "simt"),
+    ("none", "tn", (BF16, BF16), 37, 2048, 1024, {}, "simt"),
+    ("none", "tn", (BF16, BF16), 40, 2048, 1024, {}, "wgmma"),
+    ("none", "tt", (BF16, BF16), 1024, 2048, 2048, {}, "wgmma"),
+    ("dact.silu>none", "nt", (BF16, BF16), 1024, 2048, 5630, {}, "simt"),
+    ("glu.silu(none|none)", "nt", (BF16, BF16), 1024, 2048, 2048, {},
+     "simt"),
+    ("res", "nn", (BF16, BF16), 1000, 2048, 5632, {}, "wgmma"),
+], ids=lambda v: str(v).replace("torch.", "") if not isinstance(v, dict)
+    else "-".join(v) or "plain")
+def test_k1_route(tag, layout, dtypes, m, n, k, kw, want):
+    """wgmma for bf16 A and B at m > 8 with TMA-aligned operands (bases and
+    row strides on 16 bytes), one branch in any layout or the GLU in nn
+    without dact; SIMT for decode (m <= 8), fp32, int8, min_plus, a k,
+    m or base off 16 bytes, and the GLU in another layout."""
+    assert _route(tag.split(" ")[0], layout, dtypes, m, n, k, **kw) == want
+
+
+# stablelm-1.6b's training GEMMs at full width, 1024 tokens a step, in the
+# kernel's terms (launch key, m, n, k): the forward programs (twice a layer
+# with remat), then each one-branch program's nt (dx) and tn (dW), the
+# GLU's four backward products and the head's; 627 launches a step.
+FULL_WIDTH_TRAIN = [
+    ("none", 1024, 2048, 2048), ("none", 1024, 100352, 2048),
+    ("res", 1024, 2048, 2048), ("res", 1024, 2048, 5632),
+    (GLU + " save_preact", 1024, 5632, 2048),
+    ("none nt", 1024, 2048, 2048), ("none nt", 1024, 2048, 5632),
+    ("none nt", 1024, 2048, 100352), ("none tn", 2048, 2048, 1024),
+    ("none tn", 5632, 2048, 1024), ("none tn", 2048, 100352, 1024),
+    ("none tn", 2048, 5632, 1024), ("dact.silu>none nt", 1024, 2048, 5632),
+    ("dact.silu@b>none tn", 2048, 5632, 1024)]
+
+
+@pytest.mark.parametrize("key,m,n,k", FULL_WIDTH_TRAIN,
+                         ids=[f"{key} {m}x{n}x{k}"
+                              for key, m, n, k in FULL_WIDTH_TRAIN])
+def test_k1_route_of_full_width_training_launches(key, m, n, k):
+    tag, *rest = key.split(" ")
+    layout = next((r for r in rest if r in ("nt", "tn")), "nn")
+    assert _route(tag, layout, (BF16, BF16), m, n, k) == "wgmma"

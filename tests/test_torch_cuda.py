@@ -126,14 +126,15 @@ def query(seed, B, H, D):
 # and danube's serve shape (its analytic page 128 at max_len 320).
 PAGED_CASES = {"stablelm": ([1016], 128, 8, 32, 32, 64, None),
                "danube": ([19, 200, 1000], 16, 96, 32, 8, 120, 48),
-               "danube serve": ([316], 128, 4, 32, 8, 120, None)}
+               "danube serve": ([316], 128, 4, 32, 8, 120, None),
+               "granite G48": ([700, 33], 16, 64, 48, 1, 128, None)}
 POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("case", ["stablelm", "danube", "danube serve",
-                                  "poisoned"])
+                                  "granite G48", "poisoned"])
 def test_paged_attention_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -324,6 +325,47 @@ def test_cuda_k1f_program_matches_plain_version(tag, layout, save, dtype,
         assert err <= tol, (i, err, tol)
 
 
+# The wgmma route (bf16 at m > 8, TMA-aligned operands): every forward
+# program, layout, prologue, GLU and save_preact case, at an aligned shape,
+# one ragged in every dim (m, n, k multiples of 8, not of the tile) and
+# m = 37 (the t? layouts' A rows are then 74 bytes: the SIMT route).
+WGMMA_CASES = [(tag, "nn", False) for tag in TAGS] + K1F_CASES
+WGMMA_SHAPES = {"aligned": (256, 256, 320), "ragged": (200, 264, 328),
+                "m37": (37, 136, 200)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(WGMMA_SHAPES))
+@pytest.mark.parametrize("tag,layout,save", WGMMA_CASES)
+def test_cuda_wgmma_route_matches_plain_version(tag, layout, save, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n, k = WGMMA_SHAPES[shape]
+    a, bs, kw = k1f_inputs(tag, layout, m, n, k, torch.bfloat16, seed=13,
+                           save_preact=save)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    route = "simt" if layout[0] == "t" and m % 8 else "wgmma"
+    key = K.launch_key(tag, layout, save)
+    assert K.launch_counts == {key: 1}
+    assert K.route_counts == {f"{route} {key}": 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    got = got if save else (got,)
+    want = want if save else (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == (m, n) and g.dtype == w.dtype
+        assert bool(torch.isfinite(g).all())
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        # A bf16 output may flip one ulp; the fp32 preacts differ in the
+        # order of their sums only.
+        tol = 1e-4 * (1 + scale) if g.dtype == torch.float32 \
+            else 2e-2 * scale
+        assert err <= tol, (i, err, tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["fused", "glu"])
 def test_cuda_backward_matches_cpu(which):
@@ -493,6 +535,43 @@ def test_cuda_k_outer_matches_plain_version(dtype, tiles):
     K.reset_launch_counts()
     got = K.ca_mmm_k_outer(a, b, **kw)
     assert K.launch_counts == {K.K_OUTER: k // tiles[2]}
+    want = K.ca_mmm_k_outer_reference(a, b, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(None, None, None), (384, 256, 320)],
+                         ids=["default", "whole blocks"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+def test_cuda_k_outer_wgmma_step_matches_plain_version(dtype, tiles):
+    """bf16 at whole 128 x 128 x 64 blocks (its default tile, and three
+    blocks by two by five) takes the wgmma step; fp32 and int8 the SIMT
+    step at the same tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    m, n, k = 384, 512, 320
+    r = np.random.RandomState(43)
+    if dtype == torch.int8:
+        a = torch.as_tensor(r.randint(-127, 128, (m, k))).to(dtype).cuda()
+        b = torch.as_tensor(r.randint(-127, 128, (k, n))).to(dtype).cuda()
+    else:
+        a = torch.as_tensor(r.randn(m, k)).to(dtype).cuda()
+        b = torch.as_tensor(r.randn(k, n)).to(dtype).cuda()
+    kw = dict(bm=tiles[0], bn=tiles[1], bk=tiles[2],
+              out_dtype=None if dtype == torch.int8 else torch.float32)
+    bk = tiles[2] or K.K_OUTER_TILES[dtype][2]
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    K.reset_launch_counts()
+    got = K.ca_mmm_k_outer(a, b, **kw)
+    assert K.route_counts == {f"{route} {K.K_OUTER}": k // bk}
     want = K.ca_mmm_k_outer_reference(a, b, **kw)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype

@@ -45,6 +45,22 @@ def test_paged_attention_matches_reference_kernel(gqa, window, D):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 5], ids=["causal", "sliding"])
+def test_paged_attention_48_query_heads_per_kv_head(window):
+    """granite-20b's head geometry: 48 query heads over one KV head,
+    D = 128, a short ragged batch; the reference folds the 48 heads into
+    one tile, the port's kernel takes them 8 to a CTA."""
+    pool = random_pool(5, [13, 6], page=4, n_pages=8, Hkv=1, D=128)
+    q = query(5, 2, 48, 128)
+    want = paged_flash_attention_tpu(jnp.asarray(q), *_jax(pool),
+                                     window=window, interpret=True)
+    got = FA.paged_flash_attention(torch.as_tensor(q), *_torch(pool),
+                                   window=window)
+    assert got.shape == (2, 48, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_poisoned_free_pages_are_bit_identical():
     """Unmapped pages full of 127 at scale 1e6 never reach the output."""
     pool = random_pool(1, [9, 13], page=8, n_pages=8, Hkv=2, D=16,

@@ -239,3 +239,33 @@ def test_run_training_on_the_cpu():
     with pytest.raises(RuntimeError, match="injected failure at step 0"):
         run_training("stablelm-1.6b", 2, seq_len=8, global_batch=2,
                      device="cpu", fail_at=0)
+
+
+def test_every_training_launch_takes_the_wgmma_route(monkeypatch):
+    """A bf16 train step of the reduced stablelm-1.6b with remat (widths
+    multiples of 8, 2 x 16 tokens): every K1 call of every launch key the
+    full-width step has (627 launches there) routes to the wgmma main loop
+    on the card, by the operands it is actually given."""
+    routes = {}
+    orig = K.ca_gemm_program
+
+    def spy(a, bs, **kw):
+        spec = kw.get("spec", K.PLAIN)
+        ta, tb = kw.get("transpose_a", False), kw.get("transpose_b", False)
+        layout = K.layout_tag(ta, tb)
+        k, m = a.shape if ta else a.shape[::-1]
+        n = bs[0].shape[0 if tb else 1]
+        route = K.k1_route(spec, layout, a.dtype, bs[0].dtype, m, n, k,
+                           K.tma_aligned(a, *bs, kw.get("preact")))
+        key = K.launch_key(spec.tag(), layout, kw.get("save_preact", False))
+        routes.setdefault(key, set()).add(route)
+        return orig(a, bs, **kw)
+
+    monkeypatch.setattr(K, "ca_gemm_program", spy)
+    cfg = _small_port(remat=True, compute_dtype="bfloat16")
+    T.build_train_step(cfg)(T.init_state(cfg, 0, "cpu"),
+                            _batch(cfg, 16, 2))
+    glu = "rms>glu.silu(none|none) save_preact"
+    assert set(routes) == {"none", "res", glu, "none nt", "none tn",
+                           "dact.silu>none nt", "dact.silu@b>none tn"}
+    assert all(r == {"wgmma"} for r in routes.values()), routes

@@ -10,8 +10,8 @@ vector B loads) prints
   instantiation, also written to ``ptxas_A.json``/``ptxas_B.json``);
 * the SASS instruction count, the opcode histogram and the opcodes whose
   counts differ between the two builds;
-* for every instantiation the two builds share (named in the ``train``
-  build's terms), whether its SASS opcode sequence is the same in both;
+* for every SIMT instantiation the two builds share (in the terms both
+  share), whether its SASS opcode sequence is the same in both;
 
 then times both builds' launches at the decode shapes (m = 1: wq, w_down
 with its residual, the rms GLU) and at m = 128 (wq, w_down) in one
@@ -19,13 +19,19 @@ process, each call captured 20 at
 a time in a CUDA graph over weight copies that together exceed the 50 MB
 L2, the builds alternating A, B, B, A for ``--rounds`` rounds.
 
-Both builds take the same C entry point (17 pointers, 19 ints); their
-kernels' template flags differ: ``ABI`` is ``train`` for a build whose last
-flag is ``TRAIN`` (before the distance product) and ``k1g`` for one with a
-``MIN_PLUS`` flag after it (this tree).  Run from the repository root on
-the card::
+Both builds take the same C entry point (17 pointers, 19 ints; a 20th,
+the caller's route, since the wgmma route); their SIMT kernels' template
+flags differ: ``ABI`` is ``train`` for a build whose last flag is
+``TRAIN`` (before the distance product), ``k1g`` for one with a
+``MIN_PLUS`` flag after it, and ``wgmma`` for one that also has the TMA +
+WGMMA route (this tree: its SIMT kernels take the ``k1g`` flags, and its
+``ca_gemm_wgmma_kernel`` instantiations are the only ones it has alone).
+A ``wgmma`` build runs the m = 128 shapes on its wgmma route, so there its
+outputs are compared within bf16's rounding (one output ulp, 2^-7 of the
+largest |output|) rather than bit for bit.  Run from the repository root
+on the card::
 
-    python3 tools/k1_codegen_ab.py A.cu:train B.cu:k1g --out DIR
+    python3 tools/k1_codegen_ab.py A.cu:k1g B.cu:wgmma --out DIR
 
 The SASS of the compared functions is written under ``--out``.
 """
@@ -52,7 +58,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 TILES = {"8x16x128": "8, 16, 128, 1, 1", "64x64x32": "64, 64, 32, 4, 4"}
 # Each ABI's trailing template flags of the float kernels compared:
 # VEC_B, TRAIN (and MIN_PLUS).
-ABIS = {"train": "true, false", "k1g": "true, false, false"}
+ABIS = {"train": "true, false", "k1g": "true, false, false",
+        "wgmma": "true, false, false"}
 SILU = 3
 
 
@@ -125,11 +132,16 @@ def opcode(line: str) -> str:
     return body.split()[0].rstrip(";") if body.split() else ""
 
 
-def common_name(demangled: str, abi: str) -> str:
-    """A kernel's demangled name in the ``train`` ABI's terms: ``k1g``
-    builds carry one more template flag (``MIN_PLUS``) after ``TRAIN``;
-    None for the instantiation only they have (``MIN_PLUS`` true)."""
-    if abi != "k1g":
+def common_name(demangled: str, abi: str, other: str) -> str:
+    """A SIMT kernel's demangled name in the terms the two builds share
+    (``other`` is the other build's ABI); None for a kernel only this build
+    can have.  The wgmma route's kernels are only in a ``wgmma`` build.
+    ``k1g`` and ``wgmma`` builds carry one more template flag
+    (``MIN_PLUS``) after ``TRAIN``: against a ``train`` build it is
+    dropped, and the ``MIN_PLUS`` instantiation has no counterpart."""
+    if "ca_gemm_program_kernel" not in demangled:
+        return None
+    if abi == "train" or other != "train":
         return demangled
     if ", true>(" in demangled:
         return None
@@ -149,11 +161,18 @@ class Entry:
     """One build's C entry point, called with the float programs'
     arguments."""
 
-    def __init__(self, lib: pathlib.Path):
+    def __init__(self, lib: pathlib.Path, abi: str):
+        self.routed = abi == "wgmma"
         self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
-        self.fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 19
+        self.fn.argtypes = ([ctypes.c_void_p] * 17
+                            + [ctypes.c_int] * (20 if self.routed else 19)
                             + [ctypes.c_void_p])
         self.fn.restype = ctypes.c_int
+
+    def route(self, m):
+        """The wgmma route's flag for these bf16, 16-byte aligned operands
+        (m > 8), or None for a build without it."""
+        return int(m > 8) if self.routed else None
 
     def __call__(self, a, b0, b1, row_scale, gain, residual, out, glu_act):
         m, k = a.shape
@@ -166,6 +185,8 @@ class Entry:
         # No preact or save_preact outputs, no scales, nn, no dact.
         args = (ptrs + [None] * 7 + [m, n, k, 1, 1] + flags
                 + [0, 0, 0] + [0, 0, 0, 0])
+        if self.routed:
+            args += [self.route(m)]
         err = self.fn(*args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch returned {err}")
@@ -276,7 +297,9 @@ def main():
                   + json.dumps(diff) + f"; opcodes in order shared: {same}")
     seqs = []
     for b in builds:
-        named = {common_name(b["dem"][f], b["abi"]): [opcode(x) for x in ls]
+        other = builds[1 - builds.index(b)]["abi"]
+        named = {common_name(b["dem"][f], b["abi"], other):
+                 [opcode(x) for x in ls]
                  for f, ls in b["funcs"].items()}
         seqs.append({k: v for k, v in named.items() if k is not None})
     shared = sorted(set(seqs[0]) & set(seqs[1]))
@@ -284,10 +307,9 @@ def main():
     print(f"instantiations in both builds: {len(shared)}; identical SASS "
           f"opcode sequences: {len(shared) - len(differ)}; differing: "
           + json.dumps(differ) + "; only in A: "
-          + json.dumps(sorted(set(seqs[0]) - set(seqs[1]))) + "; only in B "
-          "(besides the MIN_PLUS one): "
+          + json.dumps(sorted(set(seqs[0]) - set(seqs[1]))) + "; only in B: "
           + json.dumps(sorted(set(seqs[1]) - set(seqs[0]))))
-    entries = [Entry(b["lib"]) for b in builds]
+    entries = [Entry(b["lib"], b["abi"]) for b in builds]
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, m, k, n, ops, copies in shapes(gen):
         outs = []
@@ -295,14 +317,20 @@ def main():
             e(**ops(0))
             outs.append(ops(0)["out"].clone())
         same = torch.equal(outs[0], outs[1])
+        routes = [e.route(m) or 0 for e in entries]
+        err = (outs[0].float() - outs[1].float()).abs().max().item()
+        scale = outs[0].float().abs().max().item()
         times = {"A": [], "B": []}
         for _ in range(args.rounds):
             for tag in "ABBA":
                 e = entries["AB".index(tag)]
                 times[tag].append(time_ms(lambda i: e(**ops(i)), copies))
-        print(f"time {name} m={m} k={k} n={n}: outputs bit-equal {same}; "
+        print(f"time {name} m={m} k={k} n={n}: routes (1 wgmma) {routes}; "
+              f"outputs bit-equal {same}, max_abs_err {err:.3e}; "
               + json.dumps(times))
-        if not same:
+        # The same route must give the same bits; SIMT against wgmma sums
+        # in another order, so a bf16 output may flip one ulp.
+        if (not same) if routes[0] == routes[1] else err > 2.0 ** -7 * scale:
             raise AssertionError(f"{name}: the two builds disagree")
 
 
