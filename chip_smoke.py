@@ -15,7 +15,8 @@ Phases (any failure raises and the script exits non-zero):
    shapes (m = 1, 37, 128 and the 1000-token prefill; h2o-danube-3-4b's at
    m = 1), on a ragged bf16 shape (m, n, k multiples of 8, not of the
    tile) and in fp32 on a ragged shape; each call's K1 route is asserted
-   (wgmma for bf16 at m > 8, SIMT otherwise).  The paged attention kernel
+   (for bf16 wgmma at m > 8 and the split-k decode kernel at m <= 8, SIMT
+   for fp32).  The paged attention kernel
    against its plain version in fp32 and bf16 at stablelm-1.6b's and
    danube's serve shapes, at a ragged windowed danube batch, at B = 8,
    S = 4096 for both head geometries and at granite-20b's 48 query heads
@@ -25,7 +26,7 @@ Phases (any failure raises and the script exits non-zero):
    seed, served through ServeEngine (3 requests) on the slab cache; the
    kernel must launch exactly 145 times per prefill and per decode step,
    each prefill of more than 8 tokens on the wgmma route and the 8-token
-   prefill and every decode step on the SIMT route.
+   prefill and every decode step on the decode route.
    torch.profiler then splits decode steps' device time by kernel (device
    busy share), and a 4-layer full-width model is held against the plain
    path on the CPU (prefill logits, and greedy tokens up to a near tie).
@@ -72,8 +73,8 @@ Phases (any failure raises and the script exits non-zero):
    2 x 64 tokens: the loss and every leaf's gradient, card vs CPU.
 10. times: kernel, plain version, library call (torch._weight_int8pack_mm
    for a per-channel dqb; torch.matmul for the plain nt/tn programs) and
-   bound per GEMM program (float at m = 1, 128 and 1000, int8 and the K1f
-   programs at 1024 tokens) and for the paged kernel (each timed by replaying a CUDA graph
+   bound per GEMM program (float at m = 1, 128 and 1000, h2o-danube-3-4b's
+   at m = 1, int8 and the K1f programs at 1024 tokens) and for the paged kernel (each timed by replaying a CUDA graph
    of 20 calls), and the end-to-end times of the serve and train phases.
 11. K1g, the distance product: all-pairs shortest paths on a random
    directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
@@ -87,11 +88,14 @@ Phases (any failure raises and the script exits non-zero):
    full-width prefill shapes (stablelm-1.6b at 1000 tokens, causal;
    h2o-danube-3-4b at 300, GQA 4, D = 120), stablelm at 4096, danube at
    16384 with its window of 8192, and a ragged batch with -1 kv slots and
-   a fully masked row (0); one launch per call; at the stablelm shape
-   against the model's own plain prefill attention.  Each output is held
-   to its row's scale (bf16 2^-7, fp32 1e-4 of |want| + the row's max),
-   and a bf16 kernel's mean error to 2^-12 of the mean |want|.  Times
-   beside the bound and scaled_dot_product_attention.
+   a fully masked row (0), and granite-20b's 48 query heads over one KV
+   head; one launch per call, every bf16 call on the wgmma route and every
+   fp32 call on the SIMT route, plus one bf16 call whose bases sit off 16
+   bytes (SIMT); at the stablelm shape against the model's own plain
+   prefill attention.  Each output is held to its row's scale (bf16 2^-7,
+   fp32 1e-4 of |want| + the row's max), and a bf16 kernel's mean error to
+   2^-12 of the mean |want|.  Times of both routes on the same bf16
+   operands beside the bound and scaled_dot_product_attention.
 13. K4, the k-outer ablation: kernels.ca_mmm.ca_mmm_k_outer at
    m = n = k = 4096 against its plain version (fp32 and bf16 to 1e-4 of
    max, int8 exactly) at each dtype's default tile (bf16: K1's wgmma tile
@@ -167,12 +171,14 @@ MIN_PLUS = K.launch_key("none", semiring="min_plus")
 APSP_NODES, APSP_DEGREE = 4096, 8
 # K3's shapes (B, Lq, S, H, Hkv, D, window): the served models' full-width
 # prefill (stablelm-1.6b at 1000 tokens, causal; h2o-danube-3-4b at 300
-# tokens under its config's window of 8192), stablelm at 4096, and danube
-# at 16384, where the window binds.
+# tokens under its config's window of 8192), stablelm at 4096, danube at
+# 16384, where the window binds, and granite-20b's 48 query heads over one
+# KV head (D = 128) at 1000 tokens, past a CTA's rows on both routes.
 FWD_SHAPES = {"stablelm prefill": (1, 1000, 1000, 32, 32, 64, None),
               "danube prefill": (1, 300, 300, 32, 8, 120, 8192),
               "stablelm S4096": (1, 4096, 4096, 32, 32, 64, None),
-              "danube S16384": (1, 16384, 16384, 32, 8, 120, 8192)}
+              "danube S16384": (1, 16384, 16384, 32, 8, 120, 8192),
+              "granite G48": (1, 1000, 1000, 48, 1, 128, None)}
 FWD_TIMED = ("stablelm prefill", "danube prefill", "stablelm S4096")
 # K4 at m = n = k = K_OUTER_MNK, beside K1a at the same shape.
 K_OUTER_MNK = 4096
@@ -258,17 +264,20 @@ def route_delta(before):
 
 
 def want_route(dtype, m):
-    """The route a float program must take: wgmma for bf16 at m > 8 (all
-    operands here are TMA-aligned), SIMT otherwise."""
-    return "wgmma" if dtype == torch.bfloat16 and m > 8 else "simt"
+    """The route a float program must take: for bf16 (all operands here
+    are TMA-aligned) wgmma at m > 8 and decode at m <= 8; SIMT for fp32."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    return "wgmma" if m > 8 else "decode"
 
 
 def serve_routes(prompt_lens, new_tokens, per_step):
-    """The K1 launches by route of requests served one at a time: each
-    prefill at m = its prompt's length (wgmma above 8 tokens), each decode
-    step at m = 1 (SIMT), ``per_step`` launches a forward step."""
+    """The bf16 K1 launches by route of requests served one at a time:
+    each prefill at m = its prompt's length (wgmma above 8 tokens, decode
+    up to 8), each decode step at m = 1 (decode), ``per_step`` launches a
+    forward step."""
     steps = {"wgmma": sum(1 for n in prompt_lens if n > 8)}
-    steps["simt"] = len(prompt_lens) - steps["wgmma"] + sum(
+    steps["decode"] = len(prompt_lens) - steps["wgmma"] + sum(
         n - 1 for n in new_tokens)
     return {f"{route} {tag}": n * k for route, k in steps.items() if k
             for tag, n in per_step.items()}
@@ -283,7 +292,8 @@ def check_routes(label, got, want):
 
 def is_k1(kernel_name):
     return ("ca_gemm_program_kernel" in kernel_name
-            or "ca_gemm_wgmma_kernel" in kernel_name)
+            or "ca_gemm_wgmma_kernel" in kernel_name
+            or "ca_gemm_decode_kernel" in kernel_name)
 
 
 def card():
@@ -1005,7 +1015,8 @@ def times():
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for m in (1, 128, 1000):
-        for tag, name, k, n, od in GEMMS:
+        # h2o-danube-3-4b's five GEMMs at decode too.
+        for tag, name, k, n, od in GEMMS + (DANUBE_GEMMS if m == 1 else []):
             nb = program_from_tag(tag).n_b
             copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
             a, sets, kw = program_inputs(tag, m, k, n, torch.bfloat16, gen,
@@ -1947,20 +1958,36 @@ def fwd_bound(B, Lq, S, H, Hkv, D, pairs, dtype):
                                        else "operations")
 
 
+def misaligned(t):
+    """A copy of ``t`` whose base sits one element off 16 bytes: operands
+    TMA cannot take, so a bf16 K3 call on them runs the SIMT route."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    out = out.view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def flash_fwd_phase():
     phase("K3: forward flash attention (kernel vs plain version)")
     gen = torch.Generator(device="cuda").manual_seed(13)
     FA.reset_launch_counts()
-    calls, worst, timed = 0, 0.0, {}
+    calls, worst, timed = collections.Counter(), {}, {}
+
+    def check(label, route, q, k, v, **kw):
+        got, err = check_fwd(label, q, k, v, **kw)
+        calls[route] += 1
+        worst[route] = max(worst.get(route, 0.0), err)
+        return got
+
     for name, (B, Lq, S, H, Hkv, D, window) in FWD_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, qpos, kpos = fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen)
             kw = dict(q_positions=qpos, kv_positions=kpos, window=window)
-            got, err = check_fwd(
-                f"{name:16s} B={B} Lq={Lq} S={S} H={H} Hkv={Hkv} D={D} "
-                f"window={window}", q, k, v, **kw)
-            calls += 1
-            worst = max(worst, err)
+            # Every operand here is aligned: bf16 takes the wgmma route.
+            got = check(f"{name:16s} B={B} Lq={Lq} S={S} H={H} Hkv={Hkv} "
+                        f"D={D} window={window}",
+                        "wgmma" if dtype == torch.bfloat16 else "simt",
+                        q, k, v, **kw)
             if name == "stablelm prefill":
                 # The model's own plain prefill attention (q chunks of 512,
                 # kv chunks of 1024: other rescale points, same function).
@@ -1975,23 +2002,33 @@ def flash_fwd_phase():
         q, k, v, qpos, kpos = fwd_inputs(3, 300, 1000, 32, 32, 64, dtype, gen)
         kpos[torch.rand(kpos.shape, generator=gen, device="cuda") < 0.1] = -1
         qpos[2, 0] = -3                # before every kv slot: sees none
-        got, err = check_fwd("ragged B=3 Lq=300 S=1000, -1 slots, a masked "
-                             "row", q, k, v, q_positions=qpos,
-                             kv_positions=kpos)
-        calls += 1
-        worst = max(worst, err)
+        got = check("ragged B=3 Lq=300 S=1000, -1 slots, a masked row",
+                    "wgmma" if dtype == torch.bfloat16 else "simt", q, k, v,
+                    q_positions=qpos, kv_positions=kpos)
         if bool(got[2, 0].any()):
             raise AssertionError("the fully masked query row is not 0")
-    counts = dict(FA.launch_counts)
-    print(f"K3 launches over {calls} calls: {counts}")
-    if counts != {FA.FWD_NAME: calls}:
-        raise AssertionError(f"K3 launches {counts}, expected {calls}")
-    phase("K3 times (CUDA graph replay)")
+    # bf16 whose bases sit off 16 bytes: the SIMT route.
+    q, k, v, kw = timed["danube prefill"]
+    check("danube prefill, bf16 bases off 16 bytes", "simt",
+          *(misaligned(t) for t in (q, k, v)), **kw)
+    counts, routes = dict(FA.launch_counts), dict(FA.route_counts)
+    n_calls = sum(calls.values())
+    print(f"K3 launches over {n_calls} calls: {counts}")
+    check_routes(f"K3 over {n_calls} calls", routes,
+                 {f"{r} {FA.FWD_NAME}": n for r, n in calls.items()})
+    if counts != {FA.FWD_NAME: n_calls}:
+        raise AssertionError(f"K3 launches {counts}, expected {n_calls}")
+    phase("K3 times (CUDA graph replay): the wgmma route, the SIMT route "
+          "(the same bf16 operands, bases off 16 bytes)")
     rows = []
     for name in FWD_TIMED:
         B, Lq, S, H, Hkv, D, window = FWD_SHAPES[name]
         q, k, v, kw = timed[name]
         ms = _time_ms(lambda i: FA.flash_attention(q, k, v, **kw), 1)
+        qm, km, vm = (misaligned(t) for t in (q, k, v))
+        simt_ms = _time_ms(lambda i: FA.flash_attention(qm, km, vm, **kw), 1,
+                           iters=5, reps=2)
+        del qm, km, vm
         plain = _time_ms(lambda i: FA.flash_attention_reference(
             q, k, v, **kw), 1, iters=5, reps=2)
         lib = None
@@ -2005,14 +2042,16 @@ def flash_fwd_phase():
         b_ms, b_by = fwd_bound(B, Lq, S, H, Hkv, D, pairs, torch.bfloat16)
         row = {"kernel": FA.FWD_NAME, "case": name, "B": B, "Lq": Lq,
                "S": S, "H": H, "Hkv": Hkv, "D": D, "window": window,
-               "visible_pairs": pairs, "ms": ms, "plain_ms": plain,
-               "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
-               "tflops": 4 * D * pairs * H / ms / 1e9}
+               "visible_pairs": pairs, "fwd_route": "wgmma", "ms": ms,
+               "simt_ms": simt_ms, "plain_ms": plain, "library_ms": lib,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": 4 * D * pairs * H / ms / 1e9,
+               "simt_tflops": 4 * D * pairs * H / simt_ms / 1e9}
         rows.append(row)
         print("time " + json.dumps(row))
     del timed
     torch.cuda.empty_cache()
-    return {"launches": calls, "max_abs_err": worst, "rows": rows}
+    return {"launches": dict(calls), "max_abs_err": worst, "rows": rows}
 
 
 def k_outer_phase():
@@ -2174,12 +2213,12 @@ def main():
         row = next(r for r in rows if r["program"] == tag
                    and r["gemm"] == gemm and r["m"] == 1)
         kernels.append({
-            "name": f"ca_gemm_program[{tag}]", "route": "cuda",
+            "name": f"ca_gemm_program[{tag}] decode", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES,
-            "launches": counts[tag], "max_abs_err": worst[tag],
+            "launches": routes[f"decode {tag}"], "max_abs_err": worst[tag],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "k1_route": "simt",
+            "library_ms": row["library_ms"], "k1_route": "decode",
             "shape": f"{gemm} m=1 k={row['k']} n={row['n']} bf16"})
     # The same programs at the 1000-token prefill (the wgmma route); their
     # launches are the paged slice's prefills of more than 8 tokens.
@@ -2238,15 +2277,20 @@ def main():
         "bound_by": grow["bound_by"], "library_ms": None,
         "k1_route": "simt", "shape": grow["case"]})
     frow = k3["rows"][0]
-    kernels.append({
-        "name": FA.FWD_NAME, "route": "cuda", "source": FWD_SOURCE,
-        "replaces": FWD_REPLACES, "launches": k3["launches"],
-        "max_abs_err": k3["max_abs_err"], "ms": frow["ms"],
-        "plain_ms": frow["plain_ms"], "bound_ms": frow["bound_ms"],
-        "bound_by": frow["bound_by"], "library_ms": frow["library_ms"],
-        "shape": f"{frow['case']} B={frow['B']} Lq={frow['Lq']} "
-                 f"S={frow['S']} H={frow['H']} Hkv={frow['Hkv']} "
-                 f"D={frow['D']} causal bf16"})
+    for fr, suffix, key in (("wgmma", "", "ms"), ("simt", "[simt]",
+                                                   "simt_ms")):
+        kernels.append({
+            "name": FA.FWD_NAME + suffix, "route": "cuda",
+            "source": FWD_SOURCE, "replaces": FWD_REPLACES,
+            "launches": k3["launches"][fr],
+            "max_abs_err": k3["max_abs_err"][fr], "ms": frow[key],
+            "plain_ms": frow["plain_ms"], "bound_ms": frow["bound_ms"],
+            "bound_by": frow["bound_by"], "library_ms": frow["library_ms"],
+            "fwd_route": fr,
+            "shape": f"{frow['case']} B={frow['B']} Lq={frow['Lq']} "
+                     f"S={frow['S']} H={frow['H']} Hkv={frow['Hkv']} "
+                     f"D={frow['D']} causal bf16"
+                     + ("" if fr == "wgmma" else ", bases off 16 bytes")})
     orow = k4["row"]
     kernels.append({
         "name": "ca_mmm_k_outer", "route": "cuda", "source": K_OUTER_SOURCE,

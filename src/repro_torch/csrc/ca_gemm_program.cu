@@ -85,11 +85,30 @@
 // stage in shared memory, through the swizzle, before its products, rounding
 // to bf16 in the SIMT kernel's order: the consumer threads rather than an A
 // from registers (wgmma RS), because dact decorates B as well as A and one
-// form serves both.  The drain keeps the SIMT kernel's chain and order.  The
-// route is decided by wgmma_route and its Python twin
+// form serves both.  The drain keeps the SIMT kernel's chain and order.
+//
+// The decode route: the same bf16 serving programs (nn, no training flag) at
+// m <= 8 with the same aligned operands run a split-k cluster kernel
+// (ca_gemm_decode_kernel below).  They are GEMVs bound by B's bytes, so the
+// design is about bytes in flight and covering the SMs, not tensor cores.
+// A CTA of 256 threads owns a strip of 64 C columns over a chunk of k: each
+// thread streams 16-byte vectors of B (8 columns of one k row; 32 k lanes x
+// 8 column groups) U rows deep, so a CTA keeps 32 KB of B in flight at
+// m = 1; the <= 8 rows of A for the chunk are staged once in shared memory
+// as fp32, the rms prologue applied there in the SIMT kernel's order; the
+// products are fp32 FMAs, one partial per row, column and branch.  So that a
+// narrow n still covers the card, k is split over a thread-block cluster of
+// up to 8 CTAs (about two CTAs an SM in all); each CTA reduces its k lanes
+// (warp shuffles, then the 8 warps in order) and the leader CTA sums the
+// cluster's partials through distributed shared memory in rank order, so
+// the result is the same run to run (no atomics), then runs the drain chain
+// once and stores each C element once.  A wide n (the head's 1568 strips)
+// takes no split.
+//
+// The route is decided by k1_route and its Python twin
 // (kernels/ca_mmm.py:k1_route), nothing else; everything else (fp32,
-// int8, min_plus, decode at m <= 8, misaligned operands) runs the SIMT tile
-// below, whose instantiations and code are unchanged.
+// int8, min_plus, training programs at m <= 8, misaligned operands) runs the
+// SIMT tile below, whose instantiations and code are unchanged.
 //
 // The distance product (K1g) runs in one instantiation of the 64 x 64 tile
 // (MIN_PLUS below): fp32 or bf16 A and B, read through a run-time type flag
@@ -107,14 +126,14 @@
 //
 // What bounds it on the H100: at decode (m = 1) every program is bound by
 // the weight bytes it must stream.  The GLU streams 2 x 2048 x 5632 x 2 B =
-// 46 MB in bf16 (13.8 us at 3.35 TB/s), half that in int8 (6.9 us).  This
-// is a simple SIMT kernel (fp32 FMAs or int32 multiply-adds, no tensor
-// cores): with BN = 64 on n = 2048 it would launch only 32 CTAs on 132 SMs,
-// so for m <= 8 it takes BN = 16 (128 CTAs on n = 2048), which still leaves
-// it limited by shared-memory reads and by the few bytes each SM keeps in
-// flight, far below that bound.  The measured times stand in PERF.md; wgmma
-// at decode (swap-AB, s8 wgmma for w8a8) and a split-k path are later work.
+// 46 MB in bf16 (13.8 us at 3.35 TB/s), half that in int8 (6.9 us).  The
+// SIMT tile (fp32 FMAs or int32 multiply-adds, no tensor cores) takes
+// BN = 16 for m <= 8 (128 CTAs on n = 2048), which leaves it limited by
+// shared-memory reads and by the few bytes each SM keeps in flight, far
+// below that bound; bf16 decode takes the decode route instead, int8 decode
+// (K1d, K1e) still the SIMT tile.  The measured times stand in PERF.md.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -807,22 +826,6 @@ __global__ void __launch_bounds__(ml::WIDE_THREADS, 1)
   }
 }
 
-// Which route a launch takes (the twin of kernels/ca_mmm.py:k1_route):
-// wgmma for bf16 A and B at m > 8 whose TMA'd operands (A, B, the dact
-// pre-activation) have 16-byte aligned bases and row strides; the GLU only
-// in the nn layout and without dact.  Everything else, fp32, int8 and
-// decode, stays on the SIMT tile.
-bool wgmma_route(const Params& p, int a_type, int b_type, bool two) {
-  if (a_type != TYPE_BF16 || b_type != TYPE_BF16 || p.m <= 8 || p.k < 1) return false;
-  if (p.n > 65535 * WG_BN<2>) return false;
-  if (two && (p.trans_a || p.trans_b || p.dact != DACT_NONE)) return false;
-  const long long a_row = p.trans_a ? p.m : p.k, b_row = p.trans_b ? p.k : p.n;
-  bool ok = ml::tma_ok(p.a, 2 * a_row) && ml::tma_ok(p.b[0], 2 * b_row) &&
-            ml::tma_ok(p.b[1], 2 * b_row);
-  if (p.dact != DACT_NONE) ok = ok && ml::tma_ok(p.preact, 4LL * (p.dact == DACT_A ? p.k : p.n));
-  return ok;
-}
-
 template <int NB, bool TA, bool TB>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   constexpr int BN = WG_BN<NB>;
@@ -853,6 +856,267 @@ int launch_wgmma_program(const Params& p, bool two, cudaStream_t stream) {
   return p.trans_b ? launch_wgmma<1, false, true>(p, stream) : launch_wgmma<1, false, false>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The decode route: bf16 serving programs at m <= 8 on a split-k cluster
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int DEC_THREADS = 256;
+constexpr int DEC_BN = 64;                     // C columns a CTA owns (a strip)
+constexpr int DEC_CG = DEC_BN / 8;             // 16-byte column groups of a strip
+constexpr int DEC_KL = DEC_THREADS / DEC_CG;   // k lanes: rows kl, kl + 32, ...
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_MAX_SPLIT = 8;               // CTAs of a cluster (the portable most)
+constexpr int DEC_MIN_CHUNK = 256;             // k rows a CTA takes at least
+constexpr int DEC_A_BYTES = 64 * 1024;         // shared memory for A's staged rows
+
+// A rows a CTA stages at a time: the whole chunk, unless MR rows of it
+// outgrow DEC_A_BYTES (then the chunk goes in pieces).
+template <int MR>
+__host__ __device__ constexpr int dec_piece() {
+  return DEC_A_BYTES / (MR * 4);
+}
+
+// One 16-byte vector of B, streamed once: read-only, not kept in L1.
+__device__ __forceinline__ uint4 ld_stream(const uint4* ptr) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(ptr));
+  return v;
+}
+
+// Element j (0-7) of 8 bf16 packed in a vector, widened to fp32.
+__device__ __forceinline__ float bf16_at(const uint4& v, int j) {
+  const uint32_t w = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
+  return __uint_as_float(j % 2 ? w & 0xffff0000u : w << 16);
+}
+
+// MR: rows of A a CTA computes (1 for m = 1, else 8, rows past m zero).
+// The grid is (n strips, split), one cluster per strip, rank r taking k rows
+// [r chunk, (r + 1) chunk).
+template <int MR, int NB>
+__global__ void __launch_bounds__(DEC_THREADS) ca_gemm_decode_kernel(const Params p, int chunk) {
+  constexpr int U = MR == 1 ? 8 : 4;           // B rows a thread keeps in flight
+  constexpr int PIECE = dec_piece<MR>();
+  extern __shared__ float4 dec_smem[];
+  float* As = reinterpret_cast<float*>(dec_smem);  // [piece rows][MR], fp32
+  __shared__ float red[DEC_WARPS][NB * MR * DEC_BN];
+  __shared__ float part[NB * MR * DEC_BN];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, cgi = tid % DEC_CG, kl = tid / DEC_CG;
+  const int col = blockIdx.x * DEC_BN + cgi * 8;
+  const bool col_in = col < p.n;  // n % 8 == 0: a vector lies wholly inside or out
+  const int kb = rank * chunk, ke = min(p.k, kb + chunk);
+  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
+
+  float acc[NB][MR][8];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][r][j] = 0.f;
+  uint4 v[NB][U];
+  // B rows base + 32 u, u < U, below pe; zeros past it.
+  auto load = [&](int base, int pe) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kr = base + u * DEC_KL;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b[i]);
+        v[i][u] = col_in && kr < pe
+                      ? ld_stream(reinterpret_cast<const uint4*>(B + (long long)kr * p.n + col))
+                      : make_uint4(0, 0, 0, 0);
+      }
+    }
+  };
+  auto compute = [&](int base, int p0, int pe) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kr = base + u * DEC_KL;
+      if (kr >= pe) break;
+      float a[MR];
+      if constexpr (MR == 1) {
+        a[0] = As[kr - p0];
+      } else {
+        const float4* ar = reinterpret_cast<const float4*>(As + (kr - p0) * MR);
+#pragma unroll
+        for (int q = 0; q < MR / 4; ++q) {
+          const float4 x = ar[q];
+          a[4 * q] = x.x;
+          a[4 * q + 1] = x.y;
+          a[4 * q + 2] = x.z;
+          a[4 * q + 3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float w = bf16_at(v[i][u], j);
+#pragma unroll
+          for (int r = 0; r < MR; ++r) acc[i][r][j] = fmaf(a[r], w, acc[i][r][j]);
+        }
+    }
+  };
+
+  for (int p0 = kb; p0 < ke; p0 += PIECE) {
+    const int pe = min(ke, p0 + PIECE);
+    int base = p0 + kl;
+    load(base, pe);                  // the first rows are in flight during the staging
+    if (p0 != kb) __syncthreads();   // the previous piece is read
+    // A rows [p0, pe) as fp32, the rms prologue applied and rounded back to
+    // bf16 as the SIMT kernel does; rows past m are zero.
+    for (int e = tid; e < (pe - p0) * MR; e += DEC_THREADS) {
+      const int r = e % MR, kr = p0 + e / MR;
+      float x = 0.f;
+      if (r < p.m) {
+        __nv_bfloat16 av = A[(long long)r * p.k + kr];
+        if (p.row_scale != nullptr)
+          av = __float2bfloat16_rn(__fmul_rn(__fmul_rn(__bfloat162float(av), p.row_scale[r]),
+                                             load_f32(p.gain, kr, p.gain_f32)));
+        x = __bfloat162float(av);
+      }
+      As[e] = x;
+    }
+    __syncthreads();
+    for (;;) {
+      compute(base, p0, pe);
+      base += U * DEC_KL;
+      if (base >= pe) break;
+      load(base, pe);
+    }
+  }
+
+  // The CTA's partial: the 4 k lanes of a warp by shuffles, then the warps
+  // in order, each sum in a fixed order.
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = acc[i][r][j];
+        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 8));
+        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 16));
+        acc[i][r][j] = x;
+      }
+  if (lane < DEC_CG) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int r = 0; r < MR; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) red[warp][(i * MR + r) * DEC_BN + lane * 8 + j] = acc[i][r][j];
+  }
+  __syncthreads();
+  for (int e = tid; e < NB * MR * DEC_BN; e += DEC_THREADS) {
+    float x = red[0][e];
+#pragma unroll
+    for (int w = 1; w < DEC_WARPS; ++w) x = __fadd_rn(x, red[w][e]);
+    part[e] = x;
+  }
+  cluster.sync();
+  // The leader sums the cluster's partials in rank order through
+  // distributed shared memory, runs the drain chain and stores once.
+  if (rank == 0) {
+    for (int e = tid; e < MR * DEC_BN; e += DEC_THREADS) {
+      const int r = e / DEC_BN, cl = e % DEC_BN, c = blockIdx.x * DEC_BN + cl;
+      if (r >= p.m || c >= p.n) continue;
+      float y[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        y[i] = part[(i * MR + r) * DEC_BN + cl];
+        for (int q = 1; q < split; ++q)
+          y[i] = __fadd_rn(y[i], cluster.map_shared_rank(&part[0], q)[(i * MR + r) * DEC_BN + cl]);
+      }
+      const long long idx = (long long)r * p.n + c;
+      const float z = wg_chain<NB>(p, y[0], y[NB - 1], c, idx);
+      if (p.out_f32)
+        static_cast<float*>(p.out)[idx] = z;
+      else
+        static_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16_rn(z);
+    }
+  }
+  cluster.sync();  // the partials stay until the leader has read them
+}
+
+// The split of k over a cluster: about two CTAs an SM in all, at most
+// DEC_MAX_SPLIT, each CTA at least DEC_MIN_CHUNK rows; `chunk` (a multiple
+// of the k lanes) is each CTA's share.
+int decode_split(const Params& p, int* chunk) {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const int strips = (p.n + DEC_BN - 1) / DEC_BN;
+  const int most = (p.k + DEC_MIN_CHUNK - 1) / DEC_MIN_CHUNK;
+  int split = (2 * sms + strips - 1) / strips;
+  split = split < DEC_MAX_SPLIT ? split : DEC_MAX_SPLIT;
+  split = split < most ? split : most;
+  split = split > 1 ? split : 1;
+  *chunk = ((p.k + split - 1) / split + DEC_KL - 1) / DEC_KL * DEC_KL;
+  return (p.k + *chunk - 1) / *chunk;
+}
+
+template <int MR, int NB>
+int launch_decode(const Params& p, cudaStream_t stream) {
+  auto kernel = ca_gemm_decode_kernel<MR, NB>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_A_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int chunk = 0;
+  const int split = decode_split(p, &chunk);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.n + DEC_BN - 1) / DEC_BN, split, 1);
+  cfg.blockDim = dim3(DEC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (chunk < dec_piece<MR>() ? chunk : dec_piece<MR>()) * MR * 4;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 1;
+  attrs[0].val.clusterDim.y = split;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, chunk);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+int launch_decode_program(const Params& p, bool two, cudaStream_t stream) {
+  if (p.m == 1) return two ? launch_decode<1, 2>(p, stream) : launch_decode<1, 1>(p, stream);
+  return two ? launch_decode<8, 2>(p, stream) : launch_decode<8, 1>(p, stream);
+}
+
+enum Route { ROUTE_SIMT = 0, ROUTE_WGMMA = 1, ROUTE_DECODE = 2 };
+
+// Which route a launch takes (the twin of kernels/ca_mmm.py:k1_route): for
+// bf16 A and B whose TMA'd or vector-loaded operands (A, B, the dact
+// pre-activation) have 16-byte aligned bases and row strides, decode at
+// m <= 8 for a serving program (nn, no dact, no save_preact), wgmma at
+// m > 8 (the GLU only in the nn layout and without dact).  Everything else,
+// fp32, int8, training programs at m <= 8, stays on the SIMT tile.
+int k1_route(const Params& p, int a_type, int b_type, bool two) {
+  if (a_type != TYPE_BF16 || b_type != TYPE_BF16 || p.k < 1) return ROUTE_SIMT;
+  const long long a_row = p.trans_a ? p.m : p.k, b_row = p.trans_b ? p.k : p.n;
+  bool ok = ml::tma_ok(p.a, 2 * a_row) && ml::tma_ok(p.b[0], 2 * b_row) &&
+            ml::tma_ok(p.b[1], 2 * b_row);
+  if (p.dact != DACT_NONE) ok = ok && ml::tma_ok(p.preact, 4LL * (p.dact == DACT_A ? p.k : p.n));
+  if (!ok) return ROUTE_SIMT;
+  if (p.m <= 8) return is_training_program(p) ? ROUTE_SIMT : ROUTE_DECODE;
+  if (p.n > 65535 * WG_BN<2>) return ROUTE_SIMT;
+  if (two && (p.trans_a || p.trans_b || p.dact != DACT_NONE)) return ROUTE_SIMT;
+  return ROUTE_WGMMA;
+}
+
 }  // namespace
 
 // C entry point.  The caller checks shapes, types, scales and contiguity;
@@ -860,8 +1124,8 @@ int launch_wgmma_program(const Params& p, bool two, cudaStream_t stream) {
 // with int8 B (dqb), or int8 A with int8 B (dqab); any other pair, or a
 // training program (transposed layout, dact or save_preact) on int8
 // operands, returns cudaErrorInvalidValue.  `route` is the caller's route
-// (1 wgmma, 0 SIMT, from kernels/ca_mmm.py:k1_route); one that differs from
-// wgmma_route's returns cudaErrorInvalidValue too.  Launches on `stream`
+// (0 SIMT, 1 wgmma, 2 decode, from kernels/ca_mmm.py:k1_route); one that
+// differs from k1_route's returns cudaErrorInvalidValue too.  Launches on `stream`
 // without synchronising and returns cudaGetLastError().
 extern "C" int ca_gemm_program_launch(
     const void* a, const void* b0, const void* b1, const void* row_scale,
@@ -912,9 +1176,10 @@ extern "C" int ca_gemm_program_launch(
   if (is_training_program(p) && (a_type == TYPE_I8 || b_type == TYPE_I8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wgmma = wgmma_route(p, a_type, b_type, two);
-  if (route != (wgmma ? 1 : 0)) return static_cast<int>(cudaErrorInvalidValue);
-  if (wgmma) return launch_wgmma_program(p, two, s);
+  const int r = k1_route(p, a_type, b_type, two);
+  if (route != r) return static_cast<int>(cudaErrorInvalidValue);
+  if (r == ROUTE_WGMMA) return launch_wgmma_program(p, two, s);
+  if (r == ROUTE_DECODE) return launch_decode_program(p, two, s);
   if (a_type == TYPE_F32 && b_type == TYPE_F32)
     launch_typed<float, float>(p, two, s);
   else if (a_type == TYPE_BF16 && b_type == TYPE_BF16)

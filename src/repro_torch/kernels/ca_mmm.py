@@ -27,15 +27,19 @@ The k-outer ablation (K4, :func:`ca_mmm_k_outer`) is a kernel of its own,
 one launch per k step, each reading and writing every C tile through
 device memory.
 
-Two routes (:func:`k1_route`, twinned by ``wgmma_route`` in the C entry
+Three routes (:func:`k1_route`, twinned by ``k1_route`` in the C entry
 point, which refuses a launch whose route differs).  bf16 programs at
 m > 8 whose TMA'd operands are 16-byte aligned run on a TMA + WGMMA main
 loop (``csrc/wgmma_mainloop.cuh``): 128 x 128 C tiles (128 x 64 for the
 GLU), A and B through a ring of swizzled TMA stages in their stored
-layouts, wgmma into fp32 registers, the same prologues and drain.  fp32,
-int8, min_plus, decode (m <= 8) and misaligned operands stay on the SIMT
-tile.  K4's bf16 step at whole 128 x 128 x 64 blocks runs the same main
-loop (:func:`k_outer_route`).
+layouts, wgmma into fp32 registers, the same prologues and drain.  The
+same bf16 serving programs (``nn``, no training flag) at m <= 8, decode,
+run a split-k cluster kernel: 64-column strips of B streamed once in
+16-byte vectors, k split over up to 8 CTAs of a cluster whose partials
+the leader sums in rank order through distributed shared memory before
+the drain.  fp32, int8, min_plus, training programs at m <= 8 and
+misaligned operands stay on the SIMT tile.  K4's bf16 step at whole
+128 x 128 x 64 blocks runs the wgmma main loop (:func:`k_outer_route`).
 
 Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
 activations) streams int8 B tiles and widens them in registers; ``dqab``
@@ -91,8 +95,10 @@ K_OUTER_TILES = {torch.float32: SIMT_TILE, torch.bfloat16: WGMMA_TILE,
 # launch below adds to it; the plain version never does.
 launch_counts: Dict[str, int] = {}
 # The same launches by route and launch key: "wgmma none nt",
-# "simt dqb", "wgmma k_outer", ...
+# "decode res", "simt dqb", "wgmma k_outer", ...
 route_counts: Dict[str, int] = {}
+# The route codes of the C entry point.
+_ROUTE_CODES = {"simt": 0, "wgmma": 1, "decode": 2}
 
 _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -143,17 +149,23 @@ _WGMMA_MAX_N = 65535 * 64
 
 def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
              b_dtype: torch.dtype, m: int, n: int, k: int, aligned: bool,
-             semiring: str = "plus_times") -> str:
-    """The route a K1 launch takes: ``"wgmma"`` for a bf16 program (A and
-    B bf16, so no dequant) of the plus_times semiring at m > 8 whose TMA'd
-    operands have 16-byte aligned bases and row strides (``aligned``), one
-    branch in any layout or the GLU in ``nn`` without ``dact``;
-    ``"simt"`` otherwise: fp32, int8, min_plus, decode.  The C entry
-    point's ``wgmma_route`` is its twin and refuses a launch whose route
-    differs."""
+             semiring: str = "plus_times", save_preact: bool = False) -> str:
+    """The route a K1 launch takes.  For a bf16 program (A and B bf16, so
+    no dequant) of the plus_times semiring whose operands have 16-byte
+    aligned bases and row strides (``aligned``): ``"decode"`` at m <= 8
+    for a serving program (``nn``, no ``dact``, no ``save_preact``);
+    ``"wgmma"`` at m > 8 for one branch in any layout or the GLU in ``nn``
+    without ``dact``.  ``"simt"`` otherwise: fp32, int8, min_plus,
+    training programs at m <= 8, misaligned operands.  The C entry point's
+    ``k1_route`` is its twin and refuses a launch whose route differs."""
     if (semiring != "plus_times" or a_dtype != torch.bfloat16
-            or b_dtype != torch.bfloat16 or m <= 8 or k < 1
-            or n > _WGMMA_MAX_N or not aligned):
+            or b_dtype != torch.bfloat16 or k < 1 or not aligned):
+        return "simt"
+    if m <= 8:
+        training = (layout != "nn" or spec.prologue.kind == "dact"
+                    or save_preact)
+        return "simt" if training else "decode"
+    if n > _WGMMA_MAX_N:
         return "simt"
     if spec.n_b == 2 and (layout != "nn" or spec.prologue.kind == "dact"):
         return "simt"
@@ -533,7 +545,7 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     pro = spec.prologue
     layout = layout_tag(transpose_a, transpose_b)
     route = k1_route(spec, layout, a.dtype, bs[0].dtype, m, n, k,
-                     tma_aligned(a, *bs, preact))
+                     tma_aligned(a, *bs, preact), save_preact=save_preact)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _library().ca_gemm_program_launch(
         _ptr(a), _ptr(bs[0]), _ptr(bs[1]) if spec.n_b == 2 else None,
@@ -553,7 +565,7 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
         scale_b_block or scale_a_block, int(scale_b_block > 0),
         int(scale_a_block > 0), int(transpose_a), int(transpose_b),
         _DACT_CODES[pro.operand if pro.kind == "dact" else "none"],
-        _ACT_CODES[pro.activation], int(route == "wgmma"), stream)
+        _ACT_CODES[pro.activation], _ROUTE_CODES[route], stream)
     if err != 0:
         raise RuntimeError(f"ca_gemm_program kernel launch failed ({route} "
                            f"route): CUDA error {err}")
@@ -613,9 +625,10 @@ def ca_gemm_program(
     widened to fp32 (any other numeric type cast to fp32 on entry, as the
     reference casts it), fp32 out, NaN propagating.
 
-    bf16 programs at m > 8 with 16-byte aligned operands take the wgmma
-    route, the rest the SIMT tile (:func:`k1_route`); both count in
-    ``launch_counts`` and, by route, in ``route_counts``.
+    bf16 programs with 16-byte aligned operands take the wgmma route at
+    m > 8 and, serving programs, the decode route at m <= 8; the rest the
+    SIMT tile (:func:`k1_route`).  All count in ``launch_counts`` and, by
+    route, in ``route_counts``.
 
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
     ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per

@@ -11,11 +11,18 @@ v-scale into the PV partial), and stores each output element once.  It reads the
 device; the wrapper never reads them to the host.
 
 K3 is ``repro_torch/csrc/flash_attn_fwd.cu``: one CTA per (batch x KV
-head, q block) holds the G x qc query rows of that block, walks the kv
-slots in blocks through shared memory with the fp32 online softmax and
-stores each output element once; it reads both position arrays on the
-device.  No model calls it: the model's prefill keeps the plain chunked
-attention of :mod:`repro_torch.models.attention`, as the reference's does.
+head, q block, chunk of the G query heads, so any G) holds the folded
+(head, position) query rows of that block, walks the kv slots in blocks of
+64 with the fp32 online softmax and stores each output element once; it
+reads both position arrays on the device.  Two routes (:func:`fwd_route`,
+twinned in the C entry point, which refuses a launch whose route
+differs): bf16 operands that meet TMA's address rules take a TMA + WGMMA
+kernel (128 rows a CTA, K and V through a ring of TMA stages, Q K^T and
+P V on the tensor cores, the softmax in the accumulator's registers);
+fp32 and the rest a SIMT kernel (64 rows, fp32 FMAs).  Launches count in
+``launch_counts`` and, by route, in ``route_counts``.  No model calls it:
+the model's prefill keeps the plain chunked attention of
+:mod:`repro_torch.models.attention`, as the reference's does.
 
 Dispatch depends only on where the operands lie: CPU tensors run the plain
 torch versions (:func:`paged_flash_attention_reference`,
@@ -38,22 +45,24 @@ NAME = "paged_flash_attention"
 FWD_SOURCE = _build.CSRC / "flash_attn_fwd.cu"
 FWD_NAME = "flash_attention"
 
-# Launches of the CUDA kernel.  Only the kernel launch below adds to it;
-# the plain version never does.
+# Launches of the CUDA kernels.  Only the kernel launches below add to it;
+# the plain versions never do.
 launch_counts: Dict[str, int] = {}
+# K3's launches by route: "wgmma flash_attention", "simt flash_attention".
+route_counts: Dict[str, int] = {}
 
 NEG = -1e30
 _FLOATS = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 128          # the kernel's register accumulator width
-# K3's fixed tile: query rows per CTA (G heads x 64 / G positions, so at
-# most 64 query heads per KV head) and kv slots per online-softmax step;
-# the plain version steps through the kv slots in the same blocks.
-FWD_ROWS = 64
+# K3's kv slots per online-softmax step, on both routes; the plain version
+# steps through the kv slots in the same blocks.
 FWD_KV_BLOCK = 64
+_ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    route_counts.clear()
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -237,8 +246,20 @@ def paged_flash_attention(
 def _bind_fwd(lib: ctypes.CDLL) -> None:
     fn = lib.flash_attn_fwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+
+
+def fwd_route(dtype: torch.dtype, D: int, Dv: int, aligned: bool) -> str:
+    """The route a K3 launch takes: ``"wgmma"`` for bf16 whose q, k and v
+    meet TMA's address rules (16-byte aligned bases, ``aligned``, and row
+    strides, so D and Dv multiples of 8); ``"simt"`` otherwise (fp32, and
+    bf16 TMA cannot take).  The C entry point's ``fwd_route`` is its twin
+    and refuses a launch whose route differs."""
+    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and Dv % 8 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def _check_fwd(q, k, v, q_positions, kv_positions, window, q_block,
@@ -361,10 +382,9 @@ def flash_attention_reference(
 def _launch_fwd(q, k, v, q_positions, kv_positions, causal, window, scale,
                 geometry) -> torch.Tensor:
     B, Lq, S, H, Hkv, D, Dv = geometry
-    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM or H // Hkv > FWD_ROWS:
-        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM} and "
-                         f"<= {FWD_ROWS} query heads per KV head, got D={D} "
-                         f"Dv={Dv} G={H // Hkv}")
+    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM}, "
+                         f"got D={D} Dv={Dv}")
     if B * Hkv > 65535:
         raise ValueError(f"B x Hkv = {B * Hkv} exceeds the kernel's grid")
     for t in (q, k, v, q_positions, kv_positions):
@@ -373,16 +393,20 @@ def _launch_fwd(q, k, v, q_positions, kv_positions, causal, window, scale,
     out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
     if B == 0 or Lq == 0:
         return out
+    route = fwd_route(q.dtype, D, Dv,
+                      all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.load(FWD_SOURCE, _bind_fwd).flash_attn_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
         kv_positions.data_ptr(), out.data_ptr(), B, Lq, S, H, Hkv, D, Dv,
         int(causal), window or 0, scale, int(q.dtype == torch.bfloat16),
-        stream)
+        _ROUTE_CODES[route], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     launch_counts[FWD_NAME] = launch_counts.get(FWD_NAME, 0) + 1
+    rkey = f"{route} {FWD_NAME}"
+    route_counts[rkey] = route_counts.get(rkey, 0) + 1
     return out
 
 
@@ -408,11 +432,12 @@ def flash_attention(
     heads.  A query that sees no slot gets 0.  Returns ``(B, Lq, H, Dv)``
     in q's dtype; q, k and v share one dtype, fp32 or bf16.
 
-    The kernel's tile is fixed (64 query rows, 64 kv slots a step):
-    ``q_block`` and ``kv_block`` are accepted and not read, as results do
-    not depend on the blocking beyond rounding.  CPU operands run
-    :func:`flash_attention_reference`; CUDA operands launch the kernel
-    (head dims <= 128).
+    The kernel's tiles are fixed (128 query rows on the wgmma route, 64
+    on the SIMT one, 64 kv slots a step): ``q_block`` and ``kv_block`` are
+    accepted and not read, as results do not depend on the blocking beyond
+    rounding.  CPU operands run :func:`flash_attention_reference`; CUDA
+    operands launch the kernel on the route :func:`fwd_route` gives (head
+    dims <= 128, any number of query heads per KV head).
     """
     geometry = _check_fwd(q, k, v, q_positions, kv_positions, window,
                           q_block, kv_block)

@@ -674,7 +674,7 @@ GLU = "rms>glu.silu(none|none)"
 
 
 def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
-           misaligned=False):
+           misaligned=False, save_preact=False):
     """k1_route of one call's operands, built as CPU tensors in their
     stored layouts (A (k, m) for t?, B (n, k) for ?t), with A's base moved
     off 16 bytes by one element where ``misaligned``."""
@@ -693,13 +693,14 @@ def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
     if pro.kind == "dact":
         preact = torch.empty((m, k) if pro.operand == "a" else (k, n))
     return K.k1_route(spec, layout, a_dt, b_dt, m, n, k,
-                      K.tma_aligned(a, *bs, preact), semiring)
+                      K.tma_aligned(a, *bs, preact), semiring,
+                      save_preact=save_preact)
 
 
 @pytest.mark.parametrize("tag,layout,dtypes,m,n,k,kw,want", [
     ("none", "nn", (BF16, BF16), 9, 2048, 2048, {}, "wgmma"),
-    ("none", "nn", (BF16, BF16), 8, 2048, 2048, {}, "simt"),
-    ("res", "nn", (BF16, BF16), 1, 2048, 5632, {}, "simt"),
+    ("none", "nn", (BF16, BF16), 8, 2048, 2048, {}, "decode"),
+    ("res", "nn", (BF16, BF16), 1, 2048, 5632, {}, "decode"),
     (GLU, "nn", (BF16, BF16), 37, 5632, 2048, {}, "wgmma"),
     ("none", "nn", (torch.float32,) * 2, 1024, 2048, 2048, {}, "simt"),
     ("none nt", "nt", (torch.float32,) * 2, 1024, 2048, 2048, {}, "simt"),
@@ -722,9 +723,51 @@ def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
 def test_k1_route(tag, layout, dtypes, m, n, k, kw, want):
     """wgmma for bf16 A and B at m > 8 with TMA-aligned operands (bases and
     row strides on 16 bytes), one branch in any layout or the GLU in nn
-    without dact; SIMT for decode (m <= 8), fp32, int8, min_plus, a k,
-    m or base off 16 bytes, and the GLU in another layout."""
+    without dact; decode for the same at m <= 8 (serving programs); SIMT
+    for fp32, int8, min_plus, a k, m or base off 16 bytes, and the GLU in
+    another layout."""
     assert _route(tag.split(" ")[0], layout, dtypes, m, n, k, **kw) == want
+
+
+# The decode route: stablelm-1.6b's and h2o-danube-3-4b's serving programs
+# at m <= 8 (k, n), and the cases at m <= 8 that stay on the SIMT tile.
+DECODE_PROGRAMS = [("none", 2048, 2048), ("none", 2048, 100352),
+                   ("res", 5632, 2048), (GLU, 2048, 5632),
+                   ("bias+gelu+mul+res", 3840, 960),
+                   ("glu.gelu(bias|bias)", 3840, 10240)]
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("tag,k,n", DECODE_PROGRAMS,
+                         ids=[f"{t} {k}x{n}" for t, k, n in DECODE_PROGRAMS])
+def test_k1_route_takes_decode_at_m_up_to_8(tag, k, n, m):
+    """bf16, aligned nn serving programs at m <= 8 take the decode route,
+    and the same program at m = 9 the wgmma route."""
+    assert _route(tag, "nn", (BF16, BF16), m, n, k) == "decode"
+    assert _route(tag, "nn", (BF16, BF16), 9, n, k) == "wgmma"
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("case", [
+    ("none", "nn", (torch.float32,) * 2, {}),
+    ("dqb", "nn", (BF16, torch.int8), {}),
+    ("dqab", "nn", (torch.int8,) * 2, {}),
+    ("none", "nn", (BF16, BF16), {"semiring": "min_plus"}),
+    ("none", "nn", (BF16, BF16), {"misaligned": True}),
+    ("none", "nt", (BF16, BF16), {}),
+    ("none", "tn", (BF16, BF16), {}),
+    ("dact.silu>none", "nn", (BF16, BF16), {}),
+    ("dact.silu@b>none", "nn", (BF16, BF16), {}),
+    ("bias+gelu", "nn", (BF16, BF16), {"save_preact": True}),
+    (GLU, "nn", (BF16, BF16), {"save_preact": True}),
+], ids=["fp32", "dqb", "dqab", "min_plus", "misaligned", "nt", "tn",
+        "dact@a", "dact@b", "save_preact", "glu save_preact"])
+def test_k1_route_keeps_simt_at_m_up_to_8(case, m):
+    """fp32, int8, min_plus, misaligned operands and the training flags
+    (a transposed layout, dact, save_preact) stay on the SIMT tile at
+    m <= 8."""
+    tag, layout, dtypes, kw = case
+    assert _route(tag, layout, dtypes, m, 2048, 2048, **kw) == "simt"
 
 
 # stablelm-1.6b's training GEMMs at full width, 1024 tokens a step, in the

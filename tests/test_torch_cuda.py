@@ -366,6 +366,65 @@ def test_cuda_wgmma_route_matches_plain_version(tag, layout, save, shape):
         assert err <= tol, (i, err, tol)
 
 
+# The decode route (bf16 serving programs at m <= 8): (tag, out dtype),
+# the head's none with a bias and fp32 out among them; shapes ragged
+# against the 64-column strip (n a multiple of 8, not of 64) and against
+# the cluster's k chunk (k = 1000: four CTAs of 256, 256, 256, 232 rows),
+# and one wide enough for no split whose k goes through A's shared memory
+# in two pieces at m > 1.
+DECODE_CASES = [("none", None), ("bias", torch.float32), ("res", None),
+                ("rms>glu.silu(none|none)", None),
+                ("bias+gelu+mul+res", None), ("glu.gelu(bias|bias)", None)]
+DECODE_SHAPES = {"ragged": (200, 1000), "wide": (16904, 2600)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+@pytest.mark.parametrize("tag,od", DECODE_CASES,
+                         ids=[f"{t}-{str(od)[6:] or 'bf16'}"
+                              for t, od in DECODE_CASES])
+def test_cuda_decode_route_matches_plain_version(tag, od, shape, m):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, k = DECODE_SHAPES[shape]
+    a, bs, kw = _program_inputs(tag, m, n, k, torch.bfloat16, seed=17)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
+    assert K.route_counts == {f"decode {tag}": 1}
+    again = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
+    want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # no atomics: the same bits each run
+    assert got.shape == (m, n) and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    # fp32: the sums run in another order; bf16: one output ulp may flip.
+    tol = 1e-4 * (1 + scale) if got.dtype == torch.float32 \
+        else 2e-2 * scale
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8])
+def test_cuda_misaligned_decode_takes_the_simt_tile(m):
+    """A bf16 A whose base is off 16 bytes: the SIMT tile, same result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n, k = 200, 1000
+    a, bs, kw = _program_inputs("res", m, n, k, torch.bfloat16, seed=19)
+    off = torch.empty(m * k + 1, dtype=a.dtype, device="cuda")[1:].view(m, k)
+    off.copy_(a)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(off, bs, **kw)
+    assert K.route_counts == {"simt res": 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["fused", "glu"])
 def test_cuda_backward_matches_cpu(which):
@@ -466,6 +525,11 @@ FWD_CASES = {  # B, Lq, S, H, Hkv, D, window, causal, holes
     "gqa4 window": (1, 100, 300, 8, 2, 120, 37, True, False),
     "holes ragged": (3, 45, 77, 6, 2, 40, None, True, True),
     "non-causal window": (1, 64, 200, 4, 1, 32, 50, False, True),
+    # Query heads per KV head past a CTA's rows: head chunks.
+    "granite G48": (1, 70, 200, 48, 1, 128, None, True, False),
+    "G96 window": (2, 9, 150, 96, 1, 64, 40, True, True),
+    # danube's D = 120 (two 64-wide boxes, 8 zero dims), ragged Lq and S.
+    "danube D120 ragged": (2, 77, 333, 32, 8, 120, 100, True, True),
 }
 
 
@@ -490,6 +554,8 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
     FA.reset_launch_counts()
     got = FA.flash_attention(q, k, v, **kw)
     assert FA.launch_counts == {FA.FWD_NAME: 1}
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert FA.route_counts == {f"{route} {FA.FWD_NAME}": 1}
     want = FA.flash_attention_reference(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -507,6 +573,34 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
         assert mean <= 2.0 ** -12, mean
     if holes and causal:
         assert not bool(got[-1, 0].any())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_misaligned_bf16_takes_simt():
+    """bf16 q whose base is off 16 bytes: the SIMT route, the same bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    B, Lq, S, H, Hkv, D = 1, 40, 90, 8, 2, 64
+    r = np.random.RandomState(33)
+    t = lambda *shape: torch.as_tensor(  # noqa: E731
+        r.randn(*shape)).to(device="cuda", dtype=torch.bfloat16)
+    q, k, v = t(B, Lq, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D)
+    off = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
+    off = off.view(q.shape)
+    off.copy_(q)
+    kw = dict(q_positions=(torch.arange(Lq, dtype=torch.int32)
+                           + (S - Lq)).repeat(B, 1).cuda(),
+              kv_positions=torch.arange(S, dtype=torch.int32)
+              .repeat(B, 1).cuda())
+    FA.reset_launch_counts()
+    got = FA.flash_attention(off, k, v, **kw)
+    assert FA.route_counts == {f"simt {FA.FWD_NAME}": 1}
+    want = FA.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    aw = want.float().abs()
+    assert bool((err <= 2.0 ** -7 * (aw + aw.amax(dim=-1, keepdim=True)))
+                .all())
 
 
 # ---------------------------------------------------------------------------

@@ -177,6 +177,33 @@ def test_flash_attention_non_causal_head_dim_120():
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+def test_flash_attention_96_query_heads_per_kv_head():
+    """Any G: 96 query heads over one KV head (more than the 64 rows of
+    the SIMT CTA and the 128 of the wgmma one, so the card splits the
+    group over head chunks); the reference folds all 96 into its rows."""
+    inputs = fwd_inputs(8, 1, 5, 20, 96, 1, 16, holes=True)
+    got, want = _run_both(inputs, window=7)
+    assert got.shape == (1, 5, 96, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,D,Dv,aligned,want", [
+    (torch.bfloat16, 64, 64, True, "wgmma"),
+    (torch.bfloat16, 120, 120, True, "wgmma"),
+    (torch.bfloat16, 40, 40, True, "wgmma"),
+    (torch.bfloat16, 64, 64, False, "simt"),
+    (torch.bfloat16, 36, 36, True, "simt"),
+    (torch.bfloat16, 64, 20, True, "simt"),
+    (torch.float32, 64, 64, True, "simt"),
+    (torch.float32, 120, 120, True, "simt"),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_fwd_route(dtype, D, Dv, aligned, want):
+    """K3's route: wgmma for bf16 whose q, k, v bases are 16-byte aligned
+    and whose head dims are multiples of 8 (TMA's row-stride rule); SIMT
+    for fp32 and for bf16 TMA cannot take."""
+    assert FA.fwd_route(dtype, D, Dv, aligned) == want
+
+
 @pytest.mark.parametrize("blocks", [(16, 16), (32, 64), (64, 64)],
                          ids=lambda b: f"q{b[0]}kv{b[1]}")
 def test_flash_attention_block_invariance(blocks):

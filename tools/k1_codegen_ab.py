@@ -11,7 +11,8 @@ vector B loads) prints
 * the SASS instruction count, the opcode histogram and the opcodes whose
   counts differ between the two builds;
 * for every SIMT instantiation the two builds share (in the terms both
-  share), whether its SASS opcode sequence is the same in both;
+  share), and every wgmma one where both builds have that route, whether
+  its SASS opcode sequence is the same in both;
 
 then times both builds' launches at the decode shapes (m = 1: wq, w_down
 with its residual, the rms GLU) and at m = 128 (wq, w_down) in one
@@ -23,15 +24,18 @@ Both builds take the same C entry point (17 pointers, 19 ints; a 20th,
 the caller's route, since the wgmma route); their SIMT kernels' template
 flags differ: ``ABI`` is ``train`` for a build whose last flag is
 ``TRAIN`` (before the distance product), ``k1g`` for one with a
-``MIN_PLUS`` flag after it, and ``wgmma`` for one that also has the TMA +
-WGMMA route (this tree: its SIMT kernels take the ``k1g`` flags, and its
-``ca_gemm_wgmma_kernel`` instantiations are the only ones it has alone).
-A ``wgmma`` build runs the m = 128 shapes on its wgmma route, so there its
-outputs are compared within bf16's rounding (one output ulp, 2^-7 of the
-largest |output|) rather than bit for bit.  Run from the repository root
-on the card::
+``MIN_PLUS`` flag after it, ``wgmma`` for one that also has the TMA +
+WGMMA route (its SIMT kernels take the ``k1g`` flags, and its
+``ca_gemm_wgmma_kernel`` instantiations are the only ones it has alone),
+and ``decode`` for one that also has the split-k decode route (route 2;
+its ``ca_gemm_decode_kernel`` instantiations are its own too; this tree).
+A ``wgmma`` or ``decode`` build runs the m = 128 shapes on its wgmma
+route, and a ``decode`` build the m = 1 shapes on its decode route, so
+where the two builds' routes differ the outputs are compared within
+bf16's rounding (one output ulp, 2^-7 of the largest |output|) rather than
+bit for bit.  Run from the repository root on the card::
 
-    python3 tools/k1_codegen_ab.py A.cu:k1g B.cu:wgmma --out DIR
+    python3 tools/k1_codegen_ab.py A.cu:wgmma B.cu:decode --out DIR
 
 The SASS of the compared functions is written under ``--out``.
 """
@@ -59,7 +63,7 @@ TILES = {"8x16x128": "8, 16, 128, 1, 1", "64x64x32": "64, 64, 32, 4, 4"}
 # Each ABI's trailing template flags of the float kernels compared:
 # VEC_B, TRAIN (and MIN_PLUS).
 ABIS = {"train": "true, false", "k1g": "true, false, false",
-        "wgmma": "true, false, false"}
+        "wgmma": "true, false, false", "decode": "true, false, false"}
 SILU = 3
 
 
@@ -133,12 +137,16 @@ def opcode(line: str) -> str:
 
 
 def common_name(demangled: str, abi: str, other: str) -> str:
-    """A SIMT kernel's demangled name in the terms the two builds share
+    """A kernel's demangled name in the terms the two builds share
     (``other`` is the other build's ABI); None for a kernel only this build
-    can have.  The wgmma route's kernels are only in a ``wgmma`` build.
+    can have.  The wgmma route's kernels are compared where both builds
+    have the route; the decode route's are only in a ``decode`` build.
     ``k1g`` and ``wgmma`` builds carry one more template flag
     (``MIN_PLUS``) after ``TRAIN``: against a ``train`` build it is
     dropped, and the ``MIN_PLUS`` instantiation has no counterpart."""
+    if "ca_gemm_wgmma_kernel" in demangled:
+        both = {abi, other} <= {"wgmma", "decode"}
+        return demangled if both else None
     if "ca_gemm_program_kernel" not in demangled:
         return None
     if abi == "train" or other != "train":
@@ -162,7 +170,8 @@ class Entry:
     arguments."""
 
     def __init__(self, lib: pathlib.Path, abi: str):
-        self.routed = abi == "wgmma"
+        self.routed = abi in ("wgmma", "decode")
+        self.decode = abi == "decode"
         self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
         self.fn.argtypes = ([ctypes.c_void_p] * 17
                             + [ctypes.c_int] * (20 if self.routed else 19)
@@ -170,9 +179,12 @@ class Entry:
         self.fn.restype = ctypes.c_int
 
     def route(self, m):
-        """The wgmma route's flag for these bf16, 16-byte aligned operands
-        (m > 8), or None for a build without it."""
-        return int(m > 8) if self.routed else None
+        """The route code for these bf16, 16-byte aligned operands (0 SIMT,
+        1 wgmma at m > 8, 2 decode at m <= 8 where the build has it), or
+        None for a build without routes."""
+        if not self.routed:
+            return None
+        return 1 if m > 8 else 2 if self.decode else 0
 
     def __call__(self, a, b0, b1, row_scale, gain, residual, out, glu_act):
         m, k = a.shape
@@ -325,7 +337,8 @@ def main():
             for tag in "ABBA":
                 e = entries["AB".index(tag)]
                 times[tag].append(time_ms(lambda i: e(**ops(i)), copies))
-        print(f"time {name} m={m} k={k} n={n}: routes (1 wgmma) {routes}; "
+        print(f"time {name} m={m} k={k} n={n}: routes (1 wgmma, 2 decode) "
+              f"{routes}; "
               f"outputs bit-equal {same}, max_abs_err {err:.3e}; "
               + json.dumps(times))
         # The same route must give the same bits; SIMT against wgmma sums

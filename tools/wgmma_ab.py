@@ -1,23 +1,32 @@
-"""Time two versions of the wgmma route's CUDA sources against each other
-on the card, in one process: the K1f training GEMMs and the forward
-programs at the 1000-token prefill (``chip_smoke.py``'s shapes), K4 at
-4096^3 in bf16 (its default tile and 256 x 256 x 128) and K1a at 4096^3.
+"""Time two versions of the port's redesigned CUDA sources against each
+other on the card, in one process: the wgmma route's K1f training GEMMs
+and forward programs at the 1000-token prefill, K4 at 4096^3 in bf16 (its
+default tile and 256 x 256 x 128) and K1a at 4096^3 (``chip_smoke.py``'s
+shapes); the forward programs of stablelm-1.6b and h2o-danube-3-4b at
+decode (m = 1); and K3, forward flash attention, in bf16 at
+``chip_smoke.py``'s timed shapes.
 
 Version A is a directory holding ``ca_gemm_program.cu``,
-``ca_mmm_k_outer.cu`` and the ``wgmma_mainloop.cuh`` they include;
-version B is another such directory (``--new``) or the tree's
-``src/repro_torch/csrc``.  Each case runs once on
-both to compare outputs (bit-equal, and each one's max |error| against
-the plain version where it has one), then is timed by CUDA-graph replay
-(``chip_smoke._time_ms``) in the order A, B, B, A for two rounds.  One
-JSON line per case.  Run from the repository root on the card::
+``ca_mmm_k_outer.cu``, ``flash_attn_fwd.cu`` and the
+``wgmma_mainloop.cuh`` they include; version B is another such directory
+(``--new``) or the tree's ``src/repro_torch/csrc``.  A version whose GEMM
+source has no decode route runs the m = 1 programs on its SIMT tile, and
+one whose K3 entry point takes no route argument runs K3 on its SIMT
+kernel, so the tool also compares a tree against its parent.  Each case
+runs once on both to compare outputs (bit-equal, and each one's max
+|error| against the plain version where it has one), then is timed by
+CUDA-graph replay (``chip_smoke._time_ms``) in the order A, B, B, A for
+two rounds.  One JSON line per case; ``--only K3`` keeps the cases whose
+name holds any of the given words.  Run from the repository root on the
+card::
 
-    python3 tools/wgmma_ab.py OLD_CSRC_DIR [--new NEW_CSRC_DIR]
+    python3 tools/wgmma_ab.py OLD_CSRC_DIR [--new NEW_CSRC_DIR] [--only K3]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import pathlib
@@ -31,6 +40,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as CS  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
+from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels.program import program_from_tag  # noqa: E402
 
 
@@ -51,12 +61,14 @@ def cases(gen):
         copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
         a, sets, kw = CS.k1f_inputs(key, m, n, k, torch.bfloat16, gen, copies)
         program(f"{key} {name}", a, sets, kw, od, copies)
-    for tag, name, k, n, od in CS.GEMMS:
-        nb = program_from_tag(tag).n_b
-        copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
-        a, sets, kw = CS.program_inputs(tag, 1000, k, n, torch.bfloat16, gen,
-                                        copies)
-        program(f"{tag} {name} m=1000", a, sets, kw, od, copies)
+    for m in (1000, 1):
+        for tag, name, k, n, od in CS.GEMMS + (CS.DANUBE_GEMMS if m == 1
+                                               else []):
+            nb = program_from_tag(tag).n_b
+            copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
+            a, sets, kw = CS.program_inputs(tag, m, k, n, torch.bfloat16,
+                                            gen, copies)
+            program(f"{tag} {name} m={m}", a, sets, kw, od, copies)
     x, y = (torch.randn(4096, 4096, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
     out.append(("K4 default tile", lambda i: K.ca_mmm_k_outer(x, y), 1,
@@ -68,27 +80,82 @@ def cases(gen):
                 lambda i: K.ca_gemm_program(x, [y], out_dtype=torch.float32),
                 1, lambda: K.ca_gemm_program_reference(
                     x, [y], out_dtype=torch.float32)))
+    for name in CS.FWD_TIMED:
+        B, Lq, S, H, Hkv, D, window = CS.FWD_SHAPES[name]
+        q, k, v, qpos, kpos = CS.fwd_inputs(B, Lq, S, H, Hkv, D,
+                                            torch.bfloat16, gen)
+        kw = dict(q_positions=qpos, kv_positions=kpos, window=window)
+        out.append((f"K3 {name}",
+                    lambda i, q=q, k=k, v=v, kw=kw:
+                        FA.flash_attention(q, k, v, **kw), 1,
+                    lambda q=q, k=k, v=v, kw=kw:
+                        FA.flash_attention_reference(q, k, v, **kw)))
     return out
+
+
+def _k3_without_route(source: pathlib.Path):
+    """K3's launch for an entry point without the route argument (before
+    the wgmma route): the wrapper's launch, one int fewer."""
+    def bind(lib):
+        fn = lib.flash_attn_fwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+    def launch(q, k, v, q_positions, kv_positions, causal, window, scale,
+               geometry):
+        B, Lq, S, H, Hkv, D, Dv = geometry
+        out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
+        err = _build.load(source, bind).flash_attn_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
+            B, Lq, S, H, Hkv, D, Dv, int(causal), window or 0, scale,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention launch failed: {err}")
+        return out
+    return launch
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_csrc", type=pathlib.Path)
     ap.add_argument("--new", type=pathlib.Path, default=_build.CSRC)
+    ap.add_argument("--only", nargs="*", default=[],
+                    help="keep the cases whose name holds any of these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    builds = {tag: (d.resolve() / "ca_gemm_program.cu",
-                    d.resolve() / "ca_mmm_k_outer.cu")
-              for tag, d in (("A", args.old_csrc), ("B", args.new))}
+    k1_route, launch_fwd = K.k1_route, FA._launch_fwd
+    builds = {}
+    for tag, d in (("A", args.old_csrc), ("B", args.new)):
+        d = d.resolve()
+        gemm, fwd = d / "ca_gemm_program.cu", d / "flash_attn_fwd.cu"
+        builds[tag] = dict(
+            gemm=gemm, k4=d / "ca_mmm_k_outer.cu", fwd=fwd,
+            decode="ROUTE_DECODE" in gemm.read_text(),
+            fwd_routed="int route," in fwd.read_text())
+        print(f"build {tag}: {d} (decode route "
+              f"{builds[tag]['decode']}, K3 routes "
+              f"{builds[tag]['fwd_routed']})", flush=True)
 
     def use(tag):
-        src, k4 = builds[tag]
-        K._library = lambda: _build.load(src, K._bind)
-        K.K_OUTER_SOURCE = k4
+        b = builds[tag]
+        K._library = lambda: _build.load(b["gemm"], K._bind)
+        K.K_OUTER_SOURCE = b["k4"]
+        # A build without the decode route takes m <= 8 on its SIMT tile.
+        K.k1_route = k1_route if b["decode"] else (
+            lambda *a, **kw: "simt" if k1_route(*a, **kw) == "decode"
+            else k1_route(*a, **kw))
+        FA.FWD_SOURCE = b["fwd"]
+        FA._launch_fwd = launch_fwd if b["fwd_routed"] \
+            else _k3_without_route(b["fwd"])
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     for name, fn, copies, plain in cases(gen):
+        if args.only and not any(w in name for w in args.only):
+            continue
         outs = {}
         for tag in "AB":
             use(tag)
@@ -104,7 +171,8 @@ def main():
                 errs[tag] = [(g.double() - w.double()).abs().max().item()
                              for g, w in zip(outs[tag], want)]
         times = {"A": [], "B": []}
-        iters = 5 if name.startswith(("K4", "K1a")) else 20
+        slow = name.startswith(("K4", "K1a")) or name == "K3 stablelm S4096"
+        iters = 5 if slow else 20
         for _ in range(2):
             for tag in "ABBA":
                 use(tag)
