@@ -46,14 +46,19 @@ Phases (any failure raises and the script exits non-zero):
    program against its plain version: the main path's shapes at m = 1, 5,
    37, 128 with per-channel scales, ragged n and k with per-tile scales
    (g = 128, 256, ragged last block; per-k-tile activation scales), fp32 A
-   and out, and w8a8 at k = 4096 with saturated operands, bit-exact.
+   and out, and w8a8 at k = 4096 with saturated operands, bit-exact; each
+   call's K1 route is asserted (the split-k decode kernel at m <= 8 for
+   bf16 or int8 A with 16-byte rows, the SIMT tile otherwise), and dqab
+   with per-channel and per-row scales on the decode route bit-equal.
 7. int8 slice: full-width stablelm-1.6b quantized on the card
    (models.common.quantize_params) serves the phase-4 requests in int8w,
    then w8a8 (ServeEngine(quantize_activations=True), 4 calibration
    prompts): exactly 145 dq* launches per forward step; calibration sites
-   and seconds, end-to-end times, decode profile and the cosine of
-   prefill logits against the bf16 model; every launch on the SIMT route.
-   A 4-layer model's int8w and
+   and seconds, end-to-end times, decode profile (K1's device ms, the
+   device's busy ms, aten ops per step) and the cosine of prefill logits
+   against the bf16 model; every decode step and the 8-token prefill on the
+   decode route, the longer prefills on the SIMT tile.  A 4-layer model's
+   int8w and
    w8a8 (scales calibrated once on the card, percentile, per k-tile) are
    held against the CPU.
 8. K1f parity: each backward program of training (nt, tn, dact@a on nt,
@@ -74,7 +79,8 @@ Phases (any failure raises and the script exits non-zero):
 10. times: kernel, plain version, library call (torch._weight_int8pack_mm
    for a per-channel dqb; torch.matmul for the plain nt/tn programs) and
    bound per GEMM program (float at m = 1, 128 and 1000, h2o-danube-3-4b's
-   at m = 1, int8 and the K1f programs at 1024 tokens) and for the paged kernel (each timed by replaying a CUDA graph
+   at m = 1, int8 at m = 1 on both the decode route and the SIMT tile (A's
+   base off 16 bytes), 128 and 1000, the K1f programs at 1024 tokens) and for the paged kernel (each timed by replaying a CUDA graph
    of 20 calls), and the end-to-end times of the serve and train phases.
 11. K1g, the distance product: all-pairs shortest paths on a random
    directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
@@ -271,13 +277,24 @@ def want_route(dtype, m):
     return "wgmma" if m > 8 else "decode"
 
 
-def serve_routes(prompt_lens, new_tokens, per_step):
-    """The bf16 K1 launches by route of requests served one at a time:
-    each prefill at m = its prompt's length (wgmma above 8 tokens, decode
-    up to 8), each decode step at m = 1 (decode), ``per_step`` launches a
-    forward step."""
-    steps = {"wgmma": sum(1 for n in prompt_lens if n > 8)}
-    steps["decode"] = len(prompt_lens) - steps["wgmma"] + sum(
+def want_quant_route(a, m, n, k):
+    """The route an int8 program must take: decode at m <= 8 for bf16 or
+    int8 A whose rows are 16-byte aligned (k % 8 for bf16, k % 16 for
+    int8) with int8 B rows too (n % 16); SIMT otherwise (fp32 A, prefill,
+    ragged rows).  Every base here is 16-byte aligned."""
+    if a.dtype == torch.float32 or m > 8 or n % 16 \
+            or (k * a.element_size()) % 16:
+        return "simt"
+    return "decode"
+
+
+def serve_routes(prompt_lens, new_tokens, per_step, prefill="wgmma"):
+    """The K1 launches by route of requests served one at a time: each
+    prefill at m = its prompt's length (``prefill``, wgmma for bf16 and
+    simt for int8, above 8 tokens, decode up to 8), each decode step at
+    m = 1 (decode), ``per_step`` launches a forward step."""
+    steps = {prefill: sum(1 for n in prompt_lens if n > 8)}
+    steps["decode"] = len(prompt_lens) - steps[prefill] + sum(
         n - 1 for n in new_tokens)
     return {f"{route} {tag}": n * k for route, k in steps.items() if k
             for tag, n in per_step.items()}
@@ -698,7 +715,7 @@ def serve_slice(cfg):
     e2e["profile"] = profile_decode(params, cfg)
     del eng, params
     torch.cuda.empty_cache()
-    return counts, routes, e2e
+    return routes, e2e
 
 
 def _device_us(event):
@@ -1142,17 +1159,6 @@ def quant_inputs(tag, m, k, n, dtype, gen, copies=1, block_b=0, block_a=0):
 
 def quant_parity():
     phase("int8 kernel parity (dqb, dqab vs plain version)")
-    before = dict(K.route_counts)
-    worst = _quant_parity()
-    off = {k: n for k, n in route_delta(before).items()
-           if not k.startswith("simt ")}
-    print(f"int8 parity launches off the SIMT route: {off}")
-    if off:
-        raise AssertionError(f"int8 programs off the SIMT route: {off}")
-    return worst
-
-
-def _quant_parity():
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = {}
     cases = []
@@ -1162,16 +1168,19 @@ def _quant_parity():
         for tag, name, k, n, od in GEMMS:
             for qtag in QUANT[tag]:
                 cases.append((qtag, name, m, k, n, od, torch.bfloat16, 0, 0))
-    # Ragged n and k (1000 = 7 x 128 + 104 = 3 x 256 + 232) with per-tile
-    # weight scales, and for dqab per-tile activation scales; n = 1008 takes
-    # the vector B loads, n = 1000 the scalar ones.
+    # Ragged n and k with per-tile weight scales, and for dqab per-tile
+    # activation scales, k = 1000 (7 x 128 + 104 = 3 x 256 + 232) or 1008
+    # (7 x 128 + 112 = 3 x 256 + 240): n = 1000 takes the SIMT tile's scalar
+    # B loads, n = 1008 its vector B loads at m > 8 and, at m <= 8, the
+    # decode route (int8 B rows of 16-byte multiples; dqab's int8 A rows
+    # too only at k = 1008, so k = 1000 keeps it on the SIMT tile).
     for m in (1, 5, 37, 128):
         for qtag in QUANT_TAGS:
             for bb, ba in ((128, 0), (256, 256), (0, 128)):
                 if not bb and "dqab" not in qtag:
                     continue    # dqb has no activation scale to tile
-                for n in (1000, 1008):
-                    cases.append((qtag, "ragged", m, 1000, n, None,
+                for k, n in ((1000, 1000), (1000, 1008), (1008, 1008)):
+                    cases.append((qtag, "ragged", m, k, n, None,
                                   torch.bfloat16, bb, ba))
     # fp32 A and out (dqb) / fp32 out (dqab), ragged.
     for qtag in QUANT_TAGS:
@@ -1183,8 +1192,12 @@ def _quant_parity():
         a, (bs,), kw, ops = quant_inputs(qtag, m, k, n, dtype, gen,
                                          block_b=bb, block_a=ba)
         out = od or dtype
+        before = dict(K.route_counts)
         got = K.ca_gemm_program(a, bs, out_dtype=out,
                                 branch_operands=ops(0), **kw)
+        route = want_quant_route(a, m, n, k)
+        check_routes(f"{qtag} {name} m={m} n={n} k={k}", route_delta(before),
+                     {f"{route} {qtag}": 1})
         want = K.ca_gemm_program_reference(a, bs, out_dtype=out,
                                            branch_operands=ops(0), **kw)
         torch.cuda.synchronize()
@@ -1196,12 +1209,18 @@ def _quant_parity():
         tol = TOL_F32 * (1 + scale) if out == torch.float32 \
             else TOL_BF16 * scale
         print(f"parity {qtag:22s} {name:10s} m={m:<4d} k={k:<5d} n={n:<6d} "
-              f"A={str(a.dtype)[6:]:8s} out={str(out)[6:]:8s} "
+              f"{route:6s} A={str(a.dtype)[6:]:8s} out={str(out)[6:]:8s} "
               f"blocks=({kw['scale_b_block']},{kw['scale_a_block']}) "
               f"max_abs_err={err:.3e} tol={tol:.3e}")
         if not err <= tol:
             raise AssertionError(f"{qtag} {name} m={m}: kernel disagrees "
                                  f"with the plain version ({err} > {tol})")
+        # dqab's int32 sum is exact and the decode route rounds it once, then
+        # scales per channel and row as the plain version does: the same bits.
+        if route == "decode" and "dqab" in qtag and not (bb or ba) \
+                and not torch.equal(got, want):
+            raise AssertionError(f"{qtag} {name} m={m}: not bit-equal to "
+                                 "the plain version on the decode route")
         worst[qtag] = max(worst.get(qtag, 0.0), err)
     # w8a8 headroom: k = 4096, every product 127 * +-127; the int32 sum
     # must be exact, so the output equals s_a * s_b * sum(a_q * b_q) bit for
@@ -1214,8 +1233,10 @@ def _quant_parity():
     b = b.to(torch.int8)
     sa = torch.full((m,), 4.0 / 127, device="cuda")
     sb = torch.rand(n, generator=gen, device="cuda") + 0.5
+    before = dict(K.route_counts)
     got = K.ca_gemm_program(a, [b], spec=program_from_tag("dqab"),
                             branch_operands=[{"scale_a": sa, "scale_b": sb}])
+    check_routes("dqab headroom", route_delta(before), {"decode dqab": 1})
     want = ((a.double() @ b.double()).float() * sb[None]) * sa[:, None]
     torch.cuda.synchronize()
     exact = torch.equal(got, want)
@@ -1285,8 +1306,10 @@ def serve_int8(cfg):
         if counts != {t: n * steps for t, n in per_step.items()}:
             raise AssertionError(f"{mode}: launches {counts}, expected "
                                  f"{per_step} x {steps}")
-        check_routes(mode, dict(K.route_counts),
-                     {f"simt {t}": n * steps for t, n in per_step.items()})
+        routes = dict(K.route_counts)
+        check_routes(mode, routes, serve_routes(
+            [len(r.prompt) for r in reqs], [r.max_new_tokens for r in reqs],
+            per_step, prefill="simt"))
         for r in reqs:
             if r.status != "done" or len(r.generated) != r.max_new_tokens:
                 raise AssertionError(f"{mode} request {r.uid}: {r.status}")
@@ -1306,7 +1329,7 @@ def serve_int8(cfg):
                                  r.decode_s * 1e3 / (r.max_new_tokens - 1)}
                             for r in reqs],
                "tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
-               "run_s": wall, "launches": counts,
+               "run_s": wall, "launches": counts, "routes": routes,
                "cosine_vs_bf16_min": cos.min().item(),
                "cosine_vs_bf16_mean": cos.mean().item()}
         row["profile"] = profile_decode(eng.params, cfg)
@@ -1380,7 +1403,7 @@ def _int_mm_ms(a, sets, copies):
     return _time_ms(lambda i: torch._int_mm(a, sets[i][0]), copies)
 
 
-def _int8pack_ms(a, sets, ops, copies):
+def _int8pack_ms(a, sets, ops, copies, iters=20, reps=5):
     """``torch._weight_int8pack_mm``'s time for a per-channel ``dqb``:
     bf16 A times an (n, k) int8 weight (a transposed copy) times bf16
     per-channel scales, bf16 out; None (with the reason printed) where it
@@ -1395,7 +1418,7 @@ def _int8pack_ms(a, sets, ops, copies):
               f"{str(e).splitlines()[0]}")
         return None
     ms = _time_ms(lambda i: torch._weight_int8pack_mm(a, wt[i], sc[i]),
-                  copies)
+                  copies, iters, reps)
     del wt, sc
     return ms
 
@@ -1405,7 +1428,9 @@ def quant_times(float_rows):
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     shapes = [g for g in GEMMS if g[1] != "wo"]      # wq, head, w_down, glu
-    for m in (1, 128):
+    for m in (1, 128, 1000):
+        # Millisecond-scale calls at m = 1000: fewer in each graph.
+        iters, reps = (5, 2) if m == 1000 else (20, 5)
         for tag, name, k, n, od in shapes:
             nb = program_from_tag(tag).n_b
             copies = max(2, math.ceil(120e6 / (nb * k * n)))
@@ -1415,21 +1440,35 @@ def quant_times(float_rows):
                 a, sets, kw, ops = quant_inputs(qtag, m, k, n,
                                                 torch.bfloat16, gen, copies)
                 out = od or torch.bfloat16
-                ms = _time_ms(lambda i: K.ca_gemm_program(
-                    a, sets[i], out_dtype=out, branch_operands=ops(i),
-                    **kw), copies)
+
+                def call(i, a=a):
+                    return K.ca_gemm_program(
+                        a, sets[i], out_dtype=out, branch_operands=ops(i),
+                        **kw)
+                ms = _time_ms(call, copies, iters, reps)
                 plain = _time_ms(lambda i: K.ca_gemm_program_reference(
                     a, sets[i], out_dtype=out, branch_operands=ops(i),
-                    **kw), copies)
+                    **kw), copies, iters, reps)
                 b_ms, b_by = quant_bound(qtag, m, k, n, od, torch.bfloat16)
                 # One library call computes a per-channel dqb (no res, no
                 # GLU); it returns bf16 where the head's program writes fp32.
-                lib = (_int8pack_ms(a, sets, ops, copies) if qtag == "dqb"
-                       else None)
+                lib = (_int8pack_ms(a, sets, ops, copies, iters, reps)
+                       if qtag == "dqb" else None)
                 row = {"program": qtag, "gemm": name, "m": m, "k": k,
-                       "n": n, "ms": ms, "plain_ms": plain,
-                       "library_ms": lib, "bound_ms": b_ms,
-                       "bound_by": b_by, "k1a_ms_same_shape": k1a}
+                       "n": n, "k1_route": want_quant_route(a, m, n, k),
+                       "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "k1a_ms_same_shape": k1a}
+                if m == 1:
+                    # The SIMT tile on the same operands, A's base off 16
+                    # bytes, in the same process.
+                    am = misaligned(a)
+                    before = dict(K.route_counts)
+                    call(0, am)
+                    check_routes(f"{qtag} {name} A off 16 bytes",
+                                 route_delta(before), {f"simt {qtag}": 1})
+                    row["simt_ms"] = _time_ms(lambda i: call(i, am), copies)
+                    del am
                 if "dqab" in qtag and m == 128:
                     # The int32 contraction alone (one branch, no dequant):
                     # a note, not a library equivalent.
@@ -1960,7 +1999,8 @@ def fwd_bound(B, Lq, S, H, Hkv, D, pairs, dtype):
 
 def misaligned(t):
     """A copy of ``t`` whose base sits one element off 16 bytes: operands
-    TMA cannot take, so a bf16 K3 call on them runs the SIMT route."""
+    TMA cannot take, so a bf16 K3 call or an int8 K1 decode on them runs
+    the SIMT route."""
     out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
     out = out.view(t.shape)
     out.copy_(t)
@@ -2150,11 +2190,9 @@ def main():
     worst.update(k1f_parity())
     worst_attn = attn_parity()
     cfg = get_config(ARCH)
-    counts, routes, e2e = serve_slice(cfg)
+    routes, e2e = serve_slice(cfg)
     cross_check(cfg)
     int8 = serve_int8(cfg)
-    for row in int8.values():
-        counts.update(row["launches"])
     cross_check_int8(cfg)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (1000, 128, 37, 8)]
@@ -2234,19 +2272,29 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "k1_route": "wgmma",
             "shape": f"{gemm} m=1000 k={row['k']} n={row['n']} bf16"})
-    for tag, gemm in RECORD_GEMM.items():
-        for qtag in QUANT[tag]:
-            row = next(r for r in qrows if r["program"] == qtag
-                       and r["gemm"] == gemm and r["m"] == 1)
-            kernels.append({
-                "name": f"ca_gemm_program[{qtag}]", "route": "cuda",
-                "source": SOURCE, "replaces": REPLACES,
-                "launches": counts[qtag], "max_abs_err": worst[qtag],
-                "ms": row["ms"], "plain_ms": row["plain_ms"],
-                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"], "k1_route": "simt",
-                "shape": f"{gemm} m=1 k={row['k']} n={row['n']} int8 B, "
-                         + ("int8 A" if "dqab" in qtag else "bf16 A")})
+    # The int8 programs at decode (m = 1, the decode route; the SIMT tile's
+    # time on the same operands beside it) and at the served 128-token
+    # prefill (the SIMT tile); launches by route from the int8 slice.
+    for step, m in (("decode", 1), ("prefill", 128)):
+        for tag, gemm in RECORD_GEMM.items():
+            for mode, qtag in zip(("int8w", "w8a8"), QUANT[tag]):
+                row = next(r for r in qrows if r["program"] == qtag
+                           and r["gemm"] == gemm and r["m"] == m)
+                route = row["k1_route"]
+                record = {
+                    "name": f"ca_gemm_program[{qtag}] {step}",
+                    "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                    "launches": int8[mode]["routes"][f"{route} {qtag}"],
+                    "max_abs_err": worst[qtag], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"], "k1_route": route,
+                    "shape": f"{gemm} m={m} k={row['k']} n={row['n']} int8 "
+                             "B, " + ("int8 A" if "dqab" in qtag
+                                      else "bf16 A")}
+                if "simt_ms" in row:
+                    record["simt_ms"] = row["simt_ms"]
+                kernels.append(record)
     for key, gemm in RECORD_K1F.items():
         row = next(r for r in frows if r["program"] == key
                    and r["gemm"] == gemm)

@@ -9,6 +9,7 @@
 //   dqb...                    the same with int8 weights (K1d): int8 B tiles
 //                             streamed and widened to fp32 in registers
 //   dqab...                   w8a8 (K1e): int8 A and B, int32 products
+//                             (both at m <= 8 on the decode route below)
 // the tropical distance product (K1g, semiring="min_plus"):
 //   none, min_plus            C[i,j] = min_k (A[i,k] + B[k,j]) in fp32
 // and the backward programs of training (K1f, the float programs only):
@@ -88,27 +89,40 @@
 // form serves both.  The drain keeps the SIMT kernel's chain and order.
 //
 // The decode route: the same bf16 serving programs (nn, no training flag) at
-// m <= 8 with the same aligned operands run a split-k cluster kernel
-// (ca_gemm_decode_kernel below).  They are GEMVs bound by B's bytes, so the
-// design is about bytes in flight and covering the SMs, not tensor cores.
-// A CTA of 256 threads owns a strip of 64 C columns over a chunk of k: each
-// thread streams 16-byte vectors of B (8 columns of one k row; 32 k lanes x
-// 8 column groups) U rows deep, so a CTA keeps 32 KB of B in flight at
-// m = 1; the <= 8 rows of A for the chunk are staged once in shared memory
-// as fp32, the rms prologue applied there in the SIMT kernel's order; the
-// products are fp32 FMAs, one partial per row, column and branch.  So that a
-// narrow n still covers the card, k is split over a thread-block cluster of
-// up to 8 CTAs (about two CTAs an SM in all); each CTA reduces its k lanes
-// (warp shuffles, then the 8 warps in order) and the leader CTA sums the
-// cluster's partials through distributed shared memory in rank order, so
-// the result is the same run to run (no atomics), then runs the drain chain
-// once and stores each C element once.  A wide n (the head's 1568 strips)
-// takes no split.
+// m <= 8 with the same aligned operands, and the int8 ones (dqb with bf16 A,
+// dqab), run a split-k cluster kernel (ca_gemm_decode_kernel below).  They
+// are GEMVs bound by B's bytes, so the design is about bytes in flight and
+// covering the SMs, not tensor cores.  A CTA of 256 threads owns a strip of
+// 64 C columns over a chunk of k: each thread streams vectors of B (16
+// bytes, 8 columns, for bf16; 8 bytes, 8 columns, for int8 at m = 1; 4
+// bytes at m > 1) U rows deep, so a CTA keeps 16-32 KB of B a branch in
+// flight; the small int8 vectors keep int8's partials in few enough
+// registers (48-80 a thread at m = 1) for three or more CTAs an SM, so
+// that one wave holds every cluster of a narrow n (16-byte int8 vectors
+// need 104-255: one or two).  The <= 8 rows of A for the chunk are staged
+// once in shared memory, bf16 as fp32 with the rms prologue applied in the
+// SIMT kernel's order, int8 as int32; int8 B is widened by byte permutes,
+// not conversion instructions (into a float's mantissa for dqb,
+// sign-extended for dqab's int32 multiply-adds), which would otherwise
+// bound it at 3.35 TB/s of int8.  Per-tile scales (their own
+// instantiations, TILE) fold each thread's block partial into an fp32
+// accumulator at the block's end (each CTA's chunk a multiple of the
+// block); per-channel and per-row scales run in the drain, after the sum,
+// which for dqab is int32 through the reduction and exact, so its result
+// is the plain version's bit for bit.  So that a narrow n still covers the
+// card, k is split over a thread-block cluster of up to 8 CTAs (about two
+// CTAs an SM in all); each CTA reduces its k lanes (warp shuffles, then
+// the 8 warps in order) and the leader CTA sums the cluster's partials
+// through distributed shared memory in rank order, so the result is the
+// same run to run (no atomics), then runs the dequant and drain chain once
+// and stores each C element once.  A wide n (the head's 1568 strips) takes
+// no split.
 //
 // The route is decided by k1_route and its Python twin
-// (kernels/ca_mmm.py:k1_route), nothing else; everything else (fp32,
-// int8, min_plus, training programs at m <= 8, misaligned operands) runs the
-// SIMT tile below, whose instantiations and code are unchanged.
+// (kernels/ca_mmm.py:k1_route), nothing else; everything else (fp32, fp32
+// A with int8 B, int8 at m > 8, min_plus, training programs at m <= 8,
+// misaligned operands) runs the SIMT tile below, whose instantiations and
+// code are unchanged.
 //
 // The distance product (K1g) runs in one instantiation of the 64 x 64 tile
 // (MIN_PLUS below): fp32 or bf16 A and B, read through a run-time type flag
@@ -130,8 +144,8 @@
 // SIMT tile (fp32 FMAs or int32 multiply-adds, no tensor cores) takes
 // BN = 16 for m <= 8 (128 CTAs on n = 2048), which leaves it limited by
 // shared-memory reads and by the few bytes each SM keeps in flight, far
-// below that bound; bf16 decode takes the decode route instead, int8 decode
-// (K1d, K1e) still the SIMT tile.  The measured times stand in PERF.md.
+// below that bound; decode (bf16 and int8) takes the decode route instead.
+// The measured times stand in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -286,6 +300,10 @@ struct VecOf<16> {
 template <>
 struct VecOf<8> {
   using type = uint2;
+};
+template <>
+struct VecOf<4> {
+  using type = uint32_t;
 };
 
 // Dequant of one accumulator element in the drain: per-channel weight scale,
@@ -857,19 +875,38 @@ int launch_wgmma_program(const Params& p, bool two, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The decode route: bf16 serving programs at m <= 8 on a split-k cluster
+// The decode route: serving programs at m <= 8 on a split-k cluster
 // ---------------------------------------------------------------------------
 
 namespace cg = cooperative_groups;
 
 constexpr int DEC_THREADS = 256;
 constexpr int DEC_BN = 64;                     // C columns a CTA owns (a strip)
-constexpr int DEC_CG = DEC_BN / 8;             // 16-byte column groups of a strip
-constexpr int DEC_KL = DEC_THREADS / DEC_CG;   // k lanes: rows kl, kl + 32, ...
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_MAX_SPLIT = 8;               // CTAs of a cluster (the portable most)
 constexpr int DEC_MIN_CHUNK = 256;             // k rows a CTA takes at least
 constexpr int DEC_A_BYTES = 64 * 1024;         // shared memory for A's staged rows
+
+// How a CTA's 256 threads cover a strip: each thread streams one VB-byte
+// vector of B (CW columns of one k row) from each of U k rows in flight;
+// CG column groups x KL k lanes, lane kl taking rows kl, kl + KL, ...
+// bf16 B: 16-byte vectors (8 columns, 32 k lanes), U = 8 at m = 1 (32 KB of
+// B in flight a CTA), 4 at m <= 8.  int8 B at m = 1: 8-byte vectors (8
+// columns, 32 k lanes), U = 8 (16 KB a branch); int8 B at m <= 8: 4-byte
+// vectors (4 columns, 16 k lanes), U = 16 (16 KB a branch).  Small vectors
+// keep int8's block partials and fp32 accumulators (with the rows of B in
+// flight) in few enough registers for several CTAs an SM, so that one wave
+// holds every cluster of a narrow n.
+template <typename TB, int MR>
+struct DecLayout {
+  static constexpr bool I8 = std::is_same<TB, int8_t>::value;
+  static constexpr int VB = !I8 ? 16 : MR > 1 ? 4 : 8;
+  static constexpr int CW = VB / static_cast<int>(sizeof(TB));
+  static constexpr int CG = DEC_BN / CW;
+  static constexpr int KL = DEC_THREADS / CG;
+  static constexpr int U = MR == 1 ? 8 : I8 ? 16 : 4;
+  using Vec = typename VecOf<VB>::type;
+};
 
 // A rows a CTA stages at a time: the whole chunk, unless MR rows of it
 // outgrow DEC_A_BYTES (then the chunk goes in pieces).
@@ -878,14 +915,35 @@ __host__ __device__ constexpr int dec_piece() {
   return DEC_A_BYTES / (MR * 4);
 }
 
-// One 16-byte vector of B, streamed once: read-only, not kept in L1.
-__device__ __forceinline__ uint4 ld_stream(const uint4* ptr) {
+// One vector of B, streamed once: read-only, not kept in L1.
+template <typename V>
+__device__ __forceinline__ V ld_stream(const void* ptr);
+template <>
+__device__ __forceinline__ uint4 ld_stream<uint4>(const void* ptr) {
   uint4 v;
   asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(ptr));
   return v;
 }
+template <>
+__device__ __forceinline__ uint2 ld_stream<uint2>(const void* ptr) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(ptr));
+  return v;
+}
+template <>
+__device__ __forceinline__ uint32_t ld_stream<uint32_t>(const void* ptr) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(ptr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t word_at(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ uint32_t word_at(const uint2& v, int i) { return i == 0 ? v.x : v.y; }
+__device__ __forceinline__ uint32_t word_at(uint32_t v, int) { return v; }
 
 // Element j (0-7) of 8 bf16 packed in a vector, widened to fp32.
 __device__ __forceinline__ float bf16_at(const uint4& v, int j) {
@@ -893,61 +951,156 @@ __device__ __forceinline__ float bf16_at(const uint4& v, int j) {
   return __uint_as_float(j % 2 ? w & 0xffff0000u : w << 16);
 }
 
-// MR: rows of A a CTA computes (1 for m = 1, else 8, rows past m zero).
-// The grid is (n strips, split), one cluster per strip, rank r taking k rows
-// [r chunk, (r + 1) chunk).
-template <int MR, int NB>
+// Byte j (0-3) of a word of int8, widened without a conversion instruction:
+// to fp32 from the word with each byte's sign bit flipped (b + 128), moved
+// by a byte permute into the mantissa of 2^23 and the 2^23 + 128 taken off
+// (exact for every int8); to int32 by a sign-replicating byte permute.
+__device__ __forceinline__ float i8_f32_at(uint32_t flipped, int j) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440 | j)) - 8388736.f;
+}
+__device__ __forceinline__ int i8_i32_at(uint32_t w, int j) {
+  int r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(w), "r"(0), "r"(((8 | j) * 0x1110) | j));
+  return r;
+}
+
+// The CW elements of a B vector, widened to the accumulator's type.
+template <typename TB, typename Acc, int CW, typename V>
+__device__ __forceinline__ void widen_vec(const V& v, Acc (&w)[CW]) {
+  if constexpr (!std::is_same<TB, int8_t>::value) {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) w[j] = bf16_at(v, j);
+  } else {
+#pragma unroll
+    for (int q = 0; q < CW / 4; ++q) {
+      const uint32_t x = word_at(v, q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (std::is_same<Acc, int>::value)
+          w[4 * q + j] = i8_i32_at(x, j);
+        else
+          w[4 * q + j] = i8_f32_at(x ^ 0x80808080u, j);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float dec_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int dec_add(int a, int b) { return a + b; }
+__device__ __forceinline__ uint32_t dec_bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ uint32_t dec_bits(int x) { return static_cast<uint32_t>(x); }
+template <typename T>
+__device__ __forceinline__ T dec_val(uint32_t w) {
+  if constexpr (std::is_same<T, int>::value)
+    return static_cast<int>(w);
+  else
+    return __uint_as_float(w);
+}
+
+// TA, TB: bf16 and bf16 (K1a-c), bf16 and int8 (dqb, K1d), int8 and int8
+// (dqab, K1e).  MR: rows of A a CTA computes (1 for m = 1, else 8, rows past
+// m zero).  The grid is (n strips, split), one cluster per strip, rank r
+// taking k rows [r chunk, (r + 1) chunk).
+//
+// Sums: `part` holds each thread's products in the accumulator's type (fp32,
+// int32 for int8 A).  With per-tile scales (TILE) a thread folds `part`,
+// converted to fp32 and times the block's scales, into its fp32 `acc`
+// whenever its next row lies in another quantization block (the chunk is a
+// multiple of the block), and the CTA reduces `acc`; otherwise it reduces
+// `part` itself, in int32 for int8 A (exact), and the leader converts the
+// cluster's sum once.  The drain then applies the per-channel and per-row
+// scales (drain_scale), then the chain, in the SIMT kernel's order.
+template <typename TA, typename TB, int MR, int NB, bool TILE>
 __global__ void __launch_bounds__(DEC_THREADS) ca_gemm_decode_kernel(const Params p, int chunk) {
-  constexpr int U = MR == 1 ? 8 : 4;           // B rows a thread keeps in flight
+  using L = DecLayout<TB, MR>;
+  constexpr bool QUANT = std::is_same<TB, int8_t>::value;
+  constexpr bool INT_A = std::is_same<TA, int8_t>::value;
+  using Acc = typename std::conditional<INT_A, int, float>::type;
+  constexpr int CW = L::CW, CG = L::CG, KL = L::KL, U = L::U;
   constexpr int PIECE = dec_piece<MR>();
   extern __shared__ float4 dec_smem[];
-  float* As = reinterpret_cast<float*>(dec_smem);  // [piece rows][MR], fp32
-  __shared__ float red[DEC_WARPS][NB * MR * DEC_BN];
-  __shared__ float part[NB * MR * DEC_BN];
+  Acc* As = reinterpret_cast<Acc*>(dec_smem);  // [piece rows][MR]
+  __shared__ uint32_t red[DEC_WARPS][NB * MR * DEC_BN];
+  __shared__ uint32_t part_s[NB * MR * DEC_BN];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int split = static_cast<int>(cluster.num_blocks());
-  const int tid = threadIdx.x, cgi = tid % DEC_CG, kl = tid / DEC_CG;
-  const int col = blockIdx.x * DEC_BN + cgi * 8;
-  const bool col_in = col < p.n;  // n % 8 == 0: a vector lies wholly inside or out
+  const int tid = threadIdx.x, cgi = tid % CG, kl = tid / CG;
+  const int col = blockIdx.x * DEC_BN + cgi * CW;
+  const bool col_in = col < p.n;  // n % CW == 0: a vector lies wholly inside or out
   const int kb = rank * chunk, ke = min(p.k, kb + chunk);
-  const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(p.a);
+  const TA* A = static_cast<const TA*>(p.a);
+  static_assert(QUANT || !TILE, "per-tile scales belong to int8 programs");
 
-  float acc[NB][MR][8];
+  Acc part[NB][MR][CW];
+  float acc[TILE ? NB : 1][TILE ? MR : 1][TILE ? CW : 1];
 #pragma unroll
   for (int i = 0; i < NB; ++i)
 #pragma unroll
     for (int r = 0; r < MR; ++r)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][r][j] = 0.f;
-  uint4 v[NB][U];
-  // B rows base + 32 u, u < U, below pe; zeros past it.
+      for (int j = 0; j < CW; ++j) {
+        part[i][r][j] = Acc(0);
+        if constexpr (TILE) acc[i][r][j] = 0.f;
+      }
+  // The quantization block of `part` and the first row past it.
+  int blk = TILE ? kb / p.scale_block : 0;
+  int blk_end = TILE ? (blk + 1) * p.scale_block : 0;
+  // acc += part (to fp32, times block blk's per-tile scales), part = 0.
+  auto fold = [&]() {
+    if constexpr (TILE) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const float sa = p.sa_tile ? p.scale_a[i][blk] : 1.f;
+#pragma unroll
+        for (int j = 0; j < CW; ++j) {
+          const float sb = (p.sb_tile && col_in) ? p.scale_b[i][(long long)blk * p.n + col + j] : 1.f;
+#pragma unroll
+          for (int r = 0; r < MR; ++r) {
+            float v = static_cast<float>(part[i][r][j]);
+            if (p.sb_tile) v = __fmul_rn(v, sb);
+            if (p.sa_tile) v = __fmul_rn(v, sa);
+            acc[i][r][j] = __fadd_rn(acc[i][r][j], v);
+            part[i][r][j] = Acc(0);
+          }
+        }
+      }
+    }
+  };
+
+  typename L::Vec v[NB][U];
+  // B rows base + KL u, u < U, below pe; zeros past it.
   auto load = [&](int base, int pe) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int kr = base + u * DEC_KL;
+      const int kr = base + u * KL;
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
-        const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(p.b[i]);
-        v[i][u] = col_in && kr < pe
-                      ? ld_stream(reinterpret_cast<const uint4*>(B + (long long)kr * p.n + col))
-                      : make_uint4(0, 0, 0, 0);
+        const TB* B = static_cast<const TB*>(p.b[i]);
+        v[i][u] = col_in && kr < pe ? ld_stream<typename L::Vec>(B + (long long)kr * p.n + col)
+                                    : typename L::Vec{};
       }
     }
   };
   auto compute = [&](int base, int p0, int pe) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int kr = base + u * DEC_KL;
+      const int kr = base + u * KL;
       if (kr >= pe) break;
-      float a[MR];
+      if (TILE && kr >= blk_end) {  // a new quantization block
+        fold();
+        ++blk;
+        blk_end += p.scale_block;
+      }
+      Acc a[MR];
       if constexpr (MR == 1) {
         a[0] = As[kr - p0];
       } else {
-        const float4* ar = reinterpret_cast<const float4*>(As + (kr - p0) * MR);
+        using Acc4 = typename std::conditional<INT_A, int4, float4>::type;
+        const Acc4* ar = reinterpret_cast<const Acc4*>(As + (kr - p0) * MR);
 #pragma unroll
         for (int q = 0; q < MR / 4; ++q) {
-          const float4 x = ar[q];
+          const Acc4 x = ar[q];
           a[4 * q] = x.x;
           a[4 * q + 1] = x.y;
           a[4 * q + 2] = x.z;
@@ -955,13 +1108,14 @@ __global__ void __launch_bounds__(DEC_THREADS) ca_gemm_decode_kernel(const Param
         }
       }
 #pragma unroll
-      for (int i = 0; i < NB; ++i)
+      for (int i = 0; i < NB; ++i) {
+        Acc w[CW];
+        widen_vec<TB, Acc, CW>(v[i][u], w);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float w = bf16_at(v[i][u], j);
+        for (int j = 0; j < CW; ++j)
 #pragma unroll
-          for (int r = 0; r < MR; ++r) acc[i][r][j] = fmaf(a[r], w, acc[i][r][j]);
-        }
+          for (int r = 0; r < MR; ++r) part[i][r][j] = mac(part[i][r][j], a[r], w[j]);
+      }
     }
   };
 
@@ -970,87 +1124,109 @@ __global__ void __launch_bounds__(DEC_THREADS) ca_gemm_decode_kernel(const Param
     int base = p0 + kl;
     load(base, pe);                  // the first rows are in flight during the staging
     if (p0 != kb) __syncthreads();   // the previous piece is read
-    // A rows [p0, pe) as fp32, the rms prologue applied and rounded back to
-    // bf16 as the SIMT kernel does; rows past m are zero.
+    // A rows [p0, pe): bf16 as fp32, the rms prologue applied and rounded
+    // back to bf16 as the SIMT kernel does; int8 as int32; rows past m zero.
     for (int e = tid; e < (pe - p0) * MR; e += DEC_THREADS) {
       const int r = e % MR, kr = p0 + e / MR;
-      float x = 0.f;
+      Acc x = Acc(0);
       if (r < p.m) {
-        __nv_bfloat16 av = A[(long long)r * p.k + kr];
-        if (p.row_scale != nullptr)
-          av = __float2bfloat16_rn(__fmul_rn(__fmul_rn(__bfloat162float(av), p.row_scale[r]),
-                                             load_f32(p.gain, kr, p.gain_f32)));
-        x = __bfloat162float(av);
+        if constexpr (INT_A) {
+          x = A[(long long)r * p.k + kr];
+        } else {
+          __nv_bfloat16 av = A[(long long)r * p.k + kr];
+          if (p.row_scale != nullptr)
+            av = __float2bfloat16_rn(__fmul_rn(__fmul_rn(__bfloat162float(av), p.row_scale[r]),
+                                               load_f32(p.gain, kr, p.gain_f32)));
+          x = __bfloat162float(av);
+        }
       }
       As[e] = x;
     }
     __syncthreads();
     for (;;) {
       compute(base, p0, pe);
-      base += U * DEC_KL;
+      base += U * KL;
       if (base >= pe) break;
       load(base, pe);
     }
   }
 
-  // The CTA's partial: the 4 k lanes of a warp by shuffles, then the warps
-  // in order, each sum in a fixed order.
+  // The CTA's partial: the k lanes of a warp by shuffles, then the warps in
+  // order, each sum in a fixed order; then the leader sums the cluster's
+  // partials in rank order through distributed shared memory, runs the
+  // dequant and the drain chain and stores each C element once.
   const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int i = 0; i < NB; ++i)
-#pragma unroll
-    for (int r = 0; r < MR; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float x = acc[i][r][j];
-        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 8));
-        x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 16));
-        acc[i][r][j] = x;
-      }
-  if (lane < DEC_CG) {
+  auto reduce = [&](auto& x) {
+    using T = typename std::remove_reference<decltype(x[0][0][0])>::type;
 #pragma unroll
     for (int i = 0; i < NB; ++i)
 #pragma unroll
       for (int r = 0; r < MR; ++r)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) red[warp][(i * MR + r) * DEC_BN + lane * 8 + j] = acc[i][r][j];
-  }
-  __syncthreads();
-  for (int e = tid; e < NB * MR * DEC_BN; e += DEC_THREADS) {
-    float x = red[0][e];
+        for (int j = 0; j < CW; ++j) {
+          T y = x[i][r][j];
 #pragma unroll
-    for (int w = 1; w < DEC_WARPS; ++w) x = __fadd_rn(x, red[w][e]);
-    part[e] = x;
-  }
-  cluster.sync();
-  // The leader sums the cluster's partials in rank order through
-  // distributed shared memory, runs the drain chain and stores once.
-  if (rank == 0) {
-    for (int e = tid; e < MR * DEC_BN; e += DEC_THREADS) {
-      const int r = e / DEC_BN, cl = e % DEC_BN, c = blockIdx.x * DEC_BN + cl;
-      if (r >= p.m || c >= p.n) continue;
-      float y[NB];
+          for (int s = CG; s < 32; s *= 2) y = dec_add(y, __shfl_xor_sync(0xffffffffu, y, s));
+          x[i][r][j] = y;
+        }
+    if (lane < CG) {
 #pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        y[i] = part[(i * MR + r) * DEC_BN + cl];
-        for (int q = 1; q < split; ++q)
-          y[i] = __fadd_rn(y[i], cluster.map_shared_rank(&part[0], q)[(i * MR + r) * DEC_BN + cl]);
-      }
-      const long long idx = (long long)r * p.n + c;
-      const float z = wg_chain<NB>(p, y[0], y[NB - 1], c, idx);
-      if (p.out_f32)
-        static_cast<float*>(p.out)[idx] = z;
-      else
-        static_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16_rn(z);
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int r = 0; r < MR; ++r)
+#pragma unroll
+          for (int j = 0; j < CW; ++j)
+            red[warp][(i * MR + r) * DEC_BN + lane * CW + j] = dec_bits(x[i][r][j]);
     }
+    __syncthreads();
+    for (int e = tid; e < NB * MR * DEC_BN; e += DEC_THREADS) {
+      T y = dec_val<T>(red[0][e]);
+#pragma unroll
+      for (int w = 1; w < DEC_WARPS; ++w) y = dec_add(y, dec_val<T>(red[w][e]));
+      part_s[e] = dec_bits(y);
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int e = tid; e < MR * DEC_BN; e += DEC_THREADS) {
+        const int r = e / DEC_BN, cl = e % DEC_BN, c = blockIdx.x * DEC_BN + cl;
+        if (r >= p.m || c >= p.n) continue;
+        float z[NB];
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          const int at = (i * MR + r) * DEC_BN + cl;
+          // The other ranks' partials loaded together, summed in rank order.
+          uint32_t w[DEC_MAX_SPLIT];
+#pragma unroll
+          for (int q = 1; q < DEC_MAX_SPLIT; ++q) w[q] = q < split ? cluster.map_shared_rank(&part_s[0], q)[at] : 0u;
+          T y = dec_val<T>(part_s[at]);
+#pragma unroll
+          for (int q = 1; q < DEC_MAX_SPLIT; ++q)
+            if (q < split) y = dec_add(y, dec_val<T>(w[q]));
+          z[i] = static_cast<float>(y);  // int32: the one rounding of the exact sum
+          if constexpr (QUANT) z[i] = drain_scale(p, i, z[i], r, c);
+        }
+        const long long idx = (long long)r * p.n + c;
+        const float y = wg_chain<NB>(p, z[0], z[NB - 1], c, idx);
+        if (p.out_f32)
+          static_cast<float*>(p.out)[idx] = y;
+        else
+          static_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16_rn(y);
+      }
+    }
+    cluster.sync();  // the partials stay until the leader has read them
+  };
+  if constexpr (TILE) {
+    fold();
+    reduce(acc);
+  } else {
+    reduce(part);
   }
-  cluster.sync();  // the partials stay until the leader has read them
 }
 
 // The split of k over a cluster: about two CTAs an SM in all, at most
 // DEC_MAX_SPLIT, each CTA at least DEC_MIN_CHUNK rows; `chunk` (a multiple
-// of the k lanes) is each CTA's share.
-int decode_split(const Params& p, int* chunk) {
+// of `quantum`: the k lanes, or the per-tile scale block) is each CTA's share.
+int decode_split(const Params& p, int quantum, int* chunk) {
   static const int sms = [] {
     int dev = 0, n = 132;
     cudaGetDevice(&dev);
@@ -1063,18 +1239,18 @@ int decode_split(const Params& p, int* chunk) {
   split = split < DEC_MAX_SPLIT ? split : DEC_MAX_SPLIT;
   split = split < most ? split : most;
   split = split > 1 ? split : 1;
-  *chunk = ((p.k + split - 1) / split + DEC_KL - 1) / DEC_KL * DEC_KL;
+  *chunk = ((p.k + split - 1) / split + quantum - 1) / quantum * quantum;
   return (p.k + *chunk - 1) / *chunk;
 }
 
-template <int MR, int NB>
+template <typename TA, typename TB, int MR, int NB, bool TILE>
 int launch_decode(const Params& p, cudaStream_t stream) {
-  auto kernel = ca_gemm_decode_kernel<MR, NB>;
+  auto kernel = ca_gemm_decode_kernel<TA, TB, MR, NB, TILE>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_A_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int chunk = 0;
-  const int split = decode_split(p, &chunk);
+  const int split = decode_split(p, p.scale_block > 0 ? p.scale_block : DecLayout<TB, MR>::KL, &chunk);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.n + DEC_BN - 1) / DEC_BN, split, 1);
   cfg.blockDim = dim3(DEC_THREADS, 1, 1);
@@ -1091,27 +1267,47 @@ int launch_decode(const Params& p, cudaStream_t stream) {
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-int launch_decode_program(const Params& p, bool two, cudaStream_t stream) {
-  if (p.m == 1) return two ? launch_decode<1, 2>(p, stream) : launch_decode<1, 1>(p, stream);
-  return two ? launch_decode<8, 2>(p, stream) : launch_decode<8, 1>(p, stream);
+template <typename TA, typename TB, bool TILE>
+int launch_decode_typed(const Params& p, bool two, cudaStream_t stream) {
+  if (p.m == 1)
+    return two ? launch_decode<TA, TB, 1, 2, TILE>(p, stream) : launch_decode<TA, TB, 1, 1, TILE>(p, stream);
+  return two ? launch_decode<TA, TB, 8, 2, TILE>(p, stream) : launch_decode<TA, TB, 8, 1, TILE>(p, stream);
+}
+
+template <typename TA>
+int launch_decode_int8(const Params& p, bool two, cudaStream_t stream) {
+  return p.scale_block > 0 ? launch_decode_typed<TA, int8_t, true>(p, two, stream)
+                           : launch_decode_typed<TA, int8_t, false>(p, two, stream);
+}
+
+int launch_decode_program(const Params& p, int a_type, int b_type, bool two, cudaStream_t stream) {
+  if (b_type == TYPE_BF16) return launch_decode_typed<__nv_bfloat16, __nv_bfloat16, false>(p, two, stream);
+  if (a_type == TYPE_BF16) return launch_decode_int8<__nv_bfloat16>(p, two, stream);
+  return launch_decode_int8<int8_t>(p, two, stream);
 }
 
 enum Route { ROUTE_SIMT = 0, ROUTE_WGMMA = 1, ROUTE_DECODE = 2 };
 
-// Which route a launch takes (the twin of kernels/ca_mmm.py:k1_route): for
-// bf16 A and B whose TMA'd or vector-loaded operands (A, B, the dact
-// pre-activation) have 16-byte aligned bases and row strides, decode at
-// m <= 8 for a serving program (nn, no dact, no save_preact), wgmma at
-// m > 8 (the GLU only in the nn layout and without dact).  Everything else,
-// fp32, int8, training programs at m <= 8, stays on the SIMT tile.
+// Which route a launch takes (the twin of kernels/ca_mmm.py:k1_route), for
+// operands whose TMA'd or vector-loaded rows (A, B, the dact pre-activation)
+// have 16-byte aligned bases and row strides: bf16 A and B, decode at m <= 8
+// for a serving program (nn, no dact, no save_preact), wgmma at m > 8 (the
+// GLU only in the nn layout and without dact); int8 B with bf16 A (dqb) or
+// int8 A (dqab), decode at m <= 8 (int8 has no training program).  The rest,
+// fp32, fp32 A with int8 B, int8 at m > 8, training programs at m <= 8,
+// stays on the SIMT tile.
 int k1_route(const Params& p, int a_type, int b_type, bool two) {
-  if (a_type != TYPE_BF16 || b_type != TYPE_BF16 || p.k < 1) return ROUTE_SIMT;
+  const bool bf16 = a_type == TYPE_BF16 && b_type == TYPE_BF16;
+  const bool int8 = b_type == TYPE_I8 && (a_type == TYPE_BF16 || a_type == TYPE_I8);
+  if (!(bf16 || int8) || p.k < 1) return ROUTE_SIMT;
+  const long long ea = a_type == TYPE_I8 ? 1 : 2, eb = b_type == TYPE_I8 ? 1 : 2;
   const long long a_row = p.trans_a ? p.m : p.k, b_row = p.trans_b ? p.k : p.n;
-  bool ok = ml::tma_ok(p.a, 2 * a_row) && ml::tma_ok(p.b[0], 2 * b_row) &&
-            ml::tma_ok(p.b[1], 2 * b_row);
+  bool ok = ml::tma_ok(p.a, ea * a_row) && ml::tma_ok(p.b[0], eb * b_row) &&
+            ml::tma_ok(p.b[1], eb * b_row);
   if (p.dact != DACT_NONE) ok = ok && ml::tma_ok(p.preact, 4LL * (p.dact == DACT_A ? p.k : p.n));
   if (!ok) return ROUTE_SIMT;
   if (p.m <= 8) return is_training_program(p) ? ROUTE_SIMT : ROUTE_DECODE;
+  if (int8) return ROUTE_SIMT;
   if (p.n > 65535 * WG_BN<2>) return ROUTE_SIMT;
   if (two && (p.trans_a || p.trans_b || p.dact != DACT_NONE)) return ROUTE_SIMT;
   return ROUTE_WGMMA;
@@ -1179,7 +1375,7 @@ extern "C" int ca_gemm_program_launch(
   const int r = k1_route(p, a_type, b_type, two);
   if (route != r) return static_cast<int>(cudaErrorInvalidValue);
   if (r == ROUTE_WGMMA) return launch_wgmma_program(p, two, s);
-  if (r == ROUTE_DECODE) return launch_decode_program(p, two, s);
+  if (r == ROUTE_DECODE) return launch_decode_program(p, a_type, b_type, two, s);
   if (a_type == TYPE_F32 && b_type == TYPE_F32)
     launch_typed<float, float>(p, two, s);
   else if (a_type == TYPE_BF16 && b_type == TYPE_BF16)

@@ -34,12 +34,15 @@ loop (``csrc/wgmma_mainloop.cuh``): 128 x 128 C tiles (128 x 64 for the
 GLU), A and B through a ring of swizzled TMA stages in their stored
 layouts, wgmma into fp32 registers, the same prologues and drain.  The
 same bf16 serving programs (``nn``, no training flag) at m <= 8, decode,
-run a split-k cluster kernel: 64-column strips of B streamed once in
-16-byte vectors, k split over up to 8 CTAs of a cluster whose partials
-the leader sums in rank order through distributed shared memory before
-the drain.  fp32, int8, min_plus, training programs at m <= 8 and
-misaligned operands stay on the SIMT tile.  K4's bf16 step at whole
-128 x 128 x 64 blocks runs the wgmma main loop (:func:`k_outer_route`).
+and the int8 ones (``dqb`` with bf16 A, ``dqab``), run a split-k cluster
+kernel: 64-column strips of B streamed once in 16-byte vectors (8-byte
+for int8, 4-byte at m > 1), int8 widened by byte permutes, k split over
+up to 8 CTAs of a cluster whose partials (int32 for ``dqab`` without
+per-tile scales, so exact) the leader sums in rank order through
+distributed shared memory before the dequant and the drain.  fp32, fp32 A with int8
+B, int8 at m > 8, min_plus, training programs at m <= 8 and misaligned
+operands stay on the SIMT tile.  K4's bf16 step at whole 128 x 128 x 64
+blocks runs the wgmma main loop (:func:`k_outer_route`).
 
 Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
 activations) streams int8 B tiles and widens them in registers; ``dqab``
@@ -150,22 +153,26 @@ _WGMMA_MAX_N = 65535 * 64
 def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
              b_dtype: torch.dtype, m: int, n: int, k: int, aligned: bool,
              semiring: str = "plus_times", save_preact: bool = False) -> str:
-    """The route a K1 launch takes.  For a bf16 program (A and B bf16, so
-    no dequant) of the plus_times semiring whose operands have 16-byte
-    aligned bases and row strides (``aligned``): ``"decode"`` at m <= 8
-    for a serving program (``nn``, no ``dact``, no ``save_preact``);
-    ``"wgmma"`` at m > 8 for one branch in any layout or the GLU in ``nn``
-    without ``dact``.  ``"simt"`` otherwise: fp32, int8, min_plus,
-    training programs at m <= 8, misaligned operands.  The C entry point's
-    ``k1_route`` is its twin and refuses a launch whose route differs."""
-    if (semiring != "plus_times" or a_dtype != torch.bfloat16
-            or b_dtype != torch.bfloat16 or k < 1 or not aligned):
+    """The route a K1 launch takes, for a plus_times program whose
+    operands have 16-byte aligned bases and row strides (``aligned``).
+    bf16 A and B (no dequant): ``"decode"`` at m <= 8 for a serving
+    program (``nn``, no ``dact``, no ``save_preact``); ``"wgmma"`` at
+    m > 8 for one branch in any layout or the GLU in ``nn`` without
+    ``dact``.  int8 B with bf16 A (``dqb``) or int8 A (``dqab``):
+    ``"decode"`` at m <= 8.  ``"simt"`` otherwise: fp32, fp32 A with int8
+    B, int8 at m > 8, min_plus, training programs at m <= 8, misaligned
+    operands.  The C entry point's ``k1_route`` is its twin and refuses a
+    launch whose route differs."""
+    bf16 = a_dtype == torch.bfloat16 and b_dtype == torch.bfloat16
+    int8 = b_dtype == torch.int8 and a_dtype in (torch.bfloat16, torch.int8)
+    if semiring != "plus_times" or not (bf16 or int8) or k < 1 \
+            or not aligned:
         return "simt"
     if m <= 8:
         training = (layout != "nn" or spec.prologue.kind == "dact"
                     or save_preact)
         return "simt" if training else "decode"
-    if n > _WGMMA_MAX_N:
+    if int8 or n > _WGMMA_MAX_N:
         return "simt"
     if spec.n_b == 2 and (layout != "nn" or spec.prologue.kind == "dact"):
         return "simt"
@@ -626,7 +633,8 @@ def ca_gemm_program(
     reference casts it), fp32 out, NaN propagating.
 
     bf16 programs with 16-byte aligned operands take the wgmma route at
-    m > 8 and, serving programs, the decode route at m <= 8; the rest the
+    m > 8 and, serving programs, the decode route at m <= 8, as do the
+    aligned ``dqb`` (bf16 A) and ``dqab`` programs at m <= 8; the rest the
     SIMT tile (:func:`k1_route`).  All count in ``launch_counts`` and, by
     route, in ``route_counts``.
 

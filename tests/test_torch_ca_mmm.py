@@ -182,25 +182,39 @@ def _quant_operands(tag, m, n, k, block_b, block_a, seed):
     ("dqb+bias+silu+mul+res", (0, 0)), ("dqb+res", (128, 0)),
     ("glu.gelu(dqb+bias|dqb+bias)", (128, 0)), ("dqab", (0, 0)),
     ("dqab+res", (128, 128)), ("dqab", (0, 128)),
-    ("glu.silu(dqab|dqab)", (0, 0))])
-@pytest.mark.parametrize("m", [1, 37])
+    ("glu.silu(dqab|dqab)", (0, 0)), ("rms>glu.silu(dqb|dqb)", (0, 0))])
+@pytest.mark.parametrize("m", [1, 37, 8])
 def test_quant_programs_match_reference_kernel(tag, blocks, m):
+    """The dequant programs, among them the served int8w GLU with its rms
+    prologue (bf16 A, as int8w serving streams it, and fp32 out) and the
+    served w8a8 GLU, at decode (m = 1), the 8-token prefill and m = 37."""
     # Ragged n and k: 300 = 128 + 128 + 44 rows of k.
     n, k = 200, 300
     block_b, block_a = blocks
     ops = _quant_operands(tag, m, n, k, block_b, block_a, seed=m)
+    spec = program_from_tag(tag)
+    j_a, t_a = jnp.asarray(ops["a"]), torch.as_tensor(ops["a"])
+    j_kw, t_kw = {}, {}
+    if spec.prologue.kind == "rms":
+        j_a, t_a = j_a.astype(jnp.bfloat16), t_a.to(torch.bfloat16)
+        gain = np.random.RandomState(m + 1).rand(k).astype(np.float32) + 0.5
+        xf = j_a.astype(jnp.float32)
+        j_kw = {"gain": jnp.asarray(gain), "out_dtype": jnp.float32,
+                "row_scale": 1.0 / jnp.sqrt(jnp.mean(
+                    xf * xf, axis=-1, keepdims=True) + 1e-5)}
+        t_kw = {"gain": torch.as_tensor(gain), "out_dtype": torch.float32,
+                "row_scale": rms_row_scale(t_a, 1e-5)}
     want = jax_program(
-        jnp.asarray(ops["a"]), [jnp.asarray(b) for b in ops["bs"]],
+        j_a, [jnp.asarray(b) for b in ops["bs"]],
         spec=jax_from_tag(tag), bm=8, bn=128, bk=128, interpret=True,
         branch_operands=[{k_: jnp.asarray(v) for k_, v in d.items()}
                          for d in ops["branch"]],
-        scale_b_block=block_b, scale_a_block=block_a)
+        scale_b_block=block_b, scale_a_block=block_a, **j_kw)
     got = K.ca_gemm_program(
-        torch.as_tensor(ops["a"]), [torch.as_tensor(b) for b in ops["bs"]],
-        spec=program_from_tag(tag),
+        t_a, [torch.as_tensor(b) for b in ops["bs"]], spec=spec,
         branch_operands=[{k_: torch.as_tensor(v) for k_, v in d.items()}
                          for d in ops["branch"]],
-        scale_b_block=block_b, scale_a_block=block_a)
+        scale_b_block=block_b, scale_a_block=block_a, **t_kw)
     assert got.dtype == torch.float32 and got.shape == (m, n)
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
@@ -750,8 +764,6 @@ def test_k1_route_takes_decode_at_m_up_to_8(tag, k, n, m):
 @pytest.mark.parametrize("m", [1, 3, 8])
 @pytest.mark.parametrize("case", [
     ("none", "nn", (torch.float32,) * 2, {}),
-    ("dqb", "nn", (BF16, torch.int8), {}),
-    ("dqab", "nn", (torch.int8,) * 2, {}),
     ("none", "nn", (BF16, BF16), {"semiring": "min_plus"}),
     ("none", "nn", (BF16, BF16), {"misaligned": True}),
     ("none", "nt", (BF16, BF16), {}),
@@ -760,14 +772,55 @@ def test_k1_route_takes_decode_at_m_up_to_8(tag, k, n, m):
     ("dact.silu@b>none", "nn", (BF16, BF16), {}),
     ("bias+gelu", "nn", (BF16, BF16), {"save_preact": True}),
     (GLU, "nn", (BF16, BF16), {"save_preact": True}),
-], ids=["fp32", "dqb", "dqab", "min_plus", "misaligned", "nt", "tn",
-        "dact@a", "dact@b", "save_preact", "glu save_preact"])
+], ids=["fp32", "min_plus", "misaligned", "nt", "tn", "dact@a", "dact@b",
+        "save_preact", "glu save_preact"])
 def test_k1_route_keeps_simt_at_m_up_to_8(case, m):
-    """fp32, int8, min_plus, misaligned operands and the training flags
-    (a transposed layout, dact, save_preact) stay on the SIMT tile at
+    """fp32, min_plus, misaligned operands and the training flags (a
+    transposed layout, dact, save_preact) stay on the SIMT tile at
     m <= 8."""
     tag, layout, dtypes, kw = case
     assert _route(tag, layout, dtypes, m, 2048, 2048, **kw) == "simt"
+
+
+I8 = torch.int8
+# The int8 serving programs of stablelm-1.6b (k, n) and their operand
+# types: int8 weights with bf16 activations (dqb, K1d), w8a8 (dqab, K1e).
+INT8_DECODE_PROGRAMS = [
+    ("dqb", (BF16, I8), 2048, 2048), ("dqab", (I8, I8), 2048, 2048),
+    ("dqb", (BF16, I8), 2048, 100352), ("dqab", (I8, I8), 2048, 100352),
+    ("dqb+res", (BF16, I8), 5632, 2048), ("dqab+res", (I8, I8), 5632, 2048),
+    ("rms>glu.silu(dqb|dqb)", (BF16, I8), 2048, 5632),
+    ("glu.silu(dqab|dqab)", (I8, I8), 2048, 5632)]
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("tag,dtypes,k,n", INT8_DECODE_PROGRAMS,
+                         ids=[f"{t} {k}x{n}"
+                              for t, _, k, n in INT8_DECODE_PROGRAMS])
+def test_k1_route_takes_decode_for_int8_at_m_up_to_8(tag, dtypes, k, n, m):
+    """Aligned dqb (bf16 A) and dqab serving programs at m <= 8 take the
+    decode route (int8 B needs n % 16 == 0, int8 A k % 16 == 0), and the
+    same program at m = 9 (prefill) the SIMT tile."""
+    assert _route(tag, "nn", dtypes, m, n, k) == "decode"
+    assert _route(tag, "nn", dtypes, 9, n, k) == "simt"
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("tag,dtypes,n,k,kw", [
+    ("dqb", (BF16, I8), 2056, 2048, {}),
+    ("dqab", (I8, I8), 2056, 2048, {}),
+    ("dqab", (I8, I8), 2048, 2056, {}),
+    ("dqab", (I8, I8), 2048, 2048, {"misaligned": True}),
+    ("dqb", (BF16, I8), 2048, 2048, {"misaligned": True}),
+    ("dqb", (torch.float32, I8), 2048, 2048, {}),
+], ids=["dqb n%16", "dqab n%16", "dqab k%16", "dqab A off 16 bytes",
+        "dqb A off 16 bytes", "dqb fp32 A"])
+def test_k1_route_keeps_int8_on_simt(tag, dtypes, n, k, kw, m):
+    """int8 programs the decode kernel does not take stay on the SIMT
+    tile: int8 B with n % 16 != 0, int8 A with k % 16 != 0, an operand's
+    base off 16 bytes, and fp32 A with int8 B (the decode kernel stages
+    bf16 or int8 A only)."""
+    assert _route(tag, "nn", dtypes, m, n, k, **kw) == "simt"
 
 
 # stablelm-1.6b's training GEMMs at full width, 1024 tokens a step, in the

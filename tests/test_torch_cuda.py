@@ -254,13 +254,96 @@ def test_cuda_w8a8_int32_headroom_k4096():
     b[: k // 4] = 127                      # a sum far from 0: 127² · k/4
     sa = torch.full((m,), 4.0 / 127, device="cuda")
     sb = torch.rand(n, device="cuda") + 0.5
+    K.reset_launch_counts()
     got = K.ca_gemm_program(a, [b], spec=program_from_tag("dqab"),
                             branch_operands=[{"scale_a": sa,
                                               "scale_b": sb}])
+    assert K.route_counts == {"decode dqab": 1}
     exact = (a.double() @ b.double())
     want = (exact.float() * sb[None, :]) * sa[:, None]
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# The decode route for int8 (dqb with bf16 A, dqab) at m <= 8: shapes
+# ragged against the 64-column strip (n a multiple of 16, not of 64), the
+# cluster's k chunk and the 128 / 256 scale blocks (k = 1000: four CTAs of
+# 256, 256, 256, 232 rows; dqab's int8 A needs k % 16 == 0, so it takes
+# k = 1008: 256, 256, 256, 240), and one wide enough for no split whose k
+# goes through A's shared memory in two pieces at m > 1; per-channel /
+# per-row scales and per-tile ones.
+INT8_DECODE_SHAPES = {"ragged": (208, 1000), "wide": (16912, 2600)}
+INT8_DECODE_BLOCKS = [(tag, blocks) for tag in QUANT_TAGS
+                      for blocks in ((0, 0), (128, 0), (256, 256), (0, 128))
+                      if "dqab" in tag or not blocks[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("od", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("shape", list(INT8_DECODE_SHAPES))
+@pytest.mark.parametrize("tag,blocks", INT8_DECODE_BLOCKS,
+                         ids=[f"{t}-{b[0]}-{b[1]}"
+                              for t, b in INT8_DECODE_BLOCKS])
+def test_cuda_int8_decode_route_matches_plain_version(tag, blocks, shape, m,
+                                                      od):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, k = INT8_DECODE_SHAPES[shape]
+    if "dqab" in tag:
+        k = -(-k // 16) * 16
+    a, bs, kw = quant_program_inputs(tag, m, n, k, torch.bfloat16, seed=21,
+                                     block_b=blocks[0], block_a=blocks[1])
+    kw["out_dtype"] = od
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    assert K.route_counts == {f"decode {tag}": 1}
+    again = K.ca_gemm_program(a, bs, **kw)
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # no atomics: the same bits each run
+    assert got.shape == (m, n) and got.dtype == od
+    if "dqab" in tag and blocks == (0, 0):
+        # The int32 sum is exact and rounds once, then the plain version's
+        # scales and chain in its order: the same bits.
+        assert torch.equal(got, want)
+        return
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    # fp32: the sums (and per-tile folds) run in another order; bf16: one
+    # output ulp may flip.
+    tol = 1e-4 * (1 + scale) if od == torch.float32 else 2e-2 * scale
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["a", "b"])
+@pytest.mark.parametrize("tag", ["dqb+res", "dqab"])
+def test_cuda_misaligned_int8_decode_takes_the_simt_tile(tag, operand):
+    """An int8 program at m = 1 whose A or B base is off 16 bytes: the
+    SIMT tile, and the same result (dqab bit for bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n, k = 1, 208, 1008
+    a, bs, kw = quant_program_inputs(tag, m, n, k, torch.bfloat16, seed=23)
+    kw["out_dtype"] = torch.float32
+
+    def off(t):
+        o = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")[1:]
+        return o.view(t.shape).copy_(t)
+    args = (off(a), bs) if operand == "a" else (a, [off(b) for b in bs])
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(*args, **kw)
+    assert K.route_counts == {f"simt {tag}": 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    if "dqab" in tag:
+        assert torch.equal(got, want)
+        return
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * (1 + want.abs().max().item()), err
 
 
 # K1f, the backward programs of training: (tag, layout, save_preact).

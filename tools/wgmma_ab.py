@@ -10,9 +10,11 @@ Version A is a directory holding ``ca_gemm_program.cu``,
 ``ca_mmm_k_outer.cu``, ``flash_attn_fwd.cu`` and the
 ``wgmma_mainloop.cuh`` they include; version B is another such directory
 (``--new``) or the tree's ``src/repro_torch/csrc``.  A version whose GEMM
-source has no decode route runs the m = 1 programs on its SIMT tile, and
-one whose K3 entry point takes no route argument runs K3 on its SIMT
-kernel, so the tool also compares a tree against its parent.  Each case
+source has no decode route runs the m = 1 programs on its SIMT tile (one
+without the int8 decode route its int8 ones: K1d and K1e of
+stablelm-1.6b at m = 1), and one whose K3 entry point takes no route
+argument runs K3 on its SIMT kernel, so the tool also compares a tree
+against its parent.  Each case
 runs once on both to compare outputs (bit-equal, and each one's max
 |error| against the plain version where it has one), then is timed by
 CUDA-graph replay (``chip_smoke._time_ms``) in the order A, B, B, A for
@@ -69,6 +71,22 @@ def cases(gen):
             a, sets, kw = CS.program_inputs(tag, m, k, n, torch.bfloat16,
                                             gen, copies)
             program(f"{tag} {name} m={m}", a, sets, kw, od, copies)
+    # The int8 programs (K1d, K1e) of stablelm-1.6b at decode.
+    for tag, name, k, n, od in CS.GEMMS:
+        nb = program_from_tag(tag).n_b
+        copies = max(2, math.ceil(120e6 / (nb * k * n)))
+        for qtag in CS.QUANT[tag]:
+            a, sets, kw, ops = CS.quant_inputs(qtag, 1, k, n, torch.bfloat16,
+                                               gen, copies)
+            kw = dict(kw, out_dtype=od or torch.bfloat16)
+            out.append((f"{qtag} {name} m=1",
+                        lambda i, a=a, sets=sets, kw=kw, ops=ops:
+                            K.ca_gemm_program(a, sets[i],
+                                              branch_operands=ops(i), **kw),
+                        copies,
+                        lambda a=a, sets=sets, kw=kw, ops=ops:
+                            K.ca_gemm_program_reference(
+                                a, sets[0], branch_operands=ops(0), **kw)))
     x, y = (torch.randn(4096, 4096, generator=gen, device="cuda").bfloat16()
             for _ in range(2))
     out.append(("K4 default tile", lambda i: K.ca_mmm_k_outer(x, y), 1,
@@ -118,6 +136,22 @@ def _k3_without_route(source: pathlib.Path):
     return launch
 
 
+def _takes_int8_decode(gemm: pathlib.Path, k1_route) -> bool:
+    """Whether the GEMM build of ``gemm`` has the int8 decode route: it
+    launches a small dqb program at m = 1 there, or its entry point
+    refuses the route (an error returned before any launch)."""
+    K._library = lambda: _build.load(gemm, K._bind)
+    K.k1_route = k1_route
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, sets, kw, ops = CS.quant_inputs("dqb", 1, 64, 64, torch.bfloat16, gen)
+    try:
+        K.ca_gemm_program(a, sets[0], branch_operands=ops(0), **kw)
+    except RuntimeError:
+        return False
+    torch.cuda.synchronize()
+    return True
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_csrc", type=pathlib.Path)
@@ -136,18 +170,28 @@ def main():
             gemm=gemm, k4=d / "ca_mmm_k_outer.cu", fwd=fwd,
             decode="ROUTE_DECODE" in gemm.read_text(),
             fwd_routed="int route," in fwd.read_text())
+        builds[tag]["int8_decode"] = (builds[tag]["decode"]
+                                      and _takes_int8_decode(gemm, k1_route))
         print(f"build {tag}: {d} (decode route "
-              f"{builds[tag]['decode']}, K3 routes "
+              f"{builds[tag]['decode']}, int8 decode "
+              f"{builds[tag]['int8_decode']}, K3 routes "
               f"{builds[tag]['fwd_routed']})", flush=True)
+
+    def routed(b):
+        """k1_route for build ``b``: m <= 8 on its SIMT tile where it has no
+        decode route, or none for int8 B."""
+        def route(spec, layout, a_dtype, b_dtype, *args, **kw):
+            r = k1_route(spec, layout, a_dtype, b_dtype, *args, **kw)
+            takes = b["decode"] and (b_dtype != torch.int8
+                                     or b["int8_decode"])
+            return "simt" if r == "decode" and not takes else r
+        return route
 
     def use(tag):
         b = builds[tag]
         K._library = lambda: _build.load(b["gemm"], K._bind)
         K.K_OUTER_SOURCE = b["k4"]
-        # A build without the decode route takes m <= 8 on its SIMT tile.
-        K.k1_route = k1_route if b["decode"] else (
-            lambda *a, **kw: "simt" if k1_route(*a, **kw) == "decode"
-            else k1_route(*a, **kw))
+        K.k1_route = routed(b)
         FA.FWD_SOURCE = b["fwd"]
         FA._launch_fwd = launch_fwd if b["fwd_routed"] \
             else _k3_without_route(b["fwd"])
