@@ -19,9 +19,10 @@ Phases (any failure raises and the script exits non-zero):
    for fp32).  The paged attention kernel
    against its plain version in fp32 and bf16 at stablelm-1.6b's and
    danube's serve shapes, at a ragged windowed danube batch, at B = 8,
-   S = 4096 for both head geometries and at granite-20b's 48 query heads
-   over one KV head (D = 128), and bit-identical when the pool's free
-   pages are poisoned.
+   S = 4096 for both head geometries, at granite-20b's 48 query heads
+   over one KV head (D = 128) and at deepseek-v2-lite's MLA head (D = 192,
+   Dv = 128: head dims in 128-wide chunks), and bit-identical when the
+   pool's free pages are poisoned.
 4. slice: full-width stablelm-1.6b, all 24 layers, random weights from a
    seed, served through ServeEngine (3 requests) on the slab cache; the
    kernel must launch exactly 145 times per prefill and per decode step,
@@ -44,21 +45,23 @@ Phases (any failure raises and the script exits non-zero):
    ways with the same checks.
 6. int8 parity: every dqb (int8 weights, K1d) and dqab (w8a8, K1e)
    program against its plain version: the main path's shapes at m = 1, 5,
-   37, 128 with per-channel scales, ragged n and k with per-tile scales
-   (g = 128, 256, ragged last block; per-k-tile activation scales), fp32 A
-   and out, and w8a8 at k = 4096 with saturated operands, bit-exact; each
-   call's K1 route is asserted (the split-k decode kernel at m <= 8 for
-   bf16 or int8 A with 16-byte rows, the SIMT tile otherwise), and dqab
-   with per-channel and per-row scales on the decode route bit-equal.
+   37, 128, 1000 with per-channel scales, ragged n and k with per-tile
+   scales (g = 128, 256, ragged last block; per-k-tile activation
+   scales), fp32 A and out, and w8a8 at k = 4096 with saturated operands
+   at m = 4 and 128, bit-exact; each call's K1 route is asserted (for
+   bf16 or int8 A with 16-byte rows, the split-k decode kernel at m <= 8
+   and the int8 wgmma kernel above; the SIMT tile otherwise), and dqab
+   with per-channel and per-row scales on both routes bit-equal.
 7. int8 slice: full-width stablelm-1.6b quantized on the card
-   (models.common.quantize_params) serves the phase-4 requests in int8w,
-   then w8a8 (ServeEngine(quantize_activations=True), 4 calibration
-   prompts): exactly 145 dq* launches per forward step; calibration sites
-   and seconds, end-to-end times, decode profile (K1's device ms, the
-   device's busy ms, aten ops per step) and the cosine of prefill logits
-   against the bf16 model; every decode step and the 8-token prefill on the
-   decode route, the longer prefills on the SIMT tile.  A 4-layer model's
-   int8w and
+   (models.common.quantize_params) serves a 1000-token prompt and the
+   phase-4 requests in int8w, then w8a8
+   (ServeEngine(quantize_activations=True), 4 calibration prompts):
+   exactly 145 dq* launches per forward step; calibration sites and
+   seconds, end-to-end times (each request's prefill ms), decode profile
+   (K1's device ms, the device's busy ms, aten ops per step) and the
+   cosine of prefill logits against the bf16 model; every decode step and
+   the 8-token prefill on the decode route, the longer prefills on the
+   int8 wgmma route.  A 4-layer model's int8w and
    w8a8 (scales calibrated once on the card, percentile, per k-tile) are
    held against the CPU.
 8. K1f parity: each backward program of training (nt, tn, dact@a on nt,
@@ -79,9 +82,11 @@ Phases (any failure raises and the script exits non-zero):
 10. times: kernel, plain version, library call (torch._weight_int8pack_mm
    for a per-channel dqb; torch.matmul for the plain nt/tn programs) and
    bound per GEMM program (float at m = 1, 128 and 1000, h2o-danube-3-4b's
-   at m = 1, int8 at m = 1 on both the decode route and the SIMT tile (A's
-   base off 16 bytes), 128 and 1000, the K1f programs at 1024 tokens) and for the paged kernel (each timed by replaying a CUDA graph
-   of 20 calls), and the end-to-end times of the serve and train phases.
+   at m = 1, int8 (wo included) at m = 1, 128 and 1000 on its route
+   (decode, then wgmma) and on the SIMT tile (A's base off 16 bytes), the
+   K1f programs at 1024 tokens) and for the paged kernel (each timed by
+   replaying a CUDA graph of 20 calls), and the end-to-end times of the
+   serve and train phases.
 11. K1g, the distance product: all-pairs shortest paths on a random
    directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
    repeated min-plus squarings through kernels.ops.distance_product,
@@ -94,10 +99,12 @@ Phases (any failure raises and the script exits non-zero):
    full-width prefill shapes (stablelm-1.6b at 1000 tokens, causal;
    h2o-danube-3-4b at 300, GQA 4, D = 120), stablelm at 4096, danube at
    16384 with its window of 8192, and a ragged batch with -1 kv slots and
-   a fully masked row (0), and granite-20b's 48 query heads over one KV
-   head; one launch per call, every bf16 call on the wgmma route and every
-   fp32 call on the SIMT route, plus one bf16 call whose bases sit off 16
-   bytes (SIMT); at the stablelm shape against the model's own plain
+   a fully masked row (0), granite-20b's 48 query heads over one KV head
+   and deepseek-v2-lite's MLA head (D = 192, Dv = 128); one launch per
+   call, every bf16 call with head dims up to 128 on the wgmma route and
+   every other call on the SIMT route (the MLA head in 128-wide chunks),
+   plus one bf16 call whose bases sit off 16 bytes (SIMT); at the
+   stablelm shape against the model's own plain
    prefill attention.  Each output is held to its row's scale (bf16 2^-7,
    fp32 1e-4 of |want| + the row's max), and a bf16 kernel's mean error to
    2^-12 of the mean |want|.  Times of both routes on the same bf16
@@ -184,8 +191,14 @@ FWD_SHAPES = {"stablelm prefill": (1, 1000, 1000, 32, 32, 64, None),
               "danube prefill": (1, 300, 300, 32, 8, 120, 8192),
               "stablelm S4096": (1, 4096, 4096, 32, 32, 64, None),
               "danube S16384": (1, 16384, 16384, 32, 8, 120, 8192),
-              "granite G48": (1, 1000, 1000, 48, 1, 128, None)}
+              "granite G48": (1, 1000, 1000, 48, 1, 128, None),
+              "mla D192": (1, 1000, 1000, 16, 16, 192, None)}
 FWD_TIMED = ("stablelm prefill", "danube prefill", "stablelm S4096")
+# deepseek-v2-lite's MLA head (16 heads, q.k over 192 dims, v of 128):
+# past the wgmma route's 128, so its bf16 call takes the SIMT kernel in
+# 128-wide chunks, as K2's paged case below does.
+MLA_DV = 128
+FWD_DV = {"mla D192": MLA_DV}
 # K4 at m = n = k = K_OUTER_MNK, beside K1a at the same shape.
 K_OUTER_MNK = 4096
 
@@ -252,7 +265,9 @@ ATTN_CASES = {"a stablelm": ([1016], 128, 32, 32, 64, None),
               "danube serve": ([316], 128, 32, 8, 120, None),
               "stablelm B8 S4096": ([4096] * 8, 128, 32, 32, 64, None),
               "danube B8 S4096": ([4096] * 8, 128, 32, 8, 120, None),
-              "granite G48": ([1016, 37], 128, 48, 1, 128, None)}
+              "granite G48": ([1016, 37], 128, 48, 1, 128, None),
+              "mla D192": ([1016, 37], 128, 16, 16, 192, None)}
+ATTN_DV = {"mla D192": MLA_DV}
 # Prompt lengths of the prefill shapes the bf16 GEMMs are held and timed
 # at (the served prompts of 37, 128 and 1000 tokens).
 PREFILL_M = (37, 128, 1000)
@@ -278,23 +293,23 @@ def want_route(dtype, m):
 
 
 def want_quant_route(a, m, n, k):
-    """The route an int8 program must take: decode at m <= 8 for bf16 or
-    int8 A whose rows are 16-byte aligned (k % 8 for bf16, k % 16 for
-    int8) with int8 B rows too (n % 16); SIMT otherwise (fp32 A, prefill,
-    ragged rows).  Every base here is 16-byte aligned."""
-    if a.dtype == torch.float32 or m > 8 or n % 16 \
-            or (k * a.element_size()) % 16:
+    """The route an int8 program must take, for bf16 or int8 A whose rows
+    are 16-byte aligned (k % 8 for bf16, k % 16 for int8) with int8 B rows
+    too (n % 16): decode at m <= 8, the int8 wgmma kernel above; SIMT
+    otherwise (fp32 A, ragged rows).  Every base here is 16-byte
+    aligned."""
+    if a.dtype == torch.float32 or n % 16 or (k * a.element_size()) % 16:
         return "simt"
-    return "decode"
+    return "decode" if m <= 8 else "wgmma"
 
 
-def serve_routes(prompt_lens, new_tokens, per_step, prefill="wgmma"):
+def serve_routes(prompt_lens, new_tokens, per_step):
     """The K1 launches by route of requests served one at a time: each
-    prefill at m = its prompt's length (``prefill``, wgmma for bf16 and
-    simt for int8, above 8 tokens, decode up to 8), each decode step at
-    m = 1 (decode), ``per_step`` launches a forward step."""
-    steps = {prefill: sum(1 for n in prompt_lens if n > 8)}
-    steps["decode"] = len(prompt_lens) - steps[prefill] + sum(
+    prefill at m = its prompt's length (wgmma above 8 tokens, in bf16 and
+    int8, decode up to 8), each decode step at m = 1 (decode),
+    ``per_step`` launches a forward step."""
+    steps = {"wgmma": sum(1 for n in prompt_lens if n > 8)}
+    steps["decode"] = len(prompt_lens) - steps["wgmma"] + sum(
         n - 1 for n in new_tokens)
     return {f"{route} {tag}": n * k for route, k in steps.items() if k
             for tag, n in per_step.items()}
@@ -310,6 +325,7 @@ def check_routes(label, got, want):
 def is_k1(kernel_name):
     return ("ca_gemm_program_kernel" in kernel_name
             or "ca_gemm_wgmma_kernel" in kernel_name
+            or "ca_gemm_wgmma_int8_kernel" in kernel_name
             or "ca_gemm_decode_kernel" in kernel_name)
 
 
@@ -408,12 +424,14 @@ def parity():
     return worst
 
 
-def attn_pool(lens, page, Hkv, D, gen, *, extra_pages=0, copies=1):
-    """Random int8 page pools on the card for sequences of ``lens`` tokens.
-    Each sequence maps ceil(len / page) pages in a shuffled order (-1 past
-    them in its table row); ``extra_pages`` more pages no table names.
-    ``copies`` pools (k, v, k_scale, v_scale) share the tables; also
-    returns the unmapped page ids."""
+def attn_pool(lens, page, Hkv, D, gen, *, extra_pages=0, copies=1,
+              Dv=None):
+    """Random int8 page pools on the card for sequences of ``lens`` tokens
+    (K rows of D, V rows of Dv, default D).  Each sequence maps
+    ceil(len / page) pages in a shuffled order (-1 past them in its table
+    row); ``extra_pages`` more pages no table names.  ``copies`` pools (k,
+    v, k_scale, v_scale) share the tables; also returns the unmapped page
+    ids."""
     B = len(lens)
     counts = [-(-L // page) for L in lens]
     NP, need = max(counts), sum(counts)
@@ -427,9 +445,9 @@ def attn_pool(lens, page, Hkv, D, gen, *, extra_pages=0, copies=1):
     pools = []
     for _ in range(copies):
         pools.append(tuple(
-            torch.randint(-127, 128, (P, page, Hkv, D), generator=gen,
+            torch.randint(-127, 128, (P, page, Hkv, d), generator=gen,
                           device="cuda", dtype=torch.int8)
-            for _ in range(2)) + tuple(
+            for d in (D, Dv or D)) + tuple(
             torch.rand(P, generator=gen, device="cuda") * 0.03 + 0.005
             for _ in range(2)))
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -462,10 +480,11 @@ def attn_parity():
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = 0.0
     for name, (lens, page, H, Hkv, D, window) in ATTN_CASES.items():
+        Dv = ATTN_DV.get(name, D)
         (pool,), tables, lens_t, unmapped = attn_pool(
-            lens, page, Hkv, D, gen, extra_pages=16)
+            lens, page, Hkv, D, gen, extra_pages=16, Dv=Dv)
         label = (f"{name:17s} B={len(lens)} S={max(lens)} page={page} H={H} "
-                 f"Hkv={Hkv} D={D} window={window}")
+                 f"Hkv={Hkv} D={D} Dv={Dv} window={window}")
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(len(lens), H, D, generator=gen,
                             device="cuda").to(dtype)
@@ -1164,7 +1183,7 @@ def quant_parity():
     cases = []
     # The main path's shapes, per-channel scales, bf16 A (dqb) or int8 A
     # (dqab), bf16 out and the head's fp32 out.
-    for m in (1, 5, 37, 128):
+    for m in (1, 5, 37, 128, 1000):
         for tag, name, k, n, od in GEMMS:
             for qtag in QUANT[tag]:
                 cases.append((qtag, name, m, k, n, od, torch.bfloat16, 0, 0))
@@ -1215,35 +1234,42 @@ def quant_parity():
         if not err <= tol:
             raise AssertionError(f"{qtag} {name} m={m}: kernel disagrees "
                                  f"with the plain version ({err} > {tol})")
-        # dqab's int32 sum is exact and the decode route rounds it once, then
-        # scales per channel and row as the plain version does: the same bits.
-        if route == "decode" and "dqab" in qtag and not (bb or ba) \
+        # dqab's int32 sum is exact and the decode and wgmma routes round it
+        # once, then scale per channel and row as the plain version does:
+        # the same bits.
+        if route != "simt" and "dqab" in qtag and not (bb or ba) \
                 and not torch.equal(got, want):
             raise AssertionError(f"{qtag} {name} m={m}: not bit-equal to "
-                                 "the plain version on the decode route")
+                                 f"the plain version on the {route} route")
         worst[qtag] = max(worst.get(qtag, 0.0), err)
     # w8a8 headroom: k = 4096, every product 127 * +-127; the int32 sum
     # must be exact, so the output equals s_a * s_b * sum(a_q * b_q) bit for
-    # bit after the fp32 rescale.
-    m, n, k = 4, 128, 4096
-    a = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
-    sign = torch.where(torch.arange(k, device="cuda") % 2 == 1, 1, -1)
-    b = (sign[:, None] * 127).expand(k, n).clone()
-    b[:k // 4] = 127
-    b = b.to(torch.int8)
-    sa = torch.full((m,), 4.0 / 127, device="cuda")
-    sb = torch.rand(n, generator=gen, device="cuda") + 0.5
-    before = dict(K.route_counts)
-    got = K.ca_gemm_program(a, [b], spec=program_from_tag("dqab"),
-                            branch_operands=[{"scale_a": sa, "scale_b": sb}])
-    check_routes("dqab headroom", route_delta(before), {"decode dqab": 1})
-    want = ((a.double() @ b.double()).float() * sb[None]) * sa[:, None]
-    torch.cuda.synchronize()
-    exact = torch.equal(got, want)
-    print(f"parity dqab headroom k={k} saturated: bit-identical={exact} "
-          f"max_abs_err={(got - want).abs().max().item():.3e}")
-    if not exact:
-        raise AssertionError("w8a8 headroom case is not exact")
+    # bit after the fp32 rescale, on the decode route (m = 4) and the wgmma
+    # route (m = 128).
+    n, k = 128, 4096
+    for m, route in ((4, "decode"), (128, "wgmma")):
+        a = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+        sign = torch.where(torch.arange(k, device="cuda") % 2 == 1, 1, -1)
+        b = (sign[:, None] * 127).expand(k, n).clone()
+        b[:k // 4] = 127
+        b = b.to(torch.int8)
+        sa = torch.full((m,), 4.0 / 127, device="cuda")
+        sb = torch.rand(n, generator=gen, device="cuda") + 0.5
+        before = dict(K.route_counts)
+        got = K.ca_gemm_program(a, [b], spec=program_from_tag("dqab"),
+                                branch_operands=[{"scale_a": sa,
+                                                  "scale_b": sb}])
+        check_routes(f"dqab headroom m={m}", route_delta(before),
+                     {f"{route} dqab": 1})
+        want = ((a.double() @ b.double()).float() * sb[None]) * sa[:, None]
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        print(f"parity dqab headroom m={m} k={k} saturated ({route}): "
+              f"bit-identical={exact} "
+              f"max_abs_err={(got - want).abs().max().item():.3e}")
+        if not exact:
+            raise AssertionError(f"w8a8 headroom case (m = {m}) is not "
+                                 "exact")
     return worst
 
 
@@ -1270,6 +1296,8 @@ def serve_int8(cfg):
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (128, 37, 8)]
     probe = torch.as_tensor(prompts[1], device="cuda")[None]
+    # One 1000-token prompt more: the int8 prefill at the served length.
+    prompts.insert(0, rng.randint(0, cfg.vocab_size, 1000))
     with torch.inference_mode():
         dense, _ = M.prefill(params, {"tokens": probe}, cfg, max_len=160)
     dense = dense[0, :, :cfg.vocab_size]
@@ -1281,7 +1309,7 @@ def serve_int8(cfg):
     out = {}
     for mode in ("int8w", "w8a8"):
         w8a8 = mode == "w8a8"
-        eng = ServeEngine(qparams, cfg, max_len=160,
+        eng = ServeEngine(qparams, cfg, max_len=1040,
                           quantize_activations=w8a8, calibration_batches=4,
                           act_qconfig=QuantConfig(act_fmt="int8"))
         print(f"{mode}: calibration sites {eng.calibration_sites} in "
@@ -1309,7 +1337,7 @@ def serve_int8(cfg):
         routes = dict(K.route_counts)
         check_routes(mode, routes, serve_routes(
             [len(r.prompt) for r in reqs], [r.max_new_tokens for r in reqs],
-            per_step, prefill="simt"))
+            per_step))
         for r in reqs:
             if r.status != "done" or len(r.generated) != r.max_new_tokens:
                 raise AssertionError(f"{mode} request {r.uid}: {r.status}")
@@ -1427,11 +1455,10 @@ def quant_times(float_rows):
     phase("int8 times (CUDA graph replay; weights rotated past the 50 MB L2)")
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
-    shapes = [g for g in GEMMS if g[1] != "wo"]      # wq, head, w_down, glu
     for m in (1, 128, 1000):
         # Millisecond-scale calls at m = 1000: fewer in each graph.
         iters, reps = (5, 2) if m == 1000 else (20, 5)
-        for tag, name, k, n, od in shapes:
+        for tag, name, k, n, od in GEMMS:
             nb = program_from_tag(tag).n_b
             copies = max(2, math.ceil(120e6 / (nb * k * n)))
             k1a = next(r["ms"] for r in float_rows if r["program"] == tag
@@ -1459,16 +1486,16 @@ def quant_times(float_rows):
                        "ms": ms, "plain_ms": plain, "library_ms": lib,
                        "bound_ms": b_ms, "bound_by": b_by,
                        "k1a_ms_same_shape": k1a}
-                if m == 1:
-                    # The SIMT tile on the same operands, A's base off 16
-                    # bytes, in the same process.
-                    am = misaligned(a)
-                    before = dict(K.route_counts)
-                    call(0, am)
-                    check_routes(f"{qtag} {name} A off 16 bytes",
-                                 route_delta(before), {f"simt {qtag}": 1})
-                    row["simt_ms"] = _time_ms(lambda i: call(i, am), copies)
-                    del am
+                # The SIMT tile on the same operands, A's base off 16 bytes,
+                # in the same process.
+                am = misaligned(a)
+                before = dict(K.route_counts)
+                call(0, am)
+                check_routes(f"{qtag} {name} m={m} A off 16 bytes",
+                             route_delta(before), {f"simt {qtag}": 1})
+                row["simt_ms"] = _time_ms(lambda i: call(i, am), copies,
+                                          iters, reps)
+                del am
                 if "dqab" in qtag and m == 128:
                     # The int32 contraction alone (one branch, no dequant):
                     # a note, not a library equivalent.
@@ -1911,12 +1938,13 @@ def min_plus_phase():
             "apsp_ms": wall_ms, "scipy_s": scipy_s, "max_rel_err": rel}
 
 
-def fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen):
-    """Random q/k/v on the card (N(0, 1) in ``dtype``), kv slot s at
-    position s, queries end-aligned with the keys."""
+def fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen, Dv=None):
+    """Random q/k/v on the card (N(0, 1) in ``dtype``; v of Dv, default D),
+    kv slot s at position s, queries end-aligned with the keys."""
     q = torch.randn(B, Lq, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, Dv or D, generator=gen,
+                    device="cuda").to(dtype)
     kpos = torch.arange(S, dtype=torch.int32, device="cuda").repeat(B, 1)
     qpos = (torch.arange(Lq, dtype=torch.int32, device="cuda")
             + (S - Lq)).repeat(B, 1)
@@ -2020,14 +2048,16 @@ def flash_fwd_phase():
         return got
 
     for name, (B, Lq, S, H, Hkv, D, window) in FWD_SHAPES.items():
+        Dv = FWD_DV.get(name, D)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, qpos, kpos = fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen)
+            q, k, v, qpos, kpos = fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen,
+                                             Dv)
             kw = dict(q_positions=qpos, kv_positions=kpos, window=window)
-            # Every operand here is aligned: bf16 takes the wgmma route.
+            # Every operand here is aligned: bf16 takes the wgmma route
+            # where its head dims fit it.
             got = check(f"{name:16s} B={B} Lq={Lq} S={S} H={H} Hkv={Hkv} "
-                        f"D={D} window={window}",
-                        "wgmma" if dtype == torch.bfloat16 else "simt",
-                        q, k, v, **kw)
+                        f"D={D} Dv={Dv} window={window}",
+                        FA.fwd_route(dtype, D, Dv, True), q, k, v, **kw)
             if name == "stablelm prefill":
                 # The model's own plain prefill attention (q chunks of 512,
                 # kv chunks of 1024: other rescale points, same function).
@@ -2272,10 +2302,11 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "k1_route": "wgmma",
             "shape": f"{gemm} m=1000 k={row['k']} n={row['n']} bf16"})
-    # The int8 programs at decode (m = 1, the decode route; the SIMT tile's
-    # time on the same operands beside it) and at the served 128-token
-    # prefill (the SIMT tile); launches by route from the int8 slice.
-    for step, m in (("decode", 1), ("prefill", 128)):
+    # The int8 programs at decode (m = 1, the decode route) and at the
+    # served 1000-token prefill (the int8 wgmma route), the SIMT tile's
+    # time on the same operands beside each; launches by route from the
+    # int8 slice.
+    for step, m in (("decode", 1), ("prefill", 1000)):
         for tag, gemm in RECORD_GEMM.items():
             for mode, qtag in zip(("int8w", "w8a8"), QUANT[tag]):
                 row = next(r for r in qrows if r["program"] == qtag
@@ -2289,11 +2320,10 @@ def main():
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"], "k1_route": route,
+                    "simt_ms": row["simt_ms"],
                     "shape": f"{gemm} m={m} k={row['k']} n={row['n']} int8 "
                              "B, " + ("int8 A" if "dqab" in qtag
                                       else "bf16 A")}
-                if "simt_ms" in row:
-                    record["simt_ms"] = row["simt_ms"]
                 kernels.append(record)
     for key, gemm in RECORD_K1F.items():
         row = next(r for r in frows if r["program"] == key

@@ -9,7 +9,8 @@
 //   dqb...                    the same with int8 weights (K1d): int8 B tiles
 //                             streamed and widened to fp32 in registers
 //   dqab...                   w8a8 (K1e): int8 A and B, int32 products
-//                             (both at m <= 8 on the decode route below)
+//                             (both on the decode route below at m <= 8
+//                             and on the int8 wgmma route above it)
 // the tropical distance product (K1g, semiring="min_plus"):
 //   none, min_plus            C[i,j] = min_k (A[i,k] + B[k,j]) in fp32
 // and the backward programs of training (K1f, the float programs only):
@@ -118,11 +119,33 @@
 // and stores each C element once.  A wide n (the head's 1568 strips) takes
 // no split.
 //
+// The int8 wgmma route: the same aligned int8 programs at m > 8 (prefill)
+// run ca_gemm_wgmma_int8_kernel, the bf16 route's 128 x 128 (GLU 128 x 64)
+// tile, ring and consumer loop with a third role between TMA and wgmma.
+// wgmma has no bf16 x s8 form, and takes 8-bit operands K-major only, while
+// B is stored (k, n): so B lands by TMA as int8, unswizzled, and a transform
+// warpgroup turns each landed stage into the operand wgmma reads before the
+// consumers see it (a barrier of its own between the two), widening it to
+// bf16 by byte permutes into the bf16 route's N-major swizzled boxes (dqb),
+// or transposing it into K-major rows by byte permutes (dqab, wgmma
+// .s32.s8.s8 at twice bf16's rate); the rms prologue of the dqb GLU runs
+// there too, so the consumers never rewrite a stage (a rewrite by the
+// consumers stalls both of them).  No second (n, k) copy of the weights
+// exists.
+// dqab's s32 sum is exact over all of k (per-channel scales) or a
+// quantization block (per-tile), and converts to fp32 once, so with
+// per-channel and per-row scales the result is the plain version's bits;
+// per-tile scales (their own instantiations, TILE) fold each block's
+// partial times its scales into the fp32 accumulator at the block's end.
+// At prefill (m = 1000) these programs are bound by operations: 2 m n k over
+// 989 TFLOP/s for dqb (its products are bf16), over 1,979 TOP/s for dqab;
+// the measured times stand in PERF.md.
+//
 // The route is decided by k1_route and its Python twin
 // (kernels/ca_mmm.py:k1_route), nothing else; everything else (fp32, fp32
-// A with int8 B, int8 at m > 8, min_plus, training programs at m <= 8,
-// misaligned operands) runs the SIMT tile below, whose instantiations and
-// code are unchanged.
+// A with int8 B, min_plus, training programs at m <= 8, misaligned
+// operands) runs the SIMT tile below, whose instantiations and code are
+// unchanged.
 //
 // The distance product (K1g) runs in one instantiation of the 64 x 64 tile
 // (MIN_PLUS below): fp32 or bf16 A and B, read through a run-time type flag
@@ -779,6 +802,46 @@ __device__ __forceinline__ void wg_prologue(const Params& p, uint8_t* a, uint8_t
   }
 }
 
+// The drain of both wgmma kernels: the one write-back of each C element
+// (QUANT: each sum dequantized by drain_scale first); a thread's two
+// neighbouring columns go out as one store where n is even.
+template <int NB, bool QUANT>
+__device__ __forceinline__ void wg_drain(const Params& p, const float (&acc)[NB][WG_BN<NB> / 2], int row0,
+                                         int col0) {
+  constexpr int BN = WG_BN<NB>;
+  auto z = [&](int i, int j, int r, int c) { return QUANT ? drain_scale(p, i, acc[i][j], r, c) : acc[i][j]; };
+  const int t = threadIdx.x;
+  const bool pairs = p.n % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 2; j += 2) {
+    const int r = row0 + ml::acc_row(t, j), c = col0 + ml::acc_col(t, j);
+    if (r >= p.m || c >= p.n) continue;
+    const long long idx = (long long)r * p.n + c;
+    const bool second = c + 1 < p.n;
+    const float y0 = wg_chain<NB>(p, z(0, j, r, c), NB == 2 ? z(NB - 1, j, r, c) : 0.f, c, idx);
+    const float y1 =
+        second ? wg_chain<NB>(p, z(0, j + 1, r, c + 1), NB == 2 ? z(NB - 1, j + 1, r, c + 1) : 0.f, c + 1, idx + 1)
+               : 0.f;
+    if (p.out_f32) {
+      float* o = static_cast<float*>(p.out) + idx;
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
+      } else {
+        o[0] = y0;
+        if (second) o[1] = y1;
+      }
+    } else {
+      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + idx;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
+      } else {
+        o[0] = __float2bfloat16_rn(y0);
+        if (second) o[1] = __float2bfloat16_rn(y1);
+      }
+    }
+  }
+}
+
 // One CTA: the (BM, BN) C tile at (blockIdx.x, blockIdx.y); m runs fastest
 // over the grid, so the CTAs of a wave share B panels in L2.  TA: A stored
 // (k, m); TB: B stored (n, k).
@@ -810,38 +873,7 @@ __global__ void __launch_bounds__(ml::WIDE_THREADS, 1)
   ml::consume<BN, NB, TA, TB, true>(acc, ring, nslabs, [&](uint8_t* a, uint8_t* b, uint8_t* x, int s) {
     wg_prologue<BN, TA, TB>(p, a, b, reinterpret_cast<const float*>(x), row0, col0, s * ml::BK);
   });
-
-  // Drain: the one write-back of each C element; a thread's two
-  // neighbouring columns go out as one store where n is even.
-  const int t = threadIdx.x;
-  const bool pairs = p.n % 2 == 0;
-#pragma unroll
-  for (int j = 0; j < BN / 2; j += 2) {
-    const int r = row0 + ml::acc_row(t, j), c = col0 + ml::acc_col(t, j);
-    if (r >= p.m || c >= p.n) continue;
-    const long long idx = (long long)r * p.n + c;
-    const bool second = c + 1 < p.n;
-    const float y0 = wg_chain<NB>(p, acc[0][j], NB == 2 ? acc[NB - 1][j] : 0.f, c, idx);
-    const float y1 =
-        second ? wg_chain<NB>(p, acc[0][j + 1], NB == 2 ? acc[NB - 1][j + 1] : 0.f, c + 1, idx + 1) : 0.f;
-    if (p.out_f32) {
-      float* o = static_cast<float*>(p.out) + idx;
-      if (pairs) {
-        *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
-      } else {
-        o[0] = y0;
-        if (second) o[1] = y1;
-      }
-    } else {
-      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + idx;
-      if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
-      } else {
-        o[0] = __float2bfloat16_rn(y0);
-        if (second) o[1] = __float2bfloat16_rn(y1);
-      }
-    }
-  }
+  wg_drain<NB, false>(p, acc, row0, col0);
 }
 
 template <int NB, bool TA, bool TB>
@@ -1286,6 +1318,403 @@ int launch_decode_program(const Params& p, int a_type, int b_type, bool two, cud
   return launch_decode_int8<int8_t>(p, two, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma route of the int8 programs: dqb (bf16 A) and dqab at m > 8
+// ---------------------------------------------------------------------------
+
+// A CTA of four warpgroups: two consumers (threads 0-255) as on the bf16
+// route, a transform warpgroup (256-383) and a producer warpgroup (384-511,
+// one thread of which issues the TMA loads).  Registers are handed over
+// with setmaxnreg: 2 x 128 x 200 + 128 x 72 + 128 x 40 = 65,536.
+constexpr int QW_THREADS = ml::CONSUMERS + 256;
+constexpr int QW_TRANSFORM = ml::CONSUMERS;        // first thread of the transform warpgroup
+constexpr int QW_PRODUCER = ml::CONSUMERS + 128;   // the thread that issues the TMA loads
+constexpr int QW_CONSUMER_REGS = 200, QW_TRANSFORM_REGS = 72;
+
+// One stage of the ring: A as TMA lands it (128 rows x 128 bytes of k,
+// K-major, 128-byte swizzle: 64 bf16 or 128 int8), then each branch's B as
+// wgmma reads it (dqb: BK x BN bf16, N-major, in the bf16 route's boxes;
+// dqab: BN x BK int8, K-major, since PTX takes 8-bit operands K-major only),
+// then each branch's int8 B as TMA lands it, (k, n) row-major, unswizzled.
+// BK = 64 for dqb (a k16 step is 32 bytes of bf16) and 128 for dqab (a k32
+// step is 32 bytes of int8): four wgmma k steps a stage either way.
+template <int NB, bool INT_A>
+struct QStage {
+  static constexpr int BN = WG_BN<NB>;
+  static constexpr int BK = INT_A ? 128 : 64;
+  static constexpr int A_BYTES = ml::BM * 128;
+  static constexpr int OP_BYTES = BK * BN * (INT_A ? 1 : 2);
+  static constexpr int LAND_BYTES = BK * BN;
+  static constexpr int BYTES = A_BYTES + NB * (OP_BYTES + LAND_BYTES);
+  static constexpr int STAGES = ml::RING_BYTES / BYTES < ml::MAX_STAGES ? ml::RING_BYTES / BYTES : ml::MAX_STAGES;
+  static constexpr int SMEM = STAGES * BYTES + 1024;
+};
+
+// D (64 x N s32) (+)= A (64 x 32 s8) B (32 x N s8), both K-major in shared
+// memory through the descriptors; scale_d = 0 overwrites D.  Exact.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_iregs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Four int8 (a word) widened to four bf16 (two words), exactly: each to
+// fp32 by the byte permute of i8_f32_at, then its upper half (an int8 has
+// at most 8 significant bits, so the lower half is zero).
+__device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
+  const uint32_t f = w ^ 0x80808080u;
+  uint32_t h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __float_as_uint(i8_f32_at(f, j));
+  return make_uint2(__byte_perm(h[0], h[1], 0x7632), __byte_perm(h[2], h[3], 0x7632));
+}
+
+// The transform warpgroup (thread tt of 128) on an arrived stage, before the
+// consumers may read it: the rms prologue rewrites A in place as wg_prologue
+// does (dqb), then each branch's landed int8 B becomes the operand wgmma
+// reads.  dqb: B widened to bf16 into the bf16 route's N-major boxes, 16
+// columns of one k row a unit (4 units a thread).  dqab: B transposed into
+// K-major rows of k, one 4 n x 16 k block a unit (2 a thread): 16 words of
+// 4 columns read down k, each 4 x 4 byte block transposed by byte permutes.
+template <int NB, bool INT_A>
+__device__ __forceinline__ void q_transform(const Params& p, uint8_t* a, int row0, int kb, int tt) {
+  using Q = QStage<NB, INT_A>;
+  constexpr int BN = Q::BN;
+  uint8_t* op = a + Q::A_BYTES;
+  const uint8_t* land = op + NB * Q::OP_BYTES;
+  if constexpr (!INT_A) {
+    if (p.row_scale != nullptr) {
+      // Thread tt takes chunk tt % 8 of rows tt / 8 + 16 i, whose logical
+      // chunk is the same in each (see wg_prologue); elements past m or k
+      // arrived as zero and stay zero (a zero factor), so no branch.
+      const int pc = tt % 8, lc = pc ^ ((tt / 8) % 8);
+      float g[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = kb + lc * 8 + j;
+        g[j] = c < p.k ? load_f32(p.gain, c, p.gain_f32) : 0.f;
+      }
+      uint4 v[ml::BM / 16];
+      float rs[ml::BM / 16];
+#pragma unroll
+      for (int i = 0; i < ml::BM / 16; ++i) {
+        const int gr = row0 + tt / 8 + 16 * i;
+        v[i] = *reinterpret_cast<const uint4*>(a + (tt / 8 + 16 * i) * 128 + pc * 16);
+        rs[i] = gr < p.m ? p.row_scale[gr] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < ml::BM / 16; ++i) {
+        uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // bf16 -> fp32 exactly, the SIMT kernel's two products, one rounding.
+          const float lo = __fmul_rn(__fmul_rn(__uint_as_float(w[q] << 16), rs[i]), g[2 * q]);
+          const float hi = __fmul_rn(__fmul_rn(__uint_as_float(w[q] & 0xffff0000u), rs[i]), g[2 * q + 1]);
+          const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+          w[q] = *reinterpret_cast<const uint32_t*>(&h);
+        }
+        *reinterpret_cast<uint4*>(a + (tt / 8 + 16 * i) * 128 + pc * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    constexpr int GROUPS = NB * BN / 16;  // 16-column groups of a landed row, all branches
+#pragma unroll
+    for (int q = 0; q < Q::BK * GROUPS / 128; ++q) {
+      const int u = tt + 128 * q, gi = u % GROUPS, r = u / GROUPS;
+      const int i = gi / (BN / 16), n0 = 16 * (gi % (BN / 16));
+      const uint4 w = *reinterpret_cast<const uint4*>(land + i * Q::LAND_BYTES + r * BN + n0);
+      const uint2 b0 = i8x4_bf16(w.x), b1 = i8x4_bf16(w.y), b2 = i8x4_bf16(w.z), b3 = i8x4_bf16(w.w);
+      uint8_t* box = op + i * Q::OP_BYTES + (n0 / 64) * ml::BOX_BYTES + r * 128;
+      const int ch = (n0 % 64) / 8;
+      *reinterpret_cast<uint4*>(box + ((ch ^ (r % 8)) * 16)) = make_uint4(b0.x, b0.y, b1.x, b1.y);
+      *reinterpret_cast<uint4*>(box + (((ch + 1) ^ (r % 8)) * 16)) = make_uint4(b2.x, b2.y, b3.x, b3.y);
+    }
+  } else {
+    constexpr int GROUPS = NB * BN / 4;   // 4-column groups, all branches
+#pragma unroll
+    for (int q = 0; q < GROUPS * (Q::BK / 16) / 128; ++q) {
+      const int u = tt + 128 * q, gi = u % GROUPS, c = u / GROUPS;
+      const int i = gi / (BN / 4), n0 = 4 * (gi % (BN / 4));
+      const uint8_t* src = land + i * Q::LAND_BYTES + 16 * c * BN + n0;
+      uint32_t w[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) w[r] = *reinterpret_cast<const uint32_t*>(src + r * BN);
+      uint32_t o[4][4];  // o[j][kq]: column n0 + j, k rows 16 c + 4 kq .. + 3
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint32_t t0 = __byte_perm(w[4 * kq], w[4 * kq + 1], 0x5140);
+        const uint32_t t1 = __byte_perm(w[4 * kq], w[4 * kq + 1], 0x7362);
+        const uint32_t t2 = __byte_perm(w[4 * kq + 2], w[4 * kq + 3], 0x5140);
+        const uint32_t t3 = __byte_perm(w[4 * kq + 2], w[4 * kq + 3], 0x7362);
+        o[0][kq] = __byte_perm(t0, t2, 0x5410);
+        o[1][kq] = __byte_perm(t0, t2, 0x7632);
+        o[2][kq] = __byte_perm(t1, t3, 0x5410);
+        o[3][kq] = __byte_perm(t1, t3, 0x7632);
+      }
+      uint8_t* dst = op + i * Q::OP_BYTES;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + j;
+        *reinterpret_cast<uint4*>(dst + n * 128 + ((c ^ (n % 8)) * 16)) =
+            make_uint4(o[j][0], o[j][1], o[j][2], o[j][3]);
+      }
+    }
+  }
+}
+
+// One CTA: the (BM, BN) C tile at (blockIdx.x, blockIdx.y), as on the bf16
+// route.  Barriers a stage: full (the TMA bytes landed), ready (the transform
+// warpgroup wrote the operands), empty (the consumers are done with it).
+// The consumers run the bf16 route's loop: one wgmma group in flight, a
+// stage handed back once its products are done; their partial `part` (fp32,
+// s32 for dqab) joins the fp32 accumulator at the end of each run of stages,
+// in _dequant_product's order: a run is a quantization block with per-tile
+// scales (TILE: part times the block's scales, then added), else PROMOTE
+// stages for dqb and the whole k loop for dqab, whose s32 sum is exact and
+// converts once.  The drain applies the per-channel and per-row scales
+// (drain_scale), then the chain.
+template <int NB, bool INT_A, bool TILE>
+__global__ void __launch_bounds__(QW_THREADS, 1)
+    ca_gemm_wgmma_int8_kernel(const __grid_constant__ WgArgs args) {
+  using Q = QStage<NB, INT_A>;
+  using Part = typename std::conditional<INT_A, int, float>::type;
+  constexpr int BN = Q::BN, BK = Q::BK;
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ __align__(8) uint64_t full[Q::STAGES], ready[Q::STAGES], empty[Q::STAGES];
+  const Params& p = args.p;
+  const int nslabs = (p.k + BK - 1) / BK;
+  uint8_t* ring = dyn_smem + ((1024 - (ml::smem_u32(dyn_smem) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < Q::STAGES; ++i) {
+      ml::mbar_init(&full[i], 1);
+      ml::mbar_init(&ready[i], 128);
+      ml::mbar_init(&empty[i], ml::CONSUMERS);
+    }
+    ml::mbar_init_fence();
+  }
+  __syncthreads();
+  const int row0 = blockIdx.x * ml::BM, col0 = blockIdx.y * BN;
+  if (tid >= QW_PRODUCER) {
+    ml::setmaxnreg_dec<ml::PRODUCER_REGS>();
+    if (tid == QW_PRODUCER) {
+      for (int s = 0; s < nslabs; ++s) {
+        const int st = s % Q::STAGES;
+        ml::mbar_wait(&empty[st], ((s / Q::STAGES) & 1) ^ 1);
+        uint8_t* a = ring + st * Q::BYTES;
+        uint8_t* land = a + Q::A_BYTES + NB * Q::OP_BYTES;
+        ml::mbar_expect_tx(&full[st], Q::A_BYTES + NB * Q::LAND_BYTES);
+        ml::tma_load(a, &args.maps.a, &full[st], s * BK, row0);
+#pragma unroll
+        for (int i = 0; i < NB; ++i) ml::tma_load(land + i * Q::LAND_BYTES, &args.maps.b[i], &full[st], col0, s * BK);
+      }
+    }
+    return;
+  }
+  if (tid >= QW_TRANSFORM) {
+    ml::setmaxnreg_dec<QW_TRANSFORM_REGS>();
+    for (int s = 0; s < nslabs; ++s) {
+      const int st = s % Q::STAGES;
+      ml::mbar_wait(&full[st], (s / Q::STAGES) & 1);
+      q_transform<NB, INT_A>(p, ring + st * Q::BYTES, row0, s * BK, tid - QW_TRANSFORM);
+      ml::fence_proxy_async();   // the generic-proxy writes, visible to wgmma
+      ml::mbar_arrive(&ready[st]);
+    }
+    return;
+  }
+  ml::setmaxnreg_inc<QW_CONSUMER_REGS>();
+  const int wg = tid / 128;
+  // Stages a run: a quantization block, or PROMOTE, or all of k (dqab).
+  const int run = TILE ? p.scale_block / BK : INT_A ? nslabs : ml::PROMOTE;
+  float acc[NB][BN / 2];
+  Part part[NB][BN / 2];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      acc[i][j] = 0.f;
+      part[i][j] = Part(0);
+    }
+  // acc += part (to fp32, times block blk's per-tile scales with TILE).
+  auto fold = [&](int blk) {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float sa = TILE && p.sa_tile ? p.scale_a[i][blk] : 1.f;
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) {
+        float v = static_cast<float>(part[i][j]);
+        if constexpr (TILE) {
+          const int c = col0 + ml::acc_col(tid, j);
+          if (p.sb_tile) v = __fmul_rn(v, c < p.n ? p.scale_b[i][(long long)blk * p.n + c] : 1.f);
+          if (p.sa_tile) v = __fmul_rn(v, sa);
+        }
+        acc[i][j] = __fadd_rn(acc[i][j], v);
+      }
+    }
+  };
+  auto fence = [&]() {
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if constexpr (INT_A)
+        fence_iregs(part[i]);
+      else
+        ml::fence_regs(part[i]);
+    }
+  };
+  int held = -1;  // the slab whose stage is not handed back yet
+  for (int s = 0; s < nslabs; ++s) {
+    const int st = s % Q::STAGES;
+    ml::mbar_wait(&ready[st], (s / Q::STAGES) & 1);
+    const uint8_t* a = ring + st * Q::BYTES + wg * ml::BOX_BYTES;  // this warpgroup's 64 rows
+    const uint8_t* op = ring + st * Q::BYTES + Q::A_BYTES;
+    const bool first = s % run == 0;
+    fence();
+    ml::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = ml::smem_desc(a + kk * 32, 16, 1024);
+      const int scale_d = first && kk == 0 ? 0 : 1;  // a run starts from zero
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const uint8_t* bi = op + i * Q::OP_BYTES;
+        if constexpr (INT_A) {
+          wgmma_s8(part[i], da, ml::smem_desc(bi + kk * 32, 16, 1024), scale_d);
+        } else {
+          const uint64_t db = ml::smem_desc(bi + kk * 2048, ml::BOX_BYTES, 1024);
+          if constexpr (BN == 128)
+            ml::wgmma_m64n128k16<0, 1>(part[i], da, db, scale_d);
+          else
+            ml::wgmma_m64n64k16<0, 1>(part[i], da, db, scale_d);
+        }
+      }
+    }
+    ml::wgmma_commit();
+    fence();
+    if (s == nslabs - 1 || s % run == run - 1) {
+      // The run is done: fold it in, hand back its last two stages.
+      ml::wgmma_wait<0>();
+      fence();
+      fold(TILE ? s * BK / p.scale_block : 0);
+      if (held >= 0) ml::mbar_arrive(&empty[held % Q::STAGES]);
+      ml::mbar_arrive(&empty[st]);
+      held = -1;
+    } else {
+      // Stage s - 1's products are done: hand its buffers back.
+      ml::wgmma_wait<1>();
+      if (held >= 0) ml::mbar_arrive(&empty[held % Q::STAGES]);
+      held = s;
+    }
+  }
+  wg_drain<NB, true>(p, acc, row0, col0);
+}
+
+// Map of a row-major (rows, cols) int8 tensor read in boxes of (box_rows,
+// box_cols): with the 128-byte swizzle (A, 128-byte rows) or without (B as
+// it lands).
+bool encode_i8(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+               uint32_t box_cols, bool swizzle) {
+  const ml::EncodeTiled encode = ml::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB, bool INT_A, bool TILE>
+int launch_wgmma_i8(const Params& p, cudaStream_t stream) {
+  using Q = QStage<NB, INT_A>;
+  auto kernel = ca_gemm_wgmma_int8_kernel<NB, INT_A, TILE>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  WgArgs args{};
+  args.p = p;
+  bool ok = INT_A ? encode_i8(&args.maps.a, p.a, p.m, p.k, ml::BM, Q::BK, true)
+                  : ml::encode_map(&args.maps.a, p.a, false, p.m, p.k, ml::BM, Q::BK);
+  for (int i = 0; i < NB; ++i) ok = ok && encode_i8(&args.maps.b[i], p.b[i], p.k, p.n, Q::BK, Q::BN, false);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((p.m + ml::BM - 1) / ml::BM, (p.n + Q::BN - 1) / Q::BN);
+  kernel<<<grid, QW_THREADS, Q::SMEM, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool INT_A, bool TILE>
+int launch_wgmma_i8_branches(const Params& p, bool two, cudaStream_t stream) {
+  return two ? launch_wgmma_i8<2, INT_A, TILE>(p, stream) : launch_wgmma_i8<1, INT_A, TILE>(p, stream);
+}
+
+int launch_wgmma_int8(const Params& p, int a_type, bool two, cudaStream_t stream) {
+  const bool tile = p.scale_block > 0;
+  if (a_type == TYPE_I8)
+    return tile ? launch_wgmma_i8_branches<true, true>(p, two, stream)
+                : launch_wgmma_i8_branches<true, false>(p, two, stream);
+  return tile ? launch_wgmma_i8_branches<false, true>(p, two, stream)
+              : launch_wgmma_i8_branches<false, false>(p, two, stream);
+}
+
 enum Route { ROUTE_SIMT = 0, ROUTE_WGMMA = 1, ROUTE_DECODE = 2 };
 
 // Which route a launch takes (the twin of kernels/ca_mmm.py:k1_route), for
@@ -1293,9 +1722,9 @@ enum Route { ROUTE_SIMT = 0, ROUTE_WGMMA = 1, ROUTE_DECODE = 2 };
 // have 16-byte aligned bases and row strides: bf16 A and B, decode at m <= 8
 // for a serving program (nn, no dact, no save_preact), wgmma at m > 8 (the
 // GLU only in the nn layout and without dact); int8 B with bf16 A (dqb) or
-// int8 A (dqab), decode at m <= 8 (int8 has no training program).  The rest,
-// fp32, fp32 A with int8 B, int8 at m > 8, training programs at m <= 8,
-// stays on the SIMT tile.
+// int8 A (dqab), decode at m <= 8 and wgmma at m > 8 (int8 has no training
+// program).  The rest, fp32, fp32 A with int8 B, training programs at
+// m <= 8, stays on the SIMT tile.
 int k1_route(const Params& p, int a_type, int b_type, bool two) {
   const bool bf16 = a_type == TYPE_BF16 && b_type == TYPE_BF16;
   const bool int8 = b_type == TYPE_I8 && (a_type == TYPE_BF16 || a_type == TYPE_I8);
@@ -1307,7 +1736,6 @@ int k1_route(const Params& p, int a_type, int b_type, bool two) {
   if (p.dact != DACT_NONE) ok = ok && ml::tma_ok(p.preact, 4LL * (p.dact == DACT_A ? p.k : p.n));
   if (!ok) return ROUTE_SIMT;
   if (p.m <= 8) return is_training_program(p) ? ROUTE_SIMT : ROUTE_DECODE;
-  if (int8) return ROUTE_SIMT;
   if (p.n > 65535 * WG_BN<2>) return ROUTE_SIMT;
   if (two && (p.trans_a || p.trans_b || p.dact != DACT_NONE)) return ROUTE_SIMT;
   return ROUTE_WGMMA;
@@ -1374,7 +1802,8 @@ extern "C" int ca_gemm_program_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r = k1_route(p, a_type, b_type, two);
   if (route != r) return static_cast<int>(cudaErrorInvalidValue);
-  if (r == ROUTE_WGMMA) return launch_wgmma_program(p, two, s);
+  if (r == ROUTE_WGMMA)
+    return b_type == TYPE_I8 ? launch_wgmma_int8(p, a_type, two, s) : launch_wgmma_program(p, two, s);
   if (r == ROUTE_DECODE) return launch_decode_program(p, a_type, b_type, two, s);
   if (a_type == TYPE_F32 && b_type == TYPE_F32)
     launch_typed<float, float>(p, two, s);

@@ -70,7 +70,10 @@
 // softmax one warp per 8 rows, and adds P V into the accumulator, which each
 // thread keeps in registers (4 rows x DMAX / 16 columns; DMAX = 64 or 128).
 //
-// D and Dv are at most 128 on both routes (h2o-danube-3-4b's 120 included).
+// The wgmma route takes D and Dv up to 128 (h2o-danube-3-4b's 120
+// included); larger head dims (deepseek-v2-lite's MLA head, D = 192 with
+// Dv = 128) take the SIMT kernel's WIDE form: the scores over D in 128-wide
+// chunks, one launch for each 128-wide chunk of Dv.
 // The block sizes are fixed; the q_block and kv_block arguments of the
 // wrapper are not read (results do not depend on them beyond rounding).
 //
@@ -117,6 +120,7 @@ struct Params {
   int qc;                      // query positions per CTA
   int causal, window;          // window 0: none
   float scale;
+  int dv0;                     // SIMT, WIDE: the launch's first output column
 };
 
 template <typename T>
@@ -157,7 +161,13 @@ constexpr int smem_floats() {
          ROWS + KC;
 }
 
-template <typename T, int DMAX>
+// WIDE (D or Dv above 128; DMAX = 128): the launch computes the Dv columns
+// [dv0, dv0 + DMAX) of its rows (one launch a chunk of Dv), and each block's
+// scores run over D in DMAX-wide chunks, Q (when D outgrows one chunk) and K
+// staged a chunk at a time, the dot summed over d in the same order.  The
+// rest is the kernel's own code (the WIDE parts sit in `if constexpr`
+// branches).
+template <typename T, int DMAX, bool WIDE>
 __global__ void __launch_bounds__(NT, 2) flash_attn_fwd_kernel(const Params p) {
   constexpr int QS = DMAX + 1, PS = KC + 1, DJ = DMAX / 16;
   extern __shared__ float smem[];
@@ -193,9 +203,17 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_fwd_kernel(const Params p) {
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
   }
-  for (int e = tid; e < ROWS * DMAX; e += NT) {
-    const int r = e / DMAX, d = e % DMAX;
-    Qs[r * QS + d] = (d < p.D && valid(r)) ? to_f32(q[row_offset(r) * p.D + d]) : 0.f;
+  // WIDE: Q once here where D fits one chunk, else a chunk a step below.
+  if constexpr (!WIDE) {
+    for (int e = tid; e < ROWS * DMAX; e += NT) {
+      const int r = e / DMAX, d = e % DMAX;
+      Qs[r * QS + d] = (d < p.D && valid(r)) ? to_f32(q[row_offset(r) * p.D + d]) : 0.f;
+    }
+  } else if (p.D <= DMAX) {
+    for (int e = tid; e < ROWS * DMAX; e += NT) {
+      const int r = e / DMAX, d = e % DMAX;
+      Qs[r * QS + d] = (d < p.D && valid(r)) ? to_f32(q[row_offset(r) * p.D + d]) : 0.f;
+    }
   }
   __syncthreads();
   // The CTA's query position range, for skipping kv blocks no row sees.
@@ -223,14 +241,16 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_fwd_kernel(const Params p) {
             (p.window <= 0 || (long long)kp > (long long)qmin - p.window);
     }
     if (!__syncthreads_or(any)) continue;
-    for (int e = tid; e < KC * DMAX; e += NT) {
-      const int c = e / DMAX, d = e % DMAX;
-      const bool in = j0 + c < p.S;
-      const long long slot = ((long long)b * p.S + j0 + c) * p.Hkv + kvh;
-      Ks[c * QS + d] = (in && d < p.D) ? to_f32(k[slot * p.D + d]) : 0.f;
-      Vs[c * DMAX + d] = (in && d < p.Dv) ? to_f32(v[slot * p.Dv + d]) : 0.f;
+    if constexpr (!WIDE) {
+      for (int e = tid; e < KC * DMAX; e += NT) {
+        const int c = e / DMAX, d = e % DMAX;
+        const bool in = j0 + c < p.S;
+        const long long slot = ((long long)b * p.S + j0 + c) * p.Hkv + kvh;
+        Ks[c * QS + d] = (in && d < p.D) ? to_f32(k[slot * p.D + d]) : 0.f;
+        Vs[c * DMAX + d] = (in && d < p.Dv) ? to_f32(v[slot * p.Dv + d]) : 0.f;
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     // Scores: s = (q . k) * scale, fp32.
     float s[4][4];
@@ -238,17 +258,50 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_fwd_kernel(const Params p) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    if constexpr (!WIDE) {
 #pragma unroll 4
-    for (int d = 0; d < p.D; ++d) {
-      float qv[4], kv[4];
+      for (int d = 0; d < p.D; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + i * RSTEP) * QS + d];
+        for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + i * RSTEP) * QS + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + j * RSTEP) * QS + d];
+        for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + j * RSTEP) * QS + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    } else {
+      for (int e = tid; e < KC * DMAX; e += NT) {
+        const int c = e / DMAX, d = e % DMAX;
+        const long long slot = ((long long)b * p.S + j0 + c) * p.Hkv + kvh;
+        Vs[c * DMAX + d] = (j0 + c < p.S && p.dv0 + d < p.Dv) ? to_f32(v[slot * p.Dv + p.dv0 + d]) : 0.f;
+      }
+      static_assert(ROWS == KC, "one loop stages a row of Q and a slot of K");
+      for (int c0 = 0; c0 < p.D; c0 += DMAX) {
+        for (int e = tid; e < KC * DMAX; e += NT) {
+          const int r = e / DMAX, d = e % DMAX;  // a row of Q, a slot of K
+          if (p.D > DMAX)
+            Qs[r * QS + d] = (c0 + d < p.D && valid(r)) ? to_f32(q[row_offset(r) * p.D + c0 + d]) : 0.f;
+          const long long slot = ((long long)b * p.S + j0 + r) * p.Hkv + kvh;
+          Ks[r * QS + d] = (j0 + r < p.S && c0 + d < p.D) ? to_f32(k[slot * p.D + c0 + d]) : 0.f;
+        }
+        __syncthreads();
+        const int dn = min(DMAX, p.D - c0);
+#pragma unroll 4
+        for (int d = 0; d < dn; ++d) {
+          float qv[4], kv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr + i * RSTEP) * QS + d];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) kv[j] = Ks[(tc + j * RSTEP) * QS + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        }
+        __syncthreads();  // Q and K are read before the next chunk lands
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -319,23 +372,29 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_fwd_kernel(const Params p) {
     const int r = tr + i * RSTEP;
     if (!valid(r)) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
-    const long long base = row_offset(r) * p.Dv;
+    long long base = row_offset(r) * p.Dv;
+    if constexpr (WIDE) base += p.dv0;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tc + j * RSTEP;
-      if (d < p.Dv) out[base + d] = from_f32<T>(__fdiv_rn(acc[i][j], l));
+      if (d < (WIDE ? p.Dv - p.dv0 : p.Dv)) out[base + d] = from_f32<T>(__fdiv_rn(acc[i][j], l));
     }
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool WIDE = false>
 cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
   const int bytes = smem_floats<DMAX>() * 4;
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<T, DMAX>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_fwd_kernel<T, DMAX, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  flash_attn_fwd_kernel<T, DMAX><<<grid, NT, bytes, stream>>>(p);
-  return cudaGetLastError();
+  // WIDE: one launch a DMAX-wide chunk of Dv.
+  for (int dv0 = 0; err == cudaSuccess && dv0 < (WIDE ? p.Dv : 1); dv0 += DMAX) {
+    Params c = p;
+    c.dv0 = dv0;
+    flash_attn_fwd_kernel<T, DMAX, WIDE><<<grid, NT, bytes, stream>>>(c);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -783,10 +842,12 @@ int launch_wgmma(const Params& p, int B, int nq, int nh, cudaStream_t stream) {
 }
 
 // Which route a launch takes (the twin of kernels/flash_attn.py:fwd_route):
-// wgmma for bf16 whose TMA'd operands (q, k, v) have 16-byte aligned bases
-// and row strides, so D and Dv multiples of 8; SIMT otherwise.
+// wgmma for bf16 with D, Dv <= 128 (its two 64-wide boxes) whose TMA'd
+// operands (q, k, v) have 16-byte aligned bases and row strides, so D and Dv
+// multiples of 8; SIMT otherwise.
 int fwd_route(const void* q, const void* k, const void* v, int D, int Dv, int is_bf16) {
-  return is_bf16 && ml::tma_ok(q, 2LL * D) && ml::tma_ok(k, 2LL * D) && ml::tma_ok(v, 2LL * Dv)
+  return is_bf16 && D <= 128 && Dv <= 128 && ml::tma_ok(q, 2LL * D) && ml::tma_ok(k, 2LL * D) &&
+                 ml::tma_ok(v, 2LL * Dv)
              ? ROUTE_WGMMA
              : ROUTE_SIMT;
 }
@@ -806,8 +867,7 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v
                                      int window, float scale, int is_bf16, int route,
                                      void* stream) {
   if (B <= 0 || Lq <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 128 || Dv <= 0 || Dv > 128 || S < 0 ||
-      (long long)B * Hkv > 65535)
+  if (Hkv <= 0 || H % Hkv != 0 || D <= 0 || Dv <= 0 || S < 0 || (long long)B * Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int r = fwd_route(q, k, v, D, Dv, is_bf16);
   if (route != r) return static_cast<int>(cudaErrorInvalidValue);
@@ -827,6 +887,7 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v
   p.causal = causal;
   p.window = window;
   p.scale = scale;
+  p.dv0 = 0;
   const int G = H / Hkv, rows = r == ROUTE_WGMMA ? WG_ROWS : ROWS;
   p.gc = G < rows ? G : rows;
   p.qc = rows / p.gc;
@@ -837,7 +898,9 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k, const void* v
   if (r == ROUTE_WGMMA) return wide ? launch_wgmma<2>(p, B, nq, nh, s) : launch_wgmma<1>(p, B, nq, nh, s);
   const dim3 grid(nq, B * Hkv, nh);
   cudaError_t err;
-  if (is_bf16)
+  if (D > 128 || Dv > 128)  // in 128-wide chunks
+    err = is_bf16 ? launch<__nv_bfloat16, 128, true>(p, grid, s) : launch<float, 128, true>(p, grid, s);
+  else if (is_bf16)
     err = wide ? launch<__nv_bfloat16, 128>(p, grid, s) : launch<__nv_bfloat16, 64>(p, grid, s);
   else
     err = wide ? launch<float, 128>(p, grid, s) : launch<float, 64>(p, grid, s);

@@ -31,7 +31,11 @@
 // (one warp-wide max and sum per query row and tile).  After the last tile the
 // four warps' partial softmax states are merged in shared memory (the usual
 // flash-decoding rescale by exp(m_w - max m), which reduces to the same result)
-// and each output element is stored once.
+// and each output element is stored once.  Head dims above 128 (deepseek-v2-
+// lite's MLA head: D = 192, Dv = 128) take the kernel's WIDE form: q at its
+// full D in dynamic shared memory, K staged and scored 128 columns at a
+// time, and one launch for each 128-wide chunk of Dv (each re-scoring the
+// tokens).
 //
 // What bounds it on the H100: the bytes it must read, B * S * Hkv * (D + Dv)
 // of int8 payload plus the scales, q and out, at 3.35 TB/s.  At B = 8 and
@@ -51,7 +55,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 32;             // tokens per warp step, one per lane
-constexpr int kMaxD = 128;            // largest D and Dv
+constexpr int kMaxD = 128;            // largest D and Dv (WIDE: a chunk of them)
 constexpr int kMaxRow = kMaxD + 4;    // largest staged row stride (bytes)
 constexpr int kMaxG = 8;              // query heads a CTA holds
 constexpr float kNeg = -1e30f;
@@ -70,6 +74,7 @@ struct Params {
   float scale;
   int is_bf16;
   int vec;                 // bytes per global load: 16, 8, 4 or 1
+  int dv0;                 // WIDE: the launch's first output column
 };
 
 // A staged row's stride: the head dim rounded up to 4 bytes, then an odd
@@ -134,12 +139,59 @@ __device__ __forceinline__ void stage(int8_t* dst, const int8_t* src, const long
   }
 }
 
-template <int G_MAX>
+// The WIDE form's staging: columns [c0, c0 + w) of the tile's rows, a row
+// of the pool being d bytes (stage_rows with a column window).
+template <int VEC>
+__device__ __forceinline__ void stage_cols(int8_t* dst, const int8_t* __restrict__ src,
+                                           const long long* rows, int d, int c0, int w, int rs,
+                                           int t0, int lo, int hi, int lane) {
+  const int cpr = w / VEC;
+  for (int idx = lane; idx < kTile * cpr; idx += 32) {
+    const int r = idx / cpr;
+    const int c = idx - r * cpr;
+    const int t = t0 + r;
+    if (t < lo || t >= hi) continue;
+    const int8_t* g = src + rows[r] * d + c0 + c * VEC;
+    int8_t* s = dst + r * rs + c * VEC;
+    if constexpr (VEC == 16) {
+      const int4 x = *reinterpret_cast<const int4*>(g);
+      int* si = reinterpret_cast<int*>(s);
+      si[0] = x.x; si[1] = x.y; si[2] = x.z; si[3] = x.w;
+    } else if constexpr (VEC == 8) {
+      const int2 x = *reinterpret_cast<const int2*>(g);
+      int* si = reinterpret_cast<int*>(s);
+      si[0] = x.x; si[1] = x.y;
+    } else if constexpr (VEC == 4) {
+      *reinterpret_cast<int*>(s) = *reinterpret_cast<const int*>(g);
+    } else {
+      *s = *g;
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_window(int8_t* dst, const int8_t* src, const long long* rows,
+                                             int d, int c0, int w, int rs, int t0, int lo, int hi,
+                                             int lane, int vec) {
+  switch (vec) {
+    case 16: stage_cols<16>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
+    case 8: stage_cols<8>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
+    case 4: stage_cols<4>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
+    default: stage_cols<1>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
+  }
+}
+
+// WIDE (D or Dv above kMaxD): the launch computes the Dv columns [dv0, dv0 +
+// kMaxD) of its query heads; q sits at its full D in dynamic shared memory,
+// and each token tile's scores run over D in kMaxD-wide chunks of K staged
+// one after another, the dot summed over d in the same order.  The rest is
+// the kernel's own code (the WIDE parts sit in `if constexpr` branches).
+template <int G_MAX, bool WIDE>
 __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
   // K and V rows of each warp's tile; reused as the merge buffer at the end.
   __shared__ __align__(16) int8_t kv_s[kWarps][2][kTile * kMaxRow];
   __shared__ __align__(16) float q_s[kMaxG * kMaxD];
   __shared__ long long row_s[kWarps][kTile];
+  extern __shared__ float4 q_wide[];     // WIDE: the CTA's q rows at full D
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -149,8 +201,9 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int D4 = (p.D + 3) & ~3;
-  const int rs_k = row_stride(p.D);
-  const int rs_v = row_stride(p.Dv);
+  const int rs_k = row_stride(WIDE ? kMaxD : p.D);
+  const int rs_v = row_stride(WIDE ? kMaxD : p.Dv);
+  const int dvn = WIDE ? min(kMaxD, p.Dv - p.dv0) : 0;  // WIDE: the launch's output columns
 
   // Zero the staging area once: the pad bytes past D in each row then read
   // as 0 in the 4-byte score loads.
@@ -166,7 +219,10 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
       x = p.is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[qi])
                     : static_cast<const float*>(p.q)[qi];
     }
-    q_s[g * D4 + d] = x;
+    if constexpr (WIDE)
+      reinterpret_cast<float*>(q_wide)[g * D4 + d] = x;
+    else
+      q_s[g * D4 + d] = x;
   }
   __syncthreads();
 
@@ -198,30 +254,61 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
       vsc = p.v_scale[pid];
       rows[lane] = ((long long)pid * p.page + t % p.page) * p.Hkv + h;
     }
-    __syncwarp();
-    stage(ks, p.k, rows, p.D, rs_k, t0, lo, hi, lane, p.vec);
-    stage(vs, p.v, rows, p.Dv, rs_v, t0, lo, hi, lane, p.vec);
-    __syncwarp();
+    if constexpr (!WIDE) {
+      __syncwarp();
+      stage(ks, p.k, rows, p.D, rs_k, t0, lo, hi, lane, p.vec);
+      stage(vs, p.v, rows, p.Dv, rs_v, t0, lo, hi, lane, p.vec);
+      __syncwarp();
+    }
 
     // This lane's scores against its own token, from the widened payload.
     float s[G_MAX];
 #pragma unroll
     for (int g = 0; g < G_MAX; ++g) s[g] = 0.f;
     const int8_t* krow = ks + lane * rs_k;
-    for (int d = 0; d < D4; d += 4) {
-      const int w = *reinterpret_cast<const int*>(krow + d);
-      const float k0 = (float)(int8_t)(w);
-      const float k1 = (float)(int8_t)(w >> 8);
-      const float k2 = (float)(int8_t)(w >> 16);
-      const float k3 = (float)(int8_t)(w >> 24);
+    if constexpr (!WIDE) {
+      for (int d = 0; d < D4; d += 4) {
+        const int w = *reinterpret_cast<const int*>(krow + d);
+        const float k0 = (float)(int8_t)(w);
+        const float k1 = (float)(int8_t)(w >> 8);
+        const float k2 = (float)(int8_t)(w >> 16);
+        const float k3 = (float)(int8_t)(w >> 24);
 #pragma unroll
-      for (int g = 0; g < G_MAX; ++g) {
-        if (g < G) {
-          const float4 qq = *reinterpret_cast<const float4*>(q_s + g * D4 + d);
-          s[g] = fmaf(qq.x, k0, s[g]);
-          s[g] = fmaf(qq.y, k1, s[g]);
-          s[g] = fmaf(qq.z, k2, s[g]);
-          s[g] = fmaf(qq.w, k3, s[g]);
+        for (int g = 0; g < G_MAX; ++g) {
+          if (g < G) {
+            const float4 qq = *reinterpret_cast<const float4*>(q_s + g * D4 + d);
+            s[g] = fmaf(qq.x, k0, s[g]);
+            s[g] = fmaf(qq.y, k1, s[g]);
+            s[g] = fmaf(qq.z, k2, s[g]);
+            s[g] = fmaf(qq.w, k3, s[g]);
+          }
+        }
+      }
+    } else {
+      const float* qw = reinterpret_cast<const float*>(q_wide);
+      for (int c0 = 0; c0 < p.D; c0 += kMaxD) {
+        const int w = min(kMaxD, p.D - c0);
+        __syncwarp();  // the previous chunk (or tile) is read
+        stage_window(ks, p.k, rows, p.D, c0, w, rs_k, t0, lo, hi, lane, p.vec);
+        if (c0 == 0) stage_window(vs, p.v, rows, p.Dv, p.dv0, dvn, rs_v, t0, lo, hi, lane, p.vec);
+        __syncwarp();
+        // Pad columns past D meet q's zeros.
+        for (int d = 0; d < ((w + 3) & ~3); d += 4) {
+          const int wd = *reinterpret_cast<const int*>(krow + d);
+          const float k0 = (float)(int8_t)(wd);
+          const float k1 = (float)(int8_t)(wd >> 8);
+          const float k2 = (float)(int8_t)(wd >> 16);
+          const float k3 = (float)(int8_t)(wd >> 24);
+#pragma unroll
+          for (int g = 0; g < G_MAX; ++g) {
+            if (g < G) {
+              const float4 qq = *reinterpret_cast<const float4*>(qw + g * D4 + c0 + d);
+              s[g] = fmaf(qq.x, k0, s[g]);
+              s[g] = fmaf(qq.y, k1, s[g]);
+              s[g] = fmaf(qq.z, k2, s[g]);
+              s[g] = fmaf(qq.w, k3, s[g]);
+            }
+          }
         }
       }
     }
@@ -252,7 +339,7 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < kMaxD / 32; ++j) {
         const int dv = lane + 32 * j;
-        vv[j] = dv < p.Dv ? (float)vrow[dv] : 0.f;
+        vv[j] = dv < (WIDE ? dvn : p.Dv) ? (float)vrow[dv] : 0.f;
       }
 #pragma unroll
       for (int g = 0; g < G_MAX; ++g) {
@@ -280,14 +367,15 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < kMaxD / 32; ++j) {
         const int dv = lane + 32 * j;
-        if (dv < p.Dv) accs[(warp * kMaxG + g) * kMaxD + dv] = acc[g][j];
+        if (dv < (WIDE ? dvn : p.Dv)) accs[(warp * kMaxG + g) * kMaxD + dv] = acc[g][j];
       }
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * p.Dv; i += kThreads) {
-    const int g = i / p.Dv;
-    const int dv = i - g * p.Dv;
+  const int Dn = WIDE ? dvn : p.Dv;  // output columns of this launch
+  for (int i = threadIdx.x; i < G * Dn; i += kThreads) {
+    const int g = i / Dn;
+    const int dv = i - g * Dn;
     float mx = kNeg;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ml[(w * kMaxG + g) * 2]);
@@ -299,7 +387,8 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
       a += f * accs[(w * kMaxG + g) * kMaxD + dv];
     }
     const float o = a / fmaxf(lsum, 1e-30f);
-    const long long oi = ((long long)b * p.H + (long long)h * Gall + g0 + g) * p.Dv + dv;
+    long long oi = ((long long)b * p.H + (long long)h * Gall + g0 + g) * p.Dv + dv;
+    if constexpr (WIDE) oi += p.dv0;
     if (p.is_bf16)
       static_cast<__nv_bfloat16*>(p.out)[oi] = __float2bfloat16_rn(o);
     else
@@ -310,8 +399,21 @@ __global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
 template <int G_MAX>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   const int chunks = (p.H / p.Hkv + kMaxG - 1) / kMaxG;
-  paged_fa_kernel<G_MAX><<<dim3(p.Hkv, B, chunks), kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+  if (p.D <= kMaxD && p.Dv <= kMaxD) {
+    paged_fa_kernel<G_MAX, false><<<dim3(p.Hkv, B, chunks), kThreads, 0, stream>>>(p);
+    return cudaGetLastError();
+  }
+  // Head dims above kMaxD: q's rows at full D, one launch a chunk of Dv.
+  auto kernel = paged_fa_kernel<G_MAX, true>;
+  const int bytes = kMaxG * ((p.D + 3) & ~3) * 4;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  for (int dv0 = 0; err == cudaSuccess && dv0 < p.Dv; dv0 += kMaxD) {
+    Params c = p;
+    c.dv0 = dv0;
+    kernel<<<dim3(p.Hkv, B, chunks), kThreads, bytes, stream>>>(c);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace
@@ -325,8 +427,8 @@ extern "C" int paged_flash_attn_launch(
     int B, int H, int Hkv, int D, int Dv, int page, int NP, int window,
     float scale, int is_bf16, int vec, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > 65535 * kMaxG || D <= 0 || D > kMaxD ||
-      Dv <= 0 || Dv > kMaxD || page <= 0 || NP < 0 || B > 65535 ||
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > 65535 * kMaxG || D <= 0 || Dv <= 0 ||
+      page <= 0 || NP < 0 || B > 65535 ||
       (vec != 16 && vec != 8 && vec != 4 && vec != 1) || D % vec || Dv % vec)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -348,6 +450,7 @@ extern "C" int paged_flash_attn_launch(
   p.scale = scale;
   p.is_bf16 = is_bf16;
   p.vec = vec;
+  p.dv0 = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
   cudaError_t err;

@@ -39,8 +39,12 @@ kernel: 64-column strips of B streamed once in 16-byte vectors (8-byte
 for int8, 4-byte at m > 1), int8 widened by byte permutes, k split over
 up to 8 CTAs of a cluster whose partials (int32 for ``dqab`` without
 per-tile scales, so exact) the leader sums in rank order through
-distributed shared memory before the dequant and the drain.  fp32, fp32 A with int8
-B, int8 at m > 8, min_plus, training programs at m <= 8 and misaligned
+distributed shared memory before the dequant and the drain.  The aligned
+int8 programs at m > 8 take the wgmma route's tile and loop, with a
+transform warpgroup between TMA and wgmma that turns each landed int8 B
+stage into the operand wgmma reads (``dqb``: widened to bf16; ``dqab``:
+transposed to K-major for wgmma's s8 x s8 -> s32 products).  fp32, fp32 A
+with int8 B, min_plus, training programs at m <= 8 and misaligned
 operands stay on the SIMT tile.  K4's bf16 step at whole 128 x 128 x 64
 blocks runs the wgmma main loop (:func:`k_outer_route`).
 
@@ -107,7 +111,7 @@ _ACT_CODES = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _FLOATS = (torch.float32, torch.bfloat16)
 # Element type codes of the C entry point's A and B operands.
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# The kernel streams k in slabs of 32 or 128 rows, so a per-tile scale
+# The kernel streams k in slabs of 32, 64 or 128 rows, so a per-tile scale
 # block must be a multiple of 128 for each slab to lie in one block.
 SCALE_BLOCK_QUANTUM = 128
 
@@ -159,10 +163,10 @@ def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
     program (``nn``, no ``dact``, no ``save_preact``); ``"wgmma"`` at
     m > 8 for one branch in any layout or the GLU in ``nn`` without
     ``dact``.  int8 B with bf16 A (``dqb``) or int8 A (``dqab``):
-    ``"decode"`` at m <= 8.  ``"simt"`` otherwise: fp32, fp32 A with int8
-    B, int8 at m > 8, min_plus, training programs at m <= 8, misaligned
-    operands.  The C entry point's ``k1_route`` is its twin and refuses a
-    launch whose route differs."""
+    ``"decode"`` at m <= 8, ``"wgmma"`` above.  ``"simt"`` otherwise:
+    fp32, fp32 A with int8 B, min_plus, training programs at m <= 8,
+    misaligned operands.  The C entry point's ``k1_route`` is its twin and
+    refuses a launch whose route differs."""
     bf16 = a_dtype == torch.bfloat16 and b_dtype == torch.bfloat16
     int8 = b_dtype == torch.int8 and a_dtype in (torch.bfloat16, torch.int8)
     if semiring != "plus_times" or not (bf16 or int8) or k < 1 \
@@ -172,7 +176,7 @@ def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
         training = (layout != "nn" or spec.prologue.kind == "dact"
                     or save_preact)
         return "simt" if training else "decode"
-    if int8 or n > _WGMMA_MAX_N:
+    if n > _WGMMA_MAX_N:
         return "simt"
     if spec.n_b == 2 and (layout != "nn" or spec.prologue.kind == "dact"):
         return "simt"
@@ -634,8 +638,8 @@ def ca_gemm_program(
 
     bf16 programs with 16-byte aligned operands take the wgmma route at
     m > 8 and, serving programs, the decode route at m <= 8, as do the
-    aligned ``dqb`` (bf16 A) and ``dqab`` programs at m <= 8; the rest the
-    SIMT tile (:func:`k1_route`).  All count in ``launch_counts`` and, by
+    aligned ``dqb`` (bf16 A) and ``dqab`` programs; the rest the SIMT
+    tile (:func:`k1_route`).  All count in ``launch_counts`` and, by
     route, in ``route_counts``.
 
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.

@@ -7,8 +7,10 @@ K2 is hand-written CUDA C++ for Hopper,
 chunk of up to 8 of its G query heads, so any G) holds those query rows,
 walks the sequence's int8 pages through the block table with the page
 scales folded into the running softmax (k-scale into the logit scale,
-v-scale into the PV partial), and stores each output element once.  It reads the page ids, the lengths and the scales on the
-device; the wrapper never reads them to the host.
+v-scale into the PV partial), and stores each output element once; head
+dims above 128 run in 128-wide chunks (the scores over D's chunks, one
+launch for each chunk of Dv).  It reads the page ids, the lengths and the
+scales on the device; the wrapper never reads them to the host.
 
 K3 is ``repro_torch/csrc/flash_attn_fwd.cu``: one CTA per (batch x KV
 head, q block, chunk of the G query heads, so any G) holds the folded
@@ -19,7 +21,8 @@ twinned in the C entry point, which refuses a launch whose route
 differs): bf16 operands that meet TMA's address rules take a TMA + WGMMA
 kernel (128 rows a CTA, K and V through a ring of TMA stages, Q K^T and
 P V on the tensor cores, the softmax in the accumulator's registers);
-fp32 and the rest a SIMT kernel (64 rows, fp32 FMAs).  Launches count in
+fp32, head dims above 128 and the rest a SIMT kernel (64 rows, fp32 FMAs;
+head dims in 128-wide chunks).  Launches count in
 ``launch_counts`` and, by route, in ``route_counts``.  No model calls it:
 the model's prefill keeps the plain chunked attention of
 :mod:`repro_torch.models.attention`, as the reference's does.
@@ -53,7 +56,9 @@ route_counts: Dict[str, int] = {}
 
 NEG = -1e30
 _FLOATS = (torch.float32, torch.bfloat16)
-_MAX_HEAD_DIM = 128          # the kernel's register accumulator width
+# K3's wgmma route takes head dims up to two 64-wide TMA boxes; larger ones
+# (and K2's above 128) run in 128-wide chunks on the SIMT kernels.
+WGMMA_MAX_HEAD_DIM = 128
 # K3's kv slots per online-softmax step, on both routes; the plain version
 # steps through the kv slots in the same blocks.
 FWD_KV_BLOCK = 64
@@ -179,9 +184,6 @@ def _load_width(k_pages: torch.Tensor, v_pages: torch.Tensor, D: int,
 def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
             window, scale, geometry) -> torch.Tensor:
     B, H, D, Dv, page, Hkv, NP = geometry
-    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM}, "
-                         f"got D={D} Dv={Dv}")
     if B > 65535:
         raise ValueError(f"B = {B} exceeds the kernel's grid")
     for t in (q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens):
@@ -252,12 +254,14 @@ def _bind_fwd(lib: ctypes.CDLL) -> None:
 
 
 def fwd_route(dtype: torch.dtype, D: int, Dv: int, aligned: bool) -> str:
-    """The route a K3 launch takes: ``"wgmma"`` for bf16 whose q, k and v
-    meet TMA's address rules (16-byte aligned bases, ``aligned``, and row
-    strides, so D and Dv multiples of 8); ``"simt"`` otherwise (fp32, and
-    bf16 TMA cannot take).  The C entry point's ``fwd_route`` is its twin
-    and refuses a launch whose route differs."""
-    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and Dv % 8 == 0:
+    """The route a K3 launch takes: ``"wgmma"`` for bf16 with D, Dv <=
+    ``WGMMA_MAX_HEAD_DIM`` whose q, k and v meet TMA's address rules
+    (16-byte aligned bases, ``aligned``, and row strides, so D and Dv
+    multiples of 8); ``"simt"`` otherwise (fp32, larger head dims, and bf16
+    TMA cannot take).  The C entry point's ``fwd_route`` is its twin and
+    refuses a launch whose route differs."""
+    if dtype == torch.bfloat16 and aligned and D % 8 == 0 and Dv % 8 == 0 \
+            and max(D, Dv) <= WGMMA_MAX_HEAD_DIM:
         return "wgmma"
     return "simt"
 
@@ -382,9 +386,6 @@ def flash_attention_reference(
 def _launch_fwd(q, k, v, q_positions, kv_positions, causal, window, scale,
                 geometry) -> torch.Tensor:
     B, Lq, S, H, Hkv, D, Dv = geometry
-    if D > _MAX_HEAD_DIM or Dv > _MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes head dims <= {_MAX_HEAD_DIM}, "
-                         f"got D={D} Dv={Dv}")
     if B * Hkv > 65535:
         raise ValueError(f"B x Hkv = {B * Hkv} exceeds the kernel's grid")
     for t in (q, k, v, q_positions, kv_positions):
@@ -436,8 +437,8 @@ def flash_attention(
     on the SIMT one, 64 kv slots a step): ``q_block`` and ``kv_block`` are
     accepted and not read, as results do not depend on the blocking beyond
     rounding.  CPU operands run :func:`flash_attention_reference`; CUDA
-    operands launch the kernel on the route :func:`fwd_route` gives (head
-    dims <= 128, any number of query heads per KV head).
+    operands launch the kernel on the route :func:`fwd_route` gives (any
+    head dims, any number of query heads per KV head).
     """
     geometry = _check_fwd(q, k, v, q_positions, kv_positions, window,
                           q_block, kv_block)

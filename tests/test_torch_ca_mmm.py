@@ -182,13 +182,18 @@ def _quant_operands(tag, m, n, k, block_b, block_a, seed):
     ("dqb+bias+silu+mul+res", (0, 0)), ("dqb+res", (128, 0)),
     ("glu.gelu(dqb+bias|dqb+bias)", (128, 0)), ("dqab", (0, 0)),
     ("dqab+res", (128, 128)), ("dqab", (0, 128)),
-    ("glu.silu(dqab|dqab)", (0, 0)), ("rms>glu.silu(dqb|dqb)", (0, 0))])
-@pytest.mark.parametrize("m", [1, 37, 8])
+    ("glu.silu(dqab|dqab)", (0, 0)), ("rms>glu.silu(dqb|dqb)", (0, 0)),
+    ("dqb", (256, 0)), ("rms>glu.silu(dqb|dqb)", (128, 0)),
+    ("glu.silu(dqab|dqab)", (256, 256))])
+@pytest.mark.parametrize("m", [1, 37, 8, 130])
 def test_quant_programs_match_reference_kernel(tag, blocks, m):
     """The dequant programs, among them the served int8w GLU with its rms
     prologue (bf16 A, as int8w serving streams it, and fp32 out) and the
-    served w8a8 GLU, at decode (m = 1), the 8-token prefill and m = 37."""
-    # Ragged n and k: 300 = 128 + 128 + 44 rows of k.
+    served w8a8 GLU, at decode (m = 1), the 8-token prefill and the
+    prefill shapes m = 37 and 130 (the card's int8 wgmma route: more
+    than one 128-row tile), with per-channel scales and per-tile ones of
+    128 and 256 rows."""
+    # Ragged n and k: 300 = 128 + 128 + 44 = 256 + 44 rows of k.
     n, k = 200, 300
     block_b, block_a = blocks
     ops = _quant_operands(tag, m, n, k, block_b, block_a, seed=m)
@@ -206,7 +211,8 @@ def test_quant_programs_match_reference_kernel(tag, blocks, m):
                 "row_scale": rms_row_scale(t_a, 1e-5)}
     want = jax_program(
         j_a, [jnp.asarray(b) for b in ops["bs"]],
-        spec=jax_from_tag(tag), bm=8, bn=128, bk=128, interpret=True,
+        spec=jax_from_tag(tag), bm=8 if m < 64 else 64, bn=128, bk=128,
+        interpret=True,
         branch_operands=[{k_: jnp.asarray(v) for k_, v in d.items()}
                          for d in ops["branch"]],
         scale_b_block=block_b, scale_a_block=block_a, **j_kw)
@@ -718,8 +724,8 @@ def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
     (GLU, "nn", (BF16, BF16), 37, 5632, 2048, {}, "wgmma"),
     ("none", "nn", (torch.float32,) * 2, 1024, 2048, 2048, {}, "simt"),
     ("none nt", "nt", (torch.float32,) * 2, 1024, 2048, 2048, {}, "simt"),
-    ("dqb", "nn", (BF16, torch.int8), 1024, 2048, 2048, {}, "simt"),
-    ("dqab", "nn", (torch.int8,) * 2, 1024, 2048, 2048, {}, "simt"),
+    ("dqb", "nn", (BF16, torch.int8), 1024, 2048, 2048, {}, "wgmma"),
+    ("dqab", "nn", (torch.int8,) * 2, 1024, 2048, 2048, {}, "wgmma"),
     ("none", "nn", (BF16, BF16), 1024, 2048, 2048,
      {"semiring": "min_plus"}, "simt"),
     ("none", "nn", (BF16, BF16), 1024, 2048, 2052, {}, "simt"),
@@ -735,11 +741,11 @@ def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
 ], ids=lambda v: str(v).replace("torch.", "") if not isinstance(v, dict)
     else "-".join(v) or "plain")
 def test_k1_route(tag, layout, dtypes, m, n, k, kw, want):
-    """wgmma for bf16 A and B at m > 8 with TMA-aligned operands (bases and
-    row strides on 16 bytes), one branch in any layout or the GLU in nn
-    without dact; decode for the same at m <= 8 (serving programs); SIMT
-    for fp32, int8, min_plus, a k, m or base off 16 bytes, and the GLU in
-    another layout."""
+    """wgmma for bf16 A and B, or aligned int8 programs, at m > 8 with
+    TMA-aligned operands (bases and row strides on 16 bytes), one branch
+    in any layout or the GLU in nn without dact; decode for the same at
+    m <= 8 (serving programs); SIMT for fp32, min_plus, a k, m or base off
+    16 bytes, and the GLU in another layout."""
     assert _route(tag.split(" ")[0], layout, dtypes, m, n, k, **kw) == want
 
 
@@ -800,12 +806,23 @@ INT8_DECODE_PROGRAMS = [
 def test_k1_route_takes_decode_for_int8_at_m_up_to_8(tag, dtypes, k, n, m):
     """Aligned dqb (bf16 A) and dqab serving programs at m <= 8 take the
     decode route (int8 B needs n % 16 == 0, int8 A k % 16 == 0), and the
-    same program at m = 9 (prefill) the SIMT tile."""
+    same program at m = 9 (prefill) the int8 wgmma route."""
     assert _route(tag, "nn", dtypes, m, n, k) == "decode"
-    assert _route(tag, "nn", dtypes, 9, n, k) == "simt"
+    assert _route(tag, "nn", dtypes, 9, n, k) == "wgmma"
 
 
-@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("m", [9, 128, 1000])
+@pytest.mark.parametrize("tag,dtypes,k,n", INT8_DECODE_PROGRAMS,
+                         ids=[f"{t} {k}x{n}"
+                              for t, _, k, n in INT8_DECODE_PROGRAMS])
+def test_k1_route_takes_wgmma_for_int8_prefill(tag, dtypes, k, n, m):
+    """The same aligned int8 serving programs at m > 8 (every int8w and
+    w8a8 prefill of more than 8 tokens) take the wgmma route, per-tile
+    scales or not (the route does not read them)."""
+    assert _route(tag, "nn", dtypes, m, n, k) == "wgmma"
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 128])
 @pytest.mark.parametrize("tag,dtypes,n,k,kw", [
     ("dqb", (BF16, I8), 2056, 2048, {}),
     ("dqab", (I8, I8), 2056, 2048, {}),
@@ -816,10 +833,11 @@ def test_k1_route_takes_decode_for_int8_at_m_up_to_8(tag, dtypes, k, n, m):
 ], ids=["dqb n%16", "dqab n%16", "dqab k%16", "dqab A off 16 bytes",
         "dqb A off 16 bytes", "dqb fp32 A"])
 def test_k1_route_keeps_int8_on_simt(tag, dtypes, n, k, kw, m):
-    """int8 programs the decode kernel does not take stay on the SIMT
-    tile: int8 B with n % 16 != 0, int8 A with k % 16 != 0, an operand's
-    base off 16 bytes, and fp32 A with int8 B (the decode kernel stages
-    bf16 or int8 A only)."""
+    """int8 programs neither the decode kernel nor the int8 wgmma kernel
+    takes stay on the SIMT tile, at decode and at prefill: int8 B with
+    n % 16 != 0, int8 A with k % 16 != 0 (TMA's 16-byte rows), an
+    operand's base off 16 bytes, and fp32 A with int8 B (both stage bf16
+    or int8 A only)."""
     assert _route(tag, "nn", dtypes, m, n, k, **kw) == "simt"
 
 

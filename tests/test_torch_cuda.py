@@ -127,20 +127,29 @@ def query(seed, B, H, D):
 PAGED_CASES = {"stablelm": ([1016], 128, 8, 32, 32, 64, None),
                "danube": ([19, 200, 1000], 16, 96, 32, 8, 120, 48),
                "danube serve": ([316], 128, 4, 32, 8, 120, None),
-               "granite G48": ([700, 33], 16, 64, 48, 1, 128, None)}
+               "granite G48": ([700, 33], 16, 64, 48, 1, 128, None),
+               # Head dims above 128, taken in 128-wide chunks:
+               # deepseek-v2-lite's MLA head (D = 192, Dv = 128) and 256.
+               "mla D192": ([300, 41], 16, 32, 16, 8, 192, None),
+               "D256 window": ([130, 77], 16, 24, 8, 4, 256, 50)}
+# Dv where it differs from D.
+PAGED_DV = {"mla D192": 128}
 POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("case", ["stablelm", "danube", "danube serve",
-                                  "granite G48", "poisoned"])
+                                  "granite G48", "poisoned", "mla D192",
+                                  "D256 window"])
 def test_paged_attention_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     lens, page, n_pages, H, Hkv, D, window = \
         PAGED_CASES["danube" if case == "poisoned" else case]
-    pool = random_pool(11, lens, page=page, n_pages=n_pages, Hkv=Hkv, D=D)
+    Dv = PAGED_DV.get(case, D)
+    pool = random_pool(11, lens, page=page, n_pages=n_pages, Hkv=Hkv, D=D,
+                       Dv=Dv)
     dev = lambda p: [torch.as_tensor(p[k]).cuda() for k in POOL_KEYS]  # noqa: E731
     q = torch.as_tensor(query(11, len(lens), H, D)).to("cuda", dtype)
     FA.reset_launch_counts()
@@ -154,7 +163,7 @@ def test_paged_attention_kernel_matches_plain_version(case, dtype):
         return
     want = FA.paged_flash_attention_reference(q, *dev(pool), window=window)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (len(lens), H, D)
+    assert got.dtype == dtype and got.shape == (len(lens), H, Dv)
     err = (got.float() - want.float()).abs().max().item()
     # fp32: sums in another order; bf16: the output may flip one ulp.
     scale = want.float().abs().max().item()
@@ -318,15 +327,17 @@ def test_cuda_int8_decode_route_matches_plain_version(tag, blocks, shape, m,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 128])
 @pytest.mark.parametrize("operand", ["a", "b"])
 @pytest.mark.parametrize("tag", ["dqb+res", "dqab"])
-def test_cuda_misaligned_int8_decode_takes_the_simt_tile(tag, operand):
-    """An int8 program at m = 1 whose A or B base is off 16 bytes: the
-    SIMT tile, and the same result (dqab bit for bit)."""
+def test_cuda_misaligned_int8_decode_takes_the_simt_tile(tag, operand, m):
+    """An int8 program at decode (m = 1) or prefill (m = 128) whose A or
+    B base is off 16 bytes: the SIMT tile, and the same result (dqab bit
+    for bit)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    m, n, k = 1, 208, 1008
+    n, k = 208, 1008
     a, bs, kw = quant_program_inputs(tag, m, n, k, torch.bfloat16, seed=23)
     kw["out_dtype"] = torch.float32
 
@@ -344,6 +355,53 @@ def test_cuda_misaligned_int8_decode_takes_the_simt_tile(tag, operand):
         return
     err = (got - want).abs().max().item()
     assert err <= 1e-4 * (1 + want.abs().max().item()), err
+
+
+# The int8 wgmma route (dqb with bf16 A, dqab) at m > 8: n a multiple of 16
+# and not of the tile's 128 (the GLU's 64), k a multiple of 16 and not of a
+# stage's 64 (dqb) or 128 (dqab) rows, with a ragged last scale block
+# (1008 = 7 x 128 + 112 = 3 x 256 + 240; 2320 = 18 x 128 + 16 = 9 x 256 +
+# 16); per-channel / per-row scales and per-tile ones.
+INT8_WGMMA_SHAPES = {"ragged": (208, 1008), "wide": (2064, 2320)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("od", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("m", [9, 128, 200])
+@pytest.mark.parametrize("shape", list(INT8_WGMMA_SHAPES))
+@pytest.mark.parametrize("tag,blocks", INT8_DECODE_BLOCKS,
+                         ids=[f"{t}-{b[0]}-{b[1]}"
+                              for t, b in INT8_DECODE_BLOCKS])
+def test_cuda_int8_wgmma_route_matches_plain_version(tag, blocks, shape, m,
+                                                     od):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, k = INT8_WGMMA_SHAPES[shape]
+    a, bs, kw = quant_program_inputs(tag, m, n, k, torch.bfloat16, seed=25,
+                                     block_b=blocks[0], block_a=blocks[1])
+    kw["out_dtype"] = od
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    assert K.route_counts == {f"wgmma {tag}": 1}
+    again = K.ca_gemm_program(a, bs, **kw)
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)       # no atomics: the same bits each run
+    assert got.shape == (m, n) and got.dtype == od
+    if "dqab" in tag and blocks == (0, 0):
+        # The s32 sum is exact and converts once, then the plain version's
+        # scales and chain in its order: the same bits.
+        assert torch.equal(got, want)
+        return
+    # The int8 tolerance of the CPU parity tests (fp32 sums in another
+    # order, per-tile folds included); a bf16 output may also round to the
+    # neighbouring bf16 value, one ulp: at most 2^-7 of |want|.
+    g, w = got.float(), want.float()
+    bound = 2e-3 * w.abs().max() + (2e-4 if od == torch.float32
+                                     else 2.0 ** -7) * w.abs()
+    assert bool(((g - w).abs() <= bound).all()), \
+        ((g - w).abs() - bound).max().item()
 
 
 # K1f, the backward programs of training: (tag, layout, save_preact).
@@ -613,7 +671,13 @@ FWD_CASES = {  # B, Lq, S, H, Hkv, D, window, causal, holes
     "G96 window": (2, 9, 150, 96, 1, 64, 40, True, True),
     # danube's D = 120 (two 64-wide boxes, 8 zero dims), ragged Lq and S.
     "danube D120 ragged": (2, 77, 333, 32, 8, 120, 100, True, True),
+    # Head dims above 128 (the SIMT kernel in 128-wide chunks, bf16 too):
+    # deepseek-v2-lite's MLA head (D = 192, Dv = 128) and D = Dv = 256.
+    "mla D192": (2, 77, 150, 8, 4, 192, None, True, True),
+    "D256 window": (1, 100, 300, 8, 4, 256, 37, True, False),
 }
+# Dv where it differs from D.
+FWD_DV = {"mla D192": 128}
 
 
 @pytest.mark.cuda
@@ -623,10 +687,11 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     B, Lq, S, H, Hkv, D, window, causal, holes = FWD_CASES[case]
+    Dv = FWD_DV.get(case, D)
     r = np.random.RandomState(31)
     t = lambda *shape: torch.as_tensor(  # noqa: E731
         r.randn(*shape)).to(device="cuda", dtype=dtype)
-    q, k, v = t(B, Lq, H, D), t(B, S, Hkv, D), t(B, S, Hkv, D)
+    q, k, v = t(B, Lq, H, D), t(B, S, Hkv, D), t(B, S, Hkv, Dv)
     kpos = torch.arange(S, dtype=torch.int32).repeat(B, 1)
     qpos = (torch.arange(Lq, dtype=torch.int32) + (S - Lq)).repeat(B, 1)
     if holes:
@@ -637,7 +702,8 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
     FA.reset_launch_counts()
     got = FA.flash_attention(q, k, v, **kw)
     assert FA.launch_counts == {FA.FWD_NAME: 1}
-    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    route = "wgmma" if dtype == torch.bfloat16 and max(D, Dv) <= 128 \
+        else "simt"
     assert FA.route_counts == {f"{route} {FA.FWD_NAME}": 1}
     want = FA.flash_attention_reference(q, k, v, **kw)
     torch.cuda.synchronize()

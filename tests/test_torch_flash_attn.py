@@ -61,6 +61,26 @@ def test_paged_attention_48_query_heads_per_kv_head(window):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 5], ids=["causal", "sliding"])
+@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 256)],
+                         ids=["mla-D192-Dv128", "D256"])
+def test_paged_attention_wide_head_dims_match_reference_kernel(D, Dv, window):
+    """Head dims above 128, which the card takes in 128-wide chunks:
+    deepseek-v2-lite's MLA head (D = 192, Dv = 128) and D = Dv = 256, GQA
+    2, ragged lengths over a few pages."""
+    Hkv, page = 2, 8
+    pool = random_pool(7, [19, 27], page=page, n_pages=8, Hkv=Hkv, D=D,
+                       Dv=Dv)
+    q = query(7, 2, 2 * Hkv, D)
+    want = paged_flash_attention_tpu(jnp.asarray(q), *_jax(pool),
+                                     window=window, interpret=True)
+    got = FA.paged_flash_attention(torch.as_tensor(q), *_torch(pool),
+                                   window=window)
+    assert got.shape == (2, 2 * Hkv, Dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_poisoned_free_pages_are_bit_identical():
     """Unmapped pages full of 127 at scale 1e6 never reach the output."""
     pool = random_pool(1, [9, 13], page=8, n_pages=8, Hkv=2, D=16,
@@ -119,15 +139,16 @@ def test_geometry_checks_raise(bad, match):
 # K3: forward flash attention
 # ---------------------------------------------------------------------------
 
-def fwd_inputs(seed, B, Lq, S, H, Hkv, D, *, holes=False):
-    """numpy q (B, Lq, H, D), k/v (B, S, Hkv, D) ~ N(0, 1) and int32
-    positions: kv slot s at position s, queries end-aligned with the keys.
-    With ``holes`` some kv slots are invalid (-1) and the last batch row's
-    first query sits before every kv position, so it sees no slot."""
+def fwd_inputs(seed, B, Lq, S, H, Hkv, D, *, holes=False, Dv=None):
+    """numpy q (B, Lq, H, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv, default
+    D) ~ N(0, 1) and int32 positions: kv slot s at position s, queries
+    end-aligned with the keys.  With ``holes`` some kv slots are invalid
+    (-1) and the last batch row's first query sits before every kv
+    position, so it sees no slot."""
     r = np.random.RandomState(seed)
     q = r.randn(B, Lq, H, D).astype(np.float32)
     k = r.randn(B, S, Hkv, D).astype(np.float32)
-    v = r.randn(B, S, Hkv, D).astype(np.float32)
+    v = r.randn(B, S, Hkv, Dv or D).astype(np.float32)
     kpos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
     qpos = np.tile(np.arange(Lq, dtype=np.int32) + (S - Lq), (B, 1))
     if holes:
@@ -177,6 +198,19 @@ def test_flash_attention_non_causal_head_dim_120():
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 256)],
+                         ids=["mla-D192-Dv128", "D256"])
+def test_flash_attention_wide_head_dims_match_reference_kernel(D, Dv):
+    """Head dims above 128, which the card takes on the SIMT kernel in
+    128-wide chunks: deepseek-v2-lite's MLA head (D = 192, Dv = 128) and
+    D = Dv = 256, GQA 2, a window, -1 slots and a fully masked row."""
+    inputs = fwd_inputs(9, 2, 21, 40, 4, 2, D, holes=True, Dv=Dv)
+    got, want = _run_both(inputs, window=13)
+    assert got.shape == (2, 21, 4, Dv)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    assert not want[-1, 0].any() and not got[-1, 0].any()
+
+
 def test_flash_attention_96_query_heads_per_kv_head():
     """Any G: 96 query heads over one KV head (more than the 64 rows of
     the SIMT CTA and the 128 of the wgmma one, so the card splits the
@@ -196,11 +230,16 @@ def test_flash_attention_96_query_heads_per_kv_head():
     (torch.bfloat16, 64, 20, True, "simt"),
     (torch.float32, 64, 64, True, "simt"),
     (torch.float32, 120, 120, True, "simt"),
+    (torch.bfloat16, 128, 128, True, "wgmma"),
+    (torch.bfloat16, 192, 128, True, "simt"),
+    (torch.bfloat16, 128, 256, True, "simt"),
+    (torch.bfloat16, 256, 256, True, "simt"),
 ], ids=lambda v: str(v).replace("torch.", ""))
 def test_fwd_route(dtype, D, Dv, aligned, want):
     """K3's route: wgmma for bf16 whose q, k, v bases are 16-byte aligned
-    and whose head dims are multiples of 8 (TMA's row-stride rule); SIMT
-    for fp32 and for bf16 TMA cannot take."""
+    and whose head dims are multiples of 8 (TMA's row-stride rule) and at
+    most 128 (two 64-wide boxes); SIMT for fp32, for larger head dims and
+    for bf16 TMA cannot take."""
     assert FA.fwd_route(dtype, D, Dv, aligned) == want
 
 

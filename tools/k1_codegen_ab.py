@@ -27,15 +27,26 @@ flags differ: ``ABI`` is ``train`` for a build whose last flag is
 ``MIN_PLUS`` flag after it, ``wgmma`` for one that also has the TMA +
 WGMMA route (its SIMT kernels take the ``k1g`` flags, and its
 ``ca_gemm_wgmma_kernel`` instantiations are the only ones it has alone),
-and ``decode`` for one that also has the split-k decode route (route 2;
-its ``ca_gemm_decode_kernel`` instantiations are its own too; this tree).
-A ``wgmma`` or ``decode`` build runs the m = 128 shapes on its wgmma
-route, and a ``decode`` build the m = 1 shapes on its decode route, so
-where the two builds' routes differ the outputs are compared within
-bf16's rounding (one output ulp, 2^-7 of the largest |output|) rather than
-bit for bit.  Run from the repository root on the card::
+``decode`` for one that also has the split-k decode route (route 2;
+its ``ca_gemm_decode_kernel`` instantiations are compared where both
+builds have them), and ``int8wg`` for one that also takes the int8
+programs at m > 8 on the wgmma route (``ca_gemm_wgmma_int8_kernel``, its
+own; this tree).  A ``wgmma``, ``decode`` or ``int8wg`` build runs the
+m = 128 shapes on its wgmma route, and a ``decode`` or ``int8wg`` build
+the m = 1 shapes on its decode route, so where the two builds' routes
+differ the outputs are compared within bf16's rounding (one output ulp,
+2^-7 of the largest |output|) rather than bit for bit.
 
-    python3 tools/k1_codegen_ab.py A.cu:wgmma B.cu:decode --out DIR
+``--attn OLD_CSRC NEW_CSRC`` also builds the two attention sources of each
+directory (``paged_flash_attn.cu``, K2; ``flash_attn_fwd.cu``, K3) and
+compares the SASS opcode sequence of every kernel both builds have; a
+build that takes head dims above 128 carries a trailing ``WIDE`` template
+flag on its SIMT kernels, dropped where it is false, and the ``WIDE``
+instantiations are its own.  Run from the repository root
+on the card::
+
+    python3 tools/k1_codegen_ab.py A.cu:decode B.cu:int8wg --out DIR \
+        [--attn OLD_CSRC_DIR src/repro_torch/csrc]
 
 The SASS of the compared functions is written under ``--out``.
 """
@@ -63,7 +74,16 @@ TILES = {"8x16x128": "8, 16, 128, 1, 1", "64x64x32": "64, 64, 32, 4, 4"}
 # Each ABI's trailing template flags of the float kernels compared:
 # VEC_B, TRAIN (and MIN_PLUS).
 ABIS = {"train": "true, false", "k1g": "true, false, false",
-        "wgmma": "true, false, false", "decode": "true, false, false"}
+        "wgmma": "true, false, false", "decode": "true, false, false",
+        "int8wg": "true, false, false"}
+# The ABIs with a wgmma route, and those with a decode route too.
+WGMMA_ABIS = {"wgmma", "decode", "int8wg"}
+DECODE_ABIS = {"decode", "int8wg"}
+# The attention kernels compared by --attn, and the template flag the
+# newer ones carry.
+ATTN_SOURCES = ("paged_flash_attn.cu", "flash_attn_fwd.cu")
+ATTN_KERNELS = ("paged_fa_kernel", "flash_attn_fwd_kernel",
+                "flash_attn_wgmma_kernel")
 SILU = 3
 
 
@@ -145,8 +165,10 @@ def common_name(demangled: str, abi: str, other: str) -> str:
     (``MIN_PLUS``) after ``TRAIN``: against a ``train`` build it is
     dropped, and the ``MIN_PLUS`` instantiation has no counterpart."""
     if "ca_gemm_wgmma_kernel" in demangled:
-        both = {abi, other} <= {"wgmma", "decode"}
+        both = {abi, other} <= WGMMA_ABIS
         return demangled if both else None
+    if "ca_gemm_decode_kernel" in demangled:
+        return demangled if {abi, other} <= DECODE_ABIS else None
     if "ca_gemm_program_kernel" not in demangled:
         return None
     if abi == "train" or other != "train":
@@ -170,8 +192,8 @@ class Entry:
     arguments."""
 
     def __init__(self, lib: pathlib.Path, abi: str):
-        self.routed = abi in ("wgmma", "decode")
-        self.decode = abi == "decode"
+        self.routed = abi in WGMMA_ABIS
+        self.decode = abi in DECODE_ABIS
         self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
         self.fn.argtypes = ([ctypes.c_void_p] * 17
                             + [ctypes.c_int] * (20 if self.routed else 19)
@@ -258,11 +280,50 @@ def shapes(gen):
     return out
 
 
+def attn_name(demangled: str) -> str:
+    """An attention kernel's demangled name in the terms both builds
+    share: a false trailing ``WIDE`` flag dropped."""
+    if any(k in demangled for k in ATTN_KERNELS):
+        return demangled.replace(", false>(", ">(")
+    return demangled
+
+
+def compare_attn(old_dir: pathlib.Path, new_dir: pathlib.Path,
+                 out_dir: pathlib.Path):
+    """The SASS opcode sequences of the attention kernels both builds of
+    each source have; a kernel of the older build missing from the newer
+    one, or one whose sequence differs, raises."""
+    for src in ATTN_SOURCES:
+        seqs = []
+        for tag, d in (("old", old_dir), ("new", new_dir)):
+            lib, log = build(d / src, out_dir, f"{tag}_{pathlib.Path(src).stem}")
+            funcs = sass_functions(lib)
+            dem = demangle(list(funcs))
+            info = ptxas_info(log)
+            seqs.append({attn_name(dem[f]): [opcode(x) for x in ls]
+                         for f, ls in funcs.items()})
+            for f in funcs:
+                print(f"  ptxas {tag} {dem[f]}: "
+                      f"{json.dumps(info.get(f, {}))}")
+        shared = sorted(set(seqs[0]) & set(seqs[1]))
+        differ = [k for k in shared if seqs[0][k] != seqs[1][k]]
+        missing = sorted(set(seqs[0]) - set(seqs[1]))
+        print(f"{src}: kernels in both builds: {len(shared)}; identical "
+              f"SASS opcode sequences: {len(shared) - len(differ)}; "
+              f"differing: {json.dumps(differ)}; only in the older: "
+              f"{json.dumps(missing)}; only in the newer: "
+              + json.dumps(sorted(set(seqs[1]) - set(seqs[0]))))
+        if differ or missing:
+            raise AssertionError(f"{src}: the older build's kernels changed")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("builds", nargs=2, metavar="SRC.cu:ABI")
     ap.add_argument("--out", default="chiprun_out/k1_codegen")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--attn", nargs=2, type=pathlib.Path,
+                    metavar=("OLD_CSRC", "NEW_CSRC"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -321,6 +382,8 @@ def main():
           + json.dumps(differ) + "; only in A: "
           + json.dumps(sorted(set(seqs[0]) - set(seqs[1]))) + "; only in B: "
           + json.dumps(sorted(set(seqs[1]) - set(seqs[0]))))
+    if args.attn:
+        compare_attn(*args.attn, out_dir)
     entries = [Entry(b["lib"], b["abi"]) for b in builds]
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, m, k, n, ops, copies in shapes(gen):

@@ -3,18 +3,19 @@ other on the card, in one process: the wgmma route's K1f training GEMMs
 and forward programs at the 1000-token prefill, K4 at 4096^3 in bf16 (its
 default tile and 256 x 256 x 128) and K1a at 4096^3 (``chip_smoke.py``'s
 shapes); the forward programs of stablelm-1.6b and h2o-danube-3-4b at
-decode (m = 1); and K3, forward flash attention, in bf16 at
-``chip_smoke.py``'s timed shapes.
+decode (m = 1); K1d and K1e (int8w, w8a8) of stablelm-1.6b at m = 1, 128
+and 1000; K3, forward flash attention, in bf16 at ``chip_smoke.py``'s
+timed shapes; and K2, the paged decode attention, at its timed shapes.
 
 Version A is a directory holding ``ca_gemm_program.cu``,
-``ca_mmm_k_outer.cu``, ``flash_attn_fwd.cu`` and the
-``wgmma_mainloop.cuh`` they include; version B is another such directory
-(``--new``) or the tree's ``src/repro_torch/csrc``.  A version whose GEMM
-source has no decode route runs the m = 1 programs on its SIMT tile (one
-without the int8 decode route its int8 ones: K1d and K1e of
-stablelm-1.6b at m = 1), and one whose K3 entry point takes no route
-argument runs K3 on its SIMT kernel, so the tool also compares a tree
-against its parent.  Each case
+``ca_mmm_k_outer.cu``, ``flash_attn_fwd.cu``, ``paged_flash_attn.cu`` and
+the ``wgmma_mainloop.cuh`` they include; version B is another such
+directory (``--new``) or the tree's ``src/repro_torch/csrc``.  A version
+whose GEMM source has no decode route runs the m = 1 programs on its SIMT
+tile (one without the int8 decode route its int8 ones at m = 1, one
+without the int8 wgmma route its int8 ones at m > 8), and one whose K3
+entry point takes no route argument runs K3 on its SIMT kernel, so the
+tool also compares a tree against its parent.  Each case
 runs once on both to compare outputs (bit-equal, and each one's max
 |error| against the plain version where it has one), then is timed by
 CUDA-graph replay (``chip_smoke._time_ms``) in the order A, B, B, A for
@@ -23,6 +24,11 @@ name holds any of the given words.  Run from the repository root on the
 card::
 
     python3 tools/wgmma_ab.py OLD_CSRC_DIR [--new NEW_CSRC_DIR] [--only K3]
+        [--prefill]
+
+``--prefill`` also times a full-width stablelm-1.6b prefill of a
+1000-token prompt in int8w and w8a8 on the host clock (the end-to-end
+effect of the int8 GEMMs), builds alternating as above.
 """
 
 from __future__ import annotations
@@ -71,15 +77,17 @@ def cases(gen):
             a, sets, kw = CS.program_inputs(tag, m, k, n, torch.bfloat16,
                                             gen, copies)
             program(f"{tag} {name} m={m}", a, sets, kw, od, copies)
-    # The int8 programs (K1d, K1e) of stablelm-1.6b at decode.
-    for tag, name, k, n, od in CS.GEMMS:
+    # The int8 programs (K1d, K1e) of stablelm-1.6b at decode and at the
+    # 128- and 1000-token prefills.
+    for m, (tag, name, k, n, od) in ((m, g) for m in (1, 128, 1000)
+                                     for g in CS.GEMMS):
         nb = program_from_tag(tag).n_b
         copies = max(2, math.ceil(120e6 / (nb * k * n)))
         for qtag in CS.QUANT[tag]:
-            a, sets, kw, ops = CS.quant_inputs(qtag, 1, k, n, torch.bfloat16,
+            a, sets, kw, ops = CS.quant_inputs(qtag, m, k, n, torch.bfloat16,
                                                gen, copies)
             kw = dict(kw, out_dtype=od or torch.bfloat16)
-            out.append((f"{qtag} {name} m=1",
+            out.append((f"{qtag} {name} m={m}",
                         lambda i, a=a, sets=sets, kw=kw, ops=ops:
                             K.ca_gemm_program(a, sets[i],
                                               branch_operands=ops(i), **kw),
@@ -108,6 +116,17 @@ def cases(gen):
                         FA.flash_attention(q, k, v, **kw), 1,
                     lambda q=q, k=k, v=v, kw=kw:
                         FA.flash_attention_reference(q, k, v, **kw)))
+    for name in ("a stablelm", "stablelm B8 S4096", "danube B8 S4096"):
+        lens, page, H, Hkv, D, window = CS.ATTN_CASES[name]
+        (pool,), tables, lens_t, _ = CS.attn_pool(lens, page, Hkv, D, gen)
+        q = torch.randn(len(lens), H, D, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        args = (q, *pool, tables, lens_t)
+        out.append((f"K2 {name}",
+                    lambda i, args=args, w=window:
+                        FA.paged_flash_attention(*args, window=w), 1,
+                    lambda args=args, w=window:
+                        FA.paged_flash_attention_reference(*args, window=w)))
     return out
 
 
@@ -156,6 +175,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("old_csrc", type=pathlib.Path)
     ap.add_argument("--new", type=pathlib.Path, default=_build.CSRC)
+    ap.add_argument("--prefill", action="store_true",
+                    help="also time full-width stablelm-1.6b prefills of a "
+                         "1000-token prompt in int8w and w8a8, wall clock")
     ap.add_argument("--only", nargs="*", default=[],
                     help="keep the cases whose name holds any of these")
     args = ap.parse_args()
@@ -168,23 +190,32 @@ def main():
         gemm, fwd = d / "ca_gemm_program.cu", d / "flash_attn_fwd.cu"
         builds[tag] = dict(
             gemm=gemm, k4=d / "ca_mmm_k_outer.cu", fwd=fwd,
+            paged=d / "paged_flash_attn.cu",
             decode="ROUTE_DECODE" in gemm.read_text(),
+            int8_wgmma="ca_gemm_wgmma_int8_kernel" in gemm.read_text(),
             fwd_routed="int route," in fwd.read_text())
         builds[tag]["int8_decode"] = (builds[tag]["decode"]
                                       and _takes_int8_decode(gemm, k1_route))
         print(f"build {tag}: {d} (decode route "
               f"{builds[tag]['decode']}, int8 decode "
-              f"{builds[tag]['int8_decode']}, K3 routes "
+              f"{builds[tag]['int8_decode']}, int8 wgmma "
+              f"{builds[tag]['int8_wgmma']}, K3 routes "
               f"{builds[tag]['fwd_routed']})", flush=True)
 
     def routed(b):
         """k1_route for build ``b``: m <= 8 on its SIMT tile where it has no
-        decode route, or none for int8 B."""
+        decode route, or none for int8 B; int8 B at m > 8 on its SIMT tile
+        where it has no int8 wgmma route."""
         def route(spec, layout, a_dtype, b_dtype, *args, **kw):
             r = k1_route(spec, layout, a_dtype, b_dtype, *args, **kw)
-            takes = b["decode"] and (b_dtype != torch.int8
-                                     or b["int8_decode"])
-            return "simt" if r == "decode" and not takes else r
+            if r == "decode":
+                takes = b["decode"] and (b_dtype != torch.int8
+                                         or b["int8_decode"])
+                return r if takes else "simt"
+            if r == "wgmma" and b_dtype == torch.int8 \
+                    and not b["int8_wgmma"]:
+                return "simt"
+            return r
         return route
 
     def use(tag):
@@ -193,6 +224,7 @@ def main():
         K.K_OUTER_SOURCE = b["k4"]
         K.k1_route = routed(b)
         FA.FWD_SOURCE = b["fwd"]
+        FA.SOURCE = b["paged"]
         FA._launch_fwd = launch_fwd if b["fwd_routed"] \
             else _k3_without_route(b["fwd"])
 
@@ -215,7 +247,8 @@ def main():
                 errs[tag] = [(g.double() - w.double()).abs().max().item()
                              for g, w in zip(outs[tag], want)]
         times = {"A": [], "B": []}
-        slow = name.startswith(("K4", "K1a")) or name == "K3 stablelm S4096"
+        slow = (name.startswith(("K4", "K1a")) or name == "K3 stablelm S4096"
+                or ("dq" in name and name.endswith("m=1000")))
         iters = 5 if slow else 20
         for _ in range(2):
             for tag in "ABBA":
@@ -227,6 +260,50 @@ def main():
             "bit_equal": all(torch.equal(p, q)
                              for p, q in zip(outs["A"], outs["B"])),
             "max_abs_err": errs, "A_ms": sorted(times["A"]),
+            "B_ms": sorted(times["B"])}), flush=True)
+    if args.prefill:
+        prefill_ab(use)
+
+
+def prefill_ab(use, rounds=3):
+    """The end-to-end effect of the int8 GEMMs: one full-width
+    stablelm-1.6b prefill of a 1000-token prompt (random weights from seed
+    0, quantized on the card; w8a8 calibrated once on 2 prompts), timed on
+    the host clock between two synchronisations, builds A, B, B, A for
+    ``rounds`` rounds after one warm-up each; the logits of both builds
+    compared."""
+    M = CS.M
+    cfg = CS.get_config(CS.ARCH)
+    qp = CS.CM.quantize_params(M.init_params(cfg, seed=0))
+    w8a8 = CS.ServeEngine(qp, cfg, max_len=1040, quantize_activations=True,
+                          calibration_batches=2,
+                          act_qconfig=CS.QuantConfig(act_fmt="int8")).params
+    tokens = torch.as_tensor(
+        CS.np.random.RandomState(0).randint(0, cfg.vocab_size, 1000),
+        device="cuda")[None]
+    for mode, params in (("int8w", qp), ("w8a8", w8a8)):
+        def run():
+            torch.cuda.synchronize()
+            t0 = CS.time.perf_counter()
+            with torch.inference_mode():
+                logits, _ = M.prefill(params, {"tokens": tokens}, cfg,
+                                      max_len=1040)
+            torch.cuda.synchronize()
+            return logits, (CS.time.perf_counter() - t0) * 1e3
+        outs = {}
+        for tag in "AB":
+            use(tag)
+            outs[tag] = run()[0].float()
+        times = {"A": [], "B": []}
+        for _ in range(rounds):
+            for tag in "ABBA":
+                use(tag)
+                times[tag].append(run()[1])
+        scale = outs["A"].abs().max().item()
+        print("ab " + json.dumps({
+            "case": f"{mode} prefill 1000 tokens (wall)",
+            "max_abs_diff_vs_A": (outs["B"] - outs["A"]).abs().max().item(),
+            "max_abs_A": scale, "A_ms": sorted(times["A"]),
             "B_ms": sorted(times["B"])}), flush=True)
 
 
