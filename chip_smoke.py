@@ -20,9 +20,11 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version in fp32 and bf16 at stablelm-1.6b's and
    danube's serve shapes, at a ragged windowed danube batch, at B = 8,
    S = 4096 for both head geometries, at granite-20b's 48 query heads
-   over one KV head (D = 128) and at deepseek-v2-lite's MLA head (D = 192,
-   Dv = 128: head dims in 128-wide chunks), and bit-identical when the
-   pool's free pages are poisoned.
+   over one KV head (D = 128), at deepseek-v2-lite's MLA head (D = 192,
+   Dv = 128) and on its split path (stablelm at B = 1, S = 4096; ragged
+   lengths and a window that leave splits empty; len = 0, which drains
+   zeros); bit-identical when the pool's free pages are poisoned and
+   when a call is repeated.
 4. slice: full-width stablelm-1.6b, all 24 layers, random weights from a
    seed, served through ServeEngine (3 requests) on the slab cache; the
    kernel must launch exactly 145 times per prefill and per decode step,
@@ -84,9 +86,9 @@ Phases (any failure raises and the script exits non-zero):
    bound per GEMM program (float at m = 1, 128 and 1000, h2o-danube-3-4b's
    at m = 1, int8 (wo included) at m = 1, 128 and 1000 on its route
    (decode, then wgmma) and on the SIMT tile (A's base off 16 bytes), the
-   K1f programs at 1024 tokens) and for the paged kernel (each timed by
-   replaying a CUDA graph of 20 calls), and the end-to-end times of the
-   serve and train phases.
+   K1f programs at 1024 tokens) and for the paged kernel at every serving
+   and group case (each timed by replaying a CUDA graph of 20 calls), and
+   the end-to-end times of the serve and train phases.
 11. K1g, the distance product: all-pairs shortest paths on a random
    directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
    repeated min-plus squarings through kernels.ops.distance_product,
@@ -196,7 +198,7 @@ FWD_SHAPES = {"stablelm prefill": (1, 1000, 1000, 32, 32, 64, None),
 FWD_TIMED = ("stablelm prefill", "danube prefill", "stablelm S4096")
 # deepseek-v2-lite's MLA head (16 heads, q.k over 192 dims, v of 128):
 # past the wgmma route's 128, so its bf16 call takes the SIMT kernel in
-# 128-wide chunks, as K2's paged case below does.
+# 128-wide chunks (K2's paged case below scores it once, in one launch).
 MLA_DV = 128
 FWD_DV = {"mla D192": MLA_DV}
 # K4 at m = n = k = K_OUTER_MNK, beside K1a at the same shape.
@@ -259,15 +261,34 @@ TOL_GRAD, TOL_LOSS = 5e-2, 1e-2
 # Paged attention shapes (lens, page, H, Hkv, D, window): stablelm-1.6b's
 # heads at its serve path's length and page (a), danube's GQA heads over
 # ragged lengths crossing pages with a window (b), danube's serve shape
-# (B = 1, S = 316, its analytic page 128), and B = 8, S = 4096 for both.
+# (B = 1, S = 316, its analytic page 128), B = 8, S = 4096 for both,
+# granite-20b's 48 query heads over one KV head, deepseek-v2-lite's MLA
+# head, and the split path: stablelm at B = 1 over 4096 tokens (8 splits),
+# lengths of 5 and 0 tokens beside 1016 (splits left empty, a sequence
+# that drains zeros) and a window of 3 (most splits empty); and head dims
+# past one CTA at the whole group and all of Dv: deepseek-v2's absorbed
+# MLA head (D = 576, Dv = 512, two column chunks), 64 such heads (two
+# head chunks), and 264-byte rows in 16-byte windows (two column chunks).
 ATTN_CASES = {"a stablelm": ([1016], 128, 32, 32, 64, None),
               "b danube": ([19, 200, 1000], 16, 32, 8, 120, 48),
               "danube serve": ([316], 128, 32, 8, 120, None),
               "stablelm B8 S4096": ([4096] * 8, 128, 32, 32, 64, None),
               "danube B8 S4096": ([4096] * 8, 128, 32, 8, 120, None),
               "granite G48": ([1016, 37], 128, 48, 1, 128, None),
-              "mla D192": ([1016, 37], 128, 16, 16, 192, None)}
-ATTN_DV = {"mla D192": MLA_DV}
+              "mla D192": ([1016, 37], 128, 16, 16, 192, None),
+              "stablelm B1 S4096": ([4096], 128, 32, 32, 64, None),
+              "ragged splits": ([5, 1016, 0], 16, 8, 2, 64, None),
+              "window splits": ([1016, 300], 16, 8, 2, 64, 3),
+              "absorbed mla": ([1016, 37], 128, 16, 1, 576, None),
+              "G64 D576": ([300, 41], 16, 64, 1, 576, None),
+              "D264 shifted": ([130, 45], 16, 4, 2, 264, 30)}
+ATTN_DV = {"mla D192": MLA_DV, "absorbed mla": 512, "G64 D576": 512}
+# The paged cases timed (the serving calls, the B = 8 batches, the group
+# and head-dim cases, the column chunks); "a stablelm" first, the
+# kernel's JSON record.
+ATTN_TIMED = ("a stablelm", "danube serve", "stablelm B8 S4096",
+              "danube B8 S4096", "granite G48", "mla D192",
+              "stablelm B1 S4096", "absorbed mla")
 # Prompt lengths of the prefill shapes the bf16 GEMMs are held and timed
 # at (the served prompts of 37, 128 and 1000 tokens).
 PREFILL_M = (37, 128, 1000)
@@ -491,6 +512,17 @@ def attn_parity():
             got, err = check_attn(label, q, pool, tables, lens_t,
                                   window=window)
             worst = max(worst, err)
+            for b, L in enumerate(lens):
+                if L == 0 and bool(got[b].any()):
+                    raise AssertionError(f"paged attention {name}: len = 0 "
+                                         "did not drain zeros")
+            # The splits merge in order (no atomics): the same bits again.
+            repeat = FA.paged_flash_attention(q, *pool, tables, lens_t,
+                                              window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(got, repeat):
+                raise AssertionError(f"paged attention {name}: two identical "
+                                     "calls differ")
             # (c) free pages poisoned with 127 at scale 1e6: bit-identical.
             bad = [t.clone() for t in pool]
             for t in bad[:2]:
@@ -504,7 +536,8 @@ def attn_parity():
                 raise AssertionError(f"paged attention {name}: poisoned "
                                      "free pages changed the output")
             print(f"parity paged_flash_attention {name:17s} "
-                  f"{str(dtype)[6:]:8s} poisoned free pages: bit-identical")
+                  f"{str(dtype)[6:]:8s} poisoned free pages and a repeated "
+                  "call: bit-identical")
     return worst
 
 
@@ -808,6 +841,9 @@ def profile_decode(params, cfg, steps=8, paged=False):
         out["paged_attention_kernel_ms_per_step"] = sum(
             v for k, v in by_kernel.items()
             if "paged_fa_kernel" in k) / 1e3 / steps
+        if not out["paged_attention_kernel_ms_per_step"] > 0:
+            raise AssertionError("the paged decode profile found no "
+                                 "paged_fa_kernel time: " + str(top))
     print(f"profile {'paged' if paged else 'slab'} " + json.dumps(out))
     for name, us in top:
         print(f"profile top {us / 1e3 / steps:9.4f} ms/step {name[:90]}")
@@ -1075,22 +1111,24 @@ def times():
     return rows
 
 
-def attn_bound(lens, page, H, Hkv, D, window, dtype):
+def attn_bound(lens, page, H, Hkv, D, window, dtype, Dv=None):
     """Least time for one call: the int8 K/V bytes of the tokens it must
     attend (each read once) plus scales, tables, lengths, q and the
-    output, over the memory rate; or its fp32 operations (q.k and p.v for
-    every query head and token; the kernel widens int8 to fp32) over the
-    fp32 rate, whichever is larger."""
+    output, over the memory rate; or its operations (q.k and p.v for
+    every query head and token) over the card's peak rate for q's dtype
+    (an int8 x bf16 product is exact in bf16, so bf16 q could take the
+    tensor cores), whichever is larger."""
+    Dv = Dv or D
     B = len(lens)
-    NP = max(-(-L // page) for L in lens)
-    tokens = sum(min(L, NP * page) - (max(0, L - window) if window else 0)
-                 for L in lens)
+    NP = max(1, max(-(-L // page) for L in lens))
+    tokens = sum(max(0, min(L, NP * page)
+                     - (max(0, L - window) if window else 0)) for L in lens)
     pages = sum(-(-L // page) for L in lens)
     es = torch.finfo(dtype).bits // 8
-    nbytes = (tokens * Hkv * 2 * D + pages * 2 * 4 + B * NP * 4 + B * 4
-              + 2 * B * H * D * es)
-    ops = 2 * 2 * tokens * (H // Hkv) * Hkv * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[torch.float32]
+    nbytes = (tokens * Hkv * (D + Dv) + pages * 2 * 4 + B * NP * 4 + B * 4
+              + B * H * (D + Dv) * es)
+    ops = 2 * tokens * H * (D + Dv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1100,12 +1138,13 @@ def attn_times():
           "the 50 MB L2)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-    for name in ("a stablelm", "stablelm B8 S4096", "danube B8 S4096"):
+    for name in ATTN_TIMED:
         lens, page, H, Hkv, D, window = ATTN_CASES[name]
-        per_copy = sum(-(-L // page) for L in lens) * page * Hkv * 2 * D
+        Dv = ATTN_DV.get(name, D)
+        per_copy = sum(-(-L // page) for L in lens) * page * Hkv * (D + Dv)
         copies = max(2, math.ceil(120e6 / per_copy))
         pools, tables, lens_t, _ = attn_pool(lens, page, Hkv, D, gen,
-                                             copies=copies)
+                                             copies=copies, Dv=Dv)
         q = torch.randn(len(lens), H, D, generator=gen,
                         device="cuda").to(torch.bfloat16)
         ms = _time_ms(lambda i: FA.paged_flash_attention(
@@ -1113,10 +1152,10 @@ def attn_times():
         plain = _time_ms(lambda i: FA.paged_flash_attention_reference(
             q, *pools[i], tables, lens_t, window=window), copies)
         b_ms, b_by = attn_bound(lens, page, H, Hkv, D, window,
-                                torch.bfloat16)
+                                torch.bfloat16, Dv)
         row = {"kernel": FA.NAME, "case": name, "B": len(lens),
                "S": max(lens), "page": page, "H": H, "Hkv": Hkv, "D": D,
-               "ms": ms, "plain_ms": plain, "library_ms": None,
+               "Dv": Dv, "ms": ms, "plain_ms": plain, "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by}
         rows.append(row)
         print("time " + json.dumps(row))

@@ -14,52 +14,106 @@
 // exists in memory.  Token t of table slot j sits at kpos = j * page + t;
 // kpos < len masks ragged tails and unmapped slots, and a sliding window
 // further keeps kpos > len - 1 - window.  Masked scores are -1e30 and their
-// probabilities are forced to 0; the running max and denominator are fp32,
-// and the drain is acc / max(l, 1e-30), so len = 0 drains zeros.
+// probabilities are 0; the running max and denominator are fp32, and the
+// drain is acc / max(l, 1e-30), so len = 0 drains zeros.
 //
-// Schedule.  One CTA per (sequence, KV head, chunk of up to 8 query heads)
-// holds that chunk's query rows (GQA), as the TPU kernel folds G heads into
-// the rows of one tile; a group of G > 8 (granite-20b's 48 heads over one
-// KV head) takes ceil(G / 8) CTAs, each reading the sequence's pages.  Its four
-// warps walk the sequence's tokens 32 at a time, one token per lane: warp w
-// takes token tiles w, w + 4, w + 8, ... of [first token of the window,
-// min(len, NP * page)), so the CTA stops after ceil(len / page) pages and
-// never reads a page that only masked slots would come from.  A warp stages
-// its tile's int8 K and V rows in shared memory (16-, 8- or 4-byte global
-// loads, the widest that divides the head dim), computes each lane's G scores,
-// and updates its own fp32 running max, denominator and register accumulator
-// (one warp-wide max and sum per query row and tile).  After the last tile the
-// four warps' partial softmax states are merged in shared memory (the usual
-// flash-decoding rescale by exp(m_w - max m), which reduces to the same result)
-// and each output element is stored once.  Head dims above 128 (deepseek-v2-
-// lite's MLA head: D = 192, Dv = 128) take the kernel's WIDE form: q at its
-// full D in dynamic shared memory, K staged and scored 128 columns at a
-// time, and one launch for each 128-wide chunk of Dv (each re-scoring the
-// tokens).
+// Schedule (flash-decoding, merged in the same launch).  The grid is
+// (splits, Hkv, B * chunks * vchunks): one CTA per (split, KV head,
+// sequence, chunk of query heads, chunk of output columns).  The wrapper
+// (kernels/flash_attn.py: paged_plan, paged_splits) picks the plan:
+//  - group: the query heads a CTA holds, the whole group G up to 64
+//    (granite-20b's 48 among them), and dvc: the output columns it
+//    computes, all of Dv up to 256 (D = 192 with Dv = 128, D = Dv = 256),
+//    so chunks = vchunks = 1 and each (sequence, KV head, split) reads each
+//    page byte once and scores each token once, whatever G; a G past 64
+//    takes chunks of heads, each reading the pages again, and a Dv past
+//    256 chunks of whole 16-byte units, each scoring the tokens again
+//    (deepseek-v2's absorbed MLA head, D = 576 with Dv = 512: two);
+//  - ng: the CTA's token groups (below), 4 / wh by default; where the CTA's
+//    shared memory would not hold the plan, fewer token groups, then half
+//    the heads, then half the columns, until it does (a K row too long for
+//    one token group of one head, D above ~3,300, is refused);
+//  - splits: each CTA computes its own tokens on the device from len and
+//    window: the live range [lo, hi) = [max(0, len - window), min(len,
+//    NP * page)) cut into `splits` equal parts of whole 32-token tiles, so a
+//    short or windowed sequence spreads its live tokens over its first
+//    splits and a split with none keeps the empty state (m = -1e30, l = 0,
+//    acc = 0); the count fills one wave of the card's SMs, at most 8, at
+//    most one a table page.
+// The splits of a (KV head, sequence, chunk) form one thread-block cluster
+// (at most 8 CTAs, the portable most); after its tokens each CTA leaves its
+// unnormalized (m, l, acc) in shared memory, and after a cluster barrier
+// every CTA merges a slice of the output elements from all ranks' shared
+// memory (distributed shared memory) by the usual rescale exp(m_r - max m),
+// summed in rank order, so the result is the same from run to run and
+// poisoned free pages give bit-identical outputs.  splits = 1 drains
+// directly, with no cluster.
 //
-// What bounds it on the H100: the bytes it must read, B * S * Hkv * (D + Dv)
-// of int8 payload plus the scales, q and out, at 3.35 TB/s.  At B = 8 and
-// S = 4096 with stablelm-1.6b's heads (Hkv = 32, D = Dv = 64) that is 134 MB,
-// 40 us.  On the serve path (B = 1) the grid is only Hkv CTAs on 132 SMs (32
-// for stablelm-1.6b, 8 for h2o-danube-3-4b), so there it is bound by launch
-// and latency, not bytes.  A split of the pages over CTAs, cp.async/TMA
-// double-buffering and tensor cores are later work; the measured times stand
-// in PERF.md.
+// Inside a CTA.  Its warps form token groups: the ceil(group / 8) warps of
+// a group share a ring of two tiles of 32 tokens' K and V rows in dynamic
+// shared memory, each warp holding up to 8 of the query heads; the split's
+// tiles go to the groups in turn (a group of one warp needs only
+// __syncwarp, a larger one a named barrier, once a tile), and the groups'
+// (m, l, acc) merge in order at the end.  The next tile is in flight while
+// one is scored.  Feed, two ways, picked by the wrapper (tma_rows):
+//  - TMA: where pages hold whole tiles (page % 32 == 0) and a row, or its
+//    16-byte window below, is 64 or 128 bytes (stablelm-1.6b's 64, h2o-
+//    danube-3-4b's 120 in a 128-byte window, granite-20b's 128), the tiles
+//    start at multiples of 32 tokens, so each lies in one page: a token
+//    slab of the pool is Hkv rows, so the tile's rows of one head are one
+//    strided box, and one thread issues a K box and a V box a tile
+//    (cp.async.bulk.tensor, 64- or 128-byte swizzle, completion on the
+//    stage's mbarrier); the readers undo the swizzle.  Measured against
+//    the cp.async feed with the same tiles (PERF.md): 17 % faster for
+//    danube at B = 8, 6-8 % at B = 1, within 1 % on stablelm at B = 8;
+//  - cp.async otherwise (16-, 8- or 4-byte copies, the widest that divides
+//    both head dims and the pools' bases; byte copies for odd dims), the
+//    group's threads on consecutive chunks of the tile's rows.
+// Each tile's page ids come from the block table a tile ahead, in a
+// register, and its page scales by 4-byte cp.async beside it.  Rows of
+// D = 8 (mod 16) bytes (danube's 120) are staged in the 16-byte aligned
+// window around them, 0 or 8 bytes in: Hkv * D is whole 16-byte chunks
+// there, so the offset is (h * D) % 16 for every token, and a window never
+// leaves its token's slab.  Scores: lane = token, each 16-byte chunk of K
+// widened once for the warp's heads, q in shared memory in fp32 (fp32 q
+// keeps fp32 products); the softmax runs in the log2 domain across the
+// warp, all its heads' shuffles interleaved.  PV: lanes own whole 32-bit
+// words of V (4 output columns) for the warp's heads and a residue of the
+// tile's tokens, the residues summed once, by shuffles, after the last
+// tile.  int8 widens by a byte permute into the mantissa of 2^23 (no I2F,
+// which issues at a fraction of the FMA rate).
+//
+// What bounds it on the H100: the bytes it must read, the live tokens'
+// Hkv * (D + Dv) int8 payload plus the scales, q and out, at 3.35 TB/s
+// (B = 8, S = 4096 with stablelm-1.6b's heads: 134 MB, 40 us); at serving
+// batch (B = 1) the launch, the cluster barriers and the chain of
+// dependent reads (lens, table, rows) that the splits shorten; for a large
+// group (granite-20b's G = 48) the fp32 FMAs.  Measured: PERF.md.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;             // tokens per warp step, one per lane
-constexpr int kMaxD = 128;            // largest D and Dv (WIDE: a chunk of them)
-constexpr int kMaxRow = kMaxD + 4;    // largest staged row stride (bytes)
-constexpr int kMaxG = 8;              // query heads a CTA holds
+constexpr int kTile = 32;            // tokens a warp's ring stage holds, one a lane
+constexpr int kStages = 2;           // ring depth: one tile in flight while one is scored
+constexpr int kMaxSplits = 8;        // CTAs of a cluster (the portable most)
+constexpr int kMaxWarps = 8;         // warps a CTA holds
+constexpr int kMaxGroup = 64;        // query heads a CTA holds (8 warps of 8)
+constexpr int kUnits = 2;            // 4-column words of V a lane holds (Dv <= 256)
+constexpr int kSmemMax = 232448;     // dynamic shared memory a CTA may use
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
+// The kernel's argument, kept within 128 bytes: three more ints past that
+// made nvcc's code for the GQA and MLA plans 6-12 % slower on the H100
+// (PERF.md), so the batch and the chunk counts stay off it (the
+// grid carries them; the kernel derives the counts).
 struct Params {
   const void* q;           // (B, H, D), fp32 or bf16
   const int8_t* k;         // (P, page, Hkv, D)
@@ -69,368 +123,754 @@ struct Params {
   const int* tables;       // (B, NP)
   const int* lens;         // (B,)
   void* out;               // (B, H, Dv), q's dtype
+  int ng;                  // token groups a CTA holds
   int H, Hkv, D, Dv, page, NP;
   int window;              // <= 0: no window
   float scale;
   int is_bf16;
-  int vec;                 // bytes per global load: 16, 8, 4 or 1
-  int dv0;                 // WIDE: the launch's first output column
+  int vec;                 // bytes per copy: 16, 8, 4 or 1
+  int shift;               // 1: rows of D, Dv = 8 (mod 16) bytes copied as the
+                           // 16-byte aligned window around them (vec 16)
+  int tma;                 // 1: each tile's rows by two TMA boxes (page % 32 == 0,
+                           // windows of 64 or 128 bytes), swizzled
+  int group;               // query heads a CTA holds (chunks: ceil(G / group))
+  int dvc;                 // output columns a CTA computes, Dv or a multiple of 16
+                           // (vchunks: ceil(Dv / dvc))
+  int splits;              // CTAs (cluster ranks) per (KV head, sequence, chunk)
+};
+static_assert(sizeof(Params) <= 128, "Params past 128 bytes slows the kernel");
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// The CTA's shape and dynamic shared memory, in bytes from its base.
+// kernels/flash_attn.py:_paged_shape and paged_smem_bytes are its twins.
+// The TMA feed's tensor maps: the pool as (P * page token slabs, Hkv * D
+// bytes), boxes of kTile slabs by one row's window.
+struct Maps {
+  CUtensorMap k, v;
 };
 
-// A staged row's stride: the head dim rounded up to 4 bytes, then an odd
-// number of 4-byte words, so the 32 lanes reading 32 rows at one column hit
-// 32 different banks.
-__host__ __device__ inline int row_stride(int d) {
-  const int d4 = (d + 3) & ~3;
-  return ((d4 / 4) % 2 == 0) ? d4 + 4 : d4;
+struct Layout {
+  int wh;    // warps sharing a token tile (a token group), 8 heads a warp at most
+  int hw;    // query heads a warp holds
+  int GP;    // hw rounded up to 1, 2, 4 or 8 (the kernel's template argument)
+  int ng;    // token groups (each its own ring and softmax states), the plan's
+  int NW;    // warps: ng * wh
+  int Hp;    // head slots: wh * GP (warp j's heads at j * GP + i)
+  int DQ, rsK, rsV, W, OW, R;
+  int q, kring, vring, ksc, vsc, kofs, vofs, pid, pw, O, m, l, fac, den, bar, total;
+};
+
+// Dv here is the CTA's output columns (the plan's dvc), ng its token groups.
+__host__ __device__ inline Layout make_layout(int group, int ng, int D, int Dv, int shift) {
+  constexpr int stages = kStages;
+  Layout L;
+  L.wh = (group + 7) / 8;
+  L.hw = (group + L.wh - 1) / L.wh;
+  L.GP = L.hw <= 1 ? 1 : L.hw <= 2 ? 2 : L.hw <= 4 ? 4 : 8;
+  L.ng = ng;
+  L.NW = L.ng * L.wh;
+  L.Hp = L.wh * L.GP;
+  L.DQ = round_up(D, 16);                           // q's padded row
+  const int pad = shift ? 8 : 0;                    // a shifted row's offset
+  const int rk = round_up(pad + L.DQ, 16);          // its 16-byte reads end there
+  L.rsK = (rk / 16) % 2 ? rk : rk + 16;             // odd 16-byte units: no bank conflict
+  L.rsV = round_up(Dv + pad, 16);
+  L.W = (Dv + 3) / 4;                               // 32-bit words of a V row
+  L.OW = 4 * L.W;
+  int R = 1;                                        // token residues of a PV word
+  while (R < 8 && 2 * R * L.W <= 32) R *= 2;
+  L.R = R;
+  // The rings start 1024-byte aligned (TMA's swizzle atoms) from kring, which
+  // the kernel rounds up within 1024 bytes of slack.
+  const int kbytes = round_up(L.ng * stages * kTile * L.rsK, 1024);
+  const int ring = 1024 + kbytes + round_up(L.ng * stages * kTile * L.rsV, 1024);
+  const int merge = L.ng * L.Hp * (L.OW + 2) * 4;   // the groups' states, on the rings
+  int off = 0;
+  L.q = off;     off += round_up(L.Hp * L.DQ * 4, 16);
+  L.kring = off;
+  L.vring = kbytes;                                 // from the aligned K ring
+  off += round_up(ring > merge ? ring : merge, 16);
+  L.ksc = off;   off += L.ng * stages * kTile * 4;
+  L.vsc = off;   off += L.ng * stages * kTile * 4;
+  L.kofs = off;  off += L.ng * 2 * kTile * 8;
+  L.vofs = off;  off += L.ng * 2 * kTile * 8;
+  L.pid = off;   off += L.ng * 2 * kTile * 4;
+  L.pw = off;    off += L.NW * kTile * L.GP * 4;
+  L.O = off;     off += round_up(L.Hp * L.OW * 4, 16);
+  L.m = off;     off += round_up(L.Hp * 4, 16);
+  L.l = off;     off += round_up(L.Hp * 4, 16);
+  L.fac = off;   off += round_up(kMaxSplits * L.Hp * 4, 16);
+  L.den = off;   off += round_up(L.Hp * 4, 16);
+  L.bar = off;   off += round_up(L.ng * stages * 8, 16);
+  L.total = off;
+  return L;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// The warp's max (sum) of each of N values, their shuffles interleaved.
+template <int N>
+__device__ __forceinline__ void warp_max_n(float* x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int i = 0; i < N; ++i) x[i] = fmaxf(x[i], __shfl_xor_sync(0xffffffffu, x[i], o));
 }
 
-// Copy the tile's rows (token t0 + r for r < kTile, those in [lo, hi) only)
-// from the pool into shared memory.  rows[r] is the row's element offset in
-// units of d bytes: (page id * page + slot) * Hkv + head.
+template <int N>
+__device__ __forceinline__ void warp_sum_n(float* x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] += __shfl_xor_sync(0xffffffffu, x[i], o);
+}
+
+// Byte j (0-3) of a word of int8, widened without a conversion instruction:
+// from the word with each byte's sign bit flipped (b + 128), moved by a byte
+// permute into the mantissa of 2^23, and the 2^23 + 128 taken off (exact for
+// every int8).  The GEMM kernel's i8_f32_at, copied so that its source and
+// SASS stay as they are.
+__device__ __forceinline__ float i8_f32_at(uint32_t flipped, int j) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440 | j)) - 8388736.f;
+}
+
+__device__ __forceinline__ void widen4(uint32_t w, float* f) {
+  const uint32_t x = w ^ 0x80808080u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = i8_f32_at(x, j);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The TMA feed: a box of the pool into a stage, its bytes counted on the
+// stage's mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                        int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// Byte `o` (a multiple of 4) of staged row r: rows of `pitch` bytes, plain,
+// or (TMA) with each 16-byte chunk swizzled by the row's 128-byte line (the
+// 128-byte swizzle for 128-byte rows, the 64-byte one for 64-byte rows).
+__device__ __forceinline__ int staged(int r, int o, int pitch, bool swz) {
+  if (!swz) return r * pitch + o;
+  const int mask = pitch == 128 ? 7 : 3;
+  return r * pitch + ((((o >> 4) ^ ((r * pitch) >> 7)) & mask) | ((o >> 4) & ~mask)) * 16 +
+         (o & 15);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kStages - 2 of this thread's copy groups are in flight.
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// The barrier of a token group: its warp alone, or its wh warps (named
+// barrier 1 + group; 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int grp, int threads) {
+  if (threads == 32)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(threads) : "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void copy_chunk(int8_t* dst, const int8_t* src) {
+  if constexpr (VEC == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else if constexpr (VEC == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else if constexpr (VEC == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else {
+    *dst = *src;  // odd head dims: a plain byte copy, seen after the barrier
+  }
+}
+
+// Copy a tile's rows (ofs[r] >= 0: the row's byte offset in the pool; with
+// `window`, from the 16-byte boundary below it) into a stage, `bytes` a row
+// in chunks of VEC, the group's nt threads on consecutive chunks.
 template <int VEC>
 __device__ __forceinline__ void stage_rows(int8_t* dst, const int8_t* __restrict__ src,
-                                           const long long* rows, int d, int rs,
-                                           int t0, int lo, int hi, int lane) {
-  const int cpr = d / VEC;
-  for (int idx = lane; idx < kTile * cpr; idx += 32) {
-    const int r = idx / cpr;
-    const int c = idx - r * cpr;
-    const int t = t0 + r;
-    if (t < lo || t >= hi) continue;
-    const int8_t* g = src + rows[r] * d + c * VEC;
-    int8_t* s = dst + r * rs + c * VEC;
-    if constexpr (VEC == 16) {
-      const int4 x = *reinterpret_cast<const int4*>(g);
-      int* si = reinterpret_cast<int*>(s);
-      si[0] = x.x; si[1] = x.y; si[2] = x.z; si[3] = x.w;
-    } else if constexpr (VEC == 8) {
-      const int2 x = *reinterpret_cast<const int2*>(g);
-      int* si = reinterpret_cast<int*>(s);
-      si[0] = x.x; si[1] = x.y;
-    } else if constexpr (VEC == 4) {
-      *reinterpret_cast<int*>(s) = *reinterpret_cast<const int*>(g);
-    } else {
-      *s = *g;
+                                           const long long* ofs, int bytes, int rs, int t,
+                                           int nt, bool window) {
+  const int cpr = bytes / VEC;
+  const int total = kTile * cpr;
+  const int dr = nt / cpr, dc = nt - (nt / cpr) * cpr;
+  int r = t / cpr, c = t - (t / cpr) * cpr;
+#pragma unroll 4
+  for (int idx = t; idx < total; idx += nt) {
+    const long long o = ofs[r];
+    if (o >= 0) copy_chunk<VEC>(dst + r * rs + c * VEC, src + (window ? o & ~15LL : o) + c * VEC);
+    r += dr;
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++r;
     }
   }
 }
 
-__device__ __forceinline__ void stage(int8_t* dst, const int8_t* src, const long long* rows,
-                                      int d, int rs, int t0, int lo, int hi, int lane,
-                                      int vec) {
+__device__ __forceinline__ void stage(int8_t* dst, const int8_t* src, const long long* ofs,
+                                      int bytes, int rs, int t, int nt, int vec, bool window) {
   switch (vec) {
-    case 16: stage_rows<16>(dst, src, rows, d, rs, t0, lo, hi, lane); break;
-    case 8: stage_rows<8>(dst, src, rows, d, rs, t0, lo, hi, lane); break;
-    case 4: stage_rows<4>(dst, src, rows, d, rs, t0, lo, hi, lane); break;
-    default: stage_rows<1>(dst, src, rows, d, rs, t0, lo, hi, lane); break;
+    case 16: stage_rows<16>(dst, src, ofs, bytes, rs, t, nt, window); break;
+    case 8: stage_rows<8>(dst, src, ofs, bytes, rs, t, nt, false); break;
+    case 4: stage_rows<4>(dst, src, ofs, bytes, rs, t, nt, false); break;
+    default: stage_rows<1>(dst, src, ofs, bytes, rs, t, nt, false); break;
   }
 }
 
-// The WIDE form's staging: columns [c0, c0 + w) of the tile's rows, a row
-// of the pool being d bytes (stage_rows with a column window).
-template <int VEC>
-__device__ __forceinline__ void stage_cols(int8_t* dst, const int8_t* __restrict__ src,
-                                           const long long* rows, int d, int c0, int w, int rs,
-                                           int t0, int lo, int hi, int lane) {
-  const int cpr = w / VEC;
-  for (int idx = lane; idx < kTile * cpr; idx += 32) {
-    const int r = idx / cpr;
-    const int c = idx - r * cpr;
-    const int t = t0 + r;
-    if (t < lo || t >= hi) continue;
-    const int8_t* g = src + rows[r] * d + c0 + c * VEC;
-    int8_t* s = dst + r * rs + c * VEC;
-    if constexpr (VEC == 16) {
-      const int4 x = *reinterpret_cast<const int4*>(g);
-      int* si = reinterpret_cast<int*>(s);
-      si[0] = x.x; si[1] = x.y; si[2] = x.z; si[3] = x.w;
-    } else if constexpr (VEC == 8) {
-      const int2 x = *reinterpret_cast<const int2*>(g);
-      int* si = reinterpret_cast<int*>(s);
-      si[0] = x.x; si[1] = x.y;
-    } else if constexpr (VEC == 4) {
-      *reinterpret_cast<int*>(s) = *reinterpret_cast<const int*>(g);
-    } else {
-      *s = *g;
+// 16 int8 of staged K row r from byte o widened to fp32: one 16-byte read
+// where o is 16-byte aligned, else (a shifted row) two 8-byte halves.
+__device__ __forceinline__ void widen16(const int8_t* ring, int r, int o, int pitch, bool swz,
+                                        float* kf) {
+  uint4 kw;
+  if (o % 16 == 0) {
+    kw = *reinterpret_cast<const uint4*>(ring + staged(r, o, pitch, swz));
+  } else {
+    const uint2 a = *reinterpret_cast<const uint2*>(ring + staged(r, o, pitch, swz));
+    const uint2 b = *reinterpret_cast<const uint2*>(ring + staged(r, o + 8, pitch, swz));
+    kw = make_uint4(a.x, a.y, b.x, b.y);
+  }
+  widen4(kw.x, kf);
+  widen4(kw.y, kf + 4);
+  widen4(kw.z, kf + 8);
+  widen4(kw.w, kf + 12);
+}
+
+template <int GP>
+__device__ __forceinline__ void load_p(const float* src, float* p) {
+  if constexpr (GP == 1) {
+    p[0] = src[0];
+  } else if constexpr (GP == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    p[0] = x.x; p[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < GP / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(src)[i];
+      p[4 * i] = x.x; p[4 * i + 1] = x.y; p[4 * i + 2] = x.z; p[4 * i + 3] = x.w;
     }
   }
 }
 
-__device__ __forceinline__ void stage_window(int8_t* dst, const int8_t* src, const long long* rows,
-                                             int d, int c0, int w, int rs, int t0, int lo, int hi,
-                                             int lane, int vec) {
-  switch (vec) {
-    case 16: stage_cols<16>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
-    case 8: stage_cols<8>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
-    case 4: stage_cols<4>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
-    default: stage_cols<1>(dst, src, rows, d, c0, w, rs, t0, lo, hi, lane); break;
-  }
+__device__ __forceinline__ void store_out(const Params& p, long long i, float o) {
+  if (p.is_bf16)
+    static_cast<__nv_bfloat16*>(p.out)[i] = __float2bfloat16_rn(o);
+  else
+    static_cast<float*>(p.out)[i] = o;
 }
 
-// WIDE (D or Dv above kMaxD): the launch computes the Dv columns [dv0, dv0 +
-// kMaxD) of its query heads; q sits at its full D in dynamic shared memory,
-// and each token tile's scores run over D in kMaxD-wide chunks of K staged
-// one after another, the dot summed over d in the same order.  The rest is
-// the kernel's own code (the WIDE parts sit in `if constexpr` branches).
-template <int G_MAX, bool WIDE>
-__global__ void __launch_bounds__(kThreads) paged_fa_kernel(Params p) {
-  // K and V rows of each warp's tile; reused as the merge buffer at the end.
-  __shared__ __align__(16) int8_t kv_s[kWarps][2][kTile * kMaxRow];
-  __shared__ __align__(16) float q_s[kMaxG * kMaxD];
-  __shared__ long long row_s[kWarps][kTile];
-  extern __shared__ float4 q_wide[];     // WIDE: the CTA's q rows at full D
+template <int GP>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    paged_fa_kernel(Params p, const __grid_constant__ Maps maps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = make_layout(p.group, p.ng, p.D, p.dvc, p.shift);
+  constexpr int S = kStages;
+  const int NT = 32 * L.NW;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = warp / L.wh;               // this warp's token group
+  const int wj = warp - grp * L.wh;          // its place in the group (its heads)
+  const int GT = 32 * L.wh;                  // the group's threads
+  const int gtid = tid - grp * GT;
 
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int Gall = p.H / p.Hkv;          // query heads per KV head
-  const int g0 = blockIdx.z * kMaxG;     // this CTA's first one
-  const int G = min(kMaxG, Gall - g0);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int D4 = (p.D + 3) & ~3;
-  const int rs_k = row_stride(WIDE ? kMaxD : p.D);
-  const int rs_v = row_stride(WIDE ? kMaxD : p.Dv);
-  const int dvn = WIDE ? min(kMaxD, p.Dv - p.dv0) : 0;  // WIDE: the launch's output columns
+  // blockIdx.z: ((sequence, head chunk), column chunk), the column chunk
+  // fastest.
+  const int vchunks = (p.Dv + p.dvc - 1) / p.dvc;
+  const int dv0 = (blockIdx.z % vchunks) * p.dvc;     // first output column
+  const int ncol = min(p.dvc, p.Dv - dv0);            // and their count
+  const bool shifted = p.shift != 0;
+  const bool tma = p.tma != 0;
+  const int rowK = shifted ? round_up(p.D + 8, 16) : p.D;   // bytes copied a row
+  const int rowV = shifted ? round_up(ncol + 8, 16) : ncol;
+  const int pitchK = tma ? rowK : L.rsK;                    // a staged row's bytes
+  const int pitchV = tma ? rowV : L.rsV;
+  float* q_s = reinterpret_cast<float*>(smem + L.q);                    // [Hp][DQ]
+  const uint32_t ring0 = smem_addr(smem + L.kring);
+  int8_t* ring = reinterpret_cast<int8_t*>(smem + L.kring) + ((1024 - ring0 % 1024) % 1024);
+  int8_t* k_ring = ring + grp * S * kTile * pitchK;
+  int8_t* v_ring = ring + L.vring + grp * S * kTile * pitchV;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar) + grp * S;   // a stage's TMA bytes
+  float* ksc_s = reinterpret_cast<float*>(smem + L.ksc) + grp * S * kTile;
+  float* vsc_s = reinterpret_cast<float*>(smem + L.vsc) + grp * S * kTile;
+  long long* kofs_s = reinterpret_cast<long long*>(smem + L.kofs) + grp * 2 * kTile;
+  long long* vofs_s = reinterpret_cast<long long*>(smem + L.vofs) + grp * 2 * kTile;
+  int* pid_s = reinterpret_cast<int*>(smem + L.pid) + grp * 2 * kTile;
+  float* P_w = reinterpret_cast<float*>(smem + L.pw) + warp * kTile * GP;  // [kTile][GP]
 
-  // Zero the staging area once: the pad bytes past D in each row then read
-  // as 0 in the 4-byte score loads.
-  int* kv_words = reinterpret_cast<int*>(&kv_s[0][0][0]);
-  for (int i = threadIdx.x; i < kWarps * 2 * kTile * kMaxRow / 4; i += kThreads)
-    kv_words[i] = 0;
-  for (int i = threadIdx.x; i < G * D4; i += kThreads) {
-    const int g = i / D4;
-    const int d = i - g * D4;
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;
+  const int G = p.H / p.Hkv;
+  const int chunks = (G + p.group - 1) / p.group;
+  const int zc = blockIdx.z / vchunks;
+  const int b = zc / chunks;
+  const int g0 = (zc % chunks) * p.group;
+  const int Gc = min(p.group, G - g0);
+  const int nh = max(0, min(L.hw, Gc - wj * L.hw));   // this warp's heads
+
+  // This split's tokens: the live range cut into p.splits equal parts; the
+  // split's tiles of kTile tokens go to the token groups in turn (with TMA
+  // they start at multiples of kTile, so none crosses a page).
+  const int len = p.lens[b];
+  const int hi = static_cast<int>(min(static_cast<long long>(len),
+                                      static_cast<long long>(p.NP) * p.page));
+  const int lo = p.window > 0 ? max(0, len - p.window) : 0;
+  const int n = max(0, hi - lo);
+  const int per = round_up((n + p.splits - 1) / p.splits, kTile);   // whole tiles a split
+  const int t_begin = lo + static_cast<int>(min(static_cast<long long>(n),
+                                                static_cast<long long>(split) * per));
+  const int t_end = lo + static_cast<int>(min(static_cast<long long>(n),
+                                              static_cast<long long>(split + 1) * per));
+  const int tile0 = tma ? t_begin & ~(kTile - 1) : t_begin;
+  const int ntile = t_end > t_begin ? (t_end - tile0 + kTile - 1) / kTile : 0;
+  const int mine = grp < ntile ? (ntile - grp + L.ng - 1) / L.ng : 0;
+
+  // q of every head slot (zero for the padding slots), fp32.
+  for (int i = tid; i < L.Hp * L.DQ; i += NT) {
+    const int slot = i / L.DQ;
+    const int d = i - slot * L.DQ;
+    const int gi = slot % GP;
+    const int g = (slot / GP) * L.hw + gi;
     float x = 0.f;
-    if (d < p.D) {
-      const long long qi = ((long long)b * p.H + (long long)h * Gall + g0 + g) * p.D + d;
+    if (gi < L.hw && g < Gc && d < p.D) {
+      const long long qi = ((long long)b * p.H + (long long)h * G + g0 + g) * p.D + d;
       x = p.is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[qi])
                     : static_cast<const float*>(p.q)[qi];
     }
-    if constexpr (WIDE)
-      reinterpret_cast<float*>(q_wide)[g * D4 + d] = x;
-    else
-      q_s[g * D4 + d] = x;
+    q_s[i] = x;
   }
-  __syncthreads();
 
-  const int len = p.lens[b];
-  // Tokens the table can address end at NP * page; the window starts at
-  // len - window (kpos > len - 1 - window).
-  const int hi = min(len, p.NP * p.page);
-  const int lo = p.window > 0 ? max(0, len - p.window) : 0;
+  // Tile i of this group: its table entries (a tile ahead, in a register),
+  // its rows' byte offsets (slot i & 1), its copies.
+  auto tile_at = [&](int i) { return tile0 + (grp + i * L.ng) * kTile; };
+  auto table_at = [&](int i) {
+    const int t = tile_at(i) + gtid;
+    return gtid < kTile && i < mine && t < t_end ? p.tables[(long long)b * p.NP + t / p.page] : 0;
+  };
+  auto rows_from = [&](int i, int entry) {
+    if (gtid < kTile) {
+      const int t = tile_at(i) + gtid;
+      const int pid = max(entry, 0);
+      const bool live = i < mine && t >= t_begin && t < t_end;
+      const long long row = ((long long)pid * p.page + t % p.page) * p.Hkv + h;
+      kofs_s[(i & 1) * kTile + gtid] = live ? row * p.D : -1;
+      vofs_s[(i & 1) * kTile + gtid] = live ? row * p.Dv + dv0 : -1;
+      pid_s[(i & 1) * kTile + gtid] = pid;
+    }
+  };
+  auto issue = [&](int i) {
+    if (i < mine) {
+      const int st = i % S;
+      const int sl = (i & 1) * kTile;
+      if (tma) {
+        if (gtid == 0) {
+          const int t = tile_at(i);
+          const int y = pid_s[sl] * p.page + t % p.page;
+          mbar_expect_tx(bar + st, kTile * (rowK + rowV));
+          tma_box(k_ring + st * kTile * pitchK, &maps.k, bar + st, (h * p.D) & ~15, y);
+          tma_box(v_ring + st * kTile * pitchV, &maps.v, bar + st, (h * p.Dv) & ~15, y);
+        }
+      } else {
+        stage(k_ring + st * kTile * pitchK, p.k, kofs_s + sl, rowK, pitchK, gtid, GT, p.vec,
+              shifted);
+        stage(v_ring + st * kTile * pitchV, p.v, vofs_s + sl, rowV, pitchV, gtid, GT, p.vec,
+              shifted);
+      }
+      if (gtid < kTile && kofs_s[sl + gtid] >= 0) {
+        const int pid = pid_s[sl + gtid];
+        cp_async4(ksc_s + st * kTile + gtid, p.k_scale + pid);
+        cp_async4(vsc_s + st * kTile + gtid, p.v_scale + pid);
+      }
+    }
+    cp_async_commit();  // every thread, every tile: the group count stays in step
+  };
 
-  float m[G_MAX], l[G_MAX], acc[G_MAX][kMaxD / 32];
+  // This lane's PV units: words of V (4 output columns) for the warp's GP
+  // heads, and a residue of the tile's tokens (R > 1), or up to kUnits
+  // words over all tokens.
+  const int W = L.W, R = L.R;
+  const int rr = R > 1 ? lane / W : 0;
+  int w_of[kUnits];
+  bool has[kUnits];
 #pragma unroll
-  for (int g = 0; g < G_MAX; ++g) {
+  for (int k = 0; k < kUnits; ++k) {
+    w_of[k] = R > 1 ? lane - rr * W : lane + 32 * k;
+    has[k] = R > 1 ? k == 0 && rr < R : w_of[k] < W;
+  }
+  float acc[kUnits][GP][4], m[GP], l[GP];
+#pragma unroll
+  for (int g = 0; g < GP; ++g) {
     m[g] = kNeg;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxD / 32; ++j) acc[g][j] = 0.f;
+    for (int k = 0; k < kUnits; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[k][g][j] = 0.f;
   }
 
-  int8_t* ks = kv_s[warp][0];
-  int8_t* vs = kv_s[warp][1];
-  long long* rows = row_s[warp];
-  for (int t0 = (lo / kTile + warp) * kTile; t0 < hi; t0 += kWarps * kTile) {
-    const int t = t0 + lane;
-    const bool live = t >= lo && t < hi;
-    float ksc = 0.f, vsc = 0.f;
+  if (tma && gtid < S) mbar_init(bar + gtid);
+  if (tma) asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();  // q_s, the barriers
+  int entry = table_at(0);
+  rows_from(0, entry);
+  entry = table_at(1);
+  for (int j = 0; j + 1 < S; ++j) {
+    group_sync(grp, GT);
+    issue(j);
+    rows_from(j + 1, entry);
+    entry = table_at(j + 2);
+  }
+
+  const float fold = p.scale * kLog2e;   // softmax in the log2 domain
+  const int nc = L.DQ / 16;
+  const float* q_w = q_s + wj * GP * L.DQ;
+  // Where a shifted row sits in its window: Hkv is even (Hkv * D is whole
+  // 16-byte chunks, D is not), so row index = h (mod 2) for every token.
+  const int ksh = shifted ? (h * p.D) & 15 : 0;
+  const int vsh = shifted ? (h * p.Dv) & 15 : 0;
+  for (int i = 0; i < mine; ++i) {
+    if (tma) mbar_wait(bar + i % S, (i / S) & 1);   // tile i's boxes have landed,
+    cp_async_wait();        // tile i has landed (this thread's copies) ...
+    group_sync(grp, GT);    // ... the group's, and its tile i - 1 is done with
+    issue(i + S - 1);
+    rows_from(i + S, entry);
+    entry = table_at(i + S + 1);
+    if (nh == 0) continue;
+    const int st = i % S;
+    const int t0 = tile_at(i);
+    const int nend = min(kTile, t_end - t0);   // rows past it are past the range
+    const bool live = t0 + lane >= t_begin && lane < nend;
+
+    // Scores of this lane's token for the warp's heads (padding slots meet
+    // q's zeros).
+    float s[GP];
+#pragma unroll
+    for (int g = 0; g < GP; ++g) s[g] = 0.f;
     if (live) {
-      const int pid = max(p.tables[(long long)b * p.NP + t / p.page], 0);
-      ksc = p.k_scale[pid];
-      vsc = p.v_scale[pid];
-      rows[lane] = ((long long)pid * p.page + t % p.page) * p.Hkv + h;
-    }
-    if constexpr (!WIDE) {
-      __syncwarp();
-      stage(ks, p.k, rows, p.D, rs_k, t0, lo, hi, lane, p.vec);
-      stage(vs, p.v, rows, p.Dv, rs_v, t0, lo, hi, lane, p.vec);
-      __syncwarp();
-    }
-
-    // This lane's scores against its own token, from the widened payload.
-    float s[G_MAX];
+      const int8_t* kst = k_ring + st * kTile * pitchK;
+#pragma unroll 2
+      for (int c = 0; c < nc; ++c) {
+        float kf[16];
+        widen16(kst, lane, ksh + 16 * c, pitchK, tma, kf);
 #pragma unroll
-    for (int g = 0; g < G_MAX; ++g) s[g] = 0.f;
-    const int8_t* krow = ks + lane * rs_k;
-    if constexpr (!WIDE) {
-      for (int d = 0; d < D4; d += 4) {
-        const int w = *reinterpret_cast<const int*>(krow + d);
-        const float k0 = (float)(int8_t)(w);
-        const float k1 = (float)(int8_t)(w >> 8);
-        const float k2 = (float)(int8_t)(w >> 16);
-        const float k3 = (float)(int8_t)(w >> 24);
+        for (int g = 0; g < GP; ++g) {
+          const float4* qv = reinterpret_cast<const float4*>(q_w + g * L.DQ + 16 * c);
 #pragma unroll
-        for (int g = 0; g < G_MAX; ++g) {
-          if (g < G) {
-            const float4 qq = *reinterpret_cast<const float4*>(q_s + g * D4 + d);
-            s[g] = fmaf(qq.x, k0, s[g]);
-            s[g] = fmaf(qq.y, k1, s[g]);
-            s[g] = fmaf(qq.z, k2, s[g]);
-            s[g] = fmaf(qq.w, k3, s[g]);
-          }
-        }
-      }
-    } else {
-      const float* qw = reinterpret_cast<const float*>(q_wide);
-      for (int c0 = 0; c0 < p.D; c0 += kMaxD) {
-        const int w = min(kMaxD, p.D - c0);
-        __syncwarp();  // the previous chunk (or tile) is read
-        stage_window(ks, p.k, rows, p.D, c0, w, rs_k, t0, lo, hi, lane, p.vec);
-        if (c0 == 0) stage_window(vs, p.v, rows, p.Dv, p.dv0, dvn, rs_v, t0, lo, hi, lane, p.vec);
-        __syncwarp();
-        // Pad columns past D meet q's zeros.
-        for (int d = 0; d < ((w + 3) & ~3); d += 4) {
-          const int wd = *reinterpret_cast<const int*>(krow + d);
-          const float k0 = (float)(int8_t)(wd);
-          const float k1 = (float)(int8_t)(wd >> 8);
-          const float k2 = (float)(int8_t)(wd >> 16);
-          const float k3 = (float)(int8_t)(wd >> 24);
-#pragma unroll
-          for (int g = 0; g < G_MAX; ++g) {
-            if (g < G) {
-              const float4 qq = *reinterpret_cast<const float4*>(qw + g * D4 + c0 + d);
-              s[g] = fmaf(qq.x, k0, s[g]);
-              s[g] = fmaf(qq.y, k1, s[g]);
-              s[g] = fmaf(qq.z, k2, s[g]);
-              s[g] = fmaf(qq.w, k3, s[g]);
-            }
+          for (int e = 0; e < 4; ++e) {
+            const float4 qq = qv[e];
+            s[g] = fmaf(qq.x, kf[4 * e], s[g]);
+            s[g] = fmaf(qq.y, kf[4 * e + 1], s[g]);
+            s[g] = fmaf(qq.z, kf[4 * e + 2], s[g]);
+            s[g] = fmaf(qq.w, kf[4 * e + 3], s[g]);
           }
         }
       }
     }
 
-    // Online softmax over this tile; s[g] becomes the PV weight p * v_scale.
-    const float fold = p.scale * ksc;
+    // Online softmax over the tile, the warp's heads together; P_w gets
+    // p * v_scale (0 for masked tokens and padding slots).
+    const float kfold = live ? fold * ksc_s[st * kTile + lane] : 0.f;
+    const float vs = live ? vsc_s[st * kTile + lane] : 0.f;
+    float x[GP], mx[GP], pe[GP], alpha[GP];
 #pragma unroll
-    for (int g = 0; g < G_MAX; ++g) {
-      if (g < G) {
-        const float sg = live ? s[g] * fold : kNeg;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        const float pg = live ? expf(sg - m_new) : 0.f;
-        const float alpha = expf(m[g] - m_new);
-        l[g] = l[g] * alpha + warp_sum(pg);
-        m[g] = m_new;
-#pragma unroll
-        for (int j = 0; j < kMaxD / 32; ++j) acc[g][j] *= alpha;
-        s[g] = live ? pg * vsc : 0.f;
-      }
+    for (int g = 0; g < GP; ++g) {
+      x[g] = live && g < nh ? s[g] * kfold : kNeg;
+      mx[g] = x[g];
     }
-
-    // PV: lane owns output columns lane, lane + 32, ...
-    const int r_lo = max(lo - t0, 0);
-    const int r_hi = min(hi - t0, kTile);
-    for (int r = r_lo; r < r_hi; ++r) {
-      const int8_t* vrow = vs + r * rs_v;
-      float vv[kMaxD / 32];
+    warp_max_n<GP>(mx);
 #pragma unroll
-      for (int j = 0; j < kMaxD / 32; ++j) {
-        const int dv = lane + 32 * j;
-        vv[j] = dv < (WIDE ? dvn : p.Dv) ? (float)vrow[dv] : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < G_MAX; ++g) {
-        if (g < G) {
-          const float w = __shfl_sync(0xffffffffu, s[g], r);
-#pragma unroll
-          for (int j = 0; j < kMaxD / 32; ++j) acc[g][j] = fmaf(w, vv[j], acc[g][j]);
-        }
-      }
+    for (int g = 0; g < GP; ++g) {
+      const float m_new = fmaxf(m[g], mx[g]);
+      pe[g] = live && g < nh ? exp2f(x[g] - m_new) : 0.f;
+      alpha[g] = exp2f(m[g] - m_new);
+      m[g] = m_new;
+      P_w[lane * GP + g] = pe[g] * vs;
     }
+    warp_sum_n<GP>(pe);
+#pragma unroll
+    for (int g = 0; g < GP; ++g) l[g] = l[g] * alpha[g] + pe[g];
     __syncwarp();
+
+    // PV: acc = acc * alpha + sum over this residue's tokens of p * v.
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      if (!has[k]) continue;
+#pragma unroll
+      for (int g = 0; g < GP; ++g)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[k][g][j] *= alpha[g];
+      const int8_t* vst = v_ring + st * kTile * pitchV;
+      const int vo = vsh + 4 * w_of[k];
+#pragma unroll 4
+      for (int t = rr; t < nend; t += R) {
+        float vf[4];
+        widen4(*reinterpret_cast<const uint32_t*>(vst + staged(t, vo, pitchV, tma)), vf);
+        float pw[GP];
+        load_p<GP>(P_w + t * GP, pw);
+#pragma unroll
+        for (int g = 0; g < GP; ++g)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[k][g][j] = fmaf(pw[g], vf[j], acc[k][g][j]);
+      }
+    }
   }
 
-  // Merge the four warps' softmax states, then one store per element.
+  // Each warp's state into its group's slots (on the drained rings): the
+  // token residues summed by shuffles, in order.
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  float* ml = reinterpret_cast<float*>(&kv_s[0][0][0]);   // [warp][g][2]
-  float* accs = ml + kWarps * kMaxG * 2;                   // [warp][g][kMaxD]
+  float* Og = reinterpret_cast<float*>(smem + L.kring);      // [ng][Hp][OW]
+  float* mg = Og + L.ng * L.Hp * L.OW;                        // [ng][Hp]
+  float* lg = mg + L.ng * L.Hp;
+  for (int off = R / 2; off > 0; off /= 2)
 #pragma unroll
-  for (int g = 0; g < G_MAX; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        ml[(warp * kMaxG + g) * 2] = m[g];
-        ml[(warp * kMaxG + g) * 2 + 1] = l[g];
+    for (int g = 0; g < GP; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[0][g][j] += __shfl_down_sync(0xffffffffu, acc[0][g][j], off * W);
+  const int slot0 = grp * L.Hp + wj * GP;
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    if (!has[k] || rr != 0) continue;
+#pragma unroll
+    for (int g = 0; g < GP; ++g)
+      if (g < nh)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Og[(slot0 + g) * L.OW + 4 * w_of[k] + j] = acc[k][g][j];
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < GP; ++g)
+      if (g < nh) {
+        mg[slot0 + g] = m[g];
+        lg[slot0 + g] = l[g];
       }
-#pragma unroll
-      for (int j = 0; j < kMaxD / 32; ++j) {
-        const int dv = lane + 32 * j;
-        if (dv < (WIDE ? dvn : p.Dv)) accs[(warp * kMaxG + g) * kMaxD + dv] = acc[g][j];
+  __syncthreads();
+
+  // The CTA's state: the token groups merged in order by exp2(m_k - max m).
+  float* O_s = reinterpret_cast<float*>(smem + L.O);          // [Hp][OW]
+  float* m_s = reinterpret_cast<float*>(smem + L.m);
+  float* l_s = reinterpret_cast<float*>(smem + L.l);
+  const int E = Gc * ncol;
+  const long long out0 = ((long long)b * p.H + (long long)h * G + g0) * p.Dv + dv0;
+  auto out_at = [&](int g, int dv) { return out0 + (long long)g * p.Dv + dv; };
+  auto slot_of = [&](int g) { return (g / L.hw) * GP + g % L.hw; };
+  for (int i = tid; i < E; i += NT) {
+    const int g = i / ncol;
+    const int dv = i - g * ncol;
+    const int sl = slot_of(g);
+    float M = kNeg;
+    for (int k = 0; k < L.ng; ++k) M = fmaxf(M, mg[k * L.Hp + sl]);
+    float o = 0.f, ls = 0.f;
+    for (int k = 0; k < L.ng; ++k) {
+      const float f = exp2f(mg[k * L.Hp + sl] - M);
+      o += f * Og[(k * L.Hp + sl) * L.OW + dv];
+      ls += f * lg[k * L.Hp + sl];
+    }
+    if (p.splits == 1) {
+      store_out(p, out_at(g, dv), o / fmaxf(ls, 1e-30f));
+    } else {
+      O_s[sl * L.OW + dv] = o;
+      if (dv == 0) {
+        m_s[sl] = M;
+        l_s[sl] = ls;
       }
     }
   }
-  __syncthreads();
-  const int Dn = WIDE ? dvn : p.Dv;  // output columns of this launch
-  for (int i = threadIdx.x; i < G * Dn; i += kThreads) {
-    const int g = i / Dn;
-    const int dv = i - g * Dn;
-    float mx = kNeg;
+  if (p.splits == 1) return;
+
+  // Merge the cluster's splits: factors exp2(m_r - max m) per head, then
+  // this rank's slice of the elements, each summed over the ranks in order.
+  float* fac_s = reinterpret_cast<float*>(smem + L.fac);      // [kMaxSplits][Hp]
+  float* den_s = reinterpret_cast<float*>(smem + L.den);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int SP = p.splits;
+  for (int g = tid; g < Gc; g += NT) {
+    const int sl = slot_of(g);
+    float mr[kMaxSplits];
+    float M = kNeg;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ml[(w * kMaxG + g) * 2]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(ml[(w * kMaxG + g) * 2] - mx);
-      lsum += f * ml[(w * kMaxG + g) * 2 + 1];
-      a += f * accs[(w * kMaxG + g) * kMaxD + dv];
+    for (int r = 0; r < kMaxSplits; ++r) {
+      mr[r] = r < SP ? *cluster.map_shared_rank(m_s + sl, r) : kNeg;
+      M = fmaxf(M, mr[r]);
     }
-    const float o = a / fmaxf(lsum, 1e-30f);
-    long long oi = ((long long)b * p.H + (long long)h * Gall + g0 + g) * p.Dv + dv;
-    if constexpr (WIDE) oi += p.dv0;
-    if (p.is_bf16)
-      static_cast<__nv_bfloat16*>(p.out)[oi] = __float2bfloat16_rn(o);
-    else
-      static_cast<float*>(p.out)[oi] = o;
+    float ls = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) {
+      if (r < SP) {
+        const float f = exp2f(mr[r] - M);
+        fac_s[r * L.Hp + sl] = f;
+        ls += f * *cluster.map_shared_rank(l_s + sl, r);
+      }
+    }
+    den_s[sl] = fmaxf(ls, 1e-30f);
   }
+  __syncthreads();
+  const int per_e = (E + SP - 1) / SP;
+  const int e_end = min(E, (split + 1) * per_e);
+  for (int i = split * per_e + tid; i < e_end; i += NT) {
+    const int g = i / ncol;
+    const int dv = i - g * ncol;
+    const int sl = slot_of(g);
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < SP) a += fac_s[r * L.Hp + sl] * *cluster.map_shared_rank(O_s + sl * L.OW + dv, r);
+    store_out(p, out_at(g, dv), a / den_s[sl]);
+  }
+  cluster.sync();  // every rank's shared memory stays until all have read it
 }
 
-template <int G_MAX>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const int chunks = (p.H / p.Hkv + kMaxG - 1) / kMaxG;
-  if (p.D <= kMaxD && p.Dv <= kMaxD) {
-    paged_fa_kernel<G_MAX, false><<<dim3(p.Hkv, B, chunks), kThreads, 0, stream>>>(p);
-    return cudaGetLastError();
-  }
-  // Head dims above kMaxD: q's rows at full D, one launch a chunk of Dv.
-  auto kernel = paged_fa_kernel<G_MAX, true>;
-  const int bytes = kMaxG * ((p.D + 3) & ~3) * 4;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  for (int dv0 = 0; err == cudaSuccess && dv0 < p.Dv; dv0 += kMaxD) {
-    Params c = p;
-    c.dv0 = dv0;
-    kernel<<<dim3(p.Hkv, B, chunks), kThreads, bytes, stream>>>(c);
-    err = cudaGetLastError();
-  }
-  return err;
+template <int GP>
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_fa_kernel<GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  return attr;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(f)
+                                                                   : nullptr;
+  }();
+  return fn;
+}
+
+// The pool as (slabs, slab_bytes) int8, read in boxes of kTile slabs by
+// `box` bytes (64 or 128: the swizzle of that span).
+bool encode_pool(CUtensorMap* map, const void* pool, long long slabs, int slab_bytes, int box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(slab_bytes), static_cast<cuuint64_t>(slabs)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(slab_bytes)};
+  const cuuint32_t boxes[2] = {static_cast<cuuint32_t>(box), static_cast<cuuint32_t>(kTile)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(pool), dims, strides,
+                boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `cells`: the (sequence, head chunk, column chunk) CTAs a (split, KV head).
+template <int GP>
+cudaError_t launch(const Params& p, const Layout& L, const Maps& maps, int cells,
+                   cudaStream_t stream) {
+  auto kernel = paged_fa_kernel<GP>;
+  const cudaError_t attr = allow_smem<GP>();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, p.Hkv, cells);
+  cfg.blockDim = dim3(32 * L.NW, 1, 1);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.splits;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = p.splits > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p, maps);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point: returns cudaGetLastError() after the launch (0 on
 // success); the wrapper raises on anything else.  Launches on `stream`,
-// does not synchronise and allocates nothing.
+// does not synchronise and allocates nothing.  `shift`, `tma`, `group`,
+// `ng`, `dvc` and `splits` are the wrapper's plan (kernels/flash_attn.py:
+// paged_plan, paged_splits); a plan the CTA cannot hold (more than
+// kMaxGroup query heads or kMaxWarps warps, a Dv chunk above 256 or not
+// whole 16-byte units, shared memory past kSmemMax) is refused
+// (cudaErrorInvalidValue).
 extern "C" int paged_flash_attn_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* tables, const void* lens, void* out,
     int B, int H, int Hkv, int D, int Dv, int page, int NP, int window,
-    float scale, int is_bf16, int vec, void* stream) {
+    float scale, int is_bf16, int vec, int shift, int tma, int P, int group, int ng, int dvc,
+    int splits, void* stream) {
   if (B <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > 65535 * kMaxG || D <= 0 || Dv <= 0 ||
-      page <= 0 || NP < 0 || B > 65535 ||
-      (vec != 16 && vec != 8 && vec != 4 && vec != 1) || D % vec || Dv % vec)
+  // A shifted row's window stays inside its token's slab of Hkv rows (a
+  // multiple of 16 bytes), so no copy reaches past the pool.
+  const bool window_ok = vec == 16 && D % 16 == 8 && Dv % 16 == 8 && (Hkv * D) % 16 == 0 &&
+                         (Hkv * Dv) % 16 == 0;
+  const int rowK = shift ? round_up(D + 8, 16) : D, rowV = shift ? round_up(Dv + 8, 16) : Dv;
+  const bool tma_ok = vec == 16 && page % kTile == 0 && (rowK == 64 || rowK == 128) &&
+                      (rowV == 64 || rowV == 128) && P > 0 && dvc >= Dv;
+  if (Hkv <= 0 || Hkv > 65535 || H % Hkv != 0 || D <= 0 || Dv <= 0 || page <= 0 || NP < 0 ||
+      (vec != 16 && vec != 8 && vec != 4 && vec != 1) || (!shift && (D % vec || Dv % vec)) ||
+      (shift && !window_ok) || (tma && !tma_ok) || group < 1 || group > H / Hkv ||
+      group > kMaxGroup || ng < 1 || dvc < 1 || (dvc < Dv && dvc % 16) || splits < 1 ||
+      splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
+  const int G = H / Hkv;
+  const int chunks = (G + group - 1) / group;
+  const int vchunks = (Dv + dvc - 1) / dvc;
+  const Layout L = make_layout(group, ng, D, dvc < Dv ? dvc : Dv, shift);
+  if ((long long)B * chunks * vchunks > 65535 || L.total > kSmemMax || L.W > 32 * kUnits ||
+      L.NW > kMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  const int cells = B * chunks * vchunks;
   Params p;
   p.q = q;
   p.k = static_cast<const int8_t*>(k);
@@ -440,6 +880,7 @@ extern "C" int paged_flash_attn_launch(
   p.tables = static_cast<const int*>(tables);
   p.lens = static_cast<const int*>(lens);
   p.out = out;
+  p.ng = ng;
   p.H = H;
   p.Hkv = Hkv;
   p.D = D;
@@ -450,17 +891,22 @@ extern "C" int paged_flash_attn_launch(
   p.scale = scale;
   p.is_bf16 = is_bf16;
   p.vec = vec;
-  p.dv0 = 0;
+  p.shift = shift;
+  p.tma = tma;
+  p.group = group;
+  p.dvc = dvc < Dv ? dvc : Dv;
+  p.splits = splits;
+  Maps maps = {};
+  if (tma && !(encode_pool(&maps.k, k, (long long)P * page, Hkv * D, rowK) &&
+               encode_pool(&maps.v, v, (long long)P * page, Hkv * Dv, rowV)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = H / Hkv;
   cudaError_t err;
-  if (G <= 1)
-    err = launch<1>(p, B, s);
-  else if (G <= 2)
-    err = launch<2>(p, B, s);
-  else if (G <= 4)
-    err = launch<4>(p, B, s);
-  else
-    err = launch<8>(p, B, s);
+  switch (L.GP) {
+    case 1: err = launch<1>(p, L, maps, cells, s); break;
+    case 2: err = launch<2>(p, L, maps, cells, s); break;
+    case 4: err = launch<4>(p, L, maps, cells, s); break;
+    default: err = launch<8>(p, L, maps, cells, s); break;
+  }
   return (int)err;
 }

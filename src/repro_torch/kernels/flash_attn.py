@@ -3,14 +3,21 @@ paged int8 decode attention (``paged_flash_attention_tpu``, kernel K2) and
 forward flash attention (``flash_attention_tpu``, kernel K3).
 
 K2 is hand-written CUDA C++ for Hopper,
-``repro_torch/csrc/paged_flash_attn.cu``: one CTA per (sequence, KV head,
-chunk of up to 8 of its G query heads, so any G) holds those query rows,
-walks the sequence's int8 pages through the block table with the page
-scales folded into the running softmax (k-scale into the logit scale,
-v-scale into the PV partial), and stores each output element once; head
-dims above 128 run in 128-wide chunks (the scores over D's chunks, one
-launch for each chunk of Dv).  It reads the page ids, the lengths and the
-scales on the device; the wrapper never reads them to the host.
+``repro_torch/csrc/paged_flash_attn.cu``, flash-decoding in one launch:
+one CTA per (split, KV head, sequence) holds the whole group of G query
+heads and computes all of Dv (:func:`paged_plan`; a group past 64, a Dv
+past 256 or a CTA past shared memory takes chunks), computes its share of
+the sequence's live tokens on the device (the live range cut into
+:func:`paged_splits` equal parts, as many as fill one wave of the card),
+streams those tokens' int8 K and V rows through rings of 32-token tiles
+from the block table (a TMA box a tile where pages hold whole tiles,
+:func:`tma_rows`; cp.async otherwise), with the page scales folded into
+the running softmax (k-scale into the logit scale, v-scale into the PV
+partial), scores each token once for all of its columns, and the splits
+of a (KV head, sequence), one thread-block cluster, merge their softmax
+states through distributed shared memory in rank order.  It reads the
+page ids, the lengths and the scales on the device; the wrapper never
+reads them to the host.
 
 K3 is ``repro_torch/csrc/flash_attn_fwd.cu``: one CTA per (batch x KV
 head, q block, chunk of the G query heads, so any G) holds the folded
@@ -37,7 +44,8 @@ raise.  The kernels are built and bound by
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,7 +65,7 @@ route_counts: Dict[str, int] = {}
 NEG = -1e30
 _FLOATS = (torch.float32, torch.bfloat16)
 # K3's wgmma route takes head dims up to two 64-wide TMA boxes; larger ones
-# (and K2's above 128) run in 128-wide chunks on the SIMT kernels.
+# run in 128-wide chunks on its SIMT kernel.
 WGMMA_MAX_HEAD_DIM = 128
 # K3's kv slots per online-softmax step, on both routes; the plain version
 # steps through the kv slots in the same blocks.
@@ -73,8 +81,126 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.paged_flash_attn_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+
+
+# K2's geometry (twins of the constants of csrc/paged_flash_attn.cu).
+PAGED_TILE = 32            # tokens a warp's ring stage holds, one a lane
+PAGED_STAGES = 2           # ring depth
+PAGED_MAX_SPLITS = 8       # CTAs of a cluster (the portable most)
+PAGED_MAX_GROUP = 64       # query heads a CTA holds (8 warps of 8)
+PAGED_MAX_DV = 256         # output columns a CTA holds (2 words of V a lane)
+PAGED_SMEM = 232448        # dynamic shared memory a CTA may use
+SM_SMEM = 233472           # shared memory of one SM (a CTA also takes 1 KB)
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _paged_shape(group: int) -> Tuple[int, int, int, int]:
+    """(warps sharing a token tile, heads a warp holds, those padded to 1,
+    2, 4 or 8, token groups) of a CTA holding ``group`` query heads."""
+    wh = -(-group // 8)
+    hw = -(-group // wh)
+    gp = 1 if hw <= 1 else 2 if hw <= 2 else 4 if hw <= 4 else 8
+    ng = 4 // wh if wh <= 4 else 1
+    return wh, hw, gp, ng
+
+
+def paged_smem_bytes(group: int, D: int, Dv: int, shift: bool = False,
+                     ng: Optional[int] = None) -> int:
+    """Dynamic shared memory of a K2 CTA holding ``group`` query heads in
+    ``ng`` token groups (default :func:`_paged_shape`'s) and computing
+    ``Dv`` output columns (``shift``: rows staged in their 16-byte
+    windows): the twin of the CUDA source's ``make_layout``."""
+    wh, _, gp, ng0 = _paged_shape(group)
+    ng = ng0 if ng is None else ng
+    nw, hp, t, stages = ng * wh, wh * gp, PAGED_TILE, PAGED_STAGES
+    pad = 8 if shift else 0
+    dq = _r16(D)
+    rk = _r16(pad + dq)
+    rs_k = rk if (rk // 16) % 2 else rk + 16
+    rs_v = _r16(Dv + pad)
+    ow = 4 * -(-Dv // 4)
+    ring = (1024 + -(-ng * stages * t * rs_k // 1024) * 1024
+            + -(-ng * stages * t * rs_v // 1024) * 1024)
+    merge = ng * hp * (ow + 2) * 4
+    return (_r16(hp * dq * 4) + _r16(max(ring, merge)) + 2 * ng * stages * t * 4
+            + 2 * ng * 2 * t * 8 + ng * 2 * t * 4 + nw * t * gp * 4
+            + _r16(hp * ow * 4) + 3 * _r16(hp * 4)
+            + _r16(PAGED_MAX_SPLITS * hp * 4) + _r16(ng * stages * 8))
+
+
+def _paged_group(G: int) -> Tuple[int, int]:
+    """(group, chunks): the query heads a CTA holds, the whole group G up
+    to ``PAGED_MAX_GROUP``, else the fewest equal chunks."""
+    chunks = -(-G // PAGED_MAX_GROUP)
+    group = -(-G // chunks)
+    return group, -(-G // group)
+
+
+class PagedPlan(NamedTuple):
+    """How K2 lays out one (sequence, KV head) over CTAs and inside one."""
+    group: int     # query heads a CTA holds
+    chunks: int    # CTAs over the group, ceil(G / group), each reading the pages
+    ng: int        # token groups a CTA holds
+    dvc: int       # output columns a CTA computes
+    vchunks: int   # CTAs over Dv, ceil(Dv / dvc), each scoring the tokens
+    smem: int      # a CTA's dynamic shared memory, bytes
+
+
+def paged_plan(G: int, D: int, Dv: int, shift: bool = False) -> PagedPlan:
+    """K2's plan for G query heads a KV head and head dims D, Dv: the whole
+    group in one CTA up to ``PAGED_MAX_GROUP`` and all of Dv up to
+    ``PAGED_MAX_DV`` (one read of each page byte per KV head and split,
+    the tokens scored once).  Larger Dv takes chunks of whole 16-byte
+    units.  Where the CTA's shared memory would not hold that, fewer token
+    groups, then half the heads, then half the columns a CTA, until it
+    does; a D too large for one token group of one head raises."""
+    group, chunks = _paged_group(G)
+    vchunks = -(-Dv // PAGED_MAX_DV)
+    dvc = Dv if vchunks == 1 else _r16(-(-Dv // vchunks))
+    ng = _paged_shape(group)[3]
+    while paged_smem_bytes(group, D, dvc, shift, ng) > PAGED_SMEM:
+        if ng > 1:
+            ng //= 2
+        elif group > 1:
+            chunks *= 2
+            group = -(-G // chunks)
+        elif dvc > 16:
+            dvc = _r16(-(-dvc // 2))
+        else:
+            raise ValueError(f"head dim D = {D} does not fit the paged "
+                             "kernel's K ring in shared memory")
+    return PagedPlan(group, -(-G // group), ng, dvc, -(-Dv // dvc),
+                     paged_smem_bytes(group, D, dvc, shift, ng))
+
+
+def paged_splits(B: int, Hkv: int, NP: int, page: int, n_sm: int,
+                 plan: PagedPlan) -> int:
+    """Splits of each sequence's tokens over CTAs, from what the host knows
+    without a sync: as many as fill one wave of the card's ``n_sm`` SMs
+    with the ``B * Hkv * chunks * vchunks`` cells of ``plan``; at most
+    ``PAGED_MAX_SPLITS`` (one cluster), and no more than the table's ``NP``
+    pages (a page a split) and its ``NP * page`` tokens (two warp tiles a
+    split) allow.  A wave counts as many CTAs an SM as its shared memory
+    holds where that is four or more (stablelm-1.6b's 64-byte rows), else
+    one: the plans with more shared memory (several heads a warp, rows of
+    192 bytes, granite-20b's group) ran fastest alone on their SM on the
+    H100 (``tools/k2_probe.py``, PERF.md)."""
+    cells = max(1, B * Hkv * plan.chunks * plan.vchunks)
+    resident = SM_SMEM // (plan.smem + 1024)
+    if resident < 4:
+        resident = 1
+    return max(1, min(resident * n_sm // cells, PAGED_MAX_SPLITS, NP,
+                      NP * page // (2 * PAGED_TILE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
@@ -172,8 +298,8 @@ def paged_flash_attention_reference(
 
 def _load_width(k_pages: torch.Tensor, v_pages: torch.Tensor, D: int,
                 Dv: int) -> int:
-    """Bytes per global load: the widest of 16, 8, 4 that divides both
-    head dims and both pools' addresses, else 1."""
+    """Bytes per copy: the widest of 16, 8, 4 that divides both head dims
+    and both pools' addresses, else 1."""
     for w in (16, 8, 4):
         if D % w == 0 and Dv % w == 0 and k_pages.data_ptr() % w == 0 \
                 and v_pages.data_ptr() % w == 0:
@@ -181,17 +307,47 @@ def _load_width(k_pages: torch.Tensor, v_pages: torch.Tensor, D: int,
     return 1
 
 
+def shifted_rows(D: int, Dv: int, Hkv: int, aligned: bool) -> bool:
+    """Whether K2 copies each K and V row as the 16-byte aligned window
+    around it (the row then 0 or 8 bytes into its staged copy): rows of
+    D, Dv = 8 (mod 16) bytes (h2o-danube-3-4b's 120), whose tokens' slabs
+    of Hkv rows are whole 16-byte chunks (so a window never leaves its
+    slab), in 16-byte aligned pools (``aligned``).  Such rows would
+    otherwise take 8-byte copies, which allocate in L1."""
+    return aligned and D % 16 == 8 and Dv % 16 == 8 \
+        and (Hkv * D) % 16 == 0 and (Hkv * Dv) % 16 == 0
+
+
+def tma_rows(D: int, Dv: int, page: int, shift: bool, vec: int) -> bool:
+    """Whether K2 feeds each 32-token tile by two TMA boxes (K and V) in
+    place of per-lane cp.async: 16-byte copies, pages of whole tiles (so a
+    tile never crosses a page), and rows, or their 16-byte windows, of 64
+    or 128 bytes (the spans of the 64- and 128-byte swizzles)."""
+    row_k, row_v = (D + 8, Dv + 8) if shift else (D, Dv)
+    return vec == 16 and page % PAGED_TILE == 0 and row_k in (64, 128) \
+        and row_v in (64, 128)
+
+
 def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
             window, scale, geometry) -> torch.Tensor:
     B, H, D, Dv, page, Hkv, NP = geometry
-    if B > 65535:
-        raise ValueError(f"B = {B} exceeds the kernel's grid")
+    shift = shifted_rows(D, Dv, Hkv, k_pages.data_ptr() % 16 == 0
+                         and v_pages.data_ptr() % 16 == 0)
+    vec = 16 if shift else _load_width(k_pages, v_pages, D, Dv)
+    plan = paged_plan(H // Hkv, D, Dv, shift)
+    if B * plan.chunks * plan.vchunks > 65535 or Hkv > 65535:
+        raise ValueError(f"B = {B} x {plan.chunks} head chunks x "
+                         f"{plan.vchunks} column chunks or Hkv = {Hkv} "
+                         "exceeds the kernel's grid")
     for t in (q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens):
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous operands")
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    splits = paged_splits(B, Hkv, NP, page, _sm_count(index), plan)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.load(SOURCE, _bind).paged_flash_attn_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -199,7 +355,9 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
         seq_lens.data_ptr(), out.data_ptr(),
         B, H, Hkv, D, Dv, page, NP, window or 0, scale,
         int(q.dtype == torch.bfloat16),
-        _load_width(k_pages, v_pages, D, Dv), stream)
+        vec, int(shift), int(plan.vchunks == 1
+                             and tma_rows(D, Dv, page, shift, vec)),
+        k_pages.shape[0], plan.group, plan.ng, plan.dvc, splits, stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_attention kernel launch failed: "
                            f"CUDA error {err}")

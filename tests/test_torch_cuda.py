@@ -128,12 +128,28 @@ PAGED_CASES = {"stablelm": ([1016], 128, 8, 32, 32, 64, None),
                "danube": ([19, 200, 1000], 16, 96, 32, 8, 120, 48),
                "danube serve": ([316], 128, 4, 32, 8, 120, None),
                "granite G48": ([700, 33], 16, 64, 48, 1, 128, None),
-               # Head dims above 128, taken in 128-wide chunks:
+               # Head dims above 128, scored once for all of Dv:
                # deepseek-v2-lite's MLA head (D = 192, Dv = 128) and 256.
                "mla D192": ([300, 41], 16, 32, 16, 8, 192, None),
-               "D256 window": ([130, 77], 16, 24, 8, 4, 256, 50)}
+               "D256 window": ([130, 77], 16, 24, 8, 4, 256, 50),
+               # The split path: stablelm-1.6b's heads at B = 1 over 4096
+               # tokens (8 splits); ragged lengths whose 5 and 0 tokens
+               # leave splits empty; a window of 3 that empties most of
+               # them; len = 0 beside a live sequence.
+               "stablelm S4096": ([4096], 128, 34, 32, 32, 64, None),
+               "ragged splits": ([5, 1016, 0], 16, 72, 8, 2, 64, None),
+               "window splits": ([1016, 300], 16, 90, 8, 2, 64, 3),
+               "len0": ([0, 37], 16, 8, 4, 2, 32, None),
+               # Head dims past one CTA at the whole group and all of Dv:
+               # deepseek-v2's absorbed MLA head (16 heads over one latent
+               # KV head, D = 576, Dv = 512: two column chunks), 64 such
+               # heads (two head chunks), and 264-byte rows staged in
+               # 16-byte windows in two column chunks, with a window.
+               "absorbed mla": ([300, 41], 16, 24, 16, 1, 576, None),
+               "G64 D576": ([77, 200], 16, 24, 64, 1, 576, None),
+               "D264 shifted": ([130, 45], 16, 16, 4, 2, 264, 30)}
 # Dv where it differs from D.
-PAGED_DV = {"mla D192": 128}
+PAGED_DV = {"mla D192": 128, "absorbed mla": 512, "G64 D576": 512}
 POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
 
 
@@ -141,12 +157,15 @@ POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("case", ["stablelm", "danube", "danube serve",
                                   "granite G48", "poisoned", "mla D192",
-                                  "D256 window"])
+                                  "D256 window", "stablelm S4096",
+                                  "ragged splits", "window splits", "len0",
+                                  "repeat", "absorbed mla", "G64 D576",
+                                  "D264 shifted"])
 def test_paged_attention_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    lens, page, n_pages, H, Hkv, D, window = \
-        PAGED_CASES["danube" if case == "poisoned" else case]
+    lens, page, n_pages, H, Hkv, D, window = PAGED_CASES[
+        {"poisoned": "danube", "repeat": "ragged splits"}.get(case, case)]
     Dv = PAGED_DV.get(case, D)
     pool = random_pool(11, lens, page=page, n_pages=n_pages, Hkv=Hkv, D=D,
                        Dv=Dv)
@@ -155,9 +174,12 @@ def test_paged_attention_kernel_matches_plain_version(case, dtype):
     FA.reset_launch_counts()
     got = FA.paged_flash_attention(q, *dev(pool), window=window)
     assert FA.launch_counts == {FA.NAME: 1}
-    if case == "poisoned":
-        again = FA.paged_flash_attention(q, *dev(poisoned(pool)),
-                                         window=window)
+    if case in ("poisoned", "repeat"):
+        # Free pages never reach the output; two identical calls give the
+        # same bits (the splits merge in order, no atomics).
+        again = FA.paged_flash_attention(
+            q, *dev(poisoned(pool) if case == "poisoned" else pool),
+            window=window)
         torch.cuda.synchronize()
         assert torch.equal(got, again)
         return
@@ -169,6 +191,9 @@ def test_paged_attention_kernel_matches_plain_version(case, dtype):
     scale = want.float().abs().max().item()
     tol = 1e-4 * (1 + scale) if dtype == torch.float32 else 2e-2 * scale
     assert err <= tol, (err, tol)
+    for b, L in enumerate(lens):
+        if L == 0:
+            assert not got[b].any()
 
 
 # Quantized programs (K1d: dqb, int8 weights; K1e: dqab, w8a8), numpy

@@ -13,9 +13,11 @@ the ``wgmma_mainloop.cuh`` they include; version B is another such
 directory (``--new``) or the tree's ``src/repro_torch/csrc``.  A version
 whose GEMM source has no decode route runs the m = 1 programs on its SIMT
 tile (one without the int8 decode route its int8 ones at m = 1, one
-without the int8 wgmma route its int8 ones at m > 8), and one whose K3
-entry point takes no route argument runs K3 on its SIMT kernel, so the
-tool also compares a tree against its parent.  Each case
+without the int8 wgmma route its int8 ones at m > 8), one whose K3
+entry point takes no route argument runs K3 on its SIMT kernel, and one
+whose K2 entry point takes no plan (shift, group, splits) runs K2
+through its own launch, so the tool also compares a tree against its
+parent.  The GEMM source is built only when a GEMM case is kept.  Each case
 runs once on both to compare outputs (bit-equal, and each one's max
 |error| against the plain version where it has one), then is timed by
 CUDA-graph replay (``chip_smoke._time_ms``) in the order A, B, B, A for
@@ -116,9 +118,10 @@ def cases(gen):
                         FA.flash_attention(q, k, v, **kw), 1,
                     lambda q=q, k=k, v=v, kw=kw:
                         FA.flash_attention_reference(q, k, v, **kw)))
-    for name in ("a stablelm", "stablelm B8 S4096", "danube B8 S4096"):
+    for name in CS.ATTN_TIMED:
         lens, page, H, Hkv, D, window = CS.ATTN_CASES[name]
-        (pool,), tables, lens_t, _ = CS.attn_pool(lens, page, Hkv, D, gen)
+        (pool,), tables, lens_t, _ = CS.attn_pool(
+            lens, page, Hkv, D, gen, Dv=CS.ATTN_DV.get(name, D))
         q = torch.randn(len(lens), H, D, generator=gen,
                         device="cuda").to(torch.bfloat16)
         args = (q, *pool, tables, lens_t)
@@ -155,6 +158,34 @@ def _k3_without_route(source: pathlib.Path):
     return launch
 
 
+def _k2_without_plan(source: pathlib.Path):
+    """K2's launch for an entry point without the plan arguments (shift,
+    group, splits; before the split redesign): the wrapper's launch,
+    three ints fewer."""
+    def bind(lib):
+        fn = lib.paged_flash_attn_launch
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+    def launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
+               window, scale, geometry):
+        B, H, D, Dv, page, Hkv, NP = geometry
+        out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
+        err = _build.load(source, bind).paged_flash_attn_launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, Dv, page, NP,
+            window or 0, scale, int(q.dtype == torch.bfloat16),
+            FA._load_width(k_pages, v_pages, D, Dv),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"paged_flash_attention launch failed: {err}")
+        return out
+    return launch
+
+
 def _takes_int8_decode(gemm: pathlib.Path, k1_route) -> bool:
     """Whether the GEMM build of ``gemm`` has the int8 decode route: it
     launches a small dqb program at m = 1 there, or its entry point
@@ -183,24 +214,33 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
-    k1_route, launch_fwd = K.k1_route, FA._launch_fwd
+    k1_route, launch_fwd, launch_paged = (K.k1_route, FA._launch_fwd,
+                                          FA._launch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kept = [c for c in cases(gen)
+            if not args.only or any(w in c[0] for w in args.only)]
+    # The GEMM build is probed (and so compiled) only for GEMM cases.
+    gemm_cases = any(not c[0].startswith(("K2", "K3")) for c in kept) \
+        or args.prefill
     builds = {}
     for tag, d in (("A", args.old_csrc), ("B", args.new)):
         d = d.resolve()
         gemm, fwd = d / "ca_gemm_program.cu", d / "flash_attn_fwd.cu"
+        paged = d / "paged_flash_attn.cu"
         builds[tag] = dict(
-            gemm=gemm, k4=d / "ca_mmm_k_outer.cu", fwd=fwd,
-            paged=d / "paged_flash_attn.cu",
+            gemm=gemm, k4=d / "ca_mmm_k_outer.cu", fwd=fwd, paged=paged,
             decode="ROUTE_DECODE" in gemm.read_text(),
             int8_wgmma="ca_gemm_wgmma_int8_kernel" in gemm.read_text(),
-            fwd_routed="int route," in fwd.read_text())
-        builds[tag]["int8_decode"] = (builds[tag]["decode"]
+            fwd_routed="int route," in fwd.read_text(),
+            paged_planned="int splits" in paged.read_text())
+        builds[tag]["int8_decode"] = (builds[tag]["decode"] and gemm_cases
                                       and _takes_int8_decode(gemm, k1_route))
         print(f"build {tag}: {d} (decode route "
               f"{builds[tag]['decode']}, int8 decode "
               f"{builds[tag]['int8_decode']}, int8 wgmma "
               f"{builds[tag]['int8_wgmma']}, K3 routes "
-              f"{builds[tag]['fwd_routed']})", flush=True)
+              f"{builds[tag]['fwd_routed']}, K2 splits "
+              f"{builds[tag]['paged_planned']})", flush=True)
 
     def routed(b):
         """k1_route for build ``b``: m <= 8 on its SIMT tile where it has no
@@ -227,11 +267,10 @@ def main():
         FA.SOURCE = b["paged"]
         FA._launch_fwd = launch_fwd if b["fwd_routed"] \
             else _k3_without_route(b["fwd"])
+        FA._launch = launch_paged if b["paged_planned"] \
+            else _k2_without_plan(b["paged"])
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    for name, fn, copies, plain in cases(gen):
-        if args.only and not any(w in name for w in args.only):
-            continue
+    for name, fn, copies, plain in kept:
         outs = {}
         for tag in "AB":
             use(tag)
