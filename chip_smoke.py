@@ -6,10 +6,10 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. card: prints the card's name and power limit; CUDA must be available.
-2. build: compiles the four kernel sources (the CA-GEMM program kernel, the
-   paged decode-attention kernel, the forward flash-attention kernel and
-   the k-outer ablation kernel) with nvcc into build/, one nvcc per
-   source, all started together.
+2. build: compiles the five kernel sources (the CA-GEMM program kernel,
+   the distance product, the paged decode-attention kernel, the forward
+   flash-attention kernel and the k-outer ablation kernel) with nvcc into
+   build/, one nvcc per source, all started together.
 3. kernel parity: each float program (none, res, rms>glu.silu(none|none))
    on the kernel against its plain version, in bf16 at the main path's
    shapes (m = 1, 37, 128 and the 1000-token prefill; h2o-danube-3-4b's at
@@ -23,7 +23,8 @@ Phases (any failure raises and the script exits non-zero):
    over one KV head (D = 128), at deepseek-v2-lite's MLA head (D = 192,
    Dv = 128) and on its split path (stablelm at B = 1, S = 4096; ragged
    lengths and a window that leave splits empty; len = 0, which drains
-   zeros); bit-identical when the pool's free pages are poisoned and
+   zeros), at D = 4096 (K rows staged in 1024-byte chunks, the wide
+   form); bit-identical when the pool's free pages are poisoned and
    when a call is repeated.
 4. slice: full-width stablelm-1.6b, all 24 layers, random weights from a
    seed, served through ServeEngine (3 requests) on the slab cache; the
@@ -70,7 +71,11 @@ Phases (any failure raises and the script exits non-zero):
    dact@b on tn) and each save_preact program (the forward GLU, bias+gelu)
    on the kernel against its plain version at stablelm-1.6b's training
    shapes with 1024 tokens, in bf16 (the wgmma route), and on a ragged
-   fp32 shape (SIMT).
+   fp32 shape (SIMT).  Then the two-output dual programs and the dequant
+   programs with save_preact or a dact prologue (on A, on the int8 B, on
+   dqab's int8 A) against their plain versions, fp32 and bf16, ragged and
+   at the 1000-token prefill, each launch on the SIMT tile; the time of
+   one of each beside its bound.
 9. train: full-width stablelm-1.6b, all 24 layers, fp32 masters from seed
    0, remat as configured, trains 3 steps of 4 x 256 SyntheticLM tokens
    through repro_torch.train.step (AdamW, lr 1e-3): finite loss and
@@ -92,10 +97,13 @@ Phases (any failure raises and the script exits non-zero):
 11. K1g, the distance product: all-pairs shortest paths on a random
    directed graph of 4096 nodes (out-degree 8, weights in (0, 1]) by 12
    repeated min-plus squarings through kernels.ops.distance_product,
-   exactly 12 launches, held against scipy's Dijkstra (the same
-   unreachable pairs, rtol 1e-5 on the rest); the kernel bit-equal to its
-   plain version at 4096^3, on a ragged shape, in bf16 and with +inf and
-   NaN operands; its time against the FP32 issue-rate bound.
+   exactly 12 launches on its own kernel, held against scipy's Dijkstra
+   (the same unreachable pairs, rtol 1e-5 on the rest); the kernel
+   bit-equal to its plain version at 4096^3, on shapes that straddle its
+   128 x 128 x 8 tile (m, n, k of 1, 127, 128, 129 and 4095), in bf16 and
+   fp32, and with +inf and NaN operands; its time against the FP32
+   issue-rate bound at the card's maximum SM clock and at the clock
+   nvidia-smi reads while it runs.
 12. K3, forward flash attention: kernels.flash_attn.flash_attention on the
    card against its plain version in fp32 and bf16 at the served models'
    full-width prefill shapes (stablelm-1.6b at 1000 tokens, causal;
@@ -174,6 +182,7 @@ TOL_BF16, TOL_F32 = 2e-2, 1e-4
 TOL_MODEL = 5e-2
 SOURCE = "src/repro_torch/csrc/ca_gemm_program.cu"
 REPLACES = "src/repro/kernels/ca_mmm.py:297"
+DISTANCE_SOURCE = "src/repro_torch/csrc/distance_product.cu"
 ATTN_SOURCE = "src/repro_torch/csrc/paged_flash_attn.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attn.py:241"
 FWD_SOURCE = "src/repro_torch/csrc/flash_attn_fwd.cu"
@@ -281,8 +290,13 @@ ATTN_CASES = {"a stablelm": ([1016], 128, 32, 32, 64, None),
               "window splits": ([1016, 300], 16, 8, 2, 64, 3),
               "absorbed mla": ([1016, 37], 128, 16, 1, 576, None),
               "G64 D576": ([300, 41], 16, 64, 1, 576, None),
-              "D264 shifted": ([130, 45], 16, 4, 2, 264, 30)}
-ATTN_DV = {"mla D192": MLA_DV, "absorbed mla": 512, "G64 D576": 512}
+              "D264 shifted": ([130, 45], 16, 4, 2, 264, 30),
+              "D4096 wide": ([300, 41], 16, 8, 2, 4096, None)}
+ATTN_DV = {"mla D192": MLA_DV, "absorbed mla": 512, "G64 D576": 512,
+           "D4096 wide": 256}
+# The case past one token group's K row (PagedPlan.dkc < D): timed beside
+# the others, its launches counted as K2's wide form.
+ATTN_WIDE = "D4096 wide"
 # The paged cases timed (the serving calls, the B = 8 batches, the group
 # and head-dim cases, the column chunks); "a stablelm" first, the
 # kernel's JSON record.
@@ -375,7 +389,8 @@ def build():
         return _build.build(src), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (K.SOURCE, FA.SOURCE, FA.FWD_SOURCE, K.K_OUTER_SOURCE)
+    sources = (K.SOURCE, K.DISTANCE_SOURCE, FA.SOURCE, FA.FWD_SOURCE,
+               K.K_OUTER_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     for path, seconds in built:
@@ -497,9 +512,11 @@ def check_attn(label, q, pool, tables, lens_t, **kw):
 
 
 def attn_parity():
+    """K2 against its plain version on every case; returns the worst error
+    and the wide case's."""
     phase("paged attention parity (kernel vs plain version)")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = 0.0
+    worst = worst_wide = 0.0
     for name, (lens, page, H, Hkv, D, window) in ATTN_CASES.items():
         Dv = ATTN_DV.get(name, D)
         (pool,), tables, lens_t, unmapped = attn_pool(
@@ -509,9 +526,17 @@ def attn_parity():
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(len(lens), H, D, generator=gen,
                             device="cuda").to(dtype)
+            wide = FA.route_counts.get(FA.WIDE, 0)
             got, err = check_attn(label, q, pool, tables, lens_t,
                                   window=window)
+            if (FA.route_counts.get(FA.WIDE, 0) > wide) != (
+                    name == ATTN_WIDE):
+                raise AssertionError(f"paged attention {name}: the wide "
+                                     "form ran where it should not, or not "
+                                     "where it should")
             worst = max(worst, err)
+            if name == ATTN_WIDE:
+                worst_wide = max(worst_wide, err)
             for b, L in enumerate(lens):
                 if L == 0 and bool(got[b].any()):
                     raise AssertionError(f"paged attention {name}: len = 0 "
@@ -538,7 +563,7 @@ def attn_parity():
             print(f"parity paged_flash_attention {name:17s} "
                   f"{str(dtype)[6:]:8s} poisoned free pages and a repeated "
                   "call: bit-identical")
-    return worst
+    return worst, worst_wide
 
 
 class Capture:
@@ -1138,7 +1163,7 @@ def attn_times():
           "the 50 MB L2)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
-    for name in ATTN_TIMED:
+    for name in ATTN_TIMED + (ATTN_WIDE,):
         lens, page, H, Hkv, D, window = ATTN_CASES[name]
         Dv = ATTN_DV.get(name, D)
         per_copy = sum(-(-L // page) for L in lens) * page * Hkv * (D + Dv)
@@ -1829,6 +1854,189 @@ def k1f_times():
 
 
 # ---------------------------------------------------------------------------
+# Two-output dual programs (F1) and dequant programs with a training flag (F2)
+# ---------------------------------------------------------------------------
+
+# (tag, A's dtype, m, n, k, save_preact, the operand dact decorates, per-tile
+# scale blocks (b, a)): ragged shapes, the 1000-token prefill, both dtypes.
+FAULT_CASES = [
+    ("dual(none|none)", torch.float32, 13, 40, 24, False, None, (0, 0)),
+    ("dual(none|bias)", torch.float32, 200, 264, 328, True, None, (0, 0)),
+    ("dual(none|none)", torch.bfloat16, 1000, 2048, 2048, False, None,
+     (0, 0)),
+    ("dual(none|bias)", torch.bfloat16, 5, 256, 512, True, None, (0, 0)),
+    ("dual(dqb|dqb+bias)", torch.bfloat16, 130, 200, 320, True, None,
+     (0, 0)),
+    ("dual(dqab|dqab)", torch.int8, 8, 200, 320, False, None, (0, 128)),
+    ("dqb+bias+gelu", torch.bfloat16, 1000, 5632, 2048, True, None, (0, 0)),
+    ("dqb+bias+gelu", torch.float32, 130, 200, 320, True, None, (128, 0)),
+    ("rms>glu.silu(dqb|dqb)", torch.bfloat16, 130, 200, 320, True, None,
+     (0, 0)),
+    ("dact.gelu>dqb", torch.bfloat16, 37, 200, 320, False, "a", (0, 0)),
+    ("dact.gelu@b>dqb", torch.bfloat16, 130, 200, 320, False, "b", (0, 0)),
+    ("dact.gelu>dqab", torch.int8, 130, 200, 320, False, "a", (128, 128)),
+    ("dact.silu@b>dqab+res", torch.int8, 1, 200, 320, False, "b", (0, 0)),
+    ("dqab+bias", torch.int8, 130, 200, 320, True, None, (0, 0)),
+]
+# The case of each family timed for its kernel record.
+FAULT_TIMED = {"F1": 2, "F2": 6}
+
+
+def fault_inputs(case, gen, copies=1):
+    """Operands of one F1/F2 case on the card: A, ``copies`` B sets (int8
+    for a dequant program) and the keywords, each B set's branch operands
+    (scales, bias, residual) behind ``kw["branch_operands"][i]``."""
+    tag, adt, m, n, k, save, operand, (gb, ga) = case
+    spec = program_from_tag(tag)
+    dev = "cuda"
+    deq = spec.branches[0].dequant
+    if adt == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+    else:
+        a = torch.randn(m, k, generator=gen, device=dev).to(adt)
+    sets, ops = [], []
+    for _ in range(copies):
+        if deq == "none":
+            sets.append([(torch.randn(k, n, generator=gen, device=dev)
+                          / math.sqrt(k)).to(adt) for _ in spec.branches])
+        else:
+            sets.append([torch.randint(-127, 128, (k, n), generator=gen,
+                                       device=dev, dtype=torch.int8)
+                         for _ in spec.branches])
+        sa = torch.rand(-(-k // ga) if ga else m, generator=gen,
+                        device=dev) * 0.05 + 0.01
+        branch = []
+        for b in spec.branches:
+            d = {}
+            if deq != "none":
+                d["scale_b"] = torch.rand(
+                    *((-(-k // gb), n) if gb else (n,)), generator=gen,
+                    device=dev) * 0.01 + 1e-3
+            if deq == "ab":
+                d["scale_a"] = sa
+            if b.has_bias:
+                d["bias"] = torch.randn(n, generator=gen, device=dev)
+            if b.has_residual:
+                d["residual"] = torch.randn(m, n, generator=gen, device=dev)
+            branch.append(d)
+        ops.append(branch)
+    kw = {"spec": spec, "save_preact": save, "scale_b_block": gb,
+          "scale_a_block": ga}
+    if operand is not None:
+        kw["preact"] = torch.randn(*((m, k) if operand == "a" else (k, n)),
+                                   generator=gen, device=dev)
+    if spec.prologue.kind == "rms":
+        kw["gain"] = torch.rand(k, generator=gen, device=dev) + 0.5
+        kw["row_scale"] = rms_row_scale(a, 1e-5)
+    return a, sets, ops, kw
+
+
+def fault_bound(case):
+    """Least time of one F1/F2 call: A, the B branches, the scales, bias,
+    residual and preact operands read once, the outputs and saved preacts
+    written once, over the memory rate; or 2 m n k a branch over the
+    tensor-core rate of the products' type (bf16 for float or int8 B
+    widened to bf16, fp32's 67 TFLOP/s for fp32 A, int8 for dqab),
+    whichever is larger."""
+    tag, adt, m, n, k, save, operand, (gb, ga) = case
+    spec = program_from_tag(tag)
+    deq = spec.branches[0].dequant
+    es = 1 if adt == torch.int8 else torch.finfo(adt).bits // 8
+    oes = 4 if adt in (torch.int8, torch.float32) else 2
+    nbytes = m * k * es + spec.n_b * k * n * (1 if deq != "none" else es)
+    nbytes += spec.n_out * m * n * oes + (spec.n_b * m * n * 4 if save else 0)
+    if operand is not None:
+        nbytes += 4 * (m * k if operand == "a" else k * n)
+    for b in spec.branches:
+        if deq != "none":
+            nbytes += 4 * ((-(-k // gb)) * n if gb else n)
+        nbytes += 4 * (n * b.has_bias + m * n * b.has_residual)
+    ops = 2 * m * n * k * spec.n_b
+    peak = PEAK_OPS[torch.int8 if deq == "ab" else
+                    (torch.float32 if adt == torch.float32 else
+                     torch.bfloat16)]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def fault_phase():
+    """F1 and F2 against their plain versions, every launch on the SIMT
+    tile (the route ``k1_route`` names); then one case of each timed.
+    Returns {family: record fields}."""
+    phase("F1 dual programs and F2 dequant training programs vs plain "
+          "version")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    K.reset_launch_counts()
+    worst = {"F1": 0.0, "F2": 0.0}
+    for case in FAULT_CASES:
+        tag, adt, m, n, k, save, operand, blocks = case
+        fam = "F1" if tag.startswith("dual(") else "F2"
+        a, (bs,), (ops,), kw = fault_inputs(case, gen)
+        key = K.launch_key(tag, "nn", save)
+        before = dict(K.route_counts)
+        got = K.ca_gemm_program(a, bs, branch_operands=ops, **kw)
+        check_routes(f"{key} m={m}", route_delta(before), {f"simt {key}": 1})
+        want = K.ca_gemm_program_reference(a, bs, branch_operands=ops, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        spec = kw["spec"]
+        if len(got) != spec.n_out + save * spec.n_b:
+            raise AssertionError(f"{key}: {len(got)} outputs")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != (m, n) or g.dtype != w.dtype \
+                    or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{key} m={m}: bad output {i}")
+            err = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            # Float programs: summation order only (fp32 1e-4; a bf16 output
+            # may flip an ulp).  Dequant ones at the int8 tolerance, 2e-3 of
+            # max|ref|: a dact on an int8 operand rounds g * act'(h) to int8
+            # after an act' whose last bit the card's tanh/exp may flip.
+            if g.dtype == torch.bfloat16:
+                tol = TOL_BF16 * scale
+            elif fam == "F2" or "dq" in tag:
+                tol = 2e-3 * scale
+            else:
+                tol = TOL_F32 * (1 + scale)
+            print(f"parity {key:34s} A={str(adt)[6:]:8s} m={m:<4d} n={n:<5d} "
+                  f"k={k:<5d} blocks={blocks} output {i} "
+                  f"max_abs_err={err:.3e} tol={tol:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"{key} m={m} output {i}: kernel "
+                                     f"disagrees ({err} > {tol})")
+            worst[fam] = max(worst[fam], err)
+    launches = {"F1": 0, "F2": 0}
+    for key, c in K.route_counts.items():
+        launches["F1" if "dual(" in key else "F2"] += c
+    print(f"F1/F2 launches by route: {dict(K.route_counts)}")
+    out = {}
+    for fam, idx in FAULT_TIMED.items():
+        case = FAULT_CASES[idx]
+        tag, adt, m, n, k, save = case[:6]
+        nb = program_from_tag(tag).n_b
+        copies = max(2, math.ceil(120e6 / (nb * k * n)))
+        a, sets, ops, kw = fault_inputs(case, gen, copies)
+        ms = _time_ms(lambda i: K.ca_gemm_program(
+            a, sets[i], branch_operands=ops[i], **kw), copies, iters=5)
+        plain = _time_ms(lambda i: K.ca_gemm_program_reference(
+            a, sets[i], branch_operands=ops[i], **kw), copies, iters=5)
+        b_ms, b_by = fault_bound(case)
+        row = {"family": fam, "program": K.launch_key(tag, "nn", save),
+               "m": m, "n": n, "k": k, "A": str(adt)[6:], "ms": ms,
+               "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by, "launches": launches[fam],
+               "max_abs_err": worst[fam]}
+        print("time " + json.dumps(row))
+        out[fam] = row
+        del a, sets, ops, kw
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K1g (distance product), K3 (forward flash attention), K4 (k-outer)
 # ---------------------------------------------------------------------------
 
@@ -1855,6 +2063,38 @@ def sm_clock_ghz():
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     return float(out) / 1e3
+
+
+def sustained_clock(fn, seconds=3.0):
+    """The SM clock and board power that ``fn``'s kernels hold: ``fn`` runs
+    back to back for ``seconds`` while nvidia-smi samples clocks.sm and
+    power.draw every 100 ms; the medians of the samples after the first
+    third (the clock settles as the power rises).  Returns (GHz, W, the
+    number of samples)."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(4):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    samples = []
+    for line in out.strip().splitlines():
+        try:
+            samples.append(tuple(float(v) for v in line.split(",")))
+        except ValueError:
+            continue          # a partial line at the terminate
+    steady = samples[len(samples) // 3:] or samples
+    if not steady:
+        raise AssertionError("nvidia-smi gave no clock samples")
+    return (float(np.median([c for c, _ in steady])) / 1e3,
+            float(np.median([w for _, w in steady])), len(samples))
 
 
 def apsp_graph(n, degree, seed):
@@ -1893,28 +2133,41 @@ def check_min_plus(label, a, b):
     return got, err
 
 
+# Dims that straddle the distance product's 128 x 128 x 16 tile (and its
+# 8-row staging pieces): every (m, n, k) of them is held bit for bit.
+STRADDLE = (1, 127, 128, 129, 4095)
+
+
 def min_plus_phase():
     phase("K1g: all-pairs shortest paths by repeated min-plus squaring")
     n = APSP_NODES
     d0 = apsp_graph(n, APSP_DEGREE, seed=0)
     steps = math.ceil(math.log2(n - 1))
     dist = torch.from_numpy(d0).cuda()
+    OPS.distance_product(dist[:8, :8].contiguous(),     # load the library
+                         dist[:8, :8].contiguous())
     K.reset_launch_counts()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
+    start.record()
     for i in range(steps):
         dist = OPS.distance_product(dist, dist)
         if i == 2:
             mid = dist              # a dense step's operand, for parity
+    end.record()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = start.elapsed_time(end)
     counts = dict(K.launch_counts)
     print(f"APSP n={n} edges={int(np.isfinite(d0).sum()) - n}: {steps} "
-          f"squarings in {wall_ms:.3f} ms, launches {counts}")
+          f"squarings in {wall_ms:.3f} ms (host clock), {device_ms:.3f} ms "
+          f"between events, launches {counts}")
     if counts != {MIN_PLUS: steps}:
         raise AssertionError(f"K1g launches {counts}, expected "
                              f"{ {MIN_PLUS: steps} }")
-    check_routes("APSP", dict(K.route_counts), {f"simt {MIN_PLUS}": steps})
+    check_routes("APSP", dict(K.route_counts), {f"minplus {MIN_PLUS}": steps})
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import shortest_path
 
@@ -1944,8 +2197,37 @@ def min_plus_phase():
     b = torch.rand(333, 777, generator=gen, device="cuda")
     for label, x, y in (("ragged fp32 (1000, 333, 777)", a, b),
                         ("ragged bf16 (1000, 333, 777)", a.bfloat16(),
-                         b.bfloat16())):
+                         b.bfloat16()),
+                        ("bf16 A, fp32 B (1000, 333, 777)", a.bfloat16(),
+                         b)):
         worst = max(worst, check_min_plus(label, x, y)[1])
+    # Every (m, n, k) of the straddling dims, fp32 and bf16; the scalar
+    # (unaligned) loads on an A whose base sits 4 bytes off.
+    t0 = time.perf_counter()
+    same = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in STRADDLE:
+            for k in STRADDLE:
+                x = torch.rand(m, k, generator=gen, device="cuda").to(dtype)
+                for nn_ in STRADDLE:
+                    y = torch.rand(k, nn_, generator=gen,
+                                   device="cuda").to(dtype)
+                    got = OPS.distance_product(x, y)
+                    ref = K.ca_gemm_program_reference(x, [y],
+                                                      semiring="min_plus")
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"distance_product ({m}, {k}) x ({k}, {nn_}) "
+                            f"{str(dtype)[6:]}: not bit-equal")
+                    same += 1
+    x = torch.rand(129 * 127 + 1, generator=gen, device="cuda")[1:]
+    x = x.view(129, 127)
+    worst = max(worst, check_min_plus("A 4 bytes off (129, 127, 4095)", x,
+                                      torch.rand(127, 4095, generator=gen,
+                                                 device="cuda"))[1])
+    print(f"parity distance_product: {same} straddling shapes "
+          f"{STRADDLE}^3 in fp32 and bf16 bit-equal "
+          f"({time.perf_counter() - t0:.1f} s)")
     a[torch.rand(a.shape, generator=gen, device="cuda") < 0.3] = math.inf
     b[torch.rand(b.shape, generator=gen, device="cuda") < 0.3] = math.inf
     a[5] = math.inf                    # a row that reaches nothing
@@ -1957,24 +2239,37 @@ def min_plus_phase():
                              "of C")
     ms = _time_ms(lambda i: OPS.distance_product(mid, mid), 1, iters=5,
                   reps=4)
+    mid_bf16 = mid.bfloat16()
+    ms_bf16 = _time_ms(lambda i: OPS.distance_product(mid_bf16, mid_bf16), 1,
+                       iters=5, reps=4)
     plain = _event_ms(lambda: K.ca_gemm_program_reference(
         mid, [mid], semiring="min_plus"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ghz = sm_clock_ghz()
+    held_ghz, held_w, samples = sustained_clock(
+        lambda: OPS.distance_product(mid, mid))
+    print(f"K1g holds {held_ghz:.3f} GHz at {held_w:.1f} W while it runs "
+          f"({samples} nvidia-smi samples; maximum {ghz:.3f} GHz)")
     # 2 m n k FP32 instructions (FADD + FMNMX), 128 lanes a clock per SM
     # (FMNMX's own pipe takes 64: the same m n k / 64 per SM-clock).
     t_ops = 2 * n ** 3 / (128 * sms * ghz * 1e9)
+    t_ops_held = 2 * n ** 3 / (128 * sms * held_ghz * 1e9)
     t_bytes = 3 * n * n * 4 / HBM_BYTES_PER_S
-    row = {"case": f"m=n=k={n} fp32", "ms": ms, "plain_ms": plain,
-           "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
+    row = {"case": f"m=n=k={n} fp32", "ms": ms, "ms_bf16": ms_bf16,
+           "plain_ms": plain, "library_ms": None,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "sms": sms, "sm_clock_max_ghz": ghz,
-           "issue_bound_ms": t_ops * 1e3, "byte_bound_ms": t_bytes * 1e3}
+           "sms": sms, "sm_clock_max_ghz": ghz, "sm_clock_held_ghz": held_ghz,
+           "power_held_w": held_w, "issue_bound_ms": t_ops * 1e3,
+           "issue_bound_held_ms": t_ops_held * 1e3,
+           "byte_bound_ms": t_bytes * 1e3,
+           "share_of_bound": max(t_ops, t_bytes) * 1e3 / ms}
     print("time distance_product " + json.dumps(row))
-    del dist, mid, a, b, got
+    del dist, mid, mid_bf16, a, b, got
     torch.cuda.empty_cache()
     return {"launches": steps, "max_abs_err": worst, "row": row,
-            "apsp_ms": wall_ms, "scipy_s": scipy_s, "max_rel_err": rel}
+            "apsp_ms": wall_ms, "apsp_device_ms": device_ms,
+            "scipy_s": scipy_s, "max_rel_err": rel}
 
 
 def fwd_inputs(B, Lq, S, H, Hkv, D, dtype, gen, Dv=None):
@@ -2257,7 +2552,10 @@ def main():
     worst = parity()
     worst.update(quant_parity())
     worst.update(k1f_parity())
-    worst_attn = attn_parity()
+    faults = fault_phase()
+    FA.reset_launch_counts()
+    worst_attn, worst_wide = attn_parity()
+    wide_launches = FA.route_counts.get(FA.WIDE, 0)
     cfg = get_config(ARCH)
     routes, e2e = serve_slice(cfg)
     cross_check(cfg)
@@ -2387,12 +2685,35 @@ def main():
                  f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
     grow = k1g["row"]
     kernels.append({
-        "name": f"ca_gemm_program[{MIN_PLUS}]", "route": "cuda",
-        "source": SOURCE, "replaces": REPLACES, "launches": k1g["launches"],
-        "max_abs_err": k1g["max_abs_err"], "ms": grow["ms"],
-        "plain_ms": grow["plain_ms"], "bound_ms": grow["bound_ms"],
-        "bound_by": grow["bound_by"], "library_ms": None,
-        "k1_route": "simt", "shape": grow["case"]})
+        "name": f"distance_product[{MIN_PLUS}]", "route": "cuda",
+        "source": DISTANCE_SOURCE, "replaces": REPLACES,
+        "launches": k1g["launches"], "max_abs_err": k1g["max_abs_err"],
+        "ms": grow["ms"], "plain_ms": grow["plain_ms"],
+        "bound_ms": grow["bound_ms"], "bound_by": grow["bound_by"],
+        "library_ms": None, "k1_route": "minplus",
+        "bound_ms_at_held_clock": grow["issue_bound_held_ms"],
+        "shape": grow["case"]})
+    for fam, frow in faults.items():
+        kernels.append({
+            "name": f"ca_gemm_program[{frow['program']}] ({fam})",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": frow["launches"], "max_abs_err": frow["max_abs_err"],
+            "ms": frow["ms"], "plain_ms": frow["plain_ms"],
+            "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
+            "library_ms": None, "k1_route": "simt",
+            "shape": f"m={frow['m']} n={frow['n']} k={frow['k']} "
+                     f"A {frow['A']}"})
+    wrow = next(r for r in attn_rows if r["case"] == ATTN_WIDE)
+    kernels.append({
+        "name": f"{FA.NAME}[wide D] (F3)", "route": "cuda",
+        "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+        "launches": wide_launches, "max_abs_err": worst_wide,
+        "ms": wrow["ms"], "plain_ms": wrow["plain_ms"],
+        "bound_ms": wrow["bound_ms"], "bound_by": wrow["bound_by"],
+        "library_ms": None,
+        "shape": f"B={wrow['B']} S={wrow['S']} page={wrow['page']} "
+                 f"H={wrow['H']} Hkv={wrow['Hkv']} D={wrow['D']} "
+                 f"Dv={wrow['Dv']} bf16"})
     frow = k3["rows"][0]
     for fr, suffix, key in (("wgmma", "", "ms"), ("simt", "[simt]",
                                                    "simt_ms")):
@@ -2419,8 +2740,9 @@ def main():
         "shape": f"{orow['case']}, tile {orow['tile']}, "
                  f"{orow['launches_per_call']} launches a call"})
     print(f"e2e K1g APSP {APSP_NODES} nodes: {k1g['launches']} squarings in "
-          f"{k1g['apsp_ms']:.3f} ms (scipy Dijkstra {k1g['scipy_s']:.3f} s "
-          f"on the host), max relative error {k1g['max_rel_err']:.3e}")
+          f"{k1g['apsp_ms']:.3f} ms wall ({k1g['apsp_device_ms']:.3f} ms "
+          f"between events; scipy Dijkstra {k1g['scipy_s']:.3f} s on the "
+          f"host), max relative error {k1g['max_rel_err']:.3e}")
     print(f"e2e K4 vs K1a at {K_OUTER_MNK}^3 bf16: k-outer {orow['ms']:.3f} "
           f"ms (tile {orow['tile']}; {orow['ms_tile_256_256_128']:.3f} at "
           f"256 x 256 x 128, {orow['ms_simt_tile_64_64_32']:.3f} on the "

@@ -11,9 +11,10 @@
 //   dqab...                   w8a8 (K1e): int8 A and B, int32 products
 //                             (both on the decode route below at m <= 8
 //                             and on the int8 wgmma route above it)
-// the tropical distance product (K1g, semiring="min_plus"):
-//   none, min_plus            C[i,j] = min_k (A[i,k] + B[k,j]) in fp32
-// and the backward programs of training (K1f, the float programs only):
+//   dual(b0|b1)               two branches, no combine: each branch's chain
+//                             (dequant, bias) drained into its own output
+// and the backward programs of training (K1f; the dequant programs take
+// save_preact and dact too):
 //   nt, tn layouts            dA = dC B^T with B stored (n, k), dB = A^T dC
 //                             with A stored (k, m), each read in its stored
 //                             layout (no transposed copy)
@@ -53,11 +54,17 @@
 // product, as ca_mmm.py:204-207 does.
 //
 // Training programs (K1f) run in their own instantiations of the 64 x 64
-// tile, one per float type and branch count (TRAIN below): the layout, the
-// dact operand and save_preact are uniform run-time flags there, so every
-// combination the reference takes (nn, nt, tn, tt; dact on A or B;
-// save_preact on one or two branches) shares 4 instantiations and the
-// serving instantiations keep their code.  A transposed operand is loaded
+// tile, one per type pair and branch count (TRAIN below): the layout, the
+// dact operand, save_preact and a dual program's second output are uniform
+// run-time flags there, so every combination the reference takes (nn, nt,
+// tn, tt; dact on A or B; save_preact on one or two branches; two outputs)
+// shares 10 instantiations and the serving instantiations keep their code.
+// The dequant programs' (int8 B) take save_preact (each branch's fp32 value
+// after dequant and bias) and dact (an int8 operand rounded back to int8
+// toward zero, saturating, as the reference's astype rounds) in the nn
+// layout, which the reference's contracts keep them to; a dual program
+// stores each branch's drained value into its own output where the GLU
+// would combine them.  A transposed operand is loaded
 // with neighbouring threads on neighbouring addresses of its stored layout
 // (along m for A stored (k, m), along k for B stored (n, k)), and written
 // into shared memory in the orientation the product reads; B's shared rows
@@ -143,23 +150,10 @@
 //
 // The route is decided by k1_route and its Python twin
 // (kernels/ca_mmm.py:k1_route), nothing else; everything else (fp32, fp32
-// A with int8 B, min_plus, training programs at m <= 8, misaligned
-// operands) runs the SIMT tile below, whose instantiations and code are
-// unchanged.
-//
-// The distance product (K1g) runs in one instantiation of the 64 x 64 tile
-// (MIN_PLUS below): fp32 or bf16 A and B, read through a run-time type flag
-// and widened to fp32 as they are staged; the accumulator starts at +inf;
-// out-of-range A and B elements (the k edge among them) are filled with +inf,
-// not 0, so a padded lane never wins a minimum (ca_mmm.py:175-196); the inner
-// step is acc = min(acc, a + b), with a min that propagates NaN as the
-// reference's jnp.minimum does (PTX min.NaN; fminf would drop it); the drain
-// has no chain and stores fp32.  fp32 adds and minima are exact and
-// order-free, so the result is bit-equal to the plain version.  It runs on
-// no tensor core: it is bound by its 2 m n k FP32 instructions (an FADD and
-// an FMNMX per term), which the SMs issue at 128 lanes a clock each (FMNMX
-// at 64): m n k / 64 per SM-clock, 4.1 ms at m = n = k = 4096 on 132 SMs
-// at 1.98 GHz.
+// A with int8 B, training programs at m <= 8, dequant programs with
+// save_preact or dact, dual programs, misaligned operands) runs the SIMT
+// tile below.  The distance product (K1g, semiring="min_plus") is a kernel
+// of its own, distance_product.cu.
 //
 // What bounds it on the H100: at decode (m = 1) every program is bound by
 // the weight bytes it must stream.  The GLU streams 2 x 2048 x 5632 x 2 B =
@@ -173,7 +167,6 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -216,7 +209,9 @@ struct Params {
   int sb_tile, sa_tile;   // scale_b / scale_a per tile
   int trans_a, trans_b;   // A stored (k, m) / B stored (n, k)
   int dact, dact_act;     // Dact operand and its activation
-  int a_f32, b_f32;       // min_plus: A / B element type (1 fp32, 0 bf16)
+  // A dual program's second output ((m, n), out's type), or null (one
+  // branch, or the glu).  Last, so every other member keeps its offset.
+  void* out1;
 };
 
 template <typename T>
@@ -254,11 +249,15 @@ __device__ __forceinline__ Acc widen(T v) {
 __device__ __forceinline__ float mac(float acc, float a, float b) { return fmaf(a, b, acc); }
 __device__ __forceinline__ int mac(int acc, int a, int b) { return acc + a * b; }
 
-// min(acc, a + b) in fp32; NaN in either propagates (min.NaN, sm_80+).
-__device__ __forceinline__ float min_plus(float acc, float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(acc), "f"(__fadd_rn(a, b)));
-  return r;
+// An fp32 value rounded back to an operand's type after the dact prologue:
+// float types by Cvt; int8 toward zero, saturating, NaN to 0, as the
+// reference's astype (XLA's conversion) rounds.
+template <typename T>
+__device__ __forceinline__ T round_to(float v) {
+  if constexpr (std::is_same<T, int8_t>::value)
+    return static_cast<int8_t>(max(-128, min(127, __float2int_rz(v))));
+  else
+    return Cvt<T>::from(v);
 }
 
 __device__ __forceinline__ float load_f32(const void* p, long long i, int is_f32) {
@@ -340,12 +339,11 @@ __device__ __forceinline__ float drain_scale(const Params& p, int b, float z, in
 // Threads: (BM / TM) x (BN / TN).  Thread (tr, tc) owns rows tr + i*(BM/TM)
 // and columns tc + j*(BN/TN) of the C tile, so neighbouring threads read
 // neighbouring shared-memory words and store neighbouring C elements.
-// TRAIN instantiations (float, scalar B loads) also take the training
-// programs' run-time flags: layouts, dact and save_preact.  The MIN_PLUS
-// instantiation (fp32 A, B and sums, one branch, scalar loads) is the
-// distance product.
+// TRAIN instantiations (scalar B loads) also take the training programs'
+// run-time flags: layouts, dact, save_preact and a dual program's second
+// output.
 template <typename TA, typename TB, int BM, int BN, int BK, int TM, int TN, int NB,
-          bool VEC_B, bool TRAIN, bool MIN_PLUS>
+          bool VEC_B, bool TRAIN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     ca_gemm_program_kernel(const Params p) {
   constexpr bool QUANT = std::is_same<TB, int8_t>::value;   // dqb or dqab
@@ -366,10 +364,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   static_assert(!VEC_B || (B_PER % VW == 0 && BN % VW == 0),
                 "vector B loads must split evenly over the threads");
   static_assert(!INT_A || QUANT, "int8 A pairs with int8 B only");
-  static_assert(!TRAIN || (!QUANT && !VEC_B), "training programs are float, scalar B");
-  static_assert(!MIN_PLUS || (std::is_same<TA, float>::value && std::is_same<TB, float>::value &&
-                              NB == 1 && !VEC_B && !TRAIN),
-                "the distance product stages fp32, one branch, scalar loads");
+  static_assert(!TRAIN || !VEC_B, "training programs load B as scalars");
   // A transposed B is written column-wise: pad its rows off one bank.
   constexpr int BPAD = TRAIN ? 1 : 0;
 
@@ -394,10 +389,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        if constexpr (MIN_PLUS)
-          part[b][i][j] = CUDART_INF_F;
-        else
-          part[b][i][j] = Acc(0);
+        part[b][i][j] = Acc(0);
         acc[b][i][j] = 0.f;
       }
 
@@ -443,9 +435,6 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         const bool in = r < m && c < k;
         ra[i] = in ? A[p.trans_a ? (long long)c * m + r : (long long)r * k + c] : zero_a;
         if (p.dact == DACT_A) pa[i] = in ? p.preact[(long long)r * k + c] : 0.f;
-      } else if constexpr (MIN_PLUS) {
-        const int r = row0 + e / BK, c = k0 + e % BK;
-        ra[i] = (r < m && c < k) ? load_f32(p.a, (long long)r * k + c, p.a_f32) : CUDART_INF_F;
       } else {
         const int r = row0 + e / BK, c = k0 + e % BK;
         ra[i] = (r < m && c < k) ? A[(long long)r * k + c] : zero_a;
@@ -474,14 +463,6 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
                           ? *reinterpret_cast<const VecB*>(B + (long long)r * n + c)
                           : VecB{};
         }
-      } else if constexpr (MIN_PLUS) {
-#pragma unroll
-        for (int i = 0; i < BS_PER; ++i) {
-          const int e = tid + i * NT;
-          const int r = k0 + e / BN, c = col0 + e % BN;
-          rbs[b][i] = (r < k && c < n) ? load_f32(p.b[b], (long long)r * n + c, p.b_f32)
-                                       : CUDART_INF_F;
-        }
       } else {
 #pragma unroll
         for (int i = 0; i < BS_PER; ++i) {
@@ -501,7 +482,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       int rl, cl;
       a_pos(tid + i * NT, rl, cl);
       TA v = ra[i];
-      if constexpr (!INT_A && !MIN_PLUS) {
+      if constexpr (!INT_A) {
         if (p.row_scale != nullptr) {
           const int r = row0 + rl, c = k0 + cl;
           if (r < m && c < k) {
@@ -512,7 +493,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         }
       }
       if constexpr (TRAIN) {
-        if (p.dact == DACT_A) v = Cvt<TA>::from(__fmul_rn(Cvt<TA>::to(v), act_grad(pa[i], p.dact_act)));
+        if (p.dact == DACT_A) v = round_to<TA>(__fmul_rn(Cvt<TA>::to(v), act_grad(pa[i], p.dact_act)));
       }
       As[rl][cl] = v;
     }
@@ -524,7 +505,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
           int rl, cl;
           b_pos(tid + i * NT, rl, cl);
           TB v = rbs[b][i];
-          if (p.dact == DACT_B) v = Cvt<TB>::from(__fmul_rn(Cvt<TB>::to(v), act_grad(pb[i], p.dact_act)));
+          if (p.dact == DACT_B) v = round_to<TB>(__fmul_rn(Cvt<TB>::to(v), act_grad(pb[i], p.dact_act)));
           Bs[b][rl][cl] = v;
         }
       } else if constexpr (VEC_B) {
@@ -583,12 +564,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         for (int j = 0; j < TN; ++j) {
           const Acc bv = widen<Acc>(Bs[b][kk][tc + j * TCOLS]);
 #pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            if constexpr (MIN_PLUS)
-              part[b][i][j] = min_plus(part[b][i][j], av[i], bv);
-            else
-              part[b][i][j] = mac(part[b][i][j], av[i], bv);
-          }
+          for (int i = 0; i < TM; ++i) part[b][i][j] = mac(part[b][i][j], av[i], bv);
         }
     }
     if constexpr (QUANT) {
@@ -608,10 +584,6 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
       const int c = col0 + tc + j * TCOLS;
       if (c >= n) continue;
       const long long idx = (long long)r * n + c;
-      if constexpr (MIN_PLUS) {
-        static_cast<float*>(p.out)[idx] = part[0][i][j];
-        continue;
-      }
       float y;
       if constexpr (QUANT)
         y = drain_scale(p, 0, acc[0][i][j], r, c);
@@ -630,8 +602,18 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
         if (p.bias[1] != nullptr) u = __fadd_rn(u, load_f32(p.bias[1], c, p.bias_f32));
         if constexpr (TRAIN) {
           if (p.pre_out[1] != nullptr) p.pre_out[1][idx] = u;
+          // dual: branch 1 drains into its own output, branch 0 below.
+          if (p.out1 != nullptr) {
+            if (p.out_f32)
+              static_cast<float*>(p.out1)[idx] = u;
+            else
+              static_cast<__nv_bfloat16*>(p.out1)[idx] = __float2bfloat16_rn(u);
+          } else {
+            y = __fmul_rn(act_fn(y, p.glu_act), u);
+          }
+        } else {
+          y = __fmul_rn(act_fn(y, p.glu_act), u);
         }
-        y = __fmul_rn(act_fn(y, p.glu_act), u);
       } else {
         y = act_fn(y, p.act);
         if (p.mul != nullptr) y = __fmul_rn(y, load_f32(p.mul, idx, p.mul_f32));
@@ -655,11 +637,9 @@ void launch_tile(const Params& p, cudaStream_t stream) {
                      reinterpret_cast<uintptr_t>(p.b[1]) % VB == 0;
   const dim3 grid((p.n + BN - 1) / BN, (p.m + BM - 1) / BM);
   if (vec_b)
-    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true, false, false>
-        <<<grid, NT, 0, stream>>>(p);
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, true, false><<<grid, NT, 0, stream>>>(p);
   else
-    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false, false, false>
-        <<<grid, NT, 0, stream>>>(p);
+    ca_gemm_program_kernel<TA, TB, BM, BN, BK, TM, TN, NB, false, false><<<grid, NT, 0, stream>>>(p);
 }
 
 bool is_training_program(const Params& p) {
@@ -670,16 +650,13 @@ bool is_training_program(const Params& p) {
 // narrow 8 x 16 tiles so that n = 2048 still spreads over 128 CTAs; longer
 // prompts take 64 x 64 tiles with a 4 x 4 register block per thread.  Both
 // slab depths (128, 32) divide every per-tile scale block (a multiple of 128).
-// Training programs (float only) take the 64 x 64 tile at every m.
+// Training programs and dual programs take the 64 x 64 TRAIN tile at every m.
 template <typename TA, typename TB, int NB>
 void launch_program(const Params& p, cudaStream_t stream) {
-  if constexpr (!std::is_same<TB, int8_t>::value) {
-    if (is_training_program(p)) {
-      const dim3 grid((p.n + 63) / 64, (p.m + 63) / 64);
-      ca_gemm_program_kernel<TA, TB, 64, 64, 32, 4, 4, NB, false, true, false>
-          <<<grid, 256, 0, stream>>>(p);
-      return;
-    }
+  if (is_training_program(p) || p.out1 != nullptr) {
+    const dim3 grid((p.n + 63) / 64, (p.m + 63) / 64);
+    ca_gemm_program_kernel<TA, TB, 64, 64, 32, 4, 4, NB, false, true><<<grid, 256, 0, stream>>>(p);
+    return;
   }
   if (p.m <= 8)
     launch_tile<TA, TB, 8, 16, 128, 1, 1, NB>(p, stream);
@@ -1722,13 +1699,14 @@ enum Route { ROUTE_SIMT = 0, ROUTE_WGMMA = 1, ROUTE_DECODE = 2 };
 // have 16-byte aligned bases and row strides: bf16 A and B, decode at m <= 8
 // for a serving program (nn, no dact, no save_preact), wgmma at m > 8 (the
 // GLU only in the nn layout and without dact); int8 B with bf16 A (dqb) or
-// int8 A (dqab), decode at m <= 8 and wgmma at m > 8 (int8 has no training
-// program).  The rest, fp32, fp32 A with int8 B, training programs at
-// m <= 8, stays on the SIMT tile.
+// int8 A (dqab) without save_preact or dact, decode at m <= 8 and wgmma at
+// m > 8.  The rest, fp32, fp32 A with int8 B, training programs at m <= 8,
+// int8 training programs, dual programs (out1), stays on the SIMT tile.
 int k1_route(const Params& p, int a_type, int b_type, bool two) {
   const bool bf16 = a_type == TYPE_BF16 && b_type == TYPE_BF16;
   const bool int8 = b_type == TYPE_I8 && (a_type == TYPE_BF16 || a_type == TYPE_I8);
-  if (!(bf16 || int8) || p.k < 1) return ROUTE_SIMT;
+  if (!(bf16 || int8) || p.k < 1 || p.out1 != nullptr) return ROUTE_SIMT;
+  if (int8 && is_training_program(p)) return ROUTE_SIMT;
   const long long ea = a_type == TYPE_I8 ? 1 : 2, eb = b_type == TYPE_I8 ? 1 : 2;
   const long long a_row = p.trans_a ? p.m : p.k, b_row = p.trans_b ? p.k : p.n;
   bool ok = ml::tma_ok(p.a, ea * a_row) && ml::tma_ok(p.b[0], eb * b_row) &&
@@ -1745,9 +1723,9 @@ int k1_route(const Params& p, int a_type, int b_type, bool two) {
 
 // C entry point.  The caller checks shapes, types, scales and contiguity;
 // m, n > 0.  A and B types (TYPE_*): float A with B of the same type, float A
-// with int8 B (dqb), or int8 A with int8 B (dqab); any other pair, or a
-// training program (transposed layout, dact or save_preact) on int8
-// operands, returns cudaErrorInvalidValue.  `route` is the caller's route
+// with int8 B (dqb), or int8 A with int8 B (dqab); any other pair, a
+// transposed layout on int8 operands, or a second output (out1) without a
+// second branch, returns cudaErrorInvalidValue.  `route` is the caller's route
 // (0 SIMT, 1 wgmma, 2 decode, from kernels/ca_mmm.py:k1_route); one that
 // differs from k1_route's returns cudaErrorInvalidValue too.  Launches on `stream`
 // without synchronising and returns cudaGetLastError().
@@ -1756,7 +1734,7 @@ extern "C" int ca_gemm_program_launch(
     const void* gain, const void* bias0, const void* bias1, const void* mul,
     const void* residual, void* out, const void* scale_b0, const void* scale_b1,
     const void* scale_a0, const void* scale_a1, const void* preact, void* pre_out0,
-    void* pre_out1, int m, int n, int k, int a_type, int b_type, int gain_f32,
+    void* pre_out1, void* out1, int m, int n, int k, int a_type, int b_type, int gain_f32,
     int bias_f32, int mul_f32, int res_f32, int out_f32, int act, int glu_act,
     int scale_block, int sb_tile, int sa_tile, int trans_a, int trans_b, int dact,
     int dact_act, int route, void* stream) {
@@ -1795,9 +1773,9 @@ extern "C" int ca_gemm_program_launch(
   p.trans_b = trans_b;
   p.dact = dact;
   p.dact_act = dact_act;
-  p.a_f32 = p.b_f32 = 1;
+  p.out1 = out1;
   const bool two = b1 != nullptr;
-  if (is_training_program(p) && (a_type == TYPE_I8 || b_type == TYPE_I8))
+  if (((p.trans_a || p.trans_b) && (a_type == TYPE_I8 || b_type == TYPE_I8)) || (out1 != nullptr && !two))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r = k1_route(p, a_type, b_type, two);
@@ -1817,28 +1795,5 @@ extern "C" int ca_gemm_program_launch(
     launch_typed<int8_t, int8_t>(p, two, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// C entry point of the distance product (K1g): out (m, n) fp32 =
-// min_k (A[i,k] + B[k,j]), A (m, k) and B (k, n) row-major, each fp32
-// (a_f32 = 1) or bf16 (0).  The caller checks shapes, types and contiguity;
-// m, n > 0.  Launches on `stream` without synchronising and returns
-// cudaGetLastError().
-extern "C" int ca_gemm_min_plus_launch(const void* a, const void* b, void* out, int m, int n,
-                                       int k, int a_f32, int b_f32, void* stream) {
-  Params p = {};
-  p.a = a;
-  p.b[0] = p.b[1] = b;
-  p.out = out;
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.out_f32 = 1;
-  p.a_f32 = a_f32;
-  p.b_f32 = b_f32;
-  const dim3 grid((n + 63) / 64, (m + 63) / 64);
-  ca_gemm_program_kernel<float, float, 64, 64, 32, 4, 4, 1, false, false, true>
-      <<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,8 +31,15 @@
 //    (deepseek-v2's absorbed MLA head, D = 576 with Dv = 512: two);
 //  - ng: the CTA's token groups (below), 4 / wh by default; where the CTA's
 //    shared memory would not hold the plan, fewer token groups, then half
-//    the heads, then half the columns, until it does (a K row too long for
-//    one token group of one head, D above ~3,300, is refused);
+//    the heads, then half the columns, until it does;
+//  - dkc: where one token group of one head cannot stage a K row even at
+//    16 columns (D above ~3,300), the plan is wide (the WIDE_D form of the
+//    kernel, its own instantiations): K rows are staged dkc bytes (1024) at
+//    a time through the group's two K stages, unshifted, by cp.async (never
+//    TMA), the next chunk in flight while one is scored, and each token's
+//    score is summed over the chunks in the CTA before its softmax; q stays
+//    whole in shared memory.  Plans that stage whole rows keep their
+//    instantiations;
 //  - splits: each CTA computes its own tokens on the device from len and
 //    window: the live range [lo, hi) = [max(0, len - window), min(len,
 //    NP * page)) cut into `splits` equal parts of whole 32-token tiles, so a
@@ -131,8 +138,12 @@ struct Params {
   int vec;                 // bytes per copy: 16, 8, 4 or 1
   int shift;               // 1: rows of D, Dv = 8 (mod 16) bytes copied as the
                            // 16-byte aligned window around them (vec 16)
-  int tma;                 // 1: each tile's rows by two TMA boxes (page % 32 == 0,
+  union {
+    int tma;               // 1: each tile's rows by two TMA boxes (page % 32 == 0,
                            // windows of 64 or 128 bytes), swizzled
+    int dkc;               // WIDE_D form (never TMA): K bytes of a row staged at a
+                           // time, a multiple of 16 below D
+  };
   int group;               // query heads a CTA holds (chunks: ceil(G / group))
   int dvc;                 // output columns a CTA computes, Dv or a multiple of 16
                            // (vchunks: ceil(Dv / dvc))
@@ -161,8 +172,9 @@ struct Layout {
   int q, kring, vring, ksc, vsc, kofs, vofs, pid, pw, O, m, l, fac, den, bar, total;
 };
 
-// Dv here is the CTA's output columns (the plan's dvc), ng its token groups.
-__host__ __device__ inline Layout make_layout(int group, int ng, int D, int Dv, int shift) {
+// Dv here is the CTA's output columns (the plan's dvc), ng its token groups;
+// dkc > 0 (a wide plan): K rows staged dkc bytes at a time.
+__host__ __device__ inline Layout make_layout(int group, int ng, int D, int Dv, int shift, int dkc) {
   constexpr int stages = kStages;
   Layout L;
   L.wh = (group + 7) / 8;
@@ -173,7 +185,8 @@ __host__ __device__ inline Layout make_layout(int group, int ng, int D, int Dv, 
   L.Hp = L.wh * L.GP;
   L.DQ = round_up(D, 16);                           // q's padded row
   const int pad = shift ? 8 : 0;                    // a shifted row's offset
-  const int rk = round_up(pad + L.DQ, 16);          // its 16-byte reads end there
+  const int kq = dkc > 0 ? round_up(dkc, 16) : L.DQ;  // a staged K row (or chunk)
+  const int rk = round_up(pad + kq, 16);            // its 16-byte reads end there
   L.rsK = (rk / 16) % 2 ? rk : rk + 16;             // odd 16-byte units: no bank conflict
   L.rsV = round_up(Dv + pad, 16);
   L.W = (Dv + 3) / 4;                               // 32-bit words of a V row
@@ -403,11 +416,12 @@ __device__ __forceinline__ void store_out(const Params& p, long long i, float o)
     static_cast<float*>(p.out)[i] = o;
 }
 
-template <int GP>
+// WIDE_D: the wide plans' form (K rows staged p.dkc bytes at a time).
+template <int GP, bool WIDE_D>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     paged_fa_kernel(Params p, const __grid_constant__ Maps maps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(p.group, p.ng, p.D, p.dvc, p.shift);
+  const Layout L = make_layout(p.group, p.ng, p.D, p.dvc, p.shift, WIDE_D ? p.dkc : 0);
   constexpr int S = kStages;
   const int NT = 32 * L.NW;
   const int tid = threadIdx.x;
@@ -424,7 +438,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int dv0 = (blockIdx.z % vchunks) * p.dvc;     // first output column
   const int ncol = min(p.dvc, p.Dv - dv0);            // and their count
   const bool shifted = p.shift != 0;
-  const bool tma = p.tma != 0;
+  const bool tma = !WIDE_D && p.tma != 0;
   const int rowK = shifted ? round_up(p.D + 8, 16) : p.D;   // bytes copied a row
   const int rowV = shifted ? round_up(ncol + 8, 16) : ncol;
   const int pitchK = tma ? rowK : L.rsK;                    // a staged row's bytes
@@ -515,8 +529,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           tma_box(v_ring + st * kTile * pitchV, &maps.v, bar + st, (h * p.Dv) & ~15, y);
         }
       } else {
-        stage(k_ring + st * kTile * pitchK, p.k, kofs_s + sl, rowK, pitchK, gtid, GT, p.vec,
-              shifted);
+        if constexpr (!WIDE_D)   // (a wide plan stages K in chunks as it scores)
+          stage(k_ring + st * kTile * pitchK, p.k, kofs_s + sl, rowK, pitchK, gtid, GT, p.vec,
+                shifted);
         stage(v_ring + st * kTile * pitchV, p.v, vofs_s + sl, rowV, pitchV, gtid, GT, p.vec,
               shifted);
       }
@@ -577,9 +592,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     cp_async_wait();        // tile i has landed (this thread's copies) ...
     group_sync(grp, GT);    // ... the group's, and its tile i - 1 is done with
     issue(i + S - 1);
-    rows_from(i + S, entry);
-    entry = table_at(i + S + 1);
-    if (nh == 0) continue;
+    if constexpr (!WIDE_D) {
+      rows_from(i + S, entry);
+      entry = table_at(i + S + 1);
+      if (nh == 0) continue;
+    }
     const int st = i % S;
     const int t0 = tile_at(i);
     const int nend = min(kTile, t_end - t0);   // rows past it are past the range
@@ -590,7 +607,50 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     float s[GP];
 #pragma unroll
     for (int g = 0; g < GP; ++g) s[g] = 0.f;
-    if (live) {
+    if constexpr (WIDE_D) {
+      // The tile's K rows chunk by chunk through the group's K stages (the
+      // next chunk in flight while one is scored), every thread of the
+      // group staging, the score summed over the chunks; then tile i's
+      // row offsets (slot i & 1) are free for tile i + S.
+      const int sl = (i & 1) * kTile;
+      const int nkc = (p.D + p.dkc - 1) / p.dkc;
+      auto stage_chunk = [&](int c) {
+        const int d0 = c * p.dkc;
+        stage(k_ring + (c % S) * kTile * pitchK, p.k + d0, kofs_s + sl, min(p.dkc, p.D - d0), pitchK,
+              gtid, GT, p.vec, false);
+        cp_async_commit();
+      };
+      stage_chunk(0);
+      for (int c = 0; c < nkc; ++c) {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        group_sync(grp, GT);  // chunk c has landed; chunk c - 1's stage is free
+        if (c + 1 < nkc) stage_chunk(c + 1);
+        if (live && nh > 0) {
+          const int8_t* kst = k_ring + (c % S) * kTile * pitchK;
+          const int d0 = c * p.dkc;
+          const int ncc = round_up(min(p.dkc, p.D - d0), 16) / 16;
+          for (int cc = 0; cc < ncc; ++cc) {
+            float kf[16];
+            widen16(kst, lane, 16 * cc, pitchK, false, kf);
+#pragma unroll
+            for (int g = 0; g < GP; ++g) {
+              const float4* qv = reinterpret_cast<const float4*>(q_s + (wj * GP + g) * L.DQ + d0 + 16 * cc);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float4 qq = qv[e];
+                s[g] = fmaf(qq.x, kf[4 * e], s[g]);
+                s[g] = fmaf(qq.y, kf[4 * e + 1], s[g]);
+                s[g] = fmaf(qq.z, kf[4 * e + 2], s[g]);
+                s[g] = fmaf(qq.w, kf[4 * e + 3], s[g]);
+              }
+            }
+          }
+        }
+      }
+      rows_from(i + S, entry);
+      entry = table_at(i + S + 1);
+      if (nh == 0) continue;
+    } else if (live) {
       const int8_t* kst = k_ring + st * kTile * pitchK;
 #pragma unroll 2
       for (int c = 0; c < nc; ++c) {
@@ -766,10 +826,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   cluster.sync();  // every rank's shared memory stays until all have read it
 }
 
-template <int GP>
+template <int GP, bool WIDE_D>
 cudaError_t allow_smem() {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_fa_kernel<GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      paged_fa_kernel<GP, WIDE_D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   return attr;
 }
 
@@ -811,11 +871,11 @@ bool encode_pool(CUtensorMap* map, const void* pool, long long slabs, int slab_b
 }
 
 // `cells`: the (sequence, head chunk, column chunk) CTAs a (split, KV head).
-template <int GP>
+template <int GP, bool WIDE_D>
 cudaError_t launch(const Params& p, const Layout& L, const Maps& maps, int cells,
                    cudaStream_t stream) {
-  auto kernel = paged_fa_kernel<GP>;
-  const cudaError_t attr = allow_smem<GP>();
+  auto kernel = paged_fa_kernel<GP, WIDE_D>;
+  const cudaError_t attr = allow_smem<GP, WIDE_D>();
   if (attr != cudaSuccess) return attr;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.splits, p.Hkv, cells);
@@ -838,17 +898,18 @@ cudaError_t launch(const Params& p, const Layout& L, const Maps& maps, int cells
 // Plain C entry point: returns cudaGetLastError() after the launch (0 on
 // success); the wrapper raises on anything else.  Launches on `stream`,
 // does not synchronise and allocates nothing.  `shift`, `tma`, `group`,
-// `ng`, `dvc` and `splits` are the wrapper's plan (kernels/flash_attn.py:
-// paged_plan, paged_splits); a plan the CTA cannot hold (more than
-// kMaxGroup query heads or kMaxWarps warps, a Dv chunk above 256 or not
-// whole 16-byte units, shared memory past kSmemMax) is refused
-// (cudaErrorInvalidValue).
+// `ng`, `dvc`, `dkc` and `splits` are the wrapper's plan
+// (kernels/flash_attn.py: paged_plan, paged_splits); a plan the CTA cannot
+// hold (more than kMaxGroup query heads or kMaxWarps warps, a Dv chunk
+// above 256 or not whole 16-byte units, a K chunk (dkc < D) not whole
+// 16-byte units or with shifted rows or TMA, shared memory past kSmemMax)
+// is refused (cudaErrorInvalidValue).
 extern "C" int paged_flash_attn_launch(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* tables, const void* lens, void* out,
     int B, int H, int Hkv, int D, int Dv, int page, int NP, int window,
     float scale, int is_bf16, int vec, int shift, int tma, int P, int group, int ng, int dvc,
-    int splits, void* stream) {
+    int dkc, int splits, void* stream) {
   if (B <= 0) return 0;
   // A shifted row's window stays inside its token's slab of Hkv rows (a
   // multiple of 16 bytes), so no copy reaches past the pool.
@@ -861,12 +922,13 @@ extern "C" int paged_flash_attn_launch(
       (vec != 16 && vec != 8 && vec != 4 && vec != 1) || (!shift && (D % vec || Dv % vec)) ||
       (shift && !window_ok) || (tma && !tma_ok) || group < 1 || group > H / Hkv ||
       group > kMaxGroup || ng < 1 || dvc < 1 || (dvc < Dv && dvc % 16) || splits < 1 ||
-      splits > kMaxSplits)
+      splits > kMaxSplits || dkc < 1 || dkc > D || (dkc < D && (dkc % 16 || shift || tma)))
     return (int)cudaErrorInvalidValue;
+  const bool wide = dkc < D;
   const int G = H / Hkv;
   const int chunks = (G + group - 1) / group;
   const int vchunks = (Dv + dvc - 1) / dvc;
-  const Layout L = make_layout(group, ng, D, dvc < Dv ? dvc : Dv, shift);
+  const Layout L = make_layout(group, ng, D, dvc < Dv ? dvc : Dv, shift, wide ? dkc : 0);
   if ((long long)B * chunks * vchunks > 65535 || L.total > kSmemMax || L.W > 32 * kUnits ||
       L.NW > kMaxWarps)
     return (int)cudaErrorInvalidValue;
@@ -892,7 +954,10 @@ extern "C" int paged_flash_attn_launch(
   p.is_bf16 = is_bf16;
   p.vec = vec;
   p.shift = shift;
-  p.tma = tma;
+  if (wide)
+    p.dkc = dkc;
+  else
+    p.tma = tma;
   p.group = group;
   p.dvc = dvc < Dv ? dvc : Dv;
   p.splits = splits;
@@ -903,10 +968,10 @@ extern "C" int paged_flash_attn_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (L.GP) {
-    case 1: err = launch<1>(p, L, maps, cells, s); break;
-    case 2: err = launch<2>(p, L, maps, cells, s); break;
-    case 4: err = launch<4>(p, L, maps, cells, s); break;
-    default: err = launch<8>(p, L, maps, cells, s); break;
+    case 1: err = wide ? launch<1, true>(p, L, maps, cells, s) : launch<1, false>(p, L, maps, cells, s); break;
+    case 2: err = wide ? launch<2, true>(p, L, maps, cells, s) : launch<2, false>(p, L, maps, cells, s); break;
+    case 4: err = wide ? launch<4, true>(p, L, maps, cells, s) : launch<4, false>(p, L, maps, cells, s); break;
+    default: err = wide ? launch<8, true>(p, L, maps, cells, s) : launch<8, false>(p, L, maps, cells, s); break;
   }
   return (int)err;
 }

@@ -16,11 +16,19 @@ multiplies the decorated operand (A, or B with ``@b``) by ``act'`` of a
 saved fp32 pre-activation as it is fetched; ``save_preact`` drains each
 branch's fp32 value after bias and before the activation as extra outputs.
 
-The tropical distance product (K1g, ``semiring="min_plus"``) is one
-more instantiation of the same kernel: plain programs only, fp32 or bf16
-operands widened to fp32, ``C[i, j] = min_k (A[i, k] + B[k, j])`` from a
-+inf start with +inf in every out-of-range lane, NaN propagating, fp32
-out.
+Two-output ``dual`` programs (two branches, ``combine="none"``) drain
+each branch's chain (dequant, bias) into its own output.  The dequant
+programs take the training flags too: ``save_preact`` drains each
+branch's fp32 value after dequant and bias, and the ``dact`` prologue
+decorates A or B (an int8 operand rounds back to int8, toward zero and
+saturating, as the reference's ``astype`` does).
+
+The tropical distance product (K1g, ``semiring="min_plus"``) is a kernel
+of its own, ``repro_torch/csrc/distance_product.cu``: plain programs
+only, fp32 or bf16 operands widened to fp32, ``C[i, j] = min_k (A[i, k] +
+B[k, j])`` from a +inf start with +inf in every out-of-range lane, NaN
+propagating, fp32 out, on a register-blocked SIMT tile (no tensor core
+computes (min, +)).
 
 The k-outer ablation (K4, :func:`ca_mmm_k_outer`) is a kernel of its own,
 ``repro_torch/csrc/ca_mmm_k_outer.cu``: the schedule the paper rejects,
@@ -44,8 +52,10 @@ int8 programs at m > 8 take the wgmma route's tile and loop, with a
 transform warpgroup between TMA and wgmma that turns each landed int8 B
 stage into the operand wgmma reads (``dqb``: widened to bf16; ``dqab``:
 transposed to K-major for wgmma's s8 x s8 -> s32 products).  fp32, fp32 A
-with int8 B, min_plus, training programs at m <= 8 and misaligned
-operands stay on the SIMT tile.  K4's bf16 step at whole 128 x 128 x 64
+with int8 B, training programs at m <= 8, dequant programs with
+``save_preact`` or ``dact``, ``dual`` programs and misaligned operands
+stay on the SIMT tile; min_plus takes its own kernel (route
+``"minplus"``).  K4's bf16 step at whole 128 x 128 x 64
 blocks runs the wgmma main loop (:func:`k_outer_route`).
 
 Quantized programs ride the same schedule.  ``dqb`` (int8 weights, float
@@ -82,6 +92,7 @@ from repro_torch.kernels.program import (GemmProgramSpec, NO_PROLOGUE, PLAIN,
 from repro_torch.kernels.ref import ref_distance_product
 
 SOURCE = _build.CSRC / "ca_gemm_program.cu"
+DISTANCE_SOURCE = _build.CSRC / "distance_product.cu"
 K_OUTER_SOURCE = _build.CSRC / "ca_mmm_k_outer.cu"
 SEMIRINGS = ("plus_times", "min_plus")
 # Launch key of the k-outer ablation kernel (one launch per k step).
@@ -92,6 +103,8 @@ WGMMA_TILE = (128, 128, 64)
 # The SIMT tile K1 takes for m > 8, and the SIMT k-outer step's sub-tile
 # and slab: bm and bn multiples of 64, bk of 32.
 SIMT_TILE = (64, 64, 32)
+# C rows a CTA of the distance product owns (its grid's y axis is m / 128).
+DISTANCE_BM = 128
 # The k-outer kernel's own tile for each dtype (bm, bn, bk), K1's tile for
 # that dtype with the k loop moved outermost; the default clamps it to the
 # shape as the reference does (``ca_mmm.py:85-111``).
@@ -102,7 +115,7 @@ K_OUTER_TILES = {torch.float32: SIMT_TILE, torch.bfloat16: WGMMA_TILE,
 # launch below adds to it; the plain version never does.
 launch_counts: Dict[str, int] = {}
 # The same launches by route and launch key: "wgmma none nt",
-# "decode res", "simt dqb", "wgmma k_outer", ...
+# "decode res", "simt dqb", "wgmma k_outer", "minplus none min_plus", ...
 route_counts: Dict[str, int] = {}
 # The route codes of the C entry point.
 _ROUTE_CODES = {"simt": 0, "wgmma": 1, "decode": 2}
@@ -157,20 +170,26 @@ _WGMMA_MAX_N = 65535 * 64
 def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
              b_dtype: torch.dtype, m: int, n: int, k: int, aligned: bool,
              semiring: str = "plus_times", save_preact: bool = False) -> str:
-    """The route a K1 launch takes, for a plus_times program whose
-    operands have 16-byte aligned bases and row strides (``aligned``).
-    bf16 A and B (no dequant): ``"decode"`` at m <= 8 for a serving
-    program (``nn``, no ``dact``, no ``save_preact``); ``"wgmma"`` at
-    m > 8 for one branch in any layout or the GLU in ``nn`` without
-    ``dact``.  int8 B with bf16 A (``dqb``) or int8 A (``dqab``):
-    ``"decode"`` at m <= 8, ``"wgmma"`` above.  ``"simt"`` otherwise:
-    fp32, fp32 A with int8 B, min_plus, training programs at m <= 8,
-    misaligned operands.  The C entry point's ``k1_route`` is its twin and
-    refuses a launch whose route differs."""
+    """The route a K1 launch takes.  ``"minplus"`` for the distance
+    product (its own kernel).  For a plus_times program whose operands
+    have 16-byte aligned bases and row strides (``aligned``): bf16 A and B
+    (no dequant), ``"decode"`` at m <= 8 for a serving program (``nn``,
+    no ``dact``, no ``save_preact``), ``"wgmma"`` at m > 8 for one branch
+    in any layout or the GLU in ``nn`` without ``dact``; int8 B with bf16
+    A (``dqb``) or int8 A (``dqab``), without ``save_preact`` or
+    ``dact``, ``"decode"`` at m <= 8, ``"wgmma"`` above.  ``"simt"``
+    otherwise: fp32, fp32 A with int8 B, training programs at m <= 8,
+    dequant programs with ``save_preact`` or ``dact``, two-output
+    ``dual`` programs, misaligned operands.  The C entry point's
+    ``k1_route`` is its twin and refuses a launch whose route differs."""
+    if semiring != "plus_times":
+        return "minplus"
     bf16 = a_dtype == torch.bfloat16 and b_dtype == torch.bfloat16
     int8 = b_dtype == torch.int8 and a_dtype in (torch.bfloat16, torch.int8)
-    if semiring != "plus_times" or not (bf16 or int8) or k < 1 \
-            or not aligned:
+    dual = spec.n_b == 2 and spec.combine != "glu"
+    if not (bf16 or int8) or k < 1 or not aligned or dual:
+        return "simt"
+    if int8 and (spec.prologue.kind == "dact" or save_preact):
         return "simt"
     if m <= 8:
         training = (layout != "nn" or spec.prologue.kind == "dact"
@@ -193,17 +212,25 @@ def tma_aligned(*tensors: Optional[torch.Tensor]) -> bool:
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ca_gemm_program_launch
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 20
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.ca_gemm_min_plus_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 20
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
+
+
+def _bind_distance(lib: ctypes.CDLL) -> None:
+    fn = lib.distance_product_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+
+
+def _distance_entry():
+    """The distance product's C entry point (K1g)."""
+    return _build.load(DISTANCE_SOURCE, _bind_distance).distance_product_launch
 
 
 def _bind_k_outer(lib: ctypes.CDLL) -> None:
@@ -217,15 +244,10 @@ def _bind_k_outer(lib: ctypes.CDLL) -> None:
 # Validation shared by both paths
 # ---------------------------------------------------------------------------
 
-def _unsupported(what: str, slice_: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP queue 2, {slice_})")
-
-
 def _check_program(spec: GemmProgramSpec, semiring: str,
                    transpose_a: bool, transpose_b: bool,
                    save_preact: bool, preact) -> None:
-    """The reference's contracts (``ca_mmm.py:363-397``) and what the port
-    does not take yet."""
+    """The reference's contracts (``ca_mmm.py:363-420``)."""
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r} (valid: "
                          f"{SEMIRINGS})")
@@ -236,8 +258,6 @@ def _check_program(spec: GemmProgramSpec, semiring: str,
     if len({b.dequant for b in spec.branches}) > 1:
         raise ValueError(f"the branches of {spec.tag()!r} must share one "
                          "dequant stage")
-    if spec.n_b == 2 and spec.combine != "glu":
-        raise _unsupported("two-output 'dual' programs", "K1c follow-up")
     transposed = transpose_a or transpose_b
     if spec.n_b > 1 and transposed:
         raise ValueError("multi-branch programs stream the plain 'nn' "
@@ -246,16 +266,10 @@ def _check_program(spec: GemmProgramSpec, semiring: str,
     if quant and transposed:
         raise ValueError("quantized streaming supports the plain 'nn' "
                          "layout")
-    if quant and save_preact:
-        raise _unsupported("save_preact on a dequant program",
-                           "K1f follow-up")
     pro = spec.prologue
     if pro.kind == "rms" and transpose_a:
         raise ValueError("the rms prologue decorates the natural A layout")
     if pro.kind == "dact":
-        if quant:
-            raise _unsupported("the dact prologue on a dequant program",
-                               "K1f follow-up")
         if pro.operand == "a" and transpose_a:
             raise ValueError("dact@a decorates a non-transposed A")
         if pro.operand == "b" and transpose_b:
@@ -505,23 +519,24 @@ def ca_gemm_program_reference(
     for b, bspec, ops in zip(bs, spec.branches, branch_operands):
         if bspec.dequant == "none":
             z = _dot(a, b)
-            if save_preact:
-                preacts.append(z + ops["bias"].float() if bspec.has_bias
-                               else z)
-            vals.append(z if bspec.is_identity
-                        else apply_reference(z, bspec, ops))
-            continue
-        z = _dequant_product(a, b, bspec.dequant, ops, scale_b_block,
-                             scale_a_block)
-        vals.append(apply_reference(
-            z, dataclasses.replace(bspec, dequant="none"),
-            {k: v for k, v in ops.items() if not k.startswith("scale_")}))
+        else:
+            # Dequantized to real units first: every later stage (and the
+            # saved pre-activation) wants them.
+            z = _dequant_product(a, b, bspec.dequant, ops, scale_b_block,
+                                 scale_a_block)
+            bspec = dataclasses.replace(bspec, dequant="none")
+            ops = {k: v for k, v in ops.items() if not k.startswith("scale_")}
+        if save_preact:
+            preacts.append(z + ops["bias"].float() if bspec.has_bias else z)
+        vals.append(z if bspec.is_identity else apply_reference(z, bspec, ops))
     if spec.combine == "glu":
-        y = act_fn(spec.combine_activation)(vals[0]) * vals[1]
+        ys = [act_fn(spec.combine_activation)(vals[0]) * vals[1]]
     else:
-        y = vals[0]
-    y = y.to(out_dtype)
-    return (y, *preacts) if save_preact else y
+        ys = vals           # one output a branch: one, or two for 'dual'
+    ys = [y.to(out_dtype) for y in ys]
+    if save_preact or len(ys) > 1:
+        return (*ys, *preacts)
+    return ys[0]
 
 
 # ---------------------------------------------------------------------------
@@ -538,10 +553,11 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
             save_preact: bool, preact):
     if m > 65535 * 64:
         raise ValueError(f"m = {m} exceeds the kernel's grid")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    outs = [torch.empty((m, n), dtype=out_dtype, device=a.device)
+            for _ in range(spec.n_out)]
     pres = [torch.empty((m, n), dtype=torch.float32, device=a.device)
             for _ in range(spec.n_b if save_preact else 0)]
-    result = (out, *pres) if save_preact else out
+    result = (*outs, *pres) if save_preact or spec.n_out > 1 else outs[0]
     if m == 0 or n == 0:
         return result
     single = spec.branches[0]
@@ -561,11 +577,12 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     err = _library().ca_gemm_program_launch(
         _ptr(a), _ptr(bs[0]), _ptr(bs[1]) if spec.n_b == 2 else None,
         _ptr(row_scale), _ptr(gain), _ptr(bias0), _ptr(bias1),
-        _ptr(mul), _ptr(res), _ptr(out),
+        _ptr(mul), _ptr(res), _ptr(outs[0]),
         _ptr(ops0.get("scale_b")), _ptr(ops1.get("scale_b")),
         _ptr(ops0.get("scale_a")), _ptr(ops1.get("scale_a")),
         _ptr(preact), _ptr(pres[0]) if pres else None,
         _ptr(pres[1]) if len(pres) == 2 else None,
+        _ptr(outs[1]) if len(outs) == 2 else None,
         m, n, k, _TYPE_CODES[a.dtype], _TYPE_CODES[bs[0].dtype],
         int(gain is not None and gain.dtype == f32),
         int(bool(biases) and biases[0].dtype == f32),
@@ -585,18 +602,19 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
 
 
 def _launch_min_plus(a, b, m: int, n: int, k: int) -> torch.Tensor:
-    if m > 65535 * 64:
+    if m > 65535 * DISTANCE_BM:
         raise ValueError(f"m = {m} exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _library().ca_gemm_min_plus_launch(
+    err = _distance_entry()(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
         int(a.dtype == torch.float32), int(b.dtype == torch.float32), stream)
     if err != 0:
-        raise RuntimeError(f"min_plus kernel launch failed: CUDA error {err}")
-    _count(launch_key(PLAIN.tag(), semiring="min_plus"), "simt")
+        raise RuntimeError(f"distance product kernel launch failed: CUDA "
+                           f"error {err}")
+    _count(launch_key(PLAIN.tag(), semiring="min_plus"), "minplus")
     return out
 
 
@@ -627,8 +645,10 @@ def ca_gemm_program(
     (n, k) (one-branch float programs).  A ``dact`` prologue takes
     ``preact``, the fp32 pre-activation shaped like the decorated operand
     ((m, k) for A, (k, n) for ``@b``), which must not be transposed.  With
-    ``save_preact`` the call returns ``(out, *preacts)``: each branch's
-    fp32 value after bias, before the activation.
+    ``save_preact`` the call returns ``(*outs, *preacts)``: each branch's
+    fp32 value after dequant and bias, before the activation.  A ``dual``
+    program (two branches, no combine) returns both branches' outputs,
+    ``(y0, y1)``.
 
     ``semiring="min_plus"`` runs the distance product
     ``C[i, j] = min_k (A[i, k] + B[k, j])`` on a plain program (no
@@ -639,8 +659,8 @@ def ca_gemm_program(
     bf16 programs with 16-byte aligned operands take the wgmma route at
     m > 8 and, serving programs, the decode route at m <= 8, as do the
     aligned ``dqb`` (bf16 A) and ``dqab`` programs; the rest the SIMT
-    tile (:func:`k1_route`).  All count in ``launch_counts`` and, by
-    route, in ``route_counts``.
+    tile, min_plus its own kernel (:func:`k1_route`).  All count in
+    ``launch_counts`` and, by route, in ``route_counts``.
 
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
     ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per
@@ -650,9 +670,8 @@ def ca_gemm_program(
     defaults to A's dtype, fp32 for int8 A.
 
     CPU operands run :func:`ca_gemm_program_reference`; CUDA operands
-    launch the kernel.  Programs the port does not take yet (``dual``,
-    dequant with ``save_preact`` or ``dact``) and the reference's refused
-    combinations raise ValueError.
+    launch the kernel.  The reference's refused combinations raise
+    ValueError.
     """
     a, bs = _min_plus_operands(a, tuple(bs), semiring)
     branch_operands = list(branch_operands or [{} for _ in bs])

@@ -6,7 +6,9 @@ K2 is hand-written CUDA C++ for Hopper,
 ``repro_torch/csrc/paged_flash_attn.cu``, flash-decoding in one launch:
 one CTA per (split, KV head, sequence) holds the whole group of G query
 heads and computes all of Dv (:func:`paged_plan`; a group past 64, a Dv
-past 256 or a CTA past shared memory takes chunks), computes its share of
+past 256 or a CTA past shared memory takes chunks, and a K row too long
+for one token group of one head is staged in D chunks, the score summed
+over them), computes its share of
 the sequence's live tokens on the device (the live range cut into
 :func:`paged_splits` equal parts, as many as fill one wave of the card),
 streams those tokens' int8 K and V rows through rings of 32-token tiles
@@ -59,8 +61,11 @@ FWD_NAME = "flash_attention"
 # Launches of the CUDA kernels.  Only the kernel launches below add to it;
 # the plain versions never do.
 launch_counts: Dict[str, int] = {}
-# K3's launches by route: "wgmma flash_attention", "simt flash_attention".
+# K3's launches by route: "wgmma flash_attention", "simt flash_attention";
+# and K2's on its wide form (K rows staged in D chunks, PagedPlan.dkc < D):
+# "wide paged_flash_attention".
 route_counts: Dict[str, int] = {}
+WIDE = f"wide {NAME}"
 
 NEG = -1e30
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -81,8 +86,14 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.paged_flash_attn_launch
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+
+
+def _paged_entry():
+    """K2's C entry point."""
+    return _build.load(SOURCE, _bind).paged_flash_attn_launch
 
 
 # K2's geometry (twins of the constants of csrc/paged_flash_attn.cu).
@@ -93,6 +104,7 @@ PAGED_MAX_GROUP = 64       # query heads a CTA holds (8 warps of 8)
 PAGED_MAX_DV = 256         # output columns a CTA holds (2 words of V a lane)
 PAGED_SMEM = 232448        # dynamic shared memory a CTA may use
 SM_SMEM = 233472           # shared memory of one SM (a CTA also takes 1 KB)
+PAGED_WIDE_CHUNK = 1024    # K bytes of a row a wide plan stages at a time
 
 
 def _r16(x: int) -> int:
@@ -110,17 +122,19 @@ def _paged_shape(group: int) -> Tuple[int, int, int, int]:
 
 
 def paged_smem_bytes(group: int, D: int, Dv: int, shift: bool = False,
-                     ng: Optional[int] = None) -> int:
+                     ng: Optional[int] = None,
+                     dkc: Optional[int] = None) -> int:
     """Dynamic shared memory of a K2 CTA holding ``group`` query heads in
     ``ng`` token groups (default :func:`_paged_shape`'s) and computing
     ``Dv`` output columns (``shift``: rows staged in their 16-byte
-    windows): the twin of the CUDA source's ``make_layout``."""
+    windows; ``dkc`` below D: K rows staged ``dkc`` bytes at a time): the
+    twin of the CUDA source's ``make_layout``."""
     wh, _, gp, ng0 = _paged_shape(group)
     ng = ng0 if ng is None else ng
     nw, hp, t, stages = ng * wh, wh * gp, PAGED_TILE, PAGED_STAGES
     pad = 8 if shift else 0
     dq = _r16(D)
-    rk = _r16(pad + dq)
+    rk = _r16(pad + (_r16(dkc) if dkc is not None and dkc < D else dq))
     rs_k = rk if (rk // 16) % 2 else rk + 16
     rs_v = _r16(Dv + pad)
     ow = 4 * -(-Dv // 4)
@@ -149,6 +163,7 @@ class PagedPlan(NamedTuple):
     dvc: int       # output columns a CTA computes
     vchunks: int   # CTAs over Dv, ceil(Dv / dvc), each scoring the tokens
     smem: int      # a CTA's dynamic shared memory, bytes
+    dkc: int       # K bytes of a row staged at a time: D, or (wide) fewer
 
 
 def paged_plan(G: int, D: int, Dv: int, shift: bool = False) -> PagedPlan:
@@ -158,12 +173,20 @@ def paged_plan(G: int, D: int, Dv: int, shift: bool = False) -> PagedPlan:
     the tokens scored once).  Larger Dv takes chunks of whole 16-byte
     units.  Where the CTA's shared memory would not hold that, fewer token
     groups, then half the heads, then half the columns a CTA, until it
-    does; a D too large for one token group of one head raises."""
+    does.  Where even one token group of one head at 16 columns cannot
+    stage a K row (D above ~3,300), the plan is wide: K rows are staged
+    ``PAGED_WIDE_CHUNK`` bytes at a time, unshifted (the wrapper then
+    copies by cp.async, never TMA), and the score of a token is summed
+    over the chunks.  Only a D whose fp32 query row alone outgrows shared
+    memory raises."""
     group, chunks = _paged_group(G)
     vchunks = -(-Dv // PAGED_MAX_DV)
     dvc = Dv if vchunks == 1 else _r16(-(-Dv // vchunks))
     ng = _paged_shape(group)[3]
-    while paged_smem_bytes(group, D, dvc, shift, ng) > PAGED_SMEM:
+    dkc = D
+    if paged_smem_bytes(1, D, min(dvc, 16), shift, 1) > PAGED_SMEM:
+        dkc, shift = min(D, PAGED_WIDE_CHUNK), False
+    while paged_smem_bytes(group, D, dvc, shift, ng, dkc) > PAGED_SMEM:
         if ng > 1:
             ng //= 2
         elif group > 1:
@@ -173,9 +196,9 @@ def paged_plan(G: int, D: int, Dv: int, shift: bool = False) -> PagedPlan:
             dvc = _r16(-(-dvc // 2))
         else:
             raise ValueError(f"head dim D = {D} does not fit the paged "
-                             "kernel's K ring in shared memory")
+                             "kernel's query row in shared memory")
     return PagedPlan(group, -(-G // group), ng, dvc, -(-Dv // dvc),
-                     paged_smem_bytes(group, D, dvc, shift, ng))
+                     paged_smem_bytes(group, D, dvc, shift, ng, dkc), dkc)
 
 
 def paged_splits(B: int, Hkv: int, NP: int, page: int, n_sm: int,
@@ -335,6 +358,9 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
                          and v_pages.data_ptr() % 16 == 0)
     vec = 16 if shift else _load_width(k_pages, v_pages, D, Dv)
     plan = paged_plan(H // Hkv, D, Dv, shift)
+    if plan.dkc < D:      # a wide plan stages its rows unshifted
+        shift = False
+        vec = _load_width(k_pages, v_pages, D, Dv)
     if B * plan.chunks * plan.vchunks > 65535 or Hkv > 65535:
         raise ValueError(f"B = {B} x {plan.chunks} head chunks x "
                          f"{plan.vchunks} column chunks or Hkv = {Hkv} "
@@ -349,19 +375,22 @@ def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
         else torch.cuda.current_device()
     splits = paged_splits(B, Hkv, NP, page, _sm_count(index), plan)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _build.load(SOURCE, _bind).paged_flash_attn_launch(
+    tma = plan.vchunks == 1 and plan.dkc == D and tma_rows(D, Dv, page,
+                                                            shift, vec)
+    err = _paged_entry()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(),
         B, H, Hkv, D, Dv, page, NP, window or 0, scale,
-        int(q.dtype == torch.bfloat16),
-        vec, int(shift), int(plan.vchunks == 1
-                             and tma_rows(D, Dv, page, shift, vec)),
-        k_pages.shape[0], plan.group, plan.ng, plan.dvc, splits, stream)
+        int(q.dtype == torch.bfloat16), vec, int(shift), int(tma),
+        k_pages.shape[0], plan.group, plan.ng, plan.dvc, plan.dkc, splits,
+        stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_attention kernel launch failed: "
                            f"CUDA error {err}")
     launch_counts[NAME] = launch_counts.get(NAME, 0) + 1
+    if plan.dkc < D:
+        route_counts[WIDE] = route_counts.get(WIDE, 0) + 1
     return out
 
 

@@ -217,5 +217,12 @@ def apply_rms_reference(x: torch.Tensor, row_scale: torch.Tensor,
 def apply_dact_reference(g: torch.Tensor, h: torch.Tensor,
                          activation: str) -> torch.Tensor:
     """Oracle semantics of the dact prologue: ``g · act'(h)`` in fp32,
-    cast back to the gradient operand's dtype."""
-    return (g.float() * act_grad(activation)(h.float())).to(g.dtype)
+    cast back to the gradient operand's dtype.  An integer operand (int8
+    B of a dequant program, or dqab's int8 A) rounds as JAX's ``astype``
+    does: toward zero, saturating at the type's range, NaN to 0."""
+    out = g.float() * act_grad(activation)(h.float())
+    if not g.dtype.is_floating_point:
+        info = torch.iinfo(g.dtype)
+        out = torch.nan_to_num(out, nan=0.0).clamp(info.min, info.max)
+        out = out.trunc()
+    return out.to(g.dtype)

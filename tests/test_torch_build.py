@@ -68,9 +68,22 @@ def test_kernel_sources_live_in_csrc():
     from repro_torch.kernels import ca_mmm, flash_attn
 
     for src in (ca_mmm.SOURCE, ca_mmm.K_OUTER_SOURCE, flash_attn.SOURCE,
-                flash_attn.FWD_SOURCE):
+                flash_attn.FWD_SOURCE, ca_mmm.DISTANCE_SOURCE):
         assert src.parent == _build.CSRC and src.exists()
     # The TMA + WGMMA main loop K1 and K4 share.
     header = _build.CSRC / "wgmma_mainloop.cuh"
     for src in (ca_mmm.SOURCE, ca_mmm.K_OUTER_SOURCE):
         assert f'#include "{header.name}"' in src.read_text()
+
+
+def test_distance_product_has_its_own_source():
+    """The distance product (K1g) is a kernel of its own: the GEMM
+    program's source no longer holds a min-plus template flag or entry
+    point, and the distance product's source includes no GEMM header."""
+    from repro_torch.kernels import ca_mmm
+
+    gemm = ca_mmm.SOURCE.read_text()
+    assert "MIN_PLUS" not in gemm and "min_plus_launch" not in gemm
+    dist = ca_mmm.DISTANCE_SOURCE.read_text()
+    assert 'extern "C" int distance_product_launch(' in dist
+    assert "#include \"" not in dist

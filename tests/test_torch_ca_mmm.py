@@ -127,7 +127,9 @@ def test_fp32_out_of_bf16_operands_matches_reference_kernel():
     ("res", {"semiring": "min_plus"}, "plain"),
     ("none", {"semiring": "min_plus", "transpose_b": True}, "plain"),
     ("none", {"semiring": "max_plus"}, "unknown semiring"),
-    ("dual(none|none)", {}, "dual"),
+    # dual programs are ported: what still raises is the reference's own
+    # contract (two branches stream the plain 'nn' layout).
+    ("dual(none|none)", {"transpose_b": True}, "multi-branch"),
 ])
 def test_unported_programs_raise(tag, kw, slice_):
     spec = program_from_tag(tag)
@@ -225,6 +227,143 @@ def test_quant_programs_match_reference_kernel(tag, blocks, m):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
                                atol=2e-3 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# Two-output dual programs, and the dequant programs with the training flags
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("save_preact", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tag", ["dual(none|none)", "dual(none|bias)"])
+def test_dual_programs_match_reference_kernel(tag, dtype, save_preact):
+    """combine='none' with two branches drains each branch's chain into
+    its own output (``tests/test_program_gemm.py``'s ragged 13 x 40 x 24),
+    and with ``save_preact`` each branch's pre-activation after them.  bf16
+    operands write fp32 here, so the sums differ only in their order:
+    1e-4."""
+    m, n, k = 13, 40, 24
+    ops_ = _operands(tag, m, n, k, dtype, seed=20)
+    jdt, tdt = jnp.dtype(dtype), TORCH_DT[dtype]
+    want = jax_program(
+        jnp.asarray(ops_["a"], jdt), [jnp.asarray(b, jdt) for b in ops_["bs"]],
+        spec=jax_from_tag(tag), bm=8, bn=128, bk=128, interpret=True,
+        out_dtype=jnp.float32, save_preact=save_preact,
+        branch_operands=[{k_: jnp.asarray(v, jnp.float32)
+                          for k_, v in d.items()} for d in ops_["branch"]])
+    got = K.ca_gemm_program(
+        torch.as_tensor(ops_["a"]).to(tdt),
+        [torch.as_tensor(b).to(tdt) for b in ops_["bs"]],
+        spec=program_from_tag(tag), out_dtype=torch.float32,
+        save_preact=save_preact,
+        branch_operands=[{k_: torch.as_tensor(v).float()
+                          for k_, v in d.items()} for d in ops_["branch"]])
+    assert isinstance(got, tuple) and len(got) == len(want) \
+        == 2 + 2 * save_preact
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (m, n)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_dual_program_keeps_the_operand_dtype():
+    """A dual program's two outputs both take A's dtype by default."""
+    spec = program_from_tag("dual(none|bias)")
+    a = torch.randn(5, 16).to(torch.bfloat16)
+    bs = [torch.randn(16, 8).to(torch.bfloat16) for _ in range(2)]
+    y0, y1 = K.ca_gemm_program(a, bs, spec=spec, branch_operands=[
+        {}, {"bias": torch.randn(8)}])
+    assert y0.dtype == y1.dtype == torch.bfloat16
+    want = K.ca_gemm_program_reference(a, bs[:1])
+    assert torch.equal(y0, want)
+
+
+# (tag, keywords, which operand the preact decorates): the dequant programs
+# with the training flags that the reference's contracts accept.
+QUANT_TRAIN = [
+    ("dqb+bias+gelu", {"save_preact": True}, None),
+    ("dqab+bias", {"save_preact": True}, None),
+    ("glu.silu(dqb|dqb)", {"save_preact": True}, None),
+    ("rms>glu.silu(dqb|dqb)", {"save_preact": True}, None),
+    ("dual(dqb|dqb+bias)", {"save_preact": True}, None),
+    ("dqb+bias+gelu", {"save_preact": True, "blocks": (128, 0)}, None),
+    ("dact.gelu>dqb", {}, "a"),
+    ("dact.silu>dqb+bias+gelu", {"save_preact": True}, "a"),
+    ("dact.gelu@b>dqb", {}, "b"),
+    ("dact.relu>dqab", {}, "a"),
+    ("dact.gelu>dqab", {"blocks": (128, 128)}, "a"),
+    ("dact.gelu@b>dqab+res", {}, "b"),
+    ("dual(dqb|dqb)", {}, None),
+    ("dual(dqab+bias|dqab)", {"blocks": (0, 128)}, None),
+]
+
+
+@pytest.mark.parametrize("m", [1, 37])
+@pytest.mark.parametrize("tag,kw,operand", QUANT_TRAIN,
+                         ids=[f"{t}{' save_preact' if kw.get('save_preact') else ''}"
+                              f"{' ' + str(kw['blocks']) if 'blocks' in kw else ''}"
+                              for t, kw, _ in QUANT_TRAIN])
+def test_quant_training_programs_match_reference_kernel(tag, kw, operand, m):
+    """The dequant programs with save_preact (each branch's fp32 value
+    after dequant and bias), the dact prologue on A or on the int8 B (and
+    on dqab's int8 A, rounded back to int8 toward zero and saturating, as
+    the reference's astype rounds) and two-output dual programs, on ragged
+    n and k, against the reference kernel at the int8 tolerance (2e-4,
+    2e-3 of max|ref|)."""
+    n, k = 200, 300
+    block_b, block_a = kw.get("blocks", (0, 0))
+    save = kw.get("save_preact", False)
+    ops_ = _quant_operands(tag, m, n, k, block_b, block_a, seed=m + 40)
+    spec = program_from_tag(tag)
+    r = np.random.RandomState(m + 41)
+    j_kw, t_kw = {}, {}
+    if operand is not None:
+        h = r.randn(*((m, k) if operand == "a" else (k, n))).astype(
+            np.float32)
+        j_kw["preact"], t_kw["preact"] = jnp.asarray(h), torch.as_tensor(h)
+    if spec.prologue.kind == "rms":
+        gain = (r.rand(k) + 0.5).astype(np.float32)
+        a32 = torch.as_tensor(ops_["a"])
+        t_kw.update(gain=torch.as_tensor(gain),
+                    row_scale=rms_row_scale(a32, 1e-5))
+        j_kw.update(gain=jnp.asarray(gain),
+                    row_scale=jnp.asarray(t_kw["row_scale"].numpy()))
+    want = jax_program(
+        jnp.asarray(ops_["a"]), [jnp.asarray(b) for b in ops_["bs"]],
+        spec=jax_from_tag(tag), bm=8 if m < 64 else 64, bn=128, bk=128,
+        interpret=True, save_preact=save,
+        branch_operands=[{k_: jnp.asarray(v) for k_, v in d.items()}
+                         for d in ops_["branch"]],
+        scale_b_block=block_b, scale_a_block=block_a, **j_kw)
+    got = K.ca_gemm_program(
+        torch.as_tensor(ops_["a"]), [torch.as_tensor(b) for b in ops_["bs"]],
+        spec=spec, save_preact=save,
+        branch_operands=[{k_: torch.as_tensor(v) for k_, v in d.items()}
+                         for d in ops_["branch"]],
+        scale_b_block=block_b, scale_a_block=block_a, **t_kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want) == spec.n_out + save * spec.n_b
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == torch.float32 and g.shape == (m, n)
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-4,
+                                   atol=2e-3 * np.abs(w).max())
+
+
+def test_dact_on_an_int8_operand_rounds_like_astype():
+    """g * act'(h) back to int8 truncates toward zero and saturates, as
+    JAX's astype does (torch's own cast would wrap 143 to -113)."""
+    from repro.kernels.program import apply_dact_reference as jax_dact
+    from repro_torch.kernels.program import apply_dact_reference
+    g = np.array([[127, -127, 5, -5, 100, 0]], np.int8)
+    h = np.array([[1.5, 1.5, 1.5, -0.3, np.nan, 2.0]], np.float32)
+    want = np.asarray(jax_dact(jnp.asarray(g), jnp.asarray(h), "gelu"))
+    got = apply_dact_reference(torch.as_tensor(g), torch.as_tensor(h),
+                               "gelu").numpy()
+    assert got.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0] == 127 and got[0, 1] == -128
 
 
 # ---------------------------------------------------------------------------
@@ -727,7 +866,7 @@ def _route(tag, layout, dtypes, m, n, k, *, semiring="plus_times",
     ("dqb", "nn", (BF16, torch.int8), 1024, 2048, 2048, {}, "wgmma"),
     ("dqab", "nn", (torch.int8,) * 2, 1024, 2048, 2048, {}, "wgmma"),
     ("none", "nn", (BF16, BF16), 1024, 2048, 2048,
-     {"semiring": "min_plus"}, "simt"),
+     {"semiring": "min_plus"}, "minplus"),
     ("none", "nn", (BF16, BF16), 1024, 2048, 2052, {}, "simt"),
     ("none", "nn", (BF16, BF16), 1024, 2048, 2048, {"misaligned": True},
      "simt"),
@@ -744,8 +883,8 @@ def test_k1_route(tag, layout, dtypes, m, n, k, kw, want):
     """wgmma for bf16 A and B, or aligned int8 programs, at m > 8 with
     TMA-aligned operands (bases and row strides on 16 bytes), one branch
     in any layout or the GLU in nn without dact; decode for the same at
-    m <= 8 (serving programs); SIMT for fp32, min_plus, a k, m or base off
-    16 bytes, and the GLU in another layout."""
+    m <= 8 (serving programs); SIMT for fp32, a k, m or base off 16
+    bytes, and the GLU in another layout; min_plus its own kernel."""
     assert _route(tag.split(" ")[0], layout, dtypes, m, n, k, **kw) == want
 
 
@@ -770,7 +909,6 @@ def test_k1_route_takes_decode_at_m_up_to_8(tag, k, n, m):
 @pytest.mark.parametrize("m", [1, 3, 8])
 @pytest.mark.parametrize("case", [
     ("none", "nn", (torch.float32,) * 2, {}),
-    ("none", "nn", (BF16, BF16), {"semiring": "min_plus"}),
     ("none", "nn", (BF16, BF16), {"misaligned": True}),
     ("none", "nt", (BF16, BF16), {}),
     ("none", "tn", (BF16, BF16), {}),
@@ -778,14 +916,51 @@ def test_k1_route_takes_decode_at_m_up_to_8(tag, k, n, m):
     ("dact.silu@b>none", "nn", (BF16, BF16), {}),
     ("bias+gelu", "nn", (BF16, BF16), {"save_preact": True}),
     (GLU, "nn", (BF16, BF16), {"save_preact": True}),
-], ids=["fp32", "min_plus", "misaligned", "nt", "tn", "dact@a", "dact@b",
+], ids=["fp32", "misaligned", "nt", "tn", "dact@a", "dact@b",
         "save_preact", "glu save_preact"])
 def test_k1_route_keeps_simt_at_m_up_to_8(case, m):
-    """fp32, min_plus, misaligned operands and the training flags (a
-    transposed layout, dact, save_preact) stay on the SIMT tile at
-    m <= 8."""
+    """fp32, misaligned operands and the training flags (a transposed
+    layout, dact, save_preact) stay on the SIMT tile at m <= 8."""
     tag, layout, dtypes, kw = case
     assert _route(tag, layout, dtypes, m, 2048, 2048, **kw) == "simt"
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 1024])
+@pytest.mark.parametrize("dtypes", [(BF16, BF16), (torch.float32,) * 2,
+                                    (torch.float32, BF16)],
+                         ids=["bf16", "fp32", "fp32 A bf16 B"])
+def test_k1_route_takes_minplus_for_the_distance_product(dtypes, m):
+    """The distance product runs its own kernel at every m and operand
+    type."""
+    assert _route("none", "nn", dtypes, m, 2048, 2048,
+                  semiring="min_plus") == "minplus"
+
+
+# Two-output dual programs and the dequant programs with a training flag
+# (launch tag, operand types, keywords): the SIMT tile at every m.
+SIMT_PROGRAMS = [
+    ("dual(none|none)", (BF16, BF16), {}),
+    ("dual(none|bias)", (BF16, BF16), {"save_preact": True}),
+    ("dual(dqb|dqb)", (BF16, torch.int8), {}),
+    ("dual(dqab|dqab)", (torch.int8, torch.int8), {}),
+    ("dqb+bias+gelu", (BF16, torch.int8), {"save_preact": True}),
+    ("dqab", (torch.int8, torch.int8), {"save_preact": True}),
+    ("rms>glu.silu(dqb|dqb)", (BF16, torch.int8), {"save_preact": True}),
+    ("dact.gelu>dqb", (BF16, torch.int8), {}),
+    ("dact.gelu@b>dqb", (BF16, torch.int8), {}),
+    ("dact.gelu>dqab", (torch.int8, torch.int8), {})]
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 128, 1000])
+@pytest.mark.parametrize("tag,dtypes,kw", SIMT_PROGRAMS,
+                         ids=[f"{t}{' save_preact' if kw else ''}"
+                              for t, _, kw in SIMT_PROGRAMS])
+def test_k1_route_takes_simt_for_dual_and_quant_training(tag, dtypes, kw, m):
+    """dual programs and dequant programs with save_preact or dact take
+    the SIMT tile at decode and prefill, aligned or not: neither the
+    decode kernel nor the wgmma kernels drain two outputs or take int8
+    with a training flag."""
+    assert _route(tag, "nn", dtypes, m, 2048, 2048, **kw) == "simt"
 
 
 I8 = torch.int8

@@ -1,7 +1,7 @@
-"""The CUDA kernels (CA-GEMM program with its distance product, paged
-decode attention, forward flash attention, the k-outer ablation) against
-their plain versions, on a card; the trainable programs' backward on the
-card against the same on the CPU.
+"""The CUDA kernels (CA-GEMM program, the distance product, paged decode
+attention, forward flash attention, the k-outer ablation) against their
+plain versions, on a card; the trainable programs' backward on the card
+against the same on the CPU.
 
 Imports neither JAX nor ``repro``, so it runs on a GPU host without JAX:
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -147,9 +147,15 @@ PAGED_CASES = {"stablelm": ([1016], 128, 8, 32, 32, 64, None),
                # 16-byte windows in two column chunks, with a window.
                "absorbed mla": ([300, 41], 16, 24, 16, 1, 576, None),
                "G64 D576": ([77, 200], 16, 24, 64, 1, 576, None),
+               # K rows past one token group's shared memory (D above
+               # ~3,300): staged in 1024-byte chunks, the wide form; 4104
+               # ends in an 8-byte chunk (8-byte copies), with a window.
+               "D4096 wide": ([300, 41], 16, 24, 8, 2, 4096, None),
+               "D4104 wide window": ([77, 130], 16, 16, 4, 2, 4104, 50),
                "D264 shifted": ([130, 45], 16, 16, 4, 2, 264, 30)}
 # Dv where it differs from D.
-PAGED_DV = {"mla D192": 128, "absorbed mla": 512, "G64 D576": 512}
+PAGED_DV = {"mla D192": 128, "absorbed mla": 512, "G64 D576": 512,
+            "D4096 wide": 256, "D4104 wide window": 264}
 POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
 
 
@@ -160,7 +166,8 @@ POOL_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "lens")
                                   "D256 window", "stablelm S4096",
                                   "ragged splits", "window splits", "len0",
                                   "repeat", "absorbed mla", "G64 D576",
-                                  "D264 shifted"])
+                                  "D264 shifted", "D4096 wide",
+                                  "D4104 wide window"])
 def test_paged_attention_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -174,6 +181,7 @@ def test_paged_attention_kernel_matches_plain_version(case, dtype):
     FA.reset_launch_counts()
     got = FA.paged_flash_attention(q, *dev(pool), window=window)
     assert FA.launch_counts == {FA.NAME: 1}
+    assert FA.route_counts == ({FA.WIDE: 1} if "wide" in case else {})
     if case in ("poisoned", "repeat"):
         # Free pages never reach the output; two identical calls give the
         # same bits (the splits merge in order, no atomics).
@@ -674,12 +682,129 @@ def test_cuda_distance_product_bit_equal(case):
     K.reset_launch_counts()
     got = ops.distance_product(a, b)
     assert K.launch_counts == {"none min_plus": 1}
+    assert K.route_counts == {"minplus none min_plus": 1}
     want = K.ca_gemm_program_reference(a, [b], semiring="min_plus")
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (m, n)
     assert _bit_equal(got, want)
     if case == "inf_nan":
         assert bool(got[6].isnan().all()) and bool(got[5].isinf().all())
+
+
+# Dims that straddle the distance product's 128 x 128 x 16 tile and its
+# 8-row staging pieces.
+STRADDLE = (1, 127, 128, 129, 4095)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", STRADDLE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_distance_product_straddles_the_tile(dtype, k):
+    """Every (m, n) of the straddling dims at this k, bit-equal, and an A
+    whose base sits 4 bytes off (the scalar loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    K.reset_launch_counts()
+    for m in STRADDLE:
+        a = torch.rand(m, k, generator=gen, device="cuda").to(dtype)
+        for n in STRADDLE:
+            b = torch.rand(k, n, generator=gen, device="cuda").to(dtype)
+            got = ops.distance_product(a, b)
+            want = K.ca_gemm_program_reference(a, [b], semiring="min_plus")
+            assert torch.equal(got, want), (m, n, k)
+    assert K.route_counts == {"minplus none min_plus": len(STRADDLE) ** 2}
+    a = torch.rand(129 * k + 1, generator=gen, device="cuda")[1:]
+    a = a.view(129, k).to(dtype)
+    b = torch.rand(k, 131, generator=gen, device="cuda").to(dtype)
+    assert torch.equal(ops.distance_product(a, b),
+                       K.ca_gemm_program_reference(a, [b],
+                                                   semiring="min_plus"))
+
+
+# F1 and F2: two-output dual programs, and the dequant programs with
+# save_preact or a dact prologue (tag, A's dtype, m, save_preact, the
+# operand dact decorates, per-tile blocks (b, a)); n = 200, k = 320.
+SIMT_FAULT_CASES = [
+    ("dual(none|none)", torch.float32, 13, False, None, (0, 0)),
+    ("dual(none|bias)", torch.float32, 130, True, None, (0, 0)),
+    ("dual(none|none)", torch.bfloat16, 130, False, None, (0, 0)),
+    ("dual(none|bias)", torch.bfloat16, 5, True, None, (0, 0)),
+    ("dual(dqb|dqb+bias)", torch.bfloat16, 130, True, None, (0, 0)),
+    ("dual(dqab|dqab)", torch.int8, 8, False, None, (0, 128)),
+    ("dqb+bias+gelu", torch.bfloat16, 37, True, None, (0, 0)),
+    ("dqb+bias+gelu", torch.float32, 130, True, None, (128, 0)),
+    ("rms>glu.silu(dqb|dqb)", torch.bfloat16, 130, True, None, (0, 0)),
+    ("dact.gelu>dqb", torch.bfloat16, 37, False, "a", (0, 0)),
+    ("dact.gelu@b>dqb", torch.bfloat16, 130, False, "b", (0, 0)),
+    ("dact.gelu>dqab", torch.int8, 130, False, "a", (128, 128)),
+    ("dact.silu@b>dqab+res", torch.int8, 1, False, "b", (0, 0)),
+    ("dqab+bias", torch.int8, 130, True, None, (0, 0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SIMT_FAULT_CASES,
+                         ids=[f"{c[0]} {str(c[1])[6:]} m={c[2]}"
+                              for c in SIMT_FAULT_CASES])
+def test_cuda_dual_and_quant_training_programs_match_plain_version(case):
+    """Each launch on the SIMT tile, every output (both branches of a dual
+    program, the saved pre-activations) against the plain version: float
+    programs to their summation order (fp32 1e-4; a bf16 output one ulp),
+    dequant ones at the int8 tolerance, 2e-3 of max|ref|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tag, adt, m, save, operand, (gb, ga) = case
+    n, k = 200, 320
+    spec = program_from_tag(tag)
+    deq = spec.branches[0].dequant
+    r = np.random.RandomState(m + n)
+    dev = lambda x, dt=torch.float32: torch.as_tensor(x).to("cuda", dt)  # noqa: E731
+    i8 = lambda *sh: dev(r.randint(-127, 128, sh), torch.int8)  # noqa: E731
+    a = i8(m, k) if adt == torch.int8 else dev(r.randn(m, k), adt)
+    bs = [i8(k, n) if deq != "none" else dev(r.randn(k, n) / np.sqrt(k), adt)
+          for _ in spec.branches]
+    sa = dev(r.rand(-(-k // ga) if ga else m) * 0.05 + 0.01)
+    ops_ = []
+    for b in spec.branches:
+        d = {}
+        if deq != "none":
+            d["scale_b"] = dev(r.rand(*((-(-k // gb), n) if gb else (n,)))
+                               * 0.01 + 1e-3)
+        if deq == "ab":
+            d["scale_a"] = sa
+        if b.has_bias:
+            d["bias"] = dev(r.randn(n))
+        if b.has_residual:
+            d["residual"] = dev(r.randn(m, n))
+        ops_.append(d)
+    kw = {"spec": spec, "save_preact": save, "branch_operands": ops_,
+          "scale_b_block": gb, "scale_a_block": ga}
+    if operand is not None:
+        kw["preact"] = dev(r.randn(*((m, k) if operand == "a" else (k, n))))
+    if spec.prologue.kind == "rms":
+        kw["gain"] = dev(r.rand(k) + 0.5)
+        kw["row_scale"] = rms_row_scale(a, 1e-5)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    key = K.launch_key(tag, "nn", save)
+    assert K.route_counts == {f"simt {key}": 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want) == spec.n_out + save * spec.n_b
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == (m, n)
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        if g.dtype == torch.bfloat16:
+            tol = 2e-2 * scale
+        elif deq != "none":
+            tol = 2e-3 * scale
+        else:
+            tol = 1e-4 * (1 + scale)
+        assert err <= tol, (err, tol)
 
 
 # ---------------------------------------------------------------------------

@@ -64,13 +64,16 @@ def test_paged_attention_48_query_heads_per_kv_head(window):
 
 
 @pytest.mark.parametrize("window", [None, 5], ids=["causal", "sliding"])
-@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 256), (576, 512)],
-                         ids=["mla-D192-Dv128", "D256", "absorbed-mla"])
+@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 256), (576, 512),
+                                  (4096, 256)],
+                         ids=["mla-D192-Dv128", "D256", "absorbed-mla",
+                              "D4096"])
 def test_paged_attention_wide_head_dims_match_reference_kernel(D, Dv, window):
     """Head dims above 128, which the card takes in one launch:
-    deepseek-v2-lite's MLA head (D = 192, Dv = 128), D = Dv = 256, and its
+    deepseek-v2-lite's MLA head (D = 192, Dv = 128), D = Dv = 256, its
     absorbed form (D = 576, Dv = 512: two 256-wide column chunks on the
-    card), GQA 2, ragged lengths over a few pages."""
+    card) and D = 4096 (K rows in 1024-byte chunks on the card), GQA 2,
+    ragged lengths over a few pages."""
     Hkv, page = 2, 8
     pool = random_pool(7, [19, 27], page=page, n_pages=8, Hkv=Hkv, D=D,
                        Dv=Dv)
@@ -198,6 +201,7 @@ def test_paged_plan_holds_the_whole_group(G, D, Dv):
     scored once), within shared memory and 8 warps."""
     plan = FA.paged_plan(G, D, Dv)
     assert (plan.group, plan.chunks, plan.dvc, plan.vchunks) == (G, 1, Dv, 1)
+    assert plan.dkc == D          # whole K rows: the plan it always had
     assert plan.smem == FA.paged_smem_bytes(G, D, Dv, False, plan.ng)
     assert plan.smem <= FA.PAGED_SMEM
     wh, _, _, ng = FA._paged_shape(G)
@@ -207,8 +211,10 @@ def test_paged_plan_holds_the_whole_group(G, D, Dv):
 def test_paged_plan_chunks_a_group_past_64_and_refuses_what_cannot_fit():
     assert FA.paged_plan(128, 128, 128).group == 64
     assert FA.paged_plan(71, 128, 128).group == 36
+    # What cannot fit now is a head whose fp32 query row alone outgrows a
+    # CTA's shared memory (K rows of any length go in chunks).
     with pytest.raises(ValueError, match="does not fit"):
-        FA.paged_plan(1, 4096, 256)
+        FA.paged_plan(1, 60000, 256)
 
 
 @pytest.mark.parametrize("G,D,Dv,shift", [
@@ -222,6 +228,7 @@ def test_paged_plan_fits_large_head_dims(G, D, Dv, shift):
     so the card computes every shape the reference does (deepseek-v2's
     absorbed MLA head, D = 576 and Dv = 512, among them)."""
     plan = FA.paged_plan(G, D, Dv, shift)
+    assert plan.dkc == D          # whole K rows: the plan it always had
     assert plan.smem == FA.paged_smem_bytes(plan.group, D, plan.dvc, shift,
                                             plan.ng)
     assert plan.smem <= FA.PAGED_SMEM
@@ -233,6 +240,56 @@ def test_paged_plan_fits_large_head_dims(G, D, Dv, shift):
     assert plan.vchunks == 1 or plan.dvc % 16 == 0
     if (G, D, Dv) == (16, 576, 512):
         assert (plan.group, plan.dvc, plan.vchunks) == (16, 256, 2)
+
+
+# The plans PR 20's kernel took, field for field (group, chunks, ng, dvc,
+# vchunks, smem): a head dim whose K row fits keeps its plan exactly.
+KEPT_PLANS = {(1, 64, 64, False): (1, 1, 4, 64, 1, 46224),
+              (4, 120, 120, True): (4, 1, 4, 120, 1, 84080),
+              (48, 128, 128, False): (48, 1, 1, 128, 1, 84176),
+              (1, 192, 128, False): (1, 1, 4, 128, 1, 96144),
+              (16, 576, 512, False): (16, 1, 2, 256, 2, 171232),
+              (1, 3000, 3000, False): (1, 1, 1, 256, 12, 226016)}
+
+
+@pytest.mark.parametrize("key", list(KEPT_PLANS), ids=str)
+def test_paged_plan_keeps_the_plans_of_whole_rows(key):
+    plan = FA.paged_plan(*key)
+    assert tuple(plan)[:6] == KEPT_PLANS[key] and plan.dkc == key[1]
+
+
+@pytest.mark.parametrize("G,D,Dv,shift", [
+    (1, 4096, 256, False), (8, 8192, 256, False), (1, 3400, 256, False),
+    (2, 4104, 264, True), (64, 4096, 4096, False), (3, 5000, 40, False)])
+def test_paged_plan_stages_long_k_rows_in_chunks(G, D, Dv, shift):
+    """A K row too long for one token group of one head (D above ~3,300)
+    gets a wide plan: K staged in 1024-byte chunks (whole 16-byte units,
+    unshifted), within shared memory, the group and columns cut only as
+    far as the query rows force."""
+    plan = FA.paged_plan(G, D, Dv, shift)
+    assert plan.dkc == FA.PAGED_WIDE_CHUNK < D and plan.dkc % 16 == 0
+    assert plan.smem == FA.paged_smem_bytes(plan.group, D, plan.dvc, False,
+                                            plan.ng, plan.dkc)
+    assert plan.smem <= FA.PAGED_SMEM
+    wh, _, _, ng = FA._paged_shape(plan.group)
+    assert 1 <= plan.ng <= ng and wh * plan.ng <= 8
+    assert plan.chunks == -(-G // plan.group) and plan.dvc <= 256
+    # The issue's shapes: one head of D = 4096 whole in one CTA, and eight
+    # heads of D = 8192 in two CTAs (their fp32 query rows, 32 KB each).
+    if (G, D) == (1, 4096):
+        assert (plan.group, plan.dvc, plan.vchunks) == (1, 256, 1)
+    if (G, D) == (8, 8192):
+        assert (plan.group, plan.chunks, plan.vchunks) == (4, 2, 1)
+
+
+def test_wide_plans_keep_the_narrow_form_below_the_threshold():
+    """The largest D whose K row one token group of one head can stage
+    keeps whole rows; the next 16 bytes take chunks."""
+    D = 16
+    while FA.paged_plan(1, D + 16, 256).dkc == D + 16:
+        D += 16
+    assert 3000 < D < 3600
+    assert FA.paged_plan(1, D + 16, 256).dkc == FA.PAGED_WIDE_CHUNK
 
 
 @pytest.mark.parametrize("D,Dv,Hkv,aligned,want", [

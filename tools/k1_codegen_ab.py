@@ -29,9 +29,12 @@ WGMMA route (its SIMT kernels take the ``k1g`` flags, and its
 ``ca_gemm_wgmma_kernel`` instantiations are the only ones it has alone),
 ``decode`` for one that also has the split-k decode route (route 2;
 its ``ca_gemm_decode_kernel`` instantiations are compared where both
-builds have them), and ``int8wg`` for one that also takes the int8
-programs at m > 8 on the wgmma route (``ca_gemm_wgmma_int8_kernel``, its
-own; this tree).  A ``wgmma``, ``decode`` or ``int8wg`` build runs the
+builds have them), ``int8wg`` for one that also takes the int8
+programs at m > 8 on the wgmma route (``ca_gemm_wgmma_int8_kernel``,
+compared where both builds have it), and ``k1gown`` for one whose
+distance product is a source of its own (this tree): its SIMT kernels
+drop the ``MIN_PLUS`` flag again (the ``train`` build's terms), and its
+C entry point takes an 18th pointer, a dual program's second output.  A ``wgmma``, ``decode`` or ``int8wg`` build runs the
 m = 128 shapes on its wgmma route, and a ``decode`` or ``int8wg`` build
 the m = 1 shapes on its decode route, so where the two builds' routes
 differ the outputs are compared within bf16's rounding (one output ulp,
@@ -45,7 +48,7 @@ flag on its SIMT kernels, dropped where it is false, and the ``WIDE``
 instantiations are its own.  Run from the repository root
 on the card::
 
-    python3 tools/k1_codegen_ab.py A.cu:decode B.cu:int8wg --out DIR \
+    python3 tools/k1_codegen_ab.py A.cu:int8wg B.cu:k1gown --out DIR \
         [--attn OLD_CSRC_DIR src/repro_torch/csrc]
 
 The SASS of the compared functions is written under ``--out``.
@@ -75,10 +78,14 @@ TILES = {"8x16x128": "8, 16, 128, 1, 1", "64x64x32": "64, 64, 32, 4, 4"}
 # VEC_B, TRAIN (and MIN_PLUS).
 ABIS = {"train": "true, false", "k1g": "true, false, false",
         "wgmma": "true, false, false", "decode": "true, false, false",
-        "int8wg": "true, false, false"}
-# The ABIs with a wgmma route, and those with a decode route too.
-WGMMA_ABIS = {"wgmma", "decode", "int8wg"}
-DECODE_ABIS = {"decode", "int8wg"}
+        "int8wg": "true, false, false", "k1gown": "true, false"}
+# The ABIs with a wgmma route, those with a decode route too, those with
+# the int8 wgmma kernel, and those whose SIMT kernels carry no MIN_PLUS
+# flag.
+WGMMA_ABIS = {"wgmma", "decode", "int8wg", "k1gown"}
+DECODE_ABIS = {"decode", "int8wg", "k1gown"}
+INT8WG_ABIS = {"int8wg", "k1gown"}
+FLAGLESS_ABIS = {"train", "k1gown"}
 # The attention kernels compared by --attn, and the template flag the
 # newer ones carry.
 ATTN_SOURCES = ("paged_flash_attn.cu", "flash_attn_fwd.cu")
@@ -160,18 +167,21 @@ def common_name(demangled: str, abi: str, other: str) -> str:
     """A kernel's demangled name in the terms the two builds share
     (``other`` is the other build's ABI); None for a kernel only this build
     can have.  The wgmma route's kernels are compared where both builds
-    have the route; the decode route's are only in a ``decode`` build.
-    ``k1g`` and ``wgmma`` builds carry one more template flag
-    (``MIN_PLUS``) after ``TRAIN``: against a ``train`` build it is
-    dropped, and the ``MIN_PLUS`` instantiation has no counterpart."""
+    have the route, the decode route's and the int8 wgmma kernel's where
+    both have theirs.  ``k1g`` to ``int8wg`` builds carry one more
+    template flag (``MIN_PLUS``) after ``TRAIN``: against a ``train`` or
+    ``k1gown`` build it is dropped, and the ``MIN_PLUS`` instantiation has
+    no counterpart."""
     if "ca_gemm_wgmma_kernel" in demangled:
         both = {abi, other} <= WGMMA_ABIS
         return demangled if both else None
+    if "ca_gemm_wgmma_int8_kernel" in demangled:
+        return demangled if {abi, other} <= INT8WG_ABIS else None
     if "ca_gemm_decode_kernel" in demangled:
         return demangled if {abi, other} <= DECODE_ABIS else None
     if "ca_gemm_program_kernel" not in demangled:
         return None
-    if abi == "train" or other != "train":
+    if abi in FLAGLESS_ABIS or other not in FLAGLESS_ABIS:
         return demangled
     if ", true>(" in demangled:
         return None
@@ -194,8 +204,9 @@ class Entry:
     def __init__(self, lib: pathlib.Path, abi: str):
         self.routed = abi in WGMMA_ABIS
         self.decode = abi in DECODE_ABIS
+        self.dual = abi == "k1gown"       # the 18th pointer, out1
         self.fn = ctypes.CDLL(str(lib)).ca_gemm_program_launch
-        self.fn.argtypes = ([ctypes.c_void_p] * 17
+        self.fn.argtypes = ([ctypes.c_void_p] * (18 if self.dual else 17)
                             + [ctypes.c_int] * (20 if self.routed else 19)
                             + [ctypes.c_void_p])
         self.fn.restype = ctypes.c_int
@@ -217,7 +228,8 @@ class Entry:
         flags = [int(gain is not None and gain.dtype == torch.float32), 0,
                  0, 0, 0, 0, glu_act]      # gain, bias, mul, res, out, act
         # No preact or save_preact outputs, no scales, nn, no dact.
-        args = (ptrs + [None] * 7 + [m, n, k, 1, 1] + flags
+        args = (ptrs + [None] * (8 if self.dual else 7) + [m, n, k, 1, 1]
+                + flags
                 + [0, 0, 0] + [0, 0, 0, 0])
         if self.routed:
             args += [self.route(m)]

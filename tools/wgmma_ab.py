@@ -5,12 +5,20 @@ default tile and 256 x 256 x 128) and K1a at 4096^3 (``chip_smoke.py``'s
 shapes); the forward programs of stablelm-1.6b and h2o-danube-3-4b at
 decode (m = 1); K1d and K1e (int8w, w8a8) of stablelm-1.6b at m = 1, 128
 and 1000; K3, forward flash attention, in bf16 at ``chip_smoke.py``'s
-timed shapes; and K2, the paged decode attention, at its timed shapes.
+timed shapes; K2, the paged decode attention, at its timed shapes; and
+K1g, the distance product, at 4096^3 in fp32 and bf16 and on a ragged
+shape, with the SM clock and board power nvidia-smi reads while each
+version's 4096^3 fp32 product runs (``chip_smoke.sustained_clock``).
 
 Version A is a directory holding ``ca_gemm_program.cu``,
-``ca_mmm_k_outer.cu``, ``flash_attn_fwd.cu``, ``paged_flash_attn.cu`` and
-the ``wgmma_mainloop.cuh`` they include; version B is another such
-directory (``--new``) or the tree's ``src/repro_torch/csrc``.  A version
+``ca_mmm_k_outer.cu``, ``flash_attn_fwd.cu``, ``paged_flash_attn.cu``,
+``distance_product.cu`` (where the distance product has a source of its
+own; before, it is ``ca_gemm_program.cu``'s ``ca_gemm_min_plus_launch``)
+and the ``wgmma_mainloop.cuh`` they include; version B is another such
+directory (``--new``) or the tree's ``src/repro_torch/csrc``.  A GEMM
+entry point without the dual programs' second output, or a K2 entry
+point without the plan's K chunk (``dkc``), is called with that argument
+dropped.  A version
 whose GEMM source has no decode route runs the m = 1 programs on its SIMT
 tile (one without the int8 decode route its int8 ones at m = 1, one
 without the int8 wgmma route its int8 ones at m > 8), one whose K3
@@ -22,7 +30,8 @@ runs once on both to compare outputs (bit-equal, and each one's max
 |error| against the plain version where it has one), then is timed by
 CUDA-graph replay (``chip_smoke._time_ms``) in the order A, B, B, A for
 two rounds.  One JSON line per case; ``--only K3`` keeps the cases whose
-name holds any of the given words.  Run from the repository root on the
+name holds any of the given words (``--only K1g`` builds no GEMM source
+but the parent's, which holds its min-plus kernel).  Run from the repository root on the
 card::
 
     python3 tools/wgmma_ab.py OLD_CSRC_DIR [--new NEW_CSRC_DIR] [--only K3]
@@ -51,7 +60,13 @@ import chip_smoke as CS  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
+from repro_torch.kernels import ops as OPS  # noqa: E402
 from repro_torch.kernels.program import program_from_tag  # noqa: E402
+
+# K1g's cases: (name, m, k, n, dtype).
+K1G_CASES = [("K1g 4096^3 fp32", 4096, 4096, 4096, torch.float32),
+             ("K1g 4096^3 bf16", 4096, 4096, 4096, torch.bfloat16),
+             ("K1g ragged 1000x333x777 fp32", 1000, 333, 777, torch.float32)]
 
 
 def cases(gen):
@@ -118,6 +133,12 @@ def cases(gen):
                         FA.flash_attention(q, k, v, **kw), 1,
                     lambda q=q, k=k, v=v, kw=kw:
                         FA.flash_attention_reference(q, k, v, **kw)))
+    for name, m, k, n, dtype in K1G_CASES:
+        a = torch.rand(m, k, generator=gen, device="cuda").to(dtype)
+        b = torch.rand(k, n, generator=gen, device="cuda").to(dtype)
+        out.append((name, lambda i, a=a, b=b: OPS.distance_product(a, b), 1,
+                    lambda a=a, b=b: K.ca_gemm_program_reference(
+                        a, [b], semiring="min_plus")))
     for name in CS.ATTN_TIMED:
         lens, page, H, Hkv, D, window = CS.ATTN_CASES[name]
         (pool,), tables, lens_t, _ = CS.attn_pool(
@@ -186,11 +207,77 @@ def _k2_without_plan(source: pathlib.Path):
     return launch
 
 
+class _Dropped:
+    """An older build's entry point called with this tree's arguments: the
+    one at ``index``, which the older build does not take, dropped."""
+
+    def __init__(self, fn, index: int):
+        self.fn, self.index = fn, index
+
+    def __call__(self, *args):
+        return self.fn(*args[:self.index], *args[self.index + 1:])
+
+
+def _bind_old_gemm(lib):
+    """An older GEMM build's entry points: the program launch without
+    ``out1``, and the min-plus launch the distance product had there."""
+    fn = lib.ca_gemm_program_launch
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 20
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    if hasattr(lib, "ca_gemm_min_plus_launch"):
+        fn = lib.ca_gemm_min_plus_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+
+class _Lib:
+    """An older GEMM build seen through this tree's entry point."""
+
+    def __init__(self, lib):
+        self.ca_gemm_program_launch = _Dropped(lib.ca_gemm_program_launch, 17)
+
+
+def _gemm_library(gemm: pathlib.Path):
+    """K._library for the GEMM source ``gemm``, older entry points too."""
+    if "void* out1" in gemm.read_text():
+        return lambda: _build.load(gemm, K._bind)
+    return lambda: _Lib(_build.load(gemm, _bind_old_gemm))
+
+
+def _distance_entry(d: pathlib.Path):
+    """K._distance_entry for the sources in ``d``: its own source's entry,
+    or (before it had one) the GEMM source's ``ca_gemm_min_plus_launch``,
+    which takes the same arguments."""
+    own = d / "distance_product.cu"
+    if own.exists():
+        return lambda: _build.load(own, K._bind_distance).distance_product_launch
+    return lambda: _build.load(d / "ca_gemm_program.cu",
+                               _bind_old_gemm).ca_gemm_min_plus_launch
+
+
+def _paged_entry(paged: pathlib.Path):
+    """FA._paged_entry for the K2 source ``paged``: one without the plan's
+    K chunk is called with ``dkc`` dropped."""
+    if "int dkc" in paged.read_text():
+        return lambda: _build.load(paged, FA._bind).paged_flash_attn_launch
+
+    def bind(lib):
+        fn = lib.paged_flash_attn_launch
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_float] + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lambda: _Dropped(_build.load(paged, bind).paged_flash_attn_launch,
+                            25)
+
+
 def _takes_int8_decode(gemm: pathlib.Path, k1_route) -> bool:
     """Whether the GEMM build of ``gemm`` has the int8 decode route: it
     launches a small dqb program at m = 1 there, or its entry point
     refuses the route (an error returned before any launch)."""
-    K._library = lambda: _build.load(gemm, K._bind)
+    K._library = _gemm_library(gemm)
     K.k1_route = k1_route
     gen = torch.Generator(device="cuda").manual_seed(0)
     a, sets, kw, ops = CS.quant_inputs("dqb", 1, 64, 64, torch.bfloat16, gen)
@@ -220,8 +307,8 @@ def main():
     kept = [c for c in cases(gen)
             if not args.only or any(w in c[0] for w in args.only)]
     # The GEMM build is probed (and so compiled) only for GEMM cases.
-    gemm_cases = any(not c[0].startswith(("K2", "K3")) for c in kept) \
-        or args.prefill
+    gemm_cases = any(not c[0].startswith(("K1g", "K2", "K3"))
+                     for c in kept) or args.prefill
     builds = {}
     for tag, d in (("A", args.old_csrc), ("B", args.new)):
         d = d.resolve()
@@ -229,6 +316,7 @@ def main():
         paged = d / "paged_flash_attn.cu"
         builds[tag] = dict(
             gemm=gemm, k4=d / "ca_mmm_k_outer.cu", fwd=fwd, paged=paged,
+            dist=_distance_entry(d), paged_entry=_paged_entry(paged),
             decode="ROUTE_DECODE" in gemm.read_text(),
             int8_wgmma="ca_gemm_wgmma_int8_kernel" in gemm.read_text(),
             fwd_routed="int route," in fwd.read_text(),
@@ -260,7 +348,9 @@ def main():
 
     def use(tag):
         b = builds[tag]
-        K._library = lambda: _build.load(b["gemm"], K._bind)
+        K._library = _gemm_library(b["gemm"])
+        K._distance_entry = b["dist"]
+        FA._paged_entry = b["paged_entry"]
         K.K_OUTER_SOURCE = b["k4"]
         K.k1_route = routed(b)
         FA.FWD_SOURCE = b["fwd"]
@@ -286,7 +376,8 @@ def main():
                 errs[tag] = [(g.double() - w.double()).abs().max().item()
                              for g, w in zip(outs[tag], want)]
         times = {"A": [], "B": []}
-        slow = (name.startswith(("K4", "K1a")) or name == "K3 stablelm S4096"
+        slow = (name.startswith(("K4", "K1a", "K1g 4096"))
+                or name == "K3 stablelm S4096"
                 or ("dq" in name and name.endswith("m=1000")))
         iters = 5 if slow else 20
         for _ in range(2):
@@ -294,12 +385,20 @@ def main():
                 use(tag)
                 times[tag].append(CS._time_ms(fn, copies, iters=iters,
                                               reps=4))
-        print("ab " + json.dumps({
+        record = {
             "case": name,
             "bit_equal": all(torch.equal(p, q)
                              for p, q in zip(outs["A"], outs["B"])),
             "max_abs_err": errs, "A_ms": sorted(times["A"]),
-            "B_ms": sorted(times["B"])}), flush=True)
+            "B_ms": sorted(times["B"])}
+        if name == K1G_CASES[0][0]:
+            # The clock each version's kernel holds, and its power.
+            for tag in "AB":
+                use(tag)
+                ghz, watts, samples = CS.sustained_clock(lambda: fn(0))
+                record[f"{tag}_held_ghz"] = ghz
+                record[f"{tag}_held_w"] = watts
+        print("ab " + json.dumps(record), flush=True)
     if args.prefill:
         prefill_ab(use)
 
