@@ -128,6 +128,30 @@ Phases (any failure raises and the script exits non-zero):
    (the k-inner kernel, same shape, wgmma route), torch.matmul and both
    schedules' device-memory traffic by the reference's formula.
 
+14. architectures: K1 on the new programs and shapes against its plain
+   version, routes asserted (granite-20b's rms-prologue GELU w_up at
+   m = 1, 37, 128, k 6144, n 24576; deepseek-v2-lite's expert GLU and
+   down projection at its capacity rows m = 8 and 16; MLA's wkv_a, n =
+   576 and 288, and minicpm3's q-LoRA projections; mixtral's expert GLU
+   at m = 8).  Then, one model on the card at a time, full width, random
+   weights from seed 0, bf16: granite-20b (52 layers), deepseek-v2-lite-
+   16b (27), minicpm3-4b (62) and mixtral-8x7b (8 of its 32 layers: 93 GB
+   in bf16 does not fit) serve prompts of 128, 37 and 8 tokens (mixtral
+   also 4200, past its 4096-token window), 16 new tokens each, through
+   ServeEngine on the slab cache; granite and mixtral also with
+   paged_kv=True.  Every forward step's K1 launches by route and program
+   (313 / 3592 / 373 / 161 a step; the routed experts at their capacity
+   rows), K2's (one a layer a paged decode step, none in prefill), slab vs
+   paged prefill logits bit-equal and greedy tokens up to a near tie, one
+   K2 call of the run replayed against its plain version; decode and
+   prefill times, torch.profiler's split of 8 decode steps, peak memory
+   beside the card's and the weight-byte bound (deepseek also with only
+   its active experts).  Each arch at full width and 2 layers (minicpm3
+   4) is held against the CPU's plain path (prefill logits, greedy tokens
+   up to a near tie).  Last, the new shapes' times.
+   ``python3 chip_smoke.py --only archs [ARCH ...]`` runs the card and
+   build phases and this one alone (no kernels line, no result).
+
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -381,7 +405,7 @@ def card():
     return line
 
 
-def build():
+def build(sources=None):
     phase("build")
 
     def timed(src):
@@ -389,8 +413,8 @@ def build():
         return _build.build(src), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (K.SOURCE, K.DISTANCE_SOURCE, FA.SOURCE, FA.FWD_SOURCE,
-               K.K_OUTER_SOURCE)
+    sources = sources or (K.SOURCE, K.DISTANCE_SOURCE, FA.SOURCE,
+                          FA.FWD_SOURCE, K.K_OUTER_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
     for path, seconds in built:
@@ -436,28 +460,35 @@ def parity():
     cases += [(tag, "ragged", 5, 300, 200, None, torch.float32)
               for tag in ("none", "res", GLU)]
     for tag, name, m, k, n, od, dtype in cases:
-        a, (bs,), kw = program_inputs(tag, m, k, n, dtype, gen)
-        before = dict(K.route_counts)
-        got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
-        check_routes(f"{tag} {name} m={m}", route_delta(before),
-                     {f"{want_route(dtype, m)} {tag}": 1})
-        want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
-        torch.cuda.synchronize()
-        if got.shape != (m, n) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{tag} {name} m={m}: bad output")
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        # fp32 output (the head, the ragged case) differs from the plain
-        # version only in summation order; bf16 output may flip one ulp.
-        tol = TOL_F32 * (1 + scale) if (od or dtype) == torch.float32 \
-            else TOL_BF16 * scale
-        print(f"parity {tag:24s} {name:14s} m={m:<4d} k={k:<5d} n={n:<6d} "
-              f"{str(dtype)[6:]:8s} max_abs_err={err:.3e} tol={tol:.3e}")
-        if not err <= tol:
-            raise AssertionError(f"{tag} {name} m={m}: kernel disagrees "
-                                 f"with the plain version ({err} > {tol})")
+        err = check_program(tag, name, m, k, n, od, dtype, gen)
         worst[tag] = max(worst.get(tag, 0.0), err)
     return worst
+
+
+def check_program(tag, name, m, k, n, od, dtype, gen):
+    """One program call on the kernel against its plain version on the
+    same operands, its K1 route asserted; returns the max abs error."""
+    a, (bs,), kw = program_inputs(tag, m, k, n, dtype, gen)
+    before = dict(K.route_counts)
+    got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
+    check_routes(f"{tag} {name} m={m}", route_delta(before),
+                 {f"{want_route(dtype, m)} {tag}": 1})
+    want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
+    torch.cuda.synchronize()
+    if got.shape != (m, n) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{tag} {name} m={m}: bad output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    # fp32 output (the head, the ragged case) differs from the plain
+    # version only in summation order; bf16 output may flip one ulp.
+    tol = TOL_F32 * (1 + scale) if (od or dtype) == torch.float32 \
+        else TOL_BF16 * scale
+    print(f"parity {tag:24s} {name:14s} m={m:<4d} k={k:<5d} n={n:<6d} "
+          f"{str(dtype)[6:]:8s} max_abs_err={err:.3e} tol={tol:.3e}")
+    if not err <= tol:
+        raise AssertionError(f"{tag} {name} m={m}: kernel disagrees "
+                             f"with the plain version ({err} > {tol})")
+    return err
 
 
 def attn_pool(lens, page, Hkv, D, gen, *, extra_pages=0, copies=1,
@@ -693,6 +724,28 @@ def serve_both(cfg, prompts, max_len, profile=False):
         if run["k2"] != want_k2:
             raise AssertionError(f"{label}: K2 launches {run['k2']}, "
                                  f"expected {want_k2} (none in prefill)")
+    check_slab_vs_paged(cfg, runs)
+    e2e = []
+    for r, rp in zip(reqs, runs[True]["reqs"]):
+        row = {"uid": r.uid, "prompt": len(r.prompt),
+               "slab_prefill_ms": r.prefill_s * 1e3,
+               "paged_prefill_ms": rp.prefill_s * 1e3,
+               "slab_decode_ms_per_token":
+                   r.decode_s * 1e3 / (r.max_new_tokens - 1),
+               "paged_decode_ms_per_token":
+                   rp.decode_s * 1e3 / (rp.max_new_tokens - 1)}
+        e2e.append(row)
+        print(f"{cfg.name} " + json.dumps(row))
+    return (runs[True]["k2"][FA.NAME], call_err, e2e, split, paged_profile,
+            runs[True]["routes"])
+
+
+def check_slab_vs_paged(cfg, runs):
+    """The slab run's and the paged run's prefill logits bit-equal (both
+    attend over the unquantized prompt k/v), and their greedy tokens equal
+    up to a near tie at the first disagreement (decode attention reads
+    int8 pages on the paged path)."""
+    reqs = runs[False]["reqs"]
     slab, paged = runs[False]["rec"], runs[True]["rec"]
     for r, a, b in zip(reqs, slab.prefill, paged.prefill):
         if not torch.equal(a, b):
@@ -714,23 +767,69 @@ def serve_both(cfg, prompts, max_len, profile=False):
             limit = 2 * TOL_MODEL * row.abs().max().item()
             print(f"first disagreement at token {i}: slab logit gap "
                   f"{gap:.4e} (limit {limit:.4e})")
-            if not gap <= limit:
+            if not gap <= limit and not router_near_tie(
+                    cfg, runs, off, off + i):
                 raise AssertionError("slab and paged greedy tokens disagree "
                                      "beyond a near tie")
         off += r.max_new_tokens
-    e2e = []
-    for r, rp in zip(reqs, runs[True]["reqs"]):
-        row = {"uid": r.uid, "prompt": len(r.prompt),
-               "slab_prefill_ms": r.prefill_s * 1e3,
-               "paged_prefill_ms": rp.prefill_s * 1e3,
-               "slab_decode_ms_per_token":
-                   r.decode_s * 1e3 / (r.max_new_tokens - 1),
-               "paged_decode_ms_per_token":
-                   rp.decode_s * 1e3 / (rp.max_new_tokens - 1)}
-        e2e.append(row)
-        print(f"{cfg.name} " + json.dumps(row))
-    return (runs[True]["k2"][FA.NAME], call_err, e2e, split, paged_profile,
-            runs[True]["routes"])
+
+
+def router_near_tie(cfg, runs, first, last):
+    """For an MoE arch whose runs recorded their routing: whether the
+    first routed choice that differs between the slab and the paged run,
+    over forward steps ``first``..``last``, was a near tie in the slab
+    run (the probabilities of the two swapped experts within 2 TOL_MODEL
+    of that token's top probability).  Past a flipped choice the two runs
+    compute different expert outputs, so their logits may differ by more
+    than the prefill tolerance; the flip itself is what must be a tie."""
+    if cfg.moe is None or "routing" not in runs[False]:
+        return False
+    L = cfg.n_layers
+    slab, paged = runs[False]["routing"], runs[True]["routing"]
+    for call in range(first * L, (last + 1) * L):
+        (pa, ia), (_, ib) = ((t.cpu() for t in c)
+                             for c in (slab[call], paged[call]))
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        if not bool(diff.any()):
+            continue
+        t = tuple(int(x) for x in diff.nonzero()[0])
+        p = pa[t]
+        swapped_out = sorted(set(ia[t].tolist()) - set(ib[t].tolist()))
+        swapped_in = sorted(set(ib[t].tolist()) - set(ia[t].tolist()))
+        gap = (p[swapped_out].min() - p[swapped_in].max()).item()
+        limit = 2 * TOL_MODEL * p.max().item()
+        print(f"first routing flip at forward step {call // L}, layer "
+              f"{call % L}, token {t}: experts {swapped_out} -> "
+              f"{swapped_in}, slab probability gap {gap:.4e} (limit "
+              f"{limit:.4e})")
+        return gap <= limit
+    print("no routing flip before the disagreement")
+    return False
+
+
+class RouteRecorder:
+    """While active, keeps every MoE layer's routing (its fp32 router
+    probabilities, recomputed beside the layer's own, and top-k expert
+    ids) in call order, on the device: no read to the host in the step."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+
+        self.calls, self._mod = [], MOE
+        self._orig = MOE.route
+
+        def route(x, router, cfg):
+            top_i, top_w, aux = self._orig(x, router, cfg)
+            probs = torch.softmax(torch.einsum(
+                "bld,de->ble", x.float(), router.float()), dim=-1)
+            self.calls.append((probs, top_i))
+            return top_i, top_w, aux
+
+        MOE.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._orig
 
 
 def serve_slice(cfg):
@@ -1000,7 +1099,8 @@ def card_vs_cpu(p_gpu, p_cpu, cfg4, label=""):
         # Past the first disagreement the two runs decode different
         # sequences; at it, the card's pick must be a near tie on the CPU.
         i = next(j for j, (a, b) in enumerate(zip(*outs)) if a != b)
-        seq = torch.as_tensor(np.concatenate([prompt, outs[1][:i]]))[None]
+        seq = torch.as_tensor(np.concatenate(
+            [prompt, np.asarray(outs[1][:i], dtype=prompt.dtype)]))[None]
         with torch.inference_mode():
             row, _ = M.prefill(p_cpu, {"tokens": seq}, cfg4, max_len=32)
         row = row[0, -1, :cfg4.vocab_size]
@@ -2545,9 +2645,367 @@ def k_outer_phase():
     return {"launches": calls, "max_abs_err": worst, "row": row}
 
 
-def main():
+# ---------------------------------------------------------------------------
+# The other architectures on the serve path: granite-20b, deepseek-v2-lite-
+# 16b, minicpm3-4b, mixtral-8x7b
+# ---------------------------------------------------------------------------
+
+GELU = "rms>gelu"
+EXPERT_GLU = "glu.silu(none|none)"
+# K1 at the new programs and shapes (program, GEMM, k, n, m values):
+# granite's rms-prologue GELU w_up, deepseek's expert GEMMs at the
+# capacity rows of a decode step (8) and of a 128-token prefill (16),
+# MLA's wkv_a and minicpm3's q-LoRA projections, mixtral's expert GLU.
+ARCH_GEMMS = [(GELU, "granite w_up", 6144, 24576, (1, 37, 128)),
+              (EXPERT_GLU, "deepseek expert glu", 2048, 1408, (8, 16)),
+              ("none", "deepseek expert down", 1408, 2048, (8, 16)),
+              ("none", "deepseek wkv_a", 2048, 576, (1, 128)),
+              ("none", "minicpm3 wkv_a", 2560, 288, (1, 128)),
+              ("none", "minicpm3 wq_a", 2560, 768, (1, 128)),
+              ("none", "minicpm3 wq_b", 768, 3840, (1, 128)),
+              (EXPERT_GLU, "mixtral expert glu", 4096, 14336, (8,))]
+# The shapes timed for the kernel table: (program, GEMM, m).
+ARCH_TIMED = [(GELU, "granite w_up", 1), (GELU, "granite w_up", 128),
+              (EXPERT_GLU, "deepseek expert glu", 8),
+              (EXPERT_GLU, "deepseek expert glu", 16),
+              ("none", "deepseek expert down", 8),
+              ("none", "deepseek expert down", 16),
+              ("none", "deepseek wkv_a", 1), ("none", "minicpm3 wkv_a", 1)]
+# Each architecture served: its layers on the card (None: all), whether
+# it also serves on the paged cache, its prompts (16 new tokens each), the
+# K1 launches of one forward step and the layers of its card-vs-CPU model.
+# mixtral-8x7b's 32 layers are 93 GB in bf16: 8 of them are served, and
+# its 4200-token prompt runs past the 4096-token window.
+SERVED_ARCHS = {
+    "granite-20b": dict(layers=None, paged=True, prompts=(128, 37, 8),
+                        per_step=313, cpu_layers=2),
+    "deepseek-v2-lite-16b": dict(layers=None, paged=False,
+                                 prompts=(128, 37, 8), per_step=3592,
+                                 cpu_layers=2),
+    "minicpm3-4b": dict(layers=None, paged=False, prompts=(128, 37, 8),
+                        per_step=373, cpu_layers=4),
+    "mixtral-8x7b": dict(layers=8, paged=True, prompts=(128, 37, 8, 4200),
+                         per_step=161, cpu_layers=2),
+}
+ARCH_NEW_TOKENS = 16
+
+
+def arch_parity():
+    phase("architectures: K1 parity at the new programs and shapes")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for tag, name, k, n, ms in ARCH_GEMMS:
+        for m in ms:
+            err = check_program(tag, name, m, k, n, None, torch.bfloat16,
+                                gen)
+            worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def arch_times():
+    phase("architectures: K1 times at the new shapes (CUDA graph replay; "
+          "weights rotated past the 50 MB L2)")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = {name: (k, n) for _, name, k, n, _ in ARCH_GEMMS}
+    rows = []
+    for tag, name, m in ARCH_TIMED:
+        k, n = shapes[name]
+        nb = program_from_tag(tag).n_b
+        copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
+        a, sets, kw = program_inputs(tag, m, k, n, torch.bfloat16, gen,
+                                     copies)
+        ms = _time_ms(lambda i: K.ca_gemm_program(a, sets[i], **kw), copies)
+        plain = _time_ms(lambda i: K.ca_gemm_program_reference(
+            a, sets[i], **kw), copies)
+        # No single PyTorch call applies the rms prologue and the GELU, or
+        # the GLU; torch.matmul computes the plain product.
+        lib_fn = _library_call(tag, a, sets, kw, None)
+        lib = _time_ms(lib_fn, copies) if lib_fn is not None else None
+        b_ms, b_by = bound(tag, m, k, n, None, torch.bfloat16)
+        row = {"program": tag, "gemm": name, "m": m, "k": k, "n": n,
+               "k1_route": want_route(torch.bfloat16, m), "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+               "bound_by": b_by}
+        rows.append(row)
+        print("time " + json.dumps(row))
+        del a, sets, kw
+    return rows
+
+
+def arch_step_routes(cfg, L):
+    """K1 launches by route and program of one forward step over ``L``
+    tokens of one sequence: the attention and dense GEMMs at m = L, the
+    routed experts' at m = their capacity rows (each expert's buffer is a
+    16-byte aligned slice), the head at m = L."""
+    from repro_torch.models import moe as MOE
+
+    def route(m):
+        return "wgmma" if m > 8 else "decode"
+
+    steps = collections.Counter()
+
+    def add(tag, m, times=cfg.n_layers):
+        steps[f"{route(m)} {tag}"] += times
+
+    if cfg.attn_kind == "mla":
+        add("none", L, cfg.n_layers * (3 if cfg.mla.q_lora_rank else 2))
+    else:
+        add("none", L, cfg.n_layers * 3)
+    add("res", L)                                    # wo
+    if cfg.moe is not None:
+        E, cap = cfg.moe.n_experts, MOE.capacity(cfg, L)
+        add(EXPERT_GLU, cap, cfg.n_layers * E)
+        add("none", cap, cfg.n_layers * E)
+        if cfg.moe.n_shared_experts:
+            add(EXPERT_GLU, L)
+            add("res", L)
+    else:
+        add(GLU if cfg.act == "silu" else GELU, L)
+        add("res", L)                                # w_down
+    add("none", L, 1)                                # the head
+    return steps
+
+
+def weight_bound_ms(params, cfg):
+    """The weight bytes a decode step reads (every leaf once, one row of
+    the embedding table) over the memory rate, and the same counting only
+    the routed experts a token takes (top_k of n_experts)."""
+    routed = {"blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down"}
+    total = active = 0.0
+    for name, t in params.items():
+        nb = t.numel() * t.element_size()
+        if name == "embed/table":
+            nb = t.shape[1] * t.element_size()
+        total += nb
+        active += nb * (cfg.moe.top_k / cfg.moe.n_experts
+                        if name in routed else 1)
+    return (total / HBM_BYTES_PER_S * 1e3, active / HBM_BYTES_PER_S * 1e3,
+            total)
+
+
+def serve_arch(name, spec):
+    """Full width (``spec["layers"]`` of the config's layers), random
+    weights from seed 0, served through ServeEngine on the slab cache and
+    (``spec["paged"]``) the paged int8 cache: the K1 launches by route and
+    program of every forward step, K2's launches (one a layer a paged
+    decode step, none in prefill), slab vs paged prefill logits bit-equal
+    and greedy tokens equal up to a near tie, one K2 call of the run
+    replayed against its plain version; times, the decode profile, peak
+    memory and the weight-byte bound."""
+    cfg = get_config(name)
+    if spec["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    phase(f"architectures: full-width {name}, {cfg.n_layers} layers, "
+          + ("slab vs paged_kv=True" if spec["paged"] else "slab"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    bound_ms, active_ms, wbytes = weight_bound_ms(params, cfg)
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    print(f"init {sum(p.numel() for p in params.values())} params "
+          f"({wbytes / 1e9:.3f} GB read a decode step) in {init_s:.3f} s, "
+          f"peak {init_peak / 1e9:.3f} GB of the card's "
+          f"{card_bytes / 1e9:.3f} GB")
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in spec["prompts"]]
+    max_len = max(spec["prompts"]) + ARCH_NEW_TOKENS
+    L = cfg.n_layers
+    runs = {}
+    for paged in ((False, True) if spec["paged"] else (False,)):
+        eng = ServeEngine(params, cfg, max_len=max_len, paged_kv=paged)
+        eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
+        eng.run()
+        reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=ARCH_NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            if not eng.submit(r):
+                raise AssertionError(f"request {r.uid} rejected: {r.error}")
+        K.reset_launch_counts()
+        FA.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        last = L * (ARCH_NEW_TOKENS - 1) - 1
+        t0 = time.perf_counter()
+        with Recorder() as rec, Capture(last) as cap, \
+                RouteRecorder() as routing:
+            eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = f"{name} {'paged' if paged else 'slab'}"
+        want = collections.Counter()
+        for r in reqs:
+            want += arch_step_routes(cfg, len(r.prompt))
+            for _ in range(r.max_new_tokens - 1):
+                want += arch_step_routes(cfg, 1)
+        check_routes(label, dict(K.route_counts), dict(want))
+        per_step = sum(arch_step_routes(cfg, 1).values())
+        steps = sum(r.max_new_tokens for r in reqs)
+        print(f"{label}: {per_step} K1 launches a forward step, "
+              f"{sum(K.launch_counts.values())} over {steps} steps")
+        if per_step != spec["per_step"] or sum(
+                K.launch_counts.values()) != per_step * steps:
+            raise AssertionError(f"{label}: K1 launches a step "
+                                 f"{per_step}, expected {spec['per_step']}")
+        decodes = steps - len(reqs)
+        want_k2 = {FA.NAME: L * decodes} if paged else {}
+        print(f"{label}: K2 launches {dict(FA.launch_counts)}")
+        if dict(FA.launch_counts) != want_k2:
+            raise AssertionError(f"{label}: K2 launches "
+                                 f"{dict(FA.launch_counts)}, expected "
+                                 f"{want_k2} (none in prefill)")
+        runs[paged] = {"reqs": reqs, "rec": rec, "wall": wall,
+                       "routing": routing.calls,
+                       "routes": dict(K.route_counts),
+                       "k2": dict(FA.launch_counts), "call": cap.args,
+                       "peak": torch.cuda.max_memory_allocated()}
+        for r in reqs:
+            print(f"{label} request {r.uid} prompt={len(r.prompt)} "
+                  f"prefill {r.prefill_s * 1e3:.3f} ms, decode "
+                  f"{r.decode_s * 1e3 / (r.max_new_tokens - 1):.3f} ms/token"
+                  f", tokens={r.generated}")
+        del eng
+    call_err = None
+    if spec["paged"]:
+        check_slab_vs_paged(cfg, runs)
+        (q, *pool, tables, lens_t), kw = runs[True]["call"]
+        _, call_err = check_attn(
+            f"{name} serve call B={q.shape[0]} lens={lens_t.tolist()} "
+            f"page={pool[0].shape[1]} H={q.shape[1]} Hkv={pool[0].shape[2]}"
+            f" D={q.shape[2]} window={kw.get('window')}",
+            q, pool, tables, lens_t, **kw)
+    profile = profile_decode(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    out = {"arch": name, "layers": L, "init_s": init_s,
+           "init_peak_gb": init_peak / 1e9,
+           "serve_peak_gb": max(r["peak"] for r in runs.values()) / 1e9,
+           "card_gb": card_bytes / 1e9, "weight_gb": wbytes / 1e9,
+           "weight_bound_ms": bound_ms, "active_weight_bound_ms": active_ms,
+           "k1_per_step": sum(arch_step_routes(cfg, 1).values()),
+           "profile": profile, "k2_call_err": call_err,
+           "routes": {p: r["routes"] for p, r in runs.items()},
+           "k2": {p: r["k2"] for p, r in runs.items()}, "requests": []}
+    for paged, run in runs.items():
+        for r in run["reqs"]:
+            out["requests"].append({
+                "cache": "paged" if paged else "slab", "uid": r.uid,
+                "prompt": len(r.prompt), "prefill_ms": r.prefill_s * 1e3,
+                "decode_ms_per_token":
+                    r.decode_s * 1e3 / (r.max_new_tokens - 1)})
+    print(f"{name} summary " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("routes", "k2")}))
+    return out
+
+
+def cross_check_arch(name, spec):
+    cfg = dataclasses.replace(get_config(name), n_layers=spec["cpu_layers"])
+    phase(f"architectures: {name} at full width, {cfg.n_layers} layers: "
+          "card vs CPU plain path")
+    p_gpu = M.init_params(cfg, seed=1)
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    card_vs_cpu(p_gpu, p_cpu, cfg, label=f"{name} ")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def architectures(names=None):
+    """The architectures phase: K1 parity at the new shapes, then each
+    architecture (``names``, default all) served on the card and held
+    against the CPU, one model on the card at a time, then the new
+    shapes' times."""
+    t0 = time.perf_counter()
+    worst = arch_parity()
+    served = {}
+    for name in names or SERVED_ARCHS:
+        spec = SERVED_ARCHS[name]
+        served[name] = serve_arch(name, spec)
+        cross_check_arch(name, spec)
+    rows = arch_times()
+    seconds = time.perf_counter() - t0
+    print(f"architectures phase {seconds:.1f} s")
+    return {"worst": worst, "served": served, "rows": rows,
+            "seconds": seconds}
+
+
+def arch_kernel_records(archs, attn_rows):
+    """The kernels line's records of the new K1 shapes (launches from the
+    served runs by route and program) and of K2 on granite's paged path."""
+    worst, served = archs["worst"], archs["served"]
+    source_run = {"granite w_up": "granite-20b",
+                  "deepseek expert glu": "deepseek-v2-lite-16b",
+                  "deepseek expert down": "deepseek-v2-lite-16b",
+                  "deepseek wkv_a": "deepseek-v2-lite-16b",
+                  "minicpm3 wkv_a": "minicpm3-4b"}
+    records = []
+    for row in archs["rows"]:
+        arch = source_run[row["gemm"]]
+        key = f"{row['k1_route']} {row['program']}"
+        records.append({
+            "name": f"ca_gemm_program[{row['program']}] {row['gemm']} "
+                    f"m={row['m']}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES,
+            "launches": served[arch]["routes"][False].get(key, 0),
+            "max_abs_err": worst[row["gemm"]], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "k1_route": row["k1_route"],
+            "shape": f"{row['gemm']} m={row['m']} k={row['k']} "
+                     f"n={row['n']} bf16; launches: {key} over the "
+                     f"{arch} slab run"})
+    arow = next(r for r in attn_rows if r["case"] == "granite G48")
+    granite = served["granite-20b"]
+    records.append({
+        "name": f"{FA.NAME} (granite-20b G48 paged path)", "route": "cuda",
+        "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+        "launches": granite["k2"][True][FA.NAME],
+        "max_abs_err": granite["k2_call_err"], "ms": arow["ms"],
+        "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
+        "bound_by": arow["bound_by"], "library_ms": None,
+        "shape": f"B={arow['B']} S={arow['S']} page={arow['page']} "
+                 f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
+    return records
+
+
+def print_archs(archs, card_line):
+    for name, out in archs["served"].items():
+        prof = out["profile"]
+        print(f"e2e {name} ({out['layers']} layers; {card_line}): "
+              f"weight-byte bound {out['weight_bound_ms']:.3f} ms/token "
+              f"({out['weight_gb']:.3f} GB), active-parameter bound "
+              f"{out['active_weight_bound_ms']:.3f} ms/token; "
+              f"{out['k1_per_step']} K1 launches a decode step; decode "
+              f"profile {prof['decode_wall_ms_per_step']:.3f} ms/step wall, "
+              f"device {prof['device_ms_per_step']:.3f} (K1 "
+              f"{prof['gemm_kernel_ms_per_step']:.3f}), busy share "
+              f"{prof['device_busy_share']:.4f}; peak memory init "
+              f"{out['init_peak_gb']:.3f} / serve {out['serve_peak_gb']:.3f}"
+              f" GB of {out['card_gb']:.3f}")
+        for r in out["requests"]:
+            print(f"e2e {name} {r['cache']} request {r['uid']} "
+                  f"prompt={r['prompt']}: prefill {r['prefill_ms']:.3f} ms, "
+                  f"decode {r['decode_ms_per_token']:.3f} ms/token")
+    print(f"e2e architectures phase {archs['seconds']:.1f} s")
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
     card_line = card()
+    if argv[:2] == ["--only", "archs"]:
+        # A partial run for work on the architectures phase alone (the
+        # architectures named after it, default all): only the two
+        # sources its paths launch, no kernels line, no result.
+        build((K.SOURCE, FA.SOURCE))
+        print_archs(architectures(argv[2:]), card_line)
+        print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
+        return
+    if argv:
+        raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...]], "
+                         f"got {argv}")
     build()
     worst = parity()
     worst.update(quant_parity())
@@ -2579,8 +3037,10 @@ def main():
     k1g = min_plus_phase()
     k3 = flash_fwd_phase()
     k4 = k_outer_phase()
+    archs = architectures()
     phase("summary")
     print(f"card: {card_line}")
+    print_archs(archs, card_line)
     for r in e2e["requests"]:
         print(f"e2e request {r['uid']} prompt={r['prompt']}: "
               f"prefill {r['prefill_ms']:.3f} ms, decode "
@@ -2757,6 +3217,7 @@ def main():
           f"{train['launches_per_step']} K1 launches per step")
     print("e2e train step profile " + json.dumps(train["profile"]))
     print("e2e train 4-layer card vs CPU " + json.dumps(train_check))
+    kernels += arch_kernel_records(archs, attn_rows)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

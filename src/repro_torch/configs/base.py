@@ -173,3 +173,14 @@ class ModelConfig:
         total += V * d * (1 if self.tie_embeddings else 2)
         total += self.n_codebooks * d * V if self.frontend == "embeds" else 0
         return int(total)
+
+    def active_params(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if self.moe is None or not self.moe.n_experts:
+            return self.n_params()
+        d = self.d_model
+        fe = self.moe.d_ff_expert
+        dense_like = dataclasses.replace(self, moe=None)
+        base = dense_like.n_params()
+        active_ffn = 3 * d * fe * (self.moe.top_k + self.moe.n_shared_experts)
+        return int(base + self.n_layers * (active_ffn + d * self.moe.n_experts))

@@ -1,5 +1,7 @@
-"""Public matmul API of the port (``repro/core/gemm.py``'s ``ca_matmul`` and
-``ca_glu_matmul``): every dense contraction of the model funnels here.
+"""Public matmul API of the port (``repro/core/gemm.py``'s ``ca_matmul``,
+``ca_glu_matmul`` and the MoE expert loops ``ca_expert_matmul`` /
+``ca_expert_glu_matmul``): every dense contraction of the model funnels
+here.
 
 Leading batch dims collapse into the GEMM's m dim, the (..., n) epilogue
 operands with them, and the program runs on the CA-GEMM kernel — on the
@@ -165,3 +167,41 @@ def ca_glu_matmul(
         prologue=prologue, out_dtype=out_dtype, act_scale=w_gate.act_scale,
         act_block=w_gate.act_block)
     return y.reshape(*lead, n)
+
+
+def _check_expert_operands(x: torch.Tensor, w, name: str) -> int:
+    if isinstance(w, QTensor):
+        raise ValueError(f"{name}: the expert banks serve in the compute "
+                         "dtype (the reference's quantize predicate skips "
+                         "them)")
+    if w.dim() != 3 or x.dim() < 3 or x.shape[-3] != w.shape[0] \
+            or x.shape[-1] != w.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not contract "
+                         f"with an (E, k, n) bank {tuple(w.shape)}")
+    return w.shape[0]
+
+
+def ca_expert_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                     out_dtype=None) -> torch.Tensor:
+    """The MoE contraction ``x[..., e, :, :] @ w[e]`` (the reference's
+    ``...ecd,edf->...ecf``) as one :func:`ca_matmul` per expert (K1 on the
+    card, its plain version on the CPU), stacked on the expert axis."""
+    E = _check_expert_operands(x, w, "ca_expert_matmul")
+    return torch.stack([ca_matmul(x[..., e, :, :], w[e], out_dtype=out_dtype)
+                        for e in range(E)], dim=-3)
+
+
+def ca_expert_glu_matmul(x: torch.Tensor, w_gate: torch.Tensor,
+                         w_up: torch.Tensor, *, activation: str = "silu",
+                         out_dtype=None) -> torch.Tensor:
+    """Per-expert dual-branch GLU: each expert's gate and up share one
+    pass over that expert's capacity rows (:func:`ca_glu_matmul` once per
+    expert), stacked on the expert axis."""
+    E = _check_expert_operands(x, w_gate, "ca_expert_glu_matmul")
+    if tuple(w_up.shape) != tuple(w_gate.shape):
+        raise ValueError(f"w_up {tuple(w_up.shape)} vs w_gate "
+                         f"{tuple(w_gate.shape)}")
+    return torch.stack([ca_glu_matmul(x[..., e, :, :], w_gate[e], w_up[e],
+                                      activation=activation,
+                                      out_dtype=out_dtype)
+                        for e in range(E)], dim=-3)

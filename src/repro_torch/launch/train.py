@@ -44,8 +44,9 @@ def run_training(
     if ckpt_dir is not None or resume:
         raise ValueError("checkpoints and resume are not ported yet "
                          "(checkpoint/manager.py, ROADMAP queue 1, item 9)")
-    device = resolve_device(device)
     cfg = get_config(arch) if full else get_reduced(arch)
+    T.check_trainable(cfg)
+    device = resolve_device(device)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                           global_batch=global_batch, seed=seed)
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 1),

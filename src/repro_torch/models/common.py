@@ -56,24 +56,37 @@ def stack_defs(defs: Defs, n: int) -> Defs:
 
 
 def init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
-             device) -> torch.Tensor:
-    """One parameter drawn by its init law — the distributions of the
-    reference's ``init_params`` (``jax.random`` gives other numbers)."""
-    kw = {"dtype": dtype, "device": device}
+             device, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One parameter drawn by its init law in ``dtype`` (the reference's
+    distributions; ``jax.random`` gives other numbers) and stored in
+    ``out_dtype`` (default ``dtype``).  A layer-stacked leaf (3-D or more)
+    is drawn one layer at a time into the preallocated leaf, scaled in
+    place, so a stacked leaf in a narrower serving dtype never exists
+    whole in ``dtype``: the peak is the served leaf plus one layer."""
+    out_dtype = out_dtype or dtype
+    kw = {"dtype": out_dtype, "device": device}
     if d.init == "zeros":
         return torch.zeros(d.shape, **kw)
     if d.init == "ones":
         return torch.ones(d.shape, **kw)
-    if d.init == "embed":
-        return 0.02 * torch.randn(d.shape, generator=generator, **kw)
-    if d.init != "fanin":
+    if d.init not in ("embed", "fanin"):
         raise ValueError(f"init law {d.init!r} is not ported yet (its "
                          "architectures are ROADMAP queue 1 items)")
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    std = d.scale / math.sqrt(fan_in)
-    p = torch.nn.init.trunc_normal_(torch.empty(d.shape, **kw), 0.0, 1.0,
-                                    -2.0, 2.0, generator=generator)
-    return std * p
+    std = 0.02 if d.init == "embed" else d.scale / math.sqrt(fan_in)
+    out = torch.empty(d.shape, **kw)
+    for part in (out.unbind(0) if len(d.shape) >= 3 else (out,)):
+        draw = part if out_dtype == dtype else torch.empty(
+            part.shape, dtype=dtype, device=device)
+        if d.init == "embed":
+            draw.normal_(generator=generator)
+        else:
+            torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+        draw.mul_(std)
+        if draw is not part:
+            part.copy_(draw)
+    return out
 
 
 def subtree(params: Dict[str, torch.Tensor],

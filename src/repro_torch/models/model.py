@@ -1,4 +1,5 @@
-"""Decoder LM (port of ``repro/models/model.py``), dense GQA family.
+"""Decoder LM (port of ``repro/models/model.py``): the dense and MoE
+transformer families, with GQA or MLA attention.
 
 The layers' parameters are stacked along a leading axis, as in the
 reference; a Python loop over layers takes the place of ``lax.scan`` and
@@ -23,7 +24,7 @@ backward recomputes the layer's forward.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -57,7 +58,7 @@ def model_defs(cfg: ModelConfig) -> Defs:
     if cfg.frontend != "tokens" or cfg.n_codebooks != 1 \
             or cfg.shared_attn_every or cfg.tie_embeddings:
         raise ValueError(f"{cfg.name}: only a token-frontend LM with one "
-                         "untied head is ported")
+                         "untied head is ported (ROADMAP queue 1, item 2)")
     defs: Defs = {}
     defs.update(cm.prefix_defs(
         "embed", cm.embed_defs(cfg.padded_vocab, cfg.d_model)))
@@ -70,23 +71,30 @@ def model_defs(cfg: ModelConfig) -> Defs:
     return defs
 
 
+# Serving leaves the reference reads in fp32 whatever the compute dtype:
+# norm gains (the rms chain runs in fp32) and the MoE router (fp32
+# routing logits).
+_FP32_LEAVES = ("/scale", "/q_norm", "/kv_norm", "/router")
+
+
 def _leaf_dtype(name: str, cfg: ModelConfig, masters: bool) -> torch.dtype:
     if masters:
         return cfg.pdtype()
-    return torch.float32 if name.endswith("/scale") else cfg.dtype()
+    return torch.float32 if name.endswith(_FP32_LEAVES) else cfg.dtype()
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None, *,
                 masters: bool = False) -> Dict[str, torch.Tensor]:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed``, by the reference's init laws, in its param dtype: the fp32
-    masters of training with ``masters=True``, else cast to the serving
-    dtypes one tensor at a time."""
+    masters of training with ``masters=True``, else stored in the serving
+    dtypes as they are drawn (a stacked leaf one layer at a time,
+    :func:`~repro_torch.models.common.init_one`)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     defs = model_defs(cfg)
-    return {name: cm.init_one(defs[name], gen, cfg.pdtype(), device)
-            .to(_leaf_dtype(name, cfg, masters))
+    return {name: cm.init_one(defs[name], gen, cfg.pdtype(), device,
+                              _leaf_dtype(name, cfg, masters))
             for name in sorted(defs)}
 
 
@@ -154,12 +162,11 @@ def params_from_jax(np_params: Mapping[str, object], cfg: ModelConfig,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
-    """Decode-time slab cache, stacked over layers."""
+    """Decode-time slab cache, stacked over layers: k/v slabs for GQA,
+    the compressed ``c``/``k_rope`` slabs for MLA."""
     dtype = dtype or cfg.dtype()
     C = attn.cache_len_for(cfg, max_len)
-    Dh = cfg.resolved_head_dim
-    one = attn.make_kv_cache(batch, C, cfg.n_kv_heads, Dh, Dh, dtype,
-                             resolve_device(device))
+    one = attn.make_attn_cache(batch, C, cfg, dtype, resolve_device(device))
     return {"layers": {k: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
                        for k, t in one.items()}}
 
@@ -170,7 +177,8 @@ def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
     table of page *ids*, stacked over layers like :func:`make_cache`'s
     slabs — page id ``p`` addresses slot ``p`` in every layer, so the host
     allocator hands out one id list per sequence regardless of depth.
-    GQA-family transformers only."""
+    GQA-family transformers only: MLA compresses its cache instead of
+    paging it, as in the reference."""
     if (cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid")
             or cfg.shared_attn_every):
         raise ValueError(
@@ -190,12 +198,14 @@ def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
 def forward(params: Dict[str, torch.Tensor],
             batch_in: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             mode: str = "train", cache: Optional[Dict] = None,
-            step: Optional[int] = None, max_len: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (logits_fp32, new_cache_or_None).  In decode the cache is
-    updated in place and returned; so is a paged cache in prefill, whose
-    per-layer views are written in place (restacking them would copy the
-    whole pool).  A slab prefill builds its cache from the layers'."""
+            step: Optional[int] = None, max_len: Optional[int] = None,
+            return_aux: bool = False):
+    """Returns (logits_fp32, new_cache_or_None), and with ``return_aux``
+    also the MoE load-balancing loss summed over layers (0 without MoE),
+    the reference's third output.  In decode the cache is updated in place
+    and returned; so is a paged cache in prefill, whose per-layer views
+    are written in place (restacking them would copy the whole pool).  A
+    slab prefill builds its cache from the layers'."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown forward mode {mode!r}")
     if mode == "decode" and (cache is None or step is None):
@@ -212,18 +222,22 @@ def forward(params: Dict[str, torch.Tensor],
     layers = cache["layers"] if cache is not None else None
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_layers = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if return_aux else None
     for i, p_i in enumerate(_layer_params(cm.subtree(params, "blocks"),
                                           cfg.n_layers)):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux_i = torch.utils.checkpoint.checkpoint(
                 _train_layer, p_i, x, cfg, positions, use_reentrant=False)
-            continue
-        cache_i = {k: v[i] for k, v in layers.items()} \
-            if layers is not None else None
-        x, c_i = blk.transformer_block_apply(
-            p_i, x, cfg, positions=positions, cache=cache_i, step=step,
-            mode=mode, max_len=max_len)
-        new_layers.append(c_i)
+        else:
+            cache_i = {k: v[i] for k, v in layers.items()} \
+                if layers is not None else None
+            x, c_i, aux_i = blk.transformer_block_apply(
+                p_i, x, cfg, positions=positions, cache=cache_i, step=step,
+                mode=mode, max_len=max_len)
+            new_layers.append(c_i)
+        if return_aux:
+            aux = aux + aux_i
 
     x = cm.rms_norm(x, params["norm_f/scale"], cfg.norm_eps)
     logits = cm.unembed_apply(cm.subtree(params, "head"), x)
@@ -234,6 +248,8 @@ def forward(params: Dict[str, torch.Tensor],
     elif mode == "prefill":
         new_cache = {"layers": {k: torch.stack([c[k] for c in new_layers])
                                 for k in new_layers[0]}}
+    if return_aux:
+        return logits.float(), new_cache, aux
     return logits.float(), new_cache
 
 
@@ -252,8 +268,9 @@ def _layer_params(blocks, n_layers: int):
 
 
 def _train_layer(p_i, x, cfg: ModelConfig, positions):
-    return blk.transformer_block_apply(p_i, x, cfg, positions=positions,
-                                       mode="train")[0]
+    x, _, aux = blk.transformer_block_apply(p_i, x, cfg, positions=positions,
+                                            mode="train")
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

@@ -72,6 +72,16 @@ def _split_mb(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
     return x.reshape(x.shape[0] // n, n, *x.shape[1:])[:, i]
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training is ported for the dense GQA family; the MoE and MLA archs
+    serve only (their aux loss in the loss and their backward are ROADMAP
+    queue 1, item 2)."""
+    if (cfg.moe is not None and cfg.moe.n_experts) or cfg.attn_kind == "mla":
+        raise ValueError(f"{cfg.name}: training the MoE and MLA archs is not "
+                         "ported yet, only their serve path (ROADMAP queue 1, "
+                         "item 2)")
+
+
 def build_train_step(
     cfg: ModelConfig,
     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
@@ -84,6 +94,7 @@ def build_train_step(
 
     The batch's leading dim must divide by ``microbatches``; metrics are
     0-dim tensors (``loss``, ``aux``, ``grad_norm``, ``lr``)."""
+    check_trainable(cfg)
     if reshard_params is not None or reshard_grads is not None:
         raise ValueError("reshard_params/reshard_grads are not ported yet "
                          "(distributed, ROADMAP queue 1, item 14)")

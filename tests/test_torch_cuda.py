@@ -974,3 +974,86 @@ def test_cuda_k_outer_wgmma_step_matches_plain_version(dtype, tiles):
         err = (got - want).abs().max().item()
         tol = 1e-4 * want.abs().max().item()
         assert err <= tol, (err, tol)
+
+
+# ---------------------------------------------------------------------------
+# The other architectures' programs and models (granite-20b's GELU MLP,
+# deepseek-v2-lite-16b's expert GEMMs, MLA's narrow projections)
+# ---------------------------------------------------------------------------
+
+# (tag, k, n): granite's rms-prologue GELU w_up, deepseek's expert GLU
+# and down projection (k = 1408 = 11 x 128: a ragged cluster split on the
+# decode route), MLA's wkv_a (n = 576, and 288: a ragged 64-column strip
+# and a ragged 128-column wgmma tile) and minicpm3's q-LoRA up projection.
+ARCH_PROGRAMS = {"granite w_up": ("rms>gelu", 6144, 24576),
+                 "deepseek expert glu": ("glu.silu(none|none)", 2048, 1408),
+                 "deepseek expert down": ("none", 1408, 2048),
+                 "deepseek wkv_a": ("none", 2048, 576),
+                 "minicpm3 wkv_a": ("none", 2560, 288),
+                 "minicpm3 wq_b": ("none", 768, 3840)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 16, 37])
+@pytest.mark.parametrize("case", list(ARCH_PROGRAMS))
+def test_cuda_arch_programs_match_plain_version_on_both_routes(case, m):
+    """bf16, 16-byte aligned: the decode route at m <= 8, wgmma above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag, k, n = ARCH_PROGRAMS[case]
+    a, bs, kw = _program_inputs(tag, m, n, k, torch.bfloat16, seed=23)
+    K.reset_launch_counts()
+    got = K.ca_gemm_program(a, bs, **kw)
+    route = "decode" if m <= 8 else "wgmma"
+    assert K.route_counts == {f"{route} {tag}": 1}
+    want = K.ca_gemm_program_reference(a, bs, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+def _card_vs_cpu_logits(arch):
+    """A reduced arch in bf16 on the card and on the CPU from the same
+    parameters: prefill logits and the greedy tokens of 6 steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_reduced(arch, compute_dtype="bfloat16"),
+                              d_model=256)
+    p_gpu = M.init_params(cfg, seed=4)
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    prompt = np.random.RandomState(5).randint(0, cfg.vocab_size, 24)
+    toks = torch.as_tensor(prompt)[None]
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        lg, _ = M.prefill(p_gpu, {"tokens": toks.cuda()}, cfg, max_len=40)
+        lc, _ = M.prefill(p_cpu, {"tokens": toks}, cfg, max_len=40)
+    launches = sum(K.launch_counts.values())
+    outs = []
+    for params, dev in ((p_gpu, None), (p_cpu, "cpu")):
+        eng = ServeEngine(params, cfg, max_len=40, device=dev)
+        eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=6))
+        outs.append(eng.run()[1].generated)
+    return cfg, lg.cpu(), lc, launches, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-20b", "deepseek-v2-lite-16b"])
+def test_cuda_reduced_arch_matches_cpu(arch):
+    """The model on the card against its plain path on the CPU: prefill
+    logits within 5e-2 of their scale (bf16 rounding through two layers),
+    every K1 launch of the prefill counted (granite 6 a layer + the head;
+    deepseek 3 + 2 a routed expert + 2 shared a layer + the head)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cfg, lg, lc, launches, (card, cpu) = _card_vs_cpu_logits(arch)
+    per_layer = 6 if cfg.moe is None else 3 + 2 * cfg.moe.n_experts + 2
+    assert launches == cfg.n_layers * per_layer + 1
+    assert bool(torch.isfinite(lg).all())
+    err = (lg - lc).abs().max().item()
+    assert err <= 5e-2 * lc.abs().max().item(), err
+    assert len(card) == len(cpu) == 6

@@ -296,3 +296,55 @@ def test_ca_matmul_qtensor_weight_has_no_backward():
         tg.ca_matmul(x, qw)
     with torch.no_grad():
         assert tg.ca_matmul(x, qw).shape == (B, L, N)
+
+
+# ---------------------------------------------------------------------------
+# The MoE expert loops against the reference's einsum oracle (xla mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["ecd", "becd"])
+def test_ca_expert_matmul_matches_reference_einsum(lead):
+    r = np.random.RandomState(21)
+    E, C, d, f = 3, 8, 48, 40
+    x = r.randn(*lead, E, C, d).astype(np.float32)
+    w = (r.randn(E, d, f) / np.sqrt(d)).astype(np.float32)
+    want = jg.ca_expert_matmul(jnp.asarray(x), jnp.asarray(w), mode="xla")
+    got = tg.ca_expert_matmul(torch.as_tensor(x), torch.as_tensor(w))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["ecd", "becd"])
+def test_ca_expert_glu_matmul_matches_reference_einsum(lead, act):
+    r = np.random.RandomState(22)
+    E, C, d, f = 4, 16, 40, 24
+    x = r.randn(*lead, E, C, d).astype(np.float32)
+    wg, wu = ((r.randn(E, d, f) / np.sqrt(d)).astype(np.float32)
+              for _ in range(2))
+    want = jg.ca_expert_glu_matmul(jnp.asarray(x), jnp.asarray(wg),
+                                   jnp.asarray(wu), activation=act,
+                                   mode="xla")
+    got = tg.ca_expert_glu_matmul(torch.as_tensor(x), torch.as_tensor(wg),
+                                  torch.as_tensor(wu), activation=act)
+    _close(got, want)
+
+
+def test_ca_expert_matmul_runs_one_program_per_expert(monkeypatch):
+    """Each expert is one ca_matmul (one K1 launch on the card) of its own
+    rows: E calls, each on that expert's (B·C, d) slice."""
+    calls = []
+    real = tg.ca_matmul
+
+    def spy(x, w, **kw):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return real(x, w, **kw)
+
+    monkeypatch.setattr(tg, "ca_matmul", spy)
+    x = torch.randn(2, 5, 8, 16)
+    w = torch.randn(5, 16, 12)
+    y = tg.ca_expert_matmul(x, w)
+    assert y.shape == (2, 5, 8, 12)
+    assert calls == [((2, 8, 16), (16, 12))] * 5
+    torch.testing.assert_close(y[:, 3], x[:, 3] @ w[3])
+    with pytest.raises(ValueError, match="bank"):
+        tg.ca_expert_matmul(x, w[:4])

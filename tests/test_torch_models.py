@@ -134,7 +134,7 @@ def test_config_field_equal_to_reference():
         == (want.padded_vocab, want.n_params())
     assert got.dtype() == torch.bfloat16 and got.pdtype() == torch.float32
     with pytest.raises(ValueError, match="not ported"):
-        get_config("mixtral-8x7b")
+        get_config("mamba2-370m")
 
 
 def test_decode_from_empty_cache_matches_reference(setup):
@@ -297,3 +297,230 @@ def test_quantized_prefill_and_decode_match_reference(setup, mode):
                              jc, jnp.int32(9), jcfg)
     got, _ = TM.decode_step(tq, {"tokens": torch.as_tensor(nxt)}, tc, 9, cfg)
     np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+# ---------------------------------------------------------------------------
+# The other architectures: granite-20b (GELU MLP, one KV head),
+# deepseek-v2-lite-16b (MoE + MLA), minicpm3-4b (MLA with q-LoRA) and
+# mixtral-8x7b (MoE + sliding window)
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["granite-20b", "deepseek-v2-lite-16b", "minicpm3-4b",
+             "mixtral-8x7b"]
+MLA_ARCHS = ["deepseek-v2-lite-16b", "minicpm3-4b"]
+
+
+@pytest.mark.parametrize("arch", [ARCH, DANUBE] + NEW_ARCHS)
+def test_ported_config_fields_and_n_params_equal_reference(arch):
+    import dataclasses
+
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config, list_archs
+
+    assert arch in list_archs()
+    for want, got in ((jax_config(arch), get_config(arch)),
+                      (jax_reduced(arch), get_reduced(arch))):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.padded_vocab, got.n_params(), got.active_params()) \
+            == (want.padded_vocab, want.n_params(), want.active_params())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b",
+                                  "qwen2-vl-72b", "musicgen-large"])
+def test_unported_archs_raise(arch):
+    import dataclasses
+
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ModelConfig
+
+    with pytest.raises(ValueError, match="not ported"):
+        get_config(arch)
+    # The same fields through the port's model code name what is missing.
+    want = jax_config(arch)
+    fields = {f.name: getattr(want, f.name)
+              for f in dataclasses.fields(want)
+              if f.name not in ("mla", "moe", "ssm")}
+    cfg = ModelConfig(**fields)
+    with pytest.raises(ValueError, match="item 2"):
+        TM.model_defs(cfg)
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def arch_setup(request):
+    return (request.param,) + _arch_setup(request.param)
+
+
+def test_new_arch_forward_logits_and_aux_match_reference(arch_setup):
+    """37 tokens: past mixtral's reduced 32-token window, and enough to
+    fill the reduced MoE archs' capacity buffers unevenly."""
+    arch, jcfg, cfg, jp, tp = arch_setup
+    toks = np.random.RandomState(5).randint(0, cfg.vocab_size, (2, 37))
+    want, _, jaux = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                               jcfg)
+    got, cache, aux = TM.forward(tp, {"tokens": torch.as_tensor(toks)}, cfg,
+                                 return_aux=True)
+    assert cache is None
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6,
+                               atol=1e-6)
+    assert (float(aux) > 0) == (cfg.moe is not None)
+
+
+def test_new_arch_prefill_and_decode_match_reference(arch_setup):
+    """Prefill on a batch of 2, then decode steps: logits at 1e-4 and the
+    slab cache (k/v, or MLA's c/k_rope) against the reference's, slot for
+    slot where the reference places them the same way."""
+    arch, jcfg, cfg, jp, tp = arch_setup
+    r = np.random.RandomState(1)
+    prompt = r.randint(0, cfg.vocab_size, (2, 9))
+    want, jc = JM.prefill(jp, {"tokens": jnp.asarray(prompt, jnp.int32)},
+                          jcfg, max_len=16)
+    got, tc = TM.prefill(tp, {"tokens": torch.as_tensor(prompt)}, cfg,
+                         max_len=16)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    keys = ("c", "k_rope") if arch in MLA_ARCHS else ("k", "v")
+    assert set(tc["layers"]) == set(keys) | {"pos"}
+    for s in range(3):
+        nxt = r.randint(0, cfg.vocab_size, (2, 1))
+        want, jc = JM.decode_step(jp, {"tokens": jnp.asarray(nxt, jnp.int32)},
+                                  jc, jnp.int32(9 + s), jcfg)
+        got, tc = TM.decode_step(tp, {"tokens": torch.as_tensor(nxt)}, tc,
+                                 9 + s, cfg)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                   atol=1e-4)
+        for key in keys:
+            np.testing.assert_allclose(_np(tc["layers"][key]),
+                                       _np(jc["layers"][key]),
+                                       rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(_np(tc["layers"]["pos"]),
+                                      _np(jc["layers"]["pos"]))
+
+
+def test_new_arch_decode_from_empty_cache_matches_reference(arch_setup):
+    arch, jcfg, cfg, jp, tp = arch_setup
+    jc = JM.make_cache(jcfg, 2, 8)
+    tc = TM.make_cache(cfg, 2, 8, device="cpu")
+    assert set(tc["layers"]) == set(jc["layers"])
+    for key in jc["layers"]:
+        np.testing.assert_array_equal(_np(tc["layers"][key]),
+                                      _np(jc["layers"][key]))
+    nxt = np.array([[11], [3]])
+    for s in range(2):
+        want, jc = JM.decode_step(jp, {"tokens": jnp.asarray(nxt, jnp.int32)},
+                                  jc, jnp.int32(s), jcfg)
+        got, tc = TM.decode_step(tp, {"tokens": torch.as_tensor(nxt)}, tc,
+                                 s, cfg)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", MLA_ARCHS, ids=["no_q_lora", "q_lora"])
+def test_mla_decode_layer_matches_reference(arch):
+    """One MLA layer's absorbed decode against the compressed cache of a
+    7-token prefill, batch 2, without (deepseek) and with (minicpm3)
+    q-LoRA: the output at 1e-4 and the new cache entries."""
+    from repro.models import attention as jattn
+
+    jcfg, cfg, jp, _ = _arch_setup(arch)
+    pre = "blocks/attn/"
+    jsub = {k[len(pre):]: v[0] for k, v in jp.items() if k.startswith(pre)}
+    tsub = {k: torch.as_tensor(np.array(v)) for k, v in jsub.items()}
+    assert ("wq_a" in tsub) == (arch == "minicpm3-4b")
+    r = np.random.RandomState(9)
+    x = r.randn(2, 7, cfg.d_model).astype(np.float32)
+    pos = np.tile(np.arange(7), (2, 1))
+    _, jc = jattn.mla_apply(jsub, jnp.asarray(x), jcfg,
+                            positions=jnp.asarray(pos), mode="prefill",
+                            max_len=12)
+    _, tc = tattn.mla_apply(tsub, torch.as_tensor(x), cfg,
+                            positions=torch.as_tensor(pos), mode="prefill",
+                            max_len=12)
+    for key in ("c", "k_rope", "pos"):
+        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), rtol=1e-5,
+                                   atol=1e-5)
+    x1 = r.randn(2, 1, cfg.d_model).astype(np.float32)
+    res = r.randn(2, 1, cfg.d_model).astype(np.float32)
+    p1 = np.full((2, 1), 7)
+    want, jc = jattn.mla_apply(jsub, jnp.asarray(x1), jcfg,
+                               positions=jnp.asarray(p1), cache=jc,
+                               step=jnp.int32(7), mode="decode",
+                               residual=jnp.asarray(res))
+    got, tc2 = tattn.mla_apply(tsub, torch.as_tensor(x1), cfg,
+                               positions=torch.as_tensor(p1), cache=tc,
+                               step=7, mode="decode",
+                               residual=torch.as_tensor(res))
+    assert tc2 is tc                                   # written in place
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    for key in ("c", "k_rope", "pos"):
+        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_init_params_laws_and_layout(arch):
+    """Every leaf drawn by its law in its serving dtype: bf16 matrices
+    and expert banks, fp32 norm gains and router; a stacked leaf drawn one
+    layer at a time keeps the truncated-normal law in every layer."""
+    cfg = get_reduced(arch, compute_dtype="bfloat16")
+    p = TM.init_params(cfg, seed=0, device="cpu")
+    defs = TM.model_defs(cfg)
+    assert set(p) == set(defs)
+    fp32 = ("/scale", "/q_norm", "/kv_norm", "/router")
+    for name, t in p.items():
+        assert tuple(t.shape) == defs[name].shape, name
+        want = torch.float32 if name.endswith(fp32) else torch.bfloat16
+        assert t.dtype == want, name
+    bank = "blocks/moe/w_up" if cfg.moe is not None else "blocks/mlp/w_up"
+    w = p[bank].float()
+    std = 1 / np.sqrt(cfg.d_model)
+    assert w.abs().max() <= 2 * std * 1.01
+    for layer in w.unbind(0):
+        assert 0.7 * std < layer.std() < 1.0 * std
+    assert not torch.equal(w[0], w[1])
+    again = TM.init_params(cfg, seed=0, device="cpu")
+    assert all(torch.equal(p[k], again[k]) for k in p)
+
+
+# The keys each arch's quantized tree must hold, and must not: the
+# reference's predicate quantizes MLA's wq_a/wq_b/wkv_a and the shared
+# experts' projections, and leaves the 4-D expert banks, wkv_b and the
+# router dense.
+QUANT_KEYS = {
+    "granite-20b": ({"blocks/attn/wk", "blocks/mlp/w_up", "head/w"},
+                    {"embed/table", "blocks/norm_ffn/scale"}),
+    "deepseek-v2-lite-16b": (
+        {"blocks/attn/wq", "blocks/attn/wkv_a", "blocks/attn/wo",
+         "blocks/moe/shared/w_up", "head/w"},
+        {"blocks/moe/w_up", "blocks/moe/w_down", "blocks/moe/router",
+         "blocks/attn/wkv_b"}),
+    "minicpm3-4b": ({"blocks/attn/wq_a", "blocks/attn/wq_b",
+                     "blocks/attn/wkv_a", "blocks/mlp/w_gate"},
+                    {"blocks/attn/wkv_b", "blocks/attn/q_norm"}),
+    "mixtral-8x7b": ({"blocks/attn/wv", "head/w"},
+                     {"blocks/moe/w_gate", "blocks/moe/router"}),
+}
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_quantize_params_matches_reference(arch):
+    from repro.models import common as jcm
+    from repro_torch.models import common as tcm
+    from repro_torch.quant import QTensor
+
+    jcfg, cfg, jp, tp = _arch_setup(arch)
+    jq = jcm.quantize_params(jp)
+    tq = tcm.quantize_params(tp)
+    jkeys = {k for k, v in jq.items() if not isinstance(v, jax.Array)}
+    tkeys = {k for k, v in tq.items() if isinstance(v, QTensor)}
+    assert tkeys == jkeys
+    quantized, dense = QUANT_KEYS[arch]
+    assert quantized <= tkeys and not tkeys & dense
+    for key in tkeys:
+        np.testing.assert_array_equal(tq[key].data.numpy(),
+                                      np.asarray(jq[key].data))
+        np.testing.assert_allclose(tq[key].scale.numpy(),
+                                   np.asarray(jq[key].scale), rtol=1e-6)
+    carried = TM.params_from_jax(as_numpy_params(jq), cfg, device="cpu")
+    for key in tkeys:
+        assert torch.equal(carried[key].data, tq[key].data)

@@ -289,3 +289,106 @@ def test_w8a8_paged_greedy_tokens_identical_to_reference_paged(qparams):
     """Calibration prefills on a slab cache; serving then runs on the
     paged pool."""
     _paged_quantized_tokens(qparams, w8a8=True)
+
+
+# ---------------------------------------------------------------------------
+# The other architectures (reduced): granite-20b, deepseek-v2-lite-16b,
+# minicpm3-4b, mixtral-8x7b
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["granite-20b", "deepseek-v2-lite-16b", "minicpm3-4b",
+             "mixtral-8x7b"]
+GQA_ARCHS = ["granite-20b", "mixtral-8x7b"]
+MLA_ARCHS = ["deepseek-v2-lite-16b", "minicpm3-4b"]
+
+
+def _serve_both(arch, jparams, tparams, prompts, *, paged=False, **jkw):
+    """The same requests on the reference engine and the port's (slab,
+    and with ``paged`` the paged pool too); returns the reference's
+    tokens and the port's, per engine."""
+    cfg = get_reduced(arch)
+    kw = dict(paged_kv=True, kv_page_size=8) if paged else {}
+    jeng = JServeEngine(jparams, jax_reduced(arch), batch_size=1, max_len=48,
+                        warmup_gemms=False, **kw, **jkw)
+    engines = [ServeEngine(tparams, cfg, max_len=48, device="cpu", **kw)]
+    if paged:
+        engines.append(ServeEngine(tparams, cfg, max_len=48, device="cpu"))
+    for eng in [jeng] + engines:
+        for uid, prompt in enumerate(prompts):
+            req = (JRequest if eng is jeng else Request)(
+                uid=uid, prompt=prompt, max_new_tokens=5)
+            assert eng.submit(req)
+    want = jeng.run()
+    return ([want[u].generated for u in range(len(prompts))],
+            [[e.run()[u].generated for u in range(len(prompts))]
+             for e in engines])
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_greedy_tokens_identical_to_reference_engine(arch):
+    """Slab cache, prompts inside mixtral's reduced 32-token window (past
+    it the reference's slab misplaces kept entries, ROADMAP §3; the next
+    test holds the port there against a full forward)."""
+    jp, tp = _params(arch)
+    cfg = get_reduced(arch)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (13, 7)]
+    want, (got,) = _serve_both(arch, jp, tp, prompts)
+    assert got == want
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+def test_mixtral_greedy_past_the_window_matches_full_forward(paged):
+    """A 40-token prompt past mixtral's reduced 32-token window, decoded
+    on the slab or the paged cache: each greedy token is the argmax of a
+    full forward over the same tokens (MoE routing included)."""
+    arch = "mixtral-8x7b"
+    _, tp = _params(arch)
+    cfg = get_reduced(arch)
+    prompt = np.random.RandomState(4).randint(0, cfg.vocab_size, 40)
+    eng = ServeEngine(tp, cfg, max_len=48, device="cpu", paged_kv=paged,
+                      kv_page_size=8 if paged else 0)
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=5))
+    got = eng.run()[0].generated
+    seq = torch.as_tensor(np.concatenate([prompt, got[:-1]]))[None]
+    with torch.inference_mode():
+        logits, _ = TM.forward(tp, {"tokens": seq}, cfg)
+    assert got == logits[0, 39:, :cfg.vocab_size].argmax(-1).tolist()
+
+
+@pytest.mark.parametrize("arch", GQA_ARCHS)
+def test_new_arch_paged_greedy_tokens_identical_to_reference_and_slab(arch):
+    jp, tp = _params(arch)
+    cfg = get_reduced(arch)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (12, 5)]
+    want, (paged, slab) = _serve_both(arch, jp, tp, prompts, paged=True)
+    assert paged == want and slab == want
+
+
+@pytest.mark.parametrize("arch", MLA_ARCHS)
+def test_mla_paged_kv_raises_kv005(arch):
+    """MLA compresses its cache instead of paging it; both engines refuse
+    a paged pool for it."""
+    jp, tp = _params(arch)
+    with pytest.raises(ValueError, match="KV005"):
+        JServeEngine(jp, jax_reduced(arch), batch_size=1, max_len=16,
+                     warmup_gemms=False, paged_kv=True)
+    with pytest.raises(ValueError, match="KV005"):
+        ServeEngine(tp, get_reduced(arch), max_len=16, device="cpu",
+                    paged_kv=True)
+    with pytest.raises(ValueError, match="KV005"):
+        TM.make_paged_model_cache(get_reduced(arch), 1, n_pages=2,
+                                  page_size=8, max_pages=2, device="cpu")
+
+
+def test_deepseek_int8w_greedy_tokens_identical_to_reference_engine():
+    """int8 weights on deepseek: attention and shared-expert projections
+    quantized, the expert banks bf16-dense as in the reference."""
+    arch = "deepseek-v2-lite-16b"
+    jq, tq = _quantized(arch)
+    cfg = get_reduced(arch)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (11, 6)]
+    want, (got,) = _serve_both(arch, jq, tq, prompts)
+    assert got == want
