@@ -149,6 +149,18 @@ Phases (any failure raises and the script exits non-zero):
    its active experts).  Each arch at full width and 2 layers (minicpm3
    4) is held against the CPU's plain path (prefill logits, greedy tokens
    up to a near tie).  Last, the new shapes' times.
+   The last four families join the same phase: K1 at their new shapes
+   (the Mamba2 in_proj, n 4384 and 14576, and out_proj; zamba2's shared
+   w_in; qwen2-vl's GLU, k 8192, n 29568, and w_down; musicgen's GELU
+   w_up) and K2 at their paged shapes (qwen2-vl G = 8, D = 128; musicgen
+   G = 1, D = 64); mamba2-370m (48 layers, 97 K1 launches a step) and
+   zamba2-7b (81 layers and 13 shared-block applications, 254) on the
+   slab cache with a 600-token prompt besides (three 256-token SSD
+   chunks, not a multiple of one); qwen2-vl-72b (24 of its 80 layers:
+   145 GB in bf16 does not fit; 145) over the embeds frontend's demo
+   table and musicgen-large (48 layers, four codebook heads, 288) on the
+   slab and the paged cache; held against the CPU at 2 layers (zamba2 7:
+   one full group and a partial one).
    ``python3 chip_smoke.py --only archs [ARCH ...]`` runs the card and
    build phases and this one alone (no kernels line, no result).
 
@@ -186,7 +198,8 @@ from repro_torch.models import common as CM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.quant import QTensor, QuantConfig  # noqa: E402
-from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import (Request, ServeEngine,  # noqa: E402
+                                      model_inputs, sample_table)
 from repro_torch.train import step as T  # noqa: E402
 from repro_torch.tuning import resolve_page_size  # noqa: E402
 
@@ -315,7 +328,12 @@ ATTN_CASES = {"a stablelm": ([1016], 128, 32, 32, 64, None),
               "absorbed mla": ([1016, 37], 128, 16, 1, 576, None),
               "G64 D576": ([300, 41], 16, 64, 1, 576, None),
               "D264 shifted": ([130, 45], 16, 4, 2, 264, 30),
-              "D4096 wide": ([300, 41], 16, 8, 2, 4096, None)}
+              "D4096 wide": ([300, 41], 16, 8, 2, 4096, None),
+              # The paged serve calls of qwen2-vl-72b and musicgen-large:
+              # the first request's last decode step (128 + 15 tokens) on
+              # the analytic page for max_len 144.
+              "qwen2-vl G8": ([143], 64, 64, 8, 128, None),
+              "musicgen G1": ([143], 64, 32, 32, 64, None)}
 ATTN_DV = {"mla D192": MLA_DV, "absorbed mla": 512, "G64 D576": 512,
            "D4096 wide": 256}
 # The case past one token group's K row (PagedPlan.dkc < D): timed beside
@@ -326,7 +344,8 @@ ATTN_WIDE = "D4096 wide"
 # kernel's JSON record.
 ATTN_TIMED = ("a stablelm", "danube serve", "stablelm B8 S4096",
               "danube B8 S4096", "granite G48", "mla D192",
-              "stablelm B1 S4096", "absorbed mla")
+              "stablelm B1 S4096", "absorbed mla", "qwen2-vl G8",
+              "musicgen G1")
 # Prompt lengths of the prefill shapes the bf16 GEMMs are held and timed
 # at (the served prompts of 37, 128 and 1000 tokens).
 PREFILL_M = (37, 128, 1000)
@@ -620,6 +639,13 @@ class Capture:
         kvc.paged.paged_flash_attention = self._orig
 
 
+def sampled_row(logits):
+    """The logits row the engine samples: the last position's, codebook
+    0's with codebook heads (padded vocab included)."""
+    row = logits[0, -1]
+    return row[0] if row.dim() == 2 else row
+
+
 class Recorder:
     """While active, wraps M.prefill and M.decode_step (the engine calls
     them through the module) and keeps each prefill's whole logits and
@@ -632,12 +658,12 @@ class Recorder:
         def prefill(*a, **k):
             logits, cache = self._orig[0](*a, **k)
             self.prefill.append(logits.clone())
-            self.rows.append(logits[0, -1].clone())
+            self.rows.append(sampled_row(logits).clone())
             return logits, cache
 
         def decode_step(*a, **k):
             logits, cache = self._orig[1](*a, **k)
-            self.rows.append(logits[0, -1].clone())
+            self.rows.append(sampled_row(logits).clone())
             return logits, cache
 
         M.prefill, M.decode_step = prefill, decode_step
@@ -899,10 +925,12 @@ def _device_us(event):
     return t if t is not None else event.self_cuda_time_total
 
 
-def decode_run(params, cfg, steps, paged=False, prof=None, device="cuda"):
+def decode_run(params, cfg, steps, paged=False, prof=None, device="cuda",
+               table=None):
     """A 37-token prefill (``max_len`` 160), then ``steps`` greedy decode
     steps on the slab cache or (``paged``) on a paged int8 cache of the
     analytic page; ``prof`` (a torch.profiler) records only the steps.
+    ``table`` feeds an embeds-frontend arch (the engine's demo table).
     Returns the steps' wall seconds."""
     prompt = torch.as_tensor(np.random.RandomState(2).randint(
         0, cfg.vocab_size, 37), device=device)[None]
@@ -915,18 +943,19 @@ def decode_run(params, cfg, steps, paged=False, prof=None, device="cuda"):
                 cfg, 1, n_pages=n_pages, page_size=page, max_pages=n_pages,
                 device=device)
             kvc.model_assign_sequence(cache, 0, list(range(n_pages)))
-        logits, cache = M.prefill(params, {"tokens": prompt}, cfg,
-                                  max_len=160, cache=cache)
-        nxt = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+        logits, cache = M.prefill(params, model_inputs(cfg, prompt, table),
+                                  cfg, max_len=160, cache=cache)
+        nxt = int(torch.argmax(sampled_row(logits)[:cfg.vocab_size]))
         _sync(device)
         if prof is not None:
             prof.start()
         t0 = time.perf_counter()
         for s in range(steps):
             logits, cache = M.decode_step(
-                params, {"tokens": torch.full((1, 1), nxt, device=device)},
+                params, model_inputs(cfg, torch.full((1, 1), nxt,
+                                                     device=device), table),
                 cache, prompt.shape[1] + s, cfg)
-            nxt = int(torch.argmax(logits[0, -1, :cfg.vocab_size]))
+            nxt = int(torch.argmax(sampled_row(logits)[:cfg.vocab_size]))
         _sync(device)
         wall = time.perf_counter() - t0
         if prof is not None:
@@ -939,15 +968,15 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def profile_decode(params, cfg, steps=8, paged=False):
+def profile_decode(params, cfg, steps=8, paged=False, table=None):
     """Device time by kernel over ``steps`` decode steps (torch.profiler),
     and the unprofiled wall time of the same steps, on the slab cache or
     (``paged``) on the paged int8 cache."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall = decode_run(params, cfg, steps, paged)
+    wall = decode_run(params, cfg, steps, paged, table=table)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    decode_run(params, cfg, steps, paged, prof)
+    decode_run(params, cfg, steps, paged, prof, table=table)
     by_kernel = {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -1073,14 +1102,19 @@ def cross_check(cfg):
     card_vs_cpu(p_gpu, p_cpu, cfg4)
 
 
-def card_vs_cpu(p_gpu, p_cpu, cfg4, label=""):
+def card_vs_cpu(p_gpu, p_cpu, cfg4, label="", table=None):
     """The same parameters on the card and on the CPU: prefill logits
-    within TOL_MODEL, greedy tokens equal up to a near tie."""
+    within TOL_MODEL, greedy tokens equal up to a near tie.  ``table``
+    (on the card) feeds an embeds-frontend arch on both."""
     prompt = np.random.RandomState(1).randint(0, cfg4.vocab_size, 12)
     toks = torch.as_tensor(prompt)[None]
+    tables = {"cuda": table, "cpu": None if table is None else table.cpu()}
     with torch.inference_mode():
-        lg, _ = M.prefill(p_gpu, {"tokens": toks.cuda()}, cfg4, max_len=32)
-        lc, _ = M.prefill(p_cpu, {"tokens": toks}, cfg4, max_len=32)
+        lg, _ = M.prefill(p_gpu, model_inputs(cfg4, toks.cuda(),
+                                              tables["cuda"]),
+                          cfg4, max_len=32)
+        lc, _ = M.prefill(p_cpu, model_inputs(cfg4, toks, tables["cpu"]),
+                          cfg4, max_len=32)
     err = (lg.cpu() - lc).abs().max().item()
     scale = lc.abs().max().item()
     print(f"{label}prefill logits max_abs_err={err:.4e} "
@@ -1089,7 +1123,8 @@ def card_vs_cpu(p_gpu, p_cpu, cfg4, label=""):
         raise AssertionError(f"{label}card and CPU prefill logits disagree")
     outs = []
     for params, dev in ((p_gpu, None), (p_cpu, "cpu")):
-        eng = ServeEngine(params, cfg4, max_len=32, device=dev)
+        eng = ServeEngine(params, cfg4, max_len=32, device=dev,
+                          sample_table=tables[dev or "cuda"])
         eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=8))
         outs.append(eng.run()[1].generated)
     agree = sum(a == b for a, b in zip(*outs))
@@ -1102,8 +1137,9 @@ def card_vs_cpu(p_gpu, p_cpu, cfg4, label=""):
         seq = torch.as_tensor(np.concatenate(
             [prompt, np.asarray(outs[1][:i], dtype=prompt.dtype)]))[None]
         with torch.inference_mode():
-            row, _ = M.prefill(p_cpu, {"tokens": seq}, cfg4, max_len=32)
-        row = row[0, -1, :cfg4.vocab_size]
+            row, _ = M.prefill(p_cpu, model_inputs(cfg4, seq, tables["cpu"]),
+                               cfg4, max_len=32)
+        row = sampled_row(row)[:cfg4.vocab_size]
         gap = (row.max() - row[outs[0][i]]).item()
         # Each of the two logits may be off by the prefill tolerance.
         limit = 2 * TOL_MODEL * row.abs().max().item()
@@ -2647,7 +2683,8 @@ def k_outer_phase():
 
 # ---------------------------------------------------------------------------
 # The other architectures on the serve path: granite-20b, deepseek-v2-lite-
-# 16b, minicpm3-4b, mixtral-8x7b
+# 16b, minicpm3-4b, mixtral-8x7b; mamba2-370m, zamba2-7b, qwen2-vl-72b,
+# musicgen-large
 # ---------------------------------------------------------------------------
 
 GELU = "rms>gelu"
@@ -2655,7 +2692,10 @@ EXPERT_GLU = "glu.silu(none|none)"
 # K1 at the new programs and shapes (program, GEMM, k, n, m values):
 # granite's rms-prologue GELU w_up, deepseek's expert GEMMs at the
 # capacity rows of a decode step (8) and of a 128-token prefill (16),
-# MLA's wkv_a and minicpm3's q-LoRA projections, mixtral's expert GLU.
+# MLA's wkv_a and minicpm3's q-LoRA projections, mixtral's expert GLU;
+# the Mamba2 in_proj (n = 4384, 14576) and out_proj (zamba2's also the
+# shape of its shared w_in), qwen2-vl's GLU and down projection,
+# musicgen's GELU w_up.
 ARCH_GEMMS = [(GELU, "granite w_up", 6144, 24576, (1, 37, 128)),
               (EXPERT_GLU, "deepseek expert glu", 2048, 1408, (8, 16)),
               ("none", "deepseek expert down", 1408, 2048, (8, 16)),
@@ -2663,19 +2703,35 @@ ARCH_GEMMS = [(GELU, "granite w_up", 6144, 24576, (1, 37, 128)),
               ("none", "minicpm3 wkv_a", 2560, 288, (1, 128)),
               ("none", "minicpm3 wq_a", 2560, 768, (1, 128)),
               ("none", "minicpm3 wq_b", 768, 3840, (1, 128)),
-              (EXPERT_GLU, "mixtral expert glu", 4096, 14336, (8,))]
+              (EXPERT_GLU, "mixtral expert glu", 4096, 14336, (8,)),
+              ("none", "mamba2 in_proj", 1024, 4384, (1, 37, 128)),
+              ("none", "mamba2 out_proj", 2048, 1024, (1, 128)),
+              ("none", "zamba2 in_proj", 3584, 14576, (1, 128)),
+              ("none", "zamba2 out_proj", 7168, 3584, (1, 128)),
+              (GLU, "qwen2-vl glu", 8192, 29568, (1, 128)),
+              ("res", "qwen2-vl w_down", 29568, 8192, (1, 128)),
+              (GELU, "musicgen w_up", 2048, 8192, (1, 128))]
 # The shapes timed for the kernel table: (program, GEMM, m).
 ARCH_TIMED = [(GELU, "granite w_up", 1), (GELU, "granite w_up", 128),
               (EXPERT_GLU, "deepseek expert glu", 8),
               (EXPERT_GLU, "deepseek expert glu", 16),
               ("none", "deepseek expert down", 8),
               ("none", "deepseek expert down", 16),
-              ("none", "deepseek wkv_a", 1), ("none", "minicpm3 wkv_a", 1)]
+              ("none", "deepseek wkv_a", 1), ("none", "minicpm3 wkv_a", 1),
+              ("none", "mamba2 in_proj", 1), ("none", "mamba2 in_proj", 128),
+              ("none", "mamba2 out_proj", 1), ("none", "zamba2 in_proj", 1),
+              ("none", "zamba2 out_proj", 1), (GLU, "qwen2-vl glu", 1),
+              (GLU, "qwen2-vl glu", 128), ("res", "qwen2-vl w_down", 1),
+              (GELU, "musicgen w_up", 1)]
 # Each architecture served: its layers on the card (None: all), whether
 # it also serves on the paged cache, its prompts (16 new tokens each), the
 # K1 launches of one forward step and the layers of its card-vs-CPU model.
 # mixtral-8x7b's 32 layers are 93 GB in bf16: 8 of them are served, and
-# its 4200-token prompt runs past the 4096-token window.
+# its 4200-token prompt runs past the 4096-token window.  qwen2-vl-72b's
+# 80 layers are 145 GB in bf16: 24 of them are served.  The SSM archs'
+# 600-token prompt spans three 256-token SSD chunks, not a multiple of
+# one; zamba2 on the CPU at 7 layers runs one full group of 6 and a
+# partial one.
 SERVED_ARCHS = {
     "granite-20b": dict(layers=None, paged=True, prompts=(128, 37, 8),
                         per_step=313, cpu_layers=2),
@@ -2686,6 +2742,14 @@ SERVED_ARCHS = {
                         per_step=373, cpu_layers=4),
     "mixtral-8x7b": dict(layers=8, paged=True, prompts=(128, 37, 8, 4200),
                          per_step=161, cpu_layers=2),
+    "mamba2-370m": dict(layers=None, paged=False, prompts=(128, 37, 8, 600),
+                        per_step=97, cpu_layers=2),
+    "zamba2-7b": dict(layers=None, paged=False, prompts=(128, 37, 8, 600),
+                      per_step=254, cpu_layers=7),
+    "qwen2-vl-72b": dict(layers=24, paged=True, prompts=(128, 37, 8),
+                         per_step=145, cpu_layers=2),
+    "musicgen-large": dict(layers=None, paged=True, prompts=(128, 37, 8),
+                           per_step=288, cpu_layers=2),
 }
 ARCH_NEW_TOKENS = 16
 
@@ -2736,7 +2800,10 @@ def arch_step_routes(cfg, L):
     """K1 launches by route and program of one forward step over ``L``
     tokens of one sequence: the attention and dense GEMMs at m = L, the
     routed experts' at m = their capacity rows (each expert's buffer is a
-    16-byte aligned slice), the head at m = L."""
+    16-byte aligned slice), a Mamba2 layer's in_proj and out_proj, each
+    shared-block application's w_in, q/k/v, wo, MLP and down projection,
+    and the head at m = L (none for codebook heads: an einsum, as in the
+    reference)."""
     from repro_torch.models import moe as MOE
 
     def route(m):
@@ -2747,31 +2814,45 @@ def arch_step_routes(cfg, L):
     def add(tag, m, times=cfg.n_layers):
         steps[f"{route(m)} {tag}"] += times
 
-    if cfg.attn_kind == "mla":
-        add("none", L, cfg.n_layers * (3 if cfg.mla.q_lora_rank else 2))
+    mlp = GLU if cfg.act == "silu" else GELU
+    if cfg.family in ("ssm", "hybrid"):
+        add("none", L, 2 * cfg.n_layers)             # in_proj, out_proj
+        apps = M.n_shared_applications(cfg)
+        if apps:
+            add("none", L, 4 * apps)                 # w_in, wq, wk, wv
+            add("res", L, 2 * apps)                  # wo, w_down
+            add(mlp, L, apps)
     else:
-        add("none", L, cfg.n_layers * 3)
-    add("res", L)                                    # wo
-    if cfg.moe is not None:
-        E, cap = cfg.moe.n_experts, MOE.capacity(cfg, L)
-        add(EXPERT_GLU, cap, cfg.n_layers * E)
-        add("none", cap, cfg.n_layers * E)
-        if cfg.moe.n_shared_experts:
-            add(EXPERT_GLU, L)
-            add("res", L)
-    else:
-        add(GLU if cfg.act == "silu" else GELU, L)
-        add("res", L)                                # w_down
-    add("none", L, 1)                                # the head
+        if cfg.attn_kind == "mla":
+            add("none", L, cfg.n_layers * (3 if cfg.mla.q_lora_rank else 2))
+        else:
+            add("none", L, cfg.n_layers * 3)
+        add("res", L)                                # wo
+        if cfg.moe is not None:
+            E, cap = cfg.moe.n_experts, MOE.capacity(cfg, L)
+            add(EXPERT_GLU, cap, cfg.n_layers * E)
+            add("none", cap, cfg.n_layers * E)
+            if cfg.moe.n_shared_experts:
+                add(EXPERT_GLU, L)
+                add("res", L)
+        else:
+            add(mlp, L)
+            add("res", L)                            # w_down
+    if cfg.n_codebooks == 1:
+        add("none", L, 1)                            # the head
     return steps
 
 
 def weight_bound_ms(params, cfg):
     """The weight bytes a decode step reads (every leaf once, one row of
-    the embedding table) over the memory rate, and the same counting only
-    the routed experts a token takes (top_k of n_experts)."""
+    the embedding table, or for the embeds frontend one row of the demo
+    table) over the memory rate; the same counting only the routed experts
+    a token takes (top_k of n_experts); and counting the shared block
+    once per application (zamba2: 13 reads of it a step)."""
     routed = {"blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down"}
-    total = active = 0.0
+    apps = M.n_shared_applications(cfg)
+    row = cfg.d_model * torch.finfo(cfg.dtype()).bits // 8
+    total = active = applied = 0.0 if cfg.frontend == "tokens" else row
     for name, t in params.items():
         nb = t.numel() * t.element_size()
         if name == "embed/table":
@@ -2779,22 +2860,28 @@ def weight_bound_ms(params, cfg):
         total += nb
         active += nb * (cfg.moe.top_k / cfg.moe.n_experts
                         if name in routed else 1)
+        applied += nb * (apps if name.startswith("shared/") else 1)
     return (total / HBM_BYTES_PER_S * 1e3, active / HBM_BYTES_PER_S * 1e3,
-            total)
+            total, applied / HBM_BYTES_PER_S * 1e3)
 
 
-def serve_arch(name, spec):
+def serve_arch(name, spec, table=None):
     """Full width (``spec["layers"]`` of the config's layers), random
     weights from seed 0, served through ServeEngine on the slab cache and
-    (``spec["paged"]``) the paged int8 cache: the K1 launches by route and
-    program of every forward step, K2's launches (one a layer a paged
-    decode step, none in prefill), slab vs paged prefill logits bit-equal
-    and greedy tokens equal up to a near tie, one K2 call of the run
-    replayed against its plain version; times, the decode profile, peak
-    memory and the weight-byte bound."""
+    (``spec["paged"]``) the paged int8 cache, an embeds-frontend arch fed
+    from ``table``: the K1 launches by route and program of every forward
+    step, K2's launches (one a layer a paged decode step, none in
+    prefill), slab vs paged prefill logits bit-equal and greedy tokens
+    equal up to a near tie, one K2 call of the run replayed against its
+    plain version; times, the decode profile, peak memory and the
+    weight-byte bound."""
     cfg = get_config(name)
     if spec["layers"]:
+        full = cfg
         cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+        print(f"{name}: depth cut to {cfg.n_layers} of {full.n_layers} "
+              f"layers (the full model is {full.n_params() * 2 / 1e9:.1f} "
+              "GB in bf16)")
     phase(f"architectures: full-width {name}, {cfg.n_layers} layers, "
           + ("slab vs paged_kv=True" if spec["paged"] else "slab"))
     torch.cuda.synchronize()
@@ -2805,7 +2892,7 @@ def serve_arch(name, spec):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
-    bound_ms, active_ms, wbytes = weight_bound_ms(params, cfg)
+    bound_ms, active_ms, wbytes, applied_ms = weight_bound_ms(params, cfg)
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     print(f"init {sum(p.numel() for p in params.values())} params "
           f"({wbytes / 1e9:.3f} GB read a decode step) in {init_s:.3f} s, "
@@ -2815,9 +2902,13 @@ def serve_arch(name, spec):
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in spec["prompts"]]
     max_len = max(spec["prompts"]) + ARCH_NEW_TOKENS
     L = cfg.n_layers
+    print(f"{name}: K1 launches by route and program of a decode step "
+          f"{dict(arch_step_routes(cfg, 1))}, of a {prompts[0].size}-token "
+          f"prefill {dict(arch_step_routes(cfg, prompts[0].size))}")
     runs = {}
     for paged in ((False, True) if spec["paged"] else (False,)):
-        eng = ServeEngine(params, cfg, max_len=max_len, paged_kv=paged)
+        eng = ServeEngine(params, cfg, max_len=max_len, paged_kv=paged,
+                          sample_table=table)
         eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
         eng.run()
         reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=ARCH_NEW_TOKENS)
@@ -2877,7 +2968,7 @@ def serve_arch(name, spec):
             f"page={pool[0].shape[1]} H={q.shape[1]} Hkv={pool[0].shape[2]}"
             f" D={q.shape[2]} window={kw.get('window')}",
             q, pool, tables, lens_t, **kw)
-    profile = profile_decode(params, cfg)
+    profile = profile_decode(params, cfg, table=table)
     del params
     torch.cuda.empty_cache()
     out = {"arch": name, "layers": L, "init_s": init_s,
@@ -2885,6 +2976,7 @@ def serve_arch(name, spec):
            "serve_peak_gb": max(r["peak"] for r in runs.values()) / 1e9,
            "card_gb": card_bytes / 1e9, "weight_gb": wbytes / 1e9,
            "weight_bound_ms": bound_ms, "active_weight_bound_ms": active_ms,
+           "applied_weight_bound_ms": applied_ms,
            "k1_per_step": sum(arch_step_routes(cfg, 1).values()),
            "profile": profile, "k2_call_err": call_err,
            "routes": {p: r["routes"] for p, r in runs.items()},
@@ -2901,13 +2993,13 @@ def serve_arch(name, spec):
     return out
 
 
-def cross_check_arch(name, spec):
+def cross_check_arch(name, spec, table=None):
     cfg = dataclasses.replace(get_config(name), n_layers=spec["cpu_layers"])
     phase(f"architectures: {name} at full width, {cfg.n_layers} layers: "
           "card vs CPU plain path")
     p_gpu = M.init_params(cfg, seed=1)
     p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
-    card_vs_cpu(p_gpu, p_cpu, cfg, label=f"{name} ")
+    card_vs_cpu(p_gpu, p_cpu, cfg, label=f"{name} ", table=table)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
@@ -2922,8 +3014,20 @@ def architectures(names=None):
     served = {}
     for name in names or SERVED_ARCHS:
         spec = SERVED_ARCHS[name]
-        served[name] = serve_arch(name, spec)
-        cross_check_arch(name, spec)
+        table = None
+        cfg = get_config(name)
+        if cfg.frontend == "embeds":
+            t_table = time.perf_counter()
+            table = sample_table(cfg)
+            torch.cuda.synchronize()
+            print(f"{name}: the embeds frontend's demo table "
+                  f"({cfg.vocab_size} x {cfg.d_model}, "
+                  f"{table.numel() * table.element_size() / 1e9:.3f} GB) "
+                  f"drawn in {time.perf_counter() - t_table:.3f} s")
+        served[name] = serve_arch(name, spec, table)
+        cross_check_arch(name, spec, table)
+        del table
+        torch.cuda.empty_cache()
     rows = arch_times()
     seconds = time.perf_counter() - t0
     print(f"architectures phase {seconds:.1f} s")
@@ -2939,7 +3043,14 @@ def arch_kernel_records(archs, attn_rows):
                   "deepseek expert glu": "deepseek-v2-lite-16b",
                   "deepseek expert down": "deepseek-v2-lite-16b",
                   "deepseek wkv_a": "deepseek-v2-lite-16b",
-                  "minicpm3 wkv_a": "minicpm3-4b"}
+                  "minicpm3 wkv_a": "minicpm3-4b",
+                  "mamba2 in_proj": "mamba2-370m",
+                  "mamba2 out_proj": "mamba2-370m",
+                  "zamba2 in_proj": "zamba2-7b",
+                  "zamba2 out_proj": "zamba2-7b",
+                  "qwen2-vl glu": "qwen2-vl-72b",
+                  "qwen2-vl w_down": "qwen2-vl-72b",
+                  "musicgen w_up": "musicgen-large"}
     records = []
     for row in archs["rows"]:
         arch = source_run[row["gemm"]]
@@ -2956,17 +3067,21 @@ def arch_kernel_records(archs, attn_rows):
             "shape": f"{row['gemm']} m={row['m']} k={row['k']} "
                      f"n={row['n']} bf16; launches: {key} over the "
                      f"{arch} slab run"})
-    arow = next(r for r in attn_rows if r["case"] == "granite G48")
-    granite = served["granite-20b"]
-    records.append({
-        "name": f"{FA.NAME} (granite-20b G48 paged path)", "route": "cuda",
-        "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
-        "launches": granite["k2"][True][FA.NAME],
-        "max_abs_err": granite["k2_call_err"], "ms": arow["ms"],
-        "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
-        "bound_by": arow["bound_by"], "library_ms": None,
-        "shape": f"B={arow['B']} S={arow['S']} page={arow['page']} "
-                 f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
+    for case, arch in (("granite G48", "granite-20b"),
+                       ("qwen2-vl G8", "qwen2-vl-72b"),
+                       ("musicgen G1", "musicgen-large")):
+        arow = next(r for r in attn_rows if r["case"] == case)
+        run = served[arch]
+        records.append({
+            "name": f"{FA.NAME} ({arch} G{arow['H'] // arow['Hkv']} paged "
+                    "path)", "route": "cuda",
+            "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+            "launches": run["k2"][True][FA.NAME],
+            "max_abs_err": run["k2_call_err"], "ms": arow["ms"],
+            "plain_ms": arow["plain_ms"], "bound_ms": arow["bound_ms"],
+            "bound_by": arow["bound_by"], "library_ms": None,
+            "shape": f"B={arow['B']} S={arow['S']} page={arow['page']} "
+                     f"H={arow['H']} Hkv={arow['Hkv']} D={arow['D']} bf16"})
     return records
 
 
@@ -2976,7 +3091,9 @@ def print_archs(archs, card_line):
         print(f"e2e {name} ({out['layers']} layers; {card_line}): "
               f"weight-byte bound {out['weight_bound_ms']:.3f} ms/token "
               f"({out['weight_gb']:.3f} GB), active-parameter bound "
-              f"{out['active_weight_bound_ms']:.3f} ms/token; "
+              f"{out['active_weight_bound_ms']:.3f}, shared block read "
+              f"once an application {out['applied_weight_bound_ms']:.3f} "
+              "ms/token; "
               f"{out['k1_per_step']} K1 launches a decode step; decode "
               f"profile {prof['decode_wall_ms_per_step']:.3f} ms/step wall, "
               f"device {prof['device_ms_per_step']:.3f} (K1 "

@@ -1,27 +1,35 @@
-"""Architecture registry (port of ``repro.configs``).
+"""Architecture registry (port of ``repro.configs``): one module per
+architecture, in the reference's order.
 
-The port serves the dense GQA archs stablelm-1.6b, h2o-danube-3-4b and
-granite-20b (GELU MLP, one KV head), the MoE archs mixtral-8x7b (sliding
-window) and deepseek-v2-lite-16b (with MLA), and minicpm3-4b (MLA with
-q-LoRA).  The SSM family, mrope and the multi-codebook frontend join as
-their model code is ported (ROADMAP queue 1, item 2).
+The dense GQA archs (stablelm-1.6b, h2o-danube-3-4b, granite-20b), the
+MoE archs (mixtral-8x7b, deepseek-v2-lite-16b with MLA), minicpm3-4b
+(MLA with q-LoRA), the attention-free SSM mamba2-370m, the hybrid
+zamba2-7b (Mamba2 layers and one weight-shared attention block),
+qwen2-vl-72b (M-RoPE over the ``embeds`` frontend) and musicgen-large
+(four codebook heads over the ``embeds`` frontend).  ``paper_gemm`` holds
+the paper's standalone GEMM sizes.
 """
 
 import dataclasses
 from typing import List
 
 from repro_torch.configs import (deepseek_v2_lite_16b, granite_20b,
-                                 h2o_danube_3_4b, minicpm3_4b, mixtral_8x7b,
-                                 stablelm_1_6b)
+                                 h2o_danube_3_4b, mamba2_370m, minicpm3_4b,
+                                 mixtral_8x7b, musicgen_large, qwen2_vl_72b,
+                                 stablelm_1_6b, zamba2_7b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "mixtral-8x7b": mixtral_8x7b,
+    "mamba2-370m": mamba2_370m,
     "minicpm3-4b": minicpm3_4b,
     "granite-20b": granite_20b,
     "stablelm-1.6b": stablelm_1_6b,
     "h2o-danube-3-4b": h2o_danube_3_4b,
+    "qwen2-vl-72b": qwen2_vl_72b,
+    "musicgen-large": musicgen_large,
+    "zamba2-7b": zamba2_7b,
 }
 
 
@@ -31,8 +39,8 @@ def list_archs() -> List[str]:
 
 def _module(name: str):
     if name not in _MODULES:
-        raise ValueError(f"architecture {name!r} is not ported yet "
-                         f"(ROADMAP queue 1, item 2; ported: {list_archs()})")
+        raise ValueError(f"unknown architecture {name!r} (known: "
+                         f"{list_archs()})")
     return _MODULES[name]
 
 

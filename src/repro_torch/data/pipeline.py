@@ -9,7 +9,7 @@ across restarts: the batch of step N depends only on the config and N.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -59,14 +59,26 @@ class SyntheticLM:
         }
 
 
-def batch_for_model(cfg: ModelConfig, data_cfg: DataConfig,
-                    step: int) -> Dict[str, np.ndarray]:
-    """The token stream for a token-frontend LM.  The reference's other
-    frontends (hashed embeddings for the stubbed modalities, musicgen's
-    codebook labels) come with their architectures (ROADMAP queue 1,
-    item 12)."""
-    if cfg.frontend != "tokens" or cfg.n_codebooks != 1:
-        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} with "
-                         f"{cfg.n_codebooks} codebooks is not ported yet "
-                         "(ROADMAP queue 1, item 12)")
-    return SyntheticLM(data_cfg).batch_at(step)
+def batch_for_model(cfg: ModelConfig, data_cfg: DataConfig, step: int,
+                    embed_dim: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The token stream adapted to the arch's frontend: the stubbed
+    modalities (``embeds``) get hashed embeddings from a table drawn from
+    ``RandomState(seed)``, labels taken mod the vocab; musicgen gets one
+    label stream per codebook, each a seeded permutation of the vocab."""
+    src = SyntheticLM(data_cfg).batch_at(step)
+    if cfg.frontend == "tokens":
+        return src
+    d = embed_dim or cfg.d_model
+    rng = np.random.RandomState(data_cfg.seed)
+    table = rng.randn(data_cfg.vocab_size, d).astype(np.float32) * 0.02
+    out = {"embeds": table[src["tokens"]], "mask": src["mask"]}
+    if cfg.n_codebooks > 1:
+        rngs = [np.random.RandomState(data_cfg.seed + i + 1)
+                for i in range(cfg.n_codebooks)]
+        perms = [r.permutation(cfg.vocab_size) for r in rngs]
+        lbl = np.stack([p[src["labels"] % cfg.vocab_size] for p in perms],
+                       axis=-1)
+        out["labels"] = lbl.astype(np.int32)
+    else:
+        out["labels"] = src["labels"] % cfg.vocab_size
+    return out

@@ -1,0 +1,76 @@
+"""Serving launcher (port of ``repro/launch/serve.py``): random-weight
+requests against one architecture, on the card by default.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --requests 4 --prompt-len 16 --max-new 8 [--full] [--paged]
+
+Without ``--full`` it serves the reduced config; ``--device cpu`` runs the
+plain versions on the CPU.  Weights are drawn from ``--seed``, prompts
+from ``RandomState(seed)``.  The engine serves the requests one at a time
+(the reference's ``batch_size`` is not ported).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.models import model as M
+from repro_torch.serve.engine import Request, ServeEngine
+
+
+def run_serving(arch: str, *, full: bool = False, requests: int = 4,
+                prompt_len: int = 16, max_new: int = 8,
+                temperature: float = 0.0, seed: int = 0, device=None,
+                paged: bool = False):
+    """Serve ``requests`` random prompts of ``prompt_len`` tokens, each
+    generating ``max_new`` tokens, on ``device`` (``None`` is the card);
+    returns the finished requests by uid and the wall seconds of the
+    run (weight init and engine start-up excluded)."""
+    cfg = get_config(arch) if full else get_reduced(arch)
+    params = M.init_params(cfg, seed=seed, device=device)
+    eng = ServeEngine(params, cfg, max_len=prompt_len + max_new, seed=seed,
+                      device=device, paged_kv=paged)
+    rng = np.random.RandomState(seed)
+    for uid in range(requests):
+        eng.submit(Request(uid=uid,
+                           prompt=rng.randint(0, cfg.vocab_size, prompt_len),
+                           max_new_tokens=max_new, temperature=temperature))
+    t0 = time.perf_counter()
+    done: Dict[int, Request] = eng.run()
+    return done, time.perf_counter() - t0
+
+
+def main(argv: Optional[list] = None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true",
+                    help="the published config (needs the card)")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' runs the plain versions; default: the card")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged int8 KV cache")
+    args = ap.parse_args(argv)
+    done, seconds = run_serving(
+        args.arch, full=args.full, requests=args.requests,
+        prompt_len=args.prompt_len, max_new=args.max_new,
+        temperature=args.temperature, seed=args.seed, device=args.device,
+        paged=args.paged)
+    total_new = sum(len(r.generated) for r in done.values())
+    for uid, r in sorted(done.items()):
+        print(f"req {uid} ({r.status}): {r.generated}")
+    print(f"{total_new} tokens in {seconds:.3f} s "
+          f"({total_new / seconds:.1f} tok/s)")
+
+
+if __name__ == "__main__":
+    main()

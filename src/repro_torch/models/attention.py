@@ -166,7 +166,7 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
               max_len: Optional[int] = None, residual=None):
     """mode: train | prefill (returns a cache) | decode (uses and updates
     ``cache`` in place).  ``residual`` is added in the output projection's
-    drain.
+    drain.  ``positions`` are (B, L), or (B, L, 3) with M-RoPE.
 
     A paged ``cache`` (one layer's view of the model's pool) is written in
     place in both modes: prefill attends over the unquantized k/v and then
@@ -178,8 +178,12 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     q = ca_matmul(x, p["wq"]).reshape(B, L, H, Dh)
     k = ca_matmul(x, p["wk"]).reshape(B, L, Kv, Dh)
     v = ca_matmul(x, p["wv"]).reshape(B, L, Kv, Dh)
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    sections = cfg.mrope_sections if cfg.rope_kind == "mrope" else None
+    q = cm.apply_rope(q, positions, cfg.rope_theta, sections)
+    k = cm.apply_rope(k, positions, cfg.rope_theta, sections)
+    # M-RoPE's (B, L, 3) positions: the cache and the mask take the first
+    # (temporal) stream.
+    positions = positions if positions.dim() == 2 else positions[..., 0]
 
     if mode == "decode":
         if cache is None or step is None:

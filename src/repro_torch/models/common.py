@@ -1,5 +1,6 @@
 """Shared model machinery (port of ``repro/models/common.py``): parameter
-definitions, norms, rotary embeddings, the MLP, embedding and unembedding.
+definitions and init laws, norms, rotary embeddings (RoPE and M-RoPE),
+the MLP, embedding and unembedding (one head or one per codebook).
 
 Parameters are flat dicts keyed by '/'-joined paths, each declared once
 as a :class:`ParamDef` with its shape, logical axes and init law — the
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +31,7 @@ from repro_torch.quant.scales import QTensor
 class ParamDef:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical names, len == len(shape)
-    init: str = "fanin"               # fanin|embed|zeros|ones
+    init: str = "fanin"               # fanin|embed|zeros|ones|a_log|dt_bias|conv
     scale: float = 1.0
 
     def __post_init__(self):
@@ -62,31 +63,58 @@ def init_one(d: ParamDef, generator: torch.Generator, dtype: torch.dtype,
     ``out_dtype`` (default ``dtype``).  A layer-stacked leaf (3-D or more)
     is drawn one layer at a time into the preallocated leaf, scaled in
     place, so a stacked leaf in a narrower serving dtype never exists
-    whole in ``dtype``: the peak is the served leaf plus one layer."""
+    whole in ``dtype``: the peak is the served leaf plus one layer.
+
+    The laws: ``fanin`` a normal truncated at 2 sigma with std
+    ``scale / sqrt(fan_in)``; ``embed`` N(0, 0.02²); Mamba2's ``a_log``
+    log U[1, 16] (A = -exp(a_log)), ``dt_bias`` the softplus inverse of
+    exp U[log 1e-3, log 1e-1], and ``conv`` U[-1/sqrt(fan), 1/sqrt(fan)]
+    with ``fan`` the def's leading dim (the layer count of a stacked def,
+    as in the reference)."""
     out_dtype = out_dtype or dtype
     kw = {"dtype": out_dtype, "device": device}
     if d.init == "zeros":
         return torch.zeros(d.shape, **kw)
     if d.init == "ones":
         return torch.ones(d.shape, **kw)
-    if d.init not in ("embed", "fanin"):
-        raise ValueError(f"init law {d.init!r} is not ported yet (its "
-                         "architectures are ROADMAP queue 1 items)")
-    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    std = 0.02 if d.init == "embed" else d.scale / math.sqrt(fan_in)
+    if d.init not in _LAWS:
+        raise ValueError(f"unknown init law {d.init!r}")
     out = torch.empty(d.shape, **kw)
     for part in (out.unbind(0) if len(d.shape) >= 3 else (out,)):
         draw = part if out_dtype == dtype else torch.empty(
             part.shape, dtype=dtype, device=device)
-        if d.init == "embed":
-            draw.normal_(generator=generator)
-        else:
-            torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-        draw.mul_(std)
+        _LAWS[d.init](draw, d, generator)
         if draw is not part:
             part.copy_(draw)
     return out
+
+
+def _draw_fanin(t: torch.Tensor, d: ParamDef, gen: torch.Generator):
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    t.mul_(d.scale / math.sqrt(fan_in))
+
+
+def _draw_embed(t: torch.Tensor, d: ParamDef, gen: torch.Generator):
+    t.normal_(generator=gen).mul_(0.02)
+
+
+def _draw_a_log(t: torch.Tensor, d: ParamDef, gen: torch.Generator):
+    t.uniform_(1.0, 16.0, generator=gen).log_()
+
+
+def _draw_dt_bias(t: torch.Tensor, d: ParamDef, gen: torch.Generator):
+    dt = t.uniform_(math.log(1e-3), math.log(1e-1), generator=gen).exp_()
+    t.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+def _draw_conv(t: torch.Tensor, d: ParamDef, gen: torch.Generator):
+    bound = 1.0 / math.sqrt(d.shape[0])
+    t.uniform_(-bound, bound, generator=gen)
+
+
+_LAWS = {"fanin": _draw_fanin, "embed": _draw_embed, "a_log": _draw_a_log,
+         "dt_bias": _draw_dt_bias, "conv": _draw_conv}
 
 
 def subtree(params: Dict[str, torch.Tensor],
@@ -154,7 +182,7 @@ def rms_norm_def(d: int) -> Defs:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (plain RoPE)
+# Rotary embeddings (RoPE and Qwen2-VL's M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -164,11 +192,32 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """Rotate (B, L, H, D) at positions (B, L), in fp32, cast back."""
+               theta: float = 10000.0,
+               mrope_sections: Optional[Sequence[int]] = None
+               ) -> torch.Tensor:
+    """Rotate (B, L, H, D) at positions (B, L), or (B, L, 3) for M-RoPE,
+    in fp32, cast back.
+
+    M-RoPE (Qwen2-VL): the D/2 frequency lanes are split into (temporal,
+    height, width) sections of ``mrope_sections`` lanes, each rotated by
+    its own position stream.  With the vision frontend a stub, all three
+    streams carry the text position."""
+    B, L = positions.shape[:2]
     half = x.shape[-1] // 2
     inv = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions.float()[..., None] * inv      # (B, L, half)
+    if positions.dim() == 3:
+        sections = list(mrope_sections or ())
+        if sum(sections) != half:
+            raise ValueError(f"mrope sections {sections} do not cover the "
+                             f"{half} half-dim lanes")
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(sections), device=x.device),
+            torch.as_tensor(sections, device=x.device))
+        pos = torch.gather(positions.float(), 2,
+                           sec_id[None, None].expand(B, L, half))
+    else:
+        pos = positions.float()[..., None].expand(B, L, half)
+    ang = pos * inv                                   # (B, L, half)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -225,11 +274,18 @@ def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
     return p["table"][tokens].to(dtype)
 
 
-def unembed_defs(d: int, vocab: int) -> Defs:
-    return {"w": ParamDef((d, vocab), ("embed", "vocab"))}
+def unembed_defs(d: int, vocab: int, n_heads: int = 1) -> Defs:
+    if n_heads == 1:
+        return {"w": ParamDef((d, vocab), ("embed", "vocab"))}
+    return {"w": ParamDef((n_heads, d, vocab), (None, "embed", "vocab"))}
 
 
-def unembed_apply(p: Dict[str, torch.Tensor],
-                  x: torch.Tensor) -> torch.Tensor:
-    """One logits head, fp32 out (a QTensor head included)."""
-    return ca_matmul(x, p["w"], out_dtype=torch.float32)
+def unembed_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  n_heads: int = 1) -> torch.Tensor:
+    """The logits head, fp32 out: one head on K1 (a QTensor head
+    included); musicgen's ``n_heads`` codebook heads (``(n_heads, d, V)``
+    -> ``(B, L, n_heads, V)``) as the reference computes them, an einsum
+    of the compute-dtype operands accumulated in fp32."""
+    if n_heads == 1:
+        return ca_matmul(x, p["w"], out_dtype=torch.float32)
+    return torch.einsum("bld,hdv->blhv", x.float(), p["w"].float())

@@ -1,11 +1,19 @@
-"""Decoder LM (port of ``repro/models/model.py``): the dense and MoE
-transformer families, with GQA or MLA attention.
+"""Decoder LM (port of ``repro/models/model.py``) for every family: the
+dense, MoE, vlm and audio transformers (GQA or MLA attention; M-RoPE;
+one logits head or one per codebook), the attention-free Mamba2 stack
+(ssm) and zamba2's hybrid of Mamba2 layers and one weight-shared
+attention block.  The input is token ids (``tokens``) or precomputed
+embeddings (``embeds``).
 
 The layers' parameters are stacked along a leading axis, as in the
 reference; a Python loop over layers takes the place of ``lax.scan`` and
-threads each layer's KV cache through prefill and decode.  Caches are
-stacked over layers too: the slab cache, or the paged int8 cache whose
-pool persists across requests and is only ever written in place.
+threads each layer's cache through prefill and decode (the hybrid's loop
+runs the shared block after each full group of layers, where the
+reference scans segment by segment).  Caches are stacked over layers
+too: the slab KV cache, the paged int8 cache whose pool persists across
+requests and is only ever written in place, or a Mamba2 layer's conv
+window and SSM state (plus one slab KV cache per shared-block
+application).
 
 Serving parameters hold projection matrices and the embedding table in the
 compute dtype — cast **once**, at load or init, where the reference casts
@@ -35,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Defs
 from repro_torch.quant.scales import QTensor
 
@@ -54,27 +63,45 @@ def resolve_device(device=None) -> torch.device:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _is_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
 def model_defs(cfg: ModelConfig) -> Defs:
-    if cfg.frontend != "tokens" or cfg.n_codebooks != 1 \
-            or cfg.shared_attn_every or cfg.tie_embeddings:
-        raise ValueError(f"{cfg.name}: only a token-frontend LM with one "
-                         "untied head is ported (ROADMAP queue 1, item 2)")
+    """Every leaf of the reference's tree: the embedding table (the
+    ``tokens`` frontend only), the stacked blocks, zamba2's ``shared``
+    block, the final norm and the head (``(n_codebooks, d, V)`` with
+    several codebooks)."""
     defs: Defs = {}
-    defs.update(cm.prefix_defs(
-        "embed", cm.embed_defs(cfg.padded_vocab, cfg.d_model)))
-    defs.update(cm.prefix_defs(
-        "blocks", cm.stack_defs(blk.transformer_block_defs(cfg),
-                                cfg.n_layers)))
+    if cfg.frontend == "tokens":
+        defs.update(cm.prefix_defs(
+            "embed", cm.embed_defs(cfg.padded_vocab, cfg.d_model)))
+    block = blk.mamba_block_defs(cfg) if _is_ssm(cfg) \
+        else blk.transformer_block_defs(cfg)
+    defs.update(cm.prefix_defs("blocks", cm.stack_defs(block, cfg.n_layers)))
+    if cfg.shared_attn_every:
+        defs.update(cm.prefix_defs("shared", blk.shared_block_defs(cfg)))
     defs.update(cm.prefix_defs("norm_f", cm.rms_norm_def(cfg.d_model)))
     defs.update(cm.prefix_defs(
-        "head", cm.unembed_defs(cfg.d_model, cfg.padded_vocab)))
+        "head", cm.unembed_defs(cfg.d_model, cfg.padded_vocab,
+                                cfg.n_codebooks)))
     return defs
 
 
+def n_shared_applications(cfg: ModelConfig) -> int:
+    """The shared block runs after layers e-1, 2e-1, ... (full groups
+    only): zamba2's 81 layers at e = 6 give 13, its last 3 layers none."""
+    if not cfg.shared_attn_every:
+        return 0
+    return cfg.n_layers // cfg.shared_attn_every
+
+
 # Serving leaves the reference reads in fp32 whatever the compute dtype:
-# norm gains (the rms chain runs in fp32) and the MoE router (fp32
-# routing logits).
-_FP32_LEAVES = ("/scale", "/q_norm", "/kv_norm", "/router")
+# norm gains (the rms chain runs in fp32), the MoE router (fp32 routing
+# logits) and the Mamba2 mixer's vectors and conv (read with
+# ``astype(float32)``).
+_FP32_LEAVES = ("/scale", "/q_norm", "/kv_norm", "/router", "/norm",
+                "/a_log", "/d_skip", "/dt_bias", "/conv_w", "/conv_b")
 
 
 def _leaf_dtype(name: str, cfg: ModelConfig, masters: bool) -> torch.dtype:
@@ -160,15 +187,36 @@ def params_from_jax(np_params: Mapping[str, object], cfg: ModelConfig,
 # Cache
 # ---------------------------------------------------------------------------
 
+def _stack(one: Dict[str, torch.Tensor], n: int) -> Dict[str, torch.Tensor]:
+    return {k: t[None].repeat((n,) + (1,) * t.dim()) for k, t in one.items()}
+
+
+def _shared_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    Dh = cfg.resolved_head_dim
+    return attn.make_kv_cache(batch, cache_len, cfg.n_kv_heads, Dh, Dh,
+                              dtype, device)
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """Decode-time slab cache, stacked over layers: k/v slabs for GQA,
-    the compressed ``c``/``k_rope`` slabs for MLA."""
+    the compressed ``c``/``k_rope`` slabs for MLA, a Mamba2 layer's
+    ``conv`` window and fp32 ``ssm`` state; with a shared block also
+    ``shared``, one k/v slab per application."""
     dtype = dtype or cfg.dtype()
+    device = resolve_device(device)
     C = attn.cache_len_for(cfg, max_len)
-    one = attn.make_attn_cache(batch, C, cfg, dtype, resolve_device(device))
-    return {"layers": {k: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
-                       for k, t in one.items()}}
+    if not _is_ssm(cfg):
+        return {"layers": _stack(attn.make_attn_cache(batch, C, cfg, dtype,
+                                                      device), cfg.n_layers)}
+    cache = {"layers": _stack(ssm_mod.make_ssm_cache(batch, cfg, dtype,
+                                                     device), cfg.n_layers)}
+    if cfg.shared_attn_every:
+        cache["shared"] = _stack(_shared_kv_cache(cfg, batch, C, dtype,
+                                                  device),
+                                 n_shared_applications(cfg))
+    return cache
 
 
 def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
@@ -177,23 +225,42 @@ def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
     table of page *ids*, stacked over layers like :func:`make_cache`'s
     slabs — page id ``p`` addresses slot ``p`` in every layer, so the host
     allocator hands out one id list per sequence regardless of depth.
-    GQA-family transformers only: MLA compresses its cache instead of
-    paging it, as in the reference."""
-    if (cfg.attn_kind != "gqa" or cfg.family in ("ssm", "hybrid")
-            or cfg.shared_attn_every):
+    GQA-family transformers only, as in the reference: MLA compresses its
+    cache instead of paging it; a Mamba2 layer's state is not addressed
+    by token, and zamba2's shared block would need a pool of its own."""
+    if cfg.attn_kind != "gqa" or _is_ssm(cfg) or cfg.shared_attn_every:
         raise ValueError(
             f"paged caches are GQA-transformer only, got "
             f"attn_kind={cfg.attn_kind!r} family={cfg.family!r} [KV005]")
     Dh = cfg.resolved_head_dim
-    one = kvc.make_paged_cache(n_pages, page_size, cfg.n_kv_heads, Dh, Dh,
-                               batch, max_pages, resolve_device(device))
-    return {"layers": {k: t[None].repeat((cfg.n_layers,) + (1,) * t.dim())
-                       for k, t in one.items()}}
+    return {"layers": _stack(kvc.make_paged_cache(
+        n_pages, page_size, cfg.n_kv_heads, Dh, Dh, batch, max_pages,
+        resolve_device(device)), cfg.n_layers)}
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+
+def _embed_in(params, batch_in, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.frontend == "tokens":
+        return cm.embed_apply(cm.subtree(params, "embed"),
+                              batch_in["tokens"], cfg.dtype())
+    return batch_in["embeds"].to(cfg.dtype())
+
+
+def _positions(batch_in, cfg: ModelConfig, B: int, L: int, offset: int,
+               device) -> torch.Tensor:
+    """``batch_in["positions"]`` if given, else ``offset + arange(L)``:
+    (B, L), and (B, L, 3) with M-RoPE (all three streams the text
+    position)."""
+    if "positions" in batch_in:
+        return batch_in["positions"]
+    pos = (torch.arange(L, device=device)[None, :] + offset).expand(B, L)
+    if cfg.rope_kind == "mrope":
+        pos = pos[..., None].expand(B, L, 3)
+    return pos
+
 
 def forward(params: Dict[str, torch.Tensor],
             batch_in: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -202,28 +269,45 @@ def forward(params: Dict[str, torch.Tensor],
             return_aux: bool = False):
     """Returns (logits_fp32, new_cache_or_None), and with ``return_aux``
     also the MoE load-balancing loss summed over layers (0 without MoE),
-    the reference's third output.  In decode the cache is updated in place
-    and returned; so is a paged cache in prefill, whose per-layer views
-    are written in place (restacking them would copy the whole pool).  A
-    slab prefill builds its cache from the layers'."""
+    the reference's third output.  ``batch_in`` holds ``tokens`` (B, L)
+    or ``embeds`` (B, L, d), as ``cfg.frontend`` says.  Logits are
+    (B, L, V), or (B, L, n_codebooks, V).  In decode the cache is updated
+    in place and returned; so is a paged cache in prefill, whose per-layer
+    views are written in place (restacking them would copy the whole
+    pool).  A slab prefill builds its cache from the layers'."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown forward mode {mode!r}")
     if mode == "decode" and (cache is None or step is None):
         raise ValueError("decode needs a cache and a step")
-    tokens = batch_in["tokens"]
-    x = cm.embed_apply(cm.subtree(params, "embed"), tokens, cfg.dtype())
+    x = _embed_in(params, batch_in, cfg)
     B, L, _ = x.shape
-    positions = batch_in.get("positions")
-    if positions is None:
-        offset = step if mode == "decode" else 0
-        positions = (torch.arange(L, device=x.device)[None, :]
-                     + offset).expand(B, L)
+    positions = _positions(batch_in, cfg, B, L,
+                           step if mode == "decode" else 0, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if return_aux else None
+    if _is_ssm(cfg):
+        x, new_cache = _ssm_stack(params, x, cfg, positions=positions,
+                                  cache=cache, step=step, mode=mode,
+                                  max_len=max_len)
+    else:
+        x, new_cache, aux = _transformer_stack(
+            params, x, cfg, positions=positions, cache=cache, step=step,
+            mode=mode, max_len=max_len, aux=aux)
 
+    x = cm.rms_norm(x, params["norm_f/scale"], cfg.norm_eps)
+    logits = cm.unembed_apply(cm.subtree(params, "head"), x,
+                              cfg.n_codebooks)
+    if return_aux:
+        return logits.float(), new_cache, aux
+    return logits.float(), new_cache
+
+
+def _transformer_stack(params, x, cfg: ModelConfig, *, positions, cache,
+                       step, mode, max_len, aux):
+    """The transformer families' layers; returns (x, new_cache, aux)."""
     layers = cache["layers"] if cache is not None else None
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     new_layers = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
-        if return_aux else None
     for i, p_i in enumerate(_layer_params(cm.subtree(params, "blocks"),
                                           cfg.n_layers)):
         if remat:
@@ -236,21 +320,63 @@ def forward(params: Dict[str, torch.Tensor],
                 p_i, x, cfg, positions=positions, cache=cache_i, step=step,
                 mode=mode, max_len=max_len)
             new_layers.append(c_i)
-        if return_aux:
+        if aux is not None:
             aux = aux + aux_i
-
-    x = cm.rms_norm(x, params["norm_f/scale"], cfg.norm_eps)
-    logits = cm.unembed_apply(cm.subtree(params, "head"), x)
     new_cache = None
     if mode == "decode" or (mode == "prefill" and layers is not None
                             and kvc.is_paged(layers)):
         new_cache = cache
     elif mode == "prefill":
-        new_cache = {"layers": {k: torch.stack([c[k] for c in new_layers])
-                                for k in new_layers[0]}}
-    if return_aux:
-        return logits.float(), new_cache, aux
-    return logits.float(), new_cache
+        new_cache = {"layers": _restack(new_layers)}
+    return x, new_cache, aux
+
+
+def _restack(caches) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _ssm_stack(params, x, cfg: ModelConfig, *, positions, cache, step,
+               mode, max_len):
+    """The Mamba2 layers; for the hybrid, the shared block after each full
+    group of ``e = cfg.shared_attn_every`` layers, on the hidden state and
+    the embedding stream (application ``j`` after layer ``(j+1)·e - 1``,
+    with cache slot ``j``; none after a partial last group).  Decode
+    writes each layer's conv window and state, and each application's
+    k/v, into the stacked cache in place; prefill builds the cache from
+    the layers' and the applications'.  Returns (x, new_cache)."""
+    emb0 = x
+    e = cfg.shared_attn_every
+    shared_p = cm.subtree(params, "shared") if e else None
+    layers = cache["layers"] if cache is not None else None
+    new_layers, new_shared = [], []
+    for i, p_i in enumerate(_layer_params(cm.subtree(params, "blocks"),
+                                          cfg.n_layers)):
+        cache_i = {k: v[i] for k, v in layers.items()} \
+            if mode == "decode" else None
+        x, c_i = blk.mamba_block_apply(p_i, x, cfg, cache=cache_i, mode=mode)
+        if mode == "decode":
+            for k, t in c_i.items():
+                layers[k][i].copy_(t)
+        elif mode == "prefill":
+            new_layers.append(c_i)
+        if e and (i + 1) % e == 0:
+            app = i // e
+            c_app = {k: v[app] for k, v in cache["shared"].items()} \
+                if mode == "decode" else None
+            x, c2 = blk.shared_block_apply(
+                shared_p, x, emb0, cfg, positions=positions, cache=c_app,
+                step=step, mode=mode, max_len=max_len)
+            if mode == "prefill":
+                new_shared.append(c2)
+    if mode != "prefill":
+        return x, cache if mode == "decode" else None
+    new_cache = {"layers": _restack(new_layers)}
+    if e:
+        B, L = x.shape[:2]
+        C = attn.cache_len_for(cfg, max_len or L)
+        new_cache["shared"] = _restack(new_shared) if new_shared else \
+            _stack(_shared_kv_cache(cfg, B, C, x.dtype, x.device), 0)
+    return x, new_cache
 
 
 def _layer_params(blocks, n_layers: int):
@@ -280,8 +406,10 @@ def _train_layer(p_i, x, cfg: ModelConfig, positions):
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal LM cross-entropy over (B, L, V) fp32 logits and (B, L)
-    labels: the padded vocab entries held at -1e9, an fp32 log-softmax,
-    and the mean over ``mask`` (or over all tokens)."""
+    labels, or (B, L, Cb, V) and (B, L, Cb) with codebooks: the padded
+    vocab entries held at -1e9, an fp32 log-softmax, and the mean over
+    all entries, or with ``mask`` (B, L) the sum over the masked entries
+    over ``mask.sum()`` (codebooks then add up, as in the reference)."""
     V = cfg.padded_vocab
     if cfg.vocab_size < V:
         pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
@@ -290,6 +418,8 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
         mask = mask.to(nll.dtype)
+        while mask.dim() < nll.dim():
+            mask = mask[..., None]
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
 
@@ -304,7 +434,7 @@ def prefill(params, batch_in, cfg: ModelConfig,
 
 
 def decode_step(params, token_in, cache, step: int, cfg: ModelConfig):
-    """One decode step.  token_in: {"tokens": (B, 1)}; ``step`` is the
-    position of the new token."""
+    """One decode step.  token_in: {"tokens": (B, 1)} or {"embeds": (B, 1,
+    d)}; ``step`` is the position of the new token."""
     return forward(params, token_in, cfg, mode="decode", cache=cache,
                    step=step)

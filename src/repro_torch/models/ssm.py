@@ -1,0 +1,185 @@
+"""Mamba2 mixer (port of ``repro/models/ssm.py``): SSD (state-space
+duality) with a chunked linear-time scan, in plain torch as the reference
+computes it in plain JAX.
+
+Within a chunk the SSD is dense batched products; only an
+O(heads·head_dim·d_state) fp32 state crosses chunk boundaries.  The
+reference's ``lax.scan`` over chunks is a Python loop here.  Decode is the
+exact recurrence ``s <- exp(dt·A)·s + dt·x ⊗ B``, ``y = C·s + D·x``: O(1)
+a token.  ``in_proj`` and ``out_proj`` run on K1 (``ca_matmul``, the
+``none`` program).
+
+Rounding follows the reference: the causal conv accumulates in fp32 and
+casts to the serve dtype, ``silu`` and the scan run in fp32, the gated
+RMSNorm reads ``y * silu(z)`` cast to the serve dtype; the conv cache is
+kept in the serve dtype, the SSM state in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gemm import ca_matmul
+from repro_torch.models import common as cm
+from repro_torch.models.common import Defs, ParamDef
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    return s, d, s.d_inner(d), s.n_heads(d), s.d_state, s.n_groups
+
+
+def mamba2_defs(cfg: ModelConfig, depth_scale: float = 1.0) -> Defs:
+    s, d, di, h, n, g = _dims(cfg)
+    conv_ch = di + 2 * g * n
+    proj_out = 2 * di + 2 * g * n + h   # [z, x, B, C, dt]
+    return {
+        "in_proj": ParamDef((d, proj_out), ("embed", "ssm")),
+        "conv_w": ParamDef((s.conv_kernel, conv_ch), (None, "ssm"),
+                           init="conv"),
+        "conv_b": ParamDef((conv_ch,), ("ssm",), init="zeros"),
+        "a_log": ParamDef((h,), (None,), init="a_log"),
+        "d_skip": ParamDef((h,), (None,), init="ones"),
+        "dt_bias": ParamDef((h,), (None,), init="dt_bias"),
+        "norm": ParamDef((di,), ("ssm",), init="ones"),
+        "out_proj": ParamDef((di, d), ("ssm", "embed"), scale=depth_scale),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    """in_proj's output as views: z, x, B, C and dt."""
+    s, d, di, h, n, g = _dims(cfg)
+    z = zxbcdt[..., :di]
+    xin = zxbcdt[..., di:2 * di]
+    b = zxbcdt[..., 2 * di:2 * di + g * n]
+    c = zxbcdt[..., 2 * di + g * n:2 * di + 2 * g * n]
+    dt = zxbcdt[..., 2 * di + 2 * g * n:]
+    return z, xin, b, c, dt
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, L, C) with kernel (K, C): the K
+    shifted products accumulated in fp32 in the reference's order, the
+    bias added, cast back to x's dtype."""
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out = out + xp[:, i:i + L].float() * w[i].float()
+    return (out + b.float()).to(x.dtype)
+
+
+def _ssd_scan(xdt, da, b_h, c_h, chunk: int, s0=None):
+    """Chunked SSD.  xdt: (B, L, H, P) [= x·dt], da: (B, L, H) [= dt·A],
+    b_h / c_h: (B, L, H, N).  Returns (y: (B, L, H, P), s_final: (B, H, P,
+    N)).  L is padded up to a chunk multiple (zero xdt adds nothing; zero
+    da is a decay of 1, so the final state is unchanged)."""
+    B, L0, H, P = xdt.shape
+    pad = (-L0) % chunk
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+        b_h = F.pad(b_h, (0, 0, 0, 0, 0, pad))
+        c_h = F.pad(c_h, (0, 0, 0, 0, 0, pad))
+    N = b_h.shape[-1]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xdt.device))[None, :, :, None]
+    s = torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device) \
+        if s0 is None else s0
+    ys = []
+    for lo in range(0, L0 + pad, chunk):
+        xd, da_, bb, cc = (t[:, lo:lo + chunk] for t in (xdt, da, b_h, c_h))
+        cs = torch.cumsum(da_, dim=1)                 # (B, Q, H)
+        # intra-chunk: y_t += sum_{s<=t} C_t·B_s exp(cs_t - cs_s) x_s; the
+        # exp overflows above the diagonal, and the where discards it.
+        ldec = cs[:, :, None, :] - cs[:, None, :, :]  # (B, Q, K, H)
+        lmat = torch.where(mask, torch.exp(ldec), 0.0)
+        scores = torch.einsum("bqhn,bkhn->bqkh", cc, bb)
+        y = torch.einsum("bqkh,bkhp->bqhp", scores * lmat, xd)
+        # inter-chunk: y_t += C_t · s_in · exp(cs_t)
+        y = y + torch.einsum("bqhn,bhpn->bqhp", cc, s) \
+            * torch.exp(cs)[..., None]
+        # s_out = exp(cs_end)·s_in + sum_k exp(cs_end - cs_k) B_k ⊗ x_k
+        cs_end = cs[:, -1]                            # (B, H)
+        s = torch.exp(cs_end)[..., None, None] * s + torch.einsum(
+            "bkh,bkhp,bkhn->bhpn", torch.exp(cs_end[:, None] - cs), xd, bb)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :L0], s
+
+
+def make_ssm_cache(B: int, cfg: ModelConfig, dtype,
+                   device=None) -> Dict[str, torch.Tensor]:
+    s, d, di, h, n, g = _dims(cfg)
+    return {
+        "conv": torch.zeros((B, s.conv_kernel - 1, di + 2 * g * n),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((B, h, s.head_dim, n), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cfg: ModelConfig, *, cache=None, mode: str = "train"):
+    """mode train / prefill: the whole sequence (any L; the scan pads to
+    its chunk); decode: L == 1 against ``cache``.  Returns (out,
+    new_cache): prefill's cache from the prompt (the conv window
+    left-padded with zeros for a prompt shorter than it), decode's the
+    updated one (new tensors: the model writes them into its stacked
+    cache)."""
+    s, d, di, h, n, g = _dims(cfg)
+    B, L, _ = x.shape
+    dt_ = x.dtype
+    P = s.head_dim
+    K = s.conv_kernel
+
+    zxbcdt = ca_matmul(x, p["in_proj"])
+    z, xin, b, c, dtv = _split_proj(cfg, zxbcdt)
+    conv_in = torch.cat([xin, b, c], dim=-1)
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None or L != 1:
+            raise ValueError("mamba2 decode takes one token and a cache")
+        hist = torch.cat([cache["conv"].to(dt_), conv_in], dim=1)
+        conv_out = _causal_conv(hist, p["conv_w"], p["conv_b"])[:, -1:]
+        new_conv = hist[:, 1:]
+    else:
+        conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+        new_conv = conv_in[:, -(K - 1):] if L >= K \
+            else F.pad(conv_in, (0, 0, K - 1 - L, 0))
+    conv_out = F.silu(conv_out.float())
+
+    xs = conv_out[..., :di].reshape(B, L, h, P)
+    bs = conv_out[..., di:di + g * n].reshape(B, L, g, n)
+    cs = conv_out[..., di + g * n:].reshape(B, L, g, n)
+    rep = h // g
+    b_h = bs.repeat_interleave(rep, dim=2)            # (B, L, H, N) fp32
+    c_h = cs.repeat_interleave(rep, dim=2)
+
+    a = -torch.exp(p["a_log"].float())                # (H,) < 0
+    dt_act = F.softplus(dtv.float() + p["dt_bias"].float())   # (B, L, H)
+    da = dt_act * a
+    xdt = xs * dt_act[..., None]
+
+    if mode == "decode":
+        s_out = torch.exp(da)[:, 0, :, None, None] * cache["ssm"] \
+            + torch.einsum("bhp,bhn->bhpn", xdt[:, 0], b_h[:, 0])
+        y = torch.einsum("bhn,bhpn->bhp", c_h[:, 0], s_out)[:, None]
+        new_cache = {"conv": new_conv.to(cache["conv"].dtype), "ssm": s_out}
+    else:
+        y, s_fin = _ssd_scan(xdt, da, b_h, c_h, s.chunk)
+        if mode == "prefill":
+            new_cache = {"conv": new_conv.contiguous(), "ssm": s_fin}
+
+    y = y + xs * p["d_skip"].float()[None, None, :, None]
+    y = y.reshape(B, L, di)
+    # gated RMSNorm (Mamba2): norm(y * silu(z))
+    y = cm.rms_norm((y * F.silu(z.float())).to(dt_), p["norm"],
+                    cfg.norm_eps)
+    return ca_matmul(y, p["out_proj"]), new_cache

@@ -4,7 +4,14 @@ on a batch of 1, then the decode loop over the slab KV cache or, with
 
 Sampling is greedy (argmax over the real vocabulary) or temperature-based,
 drawn from a ``torch.Generator`` seeded with ``seed`` — deterministic,
-though its numbers are not ``jax.random``'s.
+though its numbers are not ``jax.random``'s.  With several codebooks
+(musicgen) codebook 0 is sampled.  An ``embeds``-frontend arch (the
+stubbed vision and audio frontends) is fed rows of the reference's demo
+table (:func:`sample_table`) for its prompt and sampled tokens.
+
+The cache follows the arch: slab KV, MLA's compressed slab, or a Mamba2
+layer's conv window and SSM state (plus zamba2's shared-block slabs);
+the paged pool serves the GQA transformers only (KV005 otherwise).
 
 Weight-quantized parameters (``models.common.quantize_params``) serve
 int8 weights; with ``quantize_activations=True`` the engine first runs a
@@ -38,6 +45,37 @@ class NonFiniteLogits(RuntimeError):
     """The sampled logits row held NaN or Inf."""
 
 
+# Rows of the demo table drawn at a time (qwen2-vl-72b's 152064 x 8192
+# table would be 10 GB of float64 on the host in one draw).
+_TABLE_ROWS = 4096
+
+
+def sample_table(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """The ``embeds`` frontend's demo embedding table, the reference's:
+    ``np.random.RandomState(0).randn(vocab, d) * 0.02`` in the serve
+    dtype.  Drawn in chunks of rows (the legacy normal stream continues
+    across calls, so the values are the single draw's) and moved to
+    ``device`` chunk by chunk."""
+    rng = np.random.RandomState(0)
+    out = torch.empty((cfg.vocab_size, cfg.d_model), dtype=cfg.dtype(),
+                      device=M.resolve_device(device))
+    for lo in range(0, cfg.vocab_size, _TABLE_ROWS):
+        rows = min(_TABLE_ROWS, cfg.vocab_size - lo)
+        out[lo:lo + rows] = torch.from_numpy(
+            rng.randn(rows, cfg.d_model) * 0.02).to(cfg.dtype())
+    return out
+
+
+def model_inputs(cfg: ModelConfig, ids: torch.Tensor,
+                 table: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The model's input for token ids (B, L): the ids themselves, or for
+    the ``embeds`` frontend their rows of ``table`` (:func:`sample_table`)."""
+    if cfg.frontend == "tokens":
+        return {"tokens": ids}
+    return {"embeds": table[ids]}
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -67,6 +105,10 @@ class ServeEngine:
     and the pages one sequence of ``max_len`` tokens needs, since requests
     are served one at a time.  The pool lives on the engine's device for
     its whole life and is written in place.
+
+    ``sample_table`` is the ``embeds`` frontend's table (default: built
+    on first use, :func:`sample_table`); passing one shares it between
+    engines of the same arch.
     """
 
     def __init__(self, params: Dict[str, object], cfg: ModelConfig, *,
@@ -75,7 +117,8 @@ class ServeEngine:
                  quantize_activations: bool = False,
                  calibration_batches: int = 4,
                  act_qconfig: Optional[QuantConfig] = None, tp_local=None,
-                 max_queue: int = 0):
+                 max_queue: int = 0,
+                 sample_table: Optional[torch.Tensor] = None):
         later = {"tp_local": (tp_local, "queue 1 item 14"),
                  "max_queue": (max_queue, "queue 1 item 9")}
         for name, (value, where) in later.items():
@@ -90,6 +133,8 @@ class ServeEngine:
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
+        self._table = None if sample_table is None \
+            else sample_table.to(self.device)
         self.quantized = any(isinstance(t, QTensor) for t in params.values())
         # Static activation quantization (w8a8): calibrate on sample
         # prompts first, then every quantized GEMM runs int8 x int8.
@@ -136,7 +181,7 @@ class ServeEngine:
             for _ in range(max(1, n_batches)):
                 toks = self._tokens(rng.randint(0, self.cfg.vocab_size,
                                                 (1, length)))
-                M.prefill(self.params, {"tokens": toks}, self.cfg,
+                M.prefill(self.params, self._inputs(toks), self.cfg,
                           max_len=self.max_len)
             scales = ctx.scales()
         self.calibration_sites = sorted(ctx.calibrators)
@@ -163,9 +208,14 @@ class ServeEngine:
         return True
 
     def _sample(self, logits: torch.Tensor, temperature: float) -> int:
-        row = logits[0, -1, :self.cfg.vocab_size]
+        """Sample the last position's real vocabulary: (1, L, V) logits,
+        or (1, L, Cb, V) with codebooks, of which codebook 0 is sampled
+        (every codebook's row is checked finite)."""
+        row = logits[0, -1, ..., :self.cfg.vocab_size]
         if not bool(torch.isfinite(row).all()):
             raise NonFiniteLogits("non-finite logits in sampled row")
+        if self.cfg.n_codebooks > 1:
+            row = row[0]
         if temperature <= 0:
             return int(torch.argmax(row))
         probs = torch.softmax(row / temperature, dim=-1)
@@ -187,6 +237,11 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),
                                device=self.device).reshape(1, -1)
 
+    def _inputs(self, toks: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.cfg.frontend != "tokens" and self._table is None:
+            self._table = sample_table(self.cfg, self.device)
+        return model_inputs(self.cfg, toks, self._table)
+
     def _serve_one(self, req: Request) -> None:
         """Prefill and sample, then one decode step per further token.  On
         the paged path the request's pages (prompt plus full generation
@@ -200,7 +255,7 @@ class ServeEngine:
                 page_ids = self.kv_pool.alloc(
                     req.uid, len(req.prompt) + req.max_new_tokens)
                 cache = kvc.model_assign_sequence(self.kv_cache, 0, page_ids)
-            logits, cache = M.prefill(self.params, {"tokens": toks},
+            logits, cache = M.prefill(self.params, self._inputs(toks),
                                       self.cfg, max_len=self.max_len,
                                       cache=cache)
             nxt = self._sample(logits, req.temperature)
@@ -210,8 +265,8 @@ class ServeEngine:
             pos = toks.shape[1]
             for _ in range(req.max_new_tokens - 1):
                 logits, cache = M.decode_step(
-                    self.params, {"tokens": self._tokens([nxt])}, cache, pos,
-                    self.cfg)
+                    self.params, self._inputs(self._tokens([nxt])), cache,
+                    pos, self.cfg)
                 nxt = self._sample(logits, req.temperature)
                 req.generated.append(nxt)
                 pos += 1

@@ -73,13 +73,16 @@ def _split_mb(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense GQA family; the MoE and MLA archs
-    serve only (their aux loss in the loss and their backward are ROADMAP
-    queue 1, item 2)."""
-    if (cfg.moe is not None and cfg.moe.n_experts) or cfg.attn_kind == "mla":
-        raise ValueError(f"{cfg.name}: training the MoE and MLA archs is not "
-                         "ported yet, only their serve path (ROADMAP queue 1, "
-                         "item 2)")
+    """Training is ported for the dense GQA family.  The MoE and MLA archs
+    (the aux loss in the loss, their backward), the ssm and hybrid
+    families (the SSD scan's backward) and the vlm and audio families (the
+    ``embeds`` batches, the codebook loss in the step) serve only."""
+    if (cfg.moe is not None and cfg.moe.n_experts) or cfg.attn_kind == "mla" \
+            or cfg.family in ("ssm", "hybrid", "vlm", "audio"):
+        raise ValueError(f"{cfg.name}: training the {cfg.family} family"
+                         f"{' with MLA' if cfg.attn_kind == 'mla' else ''} "
+                         "is not ported yet, only its serve path (ROADMAP "
+                         "queue 1: training the other families)")
 
 
 def build_train_step(

@@ -990,7 +990,18 @@ ARCH_PROGRAMS = {"granite w_up": ("rms>gelu", 6144, 24576),
                  "deepseek expert down": ("none", 1408, 2048),
                  "deepseek wkv_a": ("none", 2048, 576),
                  "minicpm3 wkv_a": ("none", 2560, 288),
-                 "minicpm3 wq_b": ("none", 768, 3840)}
+                 "minicpm3 wq_b": ("none", 768, 3840),
+                 # The last four families: the Mamba2 in_proj (n = 4384,
+                 # 14576: multiples of 8, not of 64) and out_proj, zamba2's
+                 # shared w_in, qwen2-vl's GLU and down projection,
+                 # musicgen's GELU w_up.
+                 "mamba2 in_proj": ("none", 1024, 4384),
+                 "mamba2 out_proj": ("none", 2048, 1024),
+                 "zamba2 in_proj": ("none", 3584, 14576),
+                 "zamba2 out_proj / w_in": ("none", 7168, 3584),
+                 "qwen2-vl glu": ("rms>glu.silu(none|none)", 8192, 29568),
+                 "qwen2-vl w_down": ("res", 29568, 8192),
+                 "musicgen w_up": ("rms>gelu", 2048, 8192)}
 
 
 @pytest.mark.cuda
@@ -1057,3 +1068,61 @@ def test_cuda_reduced_arch_matches_cpu(arch):
     err = (lg - lc).abs().max().item()
     assert err <= 5e-2 * lc.abs().max().item(), err
     assert len(card) == len(cpu) == 6
+
+
+def _k1_per_prefill(cfg):
+    """K1 launches of one prefill of a reduced arch: a Mamba2 layer's
+    in_proj and out_proj; a shared-block application's w_in, q/k/v, wo,
+    MLP and down projection; a transformer layer's six; one head (none
+    for codebook heads, an einsum)."""
+    if cfg.family in ("ssm", "hybrid"):
+        apps = cfg.n_layers // cfg.shared_attn_every \
+            if cfg.shared_attn_every else 0
+        n = 2 * cfg.n_layers + 7 * apps
+    else:
+        n = 6 * cfg.n_layers
+    return n + (1 if cfg.n_codebooks == 1 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b",
+                                  "qwen2-vl-72b", "musicgen-large"])
+def test_cuda_reduced_family_matches_cpu(arch):
+    """The last four families (reduced, bf16, d_model 256) on the card
+    against the plain path on the CPU from the same parameters and
+    inputs (the embeds frontend's demo table): prefill logits within 5e-2
+    of their scale, every K1 launch of the prefill counted, six greedy
+    tokens on each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (Request, ServeEngine,
+                                          model_inputs, sample_table)
+
+    cfg = dataclasses.replace(get_reduced(arch, compute_dtype="bfloat16"),
+                              d_model=256)
+    p_gpu = M.init_params(cfg, seed=4)
+    p_cpu = {k: v.cpu() for k, v in p_gpu.items()}
+    table = sample_table(cfg, "cpu")
+    prompt = np.random.RandomState(5).randint(0, cfg.vocab_size, 24)
+    toks = torch.as_tensor(prompt)[None]
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        lg, _ = M.prefill(p_gpu, model_inputs(cfg, toks.cuda(), table.cuda()),
+                          cfg, max_len=40)
+        lc, _ = M.prefill(p_cpu, model_inputs(cfg, toks, table), cfg,
+                          max_len=40)
+    assert sum(K.launch_counts.values()) == _k1_per_prefill(cfg)
+    assert bool(torch.isfinite(lg).all())
+    err = (lg.cpu() - lc).abs().max().item()
+    assert err <= 5e-2 * lc.abs().max().item(), err
+    outs = []
+    for params, dev in ((p_gpu, None), (p_cpu, "cpu")):
+        eng = ServeEngine(params, cfg, max_len=40, device=dev,
+                          sample_table=table)
+        eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=6))
+        outs.append(eng.run()[1].generated)
+    assert len(outs[0]) == len(outs[1]) == 6

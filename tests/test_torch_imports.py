@@ -63,3 +63,16 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert f"imported {len(modules)}" in out.stdout
+
+
+def test_every_reference_config_and_the_serve_launcher_have_a_port():
+    """Each of the reference's config modules and its serve launcher has a
+    counterpart of the same name, covered by the import checks above."""
+    ref = REPO / "src" / "repro"
+    names = {_module_name(f) for f in _port_files()[:-1]}
+    for f in sorted((ref / "configs").glob("*.py")) + [
+            ref / "launch" / "serve.py", ref / "models" / "ssm.py"]:
+        rel = f.relative_to(ref).with_suffix("")
+        want = ".".join(("repro_torch",) + rel.parts)
+        if rel.name != "__init__":
+            assert want in names, want

@@ -275,7 +275,7 @@ def test_every_training_launch_takes_the_wgmma_route(monkeypatch):
                                   "mixtral-8x7b"])
 def test_moe_and_mla_training_raise(arch):
     """Only the serve path of the MoE and MLA archs is ported."""
-    with pytest.raises(ValueError, match="item 2"):
+    with pytest.raises(ValueError, match="only its serve path"):
         T.build_train_step(get_reduced(arch))
-    with pytest.raises(ValueError, match="item 2"):
+    with pytest.raises(ValueError, match="only its serve path"):
         run_training(arch, 1, device="cpu")
