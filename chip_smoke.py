@@ -163,6 +163,21 @@ Phases (any failure raises and the script exits non-zero):
    one full group and a partial one).
    ``python3 chip_smoke.py --only archs [ARCH ...]`` runs the card and
    build phases and this one alone (no kernels line, no result).
+15. obs (run after phase 5): full-width stablelm-1.6b, bf16, served slab
+   and paged (prompts of 128, 37 and 8 tokens, 16 new tokens each) with
+   the GEMM ledger and tracing on (repro_torch.obs; traces under
+   chiprun_out/): the engine's metrics_report() (TTFT and TPOT
+   percentiles, tokens/s, warmup seconds), each step label's ledger
+   aggregates (steps, GEMM calls, planned bytes, achieved GB/s, model
+   error), the trace's span counts; the ledger's GEMM calls must equal
+   K1's launches over the run and 145 a decode step, the paged path's
+   attention records one a layer a decode step, and one decode step's
+   planned GEMM bytes are printed split into the weights (held equal to
+   the K1 weights' bytes from the params, beside PERF.md's 2.88 GB), the
+   A re-reads at the resolved tiles and the rest.  Then one engine's
+   decode ms/token with obs off and on, in turns (off, on, on, off).
+   The card's peaks throughout the script are the port's hardware target
+   (repro_torch.core.hardware.H100), the constants the ledger plans with.
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -185,14 +200,16 @@ import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import kvcache as kvc  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.hardware import H100  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels import ops as OPS  # noqa: E402
-from repro_torch.kernels.program import (program_from_tag,  # noqa: E402
-                                         rms_row_scale)
+from repro_torch.kernels.program import (program_cost,  # noqa: E402
+                                         program_from_tag, rms_row_scale)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import common as CM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -205,10 +222,12 @@ from repro_torch.tuning import resolve_page_size  # noqa: E402
 
 ARCH = "stablelm-1.6b"
 DANUBE = "h2o-danube-3-4b"
-HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
-            torch.float32: 67e12,             # fp32 outside the tensor cores
-            torch.int8: 1979e12}              # dense tensor-core int8
+# The card's data-sheet rates, from the port's one hardware target (the
+# ledger's planned seconds read the same constants).
+HBM_BYTES_PER_S = H100.hbm_bandwidth
+PEAK_OPS = {dt: H100.peak_flops(dt)           # bf16 and int8 tensor cores,
+            for dt in (torch.bfloat16,        # fp32 outside them
+                       torch.float32, torch.int8)}
 # Kernel vs plain version: fp32 sums in another order.  A bf16 output may
 # flip one ulp (2^-8 relative), so 2e-2 of max|ref|; an fp32 output,
 # whatever the inputs' dtype, 1e-4 of (1 + max|ref|).
@@ -920,6 +939,166 @@ def serve_slice(cfg):
     return routes, e2e
 
 
+# ---------------------------------------------------------------------------
+# Observability: the serve path with the ledger and the trace on
+# ---------------------------------------------------------------------------
+
+# The weights K1 launches read (the ``core.gemm`` callers of a dense GQA
+# model): projections, the GLU's two, w_down, the 2-D logits head.
+K1_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+OBS_NEW_TOKENS = 16
+OBS_TURNS = ("off", "on", "on", "off")
+
+
+def k1_weight_bytes(params):
+    return sum(t.numel() * t.element_size() for name, t in params.items()
+               if name.split("/")[-1] in K1_WEIGHTS or name == "head/w")
+
+
+def decode_split(program):
+    """One decode step's planned GEMM bytes split as the ledger composes
+    them: the B stream (the weights, once at m <= bm), the A panel's
+    re-reads (once per bn columns) and the rest (outputs, epilogue reads,
+    the rms vectors); and its attention records' KV bytes apart."""
+    b_term = a_term = 0.0
+    gemms = [r for r in program if isinstance(r, obs.GemmRecord)]
+    attn = sum(r.planned_bytes * r.calls for r in program
+               if isinstance(r, obs.AttnRecord))
+    for r in gemms:
+        it = 2 if r.dtype == "bfloat16" else 4
+        mnk = r.m * r.n * r.k
+        b_term += r.calls * mnk * program_cost(r.tag).n_b * it / min(
+            r.config["bm"], r.m)
+        a_term += r.calls * mnk * it / min(r.config["bn"], r.n)
+    planned = sum(r.planned_bytes * r.calls for r in gemms)
+    return planned, b_term, a_term, planned - b_term - a_term, attn
+
+
+def obs_phase(cfg, device=None):
+    """Full-width stablelm-1.6b, bf16, slab and paged, served with the
+    GEMM ledger and tracing on: the engine's metrics report, each step
+    label's ledger aggregates, the trace's span counts, one decode step's
+    planned bytes beside its weight bytes, the ledger's GEMM calls against
+    K1's launches; then the decode ms/token of one engine with obs off and
+    on, in turns."""
+    phase("obs: stablelm-1.6b slab and paged with the ledger and tracing")
+    params = M.init_params(cfg, seed=0, device=device)
+    weights = k1_weight_bytes(params)
+    # wq, wk, wv, wo, the GLU and w_down a layer, and the head: 145 for
+    # stablelm-1.6b's 24 layers.
+    per_step = 6 * cfg.n_layers + 1
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (128, 37, 8)]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    led = obs.enable_ledger()
+    res = {}
+    for paged in (False, True):
+        mode = "paged" if paged else "slab"
+        trace = out_dir / f"obs_trace_{mode}.jsonl"
+        obs.reset_metrics()
+        led.reset()
+        obs.enable_tracing(str(trace))
+        eng = ServeEngine(params, cfg, max_len=160, paged_kv=paged,
+                          device=device)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p,
+                               max_new_tokens=OBS_NEW_TOKENS))
+        K.reset_launch_counts()
+        FA.reset_launch_counts()
+        done = eng.run()
+        _sync(params["head/w"].device)
+        launches = sum(K.launch_counts.values())
+        obs.disable_tracing()
+        print(f"-- {mode} metrics_report\n{eng.metrics_report()}")
+        steps = led.steps_summary()
+        for label in ("prefill", "decode"):
+            agg = steps[label]
+            print(f"ledger {mode} {label}: steps {agg['steps']}, gemm calls "
+                  f"{agg['gemm_calls']}, attn calls {agg['attn_calls']}, "
+                  f"planned {agg['planned_bytes'] / 1e9:.6f} GB, achieved "
+                  f"{agg['achieved_gbps']:.3f} GB/s, model error "
+                  f"{agg['model_error']:.3f}x")
+            if not (agg["achieved_gbps"] > 0 and agg["model_error"] > 0):
+                raise AssertionError(f"{mode} {label}: {agg}")
+        calls = sum(a["gemm_calls"] for a in steps.values())
+        if params["head/w"].is_cuda and calls != launches:
+            raise AssertionError(f"{mode}: ledger gemm calls {calls} != "
+                                 f"K1 launches {launches}")
+        program = led._programs["decode"]
+        step_calls = sum(r.calls for r in program
+                         if isinstance(r, obs.GemmRecord))
+        if step_calls != per_step:
+            raise AssertionError(f"{mode}: a decode step records "
+                                 f"{step_calls} GEMM calls, not {per_step}")
+        if paged and steps["decode"]["attn_calls"] != \
+                cfg.n_layers * steps["decode"]["steps"]:
+            raise AssertionError(f"paged attention records {steps}")
+        planned, b_term, a_term, rest, attn = decode_split(program)
+        print(f"decode step planned GEMM bytes {planned / 1e9:.6f} GB "
+              f"({mode}): weights by the plan {b_term / 1e9:.6f} GB, A "
+              f"re-reads {a_term / 1e9:.6f} GB ({a_term / b_term:.4%} of "
+              f"the weights), outputs/epilogue/norm {rest / 1e9:.6f} GB; "
+              f"K1 weight bytes from the params {weights / 1e9:.6f} GB "
+              f"(PERF.md: 2.88 GB); paged attention KV "
+              f"{attn / 1e9:.6f} GB")
+        if abs(b_term - weights) > 1e-9 * weights or planned < weights:
+            raise AssertionError(f"planned {planned} vs weights {weights}")
+        mets = eng.metrics_snapshot()["metrics"]
+        for name in ("serve.ttft_seconds", "serve.tpot_seconds"):
+            if not mets[name]["count"] or mets[name]["min"] <= 0:
+                raise AssertionError(f"{name}: {mets[name]}")
+        spans = collections.Counter(e["name"] for e in
+                                    obs.read_trace(str(trace)))
+        print(f"trace {mode} spans: {dict(sorted(spans.items()))}")
+        want = {"serve.request": 3, "serve.prefill": 3, "serve.decode": 3,
+                "serve.warmup": 1}
+        if any(spans[k] != v for k, v in want.items()):
+            raise AssertionError(f"{mode} spans {spans}")
+        for r in done.values():
+            if r.status != "done" or len(r.generated) != OBS_NEW_TOKENS:
+                raise AssertionError(f"{mode} request {r.uid}: {r.status}")
+        res[mode] = {
+            "ttft_p50_s": mets["serve.ttft_seconds"]["p50"],
+            "ttft_p99_s": mets["serve.ttft_seconds"]["p99"],
+            "tpot_p50_s": mets["serve.tpot_seconds"]["p50"],
+            "tpot_p99_s": mets["serve.tpot_seconds"]["p99"],
+            "tokens_per_s": mets["serve.tokens_per_second"]["value"],
+            "warmup_s": mets["serve.warmup_seconds"]["value"],
+            "steps": {k: {f: v[f] for f in (
+                "steps", "gemm_calls", "attn_calls", "planned_bytes",
+                "achieved_gbps", "model_error")} for k, v in steps.items()},
+            "decode_planned_bytes": planned, "decode_a_rereads": a_term,
+            "decode_attn_kv_bytes": attn,
+            "k1_weight_bytes": weights, "spans": dict(spans)}
+        del eng
+    # The same engine with obs off and on, in turns: decode ms/token.
+    eng = ServeEngine(params, cfg, max_len=160, device=device)
+    prompt = np.random.RandomState(8).randint(0, cfg.vocab_size, 37)
+    turns = []
+    for i, state in enumerate(OBS_TURNS):
+        if state == "on":
+            led.enable()
+            obs.enable_tracing(str(out_dir / f"obs_trace_turn{i}.jsonl"))
+        else:
+            led.disable()
+            obs.disable_tracing()
+        eng.submit(Request(uid=100 + i, prompt=prompt,
+                           max_new_tokens=OBS_NEW_TOKENS))
+        r = eng.run()[100 + i]
+        _sync(params["head/w"].device)
+        turns.append((state, r.decode_s * 1e3 / (OBS_NEW_TOKENS - 1)))
+    led.disable()
+    obs.disable_tracing()
+    print("decode ms/token obs off/on in turns: " + ", ".join(
+        f"{st} {ms:.3f}" for st, ms in turns))
+    res["turns"] = turns
+    del eng, params
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return res
+
+
 def _device_us(event):
     t = getattr(event, "self_device_time_total", None)
     return t if t is not None else event.self_cuda_time_total
@@ -937,7 +1116,10 @@ def decode_run(params, cfg, steps, paged=False, prof=None, device="cuda",
     with torch.inference_mode():
         cache = None
         if paged:
-            page = resolve_page_size(160)
+            page = resolve_page_size(
+                heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim,
+                seq_len=160).config.kv_block
             n_pages = kvc.pages_for(160, page)
             cache = M.make_paged_model_cache(
                 cfg, 1, n_pages=n_pages, page_size=page, max_pages=n_pages,
@@ -3145,6 +3327,7 @@ def main(argv=None):
     _, danube_call_err, danube_e2e, danube_split, _, _ = serve_both(
         dcfg, [rng.randint(0, dcfg.vocab_size, 300)], max_len=320)
     worst_attn = max(worst_attn, call_err, danube_call_err)
+    obs_res = obs_phase(cfg)
     train_launches, train = train_slice(cfg)
     train_check = cross_check_train(cfg)
     rows = times()
@@ -3180,6 +3363,7 @@ def main(argv=None):
               + f"; aten ops per decode step {row['aten_ops_per_decode_step']}"
               f" (bf16 {row['bf16_aten_ops_per_decode_step']})")
     print("e2e paged decode profile " + json.dumps(paged_profile))
+    print("e2e obs " + json.dumps(obs_res))
     for name, sp in ((ARCH, split), (DANUBE, danube_split)):
         print(f"e2e {name} host split (median of 3 rounds) "
               + json.dumps(sp))

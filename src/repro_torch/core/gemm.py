@@ -17,23 +17,121 @@ w8a8 programs (``dqab``), which quantize the activation on entry; these
 have no backward, as in the reference, so an activation that requires
 grad raises there.  While
 an :class:`~repro_torch.quant.ActivationCalibration` is active, each such
-call records its input activation first.  The reference's dispatch modes
-(its XLA oracle path), tuning registry, ledger and fault hooks are later
-slices (ROADMAP).
+call records its input activation first.
+
+Every launch runs the tile the kernel-config registry resolves for its
+program (:func:`plan_for`; the dispatch memo
+:func:`repro_torch.tuning.registry.plan` makes that a dict hit once a
+signature has resolved), checked on the card against the launch's route.
+With the GEMM ledger enabled (``REPRO_TORCH_LEDGER=1``) each dispatch is
+recorded with its tile, the route that ran (``plain`` on the CPU) and its
+planned bytes; an expert loop records once with ``calls`` = E, as the
+reference's.  Disabled, the hook is one attribute check.  The reference's
+dispatch modes (its XLA oracle path) and kernel-to-oracle fallback are not
+ported (no path falls back from a kernel); its fault hooks wait for
+``runtime/fault.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 from typing import Optional
 
 import torch
 
+from repro_torch.core.hardware import H100, HopperTarget
+from repro_torch.core.io_model import TileConfig
+from repro_torch.kernels import ca_mmm as kern
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.epilogue import Epilogue
-from repro_torch.kernels.program import (RmsPrologue, apply_rms_reference,
-                                         rms_row_scale)
+from repro_torch.kernels.epilogue import IDENTITY, Epilogue
+from repro_torch.kernels.program import (NO_PROLOGUE, GemmProgramSpec,
+                                         PrologueSpec, RmsPrologue,
+                                         apply_rms_reference, rms_row_scale)
+from repro_torch.obs import ledger as _ledger_mod
 from repro_torch.quant.calibrate import active_calibration
 from repro_torch.quant.scales import QTensor
+from repro_torch.tuning import registry as _registry
+
+_RMS = PrologueSpec(kind="rms")
+
+
+def plan_for(m: int, n: int, k: int, dtype, hw: HopperTarget = H100,
+             epilogue: str = "none", layout: str = "nn",
+             dtype_b=None) -> TileConfig:
+    """Resolve the tile plan through the kernel-config registry: cache hit
+    > autotune (with ``REPRO_TORCH_AUTOTUNE=1``) > the analytic tier (on
+    the H100 the tile of the launch's route).  ``epilogue`` (program tag)
+    and ``layout`` key fused and transposed programs distinctly;
+    ``dtype_b`` keys a quantized-weight GEMM under its composite dtype."""
+    return _registry.get_registry().resolve(
+        m, n, k, dtype=dtype, hw=hw, epilogue=epilogue, layout=layout,
+        dtype_b=dtype_b)
+
+
+def _ledger():
+    """The process-global GEMM ledger (one global read once created)."""
+    return _ledger_mod._global or _ledger_mod.get_ledger()
+
+
+def _mode(x: torch.Tensor, tile: TileConfig) -> str:
+    """The route a launch ran, for the ledger: ``plain`` on the CPU; on
+    the card the route whose tile the launch was checked against."""
+    if x.device.type == "cpu":
+        return "plain"
+    return kern.tile_route((tile.bm, tile.bn, tile.bk))
+
+
+def _numel(t) -> int:
+    return torch.as_tensor(t).numel()
+
+
+# Per thread: set while an expert loop runs its launches, which the loop
+# records once (``calls`` = E) instead of one record each.
+_local = threading.local()
+
+
+def _recording() -> bool:
+    return not getattr(_local, "in_experts", False)
+
+
+def _dense_plan(m: int, n: int, k: int, dtype, epi_spec,
+                rms: bool):
+    """The plan and tag of a one-branch float launch (a dict hit once
+    resolved)."""
+    return _registry.plan(
+        (m, n, k, dtype, epi_spec, rms), m, n, k, dtype,
+        lambda: GemmProgramSpec(prologue=_RMS if rms else NO_PROLOGUE,
+                                branches=(epi_spec,)).tag())
+
+
+def _glu_plan(m: int, n: int, k: int, dtype, activation: str, rms: bool):
+    """The plan and tag of a float GLU launch."""
+    return _registry.plan(
+        (m, n, k, dtype, "glu", activation, rms), m, n, k, dtype,
+        lambda: GemmProgramSpec(
+            prologue=_RMS if rms else NO_PROLOGUE,
+            branches=(IDENTITY, IDENTITY), combine="glu",
+            combine_activation=activation).tag())
+
+
+def _quant_tag(epi_spec, prologue, act_scale, glu_activation=None) -> str:
+    """The program tag ``kernels.ops.quant_matmul`` / ``quant_glu_matmul``
+    build for these inputs (the reference's ``_quant_matmul_tag`` /
+    ``_quant_glu_tag``): ``dqab`` on the w8a8 path, whose norm runs up
+    front, ``dqb`` otherwise."""
+    deq = "ab" if act_scale is not None else "b"
+    pro = _RMS if (prologue is not None and act_scale is None) \
+        else NO_PROLOGUE
+    if glu_activation is None:
+        spec = GemmProgramSpec(prologue=pro, branches=(
+            dataclasses.replace(epi_spec, dequant=deq),))
+    else:
+        branch = dataclasses.replace(IDENTITY, dequant=deq)
+        spec = GemmProgramSpec(prologue=pro, branches=(branch, branch),
+                               combine="glu",
+                               combine_activation=glu_activation)
+    return spec.tag()
 
 
 def _flatten_epilogue(epilogue: Optional[Epilogue], m: int, n: int):
@@ -112,19 +210,46 @@ def ca_matmul(
     k_w, n = w.shape
     lead, m = _lead(x, k_w)
     out_dtype = out_dtype or x.dtype
+    epi_spec = epilogue.spec() if epilogue is not None else IDENTITY
     if not quantized:
+        res = tag = None
+        if m > 0:
+            res, tag = _dense_plan(m, n, k_w, x.dtype, epi_spec,
+                                   prologue is not None)
         y = kops.fused_matmul(  # repro: noqa RPR001 -- port dispatch layer
             x.reshape(m, k_w).contiguous(), w,
             _flatten_epilogue(epilogue, m, n), out_dtype=out_dtype,
-            prologue=prologue)
+            prologue=prologue, tile=res.config if res else None)
+        led = _ledger()
+        if led.enabled and res is not None and _recording():
+            led.record_gemm(m, n, k_w, x.dtype, tag=tag,
+                            mode=_mode(x, res.config), out_dtype=out_dtype,
+                            resolution=res)
         return y.reshape(*lead, n)
     _record_activation(w, x, prologue)
     if w.act_scale is not None and prologue is not None:
         x, prologue = _apply_rms(x, prologue), None
+    act = w.act_scale is not None
+    res = None
+    if m > 0:
+        res, tag = _registry.plan(
+            (m, n, k_w, x.dtype, epi_spec, prologue is not None, "q", act),
+            m, n, k_w, x.dtype,
+            lambda: _quant_tag(epi_spec, prologue, w.act_scale),
+            dtype_b=torch.int8, dtype_a=torch.int8 if act else None)
     y = kops.quant_matmul(  # repro: noqa RPR001 -- port dispatch layer
         x.reshape(m, k_w).contiguous(), w,
         _flatten_epilogue(epilogue, m, n), out_dtype=out_dtype,
-        prologue=prologue, act_scale=w.act_scale, act_block=w.act_block)
+        prologue=prologue, act_scale=w.act_scale, act_block=w.act_block,
+        tile=res.config if res else None)
+    led = _ledger()
+    if led.enabled and res is not None and _recording():
+        led.record_gemm(
+            m, n, k_w, x.dtype, tag=tag, mode=_mode(x, res.config),
+            dtype_b=torch.int8, dtype_a=torch.int8 if act else None,
+            out_dtype=out_dtype,
+            scale_a_elements=_numel(w.act_scale) if act else 0,
+            scale_b_elements=_numel(w.scale), resolution=res)
     return y.reshape(*lead, n)
 
 
@@ -155,17 +280,46 @@ def ca_glu_matmul(
     lead, m = _lead(x, k_w)
     out_dtype = out_dtype or x.dtype
     if not quantized:
+        res = tag = None
+        if m > 0:
+            res, tag = _glu_plan(m, n, k_w, x.dtype, activation,
+                                 prologue is not None)
         y = kops.glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
             x.reshape(m, k_w).contiguous(), w_gate, w_up,
-            activation=activation, prologue=prologue, out_dtype=out_dtype)
+            activation=activation, prologue=prologue, out_dtype=out_dtype,
+            tile=res.config if res else None)
+        led = _ledger()
+        if led.enabled and res is not None and _recording():
+            led.record_gemm(m, n, k_w, x.dtype, tag=tag,
+                            mode=_mode(x, res.config), out_dtype=out_dtype,
+                            resolution=res)
         return y.reshape(*lead, n)
     _record_activation(w_gate, x, prologue)
     if w_gate.act_scale is not None and prologue is not None:
         x, prologue = _apply_rms(x, prologue), None
+    act = w_gate.act_scale is not None
+    res = None
+    if m > 0:
+        res, tag = _registry.plan(
+            (m, n, k_w, x.dtype, "glu", activation, prologue is not None,
+             "q", act),
+            m, n, k_w, x.dtype,
+            lambda: _quant_tag(IDENTITY, prologue, w_gate.act_scale,
+                               activation),
+            dtype_b=torch.int8, dtype_a=torch.int8 if act else None)
     y = kops.quant_glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
         x.reshape(m, k_w).contiguous(), w_gate, w_up, activation=activation,
         prologue=prologue, out_dtype=out_dtype, act_scale=w_gate.act_scale,
-        act_block=w_gate.act_block)
+        act_block=w_gate.act_block, tile=res.config if res else None)
+    led = _ledger()
+    if led.enabled and res is not None and _recording():
+        led.record_gemm(
+            m, n, k_w, x.dtype, tag=tag, mode=_mode(x, res.config),
+            dtype_b=torch.int8, dtype_a=torch.int8 if act else None,
+            out_dtype=out_dtype,
+            scale_a_elements=_numel(w_gate.act_scale) if act else 0,
+            scale_b_elements=(_numel(w_gate.scale)
+                              + _numel(w_up.scale)), resolution=res)
     return y.reshape(*lead, n)
 
 
@@ -181,14 +335,44 @@ def _check_expert_operands(x: torch.Tensor, w, name: str) -> int:
     return w.shape[0]
 
 
+def _record_experts(x: torch.Tensor, E: int, n: int, plan,
+                    out_dtype) -> None:
+    """One ledger record for an expert loop: ``calls`` = E launches of
+    the per-expert GEMM at that expert's rows (the reference's fold)."""
+    led = _ledger()
+    k = x.shape[-1]
+    m = x.numel() // (E * k) if E and k else 0
+    if led.enabled and m > 0:
+        res, tag = plan(m)
+        led.record_gemm(m, n, k, x.dtype, tag=tag, mode=_mode(x, res.config),
+                        out_dtype=out_dtype or x.dtype, calls=E,
+                        resolution=res)
+
+
+def _expert_loop(fn, E: int):
+    """Run the per-expert launches with their own ledger records off (the
+    loop records once)."""
+    _local.in_experts = True
+    try:
+        return [fn(e) for e in range(E)]
+    finally:
+        _local.in_experts = False
+
+
 def ca_expert_matmul(x: torch.Tensor, w: torch.Tensor, *,
                      out_dtype=None) -> torch.Tensor:
     """The MoE contraction ``x[..., e, :, :] @ w[e]`` (the reference's
     ``...ecd,edf->...ecf``) as one :func:`ca_matmul` per expert (K1 on the
-    card, its plain version on the CPU), stacked on the expert axis."""
+    card, its plain version on the CPU), stacked on the expert axis; the
+    ledger records the loop once, ``calls`` = E."""
     E = _check_expert_operands(x, w, "ca_expert_matmul")
-    return torch.stack([ca_matmul(x[..., e, :, :], w[e], out_dtype=out_dtype)
-                        for e in range(E)], dim=-3)
+    ys = _expert_loop(lambda e: ca_matmul(x[..., e, :, :], w[e],
+                                          out_dtype=out_dtype), E)
+    k, n = w.shape[-2:]
+    _record_experts(x, E, n, lambda m: _dense_plan(m, n, k, x.dtype,
+                                                   IDENTITY, False),
+                    out_dtype)
+    return torch.stack(ys, dim=-3)
 
 
 def ca_expert_glu_matmul(x: torch.Tensor, w_gate: torch.Tensor,
@@ -196,12 +380,16 @@ def ca_expert_glu_matmul(x: torch.Tensor, w_gate: torch.Tensor,
                          out_dtype=None) -> torch.Tensor:
     """Per-expert dual-branch GLU: each expert's gate and up share one
     pass over that expert's capacity rows (:func:`ca_glu_matmul` once per
-    expert), stacked on the expert axis."""
+    expert), stacked on the expert axis; recorded once, ``calls`` = E."""
     E = _check_expert_operands(x, w_gate, "ca_expert_glu_matmul")
     if tuple(w_up.shape) != tuple(w_gate.shape):
         raise ValueError(f"w_up {tuple(w_up.shape)} vs w_gate "
                          f"{tuple(w_gate.shape)}")
-    return torch.stack([ca_glu_matmul(x[..., e, :, :], w_gate[e], w_up[e],
-                                      activation=activation,
-                                      out_dtype=out_dtype)
-                        for e in range(E)], dim=-3)
+    ys = _expert_loop(lambda e: ca_glu_matmul(
+        x[..., e, :, :], w_gate[e], w_up[e], activation=activation,
+        out_dtype=out_dtype), E)
+    k, n = w_gate.shape[-2:]
+    _record_experts(x, E, n, lambda m: _glu_plan(m, n, k, x.dtype,
+                                                 activation, False),
+                    out_dtype)
+    return torch.stack(ys, dim=-3)

@@ -100,9 +100,30 @@ K_OUTER = "k_outer"
 # The wgmma route's CTA tile (bm, bn, bk) for one branch: two consumer
 # warpgroups of 64 rows, 128 columns, 64 rows of k a TMA stage.
 WGMMA_TILE = (128, 128, 64)
+# The same route's tile for the GLU: 64 columns a branch, two fp32
+# accumulators (``WG_BN<2>`` in csrc/ca_gemm_program.cu); its int8 kernel
+# stages 128 rows of k a stage for an int8 A (``ca_gemm_wgmma_int8_kernel``'s
+# ``BK``), 64 for a bf16 one.
+WGMMA_GLU_BN = 64
+WGMMA_INT8_A_BK = 128
 # The SIMT tile K1 takes for m > 8, and the SIMT k-outer step's sub-tile
 # and slab: bm and bn multiples of 64, bk of 32.
 SIMT_TILE = (64, 64, 32)
+# The SIMT tile of a serving program at m <= 8: 8 x 16 so that n = 2048
+# still spreads over 128 CTAs, k in slabs of 128 (``launch_program``).
+SIMT_DECODE_TILE = (8, 16, 128)
+# The decode route's tile: up to 8 rows, a 64-column strip of B a CTA
+# (``DEC_BN``), at least 256 rows of k a CTA of the split-k cluster
+# (``DEC_MIN_CHUNK``).
+DECODE_TILE = (8, 64, 256)
+# The distance product's tile: 128 x 128 C a CTA, k staged 8 rows a
+# thread at a time (``BM``, ``BN``, ``PIECE`` in csrc/distance_product.cu).
+MINPLUS_TILE = (128, 128, 8)
+# Every tile a K1 route runs (what a tuning cache entry may hold).
+ROUTE_TILES = frozenset(
+    [(WGMMA_TILE[0], bn, bk) for bn in (WGMMA_TILE[1], WGMMA_GLU_BN)
+     for bk in (WGMMA_TILE[2], WGMMA_INT8_A_BK)]
+    + [SIMT_TILE, SIMT_DECODE_TILE, DECODE_TILE, MINPLUS_TILE])
 # C rows a CTA of the distance product owns (its grid's y axis is m / 128).
 DISTANCE_BM = 128
 # The k-outer kernel's own tile for each dtype (bm, bn, bk), K1's tile for
@@ -200,6 +221,49 @@ def k1_route(spec: GemmProgramSpec, layout: str, a_dtype: torch.dtype,
     if spec.n_b == 2 and (layout != "nn" or spec.prologue.kind == "dact"):
         return "simt"
     return "wgmma"
+
+
+def route_tile(route: str, spec: GemmProgramSpec, a_dtype: torch.dtype,
+               m: int, layout: str = "nn",
+               save_preact: bool = False) -> tuple:
+    """The tile (bm, bn, bk) a K1 launch on ``route`` runs: the tiles the
+    CUDA source instantiates, one per route and program shape.  The
+    wgmma route's GLU takes 64 columns a branch and its int8 A 128 rows
+    of k; the SIMT tile of a training or ``dual`` program is 64 x 64 x
+    32 at any m, of a serving program 8 x 16 x 128 at m <= 8."""
+    if route == "decode":
+        return DECODE_TILE
+    if route == "minplus":
+        return MINPLUS_TILE
+    if route == "wgmma":
+        bn = WGMMA_GLU_BN if spec.n_b == 2 else WGMMA_TILE[1]
+        bk = WGMMA_INT8_A_BK if a_dtype == torch.int8 else WGMMA_TILE[2]
+        return (WGMMA_TILE[0], bn, bk)
+    training = (layout != "nn" or spec.prologue.kind == "dact"
+                or save_preact)
+    dual = spec.n_b == 2 and spec.combine != "glu"
+    if training or dual or m > 8:
+        return SIMT_TILE
+    return SIMT_DECODE_TILE
+
+
+def tile_route(tile: tuple) -> str:
+    """The route whose tile ``tile`` is (every route's tile differs):
+    what the ledger records as a checked launch's route."""
+    if tile == DECODE_TILE:
+        return "decode"
+    if tile in (SIMT_TILE, SIMT_DECODE_TILE):
+        return "simt"
+    if tile == MINPLUS_TILE:
+        return "minplus"
+    return "wgmma"
+
+
+def _tile_dims(tile) -> tuple:
+    """(bm, bn, bk) of a TileConfig or a 3-tuple."""
+    if hasattr(tile, "bm"):
+        return (tile.bm, tile.bn, tile.bk)
+    return tuple(tile)
 
 
 def tma_aligned(*tensors: Optional[torch.Tensor]) -> bool:
@@ -550,7 +614,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
             branch_operands, m: int, n: int, k: int, scale_b_block: int,
             scale_a_block: int, transpose_a: bool, transpose_b: bool,
-            save_preact: bool, preact):
+            save_preact: bool, preact, tile=None):
     if m > 65535 * 64:
         raise ValueError(f"m = {m} exceeds the kernel's grid")
     outs = [torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -573,6 +637,12 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     layout = layout_tag(transpose_a, transpose_b)
     route = k1_route(spec, layout, a.dtype, bs[0].dtype, m, n, k,
                      tma_aligned(a, *bs, preact), save_preact=save_preact)
+    if tile is not None:
+        have = route_tile(route, spec, a.dtype, m, layout, save_preact)
+        if _tile_dims(tile) != have:
+            raise ValueError(
+                f"tile {_tile_dims(tile)} is not the {route} route's "
+                f"{have} for {spec.tag()!r} {layout} at m={m} n={n} k={k}")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _library().ca_gemm_program_launch(
         _ptr(a), _ptr(bs[0]), _ptr(bs[1]) if spec.n_b == 2 else None,
@@ -601,7 +671,11 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     return result
 
 
-def _launch_min_plus(a, b, m: int, n: int, k: int) -> torch.Tensor:
+def _launch_min_plus(a, b, m: int, n: int, k: int,
+                     tile=None) -> torch.Tensor:
+    if tile is not None and _tile_dims(tile) != MINPLUS_TILE:
+        raise ValueError(f"tile {_tile_dims(tile)} is not the distance "
+                         f"product's {MINPLUS_TILE}")
     if m > 65535 * DISTANCE_BM:
         raise ValueError(f"m = {m} exceeds the kernel's grid")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -634,6 +708,7 @@ def ca_gemm_program(
     branch_operands: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
     scale_b_block: int = 0,
     scale_a_block: int = 0,
+    tile=None,
 ):
     """Execute a :class:`GemmProgramSpec`: ``a`` (m, k) is the streamed A
     operand, ``bs`` the 1..2 (k, n) B operands; ``row_scale`` ((m, 1)
@@ -669,6 +744,12 @@ def ca_gemm_program(
     128, and the same for both when both are per tile.  The output
     defaults to A's dtype, fp32 for int8 A.
 
+    ``tile`` (a ``TileConfig`` or (bm, bn, bk), as the tuning registry
+    resolves it) names the tile the launch runs: on the card it must be
+    the tile of the launch's route (:func:`route_tile`), or the call
+    raises; the plain version ignores it, as the reference's XLA mode
+    does.  ``None`` runs the route's tile unchecked.
+
     CPU operands run :func:`ca_gemm_program_reference`; CUDA operands
     launch the kernel.  The reference's refused combinations raise
     ValueError.
@@ -691,10 +772,10 @@ def ca_gemm_program(
     if a.device.type != "cuda":
         raise ValueError(f"no kernel for device {a.device}")
     if semiring == "min_plus":
-        return _launch_min_plus(a, bs[0], m, n, k)
+        return _launch_min_plus(a, bs[0], m, n, k, tile)
     return _launch(a, bs, spec, out_dtype, row_scale, gain,
                    branch_operands, m, n, k, scale_b_block, scale_a_block,
-                   transpose_a, transpose_b, save_preact, preact)
+                   transpose_a, transpose_b, save_preact, preact, tile)
 
 
 def ca_mmm(
@@ -724,8 +805,11 @@ def ca_mmm(
 ):
     """C = op(A) @ op(B) (+ fused prologue/epilogue): the single-branch
     program with the reference's keyword surface (``ca_mmm.py:565-613``),
-    a thin builder over :func:`ca_gemm_program`.  The kernel's tiles are
-    fixed: ``bm``, ``bn`` and ``bk`` are accepted and not read."""
+    a thin builder over :func:`ca_gemm_program`.  ``bm``, ``bn`` and
+    ``bk``, where given, must on the card name the launch route's tile
+    (:func:`route_tile`, all three), or the call raises; the plain
+    version ignores them."""
+    tile = None if (bm, bn, bk) == (None, None, None) else (bm, bn, bk)
     ops = {name: t for name, t in (("bias", bias), ("mul", mul),
                                    ("residual", residual),
                                    ("scale_a", scale_a),
@@ -737,7 +821,7 @@ def ca_mmm(
         transpose_a=transpose_a, transpose_b=transpose_b,
         save_preact=save_preact, row_scale=row_scale, gain=gain,
         preact=preact, branch_operands=[ops], scale_b_block=scale_b_block,
-        scale_a_block=scale_a_block)
+        scale_a_block=scale_a_block, tile=tile)
 
 
 # ---------------------------------------------------------------------------

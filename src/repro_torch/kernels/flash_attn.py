@@ -75,6 +75,10 @@ WGMMA_MAX_HEAD_DIM = 128
 # K3's kv slots per online-softmax step, on both routes; the plain version
 # steps through the kv slots in the same blocks.
 FWD_KV_BLOCK = 64
+# K3's query rows a CTA by route (``WG_ROWS`` and ``ROWS`` in
+# csrc/flash_attn_fwd.cu): the blocks the flash tier of the tuning
+# registry resolves.
+FWD_Q_ROWS = {"wgmma": 128, "simt": 64}
 _ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 

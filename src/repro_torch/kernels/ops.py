@@ -43,9 +43,11 @@ def ca_mmm_any(a: torch.Tensor, b: torch.Tensor, tile=None, *,
                out_dtype=None, semiring: str = "plus_times") -> torch.Tensor:
     """CA-MMM for arbitrary (m, k) x (k, n): masked edge tiles, no padding.
 
-    ``tile`` is accepted and not read: the kernel's tiles are fixed until
-    the tuning registry is ported (the reference resolves it there)."""
-    return kern.ca_mmm(a, b, out_dtype=out_dtype, semiring=semiring)
+    ``tile`` (a ``TileConfig`` or (bm, bn, bk), optional) must on the card
+    be the launch route's tile (``ca_mmm.route_tile``), or the call
+    raises; the plain version ignores it."""
+    return kern.ca_gemm_program(  # repro: noqa RPR001 -- port dispatch layer
+        a, (b,), out_dtype=out_dtype, semiring=semiring, tile=tile)
 
 
 def _rms_operands(x: torch.Tensor, prologue: Optional[RmsPrologue]):
@@ -158,10 +160,13 @@ def fused_matmul(
     *,
     out_dtype=None,
     prologue: Optional[RmsPrologue] = None,
+    tile=None,
 ) -> torch.Tensor:
     """``epilogue(prologue(A) @ B)`` in one kernel pass — trainable: with
     grad mode on and an operand requiring grad, the backward runs the
-    ``nt``/``tn`` K1f programs."""
+    ``nt``/``tn`` K1f programs.  ``tile`` is the resolved tile of the
+    serving launch (checked on the card against its route's); the
+    trainable path runs its routes' tiles unchecked."""
     pro, row_scale, gain = _rms_operands(a, prologue)
     spec = epilogue.spec() if epilogue is not None else IDENTITY
     ops = epilogue.operands() if epilogue is not None else {}
@@ -172,7 +177,7 @@ def fused_matmul(
     return kern.ca_gemm_program(  # repro: noqa RPR001 -- port dispatch layer
         a, (b,), spec=GemmProgramSpec(prologue=pro, branches=(spec,)),
         out_dtype=out_dtype, row_scale=row_scale, gain=gain,
-        branch_operands=[ops])
+        branch_operands=[ops], tile=tile)
 
 
 def ca_matmul_trainable(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -232,10 +237,12 @@ def glu_matmul(
     activation: str = "silu",
     prologue: Optional[RmsPrologue] = None,
     out_dtype=None,
+    tile=None,
 ) -> torch.Tensor:
     """``act(x @ Wg) · (x @ Wu)`` as one dual-branch program: x streams
     once for both contractions; an :class:`RmsPrologue` folds the pre-FFN
-    norm into the same fetch.  Trainable like :func:`fused_matmul`."""
+    norm into the same fetch.  Trainable like :func:`fused_matmul`;
+    ``tile`` as there."""
     pro, row_scale, gain = _rms_operands(x, prologue)
     if _trainable(x, w_gate, w_up, gain):
         return _GluMM.apply(x, w_gate, w_up, row_scale, gain, activation,
@@ -244,7 +251,7 @@ def glu_matmul(
                            combine="glu", combine_activation=activation)
     return kern.ca_gemm_program(  # repro: noqa RPR001 -- port dispatch layer
         x, (w_gate, w_up), spec=spec, out_dtype=out_dtype,
-        row_scale=row_scale, gain=gain)
+        row_scale=row_scale, gain=gain, tile=tile)
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +266,8 @@ def check_qweight(qw, k: Optional[int] = None) -> None:
         raise ValueError(f"the kernel takes int8 QTensor weights, got "
                          f"{type(qw).__name__}")
     if qw.fmt != "int8":
-        raise ValueError(f"QTensor format {qw.fmt!r} is not ported yet "
-                         "(ROADMAP queue 1, item 7)")
+        raise ValueError(f"QTensor format {qw.fmt!r} is not ported yet: "
+                         "it waits for the fp8 paths of quant/scales.py")
     if qw.ndim != 2:
         raise ValueError(f"a QTensor weight must be (k, n), got {qw.shape}")
     # A wrong-axis QTensor would pass the reshapes below for square
@@ -299,13 +306,15 @@ def quant_matmul(
     act_block: int = 0,
     out_dtype=None,
     prologue: Optional[RmsPrologue] = None,
+    tile=None,
 ) -> torch.Tensor:
     """``epilogue(dequant(prologue(A) @ Q))`` in one kernel pass over an
     int8 :class:`QTensor` weight (per-channel or per-tile scales): the
     ``dqb`` program.  With ``act_scale`` (+ ``act_block``) the float ``a``
     is quantized on entry with a calibrated static scale (per-tensor, or
     per-k-tile with ``act_block=g``) and the int8×int8 ``dqab`` program
-    runs.  ``prologue`` composes with float activations only.
+    runs.  ``prologue`` composes with float activations only.  ``tile``
+    as in :func:`fused_matmul`.
     """
     check_qweight(qw, a.shape[1])
     if prologue is not None and act_scale is not None:
@@ -325,7 +334,7 @@ def quant_matmul(
     return kern.ca_gemm_program(  # repro: noqa RPR001 -- port dispatch layer
         a, (qw.data,), spec=spec, out_dtype=out_dtype, row_scale=row_scale,
         gain=gain, branch_operands=[ops], scale_b_block=qw.block,
-        scale_a_block=act_block if act_scale is not None else 0)
+        scale_a_block=act_block if act_scale is not None else 0, tile=tile)
 
 
 def quant_glu_matmul(
@@ -338,6 +347,7 @@ def quant_glu_matmul(
     out_dtype=None,
     act_scale: Optional[torch.Tensor] = None,
     act_block: int = 0,
+    tile=None,
 ) -> torch.Tensor:
     """Quantized dual-branch GLU: both int8 weights stream in one pass over
     x, each branch's dequant on its own accumulator (per-tile scales on
@@ -368,7 +378,7 @@ def quant_glu_matmul(
         x, (qwg.data, qwu.data), spec=spec, out_dtype=out_dtype,
         row_scale=row_scale, gain=gain, branch_operands=branch_ops,
         scale_b_block=qwg.block,
-        scale_a_block=act_block if act_scale is not None else 0)
+        scale_a_block=act_block if act_scale is not None else 0, tile=tile)
 
 
 def distance_product(a: torch.Tensor, b: torch.Tensor, *,
@@ -376,6 +386,6 @@ def distance_product(a: torch.Tensor, b: torch.Tensor, *,
     """Tropical (min, +) matrix product — paper Sec. 5.2 flexibility demo:
     ``C[i, j] = min_k (A[i, k] + B[k, j])``, fp32 out, A and B fp32 or
     bf16.  CPU operands run the plain version; CUDA operands launch the
-    kernel (K1g) or raise.  ``tile`` is accepted and not read (fixed
-    tiles, see :func:`ca_mmm_any`)."""
+    kernel (K1g) or raise.  ``tile``, where given, must on the card be
+    the kernel's own (see :func:`ca_mmm_any`)."""
     return ca_mmm_any(a, b, tile, semiring="min_plus")

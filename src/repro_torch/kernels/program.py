@@ -22,7 +22,8 @@ on it)::
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -166,8 +167,10 @@ def program_tag(spec: GemmProgramSpec) -> str:
     return f"{pro}>{body}" if pro else body
 
 
+@functools.lru_cache(maxsize=None)
 def program_from_tag(tag: str) -> GemmProgramSpec:
-    """Inverse of :func:`program_tag`; unknown fragments raise."""
+    """Inverse of :func:`program_tag`; unknown fragments raise.  Memoized
+    (a spec is frozen): the ledger parses a launch's tag per record."""
     prologue = NO_PROLOGUE
     if ">" in tag:
         pro_s, tag = tag.split(">", 1)
@@ -187,6 +190,65 @@ def program_from_tag(tag: str) -> GemmProgramSpec:
             branches=(spec_from_tag(t0), spec_from_tag(t1)))
     return GemmProgramSpec(prologue=prologue, branches=(spec_from_tag(tag),))
 
+
+
+def program_with_dequant(tag: str, mode: str = "b") -> str:
+    """Prefix a dequant stage onto *every* branch of a program tag (a
+    quantized GLU quantizes both the gate and the up weight)."""
+    spec = program_from_tag(tag)
+    return program_tag(dataclasses.replace(
+        spec, branches=tuple(dataclasses.replace(b, dequant=mode)
+                             for b in spec.branches)))
+
+
+def program_activation(tag: str) -> str:
+    """The program's primary nonlinearity ("none" if linear): what the
+    backward pass needs ``act'`` of (workload planning)."""
+    spec = program_from_tag(tag)
+    if spec.combine == "glu":
+        return spec.combine_activation
+    return spec.branches[0].activation
+
+
+# ---------------------------------------------------------------------------
+# Cost shape (tuning-space + I/O-model consumers)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ProgramCost:
+    """What a program adds to the kernel's fast-memory and HBM budgets.
+
+    ``stream_mn``: streamed (m, n)-shaped drain operands (mul/residual);
+    ``prologue_mk``: (m, k)-shaped prologue operands riding the A stream
+    (the forward dact saved pre-activation: 1); ``prologue_kn``: (k, n)
+    ones riding the B stream (the ``@b`` backward dact variant);
+    ``prologue_vec``: O(m)/O(k) prologue vectors (rms row scale + gain =
+    2); ``n_b`` B operands/accumulators; ``n_out`` drained outputs.
+    """
+
+    stream_mn: int = 0
+    has_bias: bool = False
+    n_b: int = 1
+    n_out: int = 1
+    prologue_mk: int = 0
+    prologue_kn: int = 0
+    prologue_vec: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def program_cost(tag: str) -> ProgramCost:
+    spec = program_from_tag(tag)
+    stream_mn = sum(int(b.has_mul) + int(b.has_residual)
+                    for b in spec.branches)
+    dact = spec.prologue.kind == "dact"
+    on_a = spec.prologue.operand == "a"
+    return ProgramCost(
+        stream_mn=stream_mn,
+        has_bias=any(b.has_bias for b in spec.branches),
+        n_b=spec.n_b, n_out=spec.n_out,
+        prologue_mk=1 if dact and on_a else 0,
+        prologue_kn=1 if dact and not on_a else 0,
+        prologue_vec=2 if spec.prologue.kind == "rms" else 0)
 
 @dataclasses.dataclass
 class RmsPrologue:
@@ -226,3 +288,29 @@ def apply_dact_reference(g: torch.Tensor, h: torch.Tensor,
         out = torch.nan_to_num(out, nan=0.0).clamp(info.min, info.max)
         out = out.trunc()
     return out.to(g.dtype)
+
+
+def synthetic_operands(tag: str, m: int, n: int, k: int, dtype, *,
+                       generator: torch.Generator,
+                       device=None) -> Dict[str, torch.Tensor]:
+    """Prologue operands for timing a program variant (the autotuner's):
+    the dict matches :func:`repro_torch.kernels.ca_mmm.ca_gemm_program`'s
+    prologue keywords for ``tag``, with the reference's shapes and dtypes
+    (fp32 ``row_scale`` (m, 1) and a ``gain`` (k,) in ``dtype`` for rms;
+    an fp32 ``preact`` shaped like the decorated operand for dact).  The
+    values are drawn from ``generator`` in [0.5, 1.5), where the
+    reference's are ones; timing does not depend on them."""
+    spec = program_from_tag(tag)
+
+    def draw(shape, dt):
+        return (torch.rand(shape, generator=generator) + 0.5).to(
+            dtype=dt, device=device)
+
+    out: Dict[str, torch.Tensor] = {}
+    if spec.prologue.kind == "rms":
+        out["row_scale"] = draw((m, 1), torch.float32)
+        out["gain"] = draw((k,), dtype)
+    elif spec.prologue.kind == "dact":
+        shape = (m, k) if spec.prologue.operand == "a" else (k, n)
+        out["preact"] = draw(shape, torch.float32)
+    return out

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attn import paged_flash_attention
+from repro_torch.obs.ledger import get_ledger
 
 _EPS = 1e-12
 _QMAX = 127.0  # symmetric int8 grid
@@ -232,8 +233,10 @@ def paged_attention(q: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     cache through :func:`repro_torch.kernels.flash_attn.paged_flash_attention`
     (the kernel on a card, its plain version on the CPU); returns
     ``(B, 1, H, Dv)``.  The reference's KV005 geometry checks raise
-    ``ValueError`` here; its ledger record and preflight memo are later
-    slices (ROADMAP queue 1, items 8 and 10)."""
+    ``ValueError`` here; its preflight memo waits for
+    ``analyze/preflight.py``.  Every dispatch is recorded in the ledger
+    (when enabled) with its planned KV bytes: mapped pages × page size,
+    the route ``paged`` on the card, ``plain`` on the CPU."""
     page = cache["v"].shape[1]
     Hkv = cache["v"].shape[2]
     if q.dim() != 4 or q.shape[1] != 1:
@@ -247,6 +250,15 @@ def paged_attention(q: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     out = paged_flash_attention(
         q[:, 0].contiguous(), cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
         cache["tables"], cache["len"], window=window, scale=scale)
+    led = get_ledger()
+    if led.enabled:
+        B, _, H, D = q.shape
+        led.record_attention(
+            b=B, q_len=1, kv_len=cache["tables"].shape[1] * page, heads=H,
+            kv_heads=Hkv, head_dim=D, v_head_dim=cache["v"].shape[-1],
+            kv_dtype=cache["k"].dtype, q_dtype=q.dtype,
+            tag="attn.paged_decode", page=page,
+            mode="plain" if q.device.type == "cpu" else "paged")
     return out[:, None]
 
 

@@ -8,6 +8,14 @@ Without ``--full`` it serves the reduced config; ``--device cpu`` runs the
 plain versions on the CPU.  Weights are drawn from ``--seed``, prompts
 from ``RandomState(seed)``.  The engine serves the requests one at a time
 (the reference's ``batch_size`` is not ported).
+
+``--ledger`` records every GEMM and paged attention dispatch with its
+planned bytes (the GEMM ledger, as ``REPRO_TORCH_LEDGER=1`` does),
+``--trace PATH`` writes Chrome-trace spans (JSONL, as
+``REPRO_TORCH_TRACE=PATH`` does), and ``--metrics`` prints the engine's
+``metrics_report()``: TTFT/TPOT percentiles, tokens/s, warmup seconds and,
+with the ledger, each step label's planned bytes, achieved GB/s and model
+error.
 """
 
 from __future__ import annotations
@@ -20,17 +28,19 @@ import numpy as np
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import model as M
+from repro_torch.obs import disable_tracing, enable_ledger, enable_tracing
 from repro_torch.serve.engine import Request, ServeEngine
 
 
 def run_serving(arch: str, *, full: bool = False, requests: int = 4,
                 prompt_len: int = 16, max_new: int = 8,
                 temperature: float = 0.0, seed: int = 0, device=None,
-                paged: bool = False):
+                paged: bool = False, report: bool = False):
     """Serve ``requests`` random prompts of ``prompt_len`` tokens, each
     generating ``max_new`` tokens, on ``device`` (``None`` is the card);
-    returns the finished requests by uid and the wall seconds of the
-    run (weight init and engine start-up excluded)."""
+    returns the finished requests by uid and the wall seconds of the run
+    (weight init and engine start-up excluded).  ``report`` prints the
+    engine's ``metrics_report()`` after the run."""
     cfg = get_config(arch) if full else get_reduced(arch)
     params = M.init_params(cfg, seed=seed, device=device)
     eng = ServeEngine(params, cfg, max_len=prompt_len + max_new, seed=seed,
@@ -42,7 +52,10 @@ def run_serving(arch: str, *, full: bool = False, requests: int = 4,
                            max_new_tokens=max_new, temperature=temperature))
     t0 = time.perf_counter()
     done: Dict[int, Request] = eng.run()
-    return done, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    if report:
+        print(eng.metrics_report())
+    return done, seconds
 
 
 def main(argv: Optional[list] = None):
@@ -59,12 +72,26 @@ def main(argv: Optional[list] = None):
                     help="'cpu' runs the plain versions; default: the card")
     ap.add_argument("--paged", action="store_true",
                     help="serve from the paged int8 KV cache")
+    ap.add_argument("--ledger", action="store_true",
+                    help="record planned bytes of every dispatch")
+    ap.add_argument("--trace", default=None,
+                    help="write Chrome-trace spans (JSONL) to this path")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the engine's metrics report")
     args = ap.parse_args(argv)
-    done, seconds = run_serving(
-        args.arch, full=args.full, requests=args.requests,
-        prompt_len=args.prompt_len, max_new=args.max_new,
-        temperature=args.temperature, seed=args.seed, device=args.device,
-        paged=args.paged)
+    if args.ledger:
+        enable_ledger()
+    if args.trace:
+        enable_tracing(args.trace)
+    try:
+        done, seconds = run_serving(
+            args.arch, full=args.full, requests=args.requests,
+            prompt_len=args.prompt_len, max_new=args.max_new,
+            temperature=args.temperature, seed=args.seed,
+            device=args.device, paged=args.paged, report=args.metrics)
+    finally:
+        if args.trace:
+            disable_tracing()
     total_new = sum(len(r.generated) for r in done.values())
     for uid, r in sorted(done.items()):
         print(f"req {uid} ({r.status}): {r.generated}")

@@ -219,6 +219,15 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     return cache
 
 
+def check_pageable(cfg: ModelConfig) -> None:
+    """Raise KV005 unless ``cfg`` is a plain GQA transformer (the paged
+    cache's one family)."""
+    if cfg.attn_kind != "gqa" or _is_ssm(cfg) or cfg.shared_attn_every:
+        raise ValueError(
+            f"paged caches are GQA-transformer only, got "
+            f"attn_kind={cfg.attn_kind!r} family={cfg.family!r} [KV005]")
+
+
 def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
                            page_size: int, max_pages: int, device=None):
     """Paged decode cache: per-layer int8 page pools sharing one block
@@ -228,10 +237,7 @@ def make_paged_model_cache(cfg: ModelConfig, batch: int, *, n_pages: int,
     GQA-family transformers only, as in the reference: MLA compresses its
     cache instead of paging it; a Mamba2 layer's state is not addressed
     by token, and zamba2's shared block would need a pool of its own."""
-    if cfg.attn_kind != "gqa" or _is_ssm(cfg) or cfg.shared_attn_every:
-        raise ValueError(
-            f"paged caches are GQA-transformer only, got "
-            f"attn_kind={cfg.attn_kind!r} family={cfg.family!r} [KV005]")
+    check_pageable(cfg)
     Dh = cfg.resolved_head_dim
     return {"layers": _stack(kvc.make_paged_cache(
         n_pages, page_size, cfg.n_kv_heads, Dh, Dh, batch, max_pages,

@@ -12,7 +12,7 @@ they are.
 
 The compressed gradient all-reduce (``allreduce_compressed``, with
 ``compress_grads``/``decompress_grads``) needs ``torch.distributed`` and
-comes with the distributed slice (ROADMAP queue 1, item 14).
+waits for ``core/distributed.py``.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ axis ``k`` = ``axis=-2``):
   each k slab the kernel streams lies in one block and the kernel scales
   that block's partial product.
 
-int8 only: the reference's fp8-via-int8 emulation formats raise here
-(ROADMAP queue 1, item 7).  The op order of :func:`quantize` is the
+int8 only: the reference's fp8-via-int8 emulation formats (its
+``quant/scales.py`` fp8 paths) are not ported yet and raise here.  The op order of :func:`quantize` is the
 reference's (``x.float() / s``, round half to even, clamp to ±127), so the
 int8 payloads come out bit-identical.
 """
@@ -38,11 +38,28 @@ def check_format(fmt: str) -> None:
     """int8 is ported; the fp8 emulation formats raise as not ported."""
     if fmt in FP8_FORMATS:
         raise ValueError(f"quant format {fmt!r} (fp8 emulation) is not "
-                         "ported yet (ROADMAP queue 1, item 7)")
+                         "ported yet: it waits for the fp8 paths of "
+                         "quant/scales.py")
     if fmt not in FORMATS:
         raise ValueError(f"unknown quant format {fmt!r} "
                          f"(valid: {INT_FORMATS}) [QNT003]")
 
+
+
+def dtype_short(dtype) -> str:
+    """Short dtype name used in mixed-precision cache keys (the
+    reference's spelling)."""
+    name = dtype if isinstance(dtype, str) else \
+        str(dtype).removeprefix("torch.")
+    return {"bfloat16": "bf16", "float32": "f32", "float16": "f16",
+            "float64": "f64"}.get(name, name)
+
+
+def quant_dtype_str(act_dtype, weight_dtype) -> str:
+    """Cache-key dtype string for a mixed-precision GEMM, byte-identical to
+    the reference's: ``quant_dtype_str(torch.bfloat16, torch.int8) ==
+    "int8w_bf16a"`` — weight dtype first, activation second."""
+    return f"{dtype_short(weight_dtype)}w_{dtype_short(act_dtype)}a"
 
 def _norm_axis(ndim: int, axis: int) -> int:
     norm = axis if axis >= 0 else ndim + axis

@@ -10,10 +10,11 @@ kernel (``kernels.ops``' trainable programs); remat follows ``cfg.remat``
 strided split of the batch, their gradients summed in fp32 and divided by
 the count.
 
-The reference's sharding hooks (``reshard_params``/``reshard_grads``)
-come with the distributed slice (ROADMAP queue 1, item 14), and its
-tile-plan warm-up (``warmup_gemm_rows``) with the tuning registry
-(item 4); passing either raises.
+``warmup_gemm_rows`` resolves the model's forward and backward GEMM
+tiles through the kernel-config registry when the step is built, as the
+reference's does.  The reference's sharding hooks
+(``reshard_params``/``reshard_grads``) wait for ``core/distributed.py``;
+passing either raises.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.tuning import warmup_model
 
 Batch = Dict[str, torch.Tensor]
 
@@ -95,15 +97,19 @@ def build_train_step(
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, batch) -> (state, metrics).
 
-    The batch's leading dim must divide by ``microbatches``; metrics are
-    0-dim tensors (``loss``, ``aux``, ``grad_norm``, ``lr``)."""
+    ``warmup_gemm_rows`` (tokens per microbatch, B*L/microbatches)
+    pre-resolves the hot-path GEMM tiles, the backward layouts included,
+    through the kernel-config registry.  The batch's leading dim must
+    divide by ``microbatches``; metrics are 0-dim tensors (``loss``,
+    ``aux``, ``grad_norm``, ``lr``)."""
     check_trainable(cfg)
     if reshard_params is not None or reshard_grads is not None:
-        raise ValueError("reshard_params/reshard_grads are not ported yet "
-                         "(distributed, ROADMAP queue 1, item 14)")
+        raise ValueError("reshard_params/reshard_grads are not ported yet: "
+                         "they wait for core/distributed.py")
     if warmup_gemm_rows:
-        raise ValueError("warmup_gemm_rows is not ported yet (the tuning "
-                         "registry, ROADMAP queue 1, item 4)")
+        # train=True adds the backward GEMMs' transposed layouts and their
+        # dact-prologue variants to the plan set.
+        warmup_model(cfg, [warmup_gemm_rows], train=True)
     if microbatches < 1:
         raise ValueError(f"microbatches = {microbatches}")
 

@@ -1126,3 +1126,143 @@ def test_cuda_reduced_family_matches_cpu(arch):
         eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=6))
         outs.append(eng.run()[1].generated)
     assert len(outs[0]) == len(outs[1]) == 6
+
+
+# ---------------------------------------------------------------------------
+# The plan and observability layer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fresh_registry_and_ledger(tmp_path):
+    """A registry over an empty cache in tmp (autotune off) and an enabled
+    ledger, both process-global for the test, restored after."""
+    from repro_torch import obs
+    from repro_torch.tuning import KernelRegistry, TuningCache
+    from repro_torch.tuning import registry as treg
+
+    treg.set_registry(KernelRegistry(
+        cache=TuningCache(tmp_path / "cache.json"), autotune_enabled=False))
+    led = obs.GemmLedger(enabled=True)
+    obs.set_ledger(led)
+    yield led
+    treg.reset_registry()
+    obs.reset_ledger()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["bf16", "int8w", "w8a8"])
+@pytest.mark.parametrize("m", [1, 37])
+def test_cuda_registry_resolves_each_serve_gemm_to_its_route_tile(
+        fresh_registry_and_ledger, quant, m):
+    """Every GEMM program of full-width stablelm-1.6b's serve path runs
+    through core.gemm at the tile the registry resolves; the launch
+    checks it against its route's tile (it raises on a mismatch), and the
+    ledger's route is the route the launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.core import gemm as tg
+    from repro_torch.quant import QuantConfig
+    from repro_torch.quant.calibrate import quantize_tensor
+
+    led = fresh_registry_and_ledger
+    cfg = get_config("stablelm-1.6b")
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    r = np.random.RandomState(m)
+    t = lambda *shape: torch.as_tensor(  # noqa: E731
+        r.randn(*shape) / np.sqrt(shape[0] if len(shape) == 2 else 1)).to(
+            device="cuda", dtype=torch.bfloat16)
+
+    def weight(k, n):
+        w = t(k, n)
+        if quant == "bf16":
+            return w
+        qw = quantize_tensor(w, QuantConfig())
+        if quant == "w8a8":
+            import dataclasses
+
+            qw = dataclasses.replace(qw, act_scale=torch.tensor(
+                0.05, device="cuda"))
+        return qw
+
+    x = t(m, d) * 4
+    gain = torch.ones(d, device="cuda", dtype=torch.bfloat16)
+    from repro_torch.kernels.program import RmsPrologue
+
+    K.reset_launch_counts()
+    tg.ca_matmul(x, weight(d, d))                                 # wq
+    tg.ca_matmul(x, weight(d, d), epilogue=Epilogue(residual=x))  # wo
+    h = tg.ca_glu_matmul(x, weight(d, f), weight(d, f),
+                         prologue=RmsPrologue(gain))              # GLU
+    tg.ca_matmul(h, weight(f, d), epilogue=Epilogue(residual=x))  # w_down
+    tg.ca_matmul(x, weight(d, v), out_dtype=torch.float32)        # head
+    torch.cuda.synchronize()
+    assert len(led.records) == 5
+    routes = {key.split(" ", 1)[0] for key in K.route_counts}
+    assert sum(K.route_counts.values()) == 5
+    for rec in led.records:
+        tile = (rec.config["bm"], rec.config["bn"], rec.config["bk"])
+        assert tile in K.ROUTE_TILES
+        assert rec.mode == K.tile_route(tile)
+        assert rec.mode in routes
+    assert routes == {"decode" if m == 1 else "wgmma"}
+
+
+@pytest.mark.cuda
+def test_cuda_page_size_autotune_times_k2_and_writes_back(tmp_path):
+    """With autotune on, the paged tier times K2 itself (CUDA events) over
+    the page candidates and writes the winner to the cache; a new
+    registry on the same file then serves it from the cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K2 has no CPU mode")
+    from repro_torch.tuning import KernelRegistry, TuningCache
+    from repro_torch.tuning import attention as tattn
+
+    path = tmp_path / "cache.json"
+    reg = KernelRegistry(cache=TuningCache(path), autotune_enabled=True)
+    FA.reset_launch_counts()
+    got = tattn.resolve_page_size(heads=32, kv_heads=32, head_dim=64,
+                                  seq_len=160, registry=reg)
+    assert got.source == "autotune"
+    assert got.config.kv_block in tattn._PAGE_CANDIDATES
+    assert FA.launch_counts.get(FA.NAME, 0) > 0
+    entry = TuningCache(path).get(got.key)
+    assert entry is not None and entry.bn == got.config.kv_block
+    assert entry.measured_s > 0 and entry.n_tried >= 2
+    again = tattn.resolve_page_size(
+        heads=32, kv_heads=32, head_dim=64, seq_len=160,
+        registry=KernelRegistry(cache=TuningCache(path),
+                                autotune_enabled=True))
+    assert again.source == "cache" and again.config == got.config
+
+
+@pytest.mark.cuda
+def test_cuda_ledger_gemm_calls_equal_k1_launches_of_a_decode_step(
+        fresh_registry_and_ledger):
+    """Full-width stablelm-1.6b, bf16, one prefill and three decode steps
+    with the ledger on: each decode step's GEMM calls (145) equal the K1
+    launches the step made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    led = fresh_registry_and_ledger
+    cfg = get_config("stablelm-1.6b")
+    params = M.init_params(cfg, seed=0)
+    eng = ServeEngine(params, cfg, max_len=64)
+    eng.submit(Request(uid=0, prompt=np.arange(20), max_new_tokens=4))
+    K.reset_launch_counts()
+    eng.run()
+    torch.cuda.synchronize()
+    steps = led.steps_summary()
+    assert steps["decode"]["steps"] == 3
+    assert steps["decode"]["gemm_calls"] == 3 * 145
+    assert steps["prefill"]["gemm_calls"] == 145
+    assert sum(K.launch_counts.values()) == 4 * 145
+    program = led._programs["decode"]
+    assert sum(r.calls for r in program) == 145
+    assert {r.mode for r in program} == {"decode"}
+    del eng, params
+    torch.cuda.empty_cache()

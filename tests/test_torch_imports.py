@@ -7,6 +7,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -76,3 +78,21 @@ def test_every_reference_config_and_the_serve_launcher_have_a_port():
         want = ".".join(("repro_torch",) + rel.parts)
         if rel.name != "__init__":
             assert want in names, want
+
+
+# The plan and observability layer's modules, each beside its reference
+# counterpart (the import checks above cover them with JAX and repro
+# blocked).
+OBS_SLICE = ["core.hardware", "core.io_model", "obs.metrics", "obs.trace",
+             "obs.ledger", "tuning.cache", "tuning.space", "tuning.autotune",
+             "tuning.registry", "tuning.workload", "tuning.attention",
+             "kernels.program"]
+
+
+@pytest.mark.parametrize("mod", OBS_SLICE)
+def test_plan_and_observability_modules_are_ported(mod):
+    names = {_module_name(f) for f in _port_files()[:-1]}
+    assert f"repro_torch.{mod}" in names
+    assert (REPO / "src" / "repro" / (mod.replace(".", "/") + ".py")).exists()
+    tree = ast.parse((PORT / (mod.replace(".", "/") + ".py")).read_text())
+    assert not set(_imported_roots(tree)) & set(FORBIDDEN)

@@ -13,7 +13,7 @@ from repro.core.hardware import V5E
 from repro.tuning.attention import _analytic_config
 from repro_torch import kvcache as tkvc
 from repro_torch.kvcache import PagePool, PagePoolExhausted
-from repro_torch.tuning import resolve_page_size
+from repro_torch.tuning import KernelRegistry, resolve_page_size
 
 N_PAGES, PAGE, HKV, D, MAX_PAGES = 10, 4, 2, 8, 4
 
@@ -136,10 +136,20 @@ def test_release_unmaps_tables():
 
 
 @pytest.mark.parametrize("seq_len", [8, 32, 160, 1056, 5000])
-def test_page_size_matches_reference_analytic(seq_len):
+def test_page_size_matches_reference_analytic(seq_len, tmp_path,
+                                              monkeypatch):
+    """The analytic tier of the port's page-size resolution (a fresh
+    registry over an empty cache, autotune off) equals the reference's."""
+    monkeypatch.setenv("REPRO_TORCH_TUNING_CACHE", str(tmp_path / "c.json"))
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE", raising=False)
+    registry = KernelRegistry()
     for heads, kv_heads, head_dim in ((32, 32, 64), (32, 8, 120)):
         want = _analytic_config("paged_decode", heads=heads,
                                 kv_heads=kv_heads, head_dim=head_dim,
                                 seq_len=seq_len, kv_dtype=jnp.int8,
                                 hw=V5E).kv_block
-        assert resolve_page_size(seq_len) == want
+        got = resolve_page_size(heads=heads, kv_heads=kv_heads,
+                                head_dim=head_dim, seq_len=seq_len,
+                                registry=registry)
+        assert got.source == "analytic"
+        assert got.config.kv_block == want

@@ -40,3 +40,69 @@ def test_malformed_tags_raise_in_both(tag):
         jprog.program_from_tag(tag)
     with pytest.raises(ValueError):
         tprog.program_from_tag(tag)
+
+
+# ---------------------------------------------------------------------------
+# The cost half: every tag the reference's tuning/workload.py mints
+# ---------------------------------------------------------------------------
+
+def _workload_tags():
+    """Every program tag of the reference's workloads on every reduced
+    config: forward and training layouts, bf16, w8 and w8a8 (drawn once,
+    at import, from the reference's own workload functions)."""
+    from repro.configs import get_reduced, list_archs
+    from repro.tuning.workload import model_gemm_workloads, quantize_workloads
+
+    tags = set()
+    for arch in list_archs():
+        cfg = get_reduced(arch)
+        for rows in (1, 32):
+            loads = model_gemm_workloads(cfg, rows, train=True)
+            tags.update(w[3] for w in loads)
+            fwd = [w for w in loads if w[4] == "nn"]
+            for acts in (False, True):
+                tags.update(w[3] for w in quantize_workloads(fwd, acts=acts))
+    return sorted(tags)
+
+
+WORKLOAD_TAGS = _workload_tags()
+
+
+def test_workload_tags_cover_the_program_kinds():
+    kinds = {"none", "res", "rms>glu.silu(none|none)", "glu.silu(dqab|dqab)",
+             "rms>glu.silu(dqb|dqb)", "dact.silu@b>none", "dqab+res"}
+    assert kinds <= set(WORKLOAD_TAGS), kinds - set(WORKLOAD_TAGS)
+
+
+@pytest.mark.parametrize("tag", WORKLOAD_TAGS)
+def test_program_cost_matches_reference(tag):
+    assert dataclasses.asdict(tprog.program_cost(tag)) == \
+        dataclasses.asdict(jprog.program_cost(tag))
+    assert tprog.program_activation(tag) == jprog.program_activation(tag)
+    for mode in ("b", "ab"):
+        try:
+            want = jprog.program_with_dequant(tag, mode)
+        except ValueError:
+            with pytest.raises(ValueError):
+                tprog.program_with_dequant(tag, mode)
+            continue
+        assert tprog.program_with_dequant(tag, mode) == want
+
+
+@pytest.mark.parametrize("tag", WORKLOAD_TAGS)
+def test_synthetic_operands_match_reference_shapes_and_dtypes(tag):
+    import jax.numpy as jnp
+    import torch
+
+    m, n, k = 5, 24, 16
+    want = jprog.synthetic_operands(tag, m, n, k, jnp.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    got = tprog.synthetic_operands(tag, m, n, k, torch.bfloat16,
+                                   generator=gen)
+    assert set(got) == set(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == tuple(want[name].shape), name
+        assert str(t.dtype).removeprefix("torch.") == \
+            str(want[name].dtype), name
+        # drawn from the generator in [0.5, 1.5): positive like the ones
+        assert bool(((t.float() >= 0.5) & (t.float() <= 1.5)).all())
