@@ -178,6 +178,31 @@ Phases (any failure raises and the script exits non-zero):
    decode ms/token with obs off and on, in turns (off, on, on, off).
    The card's peaks throughout the script are the port's hardware target
    (repro_torch.core.hardware.H100), the constants the ledger plans with.
+16. robust (run after phase 15): full-width stablelm-1.6b, random weights
+   from seed 0.  Chaos serve, int8w, 24 layers: 4 requests (prompts 128,
+   37, 8, 8; 8 new tokens each) under FaultPlan(kernel_fatal_at=(0,),
+   kernel_fail_at=(1,), nan_decode_at=(7,)) with the fallback on, beside
+   a fault-free engine on the same params: statuses failed / degraded /
+   degraded / done, request 3's tokens equal, request 1's (its failed
+   GEMM counted and launched again on the card) tokens and sampled rows
+   bit-equal, request 2's dense attempt (against a bf16 engine on the
+   dequantized weights) equal up to a near tie, every counter exact, and
+   145 K1 launches by every forward step.  Paged admission, bf16: a pool of two sequences'
+   pages, max_queue 2, shed_oldest; 5 submits give one kv_pages and two
+   shed rejections; a transient decode failure retries once; no page
+   leaks; 24 K2 launches a decode step.  Preflight: plans validated, no
+   violation; a poisoned tuning-cache entry raises SMEM001 with no
+   launch; every launch signature's dynamic shared memory (the built
+   launcher's ca_gemm_program_smem) equals kernels.ca_mmm.route_smem_bytes.
+   Checkpoint and resume, full width at 2 layers, fp32 masters, AdamW,
+   4 x 256 tokens: 3 steps, then a run that saves every step (async) and
+   crashes after step 2, and a resume: step 2's loss and every leaf
+   bit-equal; the checkpoint's GB and its save, verify and restore
+   seconds; restore_quantized serves one request with the tokens of
+   quantize_params of the uninterrupted state.  At the end of the script
+   gemm.fallback_total reads the chaos plan's 1: no other GEMM fell back.
+   ``python3 chip_smoke.py --only robust`` runs the card and build phases
+   and this one alone (no kernels line, no result).
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -712,7 +737,7 @@ def serve_both(cfg, prompts, max_len, profile=False):
     for paged in (False, True):
         eng = ServeEngine(params, cfg, max_len=max_len, paged_kv=paged)
         eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
-        eng.run()
+        served(eng)
         reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=16)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -724,7 +749,7 @@ def serve_both(cfg, prompts, max_len, profile=False):
         # The first request's last decode step, last layer.
         last = cfg.n_layers * (reqs[0].max_new_tokens - 1) - 1
         with Recorder() as rec, Capture(last) as cap:
-            eng.run()
+            served(eng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[paged] = {"reqs": reqs, "k1": dict(K.launch_counts),
@@ -887,7 +912,7 @@ def serve_slice(cfg):
     eng = ServeEngine(params, cfg, max_len=160)
     # Warm-up request (first cuBLAS calls of the attention, allocator).
     eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
-    eng.run()
+    served(eng)
     rng = np.random.RandomState(0)
     reqs = [Request(uid=1, prompt=rng.randint(0, cfg.vocab_size, 128),
                     max_new_tokens=16),
@@ -899,7 +924,7 @@ def serve_slice(cfg):
         eng.submit(r)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    done = eng.run()
+    done = served(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launch_counts)
@@ -996,6 +1021,7 @@ def obs_phase(cfg, device=None):
     for paged in (False, True):
         mode = "paged" if paged else "slab"
         trace = out_dir / f"obs_trace_{mode}.jsonl"
+        check_guarded(f"obs {mode}: before the reset")
         obs.reset_metrics()
         led.reset()
         obs.enable_tracing(str(trace))
@@ -1006,7 +1032,7 @@ def obs_phase(cfg, device=None):
                                max_new_tokens=OBS_NEW_TOKENS))
         K.reset_launch_counts()
         FA.reset_launch_counts()
-        done = eng.run()
+        done = served(eng)
         _sync(params["head/w"].device)
         launches = sum(K.launch_counts.values())
         obs.disable_tracing()
@@ -1085,7 +1111,7 @@ def obs_phase(cfg, device=None):
             obs.disable_tracing()
         eng.submit(Request(uid=100 + i, prompt=prompt,
                            max_new_tokens=OBS_NEW_TOKENS))
-        r = eng.run()[100 + i]
+        r = served(eng)[100 + i]
         _sync(params["head/w"].device)
         turns.append((state, r.decode_s * 1e3 / (OBS_NEW_TOKENS - 1)))
     led.disable()
@@ -1308,7 +1334,7 @@ def card_vs_cpu(p_gpu, p_cpu, cfg4, label="", table=None):
         eng = ServeEngine(params, cfg4, max_len=32, device=dev,
                           sample_table=tables[dev or "cuda"])
         eng.submit(Request(uid=1, prompt=prompt, max_new_tokens=8))
-        outs.append(eng.run()[1].generated)
+        outs.append(served(eng)[1].generated)
     agree = sum(a == b for a, b in zip(*outs))
     print(f"{label}greedy tokens card={outs[0]} cpu={outs[1]} "
           f"agreement={agree}/{len(outs[0])}")
@@ -1697,14 +1723,14 @@ def serve_int8(cfg):
         print(f"{mode}: calibration sites {eng.calibration_sites} in "
               f"{eng.calibration_s:.3f} s")
         eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
-        eng.run()
+        served(eng)
         reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=16)
                 for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        eng.run()
+        served(eng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(K.launch_counts)
@@ -1886,6 +1912,552 @@ def quant_times(float_rows):
                 print("time " + json.dumps(row))
                 del a, sets, kw, ops
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Robustness: faults, admission, preflight, checkpoint and resume
+# ---------------------------------------------------------------------------
+
+# The chaos serve's requests (prompt lengths; 8 new tokens each) and plan:
+# dispatch 0 is request 0's first GEMM (fatal), dispatch 1 request 1's
+# first (recoverable: counted, then the same kernel launched), decode step 7
+# request 2's first (requests 0 and 1 took 0 and 7 steps): NaN logits walk
+# it from int8w to dense.
+CHAOS_PROMPTS = (128, 37, 8, 8)
+CHAOS_NEW = 8
+CHAOS_PLAN = dict(kernel_fatal_at=(0,), kernel_fail_at=(1,),
+                  nan_decode_at=(7,))
+# The paged admission case: (prompt, new tokens, max_retries) of 5 submits
+# into a pool of two sequences' pages, max_queue 2, shed_oldest; the third
+# asks for more pages than a sequence may hold.
+ADMISSION = ((37, 8, 0), (8, 8, 0), (200, 8, 0), (128, 8, 1), (8, 8, 0))
+ADMISSION_MAX_LEN = 160
+# The checkpoint case: full width, 2 layers, 3 steps of 4 x 256 tokens.
+CKPT_LAYERS = 2
+
+
+def metric_value(name, label=None):
+    """A counter's total, or one labelled child's value (0 if absent)."""
+    snap = obs.get_metrics().snapshot().get(name, {})
+    if label is None:
+        return snap.get("value", 0)
+    return snap.get("labels", {}).get(label, 0)
+
+
+# Counters that read 0 wherever no fault plan is active: a request that
+# failed or stepped down the ladder, a plan the preflight refused, a GEMM
+# re-dispatched after an injected failure.
+GUARDED = ("serve.requests_failed_total", "serve.degraded_total",
+           "analyze.violations_total", "gemm.fallback_total")
+# What the robust phase's plans leave in them: chaos request 0 failed,
+# request 2 stepped down once, request 1's GEMM re-dispatched once, the
+# poisoned tuning-cache entry refused once (SMEM001; its repeat comes from
+# the memo and is not counted again).
+ROBUST_GUARDED = {"serve.requests_failed_total": 1,
+                  "serve.degraded_total": 1,
+                  "analyze.violations_total": 1,
+                  "gemm.fallback_total": 1}
+
+
+def check_guarded(where, want=None):
+    """The GUARDED counters read ``want`` (default all 0); raises, naming
+    ``where``, before a reset could wipe a phase's failures."""
+    want = want or dict.fromkeys(GUARDED, 0)
+    got = {n: metric_value(n) for n in GUARDED}
+    if got != want:
+        snap = obs.get_metrics().snapshot()
+        raise AssertionError(f"{where}: guarded counters {got}, expected "
+                             f"{want}: " + json.dumps(
+                                 {n: snap.get(n) for n in GUARDED}))
+    return got
+
+
+def served(eng):
+    """``eng.run()``, raising unless every request it holds is done (a
+    request the engine isolated as failed, degraded or rejected would not
+    stop ``run()``)."""
+    done = eng.run()
+    bad = {u: (r.status, r.error) for u, r in done.items()
+           if r.status != "done"}
+    if bad:
+        raise AssertionError(f"requests not done: {bad}")
+    return done
+
+
+class StepLaunches:
+    """While active, wraps M.prefill and M.decode_step (the engine calls
+    them through the module) and keeps the K1 launches of each forward
+    step that returned."""
+
+    def __enter__(self):
+        self.steps = []
+        self._orig = (M.prefill, M.decode_step)
+
+        def wrap(fn):
+            def run(*a, **k):
+                before = sum(K.launch_counts.values())
+                out = fn(*a, **k)
+                self.steps.append(sum(K.launch_counts.values()) - before)
+                return out
+            return run
+
+        M.prefill, M.decode_step = wrap(self._orig[0]), wrap(self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        M.prefill, M.decode_step = self._orig
+
+
+class LaunchShapes:
+    """While active, wraps K1's launcher and keeps each launch's route,
+    program, operand dtypes, shape and scale block, to hold the launcher's
+    dynamic shared memory against kernels.ca_mmm.route_smem_bytes."""
+
+    def __enter__(self):
+        self.seen = set()
+        self._orig = K._launch
+
+        def launch(a, bs, spec, out_dtype, row_scale, gain, branch_operands,
+                   m, n, k, scale_b_block, scale_a_block, transpose_a,
+                   transpose_b, save_preact, preact, tile=None):
+            layout = K.layout_tag(transpose_a, transpose_b)
+            route = K.k1_route(spec, layout, a.dtype, bs[0].dtype, m, n, k,
+                               K.tma_aligned(a, *bs, preact),
+                               save_preact=save_preact)
+            self.seen.add((route, spec.tag(), a.dtype, bs[0].dtype, m, n, k,
+                           scale_b_block or scale_a_block))
+            return self._orig(a, bs, spec, out_dtype, row_scale, gain,
+                              branch_operands, m, n, k, scale_b_block,
+                              scale_a_block, transpose_a, transpose_b,
+                              save_preact, preact, tile)
+
+        K._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        K._launch = self._orig
+
+
+def first_disagreement(label, got, want, rows, vocab):
+    """Greedy tokens ``got`` against ``want`` up to a near tie: at the
+    first token that differs, ``want``'s run's logit gap to ``got``'s pick
+    is within 2 TOL_MODEL of that row's largest |logit| (``rows``: that
+    run's sampled rows, in order)."""
+    if got == want:
+        return 0.0
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    row = rows[i][:vocab].float()
+    gap = (row.max() - row[got[i]]).item()
+    limit = 2 * TOL_MODEL * row.abs().max().item()
+    print(f"{label}: first disagreement at token {i}: logit gap {gap:.4e} "
+          f"(limit {limit:.4e})")
+    if not gap <= limit:
+        raise AssertionError(f"{label}: tokens {got} vs {want} disagree "
+                             "beyond a near tie")
+    return gap
+
+
+def chaos_serve(cfg):
+    """Full-width int8w stablelm-1.6b serves CHAOS_PROMPTS under
+    CHAOS_PLAN beside a fault-free engine on the same params."""
+    from repro_torch.core.gemm import gemm_fallback
+    from repro_torch.runtime.fault import FaultPlan
+
+    params = M.init_params(cfg, seed=0)
+    qparams = CM.quantize_params(params)
+    del params
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in CHAOS_PROMPTS]
+
+    def reqs():
+        return [Request(uid=u, prompt=p, max_new_tokens=CHAOS_NEW)
+                for u, p in enumerate(prompts)]
+
+    clean = ServeEngine(qparams, cfg, max_len=160)
+    for r in reqs():
+        clean.submit(r)
+    with Recorder() as rec_clean:
+        want = served(clean)
+    base = {n: metric_value(n) for n in (
+        "serve.requests_total", "serve.requests_failed_total",
+        "serve.degraded_total", "gemm.fallback_total")}
+    eng = ServeEngine(qparams, cfg, max_len=160)
+    for r in reqs():
+        eng.submit(r)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with gemm_fallback(True), FaultPlan(**CHAOS_PLAN) as plan, \
+            StepLaunches() as steps, Recorder() as rec_chaos:
+        done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    statuses = [done[u].status for u in range(4)]
+    print(f"chaos statuses {statuses}; injected {sorted(plan.injected)}; "
+          f"attempts {[done[u].attempts for u in range(4)]}; errors "
+          f"{[done[u].error for u in range(4)]}")
+    if statuses != ["failed", "degraded", "degraded", "done"]:
+        raise AssertionError(f"chaos statuses {statuses}")
+    if sorted(plan.injected) != [("kernel", 1), ("kernel_fatal", 0),
+                                 ("nan", 7)]:
+        raise AssertionError(f"injected {plan.injected}")
+    if not done[0].error.startswith("kernel: injected fatal") \
+            or done[0].generated != []:
+        raise AssertionError(f"request 0: {done[0].error}")
+    if done[1].fallbacks != 1 or done[1].degraded_to is not None:
+        raise AssertionError(f"request 1: {done[1].fallbacks} fallbacks")
+    if (done[2].degraded_to, done[2].quant_level, done[2].attempts) != (
+            "dense", "dense", 2):
+        raise AssertionError(f"request 2: {done[2]}")
+    if done[3].generated != want[3].generated:
+        raise AssertionError(f"request 3: {done[3].generated} vs "
+                             f"{want[3].generated}")
+    counters = {
+        "failed_kernel": metric_value("serve.requests_failed_total",
+                                      "reason=kernel"),
+        "fallback": metric_value("gemm.fallback_total") - base[
+            "gemm.fallback_total"],
+        "fallback_stage": obs.get_metrics().snapshot()[
+            "gemm.fallback_total"].get("labels", {}),
+        "degraded_int8w_dense": metric_value(
+            "serve.degraded_total", "from=int8w,to=dense"),
+        "served": metric_value("serve.requests_total") - base[
+            "serve.requests_total"],
+        "fault_events": obs.get_metrics().snapshot()[
+            "fault.events_total"]["labels"]}
+    print("chaos counters " + json.dumps(counters))
+    want_counters = (1, 1, 1, 3, {"kind=injected:kernel": 1.0,
+                                  "kind=injected:kernel_fatal": 1.0,
+                                  "kind=injected:nan": 1.0})
+    if (counters["failed_kernel"], counters["fallback"],
+            counters["degraded_int8w_dense"], counters["served"],
+            counters["fault_events"]) != want_counters:
+        raise AssertionError(f"chaos counters {counters}")
+    # Request 1's failed dispatch launched its kernel again on the card:
+    # its tokens and every sampled row equal the fault-free run's bits.
+    rows1 = rec_chaos.rows[:CHAOS_NEW]
+    rows1_clean = rec_clean.rows[CHAOS_NEW:2 * CHAOS_NEW]
+    if done[1].generated != want[1].generated or not all(
+            torch.equal(a, b) for a, b in zip(rows1, rows1_clean)):
+        raise AssertionError(f"request 1: {done[1].generated} vs "
+                             f"{want[1].generated} (rows bit-equal: "
+                             f"{[torch.equal(a, b) for a, b in zip(rows1, rows1_clean)]})")
+    # Request 2's dense attempt against a bf16 engine on the dense rung's
+    # params (the int8 weights dequantized).
+    dense = ServeEngine(eng._params_for("dense"), cfg, max_len=160)
+    dense.submit(reqs()[2])
+    with Recorder() as rec_dense:
+        want2 = served(dense)[2].generated
+    gap2 = first_disagreement("request 2 dense vs bf16 engine",
+                              done[2].generated, want2, rec_dense.rows,
+                              cfg.vocab_size)
+    # Launches: request 0 none, every other forward step 145 (request
+    # 1's failed dispatch launched once, on its re-dispatch).
+    want_steps = [145] * CHAOS_NEW + [145, 145] + [145] * CHAOS_NEW * 2
+    print(f"chaos K1 launches by forward step {steps.steps}")
+    if steps.steps != want_steps:
+        raise AssertionError(f"chaos launches by step {steps.steps}, "
+                             f"expected {want_steps}")
+    out = {"statuses": statuses, "wall_s": wall, "counters": counters,
+           "request1_bit_equal": True, "request2_gap": gap2,
+           "request2_equal_bf16": done[2].generated == want2}
+    del clean, eng, dense, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_admission(cfg):
+    """Full-width bf16 stablelm-1.6b on a paged pool of two sequences'
+    pages, max_queue 2, shed_oldest: ADMISSION's 5 submits, then a run in
+    which request 3's first decode step fails transiently and its one
+    retry succeeds; no page leaks."""
+    from repro_torch.runtime.fault import FaultPlan
+
+    params = M.init_params(cfg, seed=0)
+    page = resolve_page_size(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                             head_dim=cfg.resolved_head_dim,
+                             seq_len=ADMISSION_MAX_LEN).config.kv_block
+    per_seq = kvc.pages_for(ADMISSION_MAX_LEN, page)
+    eng = ServeEngine(params, cfg, max_len=ADMISSION_MAX_LEN, paged_kv=True,
+                      kv_pool_pages=2 * per_seq, max_queue=2,
+                      overflow="shed_oldest", retry_backoff_s=0.01)
+    rng = np.random.RandomState(11)
+    admitted = []
+    for uid, (n, new, retries) in enumerate(ADMISSION):
+        admitted.append(eng.submit(Request(
+            uid=uid, prompt=rng.randint(0, cfg.vocab_size, n),
+            max_new_tokens=new, max_retries=retries)))
+    rejected = {u: eng.done[u].error for u in sorted(eng.done)}
+    print(f"admission: page {page}, pool {eng.kv_pool.n_pages} pages, "
+          f"per-seq cap {eng.kv_max_pages_per_seq}; admitted {admitted}; "
+          f"queue {[r.uid for r in eng.queue]}; rejected {rejected}")
+    if admitted != [True, True, False, True, True] \
+            or [r.uid for r in eng.queue] != [3, 4] \
+            or sorted(rejected) != [0, 1, 2] \
+            or not rejected[2].startswith("kv pages"):
+        raise AssertionError("admission outcomes")
+    K.reset_launch_counts()
+    FA.reset_launch_counts()
+    with FaultPlan(transient_decode_at=(0,)) as plan:
+        done = eng.run()
+    torch.cuda.synchronize()
+    k2 = FA.launch_counts.get(FA.NAME, 0)
+    decodes = sum(ADMISSION[u][1] - 1 for u in (3, 4))
+    out = {"rejected": {"kv_pages": metric_value(
+        "serve.rejected_total", "policy=kv_pages"),
+        "shed_oldest": metric_value("serve.rejected_total",
+                                    "policy=shed_oldest")},
+        "retries": metric_value("serve.retries_total"),
+        "attempts": {u: done[u].attempts for u in (3, 4)},
+        "statuses": {u: done[u].status for u in sorted(done)},
+        "free_pages": eng.kv_pool.n_free, "pages": eng.kv_pool.n_pages,
+        "k2_launches": k2, "injected": plan.injected}
+    print("admission run " + json.dumps(out, default=str))
+    if out["rejected"] != {"kv_pages": 1, "shed_oldest": 2} \
+            or out["retries"] != 1 or out["attempts"] != {3: 2, 4: 1} \
+            or [done[u].status for u in (3, 4)] != ["done", "done"] \
+            or eng.kv_pool.n_free != eng.kv_pool.n_pages \
+            or k2 != cfg.n_layers * decodes:
+        raise AssertionError(f"admission run {out}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def poisoned_cache():
+    """A tuning-cache entry over shared memory raises
+    ProgramValidationError (SMEM001) at dispatch, before any launch."""
+    from repro_torch.analyze import ProgramValidationError
+    from repro_torch.core.gemm import ca_matmul
+    from repro_torch.tuning import registry as TREG
+    from repro_torch.tuning.cache import CacheEntry, TuningCache, cache_key
+
+    m, n, k = 96, 1536, 1024
+    x = torch.randn(m, k, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(k, n, device="cuda", dtype=torch.bfloat16)
+    prev = TREG.get_registry()
+    d = ROOT / "build" / "poisoned_cache.json"
+    reg = TREG.KernelRegistry(cache=TuningCache(d, autosave=False),
+                              autotune_enabled=False)
+    TREG.set_registry(reg)
+    codes = []
+    try:
+        reg.cache.put(cache_key(m, n, k, "bfloat16", hw=reg.hw),
+                      CacheEntry(bm=16384, bn=16384, bk=16384,
+                                 measured_s=1e-3))
+        before = sum(K.launch_counts.values())
+        for _ in range(2):   # the second raise comes from the memo
+            try:
+                ca_matmul(x, w)
+            except ProgramValidationError as e:
+                codes.append(e.codes)
+        moved = sum(K.launch_counts.values()) - before
+    finally:
+        TREG.set_registry(prev)
+    print(f"poisoned cache entry: codes {codes}, K1 launches moved by "
+          f"{moved}")
+    if codes != [("SMEM001",), ("SMEM001",)] or moved:
+        raise AssertionError("the poisoned cache entry was not refused "
+                             "before its launch")
+    return {"codes": codes[0], "launches_moved": moved}
+
+
+def guard_overhead(cfg, device="cuda", iters=20000):
+    """Host seconds this slice adds to a fault-free dispatch, at the decode
+    wq signature (m = 1, d_model x d_model, rms prologue): the fault hook's
+    wrapper with no plan active (around a dispatch that does nothing) and a
+    memoized preflight hit; then both times the GEMM dispatches of one
+    decode step (6 a layer and the head)."""
+    from repro_torch.core import gemm as G
+    from repro_torch.kernels.epilogue import IDENTITY
+
+    d = cfg.d_model
+    x = torch.zeros(1, d, device=device, dtype=torch.bfloat16)
+    res, tag = G._dense_plan(1, d, d, torch.bfloat16, IDENTITY, True)
+    G._preflight(res, tag, 1, d, d, torch.bfloat16)   # fills the memo
+
+    def noop(t):
+        return t
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        G._dispatch("matmul", noop, x)
+    hook = (time.perf_counter() - t0) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        G._preflight(res, tag, 1, d, d, torch.bfloat16)
+    pre = (time.perf_counter() - t0) / iters
+    per_step = 6 * cfg.n_layers + 1
+    step_ms = (hook + pre) * per_step * 1e3
+    print(f"guard host cost a dispatch: fault hook {hook * 1e6:.3f} us, "
+          f"preflight memo hit {pre * 1e6:.3f} us; x {per_step} GEMM "
+          f"dispatches = {step_ms:.4f} ms a decode step")
+    return {"hook_us": hook * 1e6, "preflight_us": pre * 1e6,
+            "dispatches_a_step": per_step, "ms_a_decode_step": step_ms}
+
+
+def check_launch_smem(seen):
+    """For every K1 launch signature the phase made: the dynamic shared
+    memory the built launcher computes equals route_smem_bytes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for route, tag, a_dt, b_dt, m, n, k, block in sorted(seen, key=str):
+        spec = program_from_tag(tag)
+        got = K.launch_smem_bytes(route, spec, a_dt, b_dt, m, n, k, block)
+        want = K.route_smem_bytes(route, spec, a_dt, b_dt, m=m, n=n, k=k,
+                                  scale_block=block, sms=sms)
+        rows.append((route, tag, str(a_dt), str(b_dt), m, n, k, got, want))
+        if got != want:
+            raise AssertionError(f"{route} {tag} {a_dt} {b_dt} m={m} n={n} "
+                                 f"k={k}: launcher {got} B, route_smem_bytes"
+                                 f" {want} B")
+    by_route = collections.Counter(r[0] for r in rows)
+    print(f"launch shared memory equal to route_smem_bytes for "
+          f"{len(rows)} signatures ({dict(by_route)}; {sms} SMs, target "
+          f"{H100.sms}); largest {max(r[7] for r in rows)} B")
+    return {"signatures": len(rows), "by_route": dict(by_route),
+            "sms": sms, "max_bytes": max(r[7] for r in rows)}
+
+
+def checkpoint_resume(cfg):
+    """Full width, CKPT_LAYERS layers, fp32 masters and AdamW: 3 steps
+    uninterrupted, then with a checkpoint every step (async), a crash after
+    step 2 has run and a resume from step 1's checkpoint; step 2's loss and
+    every leaf after it bit-equal.  Then restore_quantized of the last
+    checkpoint serves one request, against quantize_params of the
+    uninterrupted state."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as CKM
+    from repro_torch.launch.train import run_training
+
+    kw = dict(full=True, layers=CKPT_LAYERS, seq_len=SEQ_LEN,
+              global_batch=GLOBAL_BATCH, log_every=100)
+    want, want_losses = run_training(ARCH, 3, **kw)
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="robust_ckpt_", dir=ROOT / "build")
+    times = {"save": [], "write": []}
+    orig = (CKM.CheckpointManager.save, CKM.CheckpointManager._write)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    try:
+        CKM.CheckpointManager.save = timed("save", orig[0])
+        CKM.CheckpointManager._write = timed("write", orig[1])
+        try:
+            run_training(ARCH, 3, ckpt_dir=tmp, ckpt_every=1, fail_at=2,
+                         **kw)
+        except RuntimeError as e:
+            if "injected failure at step 2" not in str(e):
+                raise
+        else:
+            raise AssertionError("the injected crash did not fire")
+        mgr = CheckpointManager(tmp)
+        if mgr.latest_step() != 1:
+            raise AssertionError(f"latest step {mgr.latest_step()}")
+        got, losses = run_training(ARCH, 3, ckpt_dir=tmp, ckpt_every=1,
+                                   resume=True, **kw)
+        torch.cuda.synchronize()
+        CKM.CheckpointManager.save, CKM.CheckpointManager._write = orig
+        if losses != want_losses[2:]:
+            raise AssertionError(f"resumed losses {losses} vs "
+                                 f"{want_losses[2:]}")
+        leaves = 0
+        for a, b in ((got.params, want.params), (got.opt.m, want.opt.m),
+                     (got.opt.v, want.opt.v)):
+            for k in b:
+                leaves += 1
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"leaf {k} differs after resume")
+        if int(got.step) != 3 or not torch.equal(got.opt.count,
+                                                 want.opt.count):
+            raise AssertionError("step counters differ after resume")
+        step = mgr.latest_step()
+        d = pathlib.Path(mgr._step_dir(step))
+        gb = sum(f.stat().st_size for f in d.iterdir()) / 1e9
+        t0 = time.perf_counter()
+        if not mgr.verify_step(step):
+            raise AssertionError(f"step {step} does not verify")
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = mgr.restore(want)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(restored.params[k], got.params[k])
+                   for k in got.params):
+            raise AssertionError("restore differs from the saved state")
+        del restored
+        cfg2 = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+        like = M.init_params(cfg2, seed=1)
+        t0 = time.perf_counter()
+        qp = mgr.restore_quantized(like, subtree="params")
+        torch.cuda.synchronize()
+        restore_q_s = time.perf_counter() - t0
+        qwant = CM.quantize_params({k: want.params[k].to(like[k].dtype)
+                                    for k in like})
+        prompt = np.random.RandomState(3).randint(0, cfg.vocab_size, 37)
+        outs = []
+        for p in (qp, qwant):
+            eng = ServeEngine(p, cfg2, max_len=64)
+            eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=8))
+            r = eng.run()[0]
+            if r.status != "done":
+                raise AssertionError(f"restored serve: {r.status}")
+            outs.append(r.generated)
+        print(f"restore_quantized serve tokens {outs[0]} vs quantize_params"
+              f" {outs[1]}")
+        if outs[0] != outs[1]:
+            raise AssertionError("restore_quantized tokens differ")
+    finally:
+        CKM.CheckpointManager.save, CKM.CheckpointManager._write = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"losses": want_losses, "leaves_bit_equal": leaves,
+           "checkpoint_gb": gb, "saves": len(times["save"]),
+           "save_call_s": times["save"], "write_s": times["write"],
+           "verify_s": verify_s, "restore_s": restore_s,
+           "restore_quantized_s": restore_q_s, "tokens": outs[0]}
+    print("checkpoint " + json.dumps(out))
+    del want, got, qp, qwant, like
+    torch.cuda.empty_cache()
+    return out
+
+
+def robust_phase(cfg):
+    phase("robust: chaos serve, paged admission, preflight, checkpoint and "
+          "resume")
+    from repro_torch.analyze import preflight_stats
+
+    t0 = time.perf_counter()
+    check_guarded("robust: before the reset")
+    obs.reset_metrics()
+    with LaunchShapes() as shapes:
+        chaos = chaos_serve(cfg)
+        admission = paged_admission(cfg)
+        stats = preflight_stats()
+        print(f"preflight after the serve phases {stats}")
+        if stats["validated"] <= 0 or metric_value(
+                "analyze.violations_total"):
+            raise AssertionError(f"preflight {stats}, violations "
+                                 f"{metric_value('analyze.violations_total')}")
+        poisoned = poisoned_cache()
+        ckpt = checkpoint_resume(cfg)
+    smem = check_launch_smem(shapes.seen)
+    overhead = guard_overhead(cfg)
+    print("robust guarded counters " + json.dumps(
+        check_guarded("robust: after its plans", ROBUST_GUARDED)))
+    out = {"chaos": chaos, "admission": admission, "preflight": stats,
+           "poisoned": poisoned, "smem": smem, "checkpoint": ckpt,
+           "guard_overhead": overhead,
+           "phase_s": time.perf_counter() - t0}
+    print(f"robust phase {out['phase_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3092,7 +3664,7 @@ def serve_arch(name, spec, table=None):
         eng = ServeEngine(params, cfg, max_len=max_len, paged_kv=paged,
                           sample_table=table)
         eng.submit(Request(uid=0, prompt=np.arange(4), max_new_tokens=2))
-        eng.run()
+        served(eng)
         reqs = [Request(uid=i + 1, prompt=p, max_new_tokens=ARCH_NEW_TOKENS)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -3105,7 +3677,7 @@ def serve_arch(name, spec, table=None):
         t0 = time.perf_counter()
         with Recorder() as rec, Capture(last) as cap, \
                 RouteRecorder() as routing:
-            eng.run()
+            served(eng)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         label = f"{name} {'paged' if paged else 'slab'}"
@@ -3294,6 +3866,14 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
     card_line = card()
+    if argv == ["--only", "robust"]:
+        # A partial run for work on the robust phase alone: the two
+        # sources its paths launch, no kernels line, no result.
+        build((K.SOURCE, FA.SOURCE))
+        res = robust_phase(get_config(ARCH))
+        print("e2e robust " + json.dumps(res, default=str))
+        print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
+        return
     if argv[:2] == ["--only", "archs"]:
         # A partial run for work on the architectures phase alone (the
         # architectures named after it, default all): only the two
@@ -3303,8 +3883,8 @@ def main(argv=None):
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
     if argv:
-        raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...]], "
-                         f"got {argv}")
+        raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
+                         f"--only robust], got {argv}")
     build()
     worst = parity()
     worst.update(quant_parity())
@@ -3328,6 +3908,7 @@ def main(argv=None):
         dcfg, [rng.randint(0, dcfg.vocab_size, 300)], max_len=320)
     worst_attn = max(worst_attn, call_err, danube_call_err)
     obs_res = obs_phase(cfg)
+    robust = robust_phase(cfg)
     train_launches, train = train_slice(cfg)
     train_check = cross_check_train(cfg)
     rows = times()
@@ -3364,6 +3945,7 @@ def main(argv=None):
               f" (bf16 {row['bf16_aten_ops_per_decode_step']})")
     print("e2e paged decode profile " + json.dumps(paged_profile))
     print("e2e obs " + json.dumps(obs_res))
+    print("e2e robust " + json.dumps(robust, default=str))
     for name, sp in ((ARCH, split), (DANUBE, danube_split)):
         print(f"e2e {name} host split (median of 3 rounds) "
               + json.dumps(sp))
@@ -3519,6 +4101,10 @@ def main(argv=None):
     print("e2e train step profile " + json.dumps(train["profile"]))
     print("e2e train 4-layer card vs CPU " + json.dumps(train_check))
     kernels += arch_kernel_records(archs, attn_rows)
+    # Only the robust phase's plans failed, degraded, refused or
+    # re-dispatched anything: every later phase added nothing.
+    print("guarded counters at the end " + json.dumps(
+        check_guarded("end of the script", ROBUST_GUARDED)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,10 +26,34 @@ signature has resolved), checked on the card against the launch's route.
 With the GEMM ledger enabled (``REPRO_TORCH_LEDGER=1``) each dispatch is
 recorded with its tile, the route that ran (``plain`` on the CPU) and its
 planned bytes; an expert loop records once with ``calls`` = E, as the
-reference's.  Disabled, the hook is one attribute check.  The reference's
-dispatch modes (its XLA oracle path) and kernel-to-oracle fallback are not
-ported (no path falls back from a kernel); its fault hooks wait for
-``runtime/fault.py``.
+reference's.  Disabled, the hook is one attribute check.  Before the
+launch the resolved plan passes the dispatch preflight
+(:func:`repro_torch.analyze.preflight.preflight_gemm`, memoized): a plan
+the card cannot run (a tuning-cache entry over shared memory, a tile no
+route runs, an illegal dtype chain) raises
+:class:`~repro_torch.analyze.ProgramValidationError` before any launch.
+The reference's dispatch modes (its XLA oracle path) are not ported.
+
+Fault hook and fallback policy.  Every dispatch with m > 0 first consults
+the active :class:`~repro_torch.runtime.fault.FaultPlan`
+(:func:`_fault_check`, stage ``matmul``, ``glu``, ``quant_matmul`` or
+``quant_glu``; an expert loop dispatches once per expert, as the
+reference's kernel mode does).  **The port departs from the reference here,
+on purpose.**  The reference also re-dispatches its XLA oracle when a
+real Pallas compile or execute fails.  The port re-dispatches the plain
+version **only** for a non-fatal
+:class:`~repro_torch.runtime.fault.InjectedKernelFailure` raised by an
+active plan, a scheduled and counted event: the ``try`` around the
+dispatch catches that class and nothing broader, :func:`_note_fallback`
+counts ``gemm.fallback_total{stage}`` and re-raises a fatal one, and
+``set_gemm_fallback(False)`` makes injected failures propagate too.  A
+CUDA error, a build failure, a ``ProgramValidationError`` or any other
+exception reaches the caller, so a kernel fault is never hidden behind
+the plain version.  The re-dispatch runs the same GEMM again where its
+operands lie: on the card that is the kernel's launch (no host copy and no
+plain version), on the CPU the plain version, which there is the kernel's
+stand-in.  The request that took the failure is marked degraded by the
+serve engine from the counter; its tokens equal a fault-free run's.
 """
 
 from __future__ import annotations
@@ -40,6 +64,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analyze.preflight import preflight_gemm
 from repro_torch.core.hardware import H100, HopperTarget
 from repro_torch.core.io_model import TileConfig
 from repro_torch.kernels import ca_mmm as kern
@@ -49,11 +74,94 @@ from repro_torch.kernels.program import (NO_PROLOGUE, GemmProgramSpec,
                                          PrologueSpec, RmsPrologue,
                                          apply_rms_reference, rms_row_scale)
 from repro_torch.obs import ledger as _ledger_mod
+from repro_torch.obs.metrics import get_metrics
 from repro_torch.quant.calibrate import active_calibration
 from repro_torch.quant.scales import QTensor
+from repro_torch.runtime.fault import InjectedKernelFailure, active_fault_plan
 from repro_torch.tuning import registry as _registry
 
 _RMS = PrologueSpec(kind="rms")
+
+# ---------------------------------------------------------------------------
+# Fault hook and fallback policy
+# ---------------------------------------------------------------------------
+
+_fallback_enabled = True
+_fallback_lock = threading.Lock()
+
+
+def set_gemm_fallback(enabled: bool) -> None:
+    """Enable or disable the re-dispatch of an injected non-fatal kernel
+    failure.  On (the default) the failure counts in
+    ``gemm.fallback_total{stage}`` and the same GEMM is dispatched again;
+    off, the failure propagates to the caller.  No other failure is ever
+    re-dispatched."""
+    global _fallback_enabled
+    with _fallback_lock:
+        _fallback_enabled = bool(enabled)
+
+
+def gemm_fallback_enabled() -> bool:
+    return _fallback_enabled
+
+
+class gemm_fallback:
+    """Context manager for temporarily switching the fallback policy."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+
+    def __enter__(self):
+        self.prev = gemm_fallback_enabled()
+        set_gemm_fallback(self.enabled)
+        return self
+
+    def __exit__(self, *exc):
+        set_gemm_fallback(self.prev)
+
+
+def _fault_check(stage: str) -> None:
+    """Chaos hook: raise the active FaultPlan's scheduled failure for this
+    dispatch, if any (one thread-local read when no plan is active)."""
+    plan = active_fault_plan()
+    if plan is not None:
+        plan.check_gemm(stage)
+
+
+def _note_fallback(stage: str, exc: Exception) -> None:
+    """Account an injected kernel failure and authorize its re-dispatch,
+    or re-raise when the failure is fatal or the fallback
+    policy is off."""
+    if getattr(exc, "fatal", False) or not _fallback_enabled:
+        raise exc
+    get_metrics().counter(
+        "gemm.fallback_total",
+        "Injected kernel failures re-dispatched on the plain version, by "
+        "dispatch stage").labels(stage=stage).inc()
+
+
+def _dispatch(stage: str, run, x: torch.Tensor, *args, **kwargs):
+    """One dispatch under the fault hook: ``run(x, *args, **kwargs)``,
+    run once more when the active plan injects a non-fatal failure here
+    and the fallback policy is on.  The failure is raised before ``run``
+    starts, so the re-dispatch is the GEMM's only launch."""
+    if x.numel() == 0:
+        return run(x, *args, **kwargs)
+    try:
+        _fault_check(stage)
+    except InjectedKernelFailure as e:
+        _note_fallback(stage, e)
+    return run(x, *args, **kwargs)
+
+
+def _preflight(res, tag: str, m: int, n: int, k: int, dtype,
+               **operands) -> None:
+    """Statically verify a resolved plan before its launch (memoized per
+    resolution key, tile, operand metadata and shape); ``operands``:
+    ``dtype_b``, ``dtype_a``, ``scale_block``, ``act_block``."""
+    hw = (_registry._global or _registry.get_registry()).hw
+    preflight_gemm(res.key, tag, res.config, hw, dtype=dtype, m=m, n=n,
+                   k=k, **operands)
 
 
 def plan_for(m: int, n: int, k: int, dtype, hw: HopperTarget = H100,
@@ -63,10 +171,14 @@ def plan_for(m: int, n: int, k: int, dtype, hw: HopperTarget = H100,
     > autotune (with ``REPRO_TORCH_AUTOTUNE=1``) > the analytic tier (on
     the H100 the tile of the launch's route).  ``epilogue`` (program tag)
     and ``layout`` key fused and transposed programs distinctly;
-    ``dtype_b`` keys a quantized-weight GEMM under its composite dtype."""
-    return _registry.get_registry().resolve(
+    ``dtype_b`` keys a quantized-weight GEMM under its composite dtype.
+    The plan passes the dispatch preflight before it is returned."""
+    res = _registry.get_registry().resolve_full(
         m, n, k, dtype=dtype, hw=hw, epilogue=epilogue, layout=layout,
         dtype_b=dtype_b)
+    preflight_gemm(res.key, epilogue, res.config, hw, dtype=dtype,
+                   dtype_b=dtype_b, m=m, n=n, k=k, layout=layout)
+    return res.config
 
 
 def _ledger():
@@ -202,7 +314,17 @@ def ca_matmul(
     """``epilogue(prologue(x) @ w)``: x (..., K), w (K, N) -> (..., N) in
     ``out_dtype`` (default: x's dtype).  ``w`` may be an int8
     :class:`QTensor`; one carrying an ``act_scale`` serves w8a8, with an
-    rms prologue applied up front (an int8 stream cannot carry it)."""
+    rms prologue applied up front (an int8 stream cannot carry it).  One
+    dispatch of the fault hook (stage ``matmul`` or ``quant_matmul``)."""
+    stage = "quant_matmul" if isinstance(w, QTensor) else "matmul"
+    return _dispatch(stage, _matmul, x, w, out_dtype=out_dtype,
+                     epilogue=epilogue, prologue=prologue)
+
+
+def _matmul(x: torch.Tensor, w, *, out_dtype=None,
+            epilogue: Optional[Epilogue] = None,
+            prologue: Optional[RmsPrologue] = None) -> torch.Tensor:
+    """:func:`ca_matmul`'s plan, preflight, launch and ledger record."""
     quantized = isinstance(w, QTensor)
     if quantized:
         kops.check_qweight(w)
@@ -216,6 +338,7 @@ def ca_matmul(
         if m > 0:
             res, tag = _dense_plan(m, n, k_w, x.dtype, epi_spec,
                                    prologue is not None)
+            _preflight(res, tag, m, n, k_w, x.dtype)
         y = kops.fused_matmul(  # repro: noqa RPR001 -- port dispatch layer
             x.reshape(m, k_w).contiguous(), w,
             _flatten_epilogue(epilogue, m, n), out_dtype=out_dtype,
@@ -237,6 +360,9 @@ def ca_matmul(
             m, n, k_w, x.dtype,
             lambda: _quant_tag(epi_spec, prologue, w.act_scale),
             dtype_b=torch.int8, dtype_a=torch.int8 if act else None)
+        _preflight(res, tag, m, n, k_w, x.dtype, dtype_b=torch.int8,
+                   dtype_a=torch.int8 if act else None,
+                   scale_block=w.block, act_block=w.act_block if act else 0)
     y = kops.quant_matmul(  # repro: noqa RPR001 -- port dispatch layer
         x.reshape(m, k_w).contiguous(), w,
         _flatten_epilogue(epilogue, m, n), out_dtype=out_dtype,
@@ -265,7 +391,18 @@ def ca_glu_matmul(
     """``act(x @ Wg) · (x @ Wu)`` as one dual-branch program (x streams
     once); ``prologue`` folds the pre-FFN rms_norm into the same fetch.
     Both weights are dense or both int8 :class:`QTensor` s; with the gate's
-    ``act_scale`` the program runs w8a8, the norm applied up front."""
+    ``act_scale`` the program runs w8a8, the norm applied up front.  One
+    dispatch of the fault hook (stage ``glu`` or ``quant_glu``)."""
+    stage = "quant_glu" if isinstance(w_gate, QTensor) else "glu"
+    return _dispatch(stage, _glu_matmul, x, w_gate, w_up,
+                     activation=activation, out_dtype=out_dtype,
+                     prologue=prologue)
+
+
+def _glu_matmul(x: torch.Tensor, w_gate, w_up, *, activation: str = "silu",
+                out_dtype=None,
+                prologue: Optional[RmsPrologue] = None) -> torch.Tensor:
+    """:func:`ca_glu_matmul`'s plan, preflight, launch and ledger record."""
     quantized = isinstance(w_gate, QTensor)
     if quantized != isinstance(w_up, QTensor):
         raise ValueError("quantize both GLU weights or neither")
@@ -284,6 +421,7 @@ def ca_glu_matmul(
         if m > 0:
             res, tag = _glu_plan(m, n, k_w, x.dtype, activation,
                                  prologue is not None)
+            _preflight(res, tag, m, n, k_w, x.dtype)
         y = kops.glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
             x.reshape(m, k_w).contiguous(), w_gate, w_up,
             activation=activation, prologue=prologue, out_dtype=out_dtype,
@@ -307,6 +445,10 @@ def ca_glu_matmul(
             lambda: _quant_tag(IDENTITY, prologue, w_gate.act_scale,
                                activation),
             dtype_b=torch.int8, dtype_a=torch.int8 if act else None)
+        _preflight(res, tag, m, n, k_w, x.dtype, dtype_b=torch.int8,
+                   dtype_a=torch.int8 if act else None,
+                   scale_block=w_gate.block,
+                   act_block=w_gate.act_block if act else 0)
     y = kops.quant_glu_matmul(  # repro: noqa RPR001 -- port dispatch layer
         x.reshape(m, k_w).contiguous(), w_gate, w_up, activation=activation,
         prologue=prologue, out_dtype=out_dtype, act_scale=w_gate.act_scale,
@@ -363,8 +505,9 @@ def ca_expert_matmul(x: torch.Tensor, w: torch.Tensor, *,
                      out_dtype=None) -> torch.Tensor:
     """The MoE contraction ``x[..., e, :, :] @ w[e]`` (the reference's
     ``...ecd,edf->...ecf``) as one :func:`ca_matmul` per expert (K1 on the
-    card, its plain version on the CPU), stacked on the expert axis; the
-    ledger records the loop once, ``calls`` = E."""
+    card, its plain version on the CPU; each a dispatch of the fault hook),
+    stacked on the expert axis; the ledger
+    records the loop once, ``calls`` = E."""
     E = _check_expert_operands(x, w, "ca_expert_matmul")
     ys = _expert_loop(lambda e: ca_matmul(x[..., e, :, :], w[e],
                                           out_dtype=out_dtype), E)
@@ -380,7 +523,8 @@ def ca_expert_glu_matmul(x: torch.Tensor, w_gate: torch.Tensor,
                          out_dtype=None) -> torch.Tensor:
     """Per-expert dual-branch GLU: each expert's gate and up share one
     pass over that expert's capacity rows (:func:`ca_glu_matmul` once per
-    expert), stacked on the expert axis; recorded once, ``calls`` = E."""
+    expert, each a dispatch of the fault hook), stacked on the expert
+    axis; recorded once, ``calls`` = E."""
     E = _check_expert_operands(x, w_gate, "ca_expert_glu_matmul")
     if tuple(w_up.shape) != tuple(w_gate.shape):
         raise ValueError(f"w_up {tuple(w_up.shape)} vs w_gate "

@@ -1252,6 +1252,13 @@ int decode_split(const Params& p, int quantum, int* chunk) {
   return (p.k + *chunk - 1) / *chunk;
 }
 
+// Dynamic shared memory of a decode CTA taking `chunk` k rows: its staged A
+// rows, the whole chunk or one piece of it.
+template <int MR>
+int decode_smem_bytes(int chunk) {
+  return (chunk < dec_piece<MR>() ? chunk : dec_piece<MR>()) * MR * 4;
+}
+
 template <typename TA, typename TB, int MR, int NB, bool TILE>
 int launch_decode(const Params& p, cudaStream_t stream) {
   auto kernel = ca_gemm_decode_kernel<TA, TB, MR, NB, TILE>;
@@ -1263,7 +1270,7 @@ int launch_decode(const Params& p, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.n + DEC_BN - 1) / DEC_BN, split, 1);
   cfg.blockDim = dim3(DEC_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = (chunk < dec_piece<MR>() ? chunk : dec_piece<MR>()) * MR * 4;
+  cfg.dynamicSmemBytes = decode_smem_bytes<MR>(chunk);
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
@@ -1796,4 +1803,43 @@ extern "C" int ca_gemm_program_launch(
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory a launch on `route` (0 SIMT, 1 wgmma, 2 decode)
+// passes, from the same functions and constants each launcher sizes its
+// launch with: the wgmma ring (Stage<BN, NB>::smem_bytes for bf16,
+// QStage<NB, INT_A>::SMEM for int8 B), the decode CTA's staged A rows for
+// the split decode_split gives (m, n, k, scale_block, the card's SMs), none
+// for the SIMT tile (its panels are static).  kernels/ca_mmm.py's
+// route_smem_bytes is its twin, which the analyzer checks against the card's
+// shared memory.  `two`: two B branches; `dact`: a Dact code.
+extern "C" int ca_gemm_program_smem(int route, int a_type, int b_type, int two, int m, int n, int k,
+                                    int dact, int scale_block) {
+  if (route == ROUTE_WGMMA) {
+    if (b_type == TYPE_I8) {
+      if (a_type == TYPE_I8) return two ? QStage<2, true>::SMEM : QStage<1, true>::SMEM;
+      return two ? QStage<2, false>::SMEM : QStage<1, false>::SMEM;
+    }
+    const int extra = dact == DACT_A ? ml::EXTRA_A : dact == DACT_B ? ml::EXTRA_B : ml::EXTRA_NONE;
+    const int nslabs = (k + ml::BK - 1) / ml::BK;
+    return two ? ml::Stage<WG_BN<2>, 2>::smem_bytes(extra, nslabs)
+               : ml::Stage<WG_BN<1>, 1>::smem_bytes(extra, nslabs);
+  }
+  if (route == ROUTE_DECODE) {
+    Params p{};
+    p.m = m;
+    p.n = n;
+    p.k = k;
+    p.scale_block = scale_block;
+    int chunk = 0;
+    if (m == 1) {
+      const int kl = b_type == TYPE_I8 ? DecLayout<int8_t, 1>::KL : DecLayout<__nv_bfloat16, 1>::KL;
+      decode_split(p, scale_block > 0 ? scale_block : kl, &chunk);
+      return decode_smem_bytes<1>(chunk);
+    }
+    const int kl = b_type == TYPE_I8 ? DecLayout<int8_t, 8>::KL : DecLayout<__nv_bfloat16, 8>::KL;
+    decode_split(p, scale_block > 0 ? scale_block : kl, &chunk);
+    return decode_smem_bytes<8>(chunk);
+  }
+  return 0;
 }

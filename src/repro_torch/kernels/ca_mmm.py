@@ -247,6 +247,126 @@ def route_tile(route: str, spec: GemmProgramSpec, a_dtype: torch.dtype,
     return SIMT_DECODE_TILE
 
 
+# Shared-memory geometry of the routes, twins of the CUDA constants the
+# launchers size their dynamic shared memory with: the wgmma ring
+# (``RING_BYTES``, ``MAX_STAGES`` in csrc/wgmma_mainloop.cuh, plus 1024
+# bytes of alignment slack), the decode kernel's staged A rows
+# (``DEC_A_BYTES``, ``DEC_MIN_CHUNK``, ``DEC_MAX_SPLIT``, ``DEC_WARPS``) and
+# the distance product's two slabs (``RING``, ``AS`` = 128 + 4 floats).
+WG_RING_BYTES = 192 * 1024
+WG_MAX_STAGES = 6
+SMEM_ALIGN_SLACK = 1024
+DEC_A_BYTES = 64 * 1024
+DEC_MIN_CHUNK = 256
+DEC_MAX_SPLIT = 8
+DEC_WARPS = 8
+MINPLUS_SLABS = 2
+MINPLUS_A_ROW = MINPLUS_TILE[0] + 4
+
+
+def _wg_stage_bytes(bn: int, nb: int, dact: str) -> int:
+    """One stage of the bf16 wgmma ring (``Stage<BN, NB>::bytes``): A, the
+    NB B tiles, and a dact prologue's fp32 tile."""
+    bm, bk = WGMMA_TILE[0], WGMMA_TILE[2]
+    extra = {"a": bm * bk * 4, "b": bk * bn * 4}.get(dact, 0)
+    return bm * bk * 2 + nb * bk * bn * 2 + extra
+
+
+def _wg_int8_stage_bytes(nb: int, int8_a: bool) -> int:
+    """One stage of the int8 wgmma ring (``QStage<NB, INT_A>::BYTES``): A
+    as TMA lands it, then each branch's B as wgmma reads it and as it
+    lands."""
+    bn = WGMMA_GLU_BN if nb == 2 else WGMMA_TILE[1]
+    bk = WGMMA_INT8_A_BK if int8_a else WGMMA_TILE[2]
+    return WGMMA_TILE[0] * 128 + nb * (bk * bn * (1 if int8_a else 2)
+                                       + bk * bn)
+
+
+def _decode_chunk(m: int, n: int, k: int, int8_b: bool, scale_block: int,
+                  sms: int) -> int:
+    """The k rows a CTA of the decode route's split-k cluster takes
+    (``decode_split``): as many splits as fill two waves of ``sms`` SMs
+    with the n / 64 strips, at most ``DEC_MAX_SPLIT`` and ``DEC_MIN_CHUNK``
+    rows a split, the chunk rounded up to the scale block or the
+    layout's k lanes."""
+    strips = -(-n // DECODE_TILE[1])
+    most = -(-k // DEC_MIN_CHUNK)
+    split = max(1, min(-(-2 * sms // strips), DEC_MAX_SPLIT, most))
+    quantum = scale_block or (16 if int8_b and m > 1 else 32)
+    return -(-(-(-k // split)) // quantum) * quantum
+
+
+def route_smem_bytes(route: str, spec: GemmProgramSpec,
+                     a_dtype: torch.dtype, b_dtype: torch.dtype, *,
+                     m: Optional[int] = None, n: Optional[int] = None,
+                     k: Optional[int] = None, scale_block: int = 0,
+                     sms: int = 132) -> int:
+    """The dynamic shared memory a K1 launch on ``route`` passes, from the
+    constants its launcher sizes it with (the C entry point's
+    ``ca_gemm_program_smem`` returns the launcher's own figure, and
+    ``chip_smoke.py`` holds the two equal for every launch it makes).
+
+    wgmma: the ring, as many stages as fit ``WG_RING_BYTES`` (at most
+    ``WG_MAX_STAGES``; bf16 no more than the k loop's slabs), plus the
+    alignment slack.  decode: the staged A rows of one CTA's k chunk (up
+    to ``DEC_A_BYTES``), which depends on m, n, k and the card's ``sms``.
+    minplus: the distance product's two k-major slabs.  simt: none (its
+    tiles are static, :func:`route_static_smem_bytes`).  An m, n or k of
+    None takes the most the route can ask for."""
+    if route == "simt":
+        return 0
+    if route == "minplus":
+        rows = 16 if (a_dtype == torch.float32
+                      and b_dtype != torch.float32) else 32
+        return MINPLUS_SLABS * rows * (MINPLUS_A_ROW + MINPLUS_TILE[1]) * 4
+    if route == "decode":
+        mr = 1 if m == 1 else 8
+        piece = DEC_A_BYTES // (mr * 4)
+        rows = piece if None in (n, k) else min(piece, _decode_chunk(
+            m or 8, n, k, b_dtype == torch.int8, scale_block, sms))
+        return rows * mr * 4
+    if route != "wgmma":
+        raise ValueError(f"unknown K1 route {route!r}")
+    if b_dtype == torch.int8:
+        stage = _wg_int8_stage_bytes(spec.n_b, a_dtype == torch.int8)
+        stages = min(WG_RING_BYTES // stage, WG_MAX_STAGES)
+    else:
+        bn = WGMMA_GLU_BN if spec.n_b == 2 else WGMMA_TILE[1]
+        dact = spec.prologue.operand if spec.prologue.kind == "dact" \
+            else "none"
+        stage = _wg_stage_bytes(bn, spec.n_b, dact)
+        stages = min(WG_RING_BYTES // stage, WG_MAX_STAGES)
+        if k is not None:
+            stages = max(1, min(stages, -(-k // WGMMA_TILE[2])))
+    return stages * stage + SMEM_ALIGN_SLACK
+
+
+def route_static_smem_bytes(route: str, spec: GemmProgramSpec,
+                            a_dtype: torch.dtype, b_dtype: torch.dtype, *,
+                            m: Optional[int] = None, layout: str = "nn",
+                            save_preact: bool = False) -> int:
+    """The static shared memory of the route's kernel beside
+    :func:`route_smem_bytes`: the SIMT tile's A and B panels
+    (``As[BM][BK + 1]``, ``Bs[NB][BK][BN + pad]``, a training program's B
+    rows padded by one), the decode kernel's per-warp and cluster
+    reduction buffers, the wgmma rings' mbarriers."""
+    nb = spec.n_b
+    if route == "simt":
+        bm, bn, bk = route_tile(route, spec, a_dtype, m or 9, layout,
+                                save_preact)
+        training = (layout != "nn" or spec.prologue.kind == "dact"
+                    or save_preact or (nb == 2 and spec.combine != "glu"))
+        a_bytes = bm * (bk + 1) * a_dtype.itemsize
+        return (-(-a_bytes // 16) * 16
+                + nb * bk * (bn + int(training)) * b_dtype.itemsize)
+    if route == "decode":
+        mr = 1 if m == 1 else 8
+        return (DEC_WARPS + 1) * nb * mr * DECODE_TILE[1] * 4
+    if route == "wgmma":
+        return (3 if b_dtype == torch.int8 else 2) * WG_MAX_STAGES * 8
+    return 0
+
+
 def tile_route(tile: tuple) -> str:
     """The route whose tile ``tile`` is (every route's tile differs):
     what the ledger records as a checked launch's route."""
@@ -283,6 +403,23 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _library() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
+
+
+def launch_smem_bytes(route: str, spec: GemmProgramSpec,
+                      a_dtype: torch.dtype, b_dtype: torch.dtype, m: int,
+                      n: int, k: int, scale_block: int = 0) -> int:
+    """The dynamic shared memory the CUDA launcher passes for such a
+    launch, as the built library computes it (``ca_gemm_program_smem``,
+    the function each launcher sizes its launch with); on the card only.
+    ``chip_smoke.py`` holds it equal to :func:`route_smem_bytes`."""
+    fn = _library().ca_gemm_program_smem
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_int
+    pro = spec.prologue
+    return fn(_ROUTE_CODES[route], _TYPE_CODES[a_dtype],
+              _TYPE_CODES[b_dtype], int(spec.n_b == 2), m, n, k,
+              _DACT_CODES[pro.operand if pro.kind == "dact" else "none"],
+              scale_block)
 
 
 def _bind_distance(lib: ctypes.CDLL) -> None:

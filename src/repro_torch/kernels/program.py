@@ -34,6 +34,16 @@ PROLOGUE_KINDS = ("none", "rms", "dact")
 COMBINES = ("none", "glu")
 
 
+def _spec_error(message: str):
+    """An ill-formed program spec is a TAG002 violation: the spec could
+    never have round-tripped through the tag grammar.  The error is a
+    ``ValueError`` (``ProgramValidationError`` subclasses it)."""
+    from repro_torch.analyze.diagnostics import (ProgramValidationError,
+                                                 error)
+
+    return ProgramValidationError([error("TAG002", message)])
+
+
 @dataclasses.dataclass(frozen=True)
 class PrologueSpec:
     """Elementwise producer folded into a streamed operand's tile fetch.
@@ -51,20 +61,20 @@ class PrologueSpec:
 
     def __post_init__(self):
         if self.kind not in PROLOGUE_KINDS:
-            raise ValueError(f"unknown prologue kind {self.kind!r} "
+            raise _spec_error(f"unknown prologue kind {self.kind!r} "
                              f"(valid: {PROLOGUE_KINDS})")
         if self.operand not in ("a", "b"):
-            raise ValueError(f"unknown prologue operand {self.operand!r}")
+            raise _spec_error(f"unknown prologue operand {self.operand!r}")
         if self.kind == "dact":
             if self.activation not in ACTIVATIONS:
-                raise ValueError(
+                raise _spec_error(
                     f"unknown dact activation {self.activation!r}")
         elif self.activation != "none":
-            raise ValueError(
+            raise _spec_error(
                 f"prologue kind {self.kind!r} takes no activation, got "
                 f"{self.activation!r}")
         if self.kind == "rms" and self.operand != "a":
-            raise ValueError("rms_norm decorates the A stream")
+            raise _spec_error("rms_norm decorates the A stream")
 
     @property
     def is_identity(self) -> bool:
@@ -110,26 +120,26 @@ class GemmProgramSpec:
 
     def __post_init__(self):
         if self.combine not in COMBINES:
-            raise ValueError(f"unknown combine {self.combine!r} "
+            raise _spec_error(f"unknown combine {self.combine!r} "
                              f"(valid: {COMBINES})")
         if not 1 <= len(self.branches) <= 2:
-            raise ValueError(
+            raise _spec_error(
                 f"a program has 1 or 2 branches, got {len(self.branches)}")
         if self.combine == "glu":
             if len(self.branches) != 2:
-                raise ValueError("glu combines two branches, got "
+                raise _spec_error("glu combines two branches, got "
                                  f"{len(self.branches)}")
             if self.combine_activation not in ACTIVATIONS:
-                raise ValueError(f"unknown glu activation "
+                raise _spec_error(f"unknown glu activation "
                                  f"{self.combine_activation!r}")
         if len(self.branches) == 2:
             for b in self.branches:
                 if b.activation != "none" or b.has_mul or b.has_residual:
-                    raise ValueError(
+                    raise _spec_error(
                         "multi-branch epilogues are dequant/bias only, "
                         f"got {b.tag()!r}")
             if self.prologue.kind == "dact":
-                raise ValueError("dact prologue is single-branch (one "
+                raise _spec_error("dact prologue is single-branch (one "
                                  "gradient operand)")
 
     @property

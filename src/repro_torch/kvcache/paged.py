@@ -39,6 +39,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analyze.preflight import preflight_attn
 from repro_torch.kernels.flash_attn import paged_flash_attention
 from repro_torch.obs.ledger import get_ledger
 
@@ -232,21 +233,18 @@ def paged_attention(q: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     """Decode attention of ``q`` (``(B, 1, H, D)``) against the paged
     cache through :func:`repro_torch.kernels.flash_attn.paged_flash_attention`
     (the kernel on a card, its plain version on the CPU); returns
-    ``(B, 1, H, Dv)``.  The reference's KV005 geometry checks raise
-    ``ValueError`` here; its preflight memo waits for
-    ``analyze/preflight.py``.  Every dispatch is recorded in the ledger
-    (when enabled) with its planned KV bytes: mapped pages × page size,
-    the route ``paged`` on the card, ``plain`` on the CPU."""
+    ``(B, 1, H, Dv)``.  The call first passes the dispatch preflight
+    (:func:`repro_torch.analyze.preflight.preflight_attn`, memoized): q's
+    decode shape, the page and the GQA ratio (KV005) and K2's plan within
+    its shared memory (SMEM001) raise
+    :class:`~repro_torch.analyze.ProgramValidationError` before any
+    launch.  Every dispatch is recorded in the ledger (when enabled) with
+    its planned KV bytes: mapped pages × page size, the route ``paged`` on
+    the card, ``plain`` on the CPU."""
     page = cache["v"].shape[1]
     Hkv = cache["v"].shape[2]
-    if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"paged decode attention takes q of shape "
-                         f"(B, 1, H, D), got {tuple(q.shape)} [KV005]")
-    if page < 1:
-        raise ValueError(f"non-positive page size {page} [KV005]")
-    if q.shape[2] % Hkv:
-        raise ValueError(f"GQA heads {q.shape[2]} not divisible by kv heads "
-                         f"{Hkv} [KV005]")
+    preflight_attn(q.shape, page, q.shape[2] if q.dim() == 4 else 0, Hkv,
+                   head_dim=q.shape[-1], v_head_dim=cache["v"].shape[-1])
     out = paged_flash_attention(
         q[:, 0].contiguous(), cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
         cache["tables"], cache["len"], window=window, scale=scale)

@@ -16,7 +16,8 @@ the paged pool serves the GQA transformers only (KV005 otherwise).
 Weight-quantized parameters (``models.common.quantize_params``) serve
 int8 weights; with ``quantize_activations=True`` the engine first runs a
 static calibration pass over sample prompts and then serves w8a8; a
-failed calibration raises.
+failed calibration degrades the engine to weight-only int8 with a
+``RuntimeWarning`` (``serve.degraded_total{from=w8a8,to=int8w}``).
 
 Before the first request the engine resolves every hot-path GEMM tile
 through the kernel-config registry (``tuning.warmup_model`` over 1 and
@@ -31,10 +32,22 @@ trace span, and each prefill and decode step under a GEMM-ledger step, so
 planned I/O model.  A step's wall ends in the sampled token's read to the
 host, which already waits for the device; nothing adds a synchronise.
 
-The reference's degradation ladder (w8a8 → int8w → dense), bounded
-admission, retries and fault injection wait for ``runtime/fault.py``, and
-tensor parallelism for ``serve/tp.py``; the arguments that ask for them
-raise here.
+Fault tolerance, as the reference's: every request is isolated.  A
+kernel error or non-finite logits fails *that* request
+(``serve.requests_failed_total{reason}``) while the rest of the queue
+completes.  Admission is bounded by KV pages (a request whose prompt
+plus generation budget can never fit the pool or the per-sequence cap is
+rejected) and by queue (``max_queue`` with ``reject`` or ``shed_oldest``
+backpressure, ``serve.rejected_total{policy}``); requests carry a queue
+TTL and a decode deadline; transient failures retry with exponential
+backoff (``serve.retries_total``); non-finite logits walk the
+per-request quant ladder w8a8 → int8w → dense
+(``serve.degraded_total{from,to}``).  An injected non-fatal kernel
+failure is counted and that GEMM dispatched again (``core.gemm``,
+``gemm.fallback_total``), which marks its request ``degraded``.  All of it
+is driven deterministically by :class:`repro_torch.runtime.fault.FaultPlan`;
+with no plan active a step does exactly the work it did without it.
+Tensor parallelism waits for ``serve/tp.py``: ``tp_local`` raises.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import warnings
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
@@ -54,12 +68,37 @@ from repro_torch.obs import get_ledger, get_metrics, span
 from repro_torch.quant.calibrate import (ActivationCalibration, QuantConfig,
                                          attach_act_scales)
 from repro_torch.quant.scales import QTensor
+from repro_torch.runtime.fault import (InjectedKernelFailure,
+                                       TransientServeError,
+                                       active_fault_plan)
 from repro_torch.tuning import (resolve_page_size, warmup_attention,
                                 warmup_model)
 
+# Per-request quant degradation ladder, most- to least-quantized.  A
+# request whose logits go non-finite is retried one rung down (dense: the
+# config dtype, QTensors dequantized); past the last rung it fails.
+QUANT_LEVELS = ("w8a8", "int8w", "dense")
+
+_FAILED_DESC = "Requests failed, by reason (kernel/nonfinite/deadline/...)"
+_DEGRADED_DESC = ("Quant degradations, by from/to level (per-request "
+                  "ladder steps and engine-init calibration fallback)")
+_REJECTED_DESC = "Requests rejected/shed at admission, by policy"
+_FALLBACK_DESC = ("Injected kernel failures re-dispatched on the plain "
+                  "version, by dispatch stage")
+
 
 class NonFiniteLogits(RuntimeError):
-    """The sampled logits row held NaN or Inf."""
+    """The sampled logits row held NaN or Inf: the quant ladder's
+    trigger."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """A request ran past its decode deadline."""
+
+
+def _next_level(level: str) -> Optional[str]:
+    i = QUANT_LEVELS.index(level)
+    return QUANT_LEVELS[i + 1] if i + 1 < len(QUANT_LEVELS) else None
 
 
 # Rows of the demo table drawn at a time (qwen2-vl-72b's 152064 x 8192
@@ -100,10 +139,20 @@ class Request:
     max_new_tokens: int = 16
     temperature: float = 0.0
     generated: Optional[List[int]] = None
-    # pending -> queued -> running -> done; a request rejected at
-    # admission goes straight to done with status "rejected" and ``error``.
+    # -- lifecycle ----------------------------------------------------------
+    # pending -> queued -> running -> done | degraded | failed; rejected
+    # requests (admission) never run.  ``degraded`` is a successful
+    # terminal state: the output exists but was served below the engine's
+    # base quant level and/or through a GEMM's plain re-dispatch.
     status: str = "pending"
     error: Optional[str] = None
+    deadline_s: Optional[float] = None   # decode wall budget (from dequeue)
+    queue_ttl_s: Optional[float] = None  # max submit() -> dequeue wait
+    max_retries: int = 0                 # transient-failure retry budget
+    attempts: int = 0                    # serve attempts consumed
+    quant_level: Optional[str] = None    # level of the last attempt
+    degraded_to: Optional[str] = None    # set when the ladder stepped down
+    fallbacks: int = 0                   # plain re-dispatches while serving
     # Host wall seconds of prefill + first sample (the TTFT), and of the
     # decode loop; both end in the sample's device-to-host read, so they
     # cover the device work.
@@ -119,9 +168,17 @@ class ServeEngine:
     (:mod:`repro_torch.kvcache`) that admits requests by pages instead of
     a ``max_len`` slab: ``kv_page_size`` tokens per page (0: the analytic
     page for ``max_len``, :func:`repro_torch.tuning.resolve_page_size`),
-    and the pages one sequence of ``max_len`` tokens needs, since requests
-    are served one at a time.  The pool lives on the engine's device for
-    its whole life and is written in place.
+    and ``kv_pool_pages`` pages in all (0: the pages one sequence of
+    ``max_len`` tokens needs, since requests are served one at a time),
+    at most ``kv_max_pages_per_seq`` a sequence (0: that same count).  The
+    pool lives on the engine's device for its whole life and is written
+    in place.
+
+    ``max_queue`` bounds the queue (0: unbounded), ``overflow`` picks the
+    backpressure (``"reject"`` the new request or ``"shed_oldest"``);
+    ``retry_backoff_s`` is the first transient retry's wait (doubling);
+    ``check_finite`` turns the non-finite logits check (the ladder's
+    trigger) on.
 
     ``sample_table`` is the ``embeds`` frontend's table (default: built
     on first use, :func:`sample_table`); passing one shares it between
@@ -134,14 +191,19 @@ class ServeEngine:
                  quantize_activations: bool = False,
                  calibration_batches: int = 4,
                  act_qconfig: Optional[QuantConfig] = None, tp_local=None,
-                 max_queue: int = 0,
+                 max_queue: int = 0, overflow: str = "reject",
+                 retry_backoff_s: float = 0.05, check_finite: bool = True,
+                 kv_pool_pages: int = 0, kv_max_pages_per_seq: int = 0,
                  sample_table: Optional[torch.Tensor] = None):
-        later = {"tp_local": (tp_local, "serve/tp.py"),
-                 "max_queue": (max_queue, "runtime/fault.py")}
-        for name, (value, module) in later.items():
-            if value:
-                raise ValueError(f"ServeEngine({name}=...) is not ported yet: "
-                                 f"it waits for {module}")
+        if tp_local:
+            raise ValueError("ServeEngine(tp_local=...) is not ported yet: "
+                             "it waits for serve/tp.py")
+        if overflow not in ("reject", "shed_oldest"):
+            raise ValueError(f"unknown overflow policy {overflow!r}")
+        self.max_queue = max_queue          # 0: unbounded admission
+        self.overflow = overflow
+        self.retry_backoff_s = retry_backoff_s
+        self.check_finite = check_finite
         self.device = M.resolve_device(device)
         for name, t in params.items():
             if t.device.type != self.device.type:
@@ -169,11 +231,19 @@ class ServeEngine:
                 raise ValueError("act_qconfig has no activation format: "
                                  f"{self.act_qconfig}")
             t0 = time.perf_counter()
-            with span("serve.calibrate", batches=calibration_batches):
-                self.params = self._calibrate_activations(
-                    calibration_batches)
+            try:
+                with span("serve.calibrate", batches=calibration_batches):
+                    self.params = self._calibrate_activations(
+                        calibration_batches)
+                self.w8a8 = True
+            except Exception as e:  # repro: noqa RPR004 -- documented degradation: w8a8 -> int8w, counted in serve.degraded_total
+                warnings.warn(
+                    f"activation calibration failed ({e!r}); degrading "
+                    "engine to weight-only int8 serving", RuntimeWarning)
+                metrics.counter("serve.degraded_total",
+                                _DEGRADED_DESC).labels(
+                    **{"from": "w8a8", "to": "int8w"}).inc()
             self.calibration_s = time.perf_counter() - t0
-            self.w8a8 = True
             metrics.gauge(
                 "serve.calibration_seconds",
                 "Wall time of the w8a8 static-activation calibration "
@@ -218,11 +288,19 @@ class ServeEngine:
                 heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim,
                 seq_len=max_len).config.kv_block
-            n_pages = kvc.pages_for(max_len, page)
-            self.kv_pool = kvc.PagePool(n_pages, page)
+            per_seq = kvc.pages_for(max_len, page)
+            self.kv_max_pages_per_seq = kv_max_pages_per_seq or per_seq
+            self.kv_pool = kvc.PagePool(kv_pool_pages or per_seq, page)
+            metrics.gauge("serve.kv_pool_pages",
+                          "Page count of the serve KV pool").set(
+                              self.kv_pool.n_pages)
             self.kv_cache = M.make_paged_model_cache(
-                cfg, 1, n_pages=n_pages, page_size=page, max_pages=n_pages,
-                device=self.device)
+                cfg, 1, n_pages=self.kv_pool.n_pages, page_size=page,
+                max_pages=self.kv_max_pages_per_seq, device=self.device)
+        self.base_level = ("w8a8" if self.w8a8
+                           else "int8w" if self.quantized else "dense")
+        self._level_params: Dict[str, Dict[str, object]] = {
+            self.base_level: self.params}
 
     def _calibrate_activations(self, n_batches: int) -> Dict[str, object]:
         """Post-training static calibration: prefill ``n_batches`` sample
@@ -245,21 +323,73 @@ class ServeEngine:
         return attach_act_scales(self.params, scales,
                                  block=self.act_qconfig.act_block)
 
+    # -- degradation ladder -------------------------------------------------
+
+    def _params_for(self, level: str) -> Dict[str, object]:
+        """The params serving quant ``level`` (built on first use, cached):
+        ``int8w`` strips the calibrated ``act_scale`` from every QTensor
+        (weight-only int8), ``dense`` dequantizes every QTensor to the
+        config dtype."""
+        params = self._level_params.get(level)
+        if params is not None:
+            return params
+        base = self._level_params[self.base_level]
+        if level == "int8w":
+            params = {k: dataclasses.replace(v, act_scale=None, act_block=0)
+                      if isinstance(v, QTensor) and v.act_scale is not None
+                      else v for k, v in base.items()}
+        elif level == "dense":
+            dt = self.cfg.dtype()
+            params = {k: v.dequantize(dt) if isinstance(v, QTensor) else v
+                      for k, v in base.items()}
+        else:
+            raise ValueError(f"cannot degrade to level {level!r}")
+        self._level_params[level] = params
+        return params
+
+    # -- admission ----------------------------------------------------------
+
     def submit(self, req: Request) -> bool:
-        """Queue a request (True).  On the paged path a request whose
-        prompt plus full generation budget can never fit the pool is
-        rejected instead (False): it lands in ``done``
-        with status ``"rejected"`` and the reason in ``error``."""
+        """Admit a request (True) or reject it under backpressure (False).
+
+        On the paged path a request whose prompt plus full generation
+        budget can never fit the pool, or the per-sequence cap, is
+        rejected up front (``serve.rejected_total{policy=kv_pages}``).
+        With ``max_queue`` set, a full queue either rejects the new
+        request (``overflow="reject"``) or sheds the oldest queued one to
+        admit it (``overflow="shed_oldest"``).  Every rejected request
+        lands in ``done`` with status ``"rejected"`` and its reason in
+        ``error``."""
         req.generated = []
+
+        def rejected(policy):
+            return get_metrics().counter(
+                "serve.rejected_total", _REJECTED_DESC).labels(policy=policy)
+
         if self.kv_pool is not None:
             need = self.kv_pool.pages_for(
                 len(req.prompt) + req.max_new_tokens)
-            if need > self.kv_pool.n_pages:
+            if need > min(self.kv_pool.n_pages, self.kv_max_pages_per_seq):
                 req.status = "rejected"
                 req.error = (f"kv pages: need {need} pages, pool holds "
-                             f"{self.kv_pool.n_pages}")
+                             f"{self.kv_pool.n_pages} "
+                             f"(per-seq cap {self.kv_max_pages_per_seq})")
+                rejected("kv_pages").inc()
                 self.done[req.uid] = req
                 return False
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            if self.overflow == "reject":
+                req.status = "rejected"
+                req.error = f"queue full ({len(self.queue)}/{self.max_queue})"
+                rejected("reject").inc()
+                self.done[req.uid] = req
+                return False
+            old = self.queue.popleft()
+            self._submit_t.pop(old.uid, None)
+            old.status = "rejected"
+            old.error = "shed: queue full and a newer request arrived"
+            rejected("shed_oldest").inc()
+            self.done[old.uid] = old
         req.status = "queued"
         self.queue.append(req)
         self._submit_t[req.uid] = time.perf_counter()
@@ -267,10 +397,12 @@ class ServeEngine:
 
     def _sample(self, logits: torch.Tensor, temperature: float) -> int:
         """Sample the last position's real vocabulary: (1, L, V) logits,
-        or (1, L, Cb, V) with codebooks, of which codebook 0 is sampled
-        (every codebook's row is checked finite)."""
+        or (1, L, Cb, V) with codebooks, of which codebook 0 is sampled.
+        With ``check_finite`` every codebook's row is checked first and a
+        non-finite one raises :class:`NonFiniteLogits` (the check rides
+        the sample's read to the host)."""
         row = logits[0, -1, ..., :self.cfg.vocab_size]
-        if not bool(torch.isfinite(row).all()):
+        if self.check_finite and not bool(torch.isfinite(row).all()):
             raise NonFiniteLogits("non-finite logits in sampled row")
         if self.cfg.n_codebooks > 1:
             row = row[0]
@@ -287,7 +419,9 @@ class ServeEngine:
         to first sampled token), TPOT (one decode step + sample), the
         prefill/decode wall split, tokens and requests land in the
         metrics registry, and ``serve.tokens_per_second`` is the output
-        tokens over this call's wall time."""
+        tokens over this call's wall time.  Each request is served under
+        the isolation wrapper (:meth:`_serve_with_recovery`): a failure
+        marks that request failed and the loop goes on."""
         metrics = get_metrics()
         self._h = {
             "queue_wait": metrics.histogram(
@@ -307,6 +441,15 @@ class ServeEngine:
                 "serve.tokens_generated_total", "Sampled output tokens"),
             "n_requests": metrics.counter(
                 "serve.requests_total", "Requests served to completion"),
+            "failed": metrics.counter(
+                "serve.requests_failed_total", _FAILED_DESC),
+            "degraded": metrics.counter(
+                "serve.degraded_total", _DEGRADED_DESC),
+            "retries": metrics.counter(
+                "serve.retries_total",
+                "Transient-failure retries (exponential backoff)"),
+            "fallback": metrics.counter(
+                "gemm.fallback_total", _FALLBACK_DESC),
         }
         tokens = self._h["tokens"]
         before = tokens.value
@@ -317,15 +460,16 @@ class ServeEngine:
                 t_req = time.perf_counter()
                 submitted = self._submit_t.pop(req.uid, None)
                 if submitted is not None:
-                    self._h["queue_wait"].observe(t_req - submitted)
+                    wait = t_req - submitted
+                    self._h["queue_wait"].observe(wait)
+                    if req.queue_ttl_s is not None \
+                            and wait > req.queue_ttl_s:
+                        self._finish_failed(
+                            req, "queue_ttl",
+                            f"queued {wait:.3f}s > ttl {req.queue_ttl_s}s")
+                        continue
                 req.status = "running"
-                with span("serve.request", uid=req.uid,
-                          prompt_len=len(req.prompt),
-                          max_new_tokens=req.max_new_tokens):
-                    self._serve_one(req)
-                req.status = "done"
-                self.done[req.uid] = req
-                self._h["n_requests"].inc()
+                self._serve_with_recovery(req, t_req)
         elapsed = time.perf_counter() - t_run
         if elapsed > 0:
             metrics.gauge(
@@ -333,6 +477,73 @@ class ServeEngine:
                 "Output tokens over the last run()'s wall time").set(
                     (tokens.value - before) / elapsed)
         return self.done
+
+    def _finish_failed(self, req: Request, reason: str, msg: str) -> None:
+        req.status = "failed"
+        req.error = f"{reason}: {msg}" if msg else reason
+        self._h["failed"].labels(reason=reason).inc()
+        self.done[req.uid] = req
+
+    @staticmethod
+    def _failure_reason(exc: Exception) -> str:
+        if isinstance(exc, InjectedKernelFailure):
+            return "kernel"
+        if isinstance(exc, DeadlineExceeded):
+            return "deadline"
+        if isinstance(exc, NonFiniteLogits):
+            return "nonfinite"
+        if getattr(exc, "transient", False):
+            return "transient"
+        return type(exc).__name__
+
+    def _serve_with_recovery(self, req: Request, t_req: float) -> None:
+        """Serve one request under the isolation wrapper: transient
+        failures retry with exponential backoff, non-finite logits walk
+        the quant ladder down, everything else fails exactly this
+        request.  Terminal status, error and counters are set here."""
+        level = self.base_level
+        deadline_t = (t_req + req.deadline_s
+                      if req.deadline_s is not None else None)
+        fb0 = self._h["fallback"].value
+        retries = 0
+        backoff = self.retry_backoff_s
+        while True:
+            req.attempts += 1
+            req.generated = []
+            req.quant_level = level
+            try:
+                with span("serve.request", uid=req.uid,
+                          attempt=req.attempts, level=level,
+                          prompt_len=len(req.prompt),
+                          max_new_tokens=req.max_new_tokens):
+                    self._serve_one(req, self._params_for(level),
+                                    deadline_t)
+                break
+            except NonFiniteLogits as e:
+                nxt = _next_level(level)
+                if nxt is None:
+                    self._finish_failed(req, "nonfinite", str(e))
+                    return
+                self._h["degraded"].labels(
+                    **{"from": level, "to": nxt}).inc()
+                req.degraded_to = nxt
+                level = nxt
+            except Exception as e:  # repro: noqa RPR004 -- request isolation: failure lands on this request via _finish_failed, not the engine
+                if getattr(e, "transient", False) \
+                        and retries < req.max_retries:
+                    retries += 1
+                    self._h["retries"].inc()
+                    time.sleep(backoff)
+                    backoff *= 2
+                    continue
+                self._finish_failed(req, self._failure_reason(e), str(e))
+                return
+        req.error = None
+        req.fallbacks = int(self._h["fallback"].value - fb0)
+        req.status = ("degraded" if req.degraded_to or req.fallbacks
+                      else "done")
+        self.done[req.uid] = req
+        self._h["n_requests"].inc()
 
     def _tokens(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),
@@ -343,56 +554,82 @@ class ServeEngine:
             self._table = sample_table(self.cfg, self.device)
         return model_inputs(self.cfg, toks, self._table)
 
-    def _serve_one(self, req: Request) -> None:
-        """Prefill and sample, then one decode step per further token.  On
-        the paged path the request's pages (prompt plus full generation
-        budget) are allocated before prefill and held for exactly this
-        call: the ``finally`` unmaps and frees them whatever happens."""
+    def _serve_one(self, req: Request, params: Dict[str, object],
+                   deadline_t: Optional[float]) -> None:
+        """One serve attempt.  On the paged path the request's pages
+        (prompt plus full generation budget) are held for exactly the
+        attempt: the ``finally`` unmaps and frees them whatever happens
+        (freeing a sequence that holds none is a no-op), so a failed or
+        retried attempt leaks no pool capacity."""
+        if self.kv_pool is None:
+            self._serve_attempt(req, params, deadline_t, paged=False)
+            return
+        try:
+            self._serve_attempt(req, params, deadline_t, paged=True)
+        finally:
+            kvc.model_release_sequence(self.kv_cache, 0)
+            self.kv_pool.free(req.uid)
+
+    def _serve_attempt(self, req: Request, params: Dict[str, object],
+                       deadline_t: Optional[float], *, paged: bool) -> None:
+        """Prefill and sample, then one decode step per further token.
+        Raises on poisoned logits, a deadline overrun or an injected
+        fault; appends sampled tokens to ``req.generated`` as it goes (a
+        deadline failure keeps the partial output).  Each decode step
+        first consults the active fault plan
+        (:meth:`~repro_torch.runtime.fault.FaultPlan.decode_fault`)."""
         h = self._h
         ledger = get_ledger()
-        paged = self.kv_pool is not None
-        try:
-            t0 = time.perf_counter()
-            toks = self._tokens(req.prompt)
-            with span("serve.prefill", uid=req.uid, length=toks.shape[1],
-                      paged=paged), ledger.step("prefill"):
-                cache = None
-                if paged:
-                    page_ids = self.kv_pool.alloc(
-                        req.uid, len(req.prompt) + req.max_new_tokens)
-                    cache = kvc.model_assign_sequence(self.kv_cache, 0,
-                                                      page_ids)
-                logits, cache = M.prefill(self.params, self._inputs(toks),
-                                          self.cfg, max_len=self.max_len,
-                                          cache=cache)
-                nxt = self._sample(logits, req.temperature)
-            t1 = time.perf_counter()
-            req.prefill_s = t1 - t0
-            h["ttft"].observe(req.prefill_s)
-            h["prefill_s"].inc(req.prefill_s)
-            h["tokens"].inc()
-            req.generated.append(nxt)
-            pos = toks.shape[1]
-            with span("serve.decode", uid=req.uid,
-                      tokens=req.max_new_tokens - 1):
-                for _ in range(req.max_new_tokens - 1):
-                    t_tok = time.perf_counter()
-                    with ledger.step("decode"):
-                        logits, cache = M.decode_step(
-                            self.params, self._inputs(self._tokens([nxt])),
-                            cache, pos, self.cfg)
-                        nxt = self._sample(logits, req.temperature)
-                    dt = time.perf_counter() - t_tok
-                    h["tpot"].observe(dt)
-                    h["decode_s"].inc(dt)
-                    h["tokens"].inc()
-                    req.generated.append(nxt)
-                    pos += 1
-            req.decode_s = time.perf_counter() - t1
-        finally:
-            if self.kv_pool is not None:
-                kvc.model_release_sequence(self.kv_cache, 0)
-                self.kv_pool.free(req.uid)
+        plan = active_fault_plan()
+        t0 = time.perf_counter()
+        toks = self._tokens(req.prompt)
+        with span("serve.prefill", uid=req.uid, length=toks.shape[1],
+                  paged=paged), ledger.step("prefill"):
+            cache = None
+            if paged:
+                page_ids = self.kv_pool.alloc(
+                    req.uid, len(req.prompt) + req.max_new_tokens)
+                cache = kvc.model_assign_sequence(self.kv_cache, 0,
+                                                  page_ids)
+            logits, cache = M.prefill(params, self._inputs(toks), self.cfg,
+                                      max_len=self.max_len, cache=cache)
+            nxt = self._sample(logits, req.temperature)
+        t1 = time.perf_counter()
+        req.prefill_s = t1 - t0
+        h["ttft"].observe(req.prefill_s)
+        h["prefill_s"].inc(req.prefill_s)
+        h["tokens"].inc()
+        req.generated.append(nxt)
+        pos = toks.shape[1]
+        with span("serve.decode", uid=req.uid,
+                  tokens=req.max_new_tokens - 1):
+            for _ in range(req.max_new_tokens - 1):
+                if deadline_t is not None \
+                        and time.perf_counter() > deadline_t:
+                    raise DeadlineExceeded(
+                        f"decode deadline {req.deadline_s}s exceeded "
+                        f"after {len(req.generated)} tokens")
+                t_tok = time.perf_counter()
+                fault = plan.decode_fault() if plan is not None else None
+                if fault is not None and fault.slow_s:
+                    time.sleep(fault.slow_s)
+                if fault is not None and fault.transient:
+                    raise TransientServeError(
+                        f"injected transient failure (request {req.uid})")
+                with ledger.step("decode"):
+                    logits, cache = M.decode_step(
+                        params, self._inputs(self._tokens([nxt])), cache,
+                        pos, self.cfg)
+                    if fault is not None and fault.nan:
+                        logits = torch.full_like(logits, float("nan"))
+                    nxt = self._sample(logits, req.temperature)
+                dt = time.perf_counter() - t_tok
+                h["tpot"].observe(dt)
+                h["decode_s"].inc(dt)
+                h["tokens"].inc()
+                req.generated.append(nxt)
+                pos += 1
+        req.decode_s = time.perf_counter() - t1
 
     # -- observability -------------------------------------------------------
 

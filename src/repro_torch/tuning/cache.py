@@ -24,7 +24,9 @@ The cache has its own file and environment variable,
 repository root), so a cache of the reference is never read as one of the
 port: the reference's validator would judge an unknown target against
 its TPU's budgets.  ``lint`` judges each entry against the target its key
-names, and flags keys of a target it does not know.
+names with the port's verifier (``repro_torch.analyze.validate``: a tile
+no K1 route runs, or over the card's shared memory, is SMEM001), and
+flags keys of a target it does not know.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ import pathlib
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
-from repro_torch.core.hardware import H100, TARGETS, HopperTarget
+from repro_torch.core.hardware import H100, HopperTarget
 from repro_torch.core.io_model import TileConfig
 
 # The reference's schema: keys carry (program tag, layout), the tag in
@@ -231,44 +233,24 @@ def merge_caches(paths: Sequence[os.PathLike],
     return merged
 
 
-def validate_cache_entry(key: str, entry: CacheEntry) -> List[str]:
-    """What is wrong with one persisted entry (empty: nothing): a key of
-    the wrong shape, a target the port does not know (never judged
-    against another target's budgets), non-positive tile dims, or on a
-    target whose kernels run fixed tiles a GEMM tile no K1 route has."""
-    parts = key.split("/")
-    attn = len(parts) == 5 and parts[1].startswith("attn.")
-    if len(parts) != 6 and not attn:
-        return [f"malformed key {key!r}"]
-    hw = TARGETS.get(parts[0])
-    if hw is None:
-        return [f"unknown target {parts[0]!r} (known: {sorted(TARGETS)})"]
-    if min(entry.bm, entry.bn, entry.bk) <= 0:
-        return [f"non-positive tile ({entry.bm}, {entry.bn}, {entry.bk})"]
-    if attn or not hw.route_tiles:
-        return []
-    from repro_torch.kernels import ca_mmm  # lazy: kernels import tuning
-
-    if (entry.bm, entry.bn, entry.bk) not in ca_mmm.ROUTE_TILES:
-        return [f"tile ({entry.bm}, {entry.bn}, {entry.bk}) is no K1 "
-                f"route's (routes run {sorted(ca_mmm.ROUTE_TILES)})"]
-    return []
-
-
 def lint_cache(path: Optional[os.PathLike] = None, *,
                strip: bool = False) -> Dict[str, Sequence]:
-    """Validate every persisted entry (:func:`validate_cache_entry`).
+    """Validate every persisted entry
+    (:func:`repro_torch.analyze.validate.validate_cache_entry`).
 
-    Returns ``{key: [message, ...]}`` for the entries that flagged.  With
-    ``strip=True`` the flagged entries are removed and the cache
+    Returns ``{key: [message, ...]}`` for the entries that flagged, each
+    message a diagnostic's text (code, severity, message, context).
+    With ``strip=True`` the flagged entries are removed and the cache
     re-saved.
     """
+    from repro_torch.analyze.validate import validate_cache_entry
+
     cache = TuningCache(path, autosave=False)
     flagged: Dict[str, Sequence] = {}
     for key in list(cache.keys()):
         diags = validate_cache_entry(key, cache.get(key))
         if diags:
-            flagged[key] = diags
+            flagged[key] = [str(d) for d in diags]
             if strip:
                 del cache._entries[key]
     if strip and flagged:

@@ -1,7 +1,8 @@
 """The CUDA kernels (CA-GEMM program, the distance product, paged decode
 attention, forward flash attention, the k-outer ablation) against their
 plain versions, on a card; the trainable programs' backward on the card
-against the same on the CPU.
+against the same on the CPU; the guard rails on the card (the launcher's
+shared memory against the analyzer's, the preflight, the fault hook).
 
 Imports neither JAX nor ``repro``, so it runs on a GPU host without JAX:
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -1266,3 +1267,105 @@ def test_cuda_ledger_gemm_calls_equal_k1_launches_of_a_decode_step(
     assert {r.mode for r in program} == {"decode"}
     del eng, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The guard rails: shared memory, preflight, the fault hook on the card
+# ---------------------------------------------------------------------------
+
+# (tag, A dtype, B dtype, m, n, k, scale block) across the three routes.
+SMEM_CASES = [("none", torch.bfloat16, torch.bfloat16, 1, 2048, 2048, 0),
+              ("none", torch.bfloat16, torch.bfloat16, 8, 6144, 2048, 0),
+              ("rms>glu.silu(none|none)", torch.bfloat16, torch.bfloat16,
+               128, 5632, 2048, 0),
+              ("res", torch.bfloat16, torch.bfloat16, 37, 2048, 64, 0),
+              ("dact.silu>none", torch.bfloat16, torch.bfloat16, 1024,
+               2048, 5632, 0),
+              ("dqb", torch.bfloat16, torch.int8, 1, 2048, 5632, 128),
+              ("glu.silu(dqab|dqab)", torch.int8, torch.int8, 1000, 5632,
+               2048, 0),
+              ("dqab", torch.int8, torch.int8, 5, 100352, 2048, 256),
+              ("none", torch.float32, torch.float32, 37, 200, 300, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMEM_CASES,
+                         ids=lambda c: f"{c[0]}-{c[3]}x{c[4]}x{c[5]}")
+def test_cuda_launch_smem_equals_route_smem_bytes(case):
+    """The dynamic shared memory the built launcher passes equals
+    ``route_smem_bytes`` (the analyzer's SMEM001 input) on the route the
+    launch takes, with the card's own SM count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tag, a_dt, b_dt, m, n, k, block = case
+    spec = program_from_tag(tag)
+    route = K.k1_route(spec, "nn", a_dt, b_dt, m, n, k, True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    got = K.launch_smem_bytes(route, spec, a_dt, b_dt, m, n, k, block)
+    assert got == K.route_smem_bytes(route, spec, a_dt, b_dt, m=m, n=n, k=k,
+                                     scale_block=block, sms=sms)
+    assert got + K.route_static_smem_bytes(route, spec, a_dt, b_dt, m=m) \
+        <= 227 * 1024
+
+
+@pytest.mark.cuda
+def test_cuda_poisoned_cache_entry_raises_before_any_launch(
+        fresh_registry_and_ledger):
+    """A cache entry over shared memory raises ProgramValidationError
+    (SMEM001) at dispatch on the card; K1 never launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.analyze import ProgramValidationError, reset_preflight
+    from repro_torch.core.gemm import ca_matmul
+    from repro_torch.tuning import get_registry
+    from repro_torch.tuning.cache import CacheEntry, cache_key
+
+    reset_preflight()
+    reg = get_registry()
+    reg.cache.put(cache_key(128, 1024, 1024, "bfloat16", hw=reg.hw),
+                  CacheEntry(bm=16384, bn=16384, bk=16384))
+    x = torch.randn(128, 1024, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(1024, 1024, device="cuda", dtype=torch.bfloat16)
+    K.reset_launch_counts()
+    with pytest.raises(ProgramValidationError, match="SMEM001"):
+        ca_matmul(x, w)
+    assert K.launch_counts == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fatal", [False, True], ids=["recoverable",
+                                                      "fatal"])
+def test_cuda_injected_failure_relaunches_the_kernel(fatal):
+    """With the fallback on, an injected non-fatal failure counts once in
+    gemm.fallback_total and the same GEMM launches its kernel on the card
+    (no host copy, no plain version): bit-equal to a fault-free call.  A
+    fatal one propagates before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch import obs
+    from repro_torch.core.gemm import ca_matmul, gemm_fallback
+    from repro_torch.runtime.fault import FaultPlan, InjectedKernelFailure
+
+    x = torch.randn(37, 512, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(512, 256, device="cuda", dtype=torch.bfloat16) / 23
+    obs.reset_metrics()
+    K.reset_launch_counts()
+    want = ca_matmul(x, w)
+    assert sum(K.launch_counts.values()) == 1
+    plan = FaultPlan(kernel_fatal_at=(0,)) if fatal \
+        else FaultPlan(kernel_fail_at=(0,))
+    with gemm_fallback(True), plan:
+        if fatal:
+            with pytest.raises(InjectedKernelFailure):
+                ca_matmul(x, w)
+            assert sum(K.launch_counts.values()) == 1
+        else:
+            got = ca_matmul(x, w)
+            assert got.device.type == "cuda" and got.dtype == want.dtype
+            assert torch.equal(got, want)
+            assert sum(K.launch_counts.values()) == 2
+        ca_matmul(x, w)
+    fallbacks = obs.get_metrics().snapshot().get(
+        "gemm.fallback_total", {}).get("value", 0)
+    assert fallbacks == (0 if fatal else 1)
+    assert sum(K.launch_counts.values()) == (2 if fatal else 3)

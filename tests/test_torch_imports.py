@@ -96,3 +96,33 @@ def test_plan_and_observability_modules_are_ported(mod):
     assert (REPO / "src" / "repro" / (mod.replace(".", "/") + ".py")).exists()
     tree = ast.parse((PORT / (mod.replace(".", "/") + ".py")).read_text())
     assert not set(_imported_roots(tree)) & set(FORBIDDEN)
+
+
+# The guard rails' modules (fault runtime, static analysis, checkpoints),
+# each beside its reference counterpart.
+GUARD_SLICE = ["runtime.fault", "analyze.diagnostics", "analyze.validate",
+               "analyze.preflight", "analyze.lint", "analyze.__main__",
+               "checkpoint.manager"]
+
+
+@pytest.mark.parametrize("mod", GUARD_SLICE)
+def test_guard_rail_modules_are_ported(mod):
+    names = {_module_name(f) for f in _port_files()[:-1]}
+    assert f"repro_torch.{mod}" in names
+    assert (REPO / "src" / "repro" / (mod.replace(".", "/") + ".py")).exists()
+    tree = ast.parse((PORT / (mod.replace(".", "/") + ".py")).read_text())
+    assert not set(_imported_roots(tree)) & set(FORBIDDEN)
+
+
+def test_analyze_cli_lints_the_port_without_jax():
+    """``python -m repro_torch.analyze lint src/repro_torch`` exits 0 with
+    JAX and the reference package blocked (the GPU host has no JAX)."""
+    code = _BLOCKER.format(forbidden=FORBIDDEN,
+                           modules=["repro_torch.analyze.__main__"]) + (
+        "\nimport sys\nfrom repro_torch.analyze.__main__ import main\n"
+        f"sys.exit(main(['lint', {str(PORT)!r}]))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "0 finding(s)" in out.stdout

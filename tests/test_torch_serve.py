@@ -68,12 +68,16 @@ def test_default_device_needs_cuda(params, monkeypatch):
 
 
 # w8a8 is ported: quantize_activations over dense params raises, as the
-# reference's test_w8a8_requires_weight_quantized_params checks.
+# reference's test_w8a8_requires_weight_quantized_params checks.  Bounded
+# admission is ported: an unknown overflow policy raises, as the
+# reference's constructor does.
 @pytest.mark.parametrize("kw,match", [
     ({"paged_kv": True, "quantize_activations": True},
      "quantize_activations"),
     ({"quantize_activations": True}, "quantize_activations"),
-    ({"tp_local": (1, 2)}, "not ported"), ({"max_queue": 4}, "not ported")],
+    ({"tp_local": (1, 2)}, "not ported"),
+    ({"max_queue": 4, "overflow": "drop_newest"},
+     "unknown overflow policy")],
     ids=["kw0", "kw1", "kw2", "kw3"])
 def test_later_slice_options_raise(params, kw, match):
     _, tp = params
@@ -142,8 +146,10 @@ def test_paged_engine_frees_pages_when_a_request_fails(params, monkeypatch):
         raise RuntimeError("decode failed")
 
     monkeypatch.setattr(TM, "decode_step", fail)
-    with pytest.raises(RuntimeError, match="decode failed"):
-        eng.run()
+    # request isolation: the failure lands on the request, not the engine
+    done = eng.run()
+    assert done[1].status == "failed"
+    assert done[1].error == "RuntimeError: decode failed"
     assert eng.kv_pool.n_free == eng.kv_pool.n_pages
     assert eng.kv_pool.owned(1) == ()
 

@@ -228,14 +228,19 @@ def test_gemm_programs_per_step(remat, monkeypatch):
     assert sum(calls.values()) == 6 * L * fwd + 1 + 14 * L + 2
 
 
-def test_run_training_on_the_cpu():
+def test_run_training_on_the_cpu(tmp_path):
     K.reset_launch_counts()
     _, losses = run_training("stablelm-1.6b", 2, seq_len=16,
                              global_batch=4, device="cpu")
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert K.launch_counts == {}        # the CPU runs the plain versions
-    with pytest.raises(ValueError, match="checkpoint/manager.py"):
-        run_training("stablelm-1.6b", 1, device="cpu", ckpt_dir="ckpt")
+    # checkpoints are ported: the last step is saved and verifies
+    from repro_torch.checkpoint import CheckpointManager
+
+    run_training("stablelm-1.6b", 1, seq_len=8, global_batch=2,
+                 device="cpu", ckpt_dir=str(tmp_path))
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.latest_step() == 0 and mgr.verify_step(0)
     with pytest.raises(RuntimeError, match="injected failure at step 0"):
         run_training("stablelm-1.6b", 2, seq_len=8, global_batch=2,
                      device="cpu", fail_at=0)
