@@ -134,13 +134,15 @@ Phases (any failure raises and the script exits non-zero):
    down projection at its capacity rows m = 8 and 16; MLA's wkv_a, n =
    576 and 288, and minicpm3's q-LoRA projections; mixtral's expert GLU
    at m = 8).  Then, one model on the card at a time, full width, random
-   weights from seed 0, bf16: granite-20b (52 layers), deepseek-v2-lite-
-   16b (27), minicpm3-4b (62) and mixtral-8x7b (8 of its 32 layers: 93 GB
-   in bf16 does not fit) serve prompts of 128, 37 and 8 tokens (mixtral
-   also 4200, past its 4096-token window), 16 new tokens each, through
+   weights from seed 0, bf16: granite-20b (13 of its 52 layers),
+   deepseek-v2-lite-16b (9 of 27), minicpm3-4b (16 of 62; these three cut
+   to keep the script inside its time limit) and mixtral-8x7b (8 of its 32
+   layers: 93 GB in bf16 does not fit) serve prompts of 128, 37 and 8
+   tokens (mixtral also 4200, past its 4096-token window), 8 new tokens
+   each, through
    ServeEngine on the slab cache; granite and mixtral also with
    paged_kv=True.  Every forward step's K1 launches by route and program
-   (313 / 3592 / 373 / 161 a step; the routed experts at their capacity
+   (79 / 1198 / 97 / 161 a step; the routed experts at their capacity
    rows), K2's (one a layer a paged decode step, none in prefill), slab vs
    paged prefill logits bit-equal and greedy tokens up to a near tie, one
    K2 call of the run replayed against its plain version; decode and
@@ -153,12 +155,14 @@ Phases (any failure raises and the script exits non-zero):
    (the Mamba2 in_proj, n 4384 and 14576, and out_proj; zamba2's shared
    w_in; qwen2-vl's GLU, k 8192, n 29568, and w_down; musicgen's GELU
    w_up) and K2 at their paged shapes (qwen2-vl G = 8, D = 128; musicgen
-   G = 1, D = 64); mamba2-370m (48 layers, 97 K1 launches a step) and
-   zamba2-7b (81 layers and 13 shared-block applications, 254) on the
+   G = 1, D = 64); mamba2-370m (24 of its 48 layers, 49 K1 launches a
+   step) and zamba2-7b (24 of 81 layers and 4 shared-block applications,
+   77) on the
    slab cache with a 600-token prompt besides (three 256-token SSD
    chunks, not a multiple of one); qwen2-vl-72b (24 of its 80 layers:
    145 GB in bf16 does not fit; 145) over the embeds frontend's demo
-   table and musicgen-large (48 layers, four codebook heads, 288) on the
+   table and musicgen-large (24 of 48 layers, four codebook heads, 144)
+   on the
    slab and the paged cache; held against the CPU at 2 layers (zamba2 7:
    one full group and a partial one).
    ``python3 chip_smoke.py --only archs [ARCH ...]`` runs the card and
@@ -204,6 +208,36 @@ Phases (any failure raises and the script exits non-zero):
    ``python3 chip_smoke.py --only robust`` runs the card and build phases
    and this one alone (no kernels line, no result).
 
+17. train archs (run after phase 9): K1f at the programs and shapes the
+   other families train with, against their plain versions, each
+   call's route asserted and printed (wgmma: bf16 operands with 16-byte
+   rows at m > 8): deepseek-v2-lite-16b's expert GLU with save_preact, its dact
+   nt / tn and its down projection's nt / tn at the capacity rows of a
+   4 x 256-token step (128), mixtral-8x7b's expert GLU at 320 rows, the
+   ragged n of MLA's wkv_a (576, 288) and of the Mamba2 in_proj (4384,
+   14576) in dx and dW, musicgen-large's rms>gelu w_up with save_preact
+   and its dact.gelu nt / tn.  Then each of the seven other
+   configurations trains at full width, one at a time, fp32 masters from
+   seed 0, AdamW on the donated state: mamba2-370m (48 layers),
+   musicgen-large (48), deepseek-v2-lite-16b (4 of 27), zamba2-7b (12 of
+   81: two full groups, the shared block applied twice), minicpm3-4b (16
+   of 62), mixtral-8x7b and qwen2-vl-72b (2 each), 2 steps of 4 x 256
+   tokens: finite loss, aux and grad_norm at each step and exactly
+   ``train_counts_per_step``'s K1 launches by key; routes by key,
+   launches by shape (each timed shape must be one its run launched), step ms,
+   tokens/s, peak memory, the bound (6 N_active T, remat's 2 N T, for
+   MoE the capacity loop's expert work) and one profiled step's busy and
+   K1 shares.  Each family's 2-layer model (zamba2 7: one full group
+   and a partial one) is held against the CPU on data seed 1 (loss,
+   aux, every gradient leaf); an MoE arch's CPU run takes the card's
+   routed choices, each choice its own top-k would change must be a
+   near tie, and an fp32 forward on the CPU with the card's choices is
+   the witness both runs' router inputs, outputs and probabilities are
+   printed against (``routing_witness``).  Then the new shapes' times
+   (kernel, plain version, the same layout's torch.matmul, bound).
+   ``python3 chip_smoke.py --only train [ARCH ...]`` runs the card and
+   K1's build and this phase alone (no kernels line, no result).
+
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -228,7 +262,8 @@ from repro_torch import kvcache as kvc  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hardware import H100  # noqa: E402
-from repro_torch.data.pipeline import DataConfig, batch_for_model  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    DataConfig, batch_for_model, embed_table)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
@@ -238,6 +273,7 @@ from repro_torch.kernels.program import (program_cost,  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import common as CM  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.quant import QTensor, QuantConfig  # noqa: E402
 from repro_torch.serve.engine import (Request, ServeEngine,  # noqa: E402
@@ -2499,20 +2535,27 @@ def k1f_inputs(key, m, n, k, dtype, gen, copies=1):
     return a, sets, kw
 
 
-def k1f_parity():
-    phase("K1f parity: training programs vs plain version")
-    gen = torch.Generator(device="cuda").manual_seed(8)
+def k1f_parity(cases=None, label="training programs", seed=8):
+    """Each case (key, GEMM, m, n, k, out dtype, dtype; default stablelm's
+    shapes in bf16 and a ragged fp32 one a key) on the kernel against its
+    plain version, its route asserted and printed: wgmma for bf16, whose
+    operands here are 16-byte aligned, at m > 8, SIMT for fp32.  Returns
+    the worst error by (key, GEMM)."""
+    phase(f"K1f parity: {label} vs plain version")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = {}
-    cases = [(key, name, m, n, k, od, torch.bfloat16)
-             for key, name, m, n, k, od in K1F_GEMMS]
-    cases += [(key, "ragged f32", 37, 64, 50, None, torch.float32)
-              for key in dict.fromkeys(g[0] for g in K1F_GEMMS)]
+    if cases is None:
+        cases = [(key, name, m, n, k, od, torch.bfloat16)
+                 for key, name, m, n, k, od in K1F_GEMMS]
+        cases += [(key, "ragged f32", 37, 64, 50, None, torch.float32)
+                  for key in dict.fromkeys(g[0] for g in K1F_GEMMS)]
     for key, name, m, n, k, od, dtype in cases:
         a, (bs,), kw = k1f_inputs(key, m, n, k, dtype, gen)
+        route = want_route(dtype, m)
         before = dict(K.route_counts)
         got = K.ca_gemm_program(a, bs, out_dtype=od, **kw)
         check_routes(f"{key} {name}", route_delta(before),
-                     {f"{want_route(dtype, m)} {key}": 1})
+                     {f"{route} {key}": 1})
         want = K.ca_gemm_program_reference(a, bs, out_dtype=od, **kw)
         torch.cuda.synchronize()
         if not kw["save_preact"]:
@@ -2532,21 +2575,102 @@ def k1f_parity():
                 raise AssertionError(f"{key} {name} output {i}: kernel "
                                      f"disagrees ({err} > {tol})")
             errs.append(f"{err:.3e}/{tol:.3e}")
-            worst[key] = max(worst.get(key, 0.0), err)
-        print(f"parity {key:38s} {name:14s} m={m:<5d} n={n:<6d} k={k:<6d} "
-              f"{str(dtype)[6:]:8s} max_abs_err/tol " + " ".join(errs))
+            worst[key, name] = max(worst.get((key, name), 0.0), err)
+        print(f"parity {key:38s} {name:24s} m={m:<5d} n={n:<6d} k={k:<6d} "
+              f"{str(dtype)[6:]:8s} route {route:6s} max_abs_err/tol "
+              + " ".join(errs))
+        del a, bs, kw, got, want
+    torch.cuda.empty_cache()
     return worst
 
 
-def train_counts_per_step(cfg):
-    """K1 launches of one train step, by launch key: per layer 3 ``none``,
-    2 ``res`` and the GLU with save_preact forward (twice with remat), and
-    backward nt + tn per one-branch program and 4 for the GLU; the head's
-    ``none`` forward and its nt + tn."""
-    L, fwd = cfg.n_layers, 2 if cfg.remat else 1
-    return {"none": 3 * L * fwd + 1, "res": 2 * L * fwd, GLU_SAVE: L * fwd,
-            "none nt": 6 * L + 1, "none tn": 6 * L + 1,
-            "dact.silu>none nt": L, "dact.silu@b>none tn": L}
+def train_counts_per_step(cfg, batch=GLOBAL_BATCH, seq=SEQ_LEN):
+    """K1 launches of one train step of ``batch`` sequences of ``seq``
+    tokens, by launch key.  Forward, per layer: a transformer's
+    attention projections (GQA: wq, wk, wv ``none``; MLA: wq or wq_a and
+    wq_b, and wkv_a) and its ``res`` wo; a dense FFN's ``rms>glu.silu`` or
+    ``rms>gelu`` with save_preact and its ``res`` w_down; a MoE FFN's
+    per-expert ``glu.silu`` with save_preact and ``none`` down at the
+    capacity rows (``batch`` x capacity, every expert launched), and the
+    shared experts' GLU and ``res`` down; a Mamba2 layer's in_proj and
+    out_proj; each zamba2 shared-block application's w_in, wq, wk, wv,
+    its ``res`` wo and w_down and its GLU; the single head's ``none``
+    (codebook heads are an einsum).  Backward: ``none nt`` + ``none tn``
+    per one-branch program (``dact.gelu>none nt`` + ``dact.gelu@b>none
+    tn`` for a GELU one), and ``dact.silu>none nt``, ``none nt``,
+    ``dact.silu@b>none tn`` and ``none tn`` per GLU.  Remat reruns the
+    forward: twice a layer, and for the hybrid (an outer checkpoint a
+    segment, the layers and the shared block checkpointed inside it)
+    three times a Mamba2 layer and twice the shared block and a partial
+    last segment's last layer: the outer segment's recompute stops early
+    (``torch.utils.checkpoint``'s default) once it has rebuilt the
+    inputs of the checkpoints inside it.  The token count
+    only sizes the GEMMs: the counts depend on ``batch`` and ``seq`` not
+    at all (every expert launches at its capacity rows)."""
+    del batch, seq
+    L = cfg.n_layers
+    counts = collections.Counter()
+    remat = cfg.remat
+
+    def one(tag, n, fwd, save=False):
+        counts[K.launch_key(tag, "nn", save)] += n * fwd
+        act = program_from_tag(tag).branches[0].activation
+        if act == "none":
+            counts["none nt"] += n
+            counts["none tn"] += n
+        else:
+            counts[f"dact.{act}>none nt"] += n
+            counts[f"dact.{act}@b>none tn"] += n
+
+    def glu(tag, n, fwd):
+        counts[K.launch_key(tag, "nn", True)] += n * fwd
+        for key in ("dact.silu>none nt", "none nt", "dact.silu@b>none tn",
+                    "none tn"):
+            counts[key] += n
+
+    def ffn(n, fwd):                             # pre-norm in the prologue
+        if cfg.act == "silu":
+            glu(GLU, n, fwd)
+        else:
+            one(GELU, n, fwd, save=True)
+        one("res", n, fwd)                        # w_down
+
+    if cfg.family in ("ssm", "hybrid"):
+        apps = M.n_shared_applications(cfg)
+        if not remat:
+            one("none", 2 * L, 1)                # in_proj, out_proj
+        elif not cfg.shared_attn_every:
+            one("none", 2 * L, 2)
+        else:
+            # A partial last segment's last layer feeds no checkpoint
+            # inside the segment: the outer recompute stops before it.
+            r = L % cfg.shared_attn_every
+            one("none", 2 * (L - (r > 0)), 3)
+            one("none", 2 * (r > 0), 2)
+        if apps:
+            fwd = 2 if remat else 1
+            one("none", 4 * apps, fwd)            # w_in, wq, wk, wv
+            one("res", apps, fwd)                 # wo
+            ffn(apps, fwd)
+    else:
+        fwd = 2 if remat else 1
+        if cfg.attn_kind == "mla":
+            one("none", L * (3 if cfg.mla.q_lora_rank else 2), fwd)
+        else:
+            one("none", 3 * L, fwd)
+        one("res", L, fwd)                        # wo
+        if cfg.moe is not None and cfg.moe.n_experts:
+            E = cfg.moe.n_experts
+            glu(EXPERT_GLU, E * L, fwd)
+            one("none", E * L, fwd)               # the experts' down
+            if cfg.moe.n_shared_experts:
+                glu(EXPERT_GLU, L, fwd)
+                one("res", L, fwd)
+        else:
+            ffn(L, fwd)
+    if cfg.n_codebooks == 1:
+        one("none", 1, 1)                         # the head
+    return {k: v for k, v in counts.items() if v}
 
 
 def train_slice(cfg):
@@ -2616,12 +2740,14 @@ def train_slice(cfg):
     return counts, summary
 
 
-def profile_train_step(step_fn, state, cfg, data_cfg, step, step_ms):
+def profile_train_step(step_fn, state, cfg, data_cfg, step, step_ms,
+                       table=None):
     """torch.profiler over one more step: device time by kernel, its busy
     share of the unprofiled step time, and K1's share."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = T.cast_batch(batch_for_model(cfg, data_cfg, step), cfg)
+    batch = T.cast_batch(batch_for_model(cfg, data_cfg, step, table=table),
+                         cfg)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     torch.cuda.synchronize()
     prof.start()
@@ -2645,46 +2771,217 @@ def profile_train_step(step_fn, state, cfg, data_cfg, step, step_ms):
     return out
 
 
-def cross_check_train(cfg):
-    """The same fp32 masters (4 layers, full width) and one batch of
-    2 x 64 tokens on the card and on the CPU (plain versions): the loss and
-    each leaf's gradient of the step's bf16 compute copy."""
-    phase("4-layer full width training: card vs CPU plain path")
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
+class MoeProbe:
+    """While active, keeps each MoE layer call's routing in call order
+    (remat's recomputes after the forward's), on the host: the router
+    input rows, their fp32 router probabilities, the top-k the layer
+    would choose, the experts it routed by, and the layer's output rows
+    less the residual.  With ``choices``, call ``i`` routes its tokens
+    to ``choices[i]``'s experts, in that order: the weights are its own
+    probabilities at those experts, renormalised, and the aux loss
+    counts those choices (``torch.topk`` inside ``moe.route`` answers
+    with the given ids)."""
+
+    def __init__(self, choices=None):
+        self.choices, self.calls = choices, []
+
+    def __enter__(self):
+        self._route, self._apply = MOE.route, MOE.moe_apply
+
+        def route(x, router, cfg):
+            probs = torch.softmax(torch.einsum(
+                "bld,de->ble", x.float(), router.float()), dim=-1)
+            call = {"x": x.detach().cpu(), "probs": probs.detach().cpu(),
+                    "own": torch.topk(probs, cfg.moe.top_k,
+                                      dim=-1).indices.cpu()}
+            self.calls.append(call)
+            topk = torch.topk
+            if self.choices is not None:
+                forced = self.choices[len(self.calls) - 1].to(x.device)
+                torch.topk = lambda probs, k, dim=-1: (  # noqa: E731
+                    probs.gather(dim, forced), forced)
+            try:
+                out = self._route(x, router, cfg)
+            finally:
+                torch.topk = topk
+            call["ids"] = out[0].cpu()
+            return out
+
+        def moe_apply(p, x, cfg, residual=None):
+            y, aux = self._apply(p, x, cfg, residual=residual)
+            own = y.detach().float()
+            if residual is not None:
+                own = own - residual.detach().float()
+            self.calls[-1]["y"] = own.cpu()
+            return y, aux
+
+        MOE.route, MOE.moe_apply = route, moe_apply
+        return self
+
+    def __exit__(self, *exc):
+        MOE.route, MOE.moe_apply = self._route, self._apply
+
+
+def forward_calls(calls, n):
+    """The forward's ``n`` MoE calls of a training step's record.  Remat
+    recomputes them after, in reverse layer order, and each must route
+    its tokens as the forward did."""
+    fwd, rec = calls[:n], calls[n:]
+    if rec and len(rec) != n:
+        raise AssertionError(f"{len(calls)} MoE calls for {n} MoE layers")
+    for j, call in enumerate(rec):
+        if not torch.equal(call["ids"], fwd[n - 1 - j]["ids"]):
+            raise AssertionError(f"MoE call {n + j}, the recompute of call "
+                                 f"{n - 1 - j}, routed otherwise")
+    return fwd
+
+
+def _token_err(got, ref):
+    """Each token's relative L2 error of ``got`` against ``ref`` (B, L)."""
+    got, ref = got.float(), ref.float()
+    return (got - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)
+
+
+def _worst_token(err):
+    i = int(err.argmax())
+    return err.flatten()[i].item(), divmod(i, err.shape[-1])
+
+
+def routing_witness(card, cpu, exact):
+    """The MoE calls of the card's and the CPU's bf16 runs against an fp32
+    witness that took the card's routes (each a list of ``MoeProbe``
+    calls, the forward's): for each call, each token's relative error of
+    the router input and of the layer's output and the largest deviation
+    of its router probabilities, and every flip, a token whose top-k on
+    the CPU differs from the card's: the CPU's probability gap between
+    the experts swapped out and in, the limit a near tie must be within
+    (2 TOL_MODEL of the token's top probability, as the serve phase's
+    ``router_near_tie``), the witness's gap and how far the card's and
+    the CPU's probabilities at the token are from the witness's."""
+    flips, stats = [], []
+    for c, (g, h, w) in enumerate(zip(card, cpu, exact)):
+        dev = {name: (run["probs"] - w["probs"]).abs().amax(-1)
+               for name, run in (("card", g), ("cpu", h))}
+        row = {"call": c}
+        for name, run in (("card", g), ("cpu", h)):
+            for part in ("x", "y"):
+                err, tok = _worst_token(_token_err(run[part], w[part]))
+                row[f"{part}_err_{name}"] = err
+                row[f"{part}_err_{name}_token"] = tok
+            row[f"prob_dev_{name}"], row[f"prob_dev_{name}_token"] = \
+                _worst_token(dev[name])
+        stats.append(row)
+        ia, ib = g["ids"], h["own"]
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        for t in map(tuple, diff.nonzero().tolist()):
+            out_ = sorted(set(ib[t].tolist()) - set(ia[t].tolist()))
+            in_ = sorted(set(ia[t].tolist()) - set(ib[t].tolist()))
+            p, p32 = h["probs"][t], w["probs"][t]
+            gap = (p[out_].min() - p[in_].max()).item()
+            gap32 = (p32[out_].min() - p32[in_].max()).item()
+            limit = 2 * TOL_MODEL * p.max().item()
+            flips.append({"call": c, "token": t, "cpu": out_, "card": in_,
+                          "gap": gap, "limit": limit, "gap_fp32": gap32,
+                          "card_prob_dev": dev["card"][t].item(),
+                          "cpu_prob_dev": dev["cpu"][t].item(),
+                          "card_x_err": _token_err(g["x"][t], w["x"][t]
+                                                   ).item(),
+                          "cpu_x_err": _token_err(h["x"][t], w["x"][t]
+                                                  ).item()})
+    return flips, stats
+
+
+def cross_check_train(cfg, layers=4, table=None):
+    """The same fp32 masters (``layers`` layers, full width) and one batch
+    of 2 x 64 tokens of data seed 1 (an embeds frontend's embeddings from
+    ``table``, and codebook labels where the config takes them) on the
+    card and on the CPU (plain versions): the loss, the MoE aux loss and
+    each leaf's gradient of the step's bf16 compute copy.  An MoE arch's
+    CPU run takes the card's routed choices, so both compute the same
+    experts' outputs; every choice where the CPU's own top-k differs
+    must be a near tie, and an fp32 forward on the CPU with the card's
+    choices is the witness both runs' routing is printed against
+    (``routing_witness``)."""
+    phase(f"{layers}-layer full width {cfg.name} training: card vs CPU "
+          "plain path")
+    cfg4 = dataclasses.replace(cfg, n_layers=layers)
     masters = M.init_params(cfg4, seed=1, masters=True)
     batch = batch_for_model(cfg4, DataConfig(
-        vocab_size=cfg4.vocab_size, seq_len=64, global_batch=2, seed=1), 0)
-    out = {}
+        vocab_size=cfg4.vocab_size, seq_len=64, global_batch=2, seed=1), 0,
+        table=table)
+    moe = cfg.moe is not None and cfg.moe.n_experts > 0
+    out, probes = {}, {}
     for dev in ("cuda", "cpu"):
         params = T.cast_params({k: v.to(dev) for k, v in masters.items()},
                                cfg4)
         t0 = time.perf_counter()
-        loss, _ = T.loss_fn(params, T.cast_batch(batch, cfg4, dev), cfg4)
-        keys = sorted(params)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys])
-        out[dev] = (loss.item(), {k: g.float().cpu()
-                                  for k, g in zip(keys, grads)})
-        print(f"{dev}: loss {out[dev][0]:.6f} and {len(keys)} gradients in "
-              f"{time.perf_counter() - t0:.3f} s")
-        del params, grads
-    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+        choices = [c["ids"] for c in probes["cuda"].calls] \
+            if dev == "cpu" and moe else None
+        with MoeProbe(choices) as probe:
+            loss, metrics = T.loss_fn(
+                params, T.cast_batch(batch, cfg4, dev), cfg4)
+            keys = sorted(params)
+            grads = torch.autograd.grad(loss, [params[k] for k in keys])
+        probes[dev] = probe
+        out[dev] = (metrics["loss"].item(), metrics["aux"].item(),
+                    {k: g.float().cpu() for k, g in zip(keys, grads)})
+        print(f"{dev}: loss {out[dev][0]:.6f} aux {out[dev][1]:.6e} and "
+              f"{len(keys)} gradients in {time.perf_counter() - t0:.3f} s"
+              + (f" ({len(probe.calls)} MoE layer calls)" if probe.calls
+                 else ""))
+        del params, grads, loss, metrics
+    flips, stats = [], []
+    if moe:
+        t0 = time.perf_counter()
+        cfg32 = dataclasses.replace(cfg4, compute_dtype="float32")
+        with torch.no_grad(), MoeProbe(
+                [c["ids"] for c in probes["cuda"].calls]) as exact:
+            T.loss_fn({k: v.cpu() for k, v in masters.items()},
+                      T.cast_batch(batch, cfg32, "cpu"), cfg32)
+        n = len(exact.calls)
+        flips, stats = routing_witness(
+            forward_calls(probes["cuda"].calls, n),
+            forward_calls(probes["cpu"].calls, n), exact.calls)
+        print(f"fp32 witness on the CPU, the card's routes: {n} MoE layer "
+              f"calls in {time.perf_counter() - t0:.3f} s")
+        for row in stats:
+            print("MoE call vs fp32 witness " + json.dumps(row))
+    for f in flips:
+        print("routing flip " + json.dumps(f))
+    del masters, probes
+    torch.cuda.empty_cache()
+    if any(not f["gap"] <= f["limit"] for f in flips):
+        raise AssertionError("a routed choice flipped between the card "
+                             "and the CPU away from a near tie")
+    (lg, ag, gg), (lc, ac, gc) = out["cuda"], out["cpu"]
     rel_loss = abs(lg - lc) / abs(lc)
-    print(f"loss card {lg:.6f} cpu {lc:.6f} relative {rel_loss:.3e} "
-          f"(tol {TOL_LOSS})")
-    if not (math.isfinite(lg) and rel_loss <= TOL_LOSS):
+    rel_aux = abs(ag - ac) / abs(ac) if ac else abs(ag)
+    print(f"loss card {lg:.6f} cpu {lc:.6f} relative {rel_loss:.3e}; aux "
+          f"card {ag:.6e} cpu {ac:.6e} relative {rel_aux:.3e} (tol "
+          f"{TOL_LOSS})")
+    if not (math.isfinite(lg) and rel_loss <= TOL_LOSS
+            and rel_aux <= TOL_LOSS):
         raise AssertionError("card and CPU training losses disagree")
     worst = 0.0
     for k in sorted(gc):
-        a, b = gg[k].double(), gc[k].double()
-        rel = ((a - b).norm() / b.norm()).item()
-        cos = (a.flatten() @ b.flatten() / (a.norm() * b.norm())).item()
-        print(f"grad {k:24s} rel_l2={rel:.3e} cosine={cos:.6f}")
+        # fp32 norms: a relative error held to 5e-2 needs no more, and a
+        # float64 copy of a billion-entry bank takes tens of seconds.  The
+        # cosine comes from the three norms: an fp32 dot product over a
+        # billion entries loses more than the cosine shows.
+        a, b = gg[k], gc[k]
+        na, nb, nd = (t.norm().item() for t in (a, b, a - b))
+        rel = nd / nb
+        cos = (na * na + nb * nb - nd * nd) / (2 * na * nb)
+        print(f"grad {k:32s} rel_l2={rel:.3e} cosine={cos:.6f}")
         if not (bool(torch.isfinite(a).all()) and rel <= TOL_GRAD):
             raise AssertionError(f"{k}: card and CPU gradients disagree "
                                  f"({rel} > {TOL_GRAD})")
         worst = max(worst, rel)
     print(f"gradients: worst relative L2 error {worst:.3e} (tol {TOL_GRAD})")
-    return {"loss_rel_err": rel_loss, "grad_rel_l2_worst": worst}
+    return {"loss_rel_err": rel_loss, "aux_rel_err": rel_aux,
+            "grad_rel_l2_worst": worst, "routing_flips": len(flips),
+            "worst_flip_gap_over_limit": max(
+                (f["gap"] / f["limit"] for f in flips), default=None)}
 
 
 def k1f_bound(key, m, n, k, od, dtype):
@@ -2710,12 +3007,16 @@ def k1f_bound(key, m, n, k, od, dtype):
                                        else "operations")
 
 
-def k1f_times():
-    phase("K1f times at 1024 tokens (CUDA graph replay; B operands rotated "
-          "past the 50 MB L2)")
+def k1f_times(gemms=None, label="K1f times at 1024 tokens"):
+    """Kernel, plain version, library call (``torch.matmul`` for the
+    plain nt/tn programs; none computes dact or save_preact) and the same
+    layout's ``torch.matmul`` of the product alone (one a branch), beside
+    the bound, for each (key, GEMM, m, n, k, out dtype) in bf16."""
+    phase(f"{label} (CUDA graph replay; B operands rotated past the 50 MB "
+          "L2)")
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
-    for key, name, m, n, k, od in K1F_GEMMS:
+    for key, name, m, n, k, od in gemms or K1F_GEMMS:
         tag, ta, tb, save = _parse_key(key)
         nb = program_from_tag(tag).n_b
         copies = max(2, math.ceil(120e6 / (nb * k * n * 2)))
@@ -2724,18 +3025,16 @@ def k1f_times():
                                                   **kw), copies)
         plain = _time_ms(lambda i: K.ca_gemm_program_reference(
             a, sets[i], out_dtype=od, **kw), copies)
-        # One PyTorch call for the plain nt/tn programs (bf16 out where the
-        # nt program writes fp32); none computes dact or save_preact.
-        lib = None
-        if tag == "none" and tb:
-            lib = _time_ms(lambda i: torch.matmul(a, sets[i][0].T), copies)
-        elif tag == "none" and ta:
-            lib = _time_ms(lambda i: torch.matmul(a.T, sets[i][0]), copies)
+        a_op = a.T if ta else a
+        mm = _time_ms(lambda i: [torch.matmul(a_op, b.T if tb else b)
+                                 for b in sets[i]], copies)
+        lib = mm if tag == "none" and (ta or tb) else None
         b_ms, b_by = k1f_bound(key, m, n, k, od, torch.bfloat16)
         row = {"program": key, "gemm": name, "m": m, "n": n, "k": k,
                "out": str(od or torch.bfloat16)[6:], "ms": ms,
-               "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-               "bound_by": b_by, "tflops": 2 * m * n * k * nb / ms / 1e9}
+               "plain_ms": plain, "library_ms": lib, "matmul_ms": mm,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "tflops": 2 * m * n * k * nb / ms / 1e9}
         rows.append(row)
         print("time " + json.dumps(row))
         del a, sets, kw
@@ -3478,34 +3777,39 @@ ARCH_TIMED = [(GELU, "granite w_up", 1), (GELU, "granite w_up", 128),
               (GLU, "qwen2-vl glu", 128), ("res", "qwen2-vl w_down", 1),
               (GELU, "musicgen w_up", 1)]
 # Each architecture served: its layers on the card (None: all), whether
-# it also serves on the paged cache, its prompts (16 new tokens each), the
-# K1 launches of one forward step and the layers of its card-vs-CPU model.
-# mixtral-8x7b's 32 layers are 93 GB in bf16: 8 of them are served, and
-# its 4200-token prompt runs past the 4096-token window.  qwen2-vl-72b's
-# 80 layers are 145 GB in bf16: 24 of them are served.  The SSM archs'
-# 600-token prompt spans three 256-token SSD chunks, not a multiple of
-# one; zamba2 on the CPU at 7 layers runs one full group of 6 and a
-# partial one.
+# it also serves on the paged cache, its prompts (ARCH_NEW_TOKENS new
+# tokens each), the K1 launches of one forward step and the layers of its card-vs-CPU model.
+# The deep ones serve at a cut depth so that the whole script, with the
+# train archs phase, stays inside its time limit (their decode steps are
+# host-bound, so the phase's time goes with depth): granite-20b 13 of 52
+# layers, deepseek-v2-lite-16b 9 of 27, minicpm3-4b 16 of 62, mamba2-370m
+# and musicgen-large 24 of 48, zamba2-7b 24 of 81 (four full groups, four
+# shared-block applications).  mixtral-8x7b's 32 layers are 93 GB in
+# bf16: 8 of them are served, and its 4200-token prompt runs past the
+# 4096-token window.  qwen2-vl-72b's 80 layers are 145 GB in bf16: 24 of
+# them are served.  The SSM archs' 600-token prompt spans three 256-token
+# SSD chunks, not a multiple of one; zamba2 on the CPU at 7 layers runs
+# one full group of 6 and a partial one.
 SERVED_ARCHS = {
-    "granite-20b": dict(layers=None, paged=True, prompts=(128, 37, 8),
-                        per_step=313, cpu_layers=2),
-    "deepseek-v2-lite-16b": dict(layers=None, paged=False,
-                                 prompts=(128, 37, 8), per_step=3592,
+    "granite-20b": dict(layers=13, paged=True, prompts=(128, 37, 8),
+                        per_step=79, cpu_layers=2),
+    "deepseek-v2-lite-16b": dict(layers=9, paged=False,
+                                 prompts=(128, 37, 8), per_step=1198,
                                  cpu_layers=2),
-    "minicpm3-4b": dict(layers=None, paged=False, prompts=(128, 37, 8),
-                        per_step=373, cpu_layers=4),
+    "minicpm3-4b": dict(layers=16, paged=False, prompts=(128, 37, 8),
+                        per_step=97, cpu_layers=4),
     "mixtral-8x7b": dict(layers=8, paged=True, prompts=(128, 37, 8, 4200),
                          per_step=161, cpu_layers=2),
-    "mamba2-370m": dict(layers=None, paged=False, prompts=(128, 37, 8, 600),
-                        per_step=97, cpu_layers=2),
-    "zamba2-7b": dict(layers=None, paged=False, prompts=(128, 37, 8, 600),
-                      per_step=254, cpu_layers=7),
+    "mamba2-370m": dict(layers=24, paged=False, prompts=(128, 37, 8, 600),
+                        per_step=49, cpu_layers=2),
+    "zamba2-7b": dict(layers=24, paged=False, prompts=(128, 37, 8, 600),
+                      per_step=77, cpu_layers=7),
     "qwen2-vl-72b": dict(layers=24, paged=True, prompts=(128, 37, 8),
                          per_step=145, cpu_layers=2),
-    "musicgen-large": dict(layers=None, paged=True, prompts=(128, 37, 8),
-                           per_step=288, cpu_layers=2),
+    "musicgen-large": dict(layers=24, paged=True, prompts=(128, 37, 8),
+                           per_step=144, cpu_layers=2),
 }
-ARCH_NEW_TOKENS = 16
+ARCH_NEW_TOKENS = 8
 
 
 def arch_parity():
@@ -3862,6 +4166,292 @@ def print_archs(archs, card_line):
     print(f"e2e architectures phase {archs['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Training the other seven configurations (train_archs)
+# ---------------------------------------------------------------------------
+
+# Each configuration trained at full width: its layers (None: all).  The
+# depth is cut only where fp32 masters and AdamW's two moments plus the
+# step's bf16 copy and gradients, about 16 bytes a parameter, would not
+# fit the card's 80 GB: deepseek-v2-lite-16b 16.2 B parameters (4 of 27
+# layers: 2.76 B), zamba2-7b 6.8 B (12 of 81: two full groups of 6, the
+# shared block applied twice; 1.40 B), minicpm3-4b 4.3 B (16 of 62: 1.38
+# B), mixtral-8x7b 46.7 B (2 of 32: 3.17 B), qwen2-vl-72b 74 B (2 of 80:
+# 3.00 B).  mamba2-370m (0.42 B) and musicgen-large (2.43 B) train whole.
+TRAIN_ARCHS = {"mamba2-370m": None, "musicgen-large": None,
+               "deepseek-v2-lite-16b": 4, "zamba2-7b": 12,
+               "minicpm3-4b": 16, "mixtral-8x7b": 2, "qwen2-vl-72b": 2}
+TRAIN_ARCH_STEPS = 2
+# The card-vs-CPU check of each family trains this many layers: 2, and
+# zamba2 7 (one full group of 6, so the shared block applies, and a
+# partial one).
+TRAIN_CHECK_LAYERS = {"zamba2-7b": 7}
+
+# Training rows of the expert GEMMs: a step's 4 sequences times each
+# expert's capacity over one 256-token sequence.
+DS_ROWS = GLOBAL_BATCH * MOE.capacity(get_config("deepseek-v2-lite-16b"),
+                                      SEQ_LEN)
+MIX_ROWS = GLOBAL_BATCH * MOE.capacity(get_config("mixtral-8x7b"), SEQ_LEN)
+EXPERT_GLU_SAVE = K.launch_key("glu.silu(none|none)", "nn", True)
+GELU_SAVE = K.launch_key("rms>gelu", "nn", True)
+F32 = torch.float32
+# K1f at the programs and shapes the new families train with, 4 x 256
+# tokens a step (key, GEMM, m, n, k, out dtype): deepseek's expert GLU
+# with save_preact and its dact nt / tn, and its down projection's nt /
+# tn, at the capacity rows (m = 4 x 32); mixtral's expert GLU at its
+# capacity rows (4 x 80; n 14336); the ragged n of MLA's wkv_a (576, 288)
+# and of the Mamba2 in_proj (4384, 14576) in dx and dW; musicgen's
+# rms>gelu w_up with save_preact and its dact.gelu programs.
+K1F_ARCH_GEMMS = [
+    (EXPERT_GLU_SAVE, "deepseek expert glu fwd", DS_ROWS, 1408, 2048, None),
+    ("dact.silu>none nt", "deepseek expert gate dx", DS_ROWS, 2048, 1408,
+     F32),
+    ("dact.silu@b>none tn", "deepseek expert gate dW", 2048, 1408, DS_ROWS,
+     None),
+    ("none nt", "deepseek expert down dx", DS_ROWS, 1408, 2048, F32),
+    ("none tn", "deepseek expert down dW", 1408, 2048, DS_ROWS, None),
+    (EXPERT_GLU_SAVE, "mixtral expert glu fwd", MIX_ROWS, 14336, 4096, None),
+    ("dact.silu>none nt", "mixtral expert gate dx", MIX_ROWS, 4096, 14336,
+     F32),
+    ("dact.silu@b>none tn", "mixtral expert gate dW", 4096, 14336, MIX_ROWS,
+     None),
+    ("none nt", "deepseek wkv_a dx", TOKENS, 2048, 576, F32),
+    ("none tn", "deepseek wkv_a dW", 2048, 576, TOKENS, None),
+    ("none nt", "minicpm3 wkv_a dx", TOKENS, 2560, 288, F32),
+    ("none tn", "minicpm3 wkv_a dW", 2560, 288, TOKENS, None),
+    ("none nt", "mamba2 in_proj dx", TOKENS, 1024, 4384, F32),
+    ("none tn", "mamba2 in_proj dW", 1024, 4384, TOKENS, None),
+    ("none nt", "zamba2 in_proj dx", TOKENS, 3584, 14576, F32),
+    ("none tn", "zamba2 in_proj dW", 3584, 14576, TOKENS, None),
+    (GELU_SAVE, "musicgen w_up fwd", TOKENS, 8192, 2048, None),
+    ("dact.gelu>none nt", "musicgen w_up dx", TOKENS, 2048, 8192, F32),
+    ("dact.gelu@b>none tn", "musicgen w_up dW", 2048, 8192, TOKENS, None)]
+# The train run whose launches each shape's record counts.
+K1F_ARCH_RUN = {"deepseek": "deepseek-v2-lite-16b", "mixtral": "mixtral-8x7b",
+                "minicpm3": "minicpm3-4b", "mamba2": "mamba2-370m",
+                "zamba2": "zamba2-7b", "musicgen": "musicgen-large"}
+ROUTED = ("blocks/moe/w_gate", "blocks/moe/w_up", "blocks/moe/w_down")
+
+
+def train_work(cfg, tokens, batch=GLOBAL_BATCH, seq=SEQ_LEN):
+    """The bound of one train step over ``tokens``: 6 · N_active · T over
+    the bf16 peak, N_active the multiplied parameters a token meets
+    (every matrix but the embedding table and the Mamba2 conv kernel; a
+    routed bank at top_k / n_experts; zamba2's shared block once an
+    application), remat's extra forward 2 · N_layers · T (the layers'
+    part); for MoE also the expert work the capacity loop really does
+    (every expert at its capacity rows, forward, backward and remat's
+    forward) beside the routed tokens' share of it."""
+    apps = M.n_shared_applications(cfg)
+    active = layers = 0.0
+    for name, d in M.model_defs(cfg).items():
+        if len(d.shape) < 2 or name == "embed/table" \
+                or name.endswith("conv_w"):
+            continue
+        n = float(math.prod(d.shape))
+        if name in ROUTED:
+            n *= cfg.moe.top_k / cfg.moe.n_experts
+        if name.startswith("shared/"):
+            n *= apps
+        active += n
+        layers += 0.0 if name.startswith("head/") else n
+    peak = PEAK_OPS[torch.bfloat16]
+    out = {"active_params": active,
+           "bound_ms": 6 * active * tokens / peak * 1e3,
+           "remat_ms": 2 * layers * tokens / peak * 1e3 if cfg.remat
+           else 0.0}
+    if cfg.moe is not None and cfg.moe.n_experts:
+        mo = cfg.moe
+        per_row = 3 * cfg.d_model * mo.d_ff_expert * cfg.n_layers
+        passes = 6 + (2 if cfg.remat else 0)
+        rows = mo.n_experts * batch * MOE.capacity(cfg, seq)
+        out["expert_capacity_ms"] = passes * rows * per_row / peak * 1e3
+        out["expert_routed_ms"] = (passes * tokens * mo.top_k * per_row
+                                   / peak * 1e3)
+    return out
+
+
+def train_arch(name, layers, table):
+    """Full width (``layers`` of the config's layers), fp32 masters from
+    seed 0, AdamW: TRAIN_ARCH_STEPS steps of GLOBAL_BATCH x SEQ_LEN tokens
+    (an embeds frontend's from ``table``) through ``train.step`` with the
+    GEMM plans warmed up, each with a finite loss and grad_norm and
+    exactly ``train_counts_per_step``'s K1 launches by key; routes by
+    key, launches by shape, step ms and tokens/s, peak memory, the bound,
+    and one profiled step."""
+    cfg = get_config(name)
+    full = cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    phase(f"train archs: full-width {name}, {cfg.n_layers} of "
+          f"{full.n_layers} layers, {TRAIN_ARCH_STEPS} steps of "
+          f"{GLOBAL_BATCH} x {SEQ_LEN} tokens, remat={cfg.remat}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = T.init_state(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    print(f"init {n_params} fp32 master params (full config "
+          f"{full.n_params()}) in {time.perf_counter() - t0:.3f} s")
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
+                          global_batch=GLOBAL_BATCH, seed=0)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                total_steps=TRAIN_ARCH_STEPS)
+    t0 = time.perf_counter()
+    step_fn = T.build_train_step(cfg, opt_cfg, warmup_gemm_rows=TOKENS,
+                                 donate=True)
+    warm_s = time.perf_counter() - t0
+    want = train_counts_per_step(cfg)
+    print(f"expected K1 launches per step: {sum(want.values())} {want}; "
+          f"plans warmed up in {warm_s:.3f} s")
+    rows, routes = [], collections.Counter()
+    K.reset_launch_counts()
+    for i in range(TRAIN_ARCH_STEPS):
+        batch = T.cast_batch(batch_for_model(cfg, data_cfg, i, table=table),
+                             cfg)
+        before = dict(K.launch_counts)
+        routes_before = dict(K.route_counts)
+        shapes_before = dict(K.shape_counts)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        row = {"step": i + 1, "loss": float(metrics["loss"]),
+               "aux": float(metrics["aux"]),
+               "grad_norm": float(metrics["grad_norm"])}
+        torch.cuda.synchronize()
+        row["ms"] = (time.perf_counter() - t) * 1e3
+        row["tokens_per_s"] = TOKENS / row["ms"] * 1e3
+        delta = {key: n - before.get(key, 0)
+                 for key, n in K.launch_counts.items()
+                 if n != before.get(key, 0)}
+        step_routes = route_delta(routes_before)
+        routes.update(step_routes)
+        if i == 0:
+            shapes_per_step = {
+                key: n - shapes_before.get(key, 0)
+                for key, n in K.shape_counts.items()
+                if n != shapes_before.get(key, 0)}
+        print(f"train {name} " + json.dumps(row))
+        print(f"train {name} step {i + 1} K1 launches by route "
+              f"{step_routes}")
+        if not all(math.isfinite(row[k]) for k in ("loss", "aux",
+                                                   "grad_norm")):
+            raise AssertionError(f"{name} step {i + 1}: non-finite loss, "
+                                 "aux or grad_norm")
+        if delta != want:
+            raise AssertionError(f"{name} step {i + 1}: K1 launches "
+                                 f"{delta}, expected {want}")
+        rows.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = rows[-1]["ms"]
+    work = train_work(cfg, TOKENS)
+    summary = {"arch": name, "layers": cfg.n_layers,
+               "params": n_params, "steps": rows,
+               "step_ms": step_ms, "tokens_per_s": rows[-1]["tokens_per_s"],
+               "peak_memory_gb": peak / 1e9,
+               "launches_per_step": sum(want.values()),
+               "model_work_share": work["bound_ms"] / step_ms, **work}
+    summary["profile"] = profile_train_step(step_fn, state, cfg, data_cfg,
+                                            TRAIN_ARCH_STEPS, step_ms, table)
+    print(f"train {name} summary " + json.dumps(summary))
+    summary["routes"] = dict(routes)
+    # By (key, m, n, k): the whole run's (its steps and the profiled one)
+    # and the first step's.
+    summary["shape_launches"] = dict(K.shape_counts)
+    summary["shape_launches_per_step"] = shapes_per_step
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return summary
+
+
+def train_archs(names=None):
+    """The train_archs phase: K1f parity at the new training shapes, then
+    each configuration (``names``, default all) trained on the card and
+    its two-layer model held against the CPU, one model on the card at a
+    time; then the new shapes' times."""
+    t0 = time.perf_counter()
+    worst = k1f_parity(
+        [g + (torch.bfloat16,) for g in K1F_ARCH_GEMMS],
+        "the other families' training programs and shapes", seed=10)
+    trained, checks = {}, {}
+    for name in names or TRAIN_ARCHS:
+        cfg = get_config(name)
+        # An embeds frontend's table, of the train steps' data seed 0, is
+        # drawn once: the steps, the profiled step and the cross-check
+        # index it (qwen2-vl's takes tens of seconds to draw).
+        table = None if cfg.frontend == "tokens" else embed_table(
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
+                       global_batch=GLOBAL_BATCH, seed=0), cfg.d_model)
+        trained[name] = train_arch(name, TRAIN_ARCHS[name], table)
+        checks[name] = cross_check_train(cfg, TRAIN_CHECK_LAYERS.get(name, 2),
+                                         table)
+        del table
+    rows = k1f_times(K1F_ARCH_GEMMS, "K1f times at the other families' "
+                     "training shapes")
+    seconds = time.perf_counter() - t0
+    print(f"train archs phase {seconds:.1f} s")
+    return {"worst": worst, "trained": trained,
+            "checks": checks, "rows": rows, "seconds": seconds}
+
+
+def train_arch_records(tarchs):
+    """The kernels line's records of the new K1f shapes, launches from the
+    train run of the family they come from: that key at that (m, n, k)
+    over its steps and the profiled one, and in its first step."""
+    records = []
+    for row in tarchs["rows"]:
+        run = tarchs["trained"].get(K1F_ARCH_RUN[row["gemm"].split()[0]])
+        shape = (row["program"], row["m"], row["n"], row["k"])
+        launches, per_step = ((run["shape_launches"].get(shape, 0),
+                               run["shape_launches_per_step"].get(shape, 0))
+                              if run else (0, 0))
+        if run and not launches:
+            raise AssertionError(f"{row['gemm']}: the {run['arch']} train "
+                                 f"run launched no {shape}")
+        records.append({
+            "name": f"ca_gemm_program[{row['program']}] {row['gemm']}",
+            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "launches": launches, "launches_per_step": per_step,
+            "max_abs_err": tarchs["worst"][row["program"], row["gemm"]],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "matmul_ms": row["matmul_ms"],
+            "k1_route": want_route(torch.bfloat16, row["m"]),
+            "shape": f"{row['gemm']} m={row['m']} n={row['n']} "
+                     f"k={row['k']} bf16, {row['out']} out; launches: "
+                     f"{row['program']} at this m, n, k over the "
+                     f"{run['arch'] if run else '(not run)'} train run"})
+    return records
+
+
+def print_train_archs(tarchs, card_line):
+    for name, out in tarchs["trained"].items():
+        prof = out["profile"]
+        line = (f"e2e train {name} ({out['layers']} layers; {card_line}): "
+                f"step {out['step_ms']:.3f} ms, "
+                f"{out['tokens_per_s']:.1f} tokens/s, bound "
+                f"{out['bound_ms']:.3f} ms (remat adds "
+                f"{out['remat_ms']:.3f}), model-work share "
+                f"{out['model_work_share']:.4f}, busy share "
+                f"{prof['device_busy_share']:.4f}, K1 share of the step "
+                f"{prof['k1_share_of_step']:.4f}, peak "
+                f"{out['peak_memory_gb']:.3f} GB, "
+                f"{out['launches_per_step']} K1 launches a step")
+        if "expert_capacity_ms" in out:
+            line += (f"; the expert loop's capacity work "
+                     f"{out['expert_capacity_ms']:.3f} ms vs the routed "
+                     f"tokens' {out['expert_routed_ms']:.3f}")
+        print(line)
+        print(f"e2e train {name} routes {out['routes']}")
+    for name, chk in tarchs["checks"].items():
+        print(f"e2e train {name} {TRAIN_CHECK_LAYERS.get(name, 2)}-layer "
+              "card vs CPU " + json.dumps(chk))
+    print(f"e2e train archs phase {tarchs['seconds']:.1f} s")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
@@ -3874,6 +4464,17 @@ def main(argv=None):
         print("e2e robust " + json.dumps(res, default=str))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
+    if argv[:2] == ["--only", "train"]:
+        # A partial run for work on the train_archs phase alone (the
+        # configurations named after it, default all): only K1's source,
+        # no kernels line, no result.
+        build((K.SOURCE,))
+        tarchs = train_archs(argv[2:])
+        print_train_archs(tarchs, card_line)
+        for record in train_arch_records(tarchs):
+            print("record " + json.dumps(record))
+        print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
+        return
     if argv[:2] == ["--only", "archs"]:
         # A partial run for work on the architectures phase alone (the
         # architectures named after it, default all): only the two
@@ -3884,11 +4485,13 @@ def main(argv=None):
         return
     if argv:
         raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
-                         f"--only robust], got {argv}")
+                         "--only train [ARCH ...] | --only robust], got "
+                         f"{argv}")
     build()
     worst = parity()
     worst.update(quant_parity())
-    worst.update(k1f_parity())
+    for (key, _), err in k1f_parity().items():
+        worst[key] = max(worst.get(key, 0.0), err)
     faults = fault_phase()
     FA.reset_launch_counts()
     worst_attn, worst_wide = attn_parity()
@@ -3911,6 +4514,7 @@ def main(argv=None):
     robust = robust_phase(cfg)
     train_launches, train = train_slice(cfg)
     train_check = cross_check_train(cfg)
+    tarchs = train_archs()
     rows = times()
     qrows = quant_times(rows)
     attn_rows = attn_times()
@@ -4100,7 +4704,9 @@ def main(argv=None):
           f"{train['launches_per_step']} K1 launches per step")
     print("e2e train step profile " + json.dumps(train["profile"]))
     print("e2e train 4-layer card vs CPU " + json.dumps(train_check))
+    print_train_archs(tarchs, card_line)
     kernels += arch_kernel_records(archs, attn_rows)
+    kernels += train_arch_records(tarchs)
     # Only the robust phase's plans failed, degraded, refused or
     # re-dispatched anything: every later phase added nothing.
     print("guarded counters at the end " + json.dumps(

@@ -507,9 +507,13 @@ def ca_expert_matmul(x: torch.Tensor, w: torch.Tensor, *,
     ``...ecd,edf->...ecf``) as one :func:`ca_matmul` per expert (K1 on the
     card, its plain version on the CPU; each a dispatch of the fault hook),
     stacked on the expert axis; the ledger
-    records the loop once, ``calls`` = E."""
+    records the loop once, ``calls`` = E.  The operands are unbound once,
+    so a backward stacks each bank's and the buffer's gradient in one
+    op, where indexing would add a full-size zero-padded gradient per
+    expert."""
     E = _check_expert_operands(x, w, "ca_expert_matmul")
-    ys = _expert_loop(lambda e: ca_matmul(x[..., e, :, :], w[e],
+    xs, ws = x.unbind(-3), w.unbind(0)
+    ys = _expert_loop(lambda e: ca_matmul(xs[e], ws[e],
                                           out_dtype=out_dtype), E)
     k, n = w.shape[-2:]
     _record_experts(x, E, n, lambda m: _dense_plan(m, n, k, x.dtype,
@@ -529,8 +533,9 @@ def ca_expert_glu_matmul(x: torch.Tensor, w_gate: torch.Tensor,
     if tuple(w_up.shape) != tuple(w_gate.shape):
         raise ValueError(f"w_up {tuple(w_up.shape)} vs w_gate "
                          f"{tuple(w_gate.shape)}")
+    xs, wgs, wus = x.unbind(-3), w_gate.unbind(0), w_up.unbind(0)
     ys = _expert_loop(lambda e: ca_glu_matmul(
-        x[..., e, :, :], w_gate[e], w_up[e], activation=activation,
+        xs[e], wgs[e], wus[e], activation=activation,
         out_dtype=out_dtype), E)
     k, n = w_gate.shape[-2:]
     _record_experts(x, E, n, lambda m: _glu_plan(m, n, k, x.dtype,

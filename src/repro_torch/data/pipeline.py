@@ -59,18 +59,30 @@ class SyntheticLM:
         }
 
 
+def embed_table(data_cfg: DataConfig, d: int) -> np.ndarray:
+    """The stubbed modalities' embedding table of ``data_cfg``'s seed,
+    (vocab, ``d``) fp32.  It is the slow part of a batch at a large
+    vocabulary (152064 x 8192 for qwen2-vl-72b: tens of seconds on the
+    host), so a caller that makes many batches draws it once and passes
+    it to :func:`batch_for_model`."""
+    rng = np.random.RandomState(data_cfg.seed)
+    return rng.randn(data_cfg.vocab_size, d).astype(np.float32) * 0.02
+
+
 def batch_for_model(cfg: ModelConfig, data_cfg: DataConfig, step: int,
-                    embed_dim: Optional[int] = None) -> Dict[str, np.ndarray]:
+                    embed_dim: Optional[int] = None,
+                    table: Optional[np.ndarray] = None
+                    ) -> Dict[str, np.ndarray]:
     """The token stream adapted to the arch's frontend: the stubbed
-    modalities (``embeds``) get hashed embeddings from a table drawn from
-    ``RandomState(seed)``, labels taken mod the vocab; musicgen gets one
-    label stream per codebook, each a seeded permutation of the vocab."""
+    modalities (``embeds``) get hashed embeddings from ``table`` (default
+    :func:`embed_table`, drawn from ``RandomState(seed)``), labels taken
+    mod the vocab; musicgen gets one label stream per codebook, each a
+    seeded permutation of the vocab."""
     src = SyntheticLM(data_cfg).batch_at(step)
     if cfg.frontend == "tokens":
         return src
-    d = embed_dim or cfg.d_model
-    rng = np.random.RandomState(data_cfg.seed)
-    table = rng.randn(data_cfg.vocab_size, d).astype(np.float32) * 0.02
+    if table is None:
+        table = embed_table(data_cfg, embed_dim or cfg.d_model)
     out = {"embeds": table[src["tokens"]], "mask": src["mask"]}
     if cfg.n_codebooks > 1:
         rngs = [np.random.RandomState(data_cfg.seed + i + 1)

@@ -79,7 +79,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -138,6 +138,8 @@ launch_counts: Dict[str, int] = {}
 # The same launches by route and launch key: "wgmma none nt",
 # "decode res", "simt dqb", "wgmma k_outer", "minplus none min_plus", ...
 route_counts: Dict[str, int] = {}
+# The K1 program launches by (launch key, m, n, k): the shape of each.
+shape_counts: Dict[Tuple[str, int, int, int], int] = {}
 # The route codes of the C entry point.
 _ROUTE_CODES = {"simt": 0, "wgmma": 1, "decode": 2}
 
@@ -157,6 +159,7 @@ _DACT_CODES = {"none": 0, "a": 1, "b": 2}
 def reset_launch_counts() -> None:
     launch_counts.clear()
     route_counts.clear()
+    shape_counts.clear()
 
 
 def _count(key: str, route: str) -> None:
@@ -804,7 +807,9 @@ def _launch(a, bs, spec: GemmProgramSpec, out_dtype, row_scale, gain,
     if err != 0:
         raise RuntimeError(f"ca_gemm_program kernel launch failed ({route} "
                            f"route): CUDA error {err}")
-    _count(launch_key(spec.tag(), layout, save_preact), route)
+    key = launch_key(spec.tag(), layout, save_preact)
+    _count(key, route)
+    shape_counts[key, m, n, k] = shape_counts.get((key, m, n, k), 0) + 1
     return result
 
 
@@ -872,7 +877,8 @@ def ca_gemm_program(
     m > 8 and, serving programs, the decode route at m <= 8, as do the
     aligned ``dqb`` (bf16 A) and ``dqab`` programs; the rest the SIMT
     tile, min_plus its own kernel (:func:`k1_route`).  All count in
-    ``launch_counts`` and, by route, in ``route_counts``.
+    ``launch_counts`` and, by route, in ``route_counts``; the
+    plus-times programs also by shape, in ``shape_counts``.
 
     A ``dqb`` program takes float A and int8 B; ``dqab`` int8 A and B.
     ``scale_b`` is per channel ((n,)) or, with ``scale_b_block=g``, per

@@ -1,12 +1,18 @@
 """Training launcher (port of ``repro/launch/train.py``): data pipeline,
-train step, checkpoints and a heartbeat for one architecture, on the card
-by default.
+train step, checkpoints and a heartbeat for any architecture of
+``configs.list_archs()`` (the token families, and the vlm and audio
+families over the pipeline's precomputed ``embeds`` and codebook
+labels), on the card by default.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch ARCH \
       --steps 3 --full [--microbatches 4] [--ckpt-dir DIR --ckpt-every N \
       [--resume]]
 
-Without ``--full`` it trains the reduced config.  Each step runs under a
+``ARCH`` is any of ``configs.list_archs()`` (stablelm-1.6b,
+deepseek-v2-lite-16b, mamba2-370m, zamba2-7b, qwen2-vl-72b,
+musicgen-large, ...).  Without ``--full`` it trains the reduced config;
+with it the published one, whose fp32 masters and AdamW moments
+(~16 bytes a parameter) must fit the card.  Each step runs under a
 ``train.step`` trace span and feeds the metrics registry as the
 reference's launcher does: ``train.step_seconds`` (histogram; the step
 ends in the loss's read to the host), ``train.steps_total``,
@@ -30,8 +36,9 @@ import time
 from typing import Optional
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs import get_config, get_reduced
-from repro_torch.data.pipeline import DataConfig, batch_for_model
+from repro_torch.configs import get_config, get_reduced, list_archs
+from repro_torch.data.pipeline import (DataConfig, batch_for_model,
+                                      embed_table)
 from repro_torch.models.model import resolve_device
 from repro_torch.obs import (disable_tracing, enable_tracing, get_metrics,
                              span)
@@ -66,15 +73,18 @@ def run_training(
     cfg = get_config(arch) if full else get_reduced(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    T.check_trainable(cfg)
     device = resolve_device(device)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                           global_batch=global_batch, seed=seed)
+    # An embeds frontend's table is drawn once for every step's batch.
+    table = (None if cfg.frontend == "tokens"
+             else embed_table(data_cfg, cfg.d_model))
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 1),
                                 total_steps=steps)
+    # The loop replaces the state every step, so the step consumes it.
     step_fn = T.build_train_step(
         cfg, opt_cfg, microbatches=microbatches,
-        warmup_gemm_rows=global_batch * seq_len // microbatches)
+        warmup_gemm_rows=global_batch * seq_len // microbatches, donate=True)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     mon = HeartbeatMonitor(n_hosts=1)
     state = T.init_state(cfg, seed, device)
@@ -94,8 +104,8 @@ def run_training(
     try:
         for i in range(start, steps):
             t_step = time.perf_counter()
-            batch = T.cast_batch(batch_for_model(cfg, data_cfg, i), cfg,
-                                 device)
+            batch = T.cast_batch(batch_for_model(cfg, data_cfg, i,
+                                                 table=table), cfg, device)
             with span("train.step", step=i, arch=arch):
                 state, metrics = step_fn(state, batch)
                 losses.append(float(metrics["loss"]))
@@ -131,7 +141,7 @@ def run_training(
 
 def main(argv: Optional[list] = None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--full", action="store_true",
                     help="the published config (needs the card)")

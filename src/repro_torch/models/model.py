@@ -27,7 +27,10 @@ same dtypes once per step (``train.step``).
 In ``mode="train"`` with ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
 reference's ``jax.checkpoint``: only the layer's input is kept, and the
-backward recomputes the layer's forward.
+backward recomputes the layer's forward.  The hybrid nests it as the
+reference does: a checkpoint over each segment (its Mamba2 layers and the
+shared block after a full group) around the per-layer ones and the
+shared block's own.
 """
 
 from __future__ import annotations
@@ -353,6 +356,9 @@ def _ssm_stack(params, x, cfg: ModelConfig, *, positions, cache, step,
     emb0 = x
     e = cfg.shared_attn_every
     shared_p = cm.subtree(params, "shared") if e else None
+    if mode == "train":
+        return _ssm_train_stack(params, x, emb0, shared_p, cfg, positions), \
+            None
     layers = cache["layers"] if cache is not None else None
     new_layers, new_shared = [], []
     for i, p_i in enumerate(_layer_params(cm.subtree(params, "blocks"),
@@ -383,6 +389,41 @@ def _ssm_stack(params, x, cfg: ModelConfig, *, positions, cache, step,
         new_cache["shared"] = _restack(new_shared) if new_shared else \
             _stack(_shared_kv_cache(cfg, B, C, x.dtype, x.device), 0)
     return x, new_cache
+
+
+def _ssm_train_stack(params, x, emb0, shared_p, cfg: ModelConfig,
+                     positions):
+    """The Mamba2 layers (and the hybrid's shared block) in train mode.
+    With ``cfg.remat`` each Mamba2 layer runs under a checkpoint, and the
+    hybrid remats nested, as the reference does: an outer checkpoint over
+    each segment (its ``e`` layers and, after a full group, the shared
+    block), the shared block checkpointed on its own inside it, so only
+    the segment boundaries stay live through the forward."""
+    e = cfg.shared_attn_every
+    remat = cfg.remat and torch.is_grad_enabled()
+    ckpt = (lambda fn, *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)) if remat else (lambda fn, *a: fn(*a))
+    layer_ps = _layer_params(cm.subtree(params, "blocks"), cfg.n_layers)
+
+    def mamba(p_i, h):
+        return blk.mamba_block_apply(p_i, h, cfg, mode="train")[0]
+
+    def shared(h):
+        return blk.shared_block_apply(shared_p, h, emb0, cfg,
+                                      positions=positions, mode="train")[0]
+
+    def segment(h, lo, hi):
+        for p_i in layer_ps[lo:hi]:
+            h = ckpt(mamba, p_i, h)
+        if e and hi - lo == e:
+            h = ckpt(shared, h)
+        return h
+
+    seg = e or cfg.n_layers
+    for lo in range(0, cfg.n_layers, seg):
+        hi = min(lo + seg, cfg.n_layers)
+        x = ckpt(segment, x, lo, hi) if e else segment(x, lo, hi)
+    return x
 
 
 def _layer_params(blocks, n_layers: int):

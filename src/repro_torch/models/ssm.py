@@ -96,10 +96,14 @@ def _ssd_scan(xdt, da, b_h, c_h, chunk: int, s0=None):
     for lo in range(0, L0 + pad, chunk):
         xd, da_, bb, cc = (t[:, lo:lo + chunk] for t in (xdt, da, b_h, c_h))
         cs = torch.cumsum(da_, dim=1)                 # (B, Q, H)
-        # intra-chunk: y_t += sum_{s<=t} C_t·B_s exp(cs_t - cs_s) x_s; the
-        # exp overflows above the diagonal, and the where discards it.
+        # intra-chunk: y_t += sum_{s<=t} C_t·B_s exp(cs_t - cs_s) x_s.
+        # Above the diagonal ldec is a positive sum of decays whose exp
+        # overflows; it is masked to -inf *before* the exp (exp(-inf) = 0,
+        # the same forward bit for bit), so the backward never forms
+        # 0 · inf.  The reference masks after the exp, and its d(da) is NaN
+        # once a chunk's decays pass ~88.
         ldec = cs[:, :, None, :] - cs[:, None, :, :]  # (B, Q, K, H)
-        lmat = torch.where(mask, torch.exp(ldec), 0.0)
+        lmat = torch.exp(torch.where(mask, ldec, float("-inf")))
         scores = torch.einsum("bqhn,bkhn->bqkh", cc, bb)
         y = torch.einsum("bqkh,bkhp->bqhp", scores * lmat, xd)
         # inter-chunk: y_t += C_t · s_in · exp(cs_t)

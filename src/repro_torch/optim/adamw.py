@@ -8,7 +8,11 @@ the fp32 moments updated and bias-corrected, decoupled weight decay added
 for matrices (ndim ≥ 2) only, and the step scaled by the warmup-then-cosine
 rate of :func:`lr_at`.  :func:`update` is functional, like the
 reference's: it returns new parameters and state and leaves its inputs as
-they are.
+they are; with ``donate=True`` it writes the same values into the
+inputs' own tensors instead (the counterpart of the reference's donated
+train state, ``donate_argnums=(0,)`` in its dry run), so a step holds one
+copy of the masters and moments, not two.  Either way it runs one leaf
+at a time: the clipped fp32 gradient of one leaf lives at once.
 
 The compressed gradient all-reduce (``allreduce_compressed``, with
 ``compress_grads``/``decompress_grads``) needs ``torch.distributed`` and
@@ -63,15 +67,6 @@ def global_norm(tree: Params) -> torch.Tensor:
                           for k in sorted(tree)))
 
 
-def clip_by_global_norm(tree: Params, max_norm: float):
-    """The leaves scaled so that their global norm is at most
-    ``max_norm``, in fp32 (as the reference's bf16 × fp32 promotes), and
-    the norm before clipping."""
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {k: g.float() * scale for k, g in tree.items()}, norm
-
-
 def init(params: Params) -> AdamWState:
     device = next(iter(params.values())).device
     zeros = {k: torch.zeros_like(p, dtype=torch.float32)
@@ -83,12 +78,24 @@ def init(params: Params) -> AdamWState:
 
 @torch.no_grad()
 def update(grads: Params, state: AdamWState, params: Params,
-           cfg: AdamWConfig):
+           cfg: AdamWConfig, *, donate: bool = False):
     """Returns (new_params, new_state, metrics); parameters keep their
-    dtype, moments are fp32."""
+    dtype, moments are fp32.  ``donate`` writes them into ``params`` and
+    ``state``'s tensors, which the call consumes, and returns those; the
+    values are the same bit for bit.  The functional form is for a caller
+    that steps one state more than once or keeps it after the step (the
+    tests holding a step against the reference, microbatches or remat
+    from one state; the checkpoint round trips); a loop that replaces its
+    state every step (``launch.train.run_training``) donates it."""
     gnorm = torch.zeros((), dtype=torch.float32, device=state.count.device)
+    scale = None
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        # The reference's clip by global norm, its scale applied leaf by
+        # leaf below (g.float() · scale, in fp32 as its bf16 × fp32
+        # promotes).
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
     count = state.count + 1
     lr = lr_at(cfg, state.count)
     b1c = 1 - cfg.b1 ** count.float()
@@ -96,12 +103,20 @@ def update(grads: Params, state: AdamWState, params: Params,
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
         g = grads[k].float()
+        if scale is not None:
+            g = g * scale
         m = cfg.b1 * state.m[k] + (1 - cfg.b1) * g
         v = cfg.b2 * state.v[k] + (1 - cfg.b2) * g * g
+        del g
         step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         if p.dim() >= 2:       # no decay on norms and other vectors
             step = step + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr * step).to(p.dtype)
-        new_m[k], new_v[k] = m, v
+        new = (p.float() - lr * step).to(p.dtype)
+        del step
+        if donate:
+            for dst, src in ((p, new), (state.m[k], m), (state.v[k], v)):
+                dst.copy_(src)
+            new, m, v = p, state.m[k], state.v[k]
+        new_p[k], new_m[k], new_v[k] = new, m, v
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, AdamWState(count, new_m, new_v), metrics

@@ -1,14 +1,23 @@
 """Train step builder (port of ``repro/train/step.py``): loss, microbatch
-gradient accumulation, mixed precision and remat.
+gradient accumulation, mixed precision and remat, for every family: the
+dense and MoE transformers (GQA or MLA), the Mamba2 stack, zamba2's
+hybrid, and the vlm and audio models over precomputed ``embeds``.  The
+loss is the LM loss plus the MoE load-balancing aux loss, as in the
+reference.
 
 The fp32 master parameters are cast to the compute dtype **once per
 step** (matrices only; norm gains and other vectors stay fp32), gradients
 are taken with respect to that cast copy, and AdamW updates the masters.
-Every dense GEMM of the forward and of the backward runs on the CA-GEMM
-kernel (``kernels.ops``' trainable programs); remat follows ``cfg.remat``
-(``models.model.forward``).  Microbatches run as a Python loop over a
-strided split of the batch, their gradients summed in fp32 and divided by
-the count.
+Every projection GEMM of the forward and of the backward (each GEMM the
+reference routes through ``ca_matmul``, the per-expert loops included)
+runs on the CA-GEMM kernel (``kernels.ops``' trainable programs); the
+contractions the reference writes as einsums (attention, the SSD scan,
+the router, MLA's ``wkv_b`` expansion, the codebook heads) stay plain
+torch, as in the reference.  Remat follows ``cfg.remat``
+(``models.model.forward``; the hybrid nests it per segment).
+Microbatches run as a Python loop over a strided split of the batch,
+their gradients summed in fp32 and divided by the count, the loss and
+aux averaged the same way.
 
 ``warmup_gemm_rows`` resolves the model's forward and backward GEMM
 tiles through the kernel-config registry when the step is built, as the
@@ -47,11 +56,12 @@ def init_state(cfg: ModelConfig, seed: int = 0, device=None) -> TrainState:
 
 
 def loss_fn(params, batch: Batch, cfg: ModelConfig):
-    """(loss + aux, {"loss", "aux"}); the dense family has no auxiliary
-    loss, so aux is 0."""
-    logits, _ = M.forward(params, batch, cfg, mode="train")
+    """(loss + aux, {"loss", "aux"}): the LM loss (over every codebook for
+    the audio family) and the MoE load-balancing loss summed over layers,
+    which is 0 for every other family."""
+    logits, _, aux = M.forward(params, batch, cfg, mode="train",
+                               return_aux=True)
     loss = M.lm_loss(logits, batch["labels"], cfg, batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"loss": loss, "aux": aux}
 
 
@@ -74,19 +84,6 @@ def _split_mb(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
     return x.reshape(x.shape[0] // n, n, *x.shape[1:])[:, i]
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training is ported for the dense GQA family.  The MoE and MLA archs
-    (the aux loss in the loss, their backward), the ssm and hybrid
-    families (the SSD scan's backward) and the vlm and audio families (the
-    ``embeds`` batches, the codebook loss in the step) serve only."""
-    if (cfg.moe is not None and cfg.moe.n_experts) or cfg.attn_kind == "mla" \
-            or cfg.family in ("ssm", "hybrid", "vlm", "audio"):
-        raise ValueError(f"{cfg.name}: training the {cfg.family} family"
-                         f"{' with MLA' if cfg.attn_kind == 'mla' else ''} "
-                         "is not ported yet, only its serve path (ROADMAP "
-                         "queue 1: training the other families)")
-
-
 def build_train_step(
     cfg: ModelConfig,
     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
@@ -94,15 +91,23 @@ def build_train_step(
     reshard_params: Optional[Callable] = None,
     reshard_grads: Optional[Callable] = None,
     warmup_gemm_rows: Optional[int] = None,
+    donate: bool = False,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, batch) -> (state, metrics).
+
+    ``donate`` consumes the state passed in: AdamW writes the new
+    parameters and moments into its tensors (``adamw.update(...,
+    donate=True)``, the same values), so a step holds one copy of them,
+    where the functional step holds the old state beside the new one
+    until the caller drops it.  Keep the functional default where the
+    state passed in is used again after the step (``adamw.update`` says
+    which callers do).
 
     ``warmup_gemm_rows`` (tokens per microbatch, B*L/microbatches)
     pre-resolves the hot-path GEMM tiles, the backward layouts included,
     through the kernel-config registry.  The batch's leading dim must
     divide by ``microbatches``; metrics are 0-dim tensors (``loss``,
     ``aux``, ``grad_norm``, ``lr``)."""
-    check_trainable(cfg)
     if reshard_params is not None or reshard_grads is not None:
         raise ValueError("reshard_params/reshard_grads are not ported yet: "
                          "they wait for core/distributed.py")
@@ -142,7 +147,7 @@ def build_train_step(
             metrics = {k: v / microbatches for k, v in metrics.items()}
         del params_c
         new_params, new_opt, opt_metrics = adamw.update(
-            grads, state.opt, state.params, opt_cfg)
+            grads, state.opt, state.params, opt_cfg, donate=donate)
         return (TrainState(state.step + 1, new_params, new_opt),
                 dict(metrics, **opt_metrics))
 

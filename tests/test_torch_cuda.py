@@ -1369,3 +1369,105 @@ def test_cuda_injected_failure_relaunches_the_kernel(fatal):
         "gemm.fallback_total", {}).get("value", 0)
     assert fallbacks == (0 if fatal else 1)
     assert sum(K.launch_counts.values()) == (2 if fatal else 3)
+
+
+# ---------------------------------------------------------------------------
+# Training the MoE and Mamba2 families on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_expert_backward_matches_plain_version(dtype):
+    """The expert loop's backward on the card (each expert's GLU with
+    save_preact and its four K1f programs, its down projection and two)
+    against the plain versions on the CPU, on a (B, E, C, d) capacity
+    buffer: fp32 within 1e-4 · (1 + max|cpu|), bf16 within a relative L2
+    error of 2e-2 (a bf16 output may flip an ulp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.core.gemm import ca_expert_glu_matmul, ca_expert_matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, E, C, d, f = 2, 3, 24, 64, 88
+    r = np.random.RandomState(17)
+    data = {"x": r.randn(B, E, C, d), "wg": r.randn(E, d, f) / 8,
+            "wu": r.randn(E, d, f) / 8, "wd": r.randn(E, f, d) / 9,
+            "cot": r.randn(B, E, C, d)}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.as_tensor(v).to(device=dev, dtype=dtype)
+             .requires_grad_(k != "cot") for k, v in data.items()}
+        K.reset_launch_counts()
+        h = ca_expert_glu_matmul(t["x"], t["wg"], t["wu"], out_dtype=dtype)
+        y = ca_expert_matmul(h, t["wd"], out_dtype=dtype)
+        (y.float() * t["cot"].float()).sum().backward()
+        out[dev] = {k: v.grad.float().cpu() for k, v in t.items()
+                    if v.grad is not None}
+        out[dev]["y"] = y.detach().float().cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert K.launch_counts == {
+                "glu.silu(none|none) save_preact": E, "none": E,
+                "dact.silu>none nt": E, "none nt": 2 * E,
+                "dact.silu@b>none tn": E, "none tn": 2 * E}
+    for name, g in out["cpu"].items():
+        got = out["cuda"][name]
+        if dtype == torch.float32:
+            err = (got - g).abs().max().item()
+            assert err <= 1e-4 * (1 + g.abs().max().item()), (name, err)
+        else:
+            rel = ((got - g).norm() / g.norm()).item()
+            assert rel <= 2e-2, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-370m"])
+def test_cuda_reduced_train_step_matches_cpu(arch):
+    """One bf16 train step's loss, aux and every gradient leaf of a
+    reduced MoE + MLA arch and of the Mamba2 stack (d_model 256, remat on)
+    on the card against the plain path on the CPU from the same fp32
+    masters and batch: loss within 1e-2 relative, each leaf within a
+    relative L2 error of 5e-2 (chip_smoke.py's TOL_LOSS and TOL_GRAD:
+    bf16 rounding through two layers and the backward), and the card's
+    K1 launches exactly ``chip_smoke.train_counts_per_step``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import dataclasses
+    import importlib.util
+    import pathlib
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.models import model as M
+    from repro_torch.train import step as T
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(get_reduced(arch, compute_dtype="bfloat16"),
+                              d_model=256)
+    masters = M.init_params(cfg, seed=3, device="cpu", masters=True)
+    batch = batch_for_model(cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=2, seed=3), 0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = T.cast_params({k: v.to(dev) for k, v in masters.items()},
+                               cfg)
+        K.reset_launch_counts()
+        total, metrics = T.loss_fn(params, T.cast_batch(batch, cfg, dev),
+                                   cfg)
+        keys = sorted(params)
+        grads = torch.autograd.grad(total, [params[k] for k in keys])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert K.launch_counts == smoke.train_counts_per_step(cfg)
+        out[dev] = ({k: v.item() for k, v in metrics.items()},
+                    {k: g.float().cpu() for k, g in zip(keys, grads)})
+    (mg, gg), (mc, gc) = out["cuda"], out["cpu"]
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-2 * abs(mc["loss"])
+    assert abs(mg["aux"] - mc["aux"]) <= 1e-2 * abs(mc["aux"]) + 1e-6
+    for k, g in gc.items():
+        assert bool(torch.isfinite(gg[k]).all()), k
+        rel = ((gg[k] - g).norm() / g.norm()).item()
+        assert rel <= 5e-2, (k, rel)

@@ -298,12 +298,20 @@ def test_batch_for_model_bit_equal_to_reference(arch):
     assert ("embeds" in got) == (cfg.frontend == "embeds")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_check_trainable_raises(arch):
-    from repro_torch.launch.train import run_training
-    from repro_torch.train import step as T
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-72b"])
+def test_batch_for_model_with_a_drawn_table_is_bit_equal(arch):
+    """A table drawn once with ``embed_table`` and passed to every batch
+    (as ``run_training`` does) gives the batches of the default draw."""
+    from repro_torch.data.pipeline import (DataConfig, batch_for_model,
+                                           embed_table)
 
-    with pytest.raises(ValueError, match="only its serve path"):
-        T.check_trainable(get_reduced(arch))
-    with pytest.raises(ValueError, match="only its serve path"):
-        run_training(arch, 1, device="cpu")
+    cfg = get_reduced(arch)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=12,
+                          global_batch=3, seed=4)
+    table = embed_table(data_cfg, cfg.d_model)
+    for step in (0, 5):
+        want = batch_for_model(cfg, data_cfg, step)
+        got = batch_for_model(cfg, data_cfg, step, table=table)
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])

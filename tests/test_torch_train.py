@@ -274,13 +274,3 @@ def test_every_training_launch_takes_the_wgmma_route(monkeypatch):
     assert set(routes) == {"none", "res", glu, "none nt", "none tn",
                            "dact.silu>none nt", "dact.silu@b>none tn"}
     assert all(r == {"wgmma"} for r in routes.values()), routes
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b",
-                                  "mixtral-8x7b"])
-def test_moe_and_mla_training_raise(arch):
-    """Only the serve path of the MoE and MLA archs is ported."""
-    with pytest.raises(ValueError, match="only its serve path"):
-        T.build_train_step(get_reduced(arch))
-    with pytest.raises(ValueError, match="only its serve path"):
-        run_training(arch, 1, device="cpu")
