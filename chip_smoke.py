@@ -238,6 +238,38 @@ Phases (any failure raises and the script exits non-zero):
    ``python3 chip_smoke.py --only train [ARCH ...]`` runs the card and
    K1's build and this phase alone (no kernels line, no result).
 
+18. dist (run last): eight ranks (``launch.mesh.spawn_ranks``), under
+   NCCL one a card where the host has eight cards, else all on the one
+   card over gloo (the ring's and the gather's buffers through pinned
+   host copies, every local GEMM on the card); the backend and card
+   count are printed.  Each rank: ``core.distributed.dist_matmul`` at a
+   full-width stablelm-1.6b w_up shape (k 2048, n 5632, bf16) at m = 8
+   and 1000 on the (data 2, model 4) and (pod 2, data 2, model 2)
+   meshes, every schedule and auto, against the single-card K1 product
+   of the same operands (1e-3 of max|want| plus 1e-2 of each element),
+   exactly tp K1 launches a ring dispatch and 1 an allgather, the bytes
+   its transfers moved (``distributed.wire_bytes``) equal to its plan
+   plus the pod traffic the plan leaves out, one wall a schedule; K1
+   at each ring-step local shape against its plain version (one rank at
+   a time), timed beside torch.matmul and the bound by each rank with a
+   card of its own, by rank 0 alone where the ranks share one; the
+   tensor-parallel decode block (``serve.tp``) at stablelm-1.6b's full
+   width, bf16 weights from seed 0, B = 8 on the 2-D mesh, 16 steps with
+   the KV history, on ring, allgather and int8w (bf16 activations) and
+   w8a8-ride (fp32 and bf16 activations, its act scales calibrated per
+   projection on the oracle's int8w run), each step against
+   ``tp_decode_reference`` on the card, exactly 7·tp K1 launches a ring
+   step, 7 an allgather step, none for int8 partials; w8a8-ride's block
+   also allowed what one ulp of input moves the oracle itself (the
+   witness: codes flipped, output moved, printed), its three
+   projections held without it on the oracle's own inputs; the ledger's 7
+   dist records' planned bytes equal to ``estimate_cost``'s and their
+   sum to the bytes the rings sent; one step under
+   ``FaultPlan(kernel_fail_at=...)`` re-dispatched bit-equal.  Any
+   rank's failure fails the script.  ``python3 chip_smoke.py --only
+   dist`` runs the card and K1's build and this phase alone (no kernels
+   line, no result).
+
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -4452,6 +4484,548 @@ def print_train_archs(tarchs, card_line):
     print(f"e2e train archs phase {tarchs['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# dist: the distributed serve path (dist_matmul and the TP decode block)
+# ---------------------------------------------------------------------------
+
+# Eight ranks: one a card under NCCL where the host has as many cards,
+# else all on the one card over gloo (NCCL refuses two ranks on a card),
+# the ring's and the gather's buffers through pinned host copies.
+DIST_WORLD = 8
+# dist_matmul at a full-width stablelm-1.6b w_up shape, bf16: decode-sized
+# and prefill-sized m, on the 2-D (data 2, model 4) and 3-D (pod 2, data
+# 2, model 2) meshes.
+DIST_M, DIST_K, DIST_N = (8, 1000), 2048, 5632
+DIST_MESHES = (("2d", (2, 4), ("data", "model"), None),
+               ("3d", (2, 2, 2), ("pod", "data", "model"), "pod"))
+# A distributed product against the single-card K1 product of the same
+# bf16 operands: fp32 partials summed in another order and rounded once
+# to bf16, so 1e-3 of max|want| plus 1e-2 of each element.
+DIST_ATOL, DIST_RTOL = 1e-3, 1e-2
+# The TP decode block at stablelm-1.6b's full width, B = 8 (4 rows a
+# rank, K1's decode route), 16 steps with the KV history appended.
+TP_DIMS = dict(d_model=2048, n_heads=32, d_ff=5632)
+TP_BATCH, TP_STEPS = 8, 16
+# Against tp_decode_reference on the card: _tp_check's limits (1e-3 dense,
+# 5e-3 int8w / w8a8), scaled to max|y_ref|.  In bf16 each projection's
+# output and each residual add round to bf16, and an fp32 sum in another
+# order (or the oracle's weights dequantized to bf16, where the ring's
+# int8 partials take them in fp32) may round an ulp apart at each, which
+# the attention and the residual carry on, so four bf16 ulps at the max
+# (2^-6 of it) are added.  w8a8-ride runs with fp32 and with bf16
+# activations, its per-tensor act scales calibrated per projection on the
+# oracle's int8w run.  An activation a hair from a code boundary flips its
+# int8 code on either side of an ulp of difference upstream, so its block
+# is also allowed what one ulp of input moves the oracle itself (the
+# witness, measured in the same run and printed), and each of its three
+# projections is held without that allowance on the oracle's own inputs,
+# where both sides take the same codes.
+TP_LIMIT = {"ring": 1e-3, "allgather": 1e-3, "int8w": 5e-3,
+            "w8a8-ride fp32": 5e-3, "w8a8-ride": 5e-3}
+TP_ULPS = {"ring": 2.0 ** -6, "allgather": 2.0 ** -6, "int8w": 2.0 ** -6,
+           "w8a8-ride fp32": 0.0, "w8a8-ride": 2.0 ** -6}
+# The w8a8 projections, by their place among a step's 7 (q, k, v, o,
+# gate, up, down).
+TP_W8A8 = {"mlp/w_gate": 4, "mlp/w_up": 5, "mlp/w_down": 6}
+# The fault step: the injected failure hits the 10th dispatch (wv's
+# second ring step); its re-dispatch must be bit-equal.
+TP_FAULT_AT = 9
+# The ring-step local shapes of the phase, timed on each rank in turn:
+# (m/dp, n/tp, k/tp) of the TP block's projections and of dist_matmul at
+# m = 1000 on the 2-D mesh.
+RING_SHAPES = (("tp q/k/v/o", 4, 512, 512), ("tp gate/up", 4, 1408, 512),
+               ("tp down", 4, 512, 1408), ("dist m=1000", 500, 1408, 512))
+DIST_WALL_REPS = 3
+
+
+def _dist_inputs(m, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(m, DIST_K, generator=gen).to(dev, torch.bfloat16)
+    b = (torch.randn(DIST_K, DIST_N, generator=gen)
+         / math.sqrt(DIST_K)).to(dev, torch.bfloat16)
+    return a, b
+
+
+def _k1_total():
+    return sum(K.launch_counts.values())
+
+
+def _pod_extra(schedule, pods, mloc, nloc, k, itemsize):
+    """Wire bytes a dispatch moves over the pod axis past its plan: the
+    cost model (the reference's) charges the pod axis only to summa25d,
+    while allgather also gathers the A panel over pod and ring and
+    ring_unpipelined also all-reduce the fp32 C block over pod."""
+    if pods == 1 or schedule == "summa25d":
+        return 0.0
+    if schedule == "allgather":
+        return float((pods - 1) * mloc * (k // pods) * itemsize)
+    return 2.0 * (pods - 1) / pods * mloc * nloc * 4
+
+
+def _dist_matmul_checks(dev, meshes, tp_of):
+    """Every schedule and auto on both meshes at both m, against the
+    single-card K1 product; each dispatch's K1 launches and the bytes
+    its transfers moved against its plan; one wall a schedule (all ranks
+    in step, between barriers; auto's is the schedule it ran)."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as D
+
+    rows = []
+    for m in DIST_M:
+        a, b = _dist_inputs(m, dev, 11 + m)
+        want = OPS.fused_matmul(a, b, out_dtype=torch.float32)
+        wmax = float(want.abs().max())
+        for mname, (mesh, pod) in meshes.items():
+            kspec = (pod, "model") if pod else "model"
+            a_dt = _as_dtensor(a, mesh, ("data", kspec))
+            b_dt = _as_dtensor(b, mesh, (None, "model"))
+            for s in [s for s in D.SCHEDULES if s != "summa25d" or pod] + [
+                    "auto"]:
+                led = obs.GemmLedger(enabled=True)
+                obs.set_ledger(led)
+                before = _k1_total()
+                before_w = dict(D.wire_bytes)
+                got = D.dist_matmul(a_dt, b_dt, mesh, schedule=s,
+                                    pod_axis=pod)
+                launches = _k1_total() - before
+                pods = 2 if pod else 1
+                sent = D.wire_traffic(before_w, pods)
+                rec = led.records[-1]
+                ran = rec.schedule
+                want_sent = rec.planned_bytes + _pod_extra(
+                    ran, pods, rec.config["mloc"], rec.config["nloc"],
+                    rec.k, 2)
+                obs.reset_ledger()
+                full = D.full_output(got, mesh).float()
+                err = (full - want).abs()
+                ok = bool((err <= DIST_ATOL * wmax
+                           + DIST_RTOL * want.abs()).all())
+                want_launches = tp_of[mname] if ran != "allgather" else 1
+                wall = None
+                if s != "auto":
+                    tdist.barrier()
+                    t0 = time.perf_counter()
+                    for _ in range(DIST_WALL_REPS):
+                        D.dist_matmul(a_dt, b_dt, mesh, schedule=ran,
+                                      pod_axis=pod)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) / DIST_WALL_REPS * 1e3
+                rows.append({"m": m, "mesh": mname, "schedule": s,
+                             "ran": ran, "max_abs_err": float(err.max()),
+                             "max_want": wmax, "ok": ok,
+                             "launches": launches,
+                             "want_launches": want_launches,
+                             "sent_bytes": sent, "want_sent": want_sent,
+                             "planned_bytes": rec.planned_bytes,
+                             "wall_ms": wall})
+    return rows
+
+
+def _as_dtensor(full, mesh, spec):
+    """The global value ``full`` (the same on every rank) as a DTensor
+    placed by ``spec``: each rank keeps its chunk, no collective."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.core.distributed import placements_for
+
+    return DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(
+        mesh, placements_for(spec, mesh))
+
+
+def _ring_shape_times(dev, timed):
+    """K1 at each ring-step local shape against its plain version, and
+    when ``timed`` its time, the plain version's, torch.matmul's (bf16
+    out) and the bound."""
+    from repro_torch.core.gemm import dist_local_matmul
+    from repro_torch.tuning import get_registry
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for name, m, n, k in RING_SHAPES:
+        copies = max(2, math.ceil(120e6 / (k * n * 2))) if timed else 1
+        a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        bs = [(torch.randn(k, n, generator=gen, device=dev)
+               / math.sqrt(k)).to(torch.bfloat16) for _ in range(copies)]
+        tile = get_registry().resolve_full(m, n, k, dtype=torch.bfloat16,
+                                           epilogue="none").config
+        got = dist_local_matmul(a, bs[0], tile=tile)
+        ref = K.ca_gemm_program_reference(a, (bs[0],),
+                                          out_dtype=torch.float32)
+        err = float((got - ref).abs().max())
+        ms = plain = lib = None
+        if timed:
+            ms = _time_ms(lambda i: dist_local_matmul(a, bs[i], tile=tile),
+                          copies)
+            plain = _time_ms(lambda i: K.ca_gemm_program_reference(
+                a, (bs[i],), out_dtype=torch.float32), copies)
+            lib = _time_ms(lambda i: torch.matmul(a, bs[i]), copies)
+        b_ms, b_by = bound("none", m, k, n, torch.float32, torch.bfloat16)
+        rows.append({"shape": name, "m": m, "n": n, "k": k,
+                     "k1_route": K.tile_route((tile.bm, tile.bn, tile.bk)),
+                     "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "max_abs_err": err,
+                     "tol": TOL_F32 * (1 + float(ref.abs().max()))})
+        del a, bs
+    return rows
+
+
+def _taps():
+    """An activation calibration that also keeps every input it records,
+    in order (7 a TP decode step: q, k, v, o, gate, up, down)."""
+    from repro_torch.quant.calibrate import ActivationCalibration, QuantConfig
+
+    class Taps(ActivationCalibration):
+        def __init__(self):
+            super().__init__(QuantConfig(act_fmt="int8"))
+            self.inputs = []
+
+        def record(self, weight_shape, x):
+            super().record(weight_shape, x)
+            self.inputs.append(x)
+
+    return Taps()
+
+
+def _tp_oracle_run(p, xs, cfg, taps):
+    """tp_decode_reference over the steps of ``xs`` with its KV history,
+    inside ``taps``: the outputs."""
+    from repro_torch.serve import tp as TP
+
+    ys, kv = [], None
+    with taps:
+        for x in xs:
+            y, kv = TP.tp_decode_reference(p, x, kv, cfg)
+            ys.append(y)
+    return ys
+
+
+def _one_ulp_up(x):
+    """``x`` with each nonzero element one ulp larger in magnitude."""
+    bits = x.view({torch.bfloat16: torch.int16,
+                   torch.float32: torch.int32}[x.dtype])
+    return torch.where(x != 0, bits + 1, bits).view(x.dtype)
+
+
+def _w8a8_witness(p, xs, cfg):
+    """What one ulp of input moves in the w8a8 oracle itself: the oracle
+    run on ``xs`` and on ``xs`` one ulp larger; the activation codes of
+    the three w8a8 projections that change, and the output's move over
+    max|y|.  Also returns the first run's recorded inputs."""
+    from repro_torch.quant.scales import quantize_activation
+
+    runs = []
+    for inputs in (xs, [_one_ulp_up(x) for x in xs]):
+        taps = _taps()
+        runs.append((_tp_oracle_run(p, inputs, cfg, taps), taps.inputs))
+    (y0, in0), (y1, in1) = runs
+    flipped = {}
+    for name, pos in TP_W8A8.items():
+        s = p[name].act_scale
+        codes = [(quantize_activation(in0[7 * t + pos], s, 0),
+                  quantize_activation(in1[7 * t + pos], s, 0))
+                 for t in range(len(xs))]
+        flipped[name] = [sum(int((a != b).sum()) for a, b in codes),
+                         sum(a.numel() for a, _ in codes)]
+    move = max(float((a.float() - b.float()).abs().max())
+               / float(a.float().abs().max()) for a, b in zip(y0, y1))
+    return {"codes_flipped_of": flipped, "y_move_over_max": move}, in0
+
+
+def _w8a8_ride_checks(p, placed, inputs, mesh):
+    """Each w8a8 projection through dist_matmul (ring) on the oracle's
+    own inputs of the first and last step, against the oracle's product
+    of the same inputs: the same activation codes on both sides."""
+    from repro_torch.core import distributed as D
+    from repro_torch.quant.scales import fake_quant_activation
+
+    rows = []
+    for t in (0, TP_STEPS - 1):
+        for name, pos in TP_W8A8.items():
+            a, w = inputs[7 * t + pos], p[name]
+            before = _k1_total()
+            got = D.full_output(D.dist_matmul(a, placed[name], mesh,
+                                              schedule="ring",
+                                              out_dtype=a.dtype),
+                                mesh).float()
+            launches = _k1_total() - before
+            want = (fake_quant_activation(a, w.act_scale, w.act_block)
+                    .float() @ w.dequantize(a.dtype).float()).to(a.dtype)
+            wmax = float(want.float().abs().max())
+            err = float((got - want.float()).abs().max())
+            rows.append({"step": t, "proj": name,
+                         "max_err_over_max": err / wmax,
+                         "launches": launches,
+                         "ok": launches == 0 and err <= (
+                             TP_LIMIT["w8a8-ride"]
+                             + TP_ULPS["w8a8-ride"]) * wmax})
+    return rows
+
+
+def _tp_decode_checks(dev, mesh, tp):
+    """The TP decode block at full width: ring, allgather, int8w and
+    w8a8-ride (fp32 and bf16), 16 steps each against tp_decode_reference
+    (w8a8-ride's allowed its witness); K1 launches a step; the w8a8
+    projections on the oracle's inputs; the ledger's records against the
+    cost model and the bytes sent; a fault step."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.gemm import gemm_fallback
+    from repro_torch.quant.calibrate import activation_site
+    from repro_torch.quant.scales import quantize
+    from repro_torch.runtime.fault import FaultPlan
+    from repro_torch.serve import tp as TP
+
+    cfg = TP.TpDecodeConfig(**TP_DIMS)
+    params = TP.init_tp_params(cfg, 0, torch.bfloat16, dev)
+    rng = np.random.RandomState(12)
+    xs = [torch.tensor(rng.randn(TP_BATCH, cfg.d_model) * 0.1,
+                       dtype=torch.float32, device=dev)
+          for _ in range(TP_STEPS)]
+    xs16 = [x.to(torch.bfloat16) for x in xs]
+    # int8w: the bf16 weights quantized per channel, beside the bf16 norm
+    # gains (or fp32 ones for the fp32 block).
+    q16 = {k: (quantize(v.float(), axis=-2, block=0) if v.dim() == 2
+               else v) for k, v in params.items()}
+    q32 = {k: (v if v.ndim == 2 else v.float()) for k, v in q16.items()}
+    # w8a8: each MLP projection's per-tensor act scale calibrated on the
+    # oracle's fp32 int8w run over the phase's inputs.
+    cal = _taps()
+    _tp_oracle_run(q32, xs, cfg, cal)
+    scales = cal.scales()
+
+    def w8a8(q):
+        return dict(q, **{n: dataclasses.replace(
+            q[n], act_scale=scales[activation_site(q[n].shape)],
+            act_block=0) for n in TP_W8A8})
+
+    q8_32, q8_16 = w8a8(q32), w8a8(q16)
+    # The witness: what one ulp of input moves in the w8a8 oracle itself.
+    witness16, taps16 = _w8a8_witness(q8_16, xs16, cfg)
+    witness = {"bf16": witness16, "fp32": _w8a8_witness(q8_32, xs, cfg)[0]}
+    allow = {"w8a8-ride": witness16["y_move_over_max"],
+             "w8a8-ride fp32": witness["fp32"]["y_move_over_max"]}
+    variants = (("ring", params, "ring", 7 * tp, xs16),
+                ("allgather", params, "allgather", 7, xs16),
+                ("int8w", q16, "ring", 0, xs16),
+                ("w8a8-ride fp32", q8_32, "ring", 0, xs),
+                ("w8a8-ride", q8_16, "ring", 0, xs16))
+    out = {"variants": {}, "w8a8_witness": witness,
+           "act_scales": {k: float(v) for k, v in scales.items()}}
+    K.reset_launch_counts()
+    placed_by = {}
+    for name, p, sched, per_step, inputs in variants:
+        c = dataclasses.replace(cfg, schedule=sched)
+        placed = TP.place_tp_params(p, c, mesh)
+        if name in ("ring", "w8a8-ride"):
+            placed_by[name] = placed
+        kv = kv_ref = None
+        worst, launches, within, ok = 0.0, [], True, True
+        t0 = time.perf_counter()
+        for x in inputs:
+            before = _k1_total()
+            y, kv = TP.tp_decode_step(placed, x, kv, c, mesh)
+            launches.append(_k1_total() - before)
+            y_ref, kv_ref = TP.tp_decode_reference(p, x, kv_ref, c)
+            yf, rf = y.float(), y_ref.float()
+            err = (yf - rf).abs()
+            rmax = float(rf.abs().max())
+            limit = TP_LIMIT[name] + TP_ULPS[name]
+            within = within and float(err.max()) <= limit * rmax
+            ok = ok and float(err.max()) <= (limit
+                                              + allow.get(name, 0.0)) * rmax
+            worst = max(worst, float(err.max()) / rmax)
+        torch.cuda.synchronize()
+        out["variants"][name] = {
+            "schedule": sched, "ok": ok and tuple(kv[0].shape) == (
+                TP_BATCH, TP_STEPS, cfg.n_heads, cfg.head_dim)
+            and bool(torch.isfinite(y.float()).all()),
+            "within_limit": within, "witness_allowance": allow.get(name),
+            "max_err_over_max": worst, "launches_per_step": launches,
+            "want_per_step": per_step,
+            "step_ms_with_reference": (time.perf_counter() - t0) * 1e3
+            / TP_STEPS}
+    out["k1_launches"] = dict(K.launch_counts)
+    out["k1_shapes"] = {f"{key} m={m} n={n} k={k}": c for (key, m, n, k), c
+                        in K.shape_counts.items()}
+    # The w8a8 projections on the oracle's own bf16 inputs.
+    out["w8a8_rides"] = _w8a8_ride_checks(q8_16, placed_by["w8a8-ride"],
+                                          taps16, mesh)
+    # The ledger: one dist record a projection, its planned bytes the
+    # cost model's, their sum the bytes the rings sent.
+    placed_ring = placed_by["ring"]
+    led = obs.GemmLedger(enabled=True)
+    obs.set_ledger(led)
+    before = dict(D.wire_bytes)
+    TP.tp_decode_step(placed_ring, xs16[0], None, cfg, mesh)
+    sent = D.wire_traffic(before)
+    obs.reset_ledger()
+    recs = [r for r in led.records if getattr(r, "schedule", None)]
+    dp = 2
+    planned = sum(r.planned_bytes for r in recs)
+    bytes_ok = len(recs) == 7 and sent == planned and all(
+        r.planned_bytes == D.estimate_cost("ring", r.m, r.n, r.k, 2, dp,
+                                           tp).comm_bytes for r in recs)
+    out["ledger"] = {"records": len(recs), "ok": bytes_ok,
+                     "planned_bytes": [r.planned_bytes for r in recs],
+                     "sent_bytes": sent,
+                     "modes": sorted({r.mode for r in recs})}
+    # The fault step: an injected failure re-dispatches the same
+    # schedule on every rank, bit-equal to a fault-free step.
+    y0, _ = TP.tp_decode_step(placed_ring, xs16[0], None, cfg, mesh)
+    fb0 = metric_value("gemm.fallback_total", "stage=dist_matmul")
+    with gemm_fallback(True), FaultPlan(kernel_fail_at=(TP_FAULT_AT,)) \
+            as plan:
+        y1, _ = TP.tp_decode_step(placed_ring, xs16[0], None, cfg, mesh)
+    out["fault"] = {
+        "injected": [list(e) for e in plan.injected],
+        "fallbacks": metric_value("gemm.fallback_total",
+                                  "stage=dist_matmul") - fb0,
+        "bit_equal": bool(torch.equal(y0, y1))}
+    return out
+
+
+def dist_rank(rank, world, backend):
+    """One rank of the dist phase (run by ``spawn_ranks``)."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_compat, rank_device
+
+    dev = rank_device(rank, backend)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    meshes = {name: (make_mesh_compat(shape, axes), pod)
+              for name, shape, axes, pod in DIST_MESHES}
+    tp_of = {name: dict(zip(axes, shape))["model"]
+             for name, shape, axes, _ in DIST_MESHES}
+    out = {"rank": rank, "device": str(dev),
+           "backend": tdist.get_backend()}
+    out["dist_matmul"] = _dist_matmul_checks(dev, meshes, tp_of)
+    # The ring-step shapes, one rank at a time: each rank checks K1
+    # against its plain version; each rank with a card of its own times
+    # them, and where the ranks share one card rank 0 alone does.
+    timed = backend == "nccl" or rank == 0
+    for r in range(world):
+        tdist.barrier()
+        if r == rank:
+            out["ring_shapes"] = _ring_shape_times(dev, timed)
+    tdist.barrier()
+    out["tp"] = _tp_decode_checks(dev, meshes["2d"][0], tp_of["2d"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dist_failures(outs):
+    bad = []
+    for o in outs:
+        r = o["rank"]
+        for row in o["dist_matmul"]:
+            if not row["ok"] or row["launches"] != row["want_launches"] \
+                    or row["sent_bytes"] != row["want_sent"]:
+                bad.append(f"rank {r} dist_matmul {row}")
+        for row in o["ring_shapes"]:
+            if row["max_abs_err"] > row["tol"]:
+                bad.append(f"rank {r} ring-step K1 vs plain {row}")
+        tp = o["tp"]
+        for name, v in tp["variants"].items():
+            if not v["ok"] or any(n != v["want_per_step"]
+                                  for n in v["launches_per_step"]):
+                bad.append(f"rank {r} tp {name} {v}")
+        for row in tp["w8a8_rides"]:
+            if not row["ok"]:
+                bad.append(f"rank {r} w8a8 ride on the oracle's inputs {row}")
+        if not tp["ledger"]["ok"]:
+            bad.append(f"rank {r} ledger {tp['ledger']}")
+        f = tp["fault"]
+        if f["injected"] != [["kernel", TP_FAULT_AT]] \
+                or f["fallbacks"] != 1 or not f["bit_equal"]:
+            bad.append(f"rank {r} fault step {f}")
+    return bad
+
+
+def dist_phase(card_line):
+    """The dist phase: eight ranks drive dist_matmul at every schedule and
+    the full-width TP decode block; any rank's failure fails it."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    phase("dist: dist_matmul and the tensor-parallel decode block, "
+          f"{DIST_WORLD} ranks")
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DIST_WORLD else "gloo"
+    transport = ("NCCL, one rank a card" if backend == "nccl" else
+                 "gloo transport, ranks sharing one card")
+    print(f"dist backend {backend} ({transport}), cards {cards}, ranks "
+          f"{DIST_WORLD}; {card_line}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = spawn_ranks(dist_rank, DIST_WORLD, (backend,), timeout=300,
+                       backend=backend)
+    seconds = time.perf_counter() - t0
+    for o in outs:
+        r = o["rank"]
+        print(f"dist rank {r} on {o['device']} ({o['backend']}), "
+              f"{o['seconds']:.1f} s")
+        for row in o["ring_shapes"]:
+            print(f"dist rank {r} ring-step K1 " + json.dumps(row))
+        for row in o["dist_matmul"]:
+            print(f"dist rank {r} dist_matmul " + json.dumps(row))
+        tp = o["tp"]
+        for name, v in tp["variants"].items():
+            print(f"dist rank {r} tp {name} " + json.dumps(v))
+        print(f"dist rank {r} tp w8a8 act scales "
+              + json.dumps(tp["act_scales"]) + "; witness (one ulp of "
+              "input, the oracle against itself) "
+              + json.dumps(tp["w8a8_witness"]))
+        for row in tp["w8a8_rides"]:
+            print(f"dist rank {r} tp w8a8 ride on the oracle's bf16 inputs "
+                  + json.dumps(row))
+        print(f"dist rank {r} tp k1 launches {json.dumps(tp['k1_launches'])}"
+              f" by shape {json.dumps(tp['k1_shapes'])}")
+        print(f"dist rank {r} ledger {json.dumps(tp['ledger'])}; fault "
+              + json.dumps(tp["fault"]))
+    bad = _dist_failures(outs)
+    if bad:
+        raise AssertionError("dist phase:\n" + "\n".join(bad))
+    walls = {}
+    for o in outs:
+        for row in o["dist_matmul"]:
+            if row["wall_ms"] is None:
+                continue
+            key = (row["m"], row["mesh"], row["schedule"])
+            walls[key] = max(walls.get(key, 0.0), row["wall_ms"])
+    for row in outs[0]["dist_matmul"]:
+        if row["schedule"] == "auto":
+            print(f"e2e dist auto m={row['m']} {row['mesh']}: ran "
+                  f"{row['ran']}")
+    for (m, mesh, s), ms in sorted(walls.items()):
+        print(f"e2e dist wall ({transport}; {card_line}) m={m} {mesh} {s}: "
+              f"{ms:.3f} ms (slowest rank, mean of {DIST_WALL_REPS})")
+    print(f"dist phase {seconds:.1f} s")
+    return {"outs": outs, "seconds": seconds, "backend": backend,
+            "transport": transport}
+
+
+def dist_kernel_records(dres):
+    """The kernels line's record of K1 at the TP block's ring-step shapes:
+    launches from the float TP runs (rank 0; every rank launches the
+    same), time at the gate/up step's local shape."""
+    o = dres["outs"][0]
+    row = next(r for r in o["ring_shapes"] if r["shape"] == "tp gate/up")
+    err = max(r["max_abs_err"] for out in dres["outs"]
+              for r in out["ring_shapes"])
+    return [{
+        "name": "ca_gemm_program[none] ring step", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES,
+        "launches": o["tp"]["k1_launches"].get("none", 0),
+        "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "k1_route": row["k1_route"],
+        "shape": f"{row['shape']} m={row['m']} n={row['n']} k={row['k']} "
+                 f"bf16, fp32 out ({dres['transport']})"}]
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
@@ -4475,6 +5049,15 @@ def main(argv=None):
             print("record " + json.dumps(record))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
+    if argv == ["--only", "dist"]:
+        # A partial run for work on the dist phase alone: only K1's
+        # source, no kernels line, no result.
+        build((K.SOURCE,))
+        dres = dist_phase(card_line)
+        for record in dist_kernel_records(dres):
+            print("record " + json.dumps(record))
+        print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
+        return
     if argv[:2] == ["--only", "archs"]:
         # A partial run for work on the architectures phase alone (the
         # architectures named after it, default all): only the two
@@ -4485,8 +5068,8 @@ def main(argv=None):
         return
     if argv:
         raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
-                         "--only train [ARCH ...] | --only robust], got "
-                         f"{argv}")
+                         "--only train [ARCH ...] | --only robust | "
+                         f"--only dist], got {argv}")
     build()
     worst = parity()
     worst.update(quant_parity())
@@ -4523,6 +5106,7 @@ def main(argv=None):
     k3 = flash_fwd_phase()
     k4 = k_outer_phase()
     archs = architectures()
+    dres = dist_phase(card_line)
     phase("summary")
     print(f"card: {card_line}")
     print_archs(archs, card_line)
@@ -4707,6 +5291,7 @@ def main(argv=None):
     print_train_archs(tarchs, card_line)
     kernels += arch_kernel_records(archs, attn_rows)
     kernels += train_arch_records(tarchs)
+    kernels += dist_kernel_records(dres)
     # Only the robust phase's plans failed, degraded, refused or
     # re-dispatched anything: every later phase added nothing.
     print("guarded counters at the end " + json.dumps(

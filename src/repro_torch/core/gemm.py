@@ -69,14 +69,14 @@ from repro_torch.core.hardware import H100, HopperTarget
 from repro_torch.core.io_model import TileConfig
 from repro_torch.kernels import ca_mmm as kern
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.epilogue import IDENTITY, Epilogue
+from repro_torch.kernels.epilogue import IDENTITY, Epilogue, apply_reference
 from repro_torch.kernels.program import (NO_PROLOGUE, GemmProgramSpec,
                                          PrologueSpec, RmsPrologue,
                                          apply_rms_reference, rms_row_scale)
 from repro_torch.obs import ledger as _ledger_mod
 from repro_torch.obs.metrics import get_metrics
 from repro_torch.quant.calibrate import active_calibration
-from repro_torch.quant.scales import QTensor
+from repro_torch.quant.scales import QTensor, fake_quant_activation
 from repro_torch.runtime.fault import InjectedKernelFailure, active_fault_plan
 from repro_torch.tuning import registry as _registry
 
@@ -326,6 +326,10 @@ def _matmul(x: torch.Tensor, w, *, out_dtype=None,
             prologue: Optional[RmsPrologue] = None) -> torch.Tensor:
     """:func:`ca_matmul`'s plan, preflight, launch and ledger record."""
     quantized = isinstance(w, QTensor)
+    if quantized and w.fmt != "int8":
+        _record_activation(w, x, prologue)
+        return _dequant_matmul(x, (w,), out_dtype, prologue,
+                               epilogue=epilogue)
     if quantized:
         kops.check_qweight(w)
         _check_serve_only(x)
@@ -379,6 +383,40 @@ def _matmul(x: torch.Tensor, w, *, out_dtype=None,
     return y.reshape(*lead, n)
 
 
+def _dequant_matmul(x: torch.Tensor, ws, out_dtype, prologue, *,
+                    epilogue: Optional[Epilogue] = None,
+                    activation: Optional[str] = None) -> torch.Tensor:
+    """An fp8 emulation weight (or GLU pair) served as the reference's
+    oracle path serves it (``src/repro/core/gemm.py:344-370``, ``:552-562``):
+    the norm applied up front, each weight dequantized to x's dtype, an
+    fp32 product, then the epilogue chain (or the GLU combine) and the
+    output cast.  The kernel takes int8 payloads only, and the reference
+    computes this product outside any Pallas kernel, so it is a plain
+    product on the card too; the ledger records nothing, as the
+    reference's records only int8 programs.  A static activation scale
+    applies only where the gate is int8, as in the reference."""
+    _check_serve_only(x)
+    k_w, n = ws[0].shape
+    lead, m = _lead(x, k_w)
+    out_dtype = out_dtype or x.dtype
+    if prologue is not None:
+        x = _apply_rms(x, prologue)
+    if ws[0].fmt == "int8" and ws[0].act_scale is not None:
+        x = fake_quant_activation(x, ws[0].act_scale, ws[0].act_block)
+    xf = x.reshape(m, k_w).float()
+    zs = [xf @ w.dequantize(x.dtype).float() for w in ws]
+    if activation is not None:
+        from repro_torch.kernels.epilogue import act_fn
+
+        z = act_fn(activation)(zs[0]) * zs[1]
+    else:
+        z = zs[0]
+        if epilogue is not None:
+            flat = _flatten_epilogue(epilogue, m, n)
+            z = apply_reference(z, flat.spec(), flat.operands())
+    return z.to(out_dtype).reshape(*lead, n)
+
+
 def ca_glu_matmul(
     x: torch.Tensor,
     w_gate,
@@ -406,6 +444,10 @@ def _glu_matmul(x: torch.Tensor, w_gate, w_up, *, activation: str = "silu",
     quantized = isinstance(w_gate, QTensor)
     if quantized != isinstance(w_up, QTensor):
         raise ValueError("quantize both GLU weights or neither")
+    if quantized and not (w_gate.fmt == "int8" and w_up.fmt == "int8"):
+        _record_activation(w_gate, x, prologue)
+        return _dequant_matmul(x, (w_gate, w_up), out_dtype, prologue,
+                               activation=activation)
     if quantized:
         kops.check_qweight(w_gate)
         kops.check_qweight(w_up)
@@ -463,6 +505,23 @@ def _glu_matmul(x: torch.Tensor, w_gate, w_up, *, activation: str = "silu",
             scale_b_elements=(_numel(w_gate.scale)
                               + _numel(w_up.scale)), resolution=res)
     return y.reshape(*lead, n)
+
+
+def dist_local_matmul(a: torch.Tensor, b: torch.Tensor, *,  # repro: noqa RPR002 -- dist_matmul records once per collective dispatch
+                      tile: Optional[TileConfig] = None) -> torch.Tensor:
+    """One ring step's local GEMM of a distributed schedule
+    (``core.distributed``), with the tile the dispatch already resolved
+    for the per-rank local shape, so no per-step registry or ledger work
+    happens here: K1's ``none`` program with an fp32 output on CUDA
+    operands (the kernel checks ``tile`` against its route), its plain
+    version on CPU operands.  Float operands only: the int8 partials are
+    plain products in ``core.distributed``, as the reference computes
+    them outside any Pallas kernel."""
+    if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
+        raise ValueError(f"dist_local_matmul takes float operands, got "
+                         f"{a.dtype} x {b.dtype}")
+    return kops.fused_matmul(  # repro: noqa RPR001 -- port dispatch layer
+        a, b, out_dtype=torch.float32, tile=tile)
 
 
 def _check_expert_operands(x: torch.Tensor, w, name: str) -> int:

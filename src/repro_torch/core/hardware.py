@@ -77,6 +77,13 @@ class HopperTarget:
     hbm_bandwidth: float = 3.35e12          # B/s
     sms: int = 132
 
+    # Links of the distributed cost model (``core/distributed.py``), the
+    # reference's ICI and DCN terms: NVLink to the other cards of the
+    # host, 450 GB/s each way (900 GB/s all to all), and between hosts
+    # one 400 Gb/s network adapter per card.
+    ici_bandwidth: float = 450e9            # B/s, one way, one card
+    dcn_bandwidth: float = 50e9             # B/s per card, pod axis
+
     # The compute quantum (the Eq. 8 analog): WGMMA's m step is one
     # warpgroup's 64 rows, n runs in steps of 8 up to 256, k in steps of
     # 32 bytes (8 fp32, 16 bf16, 32 int8), i.e. ``quantum_k`` elements of

@@ -266,8 +266,9 @@ def check_qweight(qw, k: Optional[int] = None) -> None:
         raise ValueError(f"the kernel takes int8 QTensor weights, got "
                          f"{type(qw).__name__}")
     if qw.fmt != "int8":
-        raise ValueError(f"QTensor format {qw.fmt!r} is not ported yet: "
-                         "it waits for the fp8 paths of quant/scales.py")
+        raise ValueError(f"QTensor format {qw.fmt!r}: the kernel takes "
+                         "int8 payloads only; an fp8 emulation weight is "
+                         "served by dequantizing (core.gemm.ca_matmul)")
     if qw.ndim != 2:
         raise ValueError(f"a QTensor weight must be (k, n), got {qw.shape}")
     # A wrong-axis QTensor would pass the reshapes below for square

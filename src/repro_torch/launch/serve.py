@@ -6,8 +6,9 @@ requests against one architecture, on the card by default.
 
 Without ``--full`` it serves the reduced config; ``--device cpu`` runs the
 plain versions on the CPU.  Weights are drawn from ``--seed``, prompts
-from ``RandomState(seed)``.  The engine serves the requests one at a time
-(the reference's ``batch_size`` is not ported).
+from ``RandomState(seed)``.  The engine serves the requests one at a time,
+as the reference's does; its ``batch_size`` (1 here) sizes the GEMM plan
+warmup and the default page pool.
 
 ``--ledger`` records every GEMM and paged attention dispatch with its
 planned bytes (the GEMM ledger, as ``REPRO_TORCH_LEDGER=1`` does),

@@ -132,7 +132,7 @@ _QFIELDS = ("data", "scale", "axis", "block", "fmt", "act_scale",
             "act_block")
 
 
-def _qtensor_from_fields(name: str, fields: Mapping, shape, device) -> QTensor:
+def qtensor_from_fields(name: str, fields: Mapping, shape, device) -> QTensor:
     """A quantized leaf given as its fields (numpy arrays and ints), with
     its payload and scales unchanged."""
     missing = {"data", "scale"} - set(fields)
@@ -174,7 +174,7 @@ def params_from_jax(np_params: Mapping[str, object], cfg: ModelConfig,
     out = {}
     for name, arr in np_params.items():
         if isinstance(arr, Mapping):
-            out[name] = _qtensor_from_fields(name, arr, defs[name].shape,
+            out[name] = qtensor_from_fields(name, arr, defs[name].shape,
                                              device)
             continue
         t = torch.from_numpy(np.array(arr, dtype=np.float32))

@@ -7,8 +7,8 @@ and the program grammar are deferred to the call sites that need them),
 so hot paths can hook in unconditionally.
 """
 
-from repro_torch.obs.ledger import (AttnRecord, GemmLedger, GemmRecord,
-                                    enable_ledger, get_ledger,
+from repro_torch.obs.ledger import (AttnRecord, DistRecord, GemmLedger,
+                                    GemmRecord, enable_ledger, get_ledger,
                                     planned_attn_kv_bytes,
                                     planned_gemm_bytes, reset_ledger,
                                     set_ledger)
@@ -26,7 +26,8 @@ __all__ = [
     "DEFAULT_TRACE_PATH", "span", "instant", "enable_tracing",
     "disable_tracing", "tracing_enabled", "trace_path", "flush",
     "read_trace",
-    "AttnRecord", "GemmLedger", "GemmRecord", "get_ledger", "set_ledger",
+    "AttnRecord", "DistRecord", "GemmLedger", "GemmRecord", "get_ledger",
+    "set_ledger",
     "enable_ledger", "reset_ledger", "planned_gemm_bytes",
     "planned_attn_kv_bytes",
 ]

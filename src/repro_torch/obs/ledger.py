@@ -8,7 +8,9 @@ composite dtype, the tile the registry resolved and where it came from
 ``simt`` on the card, ``plain`` on the CPU), planned HBM bytes (the
 itemsize-split Eq. 6 program extension of :mod:`repro_torch.core.io_model`
 at that tile) and planned flops.  :mod:`repro_torch.kvcache.paged` records
-each paged decode attention the same way.  The records aggregate per
+each paged decode attention the same way, and
+:mod:`repro_torch.core.distributed` each ``dist_matmul`` dispatch with its
+planned wire bytes (:class:`DistRecord`).  The records aggregate per
 *step* (a prefill, a decode step, a train step), so achieved GB/s against
 the plan and the model error (measured over planned seconds) are queryable
 per workload.
@@ -135,6 +137,42 @@ class AttnRecord:
         return (f"{self.tag}|{self.dtype}|b{self.b}|"
                 f"q{self.q_len}xkv{self.kv_len}|"
                 f"h{self.heads}kv{self.kv_heads}d{self.head_dim}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistRecord:
+    """One dispatched distributed GEMM (``core.distributed.dist_matmul``).
+
+    Rides the ledger's record list like :class:`AttnRecord` (the
+    duck-typed ``key``/``calls``/``planned_*``/``config_source`` subset).
+    ``planned_bytes`` here is the schedule's planned **wire** traffic per
+    rank, the Eq. 6 analog ``estimate_cost`` computes, not HBM bytes;
+    ``planned_s`` is the per-step pipelined overlap model's time.
+    """
+
+    m: int
+    n: int
+    k: int
+    schedule: str               # allgather | ring | ring_unpipelined | ...
+    steps: int                  # ring steps (1 for allgather)
+    mesh: str                   # "dp2.tp4" / "dp2.tp2.pods2"
+    tag: str                    # local-step program tag (none|dqb|dqab)
+    dtype: str                  # composite for quant rides
+    mode: str                   # local step's route: plain | decode | ...
+    config: Dict[str, Any]      # local tile + (mloc, nloc, kstep)
+    config_source: str          # cache | autotune | analytic
+    planned_bytes: float        # planned comm bytes (Eq. 6 analog)
+    planned_flops: float        # global 2mnk
+    planned_s: float            # pipelined overlap model seconds
+    calls: int = 1
+
+    @property
+    def key(self) -> str:
+        return (f"dist.{self.schedule}|{self.tag}|{self.dtype}|"
+                f"{self.m}x{self.n}x{self.k}|{self.mesh}")
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -324,6 +362,48 @@ class GemmLedger:
             "attn.ledger_records_total",
             "Attention dispatches recorded by the ledger").labels(
                 tag=tag, mode=mode).inc()
+        return rec
+
+    def record_dist(self, *, schedule: str, m: int, n: int, k: int,
+                    dp: int, tp: int, pods: int = 1, dtype,
+                    dtype_b=None, dtype_a=None, tag: str = "none",
+                    mode: str = "plain", steps: int = 1,
+                    config: Optional[Dict[str, Any]] = None,
+                    config_source: str = "analytic",
+                    planned_bytes: float = 0.0, planned_flops: float = 0.0,
+                    planned_s: float = 0.0,
+                    hw: Optional[HopperTarget] = None,
+                    calls: int = 1) -> Optional["DistRecord"]:
+        """Append one distributed-GEMM dispatch record.  No-op when
+        disabled.  The caller (``core.distributed``) passes the planned
+        comm bytes and overlap time straight from its ``estimate_cost``,
+        so record and cost model cannot drift."""
+        if not self.enabled or m <= 0 or n <= 0 or k <= 0:
+            return None
+        from repro_torch.quant.scales import quant_dtype_str
+
+        if dtype_b is not None:
+            dtype_str = quant_dtype_str(
+                dtype_a if dtype_a is not None else dtype, dtype_b)
+        else:
+            dtype_str = dtype_name(dtype)
+        mesh = f"dp{dp}.tp{tp}" + (f".pods{pods}" if pods > 1 else "")
+        rec = DistRecord(
+            m=int(m), n=int(n), k=int(k), schedule=schedule,
+            steps=int(steps), mesh=mesh, tag=tag, dtype=dtype_str,
+            mode=mode, config=dict(config or {}),
+            config_source=config_source,
+            planned_bytes=float(planned_bytes),
+            planned_flops=float(planned_flops),
+            planned_s=float(planned_s), calls=int(calls))
+        with self._lock:
+            self._records.append(rec)
+        from repro_torch.obs.metrics import get_metrics
+
+        get_metrics().counter(
+            "dist.ledger_records_total",
+            "Distributed GEMM dispatches recorded by the ledger").labels(
+                schedule=schedule, source=config_source).inc()
         return rec
 
     # -- step aggregation ----------------------------------------------------

@@ -9,7 +9,10 @@ CA-GEMM stack.
 
 The consumer side is the kernel: the dequant runs inside the CA-GEMM
 program (``dqb`` / ``dqab`` epilogue stages), so quantization changes only
-the streamed bytes.  The reference's fp8 emulation formats are not ported.
+the streamed bytes.  The fp8 emulation formats (``fp8_e4m3``,
+``fp8_e5m2``: fp8 bit patterns on an int8 payload) quantize as the
+reference's do and are served by dequantizing onto a plain product, as
+the reference's oracle path serves them; the kernel refuses them.
 """
 
 from repro_torch.quant.scales import (QTensor, absmax_scale,

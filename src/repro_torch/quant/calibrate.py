@@ -46,7 +46,8 @@ ACT_FORMATS = ("none", "int8")
 class QuantConfig:
     """One knob bundle for a quantization policy.
 
-    ``fmt``        — "int8" (the fp8 emulation formats are not ported).
+    ``fmt``        — "int8" | "fp8_e4m3" | "fp8_e5m2" (the fp8 emulation
+                     formats, served by dequantizing).
     ``method``     — "absmax" | "percentile".
     ``percentile`` — used when method == "percentile".
     ``block``      — 0 = per-channel; g > 0 = per-tile with k-blocks of g

@@ -12,10 +12,17 @@ axis ``k`` = ``axis=-2``):
   each k slab the kernel streams lies in one block and the kernel scales
   that block's partial product.
 
-int8 only: the reference's fp8-via-int8 emulation formats (its
-``quant/scales.py`` fp8 paths) are not ported yet and raise here.  The op order of :func:`quantize` is the
-reference's (``x.float() / s``, round half to even, clamp to ±127), so the
-int8 payloads come out bit-identical.
+``fmt="fp8_e4m3"`` / ``"fp8_e5m2"`` is the reference's fp8-via-int8
+emulation: the scaled value is rounded onto the fp8 grid
+(``torch.float8_e4m3fn`` / ``torch.float8_e5m2``) and the payload holds
+its **bit pattern** viewed as int8, so the streamed bytes are int8's while
+the value grid is floating point.  The kernel takes int8 payloads only;
+an fp8 weight is served by :meth:`QTensor.dequantize` and a plain product
+(``core.gemm``), as the reference's oracle path serves it.
+
+The op order of :func:`quantize` is the reference's (``x.float() / s``,
+then round half to even and clamp to ±127, or the fp8 cast), so the
+payloads come out bit-identical.
 """
 
 from __future__ import annotations
@@ -29,20 +36,19 @@ INT_FORMATS = ("int8",)
 FP8_FORMATS = ("fp8_e4m3", "fp8_e5m2")
 FORMATS = INT_FORMATS + FP8_FORMATS
 
-# Largest representable magnitude: int8 symmetric [-127, 127] (−128 is
-# excluded so the grid is symmetric).
-_FMT_MAX = {"int8": 127.0}
+# Largest representable magnitude per format: int8 symmetric [-127, 127]
+# (−128 is excluded so the grid is symmetric), fp8 per its finite range.
+_FMT_MAX = {"int8": 127.0, "fp8_e4m3": 448.0, "fp8_e5m2": 57344.0}
 
 
 def check_format(fmt: str) -> None:
-    """int8 is ported; the fp8 emulation formats raise as not ported."""
-    if fmt in FP8_FORMATS:
-        raise ValueError(f"quant format {fmt!r} (fp8 emulation) is not "
-                         "ported yet: it waits for the fp8 paths of "
-                         "quant/scales.py")
     if fmt not in FORMATS:
         raise ValueError(f"unknown quant format {fmt!r} "
-                         f"(valid: {INT_FORMATS}) [QNT003]")
+                         f"(valid: {FORMATS}) [QNT003]")
+
+
+def _fp8_dtype(fmt: str) -> torch.dtype:
+    return torch.float8_e4m3fn if fmt == "fp8_e4m3" else torch.float8_e5m2
 
 
 
@@ -139,7 +145,8 @@ def _expand_scale(scale: torch.Tensor, shape: Tuple[int, ...], axis: int,
 class QTensor:
     """Quantized tensor: int8 payload + fp32 scales.
 
-    ``data``  — int8, the logical tensor's shape.
+    ``data``  — int8, the logical tensor's shape (for an fp8 ``fmt``, the
+    fp8 bit pattern).
     ``scale`` — fp32; per-channel ``(..., 1, n)`` or per-tile
     ``(..., ceil(k/block), n)``.
     ``act_scale`` (optional) — a calibrated static activation scale for
@@ -190,21 +197,30 @@ class QTensor:
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         check_format(self.fmt)
         axis = _norm_axis(self.ndim, self.axis)
+        if self.fmt in FP8_FORMATS:
+            vals = self.data.view(_fp8_dtype(self.fmt)).float()
+        else:
+            vals = self.data.float()
         s = _expand_scale(self.scale, self.shape, axis, self.block)
-        return (self.data.float() * s).to(dtype)
+        return (vals * s).to(dtype)
 
 
 def quantize(x: torch.Tensor, axis: int = -2, block: int = 0,
              percentile: float = 100.0, fmt: str = "int8") -> QTensor:
-    """Quantize ``x`` along ``axis`` (the GEMM contraction dim):
-    symmetric round-to-nearest-even onto [-127, 127]."""
+    """Quantize ``x`` along ``axis`` (the GEMM contraction dim).
+
+    int8: symmetric round-to-nearest-even onto [-127, 127].  fp8 formats:
+    cast onto the fp8 grid, payload = its bit pattern as int8."""
     check_format(fmt)
     axis = _norm_axis(x.dim(), axis)
     scale = absmax_scale(x, axis=axis, block=block, percentile=percentile,
                          fmt=fmt)
     s = _expand_scale(scale, tuple(x.shape), axis, block)
     scaled = x.float() / s
-    data = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
+    if fmt in FP8_FORMATS:
+        data = scaled.to(_fp8_dtype(fmt)).view(torch.int8)
+    else:
+        data = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
     return QTensor(data=data, scale=scale, axis=axis - x.dim(),
                    block=block, fmt=fmt)
 

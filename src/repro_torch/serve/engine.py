@@ -56,7 +56,7 @@ import collections
 import dataclasses
 import time
 import warnings
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,11 +168,21 @@ class ServeEngine:
     (:mod:`repro_torch.kvcache`) that admits requests by pages instead of
     a ``max_len`` slab: ``kv_page_size`` tokens per page (0: the analytic
     page for ``max_len``, :func:`repro_torch.tuning.resolve_page_size`),
-    and ``kv_pool_pages`` pages in all (0: the pages one sequence of
-    ``max_len`` tokens needs, since requests are served one at a time),
-    at most ``kv_max_pages_per_seq`` a sequence (0: that same count).  The
-    pool lives on the engine's device for its whole life and is written
-    in place.
+    and ``kv_pool_pages`` pages in all (0: the pages ``batch_size``
+    sequences of ``max_len`` tokens need, the reference's default), at
+    most ``kv_max_pages_per_seq`` a sequence (0: the pages of one such
+    sequence).  The pool lives on the engine's device for its whole life
+    and is written in place.
+
+    ``batch_size`` (default 1, so that callers written before it keep
+    their behaviour; the reference has no default) sizes the GEMM plan
+    warmup, rows ``[batch_size, batch_size·max_len]``, and the default
+    page pool.  Requests are served one at a time, as the reference's
+    ``run`` serves them.  ``warmup_gemms=False`` skips the warmup.
+    ``tp_local=(dp, tp)`` also warms the per-device ring-step local
+    shapes that a tensor-parallel serve path
+    (:mod:`repro_torch.serve.tp`, ``core.distributed.dist_matmul``)
+    resolves.
 
     ``max_queue`` bounds the queue (0: unbounded), ``overflow`` picks the
     backpressure (``"reject"`` the new request or ``"shed_oldest"``);
@@ -186,18 +196,19 @@ class ServeEngine:
     """
 
     def __init__(self, params: Dict[str, object], cfg: ModelConfig, *,
-                 max_len: int, seed: int = 0,
+                 max_len: int, batch_size: int = 1, seed: int = 0,
+                 warmup_gemms: bool = True,
                  device=None, paged_kv: bool = False, kv_page_size: int = 0,
                  quantize_activations: bool = False,
                  calibration_batches: int = 4,
-                 act_qconfig: Optional[QuantConfig] = None, tp_local=None,
+                 act_qconfig: Optional[QuantConfig] = None,
+                 tp_local: Optional[Tuple[int, int]] = None,
                  max_queue: int = 0, overflow: str = "reject",
                  retry_backoff_s: float = 0.05, check_finite: bool = True,
                  kv_pool_pages: int = 0, kv_max_pages_per_seq: int = 0,
                  sample_table: Optional[torch.Tensor] = None):
-        if tp_local:
-            raise ValueError("ServeEngine(tp_local=...) is not ported yet: "
-                             "it waits for serve/tp.py")
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if overflow not in ("reject", "shed_oldest"):
             raise ValueError(f"unknown overflow policy {overflow!r}")
         self.max_queue = max_queue          # 0: unbounded admission
@@ -211,6 +222,7 @@ class ServeEngine:
                                  f"engine on {self.device}")
         self.params = params
         self.cfg = cfg
+        self.B = batch_size
         self.max_len = max_len
         self._table = None if sample_table is None \
             else sample_table.to(self.device)
@@ -252,9 +264,18 @@ class ServeEngine:
         # the programs this engine's quant policy issues.
         quant_mode = "w8a8" if self.w8a8 else self.quantized
         t0 = time.perf_counter()
+        rows = [batch_size, batch_size * max_len]
         with span("serve.warmup", quant=str(quant_mode)):
-            self.gemm_plan_sources: Dict[str, str] = warmup_model(
-                cfg, [1, max_len], quant=quant_mode)
+            self.gemm_plan_sources: Dict[str, str] = (
+                warmup_model(cfg, rows, quant=quant_mode)
+                if warmup_gemms else {})
+            # A tensor-parallel engine also warms the per-device ring-step
+            # local shapes that ``core.distributed.dist_matmul`` resolves:
+            # tp_local=(dp, tp) rewrites each workload to
+            # (ceil(m/dp), n/tp, k/tp).
+            if warmup_gemms and tp_local is not None:
+                self.gemm_plan_sources.update(warmup_model(
+                    cfg, rows, quant=quant_mode, shard=tuple(tp_local)))
         metrics.gauge(
             "serve.warmup_seconds",
             "Wall time of the GEMM plan warmup (registry prewarm)").set(
@@ -290,7 +311,8 @@ class ServeEngine:
                 seq_len=max_len).config.kv_block
             per_seq = kvc.pages_for(max_len, page)
             self.kv_max_pages_per_seq = kv_max_pages_per_seq or per_seq
-            self.kv_pool = kvc.PagePool(kv_pool_pages or per_seq, page)
+            self.kv_pool = kvc.PagePool(kv_pool_pages or batch_size * per_seq,
+                                        page)
             metrics.gauge("serve.kv_pool_pages",
                           "Page count of the serve KV pool").set(
                               self.kv_pool.n_pages)

@@ -1,0 +1,15 @@
+"""Sharding rule engine of the port (logical axes -> mesh specs)."""
+
+from repro_torch.sharding.rules import (
+    activation_sharding,
+    dist_operand_specs,
+    maybe_shard,
+    pspec_for_def,
+    pspecs_for_defs,
+    shardings_for_defs,
+)
+
+__all__ = [
+    "activation_sharding", "dist_operand_specs", "maybe_shard",
+    "pspec_for_def", "pspecs_for_defs", "shardings_for_defs",
+]

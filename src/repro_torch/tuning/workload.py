@@ -68,11 +68,23 @@ def quantize_workloads(loads, acts: bool = False) -> List[Tuple]:
 
 
 def shard_gemm_workloads(loads, dp: int, tp: int, pods: int = 1):
-    """The per-device ring-step local shapes of a tensor-parallel engine:
-    waits for the port of ``serve/tp.py`` (and ``core/distributed.py``),
-    so it raises."""
-    raise ValueError("shard_gemm_workloads waits for serve/tp.py and "
-                     "core/distributed.py, which are not ported yet")
+    """Rewrite workload entries to their per-rank ring-step local shapes.
+
+    A tensor-parallel serve path dispatches its projections through
+    ``core.distributed.dist_matmul``, whose per-step local GEMM is keyed
+    by ``(ceil(m/dp), n/tp, k/(tp·pods))``: warming the registry with the
+    global shapes would plan tiles the sharded steps never issue.
+    Tag, layout and quant-dtype fields pass through unchanged; entries
+    whose n or k do not divide the mesh are dropped (``dist_matmul``
+    refuses them too)."""
+    out = set()
+    pods = max(pods, 1)
+    for w in loads:
+        m, n, k = w[:3]
+        if n % tp or k % (tp * pods):
+            continue
+        out.add((-(-m // dp), n // tp, k // (tp * pods)) + tuple(w[3:]))
+    return sorted(out)
 
 
 def model_gemm_workloads(cfg: ModelConfig, rows: int,
@@ -181,11 +193,12 @@ def warmup_model(cfg: ModelConfig, rows_list, registry=None,
     (dequant-fused epilogue tags, ``int8w_*`` cache keys);
     ``quant="w8a8"`` plans the static-activation variants (``dqab``
     tags, ``int8w_int8a`` keys) — in each case exactly what the
-    corresponding serve engine will issue.  ``shard=(dp, tp)`` (a
-    tensor-parallel engine) raises: :func:`shard_gemm_workloads` waits
-    for ``serve/tp.py``.  Returns {cache_key: source} so callers can log
-    what was tuned, served from cache, or fell back to the analytic
-    model.
+    corresponding serve engine will issue.  ``shard=(dp, tp)`` rewrites
+    the shapes to their per-rank ring-step local forms
+    (:func:`shard_gemm_workloads`) for a tensor-parallel engine, so the
+    registry is warm for what ``dist_matmul``'s local steps resolve.
+    Returns {cache_key: source} so callers can log what was tuned, served
+    from cache, or fell back to the analytic model.
     """
     if quant not in (False, True, "w8", "w8a8"):
         raise ValueError(f"unknown quant policy {quant!r}")

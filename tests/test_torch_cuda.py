@@ -1471,3 +1471,31 @@ def test_cuda_reduced_train_step_matches_cpu(arch):
         assert bool(torch.isfinite(gg[k]).all()), k
         rel = ((gg[k] - g).norm() / g.norm()).item()
         assert rel <= 5e-2, (k, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(4, 512, 512), (4, 1408, 512),
+                                   (500, 1408, 512)])
+def test_cuda_dist_local_matmul_launches_k1(m, n, k):
+    """A ring step's local GEMM (``core.gemm.dist_local_matmul``) at the
+    TP decode block's and dist_matmul's local shapes: one K1 launch of
+    the ``none`` program with an fp32 output at the registry's tile,
+    against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.core.gemm import dist_local_matmul
+    from repro_torch.tuning import get_registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, bs, _ = _program_inputs("none", m, n, k, torch.bfloat16, seed=27)
+    tile = get_registry().resolve_full(m, n, k, dtype=torch.bfloat16,
+                                       epilogue="none").config
+    K.reset_launch_counts()
+    got = dist_local_matmul(a, bs[0], tile=tile)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert K.launch_counts == {"none": 1}
+    assert K.shape_counts == {("none", m, n, k): 1}
+    want = K.ca_gemm_program_reference(a, (bs[0],), out_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 1e-4 * (
+        1 + want.abs().max().item())

@@ -194,11 +194,15 @@ def test_calibration_records_the_normalized_activation():
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"fmt": "fp8_e4m3"}, "not ported"),
+    ({"fmt": "fp8_e4m3"}, "int8 payloads only"),
     ({"axis": -1}, "axis"),
     ("stacked", "must be"),
 ], ids=["fp8", "axis", "stacked"])
 def test_quantized_weight_contract_raises(change, match):
+    """The kernel's weight contract: an fp8 payload is refused by the
+    kernel wrapper (ca_matmul serves it by dequantizing, as the
+    reference's oracle path does), a wrong axis or a stacked weight by
+    the dispatch itself."""
     from repro_torch.quant import QTensor
 
     d = _inputs(8)
@@ -206,8 +210,10 @@ def test_quantized_weight_contract_raises(change, match):
     x = torch.tensor(d["x"]).float()
     bad = (QTensor(data=tq.data[None], scale=tq.scale[None])
            if change == "stacked" else dataclasses.replace(tq, **change))
+    call = tops.quant_matmul if change == {"fmt": "fp8_e4m3"} \
+        else tg.ca_matmul
     with pytest.raises(ValueError, match=match):
-        tg.ca_matmul(x, bad)
+        call(x, bad)
 
 
 # ---------------------------------------------------------------------------

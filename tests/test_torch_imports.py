@@ -126,3 +126,31 @@ def test_analyze_cli_lints_the_port_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "0 finding(s)" in out.stdout
+
+
+# The distributed serve path's modules, each beside its reference
+# counterpart.
+DIST_SLICE = ["core.distributed", "core._dist_check", "sharding.rules",
+              "launch.mesh", "serve.tp", "serve._tp_check"]
+
+
+@pytest.mark.parametrize("mod", DIST_SLICE)
+def test_distributed_modules_are_ported(mod):
+    names = {_module_name(f) for f in _port_files()[:-1]}
+    assert f"repro_torch.{mod}" in names
+    assert (REPO / "src" / "repro" / (mod.replace(".", "/") + ".py")).exists()
+    tree = ast.parse((PORT / (mod.replace(".", "/") + ".py")).read_text())
+    assert not set(_imported_roots(tree)) & set(FORBIDDEN)
+
+
+def test_only_the_hlo_readers_and_the_jax_shims_have_no_port():
+    """Every reference module has a counterpart but the three that read
+    compiled XLA HLO (queued in ROADMAP) and the JAX compatibility
+    shims."""
+    def mods(root):
+        return {str(f.relative_to(root)) for f in root.rglob("*.py")
+                if f.name != "__init__.py"}
+
+    missing = mods(REPO / "src" / "repro") - mods(PORT)
+    assert missing == {"kernels/_compat.py", "launch/dryrun.py",
+                       "launch/hlo_analysis.py", "launch/specs.py"}

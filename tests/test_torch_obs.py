@@ -532,3 +532,41 @@ def test_train_launcher_metrics_and_spans(tmp_path, capsys):
     assert "train.step_seconds" in capsys.readouterr().out
     spans = [e for e in obs.read_trace(trace) if e["name"] == "train.step"]
     assert [e["args"]["step"] for e in spans] == [0, 1]
+
+
+def test_tokens_per_second_counts_only_this_run(stablelm_params):
+    """``serve.tokens_per_second`` over two ``run()`` calls on one metrics
+    registry: the port's gauge is the second call's tokens over its wall
+    (rel 1e-2); the reference's gauge divides the process's token counter
+    by that call's wall, so it reads twice that (the reference fault
+    recorded in ROADMAP §3; not fixed in the reference)."""
+    import time
+
+    from repro import obs as jobs
+
+    jp, tp = stablelm_params
+    cfg = get_reduced(ARCH)
+    r = np.random.RandomState(3)
+    prompts = [r.randint(0, cfg.vocab_size, 6) for _ in range(2)]
+
+    def serve(eng, req_cls, uid0):
+        for i, p in enumerate(prompts):
+            eng.submit(req_cls(uid=uid0 + i, prompt=p, max_new_tokens=4))
+        t0 = time.perf_counter()
+        done = eng.run()
+        wall = time.perf_counter() - t0
+        return sum(len(done[uid0 + i].generated) for i in range(2)), wall
+
+    eng = ServeEngine(tp, cfg, batch_size=1, max_len=24, device="cpu")
+    serve(eng, Request, 0)
+    tokens, wall = serve(eng, Request, 10)
+    got = obs.get_metrics().snapshot()["serve.tokens_per_second"]["value"]
+    assert tokens == 8
+    assert got == pytest.approx(tokens / wall, rel=1e-2)
+
+    jeng = JServeEngine(jp, jax_reduced(ARCH), batch_size=1, max_len=24)
+    serve(jeng, JRequest, 0)
+    jtokens, jwall = serve(jeng, JRequest, 10)
+    jgot = jobs.get_metrics().snapshot()["serve.tokens_per_second"]["value"]
+    assert jtokens == 8
+    assert jgot == pytest.approx(2 * jtokens / jwall, rel=1e-2)

@@ -128,8 +128,9 @@ def test_quant_config_checks_raise():
         TQ.QuantConfig(act_block=64)
     with pytest.raises(ValueError, match="QNT003"):
         TQ.QuantConfig(act_fmt="int4")
-    with pytest.raises(ValueError, match="not ported"):
-        TQ.QuantConfig(fmt="fp8_e4m3")
+    with pytest.raises(ValueError, match="QNT003"):
+        TQ.QuantConfig(fmt="fp8_e3m4")
+    assert TQ.QuantConfig(fmt="fp8_e4m3").fmt == "fp8_e4m3"
     with pytest.raises(ValueError, match="act_fmt"):
         TQ.ActivationCalibration(TQ.QuantConfig())
     with pytest.raises(ValueError, match="at least one batch"):
@@ -363,5 +364,78 @@ def test_quant_matmul_rejects_wrong_axis_and_fp8():
     tq = TQ.quantize(torch.as_tensor(_randn((32, 64), 72)), axis=-1)
     with pytest.raises(ValueError, match="axis"):
         kops.quant_matmul(torch.ones(8, 32), tq)
-    with pytest.raises(ValueError, match="not ported"):
-        TQ.quantize(torch.ones(8, 8), fmt="fp8_e4m3")
+    # fp8 payloads quantize, and the kernel refuses them (the reference's
+    # kernel does too, tests/test_quant.py:245)
+    with pytest.raises(ValueError, match="int8 payloads only"):
+        kops.quant_matmul(torch.ones(8, 8),
+                          TQ.quantize(torch.ones(8, 8), fmt="fp8_e4m3"))
+
+
+# ---------------------------------------------------------------------------
+# The fp8 emulation formats (fp8 bit patterns on an int8 payload)
+# ---------------------------------------------------------------------------
+
+FP8 = ("fp8_e4m3", "fp8_e5m2")
+
+
+@pytest.mark.parametrize("block", [0, 128], ids=["channel", "tile"])
+@pytest.mark.parametrize("fmt", FP8)
+def test_fp8_payload_bytes_equal_the_reference(fmt, block):
+    """The payload is the reference's bit for bit (outliers included, so
+    the grid's top is reached), the scale at rtol 1e-6, the dequantized
+    values within rtol 1e-4."""
+    w = _randn((300, 48), 90)
+    w[3, 5] = 40.0
+    jw, tw = _pair(w)
+    jq = JQ.quantize(jw, axis=-2, block=block, fmt=fmt)
+    tq = TQ.quantize(tw, axis=-2, block=block, fmt=fmt)
+    assert tq.data.dtype == torch.int8 and tq.fmt == fmt
+    np.testing.assert_array_equal(tq.data.numpy(), np.asarray(jq.data))
+    np.testing.assert_allclose(tq.scale.numpy(), np.asarray(jq.scale),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tq.dequantize().numpy(),
+                               np.asarray(jq.dequantize()), rtol=1e-4,
+                               atol=0)
+    rel = float((tq.dequantize() - tw).abs().max() / tw.abs().max())
+    assert rel < (0.08 if fmt == "fp8_e4m3" else 0.16)
+
+
+@pytest.mark.parametrize("fmt", FP8)
+def test_fp8_ca_matmul_serves_through_dequantize(fmt):
+    """ca_matmul on an fp8 weight (the reference's oracle path: the norm
+    up front, dequantize, a plain product, the epilogue) within rtol 1e-4;
+    the GLU pair likewise; no kernel launch, no ledger record."""
+    from repro.core import gemm as jg
+    from repro_torch import obs
+    from repro_torch.core import gemm as tg
+
+    x, w, w2 = _randn((2, 5, 64), 91), _randn((64, 40), 92), \
+        _randn((64, 40), 93)
+    bias, res, gain = _randn((40,), 94), _randn((2, 5, 40), 95), \
+        _randn((64,), 96)
+    jx, tx = _pair(x)
+    jq = {k: JQ.quantize(jnp.asarray(v), fmt=fmt) for k, v in
+          (("w", w), ("w2", w2))}
+    tq = {k: TQ.quantize(torch.as_tensor(v), fmt=fmt) for k, v in
+          (("w", w), ("w2", w2))}
+    K.reset_launch_counts()
+    obs.set_ledger(obs.GemmLedger(enabled=True))
+    with jg.gemm_mode("xla"):
+        want = jg.ca_matmul(jx, quant=jq["w"], epilogue=JEpilogue(
+            bias=jnp.asarray(bias), activation="gelu",
+            residual=jnp.asarray(res)), prologue=JRms(jnp.asarray(gain)))
+        want_glu = jg.ca_glu_matmul(jx, jq["w"], jq["w2"],
+                                    prologue=JRms(jnp.asarray(gain)))
+    try:
+        got = tg.ca_matmul(tx, tq["w"], epilogue=TEpilogue(
+            bias=torch.as_tensor(bias), activation="gelu",
+            residual=torch.as_tensor(res)),
+            prologue=TRms(torch.as_tensor(gain)))
+        got_glu = tg.ca_glu_matmul(tx, tq["w"], tq["w2"],
+                                   prologue=TRms(torch.as_tensor(gain)))
+        assert obs.get_ledger().records == []
+    finally:
+        obs.reset_ledger()
+    _close(got, want, rtol=1e-4, atol_rel=1e-5)
+    _close(got_glu, want_glu, rtol=1e-4, atol_rel=1e-5)
+    assert K.launch_counts == {}

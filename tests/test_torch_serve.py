@@ -70,12 +70,13 @@ def test_default_device_needs_cuda(params, monkeypatch):
 # w8a8 is ported: quantize_activations over dense params raises, as the
 # reference's test_w8a8_requires_weight_quantized_params checks.  Bounded
 # admission is ported: an unknown overflow policy raises, as the
-# reference's constructor does.
+# reference's constructor does.  tp_local is ported (its warmup is held in
+# tests/test_torch_serve_tp.py); a batch_size below 1 raises.
 @pytest.mark.parametrize("kw,match", [
     ({"paged_kv": True, "quantize_activations": True},
      "quantize_activations"),
     ({"quantize_activations": True}, "quantize_activations"),
-    ({"tp_local": (1, 2)}, "not ported"),
+    ({"batch_size": 0}, "batch_size"),
     ({"max_queue": 4, "overflow": "drop_newest"},
      "unknown overflow policy")],
     ids=["kw0", "kw1", "kw2", "kw3"])
@@ -398,3 +399,39 @@ def test_deepseek_int8w_greedy_tokens_identical_to_reference_engine():
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (11, 6)]
     want, (got,) = _serve_both(arch, jq, tq, prompts)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# batch_size and warmup_gemms (the reference's constructor arguments)
+# ---------------------------------------------------------------------------
+
+def _pool_gauge(metrics):
+    return metrics.snapshot()["serve.kv_pool_pages"]["value"]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slab", "paged"])
+@pytest.mark.parametrize("warmup", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("batch_size", [1, 4])
+def test_batch_size_and_warmup_match_reference_engine(params, batch_size,
+                                                      warmup, paged):
+    """The warmed plans (rows [batch_size, batch_size·max_len], none with
+    warmup_gemms=False) have the reference engine's keys past the target
+    name, and the default page pool holds batch_size sequences, as the
+    reference's serve.kv_pool_pages reads."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+
+    jp, tp = params
+    kw = dict(batch_size=batch_size, max_len=24, warmup_gemms=warmup,
+              paged_kv=paged, kv_page_size=8 if paged else 0)
+    jeng = JServeEngine(jp, jax_reduced(ARCH), **kw)
+    eng = ServeEngine(tp, get_reduced(ARCH), device="cpu", **kw)
+    strip = lambda keys: sorted(k.split("/", 1)[1] for k in keys)  # noqa: E731
+    assert strip(eng.gemm_plan_sources) == strip(jeng.gemm_plan_sources)
+    assert bool(eng.gemm_plan_sources) == warmup
+    assert eng.B == jeng.B == batch_size
+    if paged:
+        assert eng.kv_pool.n_pages == jeng.kv_pool.n_pages \
+            == batch_size * 3
+        assert _pool_gauge(tobs.get_metrics()) \
+            == _pool_gauge(jobs.get_metrics()) == batch_size * 3

@@ -490,8 +490,13 @@ def test_warmup_model_sources_and_memo(tmp_path):
     assert after["autotune"] == 0
     with pytest.raises(ValueError, match="unknown quant"):
         warmup_model(cfg, [32], quant="fp8")
-    with pytest.raises(ValueError, match="serve/tp.py"):
-        warmup_model(cfg, [32], shard=(1, 2))
+    # a tensor-parallel engine's warmup plans the ring-step local shapes
+    from repro_torch.tuning import shard_gemm_workloads
+
+    sharded = warmup_model(cfg, [32], shard=(1, 2))
+    assert len(sharded) == len(shard_gemm_workloads(
+        model_gemm_workloads(cfg, 32), 1, 2))
+    assert sharded.keys() != sources.keys()
 
 
 # ---------------------------------------------------------------------------
