@@ -134,15 +134,15 @@ Phases (any failure raises and the script exits non-zero):
    down projection at its capacity rows m = 8 and 16; MLA's wkv_a, n =
    576 and 288, and minicpm3's q-LoRA projections; mixtral's expert GLU
    at m = 8).  Then, one model on the card at a time, full width, random
-   weights from seed 0, bf16: granite-20b (13 of its 52 layers),
-   deepseek-v2-lite-16b (9 of 27), minicpm3-4b (16 of 62; these three cut
-   to keep the script inside its time limit) and mixtral-8x7b (8 of its 32
+   weights from seed 0, bf16: granite-20b (6 of its 52 layers),
+   deepseek-v2-lite-16b (2 of 27), minicpm3-4b (8 of 62; these three cut
+   to keep the script inside its time limit) and mixtral-8x7b (4 of its 32
    layers: 93 GB in bf16 does not fit) serve prompts of 128, 37 and 8
    tokens (mixtral also 4200, past its 4096-token window), 8 new tokens
    each, through
    ServeEngine on the slab cache; granite and mixtral also with
    paged_kv=True.  Every forward step's K1 launches by route and program
-   (79 / 1198 / 97 / 161 a step; the routed experts at their capacity
+   (37 / 267 / 49 / 81 a step; the routed experts at their capacity
    rows), K2's (one a layer a paged decode step, none in prefill), slab vs
    paged prefill logits bit-equal and greedy tokens up to a near tie, one
    K2 call of the run replayed against its plain version; decode and
@@ -155,13 +155,13 @@ Phases (any failure raises and the script exits non-zero):
    (the Mamba2 in_proj, n 4384 and 14576, and out_proj; zamba2's shared
    w_in; qwen2-vl's GLU, k 8192, n 29568, and w_down; musicgen's GELU
    w_up) and K2 at their paged shapes (qwen2-vl G = 8, D = 128; musicgen
-   G = 1, D = 64); mamba2-370m (24 of its 48 layers, 49 K1 launches a
-   step) and zamba2-7b (24 of 81 layers and 4 shared-block applications,
-   77) on the
+   G = 1, D = 64); mamba2-370m (12 of its 48 layers, 25 K1 launches a
+   step) and zamba2-7b (12 of 81 layers and 2 shared-block applications,
+   39) on the
    slab cache with a 600-token prompt besides (three 256-token SSD
-   chunks, not a multiple of one); qwen2-vl-72b (24 of its 80 layers:
-   145 GB in bf16 does not fit; 145) over the embeds frontend's demo
-   table and musicgen-large (24 of 48 layers, four codebook heads, 144)
+   chunks, not a multiple of one); qwen2-vl-72b (12 of its 80 layers:
+   145 GB in bf16 does not fit; 73) over the embeds frontend's demo
+   table and musicgen-large (12 of 48 layers, four codebook heads, 72)
    on the
    slab and the paged cache; held against the CPU at 2 layers (zamba2 7:
    one full group and a partial one).
@@ -218,10 +218,11 @@ Phases (any failure raises and the script exits non-zero):
    14576) in dx and dW, musicgen-large's rms>gelu w_up with save_preact
    and its dact.gelu nt / tn.  Then each of the seven other
    configurations trains at full width, one at a time, fp32 masters from
-   seed 0, AdamW on the donated state: mamba2-370m (48 layers),
-   musicgen-large (48), deepseek-v2-lite-16b (4 of 27), zamba2-7b (12 of
-   81: two full groups, the shared block applied twice), minicpm3-4b (16
-   of 62), mixtral-8x7b and qwen2-vl-72b (2 each), 2 steps of 4 x 256
+   seed 0, AdamW on the donated state: mamba2-370m (12 of 48 layers),
+   musicgen-large (12 of 48), deepseek-v2-lite-16b (2 of 27), zamba2-7b
+   (12 of 81: two full groups, the shared block applied twice),
+   minicpm3-4b (8 of 62), mixtral-8x7b and qwen2-vl-72b (2 each), 2
+   steps of 4 x 256
    tokens: finite loss, aux and grad_norm at each step and exactly
    ``train_counts_per_step``'s K1 launches by key; routes by key,
    launches by shape (each timed shape must be one its run launched), step ms,
@@ -265,10 +266,26 @@ Phases (any failure raises and the script exits non-zero):
    projections held without it on the oracle's own inputs; the ledger's 7
    dist records' planned bytes equal to ``estimate_cost``'s and their
    sum to the bytes the rings sent; one step under
-   ``FaultPlan(kernel_fail_at=...)`` re-dispatched bit-equal.  Any
-   rank's failure fails the script.  ``python3 chip_smoke.py --only
-   dist`` runs the card and K1's build and this phase alone (no kernels
-   line, no result).
+   ``FaultPlan(kernel_fail_at=...)`` re-dispatched bit-equal.  Then
+   the same spawn's ranks 0-3 train (``fsdp_rank``): full-width
+   stablelm-1.6b at 2 of its 24 layers (fp32 masters from seed 0, the
+   whole vocab), 2 steps of 8 x 128 tokens, each rank's mask holding
+   another count of tokens, with the FSDP hooks
+   (``train.fsdp.weight_hoist``) on (data 2) and (pod 2, data 2) at
+   microbatches 1 and 2: every rank's K1 launches equal
+   ``train_counts_per_step`` times the microbatches, all on the wgmma
+   route; loss and grad_norm within TOL_LOSS of the single-process card
+   step on the whole batch, each leaf's change within TOL_GRAD relative
+   L2 of its change; the step walls (the gloo transport's).
+   ``allreduce_compressed`` in int8 and bf16 over ``pod`` on card
+   tensors against the plain mean, with the error-feedback identity.
+   The state saved from the 4 ranks (6.2 GB under build/, removed),
+   restored on 2 ranks and on 1 rank at once, every chunk of every leaf
+   checksummed in each layout (``_digest``: 64-bit sums of its bits)
+   and all equal, rank 0's chunk bit-equal to its restore.  Any rank's
+   failure fails the script.  ``python3 chip_smoke.py --only dist`` runs
+   the card and K1's build and this phase alone, ``--only fsdp`` its
+   FSDP part alone (no kernels line, no result).
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -276,6 +293,7 @@ The last two lines are the kernels' JSON record and the result JSON.
 import collections
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -3813,33 +3831,34 @@ ARCH_TIMED = [(GELU, "granite w_up", 1), (GELU, "granite w_up", 128),
 # tokens each), the K1 launches of one forward step and the layers of its card-vs-CPU model.
 # The deep ones serve at a cut depth so that the whole script, with the
 # train archs phase, stays inside its time limit (their decode steps are
-# host-bound, so the phase's time goes with depth): granite-20b 13 of 52
-# layers, deepseek-v2-lite-16b 9 of 27, minicpm3-4b 16 of 62, mamba2-370m
-# and musicgen-large 24 of 48, zamba2-7b 24 of 81 (four full groups, four
+# host-bound, so the phase's time goes with depth; cut again to make room
+# for the FSDP part of the dist phase): granite-20b 6 of 52 layers,
+# deepseek-v2-lite-16b 2 of 27, minicpm3-4b 8 of 62, mamba2-370m and
+# musicgen-large 12 of 48, zamba2-7b 12 of 81 (two full groups, two
 # shared-block applications).  mixtral-8x7b's 32 layers are 93 GB in
-# bf16: 8 of them are served, and its 4200-token prompt runs past the
-# 4096-token window.  qwen2-vl-72b's 80 layers are 145 GB in bf16: 24 of
+# bf16: 4 of them are served, and its 4200-token prompt runs past the
+# 4096-token window.  qwen2-vl-72b's 80 layers are 145 GB in bf16: 12 of
 # them are served.  The SSM archs' 600-token prompt spans three 256-token
 # SSD chunks, not a multiple of one; zamba2 on the CPU at 7 layers runs
 # one full group of 6 and a partial one.
 SERVED_ARCHS = {
-    "granite-20b": dict(layers=13, paged=True, prompts=(128, 37, 8),
-                        per_step=79, cpu_layers=2),
-    "deepseek-v2-lite-16b": dict(layers=9, paged=False,
-                                 prompts=(128, 37, 8), per_step=1198,
+    "granite-20b": dict(layers=6, paged=True, prompts=(128, 37, 8),
+                        per_step=37, cpu_layers=2),
+    "deepseek-v2-lite-16b": dict(layers=2, paged=False,
+                                 prompts=(128, 37, 8), per_step=267,
                                  cpu_layers=2),
-    "minicpm3-4b": dict(layers=16, paged=False, prompts=(128, 37, 8),
-                        per_step=97, cpu_layers=4),
-    "mixtral-8x7b": dict(layers=8, paged=True, prompts=(128, 37, 8, 4200),
-                         per_step=161, cpu_layers=2),
-    "mamba2-370m": dict(layers=24, paged=False, prompts=(128, 37, 8, 600),
-                        per_step=49, cpu_layers=2),
-    "zamba2-7b": dict(layers=24, paged=False, prompts=(128, 37, 8, 600),
-                      per_step=77, cpu_layers=7),
-    "qwen2-vl-72b": dict(layers=24, paged=True, prompts=(128, 37, 8),
-                         per_step=145, cpu_layers=2),
-    "musicgen-large": dict(layers=24, paged=True, prompts=(128, 37, 8),
-                           per_step=144, cpu_layers=2),
+    "minicpm3-4b": dict(layers=8, paged=False, prompts=(128, 37, 8),
+                        per_step=49, cpu_layers=4),
+    "mixtral-8x7b": dict(layers=4, paged=True, prompts=(128, 37, 8, 4200),
+                         per_step=81, cpu_layers=2),
+    "mamba2-370m": dict(layers=12, paged=False, prompts=(128, 37, 8, 600),
+                        per_step=25, cpu_layers=2),
+    "zamba2-7b": dict(layers=12, paged=False, prompts=(128, 37, 8, 600),
+                      per_step=39, cpu_layers=7),
+    "qwen2-vl-72b": dict(layers=12, paged=True, prompts=(128, 37, 8),
+                         per_step=73, cpu_layers=2),
+    "musicgen-large": dict(layers=12, paged=True, prompts=(128, 37, 8),
+                           per_step=72, cpu_layers=2),
 }
 ARCH_NEW_TOKENS = 8
 
@@ -4209,10 +4228,13 @@ def print_archs(archs, card_line):
 # layers: 2.76 B), zamba2-7b 6.8 B (12 of 81: two full groups of 6, the
 # shared block applied twice; 1.40 B), minicpm3-4b 4.3 B (16 of 62: 1.38
 # B), mixtral-8x7b 46.7 B (2 of 32: 3.17 B), qwen2-vl-72b 74 B (2 of 80:
-# 3.00 B).  mamba2-370m (0.42 B) and musicgen-large (2.43 B) train whole.
-TRAIN_ARCHS = {"mamba2-370m": None, "musicgen-large": None,
-               "deepseek-v2-lite-16b": 4, "zamba2-7b": 12,
-               "minicpm3-4b": 16, "mixtral-8x7b": 2, "qwen2-vl-72b": 2}
+# 3.00 B).  mamba2-370m (0.42 B) and musicgen-large (2.43 B) would train
+# whole.  To give the script's time to the dist phase's FSDP part, each
+# depth is cut again: mamba2-370m and musicgen-large 12 of 48,
+# deepseek-v2-lite-16b 2, minicpm3-4b 8.
+TRAIN_ARCHS = {"mamba2-370m": 12, "musicgen-large": 12,
+               "deepseek-v2-lite-16b": 2, "zamba2-7b": 12,
+               "minicpm3-4b": 8, "mixtral-8x7b": 2, "qwen2-vl-72b": 2}
 TRAIN_ARCH_STEPS = 2
 # The card-vs-CPU check of each family trains this many layers: 2, and
 # zamba2 7 (one full group of 6, so the shared block applies, and a
@@ -4886,8 +4908,9 @@ def _tp_decode_checks(dev, mesh, tp):
     return out
 
 
-def dist_rank(rank, world, backend):
-    """One rank of the dist phase (run by ``spawn_ranks``)."""
+def dist_rank(rank, world, backend, parts=("dist", "fsdp")):
+    """One rank of the dist phase (run by ``spawn_ranks``): the
+    distributed GEMM and TP decode checks, then the FSDP phase's part."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_mesh_compat, rank_device
@@ -4895,13 +4918,27 @@ def dist_rank(rank, world, backend):
     dev = rank_device(rank, backend)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "device": str(dev),
+           "backend": tdist.get_backend()}
+    if "dist" in parts:
+        out.update(_dist_rank_checks(rank, world, backend, dev))
+    if "fsdp" in parts:
+        out["fsdp"] = fsdp_rank(rank, world, dev)
+        tdist.barrier()
+    return out
+
+
+def _dist_rank_checks(rank, world, backend, dev):
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+
     t0 = time.perf_counter()
     meshes = {name: (make_mesh_compat(shape, axes), pod)
               for name, shape, axes, pod in DIST_MESHES}
     tp_of = {name: dict(zip(axes, shape))["model"]
              for name, shape, axes, _ in DIST_MESHES}
-    out = {"rank": rank, "device": str(dev),
-           "backend": tdist.get_backend()}
+    out = {"rank": rank}
     out["dist_matmul"] = _dist_matmul_checks(dev, meshes, tp_of)
     # The ring-step shapes, one rank at a time: each rank checks K1
     # against its plain version; each rank with a card of its own times
@@ -4945,13 +4982,16 @@ def _dist_failures(outs):
     return bad
 
 
-def dist_phase(card_line):
+def dist_phase(card_line, parts=("dist", "fsdp")):
     """The dist phase: eight ranks drive dist_matmul at every schedule and
-    the full-width TP decode block; any rank's failure fails it."""
+    the full-width TP decode block, then four of them the FSDP phase
+    (``fsdp_rank``); any rank's failure fails it."""
     from repro_torch.launch.mesh import spawn_ranks
 
     phase("dist: dist_matmul and the tensor-parallel decode block, "
-          f"{DIST_WORLD} ranks")
+          f"{DIST_WORLD} ranks; then FSDP training on {FSDP_RANKS} of them"
+          if "dist" in parts else f"fsdp: {DIST_WORLD} ranks, "
+          f"{FSDP_RANKS} of them training")
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= DIST_WORLD else "gloo"
     transport = ("NCCL, one rank a card" if backend == "nccl" else
@@ -4960,9 +5000,23 @@ def dist_phase(card_line):
           f"{DIST_WORLD}; {card_line}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    outs = spawn_ranks(dist_rank, DIST_WORLD, (backend,), timeout=300,
-                       backend=backend)
+    outs = spawn_ranks(dist_rank, DIST_WORLD, (backend, parts),
+                       timeout=900, backend=backend)
     seconds = time.perf_counter() - t0
+    res = {"outs": outs, "seconds": seconds, "backend": backend,
+           "transport": transport}
+    if "dist" in parts:
+        _print_dist(outs, transport, card_line)
+    if "fsdp" in parts:
+        fsdp_s = max(o["fsdp"]["seconds"] for o in outs if o.get("fsdp"))
+        res["fsdp"] = print_fsdp(outs, card_line)
+        res["fsdp_seconds"] = fsdp_s
+        print(f"fsdp phase {fsdp_s:.1f} s (the ranks' part; the spawn "
+              f"{seconds:.1f} s in all; {card_line})")
+    return res
+
+
+def _print_dist(outs, transport, card_line):
     for o in outs:
         r = o["rank"]
         print(f"dist rank {r} on {o['device']} ({o['backend']}), "
@@ -5002,9 +5056,8 @@ def dist_phase(card_line):
     for (m, mesh, s), ms in sorted(walls.items()):
         print(f"e2e dist wall ({transport}; {card_line}) m={m} {mesh} {s}: "
               f"{ms:.3f} ms (slowest rank, mean of {DIST_WALL_REPS})")
-    print(f"dist phase {seconds:.1f} s")
-    return {"outs": outs, "seconds": seconds, "backend": backend,
-            "transport": transport}
+    print(f"dist phase {max(o['seconds'] for o in outs):.1f} s (the "
+          "ranks' dist checks)")
 
 
 def dist_kernel_records(dres):
@@ -5024,6 +5077,503 @@ def dist_kernel_records(dres):
         "library_ms": row["library_ms"], "k1_route": row["k1_route"],
         "shape": f"{row['shape']} m={row['m']} n={row['n']} k={row['k']} "
                  f"bf16, fp32 out ({dres['transport']})"}]
+
+
+# ---------------------------------------------------------------------------
+# FSDP training (run by the dist phase's ranks 0-3)
+# ---------------------------------------------------------------------------
+
+# Full-width stablelm-1.6b at 2 of its 24 layers (fp32 masters and both
+# AdamW moments of the whole vocab: 6.2 GB a state), 2 steps of 8 x 128
+# tokens, each rank's mask holding another count of tokens.  The dist
+# phase's 8 ranks build a (rep 2, pod 2, data 2, model 1) mesh; rep 0's
+# four ranks train, on (data 2) (pod 0's pair) and on (pod 2, data 2).
+FSDP_LAYERS, FSDP_BATCH, FSDP_SEQ, FSDP_STEPS = 2, 8, 128, 2
+FSDP_RANKS = 4
+FSDP_MESHES = (("data2", 2), ("pod2xdata2", 4))
+FSDP_MB = (1, 2)
+FSDP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+# The FSDP step against the single-process card step on the whole batch,
+# PR 26's card tolerances for this family (TOL_LOSS, TOL_GRAD): the loss
+# and grad_norm within TOL_LOSS relative; each leaf's change over the
+# steps within TOL_GRAD relative L2 of the single-process step's change,
+# plus its witness.  Both sum bf16 gradients in other orders (a rank's
+# rows, then the fp32 mean over the ranks, against one GEMM over every
+# row), and Adam's first update, g / (|g| + eps), turns a near-zero
+# gradient's rounding into a move of up to lr: the witness is how far the
+# single-process step itself moves on
+# the same batch with its rows reversed (the same loss, its sums over
+# rows in another order), measured in the same run and printed (call 1 of
+# this phase: the embedding table's change 5.3-5.9 % apart, every other
+# leaf within TOL_GRAD).
+FSDP_COMPRESS_ROUNDS = 3
+
+
+def _fsdp_cfg():
+    return dataclasses.replace(get_config(ARCH), n_layers=FSDP_LAYERS)
+
+
+def _fsdp_batch(cfg, step):
+    """Global batch ``step``: SyntheticLM tokens, a mask keeping all of
+    rows 0-1, ~70 % of rows 2-3, 16 tokens of rows 4-5 and half of row 7,
+    so the ranks' counts differ."""
+    b = batch_for_model(cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=FSDP_SEQ,
+        global_batch=FSDP_BATCH, seed=0), step)
+    rng = np.random.RandomState(step)
+    mask = np.ones((FSDP_BATCH, FSDP_SEQ), np.float32)
+    mask[2:4] = (rng.rand(2, FSDP_SEQ) > 0.3).astype(np.float32)
+    mask[4:6, 16:] = 0.0
+    mask[7, FSDP_SEQ // 2:] = 0.0
+    b["mask"] = mask
+    return b
+
+
+def _digest(t):
+    """Two 64-bit checksums of a tensor's bits: their sum, and their sum
+    weighted by position (wrapping), in chunks of 2^24 elements."""
+    flat = t.detach().contiguous().view(-1)
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}[
+        flat.element_size()]
+    bits = flat.view(ints)
+    plain = weighted = 0
+    step = 1 << 24
+    for lo in range(0, bits.numel(), step):
+        x = bits[lo:lo + step].long()
+        idx = torch.arange(lo, lo + x.numel(), device=x.device,
+                           dtype=torch.int64)
+        plain += int(x.sum())
+        weighted += int((x * ((idx * 2654435761 + 97) % 4294967291)).sum())
+    return [plain % 2 ** 64, weighted % 2 ** 64]
+
+
+def _chunk_digests(layout, tree, parts, first):
+    """Digests of each leaf's chunks along its FSDP dim: the leaf held
+    here is ``parts`` of the 4-way split starting at chunk ``first`` (a
+    leaf held whole by every rank: one entry, ``"all"``)."""
+    from repro_torch.checkpoint.manager import _flatten
+
+    out = {}
+    for key, t in _flatten(tree).items():
+        name = key.split("/", 2)[-1] if key.startswith("opt/") else \
+            key.split("/", 1)[-1]
+        d = layout.dims.get(name) if key.startswith(("params/", "opt/m/",
+                                                     "opt/v/")) else None
+        if d is None:
+            out[f"{key} all"] = _digest(t)
+            continue
+        n = t.shape[d] // parts
+        for i in range(parts):
+            out[f"{key} {first + i}"] = _digest(t.narrow(d, i * n, n))
+    return out
+
+
+def _fsdp_single(cfg, dev, layouts):
+    """The single-process card step on the whole batch, each microbatch
+    count: its metrics and, for each mesh this rank trains on, its shards
+    of the starting masters and of the final parameters (host copies).
+    Then the witness: the same step with the batch's rows reversed (the
+    same loss, every sum over rows in another order), each leaf's squared
+    distance from the first run over this rank's shards."""
+    def shards(params):
+        return {name: {k: v.cpu() for k, v in lay.shard(params).items()}
+                for name, lay in layouts.items()}
+
+    out = {}
+    for mb in FSDP_MB + ("reversed",):
+        state = T.init_state(cfg, seed=0, device=dev)
+        if "start" not in out:
+            out["start"] = shards(state.params)
+        step_fn = T.build_train_step(
+            cfg, adamw.AdamWConfig(**FSDP_OPT),
+            microbatches=1 if mb == "reversed" else mb, donate=True)
+        metrics = []
+        for i in range(FSDP_STEPS):
+            b = T.cast_batch(_fsdp_batch(cfg, i), cfg, dev)
+            if mb == "reversed":
+                b = {k: v.flip(0) for k, v in b.items()}
+            state, m = step_fn(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[mb] = {"metrics": metrics, "final": shards(state.params)}
+        del state, step_fn
+        torch.cuda.empty_cache()
+    rev = out.pop("reversed")
+    one = out[FSDP_MB[0]]["final"]
+    out["witness2"] = {
+        name: {k: float(((rev["final"][name][k] - one[name][k]).double()
+                         ** 2).sum()) for k in one[name]}
+        for name in layouts}
+    out["reversed_metrics"] = rev["metrics"]
+    return out
+
+
+def _fsdp_run(cfg, dev, layout, hooks, mb, single, group):
+    """FSDP steps of one (mesh, microbatch count): per step the global
+    metrics, the wall (all ranks in step), this rank's K1 launches and
+    routes; then each leaf's squared distance from the single-process
+    step and the single-process step's squared change, over this rank's
+    shards."""
+    import torch.distributed as tdist
+
+    state = layout.init_state(0, dev)
+    step_fn = T.build_train_step(cfg, adamw.AdamWConfig(**FSDP_OPT),
+                                 microbatches=mb, reshard_params=hooks[0],
+                                 reshard_grads=hooks[1], donate=True)
+    want = {k: n * mb for k, n in train_counts_per_step(cfg).items()}
+    steps = []
+    for i in range(FSDP_STEPS):
+        b = layout.local_batch(T.cast_batch(_fsdp_batch(cfg, i), cfg, dev))
+        before, routes = dict(K.launch_counts), dict(K.route_counts)
+        tdist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: n - before.get(k, 0) for k, n in
+                    K.launch_counts.items() if n != before.get(k, 0)}
+        steps.append({"step": i + 1, "wall_ms": wall,
+                      "metrics": {k: float(v) for k, v in m.items()},
+                      "local_tokens": int(b["tokens"].numel()),
+                      "mask_tokens": float(b["mask"].sum()),
+                      "launches": launches, "want": want,
+                      "routes": route_delta(routes)})
+    dist2, chg2 = {}, {}
+    for k, p in state.params.items():
+        fin, st = single["final"][k], single["start"][k]
+        dist2[k] = float(((p.cpu() - fin).double() ** 2).sum())
+        chg2[k] = float(((fin - st).double() ** 2).sum())
+    return {"steps": steps, "dist2": dist2, "chg2": chg2}, state
+
+
+def _fsdp_compressed(dev, mesh4, rank):
+    """``allreduce_compressed`` over ``pod`` on card tensors (shapes of
+    two stablelm shards, gradients of mixed scales), three rounds feeding
+    the residual back: against the plain mean (``none``), within half an
+    int8 step or half a bf16 ulp of the largest value a rank sent; the
+    error-feedback identity (the sum of the compressed reductions plus
+    the residuals equals the true sum)."""
+    from repro_torch.core.distributed import _Axis
+
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    ax = _Axis(mesh4, "pod", dev)
+    out = {}
+    for mode in ("int8", "bf16"):
+        ef = {"w_up": torch.zeros(2, 512, 5632, device=dev),
+              "norm": torch.zeros(2, 512, device=dev)}
+        worst, worst_ef = 0.0, 0.0
+        for r in range(FSDP_COMPRESS_ROUNDS):
+            g = {k: torch.randn(v.shape, generator=gen, device=dev)
+                 * 10.0 ** (-3 - r) for k, v in ef.items()}
+            gf = {k: g[k] + ef[k] for k in g}
+            mean, _ = adamw.allreduce_compressed(gf, {}, "pod", "none",
+                                                 mesh4)
+            red, new_ef = adamw.allreduce_compressed(g, ef, "pod", mode,
+                                                     mesh4)
+            for k in g:
+                top = float(ax.all_reduce(gf[k].abs().max(),
+                                          op=torch.distributed.ReduceOp.MAX))
+                # a rank's rounding: half an int8 step of the shared
+                # scale, or half a bf16 ulp (2^-8 relative)
+                lim = (0.5 * top / 127.0 if mode == "int8"
+                       else 2.0 ** -8 * top) * (1 + 1e-5) + 1e-6 * top
+                worst = max(worst, float((red[k] - mean[k]).abs().max())
+                            / lim)
+                # n·red + Σ residuals = Σ (g + ef): nothing lost
+                lhs = red[k] * ax.size + ax.all_reduce(new_ef[k])
+                rhs = ax.all_reduce(gf[k])
+                worst_ef = max(worst_ef, float((lhs - rhs).abs().max())
+                               / (1e-6 * ax.size * top))
+            ef = new_ef
+        out[mode] = {"worst_over_limit": worst,
+                     "ef_identity_over_limit": worst_ef}
+    return out
+
+
+def _fsdp_checkpoint(cfg, dev, state, layouts, meshes, rank, group):
+    """The (pod 2, data 2) state saved from the 4 ranks, then restored on
+    2 ranks (pod 0's pair, on the (data 2) mesh) and on 1 rank (rank 2,
+    a one-rank mesh) at once; every chunk's digest of each layout, and
+    on rank 0 its own chunk against its 2-rank restore, bit for bit."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import specs as S
+
+    path = ROOT / "build" / "fsdp_ckpt"
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    tdist.barrier(group=group)
+    mgr = CheckpointManager(str(path))
+    out = {}
+    sds, sh4 = S.state_inputs(cfg, meshes["pod2xdata2"])
+    lay4 = layouts["pod2xdata2"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(FSDP_STEPS, state, shardings=sh4)
+    out["save_s"] = time.perf_counter() - t0
+    out["live"] = _chunk_digests(lay4, state, 1, rank)
+    t0 = time.perf_counter()
+    if rank in (0, 1):
+        _, sh2 = S.state_inputs(cfg, meshes["data2"])
+        got = mgr.restore(sds, device=dev, shardings=sh2)
+        torch.cuda.synchronize()
+        out["restore2_s"] = time.perf_counter() - t0
+        out["restore2"] = _chunk_digests(lay4, got, 2, 2 * rank)
+        if rank == 0:
+            from repro_torch.checkpoint.manager import _flatten
+
+            live, back = _flatten(state), _flatten(got)
+            equal = True
+            for key, t in live.items():
+                if t.dim() and t.shape != back[key].shape:
+                    d = next(i for i, (a, b) in enumerate(
+                        zip(t.shape, back[key].shape)) if a != b)
+                    equal &= bool(torch.equal(
+                        t, back[key].narrow(d, 0, t.shape[d])))
+                else:
+                    equal &= bool(torch.equal(t, back[key]))
+            out["rank0_chunk_bit_equal"] = equal
+        del got
+    if rank == 2:
+        _, sh1 = S.state_inputs(cfg, meshes["one"])
+        got = mgr.restore(sds, device=dev, shardings=sh1)
+        torch.cuda.synchronize()
+        out["restore1_s"] = time.perf_counter() - t0
+        out["restore1"] = _chunk_digests(lay4, got, 4, 0)
+        del got
+    torch.cuda.empty_cache()
+    tdist.barrier(group=group)
+    out["checkpoint_gb"] = sum(
+        f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e9
+    tdist.barrier(group=group)
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def fsdp_rank(rank, world, dev):
+    """This rank's part of the FSDP phase (every dist rank calls it: the
+    mesh and the group are built by all; ranks past FSDP_RANKS wait)."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train import fsdp
+
+    t_start = time.perf_counter()
+    # the dist checks' cached blocks back to the card, on every rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = make_mesh_compat((world // FSDP_RANKS, 2, 2, 1),
+                            ("rep", "pod", "data", "model"))
+    group = tdist.new_group(list(range(FSDP_RANKS)))
+    if rank >= FSDP_RANKS:
+        return None
+    meshes = {"pod2xdata2": full["pod", "data", "model"],
+              "data2": full["data", "model"], "one": full["model"]}
+    cfg = _fsdp_cfg()
+    hooks = {name: fsdp.weight_hoist(cfg, meshes[name])
+             for name, _ in FSDP_MESHES}
+    layouts = {name: h[0].layout for name, h in hooks.items()}
+    pod = full.get_local_rank("pod")
+    # the single-process step on every rank at once (~10 GB each), each
+    # keeping its shards for the meshes it trains on (pod 1 skips (data 2))
+    t0 = time.perf_counter()
+    single = _fsdp_single(cfg, dev, {
+        name: lay for name, lay in layouts.items()
+        if name != "data2" or pod == 0})
+    single_s = time.perf_counter() - t0
+    tdist.barrier(group=group)
+    out = {"rank": rank, "single_s": single_s,
+           "single": {mb: single[mb]["metrics"] for mb in FSDP_MB},
+           "reversed": single["reversed_metrics"], "runs": {}}
+    last = None
+    for name, ranks in FSDP_MESHES:
+        for mb in FSDP_MB:
+            if ranks == 2 and pod != 0:
+                tdist.barrier(group=group)
+                continue
+            sub = {"final": single[mb]["final"][name],
+                   "start": single["start"][name]}
+            run, state = _fsdp_run(cfg, dev, layouts[name], hooks[name], mb,
+                                   sub, group if ranks == 4 else
+                                   meshes["data2"].get_group("data"))
+            run["witness2"] = single["witness2"][name]
+            out["runs"][f"{name} mb{mb}"] = run
+            if name == "pod2xdata2" and mb == FSDP_MB[-1]:
+                last = state
+            else:
+                del state
+            torch.cuda.empty_cache()
+            if ranks == 2:
+                tdist.barrier(group=group)
+    del single
+    torch.cuda.empty_cache()
+    out["compressed"] = _fsdp_compressed(dev, meshes["pod2xdata2"], rank)
+    out["checkpoint"] = _fsdp_checkpoint(cfg, dev, last, layouts, meshes,
+                                         rank, group)
+    del last
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _fsdp_failures(outs):
+    """Every check of the FSDP phase, against the single-process step and
+    across ranks; returns (failures, summary)."""
+    bad = []
+    fs = [o["fsdp"] for o in outs if o.get("fsdp")]
+    single = fs[0]["single"]
+    for f in fs[1:]:
+        if f["single"] != single:
+            bad.append(f"rank {f['rank']}: single-process step differs")
+    summary = {}
+    for name, ranks in FSDP_MESHES:
+        for mb in FSDP_MB:
+            key = f"{name} mb{mb}"
+            runs = [f["runs"][key] for f in fs[:ranks]]
+            worst_metric = 0.0
+            for i in range(FSDP_STEPS):
+                want = single[mb][i]
+                for r, run in enumerate(runs):
+                    s = run["steps"][i]
+                    for m in ("loss", "grad_norm"):
+                        rel = abs(s["metrics"][m] - want[m]) / abs(want[m])
+                        worst_metric = max(worst_metric, rel)
+                        if not (math.isfinite(s["metrics"][m])
+                                and rel <= TOL_LOSS):
+                            bad.append(f"{key} rank {r} step {i + 1} {m} "
+                                       f"{s['metrics'][m]} vs {want[m]}")
+                    if s["launches"] != s["want"]:
+                        bad.append(f"{key} rank {r} step {i + 1} K1 "
+                                   f"launches {s['launches']} != "
+                                   f"{s['want']}")
+                    if s["routes"] != {f"wgmma {k}": n
+                                       for k, n in s["want"].items()}:
+                        bad.append(f"{key} rank {r} step {i + 1} routes "
+                                   f"{s['routes']}")
+            worst_leaf, worst_over = 0.0, 0.0
+            for k in runs[0]["dist2"]:
+                d2 = sum(run["dist2"][k] for run in runs)
+                c2 = sum(run["chg2"][k] for run in runs)
+                w2 = sum(run["witness2"][k] for run in runs)
+                rel = math.sqrt(d2 / c2) if c2 else math.sqrt(d2)
+                lim = TOL_GRAD + (math.sqrt(w2 / c2) if c2 else 0.0)
+                worst_leaf = max(worst_leaf, rel)
+                worst_over = max(worst_over, rel / lim)
+                if not rel <= lim:
+                    bad.append(f"{key} {k}: change {rel} > {lim} "
+                               f"({TOL_GRAD} + its witness)")
+            counts = sorted({run["steps"][0]["mask_tokens"] for run in runs})
+            if len(counts) < 2:
+                bad.append(f"{key}: every rank holds {counts} mask tokens")
+            summary[key] = {
+                "ranks": ranks, "local_tokens":
+                    runs[0]["steps"][0]["local_tokens"],
+                "mask_tokens_by_rank": [run["steps"][0]["mask_tokens"]
+                                        for run in runs],
+                "worst_metric_rel": worst_metric,
+                "worst_leaf_change_rel_l2": worst_leaf,
+                "worst_leaf_over_limit": worst_over,
+                "witness_rel_l2_by_leaf": {
+                    k: math.sqrt(sum(run["witness2"][k] for run in runs)
+                                 / max(sum(run["chg2"][k] for run in runs),
+                                       1e-300))
+                    for k in runs[0]["dist2"]},
+                "k1_launches_per_step": sum(runs[0]["steps"][0][
+                    "launches"].values()),
+                "step_wall_ms": [max(run["steps"][i]["wall_ms"]
+                                     for run in runs)
+                                 for i in range(FSDP_STEPS)]}
+    for f in fs:
+        for mode, c in f["compressed"].items():
+            if not (c["worst_over_limit"] <= 1.0
+                    and c["ef_identity_over_limit"] <= 1.0):
+                bad.append(f"rank {f['rank']} compressed {mode} {c}")
+    digests = {}
+    for f in fs:
+        ck = f["checkpoint"]
+        for part in ("live", "restore2", "restore1"):
+            for key, d in ck.get(part, {}).items():
+                digests.setdefault(key, {})[(f["rank"], part)] = tuple(d)
+    parts_seen = collections.Counter()
+    for key, seen in digests.items():
+        if len(set(seen.values())) != 1:
+            bad.append(f"checkpoint {key}: digests differ {seen}")
+        for (_, part) in seen:
+            parts_seen[part] += 1
+    if not fs[0]["checkpoint"].get("rank0_chunk_bit_equal"):
+        bad.append("checkpoint: rank 0's chunk differs from its restore")
+    if not (parts_seen["live"] and parts_seen["restore2"]
+            and parts_seen["restore1"]):
+        bad.append(f"checkpoint: digests missing {dict(parts_seen)}")
+    summary["checkpoint"] = {
+        "gb": fs[0]["checkpoint"]["checkpoint_gb"],
+        "save_s": max(f["checkpoint"]["save_s"] for f in fs),
+        "restore_on_2_s": max(f["checkpoint"].get("restore2_s", 0.0)
+                              for f in fs),
+        "restore_on_1_s": max(f["checkpoint"].get("restore1_s", 0.0)
+                              for f in fs),
+        "chunks_compared": len(digests), "digests": dict(parts_seen)}
+    summary["compressed"] = {f"rank {f['rank']}": f["compressed"]
+                             for f in fs}
+    return bad, summary
+
+
+def print_fsdp(outs, card_line):
+    phase(f"fsdp: full-width {ARCH} at {FSDP_LAYERS} of its 24 layers, "
+          f"FSDP on (data 2) and (pod 2, data 2), {FSDP_STEPS} steps of "
+          f"{FSDP_BATCH} x {FSDP_SEQ} tokens; compressed all-reduce; "
+          "elastic restore")
+    fs = [o["fsdp"] for o in outs if o.get("fsdp")]
+    for f in fs:
+        print(f"fsdp rank {f['rank']}: {f['seconds']:.1f} s (single-process "
+              f"steps {f['single_s']:.1f} s)")
+        for key, run in f["runs"].items():
+            for s in run["steps"]:
+                print(f"fsdp rank {f['rank']} {key} step {s['step']} "
+                      + json.dumps({k: s[k] for k in (
+                          "metrics", "wall_ms", "local_tokens",
+                          "mask_tokens", "launches", "routes")}))
+    print("fsdp single-process card step on the whole batch "
+          + json.dumps(fs[0]["single"]) + "; its rows reversed (the "
+          "witness) " + json.dumps(fs[0]["reversed"]))
+    bad, summary = _fsdp_failures(outs)
+    for key, row in summary.items():
+        print(f"fsdp summary {key} " + json.dumps(row))
+    print(f"e2e fsdp step walls (gloo transport through pinned host copies, "
+          f"ranks sharing one card, not NVLink; {card_line}): "
+          + json.dumps({k: v["step_wall_ms"] for k, v in summary.items()
+                        if "step_wall_ms" in v}))
+    if bad:
+        raise AssertionError("fsdp phase:\n" + "\n".join(bad))
+    return summary
+
+
+def fsdp_kernel_records(outs, fsdp_seconds):
+    """The kernels line's record of K1 on the FSDP path: the forward GLU
+    with save_preact at the (pod 2, data 2) ranks' 256 local tokens,
+    against its plain version and timed here; launches are rank 0's over
+    its FSDP runs."""
+    m = FSDP_BATCH * FSDP_SEQ // 4
+    worst = k1f_parity([(GLU_SAVE, "fsdp gate+up fwd", m, 5632, 2048, None,
+                         torch.bfloat16)], "the FSDP rank-local shape", 15)
+    (row,) = k1f_times([(GLU_SAVE, "fsdp gate+up fwd", m, 5632, 2048,
+                         None)], "K1 at the FSDP rank-local shape")
+    f0 = next(o["fsdp"] for o in outs if o.get("fsdp"))
+    launches = sum(s["launches"].get(GLU_SAVE, 0)
+                   for run in f0["runs"].values() for s in run["steps"])
+    return [{
+        "name": f"ca_gemm_program[{GLU_SAVE}] fsdp step", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES, "launches": launches,
+        "max_abs_err": max(worst.values()), "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "k1_route": "wgmma",
+        "shape": f"gate+up m={m} n=5632 k=2048 bf16 (rank 0 of (pod 2, data "
+                 f"2); the phase {fsdp_seconds:.1f} s)"}]
 
 
 def main(argv=None):
@@ -5049,12 +5599,17 @@ def main(argv=None):
             print("record " + json.dumps(record))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
-    if argv == ["--only", "dist"]:
-        # A partial run for work on the dist phase alone: only K1's
-        # source, no kernels line, no result.
+    if argv in (["--only", "dist"], ["--only", "fsdp"]):
+        # A partial run for work on the dist phase alone (with its FSDP
+        # part), or on the FSDP part alone: only K1's source, no kernels
+        # line, no result.
         build((K.SOURCE,))
-        dres = dist_phase(card_line)
-        for record in dist_kernel_records(dres):
+        parts = ("dist", "fsdp") if argv[1] == "dist" else ("fsdp",)
+        dres = dist_phase(card_line, parts)
+        records = fsdp_kernel_records(dres["outs"], dres["fsdp_seconds"])
+        if "dist" in parts:
+            records = dist_kernel_records(dres) + records
+        for record in records:
             print("record " + json.dumps(record))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
@@ -5069,7 +5624,7 @@ def main(argv=None):
     if argv:
         raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
                          "--only train [ARCH ...] | --only robust | "
-                         f"--only dist], got {argv}")
+                         f"--only dist | --only fsdp], got {argv}")
     build()
     worst = parity()
     worst.update(quant_parity())
@@ -5292,6 +5847,7 @@ def main(argv=None):
     kernels += arch_kernel_records(archs, attn_rows)
     kernels += train_arch_records(tarchs)
     kernels += dist_kernel_records(dres)
+    kernels += fsdp_kernel_records(dres["outs"], dres["fsdp_seconds"])
     # Only the robust phase's plans failed, degraded, refused or
     # re-dispatched anything: every later phase added nothing.
     print("guarded counters at the end " + json.dumps(

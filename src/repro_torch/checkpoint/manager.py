@@ -32,10 +32,20 @@ package, whichever wrote it.
   without that package, is read as the same bits).  The reference does
   not read the port's bf16 form as bfloat16; fp32 and integer leaves are
   plain arrays in both.
-* The reference's ``shardings`` argument (elastic re-shard across device
-  counts) is ``device=`` here: restored tensors go to one device.
-  Re-sharding waits for the port's distributed layer; passing
-  ``shardings`` raises.
+* **Sharded states and elastic restore.** ``save(..., shardings=...)``
+  takes a tree of rank-local shards and, per leaf, its
+  :class:`~repro_torch.sharding.rules.NamedSharding` (mesh and spec, as
+  ``launch.specs.state_inputs`` gives them): every rank of the mesh
+  sends its shard of each leaf (a collective, so ``save_async`` gathers
+  before its writer thread starts) to the mesh's first rank, which
+  writes the reference's single-host layout.  A blocking sharded save
+  ends with a barrier over the mesh; after ``save_async`` every rank
+  calls :meth:`wait`, which then is one.  ``restore(like, shardings=...)``
+  reads the verified step on each rank and keeps that rank's slice of
+  each leaf under *its* sharding, whatever mesh wrote the step: a
+  checkpoint restores on any world size, the reference's own included.
+  Only the slice is read: the ``.npz`` members are stored uncompressed
+  and memory-mapped.
 """
 
 from __future__ import annotations
@@ -45,13 +55,16 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
 import warnings
+import zipfile
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.launch.specs import ShapeDtypeStruct
 from repro_torch.obs import get_metrics
 from repro_torch.quant.scales import QTensor
 
@@ -80,6 +93,8 @@ def _children(tree):
     """(key, child) pairs of an inner node, in the reference's order
     (dict keys sorted, NamedTuple and QTensor fields in order), or None
     for a leaf."""
+    if isinstance(tree, ShapeDtypeStruct):
+        return None
     if isinstance(tree, dict):
         return sorted(tree.items())
     if isinstance(tree, QTensor):
@@ -105,6 +120,8 @@ def _flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 def _unflatten(like, flat: Dict[str, torch.Tensor], prefix: str = ""):
     """``like``'s structure with each leaf taken from ``flat``."""
+    if isinstance(like, ShapeDtypeStruct):
+        return flat[prefix]
     if isinstance(like, dict):
         return {k: _unflatten(v, flat, _join(prefix, k))
                 for k, v in like.items()}
@@ -149,12 +166,80 @@ def _from_host(arr: np.ndarray, want: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+class _NpzMembers:
+    """The arrays of an ``.npz`` by key, each stored (uncompressed)
+    member memory-mapped where it lies in the file, so a slice of it
+    reads only its own bytes; 0-d and compressed members are read
+    whole."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._zip = zipfile.ZipFile(path)
+        self.files = [n[:-4] for n in self._zip.namelist()
+                      if n.endswith(".npy")]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._zip.close()
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        info = self._zip.getinfo(key + ".npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            with self._zip.open(info) as f:
+                return np.lib.format.read_array(f)
+        with open(self.path, "rb") as f:
+            f.seek(info.header_offset)
+            local = f.read(30)           # the member's local file header
+            n_name, n_extra = struct.unpack("<HH", local[26:30])
+            f.seek(info.header_offset + 30 + n_name + n_extra)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            offset = f.tell()
+        if not shape or 0 in shape:
+            with self._zip.open(info) as f:
+                return np.lib.format.read_array(f)
+        return np.memmap(self.path, dtype=dtype, mode="r", offset=offset,
+                         shape=shape, order="F" if fortran else "C")
+
+
+def _writer_and_mesh(shardings):
+    """The mesh of a sharded save and whether this rank writes (its
+    coordinates all 0)."""
+    sh = next(v for v in _flatten(shardings).values() if v is not None)
+    return sh.mesh, all(c == 0 for c in sh.coords().values())
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` has reached this point: a barrier over each
+    of its axes in turn."""
+    import torch.distributed as dist
+
+    for name in mesh.mesh_dim_names:
+        dist.barrier(group=mesh.get_group(name))
+
+
+def _leaf_device(ref, device):
+    if device is not None:
+        return device
+    dev = getattr(ref, "device", None)
+    if dev is None or dev.type == "meta":
+        from repro_torch.models.model import resolve_device  # lazy: heavy
+
+        return resolve_device(None)
+    return dev
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep_last: int = 3):
         self.dir = str(directory)
         self.keep_last = keep_last
         os.makedirs(self.dir, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._pending_mesh = None     # an async sharded save's mesh
         self._last_good: Optional[int] = None  # pinned against GC
 
     # -- paths ------------------------------------------------------------
@@ -227,28 +312,52 @@ class CheckpointManager:
 
     # -- save -------------------------------------------------------------
     def save(self, step: int, tree, *, host_id: int = 0,
-             blocking: bool = True):
+             blocking: bool = True, shardings=None):
         """Write ``tree`` as step ``step``.  The host copy of every leaf is
         taken here, before any write starts; ``blocking=False`` writes on
-        a background thread (:meth:`wait` joins it)."""
-        flat = _flatten(tree)
-        host = {k: _to_host(v) for k, v in flat.items()}
-        dtypes = {k: _dtype_name(v) for k, v in flat.items()}
+        a background thread (:meth:`wait` joins it).  With ``shardings``
+        (a tree of ``NamedSharding`` s, or None for a leaf every rank
+        holds whole) ``tree`` holds this rank's shards: every rank of the
+        mesh calls this, each leaf is gathered whole onto the mesh's first
+        rank here, and that rank writes."""
         self.wait()   # never race an in-flight async write
+        flat = _flatten(tree)
+        mesh, writer = None, True
+        if shardings is not None:
+            flat_sh = _flatten(shardings)
+            mesh, writer = _writer_and_mesh(shardings)
+        host, dtypes = {}, {}
+        for k, v in flat.items():
+            if shardings is not None and flat_sh.get(k) is not None:
+                v = flat_sh[k].gather(v, to_first=True)
+            if writer:
+                host[k], dtypes[k] = _to_host(v), _dtype_name(v)
         if blocking:
-            self._write(step, host, dtypes, host_id)
-        else:
+            if writer:
+                self._write(step, host, dtypes, host_id)
+            if mesh is not None:
+                _mesh_barrier(mesh)
+            return
+        self._pending_mesh = mesh
+        if writer:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, dtypes, host_id))
             self._thread.start()
 
-    def save_async(self, step: int, tree, *, host_id: int = 0):
-        self.save(step, tree, host_id=host_id, blocking=False)
+    def save_async(self, step: int, tree, *, host_id: int = 0,
+                   shardings=None):
+        self.save(step, tree, host_id=host_id, blocking=False,
+                  shardings=shardings)
 
     def wait(self):
+        """Join an in-flight async write; after a sharded ``save_async``
+        also a barrier over its mesh (every rank calls it)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending_mesh is not None:
+            mesh, self._pending_mesh = self._pending_mesh, None
+            _mesh_barrier(mesh)
 
     def _write(self, step: int, host: Dict[str, np.ndarray],
                dtypes: Dict[str, str], host_id: int):
@@ -319,14 +428,15 @@ class CheckpointManager:
         ``step=None`` a corrupt newest step falls back to the newest step
         that verifies; an explicit corrupt ``step`` raises
         :class:`CheckpointCorruptionError`.  Each leaf lands on ``device``
-        (default: the ``like`` leaf's device) in the ``like`` leaf's
-        dtype.  ``subtree`` names the part of the checkpoint ``like``
-        mirrors (``"params"`` for a train state's parameters); the
-        checkpoint's other keys are not read."""
-        if shardings is not None:
-            raise ValueError("restore(shardings=...) (elastic re-shard "
-                             "across device counts) is not ported yet: it "
-                             "waits for core/distributed.py; pass device=")
+        (default: the ``like`` leaf's device; the card for a stand-in or
+        a meta leaf) in the ``like`` leaf's dtype.  ``subtree`` names the
+        part of the checkpoint ``like`` mirrors (``"params"`` for a train
+        state's parameters); the checkpoint's other keys are not read.
+
+        ``shardings`` (``like``'s structure, ``NamedSharding`` leaves, or
+        None for a leaf kept whole) is the elastic re-shard: ``like``
+        gives each leaf's global shape, and each rank gets its own slice
+        under the target sharding, whatever mesh wrote the step."""
         step = self._verified_step(step)
         try:
             dtypes = self._manifest(step).get("dtypes", {})
@@ -334,8 +444,9 @@ class CheckpointManager:
             dtypes = {}
         path = os.path.join(self._step_dir(step), f"host_{host_id:05d}.npz")
         flat_like = _flatten(like)
+        flat_sh = _flatten(shardings) if shardings is not None else {}
         restored = {}
-        with np.load(path) as data:
+        with _NpzMembers(path) as data:
             keys = {k: _join(subtree, k) for k in flat_like}
             missing = sorted(set(keys.values()) - set(data.files))
             if missing:
@@ -346,9 +457,12 @@ class CheckpointManager:
                 if list(arr.shape) != list(ref.shape):
                     raise ValueError(f"{key}: checkpoint shape {arr.shape} "
                                      f"!= model {tuple(ref.shape)}")
-                dev = device if device is not None else ref.device
-                restored[k] = _from_host(arr, dtypes.get(key)).to(
-                    device=dev, dtype=ref.dtype)
+                if flat_sh.get(k) is not None:
+                    arr = arr[flat_sh[k].local_slices(arr.shape)]
+                # a copy: the mapping must not outlive this read
+                restored[k] = _from_host(np.array(arr, order="C"),
+                                         dtypes.get(key)).to(
+                    device=_leaf_device(ref, device), dtype=ref.dtype)
         return _unflatten(like, restored)
 
     # -- quantized serving restore ----------------------------------------

@@ -17,7 +17,8 @@ from repro_torch.configs import (deepseek_v2_lite_16b, granite_20b,
                                  h2o_danube_3_4b, mamba2_370m, minicpm3_4b,
                                  mixtral_8x7b, musicgen_large, qwen2_vl_72b,
                                  stablelm_1_6b, zamba2_7b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      applicable_shapes)
 
 _MODULES = {
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
@@ -55,4 +56,5 @@ def get_reduced(name: str, compute_dtype: str = "float32") -> ModelConfig:
                                compute_dtype=compute_dtype)
 
 
-__all__ = ["ModelConfig", "get_config", "get_reduced", "list_archs"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "applicable_shapes",
+           "get_config", "get_reduced", "list_archs"]

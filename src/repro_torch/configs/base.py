@@ -4,13 +4,14 @@ dtypes.
 
 Each architecture file in this package instantiates ``ModelConfig`` with
 the exact published dimensions and provides ``reduced()`` for CPU smoke
-tests.
+tests.  The assigned input shapes of the dry run (``launch/dryrun.py``)
+live in ``SHAPES``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -184,3 +185,31 @@ class ModelConfig:
         base = dense_like.n_params()
         active_ffn = 3 * d * fe * (self.moe.top_k + self.moe.n_shared_experts)
         return int(base + self.n_layers * (active_ffn + d * self.moe.n_experts))
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (same set for every LM arch).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> Sequence[str]:
+    """The (arch x shape) cells that are well-defined for this arch."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return names

@@ -383,9 +383,40 @@ class _Axis:
         self._count("gather", buf, self.size - 1)
         return self.compute(torch.cat(parts, dim=dim))
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def gather_to_first(self, t: torch.Tensor, dim: int):
+        """:meth:`gather` onto this axis's first rank only (``None``
+        elsewhere): each rank sends its block once.  A staged transport
+        leaves the result on the host, where it arrived (a checkpoint's
+        writer wants it there)."""
         buf = self.wire(t)
-        dist.all_reduce(buf, group=self.group)
+        parts = ([torch.empty_like(buf) for _ in range(self.size)]
+                 if self.index == 0 else None)
+        dist.gather(buf, parts, dst=self.ranks[0], group=self.group)
+        if parts is None:
+            return None
+        out = torch.cat(parts, dim=dim)
+        return out if self.staged else self.compute(out)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum of ``t`` over the
+        axis, summed in fp32: an all-to-all of the blocks in ``t``'s own
+        dtype, then the rank's ``size`` received blocks added locally in
+        rank order.  Each rank sends (size − 1)/size of ``t`` once, half
+        of what a ring all-reduce moves (gloo has no reduce-scatter)."""
+        n = t.shape[dim] // self.size
+        blocks = t.movedim(dim, 0).reshape(self.size, n, *(
+            t.shape[:dim] + t.shape[dim + 1:]))
+        buf = self.wire(blocks)
+        recv = torch.empty_like(buf)
+        dist.all_to_all_single(recv, buf, group=self.group)
+        return self.compute(recv).float().sum(0).movedim(0, dim)
+
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        buf = self.wire(t)
+        if buf is t:      # reduced in place: never the caller's tensor
+            buf = t.clone()
+        dist.all_reduce(buf, op=op, group=self.group)
         self._count("all_reduce", buf)
         return self.compute(buf)
 

@@ -49,6 +49,7 @@ from repro_torch.models import common as cm
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Defs
 from repro_torch.quant.scales import QTensor
+from repro_torch.sharding.rules import batch_mean, batch_sum
 
 
 def resolve_device(device=None) -> torch.device:
@@ -456,7 +457,9 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     labels, or (B, L, Cb, V) and (B, L, Cb) with codebooks: the padded
     vocab entries held at -1e9, an fp32 log-softmax, and the mean over
     all entries, or with ``mask`` (B, L) the sum over the masked entries
-    over ``mask.sum()`` (codebooks then add up, as in the reference)."""
+    over ``mask.sum()`` (codebooks then add up, as in the reference).  In
+    a rank-local training step (``sharding.rules.batch_statistics``) the
+    numerator and the denominator are sums over the global batch."""
     V = cfg.padded_vocab
     if cfg.vocab_size < V:
         pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
@@ -467,8 +470,9 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
         mask = mask.to(nll.dtype)
         while mask.dim() < nll.dim():
             mask = mask[..., None]
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+        return batch_sum((nll * mask).sum()) / torch.clamp(
+            batch_sum(mask.sum()), min=1.0)
+    return batch_mean(nll.mean())
 
 
 def prefill(params, batch_in, cfg: ModelConfig,

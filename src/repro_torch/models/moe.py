@@ -13,7 +13,9 @@ on the card), the two expert GEMMs run per expert on K1
 :func:`~repro_torch.core.gemm.ca_expert_matmul`), and each choice's
 output is gathered back, weighted by ``weight · keep`` and summed over
 the k choices.  Shared experts are a silu MLP with the block's residual
-in their down projection's drain.
+in their down projection's drain.  In a rank-local training step
+(``sharding.rules.batch_statistics``) the aux loss's two statistics are
+means over the global batch, as GSPMD computes them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.configs.base import ModelConfig, round_up
 from repro_torch.core.gemm import ca_expert_glu_matmul, ca_expert_matmul
 from repro_torch.models import common as cm
 from repro_torch.models.common import Defs, ParamDef
+from repro_torch.sharding.rules import batch_mean
 
 
 def moe_defs(cfg: ModelConfig, depth_scale: float = 1.0) -> Defs:
@@ -65,10 +68,13 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, k, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+    # Global-batch means in a rank-local training step (every rank holds
+    # as many tokens), before their product.
+    me = batch_mean(probs.mean(dim=(0, 1)))
+    ce = batch_mean(torch.zeros(E, dtype=torch.float32,
+                                device=x.device).index_add_(
         0, top_i.reshape(-1), torch.full((B * L * k,), 1.0 / (B * L * k),
-                                         device=x.device))
+                                         device=x.device)))
     aux = E * torch.sum(me * ce) * mo.aux_loss_coef
     return top_i, top_w, aux
 

@@ -14,18 +14,26 @@ train state, ``donate_argnums=(0,)`` in its dry run), so a step holds one
 copy of the masters and moments, not two.  Either way it runs one leaf
 at a time: the clipped fp32 gradient of one leaf lives at once.
 
-The compressed gradient all-reduce (``allreduce_compressed``, with
-``compress_grads``/``decompress_grads``) needs ``torch.distributed`` and
-waits for ``core/distributed.py``.
+On a sharded state (``train.fsdp``) the update runs leaf by leaf on each
+rank's shards; the clip's global norm is the one cross-rank step
+(``norm_fn``: one all-reduce of the sum of squares).
+
+``allreduce_compressed`` mean-reduces gradients over one named mesh axis
+with bf16 or int8 wire compression and error feedback (the quantization
+residual carried into the next step), for the slow cross-pod axis where
+gradient bytes dominate; ``compress_grads``/``decompress_grads`` are its
+single-rank halves.  As in the reference, all of this is plain tensor
+arithmetic: no kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Params = Dict[str, torch.Tensor]
 
@@ -78,7 +86,8 @@ def init(params: Params) -> AdamWState:
 
 @torch.no_grad()
 def update(grads: Params, state: AdamWState, params: Params,
-           cfg: AdamWConfig, *, donate: bool = False):
+           cfg: AdamWConfig, *, donate: bool = False,
+           norm_fn: Optional[Callable[[Params], torch.Tensor]] = None):
     """Returns (new_params, new_state, metrics); parameters keep their
     dtype, moments are fp32.  ``donate`` writes them into ``params`` and
     ``state``'s tensors, which the call consumes, and returns those; the
@@ -86,14 +95,17 @@ def update(grads: Params, state: AdamWState, params: Params,
     that steps one state more than once or keeps it after the step (the
     tests holding a step against the reference, microbatches or remat
     from one state; the checkpoint round trips); a loop that replaces its
-    state every step (``launch.train.run_training``) donates it."""
+    state every step (``launch.train.run_training``) donates it.
+    ``norm_fn(grads)`` gives the clip's global norm where the leaves are
+    shards (``train.fsdp.FsdpLayout.global_norm``); default
+    :func:`global_norm`."""
     gnorm = torch.zeros((), dtype=torch.float32, device=state.count.device)
     scale = None
     if cfg.clip_norm is not None:
         # The reference's clip by global norm, its scale applied leaf by
         # leaf below (g.float() · scale, in fp32 as its bf16 × fp32
         # promotes).
-        gnorm = global_norm(grads)
+        gnorm = (norm_fn or global_norm)(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
     count = state.count + 1
@@ -120,3 +132,89 @@ def update(grads: Params, state: AdamWState, params: Params,
         new_p[k], new_m[k], new_v[k] = new, m, v
     metrics = {"grad_norm": gnorm, "lr": lr}
     return new_p, AdamWState(count, new_m, new_v), metrics
+
+
+# ---------------------------------------------------------------------------
+# Compressed gradient all-reduce (error feedback)
+# ---------------------------------------------------------------------------
+
+def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fp32 scale for the whole tensor (max |g| / 127, floored at
+    1e-12 / 127) and the rounded, clipped int8 codes."""
+    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_grads(grads: Params, ef: Params, mode: str = "int8"):
+    """Quantize grads plus their error feedback.  Returns ``(payload,
+    new_ef)``: the payload is what crosses the wire (bf16 leaves, or
+    ``(q, scale)`` pairs for int8); ``new_ef`` carries each leaf's
+    quantization residual into the next step, so the compression is
+    unbiased over time (EF-SGD)."""
+    if mode == "none":
+        return grads, ef
+    payload, new_ef = {}, {}
+    for k in grads:
+        gf = grads[k].float() + ef[k]
+        if mode == "bf16":
+            q = gf.to(torch.bfloat16)
+            payload[k], new_ef[k] = q, gf - q.float()
+            continue
+        q, scale = quantize_int8(gf)
+        payload[k], new_ef[k] = (q, scale), gf - dequantize_int8(q, scale)
+    return payload, new_ef
+
+
+def decompress_grads(payload, mode: str = "int8") -> Params:
+    if mode == "none":
+        return payload
+    if mode == "bf16":
+        return {k: p.float() for k, p in payload.items()}
+    return {k: dequantize_int8(*p) for k, p in payload.items()}
+
+
+def allreduce_compressed(grads: Params, ef: Params, axis: str,
+                         mode: str = "int8", mesh=None):
+    """Mean-reduce ``grads`` over the named ``axis`` of ``mesh`` (a named
+    ``DeviceMesh``) with wire compression and error feedback; returns
+    ``(reduced, new_ef)``.  Every rank of the axis calls it with its own
+    gradients.
+
+    int8: the quantization scale is shared across the axis (MAX over it
+    of each rank's max |g| / 127, floored at 1e-12), so the SUM of the
+    codes (as int32, the reference's ``psum``) times the scale is exact.
+    bf16: the bf16 values summed in fp32.  none: the plain mean, ``ef``
+    passed through.  Card tensors under a backend other than NCCL travel
+    as pinned host copies, the transport of ``core.distributed``."""
+    from repro_torch.core.distributed import _Axis  # lazy: cycle
+
+    if mode not in ("none", "bf16", "int8"):
+        raise ValueError(f"unknown compression mode {mode!r}")
+    if mesh is None:
+        raise ValueError("allreduce_compressed reduces over a named axis "
+                         "of a DeviceMesh: pass mesh=")
+    red, new_ef = {}, {}
+    for k, g in grads.items():
+        ax = _Axis(mesh, axis, g.device)
+        n = ax.size
+        if mode == "none":
+            red[k] = (ax.all_reduce(g.float()) / n).to(g.dtype)
+            continue
+        gf = g.float() + ef[k]
+        if mode == "bf16":
+            q = gf.to(torch.bfloat16).float()
+            red[k], new_ef[k] = ax.all_reduce(q) / n, gf - q
+            continue
+        scale = ax.all_reduce(torch.max(torch.abs(gf)),
+                              op=dist.ReduceOp.MAX) / 127.0
+        scale = torch.clamp(scale, min=1e-12)
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        s = ax.all_reduce(q.to(torch.int32))
+        red[k] = s.float() * scale / n
+        new_ef[k] = gf - q.float() * scale
+    return red, (ef if mode == "none" else new_ef)

@@ -1,7 +1,11 @@
 """Sharding rule engine of the port (logical axes -> mesh specs)."""
 
 from repro_torch.sharding.rules import (
+    NamedSharding,
     activation_sharding,
+    batch_mean,
+    batch_statistics,
+    batch_sum,
     dist_operand_specs,
     maybe_shard,
     pspec_for_def,
@@ -10,6 +14,7 @@ from repro_torch.sharding.rules import (
 )
 
 __all__ = [
-    "activation_sharding", "dist_operand_specs", "maybe_shard",
+    "NamedSharding", "activation_sharding", "batch_mean",
+    "batch_statistics", "batch_sum", "dist_operand_specs", "maybe_shard",
     "pspec_for_def", "pspecs_for_defs", "shardings_for_defs",
 ]

@@ -8,10 +8,17 @@ model axis).
 
 A spec is the ``PartitionSpec`` analog: a tuple with one entry per tensor
 dim, each ``None``, a mesh-axis name or a tuple of names (major first).
-:func:`shardings_for_defs` turns specs into DTensor ``Placement`` s on a
-named ``DeviceMesh``; the rules themselves read only axis names and
-sizes, so they also run on an :class:`~repro_torch.launch.mesh.
-AbstractMesh`.
+A :class:`NamedSharding` is a spec on a mesh, the reference's
+``jax.sharding.NamedSharding``: its rank-local shard shape
+(``shard_shape``), the slice of a global tensor a rank holds
+(``local``), the gather of those slices back to the whole (``gather``)
+and its DTensor ``placements`` on a named ``DeviceMesh``.  The rules
+themselves read only axis names and sizes, so they also run on an
+:class:`~repro_torch.launch.mesh.AbstractMesh`.
+
+:class:`batch_statistics` is the rank-local training step's counterpart
+of GSPMD computing a statistic over the global batch: inside it,
+:func:`batch_sum` sums a loss statistic over the batch axes' ranks.
 
 FSDP: with ``fsdp=True`` the 'embed' logical axis (rows of most weight
 matrices) is also sharded over the data axis.
@@ -19,8 +26,10 @@ matrices) is also sharded over the data axis.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import TYPE_CHECKING, Dict, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -91,12 +100,100 @@ def pspecs_for_defs(defs: "Defs", mesh, *, fsdp: bool = False,
             for k, d in defs.items()}
 
 
-def shardings_for_defs(defs: "Defs", mesh, **kw) -> Dict[str, list]:
-    """DTensor placements (one per mesh dim) of each parameter on a named
-    ``DeviceMesh``: the ``NamedSharding`` analog."""
-    from repro_torch.core.distributed import placements_for
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
 
-    return {k: placements_for(s, mesh)
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (a named ``DeviceMesh`` or an ``AbstractMesh``):
+    which slice of a global tensor each rank holds.  A tensor dim over
+    several axes is split major first, as the reference's
+    ``PartitionSpec`` splits it: chunk ``Σ_j coord(a_j) · Π_{l>j}
+    size(a_l)``.  Every sharded dim must divide by its axes' product."""
+
+    mesh: object
+    spec: Spec
+
+    def _entry(self, dim: int):
+        return self.spec[dim] if dim < len(self.spec) else None
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The rank-local shape of a global ``shape``: the reference's
+        ``NamedSharding.shard_shape``."""
+        sizes = axis_sizes(self.mesh)
+        out = []
+        for dim, size in enumerate(shape):
+            n = 1
+            for a in spec_axes(self._entry(dim)):
+                n *= sizes[a]
+            if size % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"divide over {self._entry(dim)} ({n})")
+            out.append(size // n)
+        return tuple(out)
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each mesh axis (a ``DeviceMesh``)."""
+        return {a: self.mesh.get_local_rank(a) for a in axis_sizes(self.mesh)}
+
+    def local_slices(self, shape: Sequence[int],
+                     coords: Optional[Mapping[str, int]] = None
+                     ) -> Tuple[slice, ...]:
+        """The slice of a global ``shape`` held at ``coords`` (default:
+        this rank's on the mesh)."""
+        coords = self.coords() if coords is None else coords
+        sizes = axis_sizes(self.mesh)
+        local = self.shard_shape(shape)
+        out = []
+        for dim, n in enumerate(local):
+            idx = 0
+            for a in spec_axes(self._entry(dim)):
+                idx = idx * sizes[a] + coords[a]
+            out.append(slice(idx * n, (idx + 1) * n))
+        return tuple(out)
+
+    def local(self, full: torch.Tensor,
+              coords: Optional[Mapping[str, int]] = None) -> torch.Tensor:
+        """This rank's slice of the global ``full`` (a view)."""
+        return full[self.local_slices(tuple(full.shape), coords)]
+
+    def gather(self, local: torch.Tensor, to_first: bool = False):
+        """The global tensor from this rank's slice: an all-gather over
+        each sharded dim's axes, innermost first, on the schedules'
+        transport (``core.distributed._Axis``: pinned host copies for card
+        tensors under gloo).  With ``to_first`` only the mesh's first rank
+        (every coordinate 0) receives it, the others return ``None``.  A
+        collective: every rank of the mesh calls it."""
+        from repro_torch.core.distributed import _Axis  # lazy: cycle
+
+        out = local
+        for dim in range(local.dim()):
+            for a in reversed(spec_axes(self._entry(dim))):
+                if out is None:      # dropped out at an inner axis
+                    return None
+                ax = _Axis(self.mesh, a, local.device)
+                out = (ax.gather_to_first(out.contiguous(), dim) if to_first
+                       else ax.gather(out.contiguous(), dim))
+        if to_first and out is not None and any(self.coords().values()):
+            return None              # no sharded dim: only the first keeps it
+        return out
+
+    @property
+    def placements(self) -> list:
+        """DTensor placements (one per mesh dim) on a named
+        ``DeviceMesh``."""
+        from repro_torch.core.distributed import placements_for
+
+        return placements_for(self.spec, self.mesh)
+
+
+def shardings_for_defs(defs: "Defs", mesh, **kw) -> Dict[str, NamedSharding]:
+    """Each parameter's :class:`NamedSharding` (its mesh and spec)."""
+    return {k: NamedSharding(mesh, s)
             for k, s in pspecs_for_defs(defs, mesh, **kw).items()}
 
 
@@ -205,3 +302,55 @@ def maybe_shard(x: torch.Tensor, logical: Sequence[Optional[str]]):
 
     pol = _policy.cur
     return x.redistribute(pol.mesh, placements_for(spec, pol.mesh))
+
+
+# ---------------------------------------------------------------------------
+# Batch statistics of a rank-local training step
+# ---------------------------------------------------------------------------
+
+_batch = threading.local()
+
+
+class batch_statistics:
+    """Context: the loss's batch statistics are global over ``ranks``
+    batch ranks.  ``reduce_sum(t)`` sums a tensor over them (a
+    collective).  Each rank holds its slice of the global batch and its
+    gradients are mean-reduced over the batch ranks afterwards
+    (``train.fsdp``), so inside the context :func:`batch_sum` returns the
+    global sum as its value and ``ranks`` times the local statistic's
+    gradient: the mean of those gradients over the ranks is the global
+    statistic's gradient.  Outside it :func:`batch_sum` is the identity."""
+
+    def __init__(self, reduce_sum: Callable[[torch.Tensor], torch.Tensor],
+                 ranks: int):
+        self.reduce_sum = reduce_sum
+        self.ranks = ranks
+
+    def __enter__(self):
+        self.prev = getattr(_batch, "cur", None)
+        _batch.cur = self
+        return self
+
+    def __exit__(self, *exc):
+        _batch.cur = self.prev
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the statistic ``x`` over the batch ranks (see
+    :class:`batch_statistics`); ``x`` itself outside the context."""
+    pol = getattr(_batch, "cur", None)
+    if pol is None:
+        return x
+    # x - x.detach() is exactly 0 with x's gradient: the value is the
+    # reduced sum bit for bit.
+    return pol.reduce_sum(x.detach()) + pol.ranks * (x - x.detach())
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the batch ranks, each holding as many
+    entries (a per-token mean's global value); ``x`` outside the
+    context."""
+    pol = getattr(_batch, "cur", None)
+    if pol is None:
+        return x
+    return batch_sum(x) / pol.ranks

@@ -22,12 +22,16 @@ aux averaged the same way.
 ``warmup_gemm_rows`` resolves the model's forward and backward GEMM
 tiles through the kernel-config registry when the step is built, as the
 reference's does.  The reference's sharding hooks
-(``reshard_params``/``reshard_grads``) wait for ``core/distributed.py``;
-passing either raises.
+(``reshard_params``/``reshard_grads``) are called where it calls them:
+after the cast, after each microbatch's gradients, and on the fp32
+accumulator's zeros.  ``train.fsdp.weight_hoist`` builds the FSDP pair:
+each rank then steps its shards of the masters and moments on its slice
+of the global batch (``train.fsdp``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -107,10 +111,18 @@ def build_train_step(
     pre-resolves the hot-path GEMM tiles, the backward layouts included,
     through the kernel-config registry.  The batch's leading dim must
     divide by ``microbatches``; metrics are 0-dim tensors (``loss``,
-    ``aux``, ``grad_norm``, ``lr``)."""
-    if reshard_params is not None or reshard_grads is not None:
-        raise ValueError("reshard_params/reshard_grads are not ported yet: "
-                         "they wait for core/distributed.py")
+    ``aux``, ``grad_norm``, ``lr``).
+
+    ``reshard_params(tree)`` maps the step's cast copy of the parameters
+    to the layout the forward reads (its leaves autograd leaves that
+    require grad); ``reshard_grads(tree)`` maps gradients to the state's
+    layout, and is also handed the accumulator's zeros as meta tensors,
+    whose shapes it maps.  Hooks that carry a ``layout``
+    (``train.fsdp.weight_hoist``) also make the loss's batch statistics
+    and the clip's norm global over the ranks; with them the state holds
+    this rank's shards and the batch this rank's rows
+    (``FsdpLayout.local_batch``), and the metrics are the global step's
+    on every rank."""
     if warmup_gemm_rows:
         # train=True adds the backward GEMMs' transposed layouts and their
         # dact-prologue variants to the plan set.
@@ -127,10 +139,44 @@ def build_train_step(
                  for k, g in zip(leaves, gs)}
         return grads, {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: TrainState, batch: Batch):
-        params_c = cast_params(state.params, cfg)
+    layout = getattr(reshard_grads, "layout",
+                     getattr(reshard_params, "layout", None))
+    if layout is not None:
+        layout.require_runnable()
+    stats = (layout.batch_statistics if layout is not None
+             else contextlib.nullcontext)
+    norm_fn = layout.global_norm if layout is not None else None
+
+    def sharded_microbatches(params_c, batch):
+        # The reference's scan: the accumulator's zeros on the state's
+        # layout, each microbatch's gradients resharded, then added.
+        zeros = reshard_grads({k: torch.empty(v.shape, dtype=torch.float32,
+                                              device="meta")
+                               for k, v in params_c.items()
+                               if v.requires_grad})
+        dev = next(iter(params_c.values())).device
+        grads = {k: torch.zeros(z.shape, dtype=torch.float32, device=dev)
+                 for k, z in zeros.items()}
+        metrics = None
+        for i in range(microbatches):
+            g, m = grads_of(params_c, {k: _split_mb(v, microbatches, i)
+                                       for k, v in batch.items()})
+            g = reshard_grads(g)
+            for k in grads:
+                grads[k] += g[k].float()
+            del g
+            metrics = m if metrics is None else {
+                k: metrics[k] + m[k] for k in metrics}
+        return grads, metrics
+
+    def local_grads(params_c, batch: Batch):
         if microbatches == 1:
             grads, metrics = grads_of(params_c, batch)
+            if reshard_grads is not None:
+                grads = reshard_grads(grads)
+            return grads, metrics
+        if reshard_grads is not None:
+            grads, metrics = sharded_microbatches(params_c, batch)
         else:
             grads, metrics = None, None
             for i in range(microbatches):
@@ -143,11 +189,20 @@ def build_train_step(
                 for k in grads:
                     grads[k] += g[k].float()
                 metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = {k: g / microbatches for k, g in grads.items()}
-            metrics = {k: v / microbatches for k, v in metrics.items()}
+        grads = {k: g / microbatches for k, g in grads.items()}
+        metrics = {k: v / microbatches for k, v in metrics.items()}
+        return grads, metrics
+
+    def train_step(state: TrainState, batch: Batch):
+        params_c = cast_params(state.params, cfg)
+        if reshard_params is not None:
+            params_c = reshard_params(params_c)
+        with stats():
+            grads, metrics = local_grads(params_c, batch)
         del params_c
         new_params, new_opt, opt_metrics = adamw.update(
-            grads, state.opt, state.params, opt_cfg, donate=donate)
+            grads, state.opt, state.params, opt_cfg, donate=donate,
+            norm_fn=norm_fn)
         return (TrainState(state.step + 1, new_params, new_opt),
                 dict(metrics, **opt_metrics))
 

@@ -183,10 +183,21 @@ def test_gc_keeps_last_known_good(tmp_path):
 
 
 def test_restore_onto_a_device_and_shardings_refused(tmp_path):
-    """The reference's elastic re-shard (its shardings argument) is
-    ``device=`` in the port: leaves land on the named device in the
-    ``like`` dtypes; a shardings argument raises, naming what it waits
-    for."""
+    """Leaves land on the named device in the ``like`` dtypes; the
+    reference's elastic re-shard (its shardings argument, no longer
+    refused) keeps a leaf with no sharding whole and gives a sharded leaf
+    this rank's slice (rank 2 of 4 along ``data``: rows 4-5).  Ranks of
+    real meshes: ``tests/test_torch_train_dist.py``."""
+    from repro_torch.sharding.rules import NamedSharding
+
+    class Rank2Of4:
+        mesh_dim_names = ("data",)
+        shape = (4,)
+
+        @staticmethod
+        def get_local_rank(axis):
+            return 2
+
     mgr = CheckpointManager(str(tmp_path))
     w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
     mgr.save(1, {"w": w})
@@ -194,8 +205,11 @@ def test_restore_onto_a_device_and_shardings_refused(tmp_path):
                     device="cpu")
     assert r["w"].dtype == torch.float64 and r["w"].device.type == "cpu"
     assert torch.equal(r["w"], w.double())
-    with pytest.raises(ValueError, match="core/distributed.py"):
-        mgr.restore({"w": torch.zeros(8, 8)}, shardings={"w": None})
+    r = mgr.restore({"w": torch.zeros(8, 8)}, shardings={"w": None})
+    assert torch.equal(r["w"], w)
+    r = mgr.restore({"w": torch.zeros(8, 8)}, device="cpu", shardings={
+        "w": NamedSharding(Rank2Of4(), ("data", None))})
+    assert torch.equal(r["w"], w[4:6])
 
 
 # -- the port's own trees ---------------------------------------------------

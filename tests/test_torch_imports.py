@@ -143,14 +143,35 @@ def test_distributed_modules_are_ported(mod):
     assert not set(_imported_roots(tree)) & set(FORBIDDEN)
 
 
+# The distributed training path and the plan-only dry run, each beside
+# its reference counterpart.
+TRAIN_DIST_SLICE = ["launch.specs", "launch.dryrun", "optim.adamw",
+                    "train.step", "checkpoint.manager"]
+
+
+@pytest.mark.parametrize("mod", TRAIN_DIST_SLICE)
+def test_train_dist_modules_are_ported(mod):
+    names = {_module_name(f) for f in _port_files()[:-1]}
+    assert f"repro_torch.{mod}" in names
+    assert (REPO / "src" / "repro" / (mod.replace(".", "/") + ".py")).exists()
+    tree = ast.parse((PORT / (mod.replace(".", "/") + ".py")).read_text())
+    assert not set(_imported_roots(tree)) & set(FORBIDDEN)
+
+
+# Reference modules with no counterpart, and why: ``kernels/_compat.py``
+# holds JAX version shims; ``launch/hlo_analysis.py`` parses the XLA HLO
+# text of a compiled program, and nothing in the port produces such
+# text (its dry run reports from the plan, ``launch/dryrun.py``), so a
+# copy would be dead code.
+NO_COUNTERPART = {"kernels/_compat.py", "launch/hlo_analysis.py"}
+
+
 def test_only_the_hlo_readers_and_the_jax_shims_have_no_port():
-    """Every reference module has a counterpart but the three that read
-    compiled XLA HLO (queued in ROADMAP) and the JAX compatibility
-    shims."""
+    """Every reference module has a counterpart but the two of
+    ``NO_COUNTERPART``."""
     def mods(root):
         return {str(f.relative_to(root)) for f in root.rglob("*.py")
                 if f.name != "__init__.py"}
 
     missing = mods(REPO / "src" / "repro") - mods(PORT)
-    assert missing == {"kernels/_compat.py", "launch/dryrun.py",
-                       "launch/hlo_analysis.py", "launch/specs.py"}
+    assert missing == NO_COUNTERPART
