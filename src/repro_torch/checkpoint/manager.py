@@ -64,9 +64,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.launch.specs import ShapeDtypeStruct
 from repro_torch.obs import get_metrics
 from repro_torch.quant.scales import QTensor
+from repro_torch.sharding.rules import ShapeDtypeStruct
 
 
 class CheckpointCorruptionError(RuntimeError):

@@ -2,8 +2,8 @@
 ``repro/launch/specs.py``), per (arch x shape x step kind), with no
 allocation.
 
-A stand-in is a :class:`ShapeDtypeStruct` (global shape and dtype, the
-reference's ``jax.ShapeDtypeStruct``); a placement is a
+A stand-in is a :class:`~repro_torch.sharding.rules.ShapeDtypeStruct`
+(global shape and dtype, the reference's ``jax.ShapeDtypeStruct``); a placement is a
 :class:`~repro_torch.sharding.rules.NamedSharding` on the mesh (a named
 ``DeviceMesh`` or an :class:`~repro_torch.launch.mesh.AbstractMesh`),
 whose ``shard_shape`` is each leaf's rank-local shape.  The cache's
@@ -18,24 +18,13 @@ precomputed ``embeds``, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.mesh import axis_sizes, batch_axes
-from repro_torch.sharding.rules import NamedSharding
-
-
-class ShapeDtypeStruct(NamedTuple):
-    """A leaf's global shape and dtype, with nothing allocated."""
-
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
-
-    @property
-    def nbytes(self) -> int:
-        return math.prod(self.shape) * self.dtype.itemsize
+from repro_torch.sharding.rules import NamedSharding, ShapeDtypeStruct
 
 
 def _sds(shape, dtype) -> ShapeDtypeStruct:

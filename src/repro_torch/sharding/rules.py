@@ -27,9 +27,10 @@ matrices) is also sharded over the data axis.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
-from typing import (TYPE_CHECKING, Callable, Dict, Mapping, Optional,
-                    Sequence, Tuple)
+from typing import (TYPE_CHECKING, Callable, Dict, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import torch
 
@@ -107,6 +108,18 @@ def spec_axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+class ShapeDtypeStruct(NamedTuple):
+    """A leaf's global shape and dtype, with nothing allocated (the
+    reference's ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh (a named ``DeviceMesh`` or an ``AbstractMesh``):
@@ -163,18 +176,21 @@ class NamedSharding:
 
     def gather(self, local: torch.Tensor, to_first: bool = False):
         """The global tensor from this rank's slice: an all-gather over
-        each sharded dim's axes, innermost first, on the schedules'
-        transport (``core.distributed._Axis``: pinned host copies for card
+        each sharded dim's axes of more than one rank, innermost first,
+        on the schedules' transport (``core.distributed._Axis``: pinned host copies for card
         tensors under gloo).  With ``to_first`` only the mesh's first rank
         (every coordinate 0) receives it, the others return ``None``.  A
         collective: every rank of the mesh calls it."""
         from repro_torch.core.distributed import _Axis  # lazy: cycle
 
+        sizes = axis_sizes(self.mesh)
         out = local
         for dim in range(local.dim()):
             for a in reversed(spec_axes(self._entry(dim))):
                 if out is None:      # dropped out at an inner axis
                     return None
+                if sizes[a] == 1:
+                    continue
                 ax = _Axis(self.mesh, a, local.device)
                 out = (ax.gather_to_first(out.contiguous(), dim) if to_first
                        else ax.gather(out.contiguous(), dim))

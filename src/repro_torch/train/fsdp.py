@@ -115,18 +115,15 @@ class FsdpLayout:
 
     # -- the hooks ---------------------------------------------------------
     def gather(self, k: str, local: torch.Tensor) -> torch.Tensor:
-        """Leaf ``k`` whole from this rank's FSDP shard: an all-gather
-        over the batch axes, innermost first."""
+        """Leaf ``k`` whole from this rank's FSDP shard: its
+        ``NamedSharding``'s all-gather over the batch axes."""
         d = self.dims[k]
         if d is None:
             return local
         if local.is_meta:
             return torch.empty(self.defs[k].shape, dtype=local.dtype,
                                device="meta")
-        out = local.contiguous()
-        for a in reversed(self.axes):
-            out = self._axis(a, out.device).gather(out, d)
-        return out
+        return self.shardings[k].gather(local)
 
     def reduce_scatter(self, k: str, full: torch.Tensor) -> torch.Tensor:
         """The fp32 mean over the batch ranks of gradient ``k``, this

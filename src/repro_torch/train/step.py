@@ -147,13 +147,19 @@ def build_train_step(
              else contextlib.nullcontext)
     norm_fn = layout.global_norm if layout is not None else None
 
-    def sharded_microbatches(params_c, batch):
-        # The reference's scan: the accumulator's zeros on the state's
-        # layout, each microbatch's gradients resharded, then added.
-        zeros = reshard_grads({k: torch.empty(v.shape, dtype=torch.float32,
-                                              device="meta")
-                               for k, v in params_c.items()
-                               if v.requires_grad})
+    def local_grads(params_c, batch: Batch):
+        if microbatches == 1:
+            grads, metrics = grads_of(params_c, batch)
+            if reshard_grads is not None:
+                grads = reshard_grads(grads)
+            return grads, metrics
+        # The reference's scan: fp32 zeros on the state's layout (the
+        # hook maps their shapes as meta tensors), each microbatch's
+        # gradients resharded, then added.
+        reshard = reshard_grads or (lambda tree: tree)
+        zeros = reshard({k: torch.empty(v.shape, dtype=torch.float32,
+                                        device="meta")
+                         for k, v in params_c.items() if v.requires_grad})
         dev = next(iter(params_c.values())).device
         grads = {k: torch.zeros(z.shape, dtype=torch.float32, device=dev)
                  for k, z in zeros.items()}
@@ -161,34 +167,12 @@ def build_train_step(
         for i in range(microbatches):
             g, m = grads_of(params_c, {k: _split_mb(v, microbatches, i)
                                        for k, v in batch.items()})
-            g = reshard_grads(g)
+            g = reshard(g)
             for k in grads:
                 grads[k] += g[k].float()
             del g
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in metrics}
-        return grads, metrics
-
-    def local_grads(params_c, batch: Batch):
-        if microbatches == 1:
-            grads, metrics = grads_of(params_c, batch)
-            if reshard_grads is not None:
-                grads = reshard_grads(grads)
-            return grads, metrics
-        if reshard_grads is not None:
-            grads, metrics = sharded_microbatches(params_c, batch)
-        else:
-            grads, metrics = None, None
-            for i in range(microbatches):
-                g, m = grads_of(params_c, {k: _split_mb(v, microbatches, i)
-                                           for k, v in batch.items()})
-                if grads is None:
-                    grads = {k: v.float() for k, v in g.items()}
-                    metrics = m
-                    continue
-                for k in grads:
-                    grads[k] += g[k].float()
-                metrics = {k: metrics[k] + m[k] for k in metrics}
         grads = {k: g / microbatches for k, g in grads.items()}
         metrics = {k: v / microbatches for k, v in metrics.items()}
         return grads, metrics

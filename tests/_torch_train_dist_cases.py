@@ -6,7 +6,8 @@ all-reduce's per-rank gradients.
 
 ``python tests/_torch_train_dist_cases.py OUT_DIR`` computes the
 reference's side (``repro``, 4 forced host devices): its single-device
-``build_train_step`` on the whole batch for every case, its
+``build_train_step`` on the whole batch for every case (and the
+gradient its AdamW took at the first step), its
 ``allreduce_compressed`` under ``shard_map`` on 4 devices, and a
 checkpoint its ``CheckpointManager`` writes, into ``OUT_DIR``.
 :func:`port_ranks` is the port's side, one call per gloo rank."""
@@ -104,10 +105,14 @@ def _reference(out_dir):
             step = JT.build_train_step(cfg, adamw.AdamWConfig(**OPT),
                                        microbatches=mb)
             key = case_key(arch, mb)
+            b1 = adamw.AdamWConfig(**OPT).b1
             for i in range(STEPS):
                 state, m = step(state, b)
                 for name in ("loss", "aux", "grad_norm"):
                     out[f"{key} {name} {i}"] = np.float32(m[name])
+                if i == 0:    # the first clipped gradient, from m = (1-b1) g
+                    for k, v in state.opt.m.items():
+                        out[f"{key} grad0 {k}"] = np.asarray(v) / (1 - b1)
             for k, v in state.params.items():
                 out[f"{key} param {k}"] = np.asarray(v)
             if arch == ARCHS[0] and mb == 1:

@@ -19,14 +19,18 @@ inputs:
   deepseek-v2-lite-16b (the MoE aux), each rank's mask holding another
   count of tokens, 2 steps, fp32, against the reference's single-device
   ``build_train_step`` on the whole batch: loss and ``grad_norm`` at rtol
-  1e-5; the gathered parameters at rtol 2e-4, atol 2e-5 against the
-  port's own single-process step on the whole batch, and against the
-  reference's within that tolerance plus the port's single-process
-  step's own distance from it.  That allowance is for elements whose
-  first gradient is cancellation residue near Adam's eps (e.g. 4.6e-8 at
-  stablelm's ``blocks/mlp/w_gate[0, 13, 46]``): there any two summation
-  orders move the update by ~0.1 lr, the single-process step as much as
-  the FSDP one.
+  1e-5; the gathered parameters at rtol 2e-4, atol 2e-5, against the
+  port's own single-process step on the whole batch and against the
+  reference's.  Against the reference, the parameters whose first
+  gradient in the reference's step (its first moment over 1 - b1) is
+  nonzero and within 10 Adam eps are exempt, and counted (at most one
+  in a thousand; 46-108 of 147,776-223,104 here): there Adam's first
+  update, g / (|g| + eps), turns any other summation order into a move
+  of up to lr (e.g. 4.6e-8 at stablelm's ``blocks/mlp/w_gate[0, 13,
+  46]``).  The rule reads the reference's gradient of the same case: a
+  MoE step's first gradient depends on its microbatches (deepseek's
+  ``blocks/moe/shared/w_down[0, 56, 56]``: 2.0e-4 with 1, 7.7e-9 with
+  2).
 * A mesh with model > 1 builds its hooks (the dry run plans with them)
   and refuses to step.
 * Elastic restore: the reference's checkpoint restores on 1, 2 and 4
@@ -54,6 +58,11 @@ from repro_torch.train import step as T
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-4, atol=2e-5)
+# Adam's first update is lr · g / (|g| + eps): where the reference's
+# first clipped gradient is nonzero and within 10 eps of zero, any two
+# summation orders move it by up to ~lr, so those parameters alone (at
+# most one in a thousand) are not held to the reference.
+NEAR_EPS = 10 * adamw.AdamWConfig().eps
 
 
 def test_quantize_int8_is_the_reference_bit_for_bit():
@@ -213,16 +222,21 @@ def test_fsdp_step_matches_the_reference(runs, single, arch, mesh, mb):
                                                err_msg=f"{name} step {i}")
     if arch.startswith("deepseek"):
         assert float(ref[f"{rkey} aux 0"]) > 0
-    same = single[rkey]
-    for k, one in same.items():
+    exempt = total = 0
+    for k, one in single[rkey].items():
         got = port[0][f"{key} param {k}"]
         for out in port[1:]:
             np.testing.assert_array_equal(out[f"{key} param {k}"], got)
         np.testing.assert_allclose(got, one, **TOL, err_msg=k)
+        g0 = np.abs(ref[f"{rkey} grad0 {k}"])
+        near = (g0 > 0) & (g0 <= NEAR_EPS)
+        exempt += int(near.sum())
+        total += near.size
         want = ref[f"{rkey} param {k}"]
-        allowed = (TOL["atol"] + TOL["rtol"] * np.abs(want)
-                   + np.abs(one - want))
-        assert np.all(np.abs(got - want) <= allowed), k
+        np.testing.assert_allclose(got[~near], want[~near], **TOL, err_msg=k)
+    print(f"{key}: {exempt} of {total} parameters exempt (first gradient "
+          f"within {NEAR_EPS:g})")
+    assert exempt <= total // 1000, (exempt, total)
 
 
 def test_model_axis_above_one_refuses_to_step(runs):
