@@ -297,6 +297,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -314,7 +315,7 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hardware import H100  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
-    DataConfig, batch_for_model, embed_table)
+    DataConfig, batch_for_model)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ca_mmm as K  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
@@ -328,7 +329,7 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.quant import QTensor, QuantConfig  # noqa: E402
 from repro_torch.serve.engine import (Request, ServeEngine,  # noqa: E402
-                                      model_inputs, sample_table)
+                                      model_inputs)
 from repro_torch.train import step as T  # noqa: E402
 from repro_torch.tuning import resolve_page_size  # noqa: E402
 
@@ -486,6 +487,72 @@ def phase(name):
     print(f"== {name} ({time.strftime('%H:%M:%S')})", flush=True)
 
 
+# The embeds frontend's two tables of a configuration: the train steps'
+# (data.pipeline.embed_table of data seed 0, fp32) and the served demo
+# table (serve.engine.sample_table, the serve dtype).  Both are
+# RandomState(0)'s normal stream times 0.02, in two roundings, so one draw
+# of the stream gives both.  qwen2-vl-72b's (152064 x 8192) takes tens of
+# seconds on the host: main() starts its draw in a background thread (the
+# draw releases the GIL), which the build and the parity checks hide.
+TABLE_ROWS = 4096
+PREFETCH_TABLES = ("qwen2-vl-72b",)
+_TABLES = {}
+
+
+def draw_embeds_tables(cfg):
+    """{"train": embed_table's fp32 numpy table, "serve": sample_table's
+    table on the host} of ``cfg``, bit for bit, from one pass over the
+    stream in chunks of rows (the legacy normal stream continues across
+    calls, and both roundings are elementwise)."""
+    rng = np.random.RandomState(0)
+    v, d = cfg.vocab_size, cfg.d_model
+    train = np.empty((v, d), np.float32)
+    serve = torch.empty((v, d), dtype=cfg.dtype())
+    for lo in range(0, v, TABLE_ROWS):
+        raw = rng.randn(min(TABLE_ROWS, v - lo), d)
+        train[lo:lo + len(raw)] = raw.astype(np.float32) * 0.02
+        serve[lo:lo + len(raw)] = torch.from_numpy(raw * 0.02).to(cfg.dtype())
+    return {"train": train, "serve": serve}
+
+
+def prefetch_tables(names=PREFETCH_TABLES):
+    """Start drawing ``names``' tables in one background thread."""
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    for name in names:
+        _TABLES[name] = pool.submit(draw_embeds_tables, get_config(name))
+    pool.shutdown(wait=False)
+
+
+def wait_tables():
+    """Wait for the background draw to end, so that it runs beside the
+    build and the parity checks only, never beside a timed phase or the
+    CPU checks' threads."""
+    t0 = time.perf_counter()
+    for fut in _TABLES.values():
+        fut.result()
+    print(f"embeds tables {sorted(_TABLES)} ready after a "
+          f"{time.perf_counter() - t0:.3f} s wait")
+
+
+def embeds_table(cfg, kind):
+    """``cfg``'s ``kind`` ("train" or "serve") table: the prefetched one
+    (waited for, then let go of, so each is held only until its phase
+    takes it), else drawn now."""
+    t0 = time.perf_counter()
+    fut = _TABLES.get(cfg.name)
+    tables = fut.result() if fut is not None else draw_embeds_tables(cfg)
+    table = tables.pop(kind)
+    if fut is not None and not tables:
+        del _TABLES[cfg.name]
+    print(f"{cfg.name}: the embeds frontend's {kind} table ({cfg.vocab_size}"
+          f" x {cfg.d_model}, {table.nbytes / 1e9:.3f} GB) "
+          + ("waited for " if fut is not None else "drawn in ")
+          + f"{time.perf_counter() - t0:.3f} s"
+          + (" (drawn in the background since the start)" if fut is not None
+             else ""))
+    return table
+
+
 def route_delta(before):
     """K1/K4 launches by route and launch key since ``before`` (a copy of
     ``K.route_counts``)."""
@@ -551,7 +618,9 @@ def card():
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
+          f"count {torch.cuda.device_count()}; host cores "
+          f"{len(os.sched_getaffinity(0))} of {os.cpu_count()}, torch CPU "
+          f"threads {torch.get_num_threads()}")
     return line
 
 
@@ -567,10 +636,14 @@ def build(sources=None):
                           FA.FWD_SOURCE, K.K_OUTER_SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(timed, sources))
-    for path, seconds in built:
-        print(f"built {path.name} in {seconds:.3f} s")
+    for (path, seconds), src in zip(built, sources):
+        parts = _build.PART_SECONDS.get(src.name, [])
+        print(f"built {path.name} in {seconds:.3f} s"
+              + (f" ({len(parts)} parts side by side, each "
+                 + " ".join(f"{p:.1f}" for p in parts) + " s)"
+                 if len(parts) > 1 else ""))
     print(f"build wall {time.perf_counter() - t0:.3f} s (one nvcc per "
-          "source, started together)")
+          "source or part, started together)")
 
 
 def program_inputs(tag, m, k, n, dtype, gen, copies=1):
@@ -1270,7 +1343,9 @@ def profile_decode(params, cfg, steps=8, paged=False, table=None):
     from torch.profiler import ProfilerActivity, profile
 
     wall = decode_run(params, cfg, steps, paged, table=table)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # CUDA activity alone: only the kernels' device times are read, and
+    # recording every host op as well multiplies key_averages' time.
+    prof = profile(activities=[ProfilerActivity.CUDA])
     decode_run(params, cfg, steps, paged, prof, table=table)
     by_kernel = {}
     for ev in prof.key_averages():
@@ -2799,7 +2874,11 @@ def profile_train_step(step_fn, state, cfg, data_cfg, step, step_ms,
 
     batch = T.cast_batch(batch_for_model(cfg, data_cfg, step, table=table),
                          cfg)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    # CUDA activity alone (as profile_decode): with the host ops recorded
+    # too, key_averages took 17.3 s instead of 4.8 s over a 48-layer
+    # mamba2-370m step on the H100's host, for the same kernels' device
+    # time (210.9 and 210.1 ms).
+    prof = profile(activities=[ProfilerActivity.CUDA])
     torch.cuda.synchronize()
     prof.start()
     _, metrics = step_fn(state, batch)
@@ -2961,10 +3040,15 @@ def cross_check_train(cfg, layers=4, table=None):
         vocab_size=cfg4.vocab_size, seq_len=64, global_batch=2, seed=1), 0,
         table=table)
     moe = cfg.moe is not None and cfg.moe.n_experts > 0
+    # The CPU's copy: the fp32 masters where the MoE witness runs on them,
+    # else only the compute copy, cast on the card (the same bits) so that
+    # half the bytes cross to the host.
+    with torch.no_grad():
+        host = ({k: v.cpu() for k, v in masters.items()} if moe else
+                {k: v.cpu() for k, v in T.cast_params(masters, cfg4).items()})
     out, probes = {}, {}
     for dev in ("cuda", "cpu"):
-        params = T.cast_params({k: v.to(dev) for k, v in masters.items()},
-                               cfg4)
+        params = T.cast_params(masters if dev == "cuda" else host, cfg4)
         t0 = time.perf_counter()
         choices = [c["ids"] for c in probes["cuda"].calls] \
             if dev == "cpu" and moe else None
@@ -2974,8 +3058,10 @@ def cross_check_train(cfg, layers=4, table=None):
             keys = sorted(params)
             grads = torch.autograd.grad(loss, [params[k] for k in keys])
         probes[dev] = probe
+        # The gradients stay where they were computed, in the compute
+        # dtype, until they are compared.
         out[dev] = (metrics["loss"].item(), metrics["aux"].item(),
-                    {k: g.float().cpu() for k, g in zip(keys, grads)})
+                    dict(zip(keys, grads)))
         print(f"{dev}: loss {out[dev][0]:.6f} aux {out[dev][1]:.6e} and "
               f"{len(keys)} gradients in {time.perf_counter() - t0:.3f} s"
               + (f" ({len(probe.calls)} MoE layer calls)" if probe.calls
@@ -2987,8 +3073,7 @@ def cross_check_train(cfg, layers=4, table=None):
         cfg32 = dataclasses.replace(cfg4, compute_dtype="float32")
         with torch.no_grad(), MoeProbe(
                 [c["ids"] for c in probes["cuda"].calls]) as exact:
-            T.loss_fn({k: v.cpu() for k, v in masters.items()},
-                      T.cast_batch(batch, cfg32, "cpu"), cfg32)
+            T.loss_fn(host, T.cast_batch(batch, cfg32, "cpu"), cfg32)
         n = len(exact.calls)
         flips, stats = routing_witness(
             forward_calls(probes["cuda"].calls, n),
@@ -2999,12 +3084,12 @@ def cross_check_train(cfg, layers=4, table=None):
             print("MoE call vs fp32 witness " + json.dumps(row))
     for f in flips:
         print("routing flip " + json.dumps(f))
-    del masters, probes
+    del masters, host, probes
     torch.cuda.empty_cache()
     if any(not f["gap"] <= f["limit"] for f in flips):
         raise AssertionError("a routed choice flipped between the card "
                              "and the CPU away from a near tie")
-    (lg, ag, gg), (lc, ac, gc) = out["cuda"], out["cpu"]
+    (lg, ag, gg), (lc, ac, gc) = out.pop("cuda"), out.pop("cpu")
     rel_loss = abs(lg - lc) / abs(lc)
     rel_aux = abs(ag - ac) / abs(ac) if ac else abs(ag)
     print(f"loss card {lg:.6f} cpu {lc:.6f} relative {rel_loss:.3e}; aux "
@@ -3015,11 +3100,12 @@ def cross_check_train(cfg, layers=4, table=None):
         raise AssertionError("card and CPU training losses disagree")
     worst = 0.0
     for k in sorted(gc):
-        # fp32 norms: a relative error held to 5e-2 needs no more, and a
-        # float64 copy of a billion-entry bank takes tens of seconds.  The
-        # cosine comes from the three norms: an fp32 dot product over a
+        # fp32 norms, on the card (the CPU's gradient copied there in its
+        # compute dtype): a relative error held to 5e-2 needs no more, and
+        # fp32 copies of billion-entry banks take seconds each on the host.
+        # The cosine comes from the three norms: an fp32 dot product over a
         # billion entries loses more than the cosine shows.
-        a, b = gg[k], gc[k]
+        a, b = gg[k].float(), gc.pop(k).cuda().float()
         na, nb, nd = (t.norm().item() for t in (a, b, a - b))
         rel = nd / nb
         cos = (na * na + nb * nb - nd * nd) / (2 * na * nb)
@@ -3028,6 +3114,9 @@ def cross_check_train(cfg, layers=4, table=None):
             raise AssertionError(f"{k}: card and CPU gradients disagree "
                                  f"({rel} > {TOL_GRAD})")
         worst = max(worst, rel)
+        del a, b
+    del gg
+    torch.cuda.empty_cache()
     print(f"gradients: worst relative L2 error {worst:.3e} (tol {TOL_GRAD})")
     return {"loss_rel_err": rel_loss, "aux_rel_err": rel_aux,
             "grad_rel_l2_worst": worst, "routing_flips": len(flips),
@@ -4127,13 +4216,8 @@ def architectures(names=None):
         table = None
         cfg = get_config(name)
         if cfg.frontend == "embeds":
-            t_table = time.perf_counter()
-            table = sample_table(cfg)
-            torch.cuda.synchronize()
-            print(f"{name}: the embeds frontend's demo table "
-                  f"({cfg.vocab_size} x {cfg.d_model}, "
-                  f"{table.numel() * table.element_size() / 1e9:.3f} GB) "
-                  f"drawn in {time.perf_counter() - t_table:.3f} s")
+            # sample_table(cfg)'s values, on the card.
+            table = embeds_table(cfg, "serve").cuda()
         served[name] = serve_arch(name, spec, table)
         cross_check_arch(name, spec, table)
         del table
@@ -4434,10 +4518,9 @@ def train_archs(names=None):
         cfg = get_config(name)
         # An embeds frontend's table, of the train steps' data seed 0, is
         # drawn once: the steps, the profiled step and the cross-check
-        # index it (qwen2-vl's takes tens of seconds to draw).
-        table = None if cfg.frontend == "tokens" else embed_table(
-            DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ_LEN,
-                       global_batch=GLOBAL_BATCH, seed=0), cfg.d_model)
+        # index it (qwen2-vl's is drawn in the background, embeds_table).
+        table = (None if cfg.frontend == "tokens"
+                 else embeds_table(cfg, "train"))
         trained[name] = train_arch(name, TRAIN_ARCHS[name], table)
         checks[name] = cross_check_train(cfg, TRAIN_CHECK_LAYERS.get(name, 2),
                                          table)
@@ -5593,7 +5676,10 @@ def main(argv=None):
         # A partial run for work on the train_archs phase alone (the
         # configurations named after it, default all): only K1's source,
         # no kernels line, no result.
+        prefetch_tables([n for n in PREFETCH_TABLES
+                         if n in (argv[2:] or TRAIN_ARCHS)])
         build((K.SOURCE,))
+        wait_tables()
         tarchs = train_archs(argv[2:])
         print_train_archs(tarchs, card_line)
         for record in train_arch_records(tarchs):
@@ -5618,7 +5704,10 @@ def main(argv=None):
         # A partial run for work on the architectures phase alone (the
         # architectures named after it, default all): only the two
         # sources its paths launch, no kernels line, no result.
+        prefetch_tables([n for n in PREFETCH_TABLES
+                         if n in (argv[2:] or SERVED_ARCHS)])
         build((K.SOURCE, FA.SOURCE))
+        wait_tables()
         print_archs(architectures(argv[2:]), card_line)
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
@@ -5626,6 +5715,7 @@ def main(argv=None):
         raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
                          "--only train [ARCH ...] | --only robust | "
                          f"--only dist | --only fsdp], got {argv}")
+    prefetch_tables()
     build()
     worst = parity()
     worst.update(quant_parity())
@@ -5635,6 +5725,7 @@ def main(argv=None):
     FA.reset_launch_counts()
     worst_attn, worst_wide = attn_parity()
     wide_launches = FA.route_counts.get(FA.WIDE, 0)
+    wait_tables()
     cfg = get_config(ARCH)
     routes, e2e = serve_slice(cfg)
     cross_check(cfg)

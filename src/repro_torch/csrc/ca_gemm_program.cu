@@ -163,6 +163,15 @@
 // shared-memory reads and by the few bytes each SM keeps in flight, far
 // below that bound; decode (bf16 and int8) takes the decode route instead.
 // The measured times stand in PERF.md.
+//
+// Build parts.  The file is one translation unit when NVCC_PART is not
+// defined.  kernels/_build.py compiles it instead as the number of parts the
+// marker below names, one nvcc process each, started together, and links the
+// objects into one library: NVCC_PART = 0 holds the C entry points, and each
+// other part holds one family's launchers and so instantiates only that
+// family's kernels.  The parts reach each other through the extern "C"
+// launchers at the end of the file; every part sees the whole source.
+// nvcc parts: 11
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -172,6 +181,15 @@
 #include <type_traits>
 
 #include "wgmma_mainloop.cuh"
+
+// A part (see "Build parts" above) compiles only its own launchers; the
+// non-template launchers below, whose bodies instantiate a family's
+// kernels, are compiled only in the part that calls them.
+#ifdef NVCC_PART
+#define IN_PART(i) (NVCC_PART == (i))
+#else
+#define IN_PART(i) 1
+#endif
 
 namespace {
 
@@ -876,12 +894,14 @@ int launch_wgmma(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+#if IN_PART(6)
 int launch_wgmma_program(const Params& p, bool two, cudaStream_t stream) {
   if (two) return launch_wgmma<2, false, false>(p, stream);
   if (p.trans_a)
     return p.trans_b ? launch_wgmma<1, true, true>(p, stream) : launch_wgmma<1, true, false>(p, stream);
   return p.trans_b ? launch_wgmma<1, false, true>(p, stream) : launch_wgmma<1, false, false>(p, stream);
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // The decode route: serving programs at m <= 8 on a split-k cluster
@@ -1296,12 +1316,6 @@ int launch_decode_int8(const Params& p, bool two, cudaStream_t stream) {
                            : launch_decode_typed<TA, int8_t, false>(p, two, stream);
 }
 
-int launch_decode_program(const Params& p, int a_type, int b_type, bool two, cudaStream_t stream) {
-  if (b_type == TYPE_BF16) return launch_decode_typed<__nv_bfloat16, __nv_bfloat16, false>(p, two, stream);
-  if (a_type == TYPE_BF16) return launch_decode_int8<__nv_bfloat16>(p, two, stream);
-  return launch_decode_int8<int8_t>(p, two, stream);
-}
-
 // ---------------------------------------------------------------------------
 // The wgmma route of the int8 programs: dqb (bf16 A) and dqab at m > 8
 // ---------------------------------------------------------------------------
@@ -1690,6 +1704,7 @@ int launch_wgmma_i8_branches(const Params& p, bool two, cudaStream_t stream) {
   return two ? launch_wgmma_i8<2, INT_A, TILE>(p, stream) : launch_wgmma_i8<1, INT_A, TILE>(p, stream);
 }
 
+#if IN_PART(7)
 int launch_wgmma_int8(const Params& p, int a_type, bool two, cudaStream_t stream) {
   const bool tile = p.scale_block > 0;
   if (a_type == TYPE_I8)
@@ -1698,6 +1713,7 @@ int launch_wgmma_int8(const Params& p, int a_type, bool two, cudaStream_t stream
   return tile ? launch_wgmma_i8_branches<false, true>(p, two, stream)
               : launch_wgmma_i8_branches<false, false>(p, two, stream);
 }
+#endif
 
 enum Route { ROUTE_SIMT = 0, ROUTE_WGMMA = 1, ROUTE_DECODE = 2 };
 
@@ -1728,6 +1744,78 @@ int k1_route(const Params& p, int a_type, int b_type, bool two) {
 
 }  // namespace
 
+// One family's launchers a part: `p` is the entry point's Params, `stream`
+// its cudaStream_t; each returns a cudaError_t code.  Parts 1-5: the SIMT
+// tile, one element-type pair each; 6: the wgmma route, bf16; 7: its int8
+// programs; 8-10: the decode route with bf16 B, int8 B under bf16 A, and
+// int8 B under int8 A.
+extern "C" {
+int ca_gemm_simt_f32(const void* p, int two, void* stream);
+int ca_gemm_simt_bf16(const void* p, int two, void* stream);
+int ca_gemm_simt_f32_i8(const void* p, int two, void* stream);
+int ca_gemm_simt_bf16_i8(const void* p, int two, void* stream);
+int ca_gemm_simt_i8(const void* p, int two, void* stream);
+int ca_gemm_wgmma_bf16(const void* p, int two, void* stream);
+int ca_gemm_wgmma_i8(const void* p, int a_type, int two, void* stream);
+int ca_gemm_decode_bf16(const void* p, int two, void* stream);
+int ca_gemm_decode_bf16_i8(const void* p, int two, void* stream);
+int ca_gemm_decode_i8(const void* p, int two, void* stream);
+}
+
+#define CA_GEMM_SIMT_PART(NAME, TA, TB)                                                  \
+  extern "C" int NAME(const void* p, int two, void* stream) {                           \
+    launch_typed<TA, TB>(*static_cast<const Params*>(p), two != 0,                      \
+                         static_cast<cudaStream_t>(stream));                             \
+    return static_cast<int>(cudaGetLastError());                                         \
+  }
+
+#if IN_PART(1)
+CA_GEMM_SIMT_PART(ca_gemm_simt_f32, float, float)
+#endif
+#if IN_PART(2)
+CA_GEMM_SIMT_PART(ca_gemm_simt_bf16, __nv_bfloat16, __nv_bfloat16)
+#endif
+#if IN_PART(3)
+CA_GEMM_SIMT_PART(ca_gemm_simt_f32_i8, float, int8_t)
+#endif
+#if IN_PART(4)
+CA_GEMM_SIMT_PART(ca_gemm_simt_bf16_i8, __nv_bfloat16, int8_t)
+#endif
+#if IN_PART(5)
+CA_GEMM_SIMT_PART(ca_gemm_simt_i8, int8_t, int8_t)
+#endif
+#if IN_PART(6)
+extern "C" int ca_gemm_wgmma_bf16(const void* p, int two, void* stream) {
+  return launch_wgmma_program(*static_cast<const Params*>(p), two != 0,
+                              static_cast<cudaStream_t>(stream));
+}
+#endif
+#if IN_PART(7)
+extern "C" int ca_gemm_wgmma_i8(const void* p, int a_type, int two, void* stream) {
+  return launch_wgmma_int8(*static_cast<const Params*>(p), a_type, two != 0,
+                           static_cast<cudaStream_t>(stream));
+}
+#endif
+#if IN_PART(8)
+extern "C" int ca_gemm_decode_bf16(const void* p, int two, void* stream) {
+  return launch_decode_typed<__nv_bfloat16, __nv_bfloat16, false>(
+      *static_cast<const Params*>(p), two != 0, static_cast<cudaStream_t>(stream));
+}
+#endif
+#if IN_PART(9)
+extern "C" int ca_gemm_decode_bf16_i8(const void* p, int two, void* stream) {
+  return launch_decode_int8<__nv_bfloat16>(*static_cast<const Params*>(p), two != 0,
+                                           static_cast<cudaStream_t>(stream));
+}
+#endif
+#if IN_PART(10)
+extern "C" int ca_gemm_decode_i8(const void* p, int two, void* stream) {
+  return launch_decode_int8<int8_t>(*static_cast<const Params*>(p), two != 0,
+                                    static_cast<cudaStream_t>(stream));
+}
+#endif
+
+#if IN_PART(0)
 // C entry point.  The caller checks shapes, types, scales and contiguity;
 // m, n > 0.  A and B types (TYPE_*): float A with B of the same type, float A
 // with int8 B (dqb), or int8 A with int8 B (dqab); any other pair, a
@@ -1784,25 +1872,21 @@ extern "C" int ca_gemm_program_launch(
   const bool two = b1 != nullptr;
   if (((p.trans_a || p.trans_b) && (a_type == TYPE_I8 || b_type == TYPE_I8)) || (out1 != nullptr && !two))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int r = k1_route(p, a_type, b_type, two);
   if (route != r) return static_cast<int>(cudaErrorInvalidValue);
+  const int t = two ? 1 : 0;
   if (r == ROUTE_WGMMA)
-    return b_type == TYPE_I8 ? launch_wgmma_int8(p, a_type, two, s) : launch_wgmma_program(p, two, s);
-  if (r == ROUTE_DECODE) return launch_decode_program(p, a_type, b_type, two, s);
-  if (a_type == TYPE_F32 && b_type == TYPE_F32)
-    launch_typed<float, float>(p, two, s);
-  else if (a_type == TYPE_BF16 && b_type == TYPE_BF16)
-    launch_typed<__nv_bfloat16, __nv_bfloat16>(p, two, s);
-  else if (a_type == TYPE_F32 && b_type == TYPE_I8)
-    launch_typed<float, int8_t>(p, two, s);
-  else if (a_type == TYPE_BF16 && b_type == TYPE_I8)
-    launch_typed<__nv_bfloat16, int8_t>(p, two, s);
-  else if (a_type == TYPE_I8 && b_type == TYPE_I8)
-    launch_typed<int8_t, int8_t>(p, two, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return b_type == TYPE_I8 ? ca_gemm_wgmma_i8(&p, a_type, t, stream) : ca_gemm_wgmma_bf16(&p, t, stream);
+  if (r == ROUTE_DECODE) {
+    if (b_type == TYPE_BF16) return ca_gemm_decode_bf16(&p, t, stream);
+    return a_type == TYPE_BF16 ? ca_gemm_decode_bf16_i8(&p, t, stream) : ca_gemm_decode_i8(&p, t, stream);
+  }
+  if (a_type == TYPE_F32 && b_type == TYPE_F32) return ca_gemm_simt_f32(&p, t, stream);
+  if (a_type == TYPE_BF16 && b_type == TYPE_BF16) return ca_gemm_simt_bf16(&p, t, stream);
+  if (a_type == TYPE_F32 && b_type == TYPE_I8) return ca_gemm_simt_f32_i8(&p, t, stream);
+  if (a_type == TYPE_BF16 && b_type == TYPE_I8) return ca_gemm_simt_bf16_i8(&p, t, stream);
+  if (a_type == TYPE_I8 && b_type == TYPE_I8) return ca_gemm_simt_i8(&p, t, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The dynamic shared memory a launch on `route` (0 SIMT, 1 wgmma, 2 decode)
@@ -1843,3 +1927,4 @@ extern "C" int ca_gemm_program_smem(int route, int a_type, int b_type, int two, 
   }
   return 0;
 }
+#endif  // IN_PART(0)

@@ -6,26 +6,40 @@ entry point (no PyTorch headers); sources may include the shared headers
 first use into ``build/`` at the repository root, one shared library per
 source keyed by the hash of the source, every header and the flags, and
 bound through ``ctypes``.
+
+A source that holds a line ``// nvcc parts: N`` is compiled as N objects,
+one ``nvcc -c -DNVCC_PART=i`` process each (i = 0 .. N-1), all started
+together, then linked into its library: the source splits its kernel
+instantiations between the parts, so that one long compile becomes N short
+ones side by side.  Without ``NVCC_PART`` it is still one translation unit.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
-from typing import Callable, Dict
+import time
+from typing import Callable, Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+_PARTS = re.compile(rb"^// nvcc parts: (\d+)\s*$", re.M)
+
 _lock = threading.Lock()
 _libs: Dict[pathlib.Path, ctypes.CDLL] = {}
+# The seconds each part of a source's last build took, by source name
+# (one entry, the whole compile, for a source without parts).
+PART_SECONDS: Dict[str, List[float]] = {}
 
 
 def _nvcc() -> str:
@@ -47,6 +61,22 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
+def parts(source: pathlib.Path) -> int:
+    """The number of parts ``source`` is compiled as (its ``// nvcc parts:
+    N`` line), or 0 for one translation unit."""
+    found = _PARTS.search(source.read_bytes())
+    return int(found.group(1)) if found else 0
+
+
+def _nvcc_run(args, source: pathlib.Path) -> float:
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode})"
+                           f":\n{proc.stdout}\n{proc.stderr}")
+    return time.perf_counter() - t0
+
+
 def build(source: pathlib.Path) -> pathlib.Path:
     """Compile ``source`` into ``build/`` (at :func:`library_path`) and
     return the shared library's path; a fresh build only when missing."""
@@ -55,11 +85,24 @@ def build(source: pathlib.Path) -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode})"
-                           f":\n{proc.stdout}\n{proc.stderr}")
+    n = parts(source)
+    if not n:
+        PART_SECONDS[source.name] = [
+            _nvcc_run([*NVCC_FLAGS, "-o", str(tmp), str(source)], source)]
+        os.replace(tmp, out)
+        return out
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [tmp.with_suffix(f".part{i}.o") for i in range(n)]
+    try:
+        with concurrent.futures.ThreadPoolExecutor(n) as pool:
+            PART_SECONDS[source.name] = list(pool.map(
+                lambda i: _nvcc_run([*compile_flags, f"-DNVCC_PART={i}", "-c",
+                                     "-o", str(objs[i]), str(source)], source),
+                range(n)))
+        _nvcc_run([*NVCC_FLAGS, "-o", str(tmp), *map(str, objs)], source)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 
