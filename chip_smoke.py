@@ -283,10 +283,26 @@ Phases (any failure raises and the script exits non-zero):
    The state saved from the 4 ranks (6.2 GB under build/, removed),
    restored on 2 ranks and on 1 rank at once, every chunk of every leaf
    checksummed in each layout (``_digest``: 64-bit sums of its bits)
-   and all equal, rank 0's chunk bit-equal to its restore.  Any rank's
-   failure fails the script.  ``python3 chip_smoke.py --only dist`` runs
-   the card and K1's build and this phase alone, ``--only fsdp`` its
-   FSDP part alone (no kernels line, no result).
+   and all equal, rank 0's chunk bit-equal to its restore.  Then the
+   same four ranks train FSDP x TP on (data 2, model 2)
+   (``tp_train_part``): full-width stablelm-1.6b at 2 layers and
+   deepseek-v2-lite-16b (MLA, 64 experts, 32 a rank) at 1, bf16 at
+   microbatches 1 and 2 and stablelm also in fp32: loss and grad_norm
+   within TOL_LOSS (TOL_F32 in fp32) of the single-process card step
+   (stablelm's the FSDP part's), each leaf's first gradient within the
+   larger of TOL_GRAD (TOL_F32) and twice its witness, each leaf's
+   change within the larger of TOL_GRAD and twice the larger of its two
+   witnesses (rows reversed; masters perturbed by 2^-20, PERTURB), every
+   rank's K1 launches equal to ``tp_counts_per_step`` (every local GEMM
+   of forward and backward on K1: bf16 wgmma, fp32 SIMT), its
+   ``model``-axis bytes by site equal to ``FsdpLayout.tp_wire_plan``
+   (the dry run's planned bytes printed beside them), its walls
+   printed; K1 at stablelm's local shapes against its plain version,
+   timed beside the same layout's torch.matmul.  Any rank's failure
+   fails the script.  ``python3 chip_smoke.py --only dist`` runs the
+   card and K1's build and this phase alone, ``--only fsdp`` its FSDP
+   part alone, ``--only tp`` its TP part alone (no kernels line, no
+   result).
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -4991,9 +5007,10 @@ def _tp_decode_checks(dev, mesh, tp):
     return out
 
 
-def dist_rank(rank, world, backend, parts=("dist", "fsdp")):
+def dist_rank(rank, world, backend, parts=("dist", "fsdp", "tp")):
     """One rank of the dist phase (run by ``spawn_ranks``): the
-    distributed GEMM and TP decode checks, then the FSDP phase's part."""
+    distributed GEMM and TP decode checks, then the FSDP part and the
+    tensor-parallel training part."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_mesh_compat, rank_device
@@ -5005,8 +5022,8 @@ def dist_rank(rank, world, backend, parts=("dist", "fsdp")):
            "backend": tdist.get_backend()}
     if "dist" in parts:
         out.update(_dist_rank_checks(rank, world, backend, dev))
-    if "fsdp" in parts:
-        out["fsdp"] = fsdp_rank(rank, world, dev)
+    if "fsdp" in parts or "tp" in parts:
+        out["fsdp"] = fsdp_rank(rank, world, dev, parts)
         tdist.barrier()
     return out
 
@@ -5065,16 +5082,18 @@ def _dist_failures(outs):
     return bad
 
 
-def dist_phase(card_line, parts=("dist", "fsdp")):
+def dist_phase(card_line, parts=("dist", "fsdp", "tp")):
     """The dist phase: eight ranks drive dist_matmul at every schedule and
-    the full-width TP decode block, then four of them the FSDP phase
-    (``fsdp_rank``); any rank's failure fails it."""
+    the full-width TP decode block, then four of them the FSDP part
+    (``fsdp_rank``) and the tensor-parallel training part
+    (``tp_train_part``); any rank's failure fails it."""
     from repro_torch.launch.mesh import spawn_ranks
 
     phase("dist: dist_matmul and the tensor-parallel decode block, "
-          f"{DIST_WORLD} ranks; then FSDP training on {FSDP_RANKS} of them"
-          if "dist" in parts else f"fsdp: {DIST_WORLD} ranks, "
-          f"{FSDP_RANKS} of them training")
+          f"{DIST_WORLD} ranks; then FSDP and FSDP x TP training on "
+          f"{FSDP_RANKS} of them"
+          if "dist" in parts else f"{' and '.join(parts)}: {DIST_WORLD} "
+          f"ranks, {FSDP_RANKS} of them training")
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= DIST_WORLD else "gloo"
     transport = ("NCCL, one rank a card" if backend == "nccl" else
@@ -5095,6 +5114,13 @@ def dist_phase(card_line, parts=("dist", "fsdp")):
         res["fsdp"] = print_fsdp(outs, card_line)
         res["fsdp_seconds"] = fsdp_s
         print(f"fsdp phase {fsdp_s:.1f} s (the ranks' part; the spawn "
+              f"{seconds:.1f} s in all; {card_line})")
+    if "tp" in parts:
+        tp_s = max(o["fsdp"]["tp"]["seconds"] for o in outs
+                   if o.get("fsdp"))
+        res["tp"] = print_tp(outs, card_line)
+        res["tp_seconds"] = tp_s
+        print(f"tp part {tp_s:.1f} s (the ranks' part; the spawn "
               f"{seconds:.1f} s in all; {card_line})")
     return res
 
@@ -5254,21 +5280,46 @@ def _chunk_digests(layout, tree, parts, first):
     return out
 
 
-def _fsdp_single(cfg, dev):
+# The second witness of the TP part: the fp32 masters scaled by
+# 1 + PERTURB · N(0, 1) (seed 7), which moves about one bf16 weight in
+# 4096 by an ulp, so every activation and gradient downstream rounds
+# elsewhere, as the tensor-parallel step's partial sums do.
+PERTURB = 2.0 ** -20
+
+
+def _fsdp_single(cfg, dev, keep=None, tp=False, mbs=FSDP_MB):
     """The single-process card step on the whole batch, each microbatch
-    count (run by rank 0 alone): its metrics and its final parameters,
-    kept on the card beside the starting masters.  Then the witness: the
-    same step with the batch's rows reversed (the same loss, every sum
-    over rows in another order), each leaf's squared distance from the
-    first run."""
+    count of ``mbs`` (run by rank 0 alone): its metrics and its final
+    parameters, kept beside the starting masters, on the card or on
+    ``keep`` (the host, for a state too large to keep beside the
+    ranks').  Then the witness: the same step with the batch's rows
+    reversed (the same loss, every sum over rows in another order), each
+    leaf's squared distance from the first run.  With ``tp`` also each
+    run's first clipped gradient (its first moment over 1 - b1) and a
+    second witness, the step with its masters perturbed by ``PERTURB``:
+    each leaf's squared distance from the first run in its change
+    (``perturbed2``) and in its first gradient (``perturbed_grad2``,
+    beside the first run's squared norm, ``grad_norm2``)."""
+    keep = keep or dev
+    b1 = adamw.AdamWConfig(**FSDP_OPT).b1
+
+    def kept(tree, copy=False):
+        return {k: v.to(keep, copy=copy) for k, v in tree.items()}
+
     out = {}
-    for mb in FSDP_MB + ("reversed",):
+    for mb in mbs + (("reversed", "perturbed") if tp else ("reversed",)):
         state = T.init_state(cfg, seed=0, device=dev)
+        if mb == "perturbed":
+            gen = torch.Generator(device=dev).manual_seed(7)
+            for v in state.params.values():
+                v.mul_(1 + PERTURB * torch.randn(v.shape, generator=gen,
+                                                 device=dev))
+            start = {k: v.clone() for k, v in state.params.items()}
         if "start" not in out:      # the step below donates the state
-            out["start"] = {k: v.clone() for k, v in state.params.items()}
+            out["start"] = kept(state.params, copy=True)
         step_fn = T.build_train_step(
             cfg, adamw.AdamWConfig(**FSDP_OPT),
-            microbatches=1 if mb == "reversed" else mb, donate=True)
+            microbatches=mb if mb in mbs else 1, donate=True)
         metrics = []
         for i in range(FSDP_STEPS):
             b = T.cast_batch(_fsdp_batch(cfg, i), cfg, dev)
@@ -5276,12 +5327,33 @@ def _fsdp_single(cfg, dev):
                 b = {k: v.flip(0) for k, v in b.items()}
             state, m = step_fn(state, b)
             metrics.append({k: float(v) for k, v in m.items()})
-        out[mb] = {"metrics": metrics, "final": state.params}
+            if i == 0 and tp and mb in mbs:
+                out[f"grad0 {mb}"] = kept({k: v / (1 - b1) for k, v in
+                                           state.opt.m.items()})
+            if i == 0 and mb == "perturbed":
+                g0 = out[f"grad0 {mbs[0]}"]
+                out["grad_norm2"], out["perturbed_grad2"] = {}, {}
+                for k, v in state.opt.m.items():
+                    want = g0[k].to(dev).double()
+                    out["grad_norm2"][k] = float((want ** 2).sum())
+                    out["perturbed_grad2"][k] = float(
+                        ((v / (1 - b1)).double() - want).pow(2).sum())
+                    del want
+        if mb == "perturbed":
+            one, st = out[mbs[0]]["final"], out["start"]
+            out["perturbed2"] = {k: float((((state.params[k] - start[k])
+                                            - (one[k] - st[k]).to(dev))
+                                           .double() ** 2).sum())
+                                 for k in one}
+            del start
+        else:
+            out[mb] = {"metrics": metrics, "final": (
+                state.params if mb == "reversed" else kept(state.params))}
         del state, step_fn
         torch.cuda.empty_cache()
     rev = out.pop("reversed")
-    one = out[FSDP_MB[0]]["final"]
-    out["witness2"] = {k: float(((rev["final"][k] - one[k]).double()
+    one = out[mbs[0]]["final"]
+    out["witness2"] = {k: float(((rev["final"][k] - one[k].to(dev)).double()
                                  ** 2).sum()) for k in one}
     out["reversed_metrics"] = rev["metrics"]
     return out
@@ -5292,10 +5364,14 @@ def _fsdp_distances(whole, single, mb):
     parameters from the single-process step's, and the single-process
     step's squared change over the steps (on rank 0)."""
     dist2, chg2 = {}, {}
+    dev = torch.device("cuda", torch.cuda.current_device())
     for k, p in whole.items():
-        fin, st = single[mb]["final"][k], single["start"][k]
-        dist2[k] = float(((p.to(fin.device) - fin).double() ** 2).sum())
+        p = p.to(dev)
+        fin = single[mb]["final"][k].to(dev)
+        st = single["start"][k].to(dev)
+        dist2[k] = float(((p - fin).double() ** 2).sum())
         chg2[k] = float(((fin - st).double() ** 2).sum())
+        del fin, st
     return dist2, chg2
 
 
@@ -5439,9 +5515,10 @@ def _fsdp_checkpoint(cfg, dev, state, layouts, meshes, rank, group):
     return out
 
 
-def fsdp_rank(rank, world, dev):
-    """This rank's part of the FSDP phase (every dist rank calls it: the
-    mesh and the group are built by all; ranks past FSDP_RANKS wait)."""
+def fsdp_rank(rank, world, dev, parts=("fsdp", "tp")):
+    """This rank's part of the FSDP phase and of the tensor-parallel
+    training part (every dist rank calls it: the meshes and the group are
+    built by all; ranks past FSDP_RANKS wait)."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_mesh_compat
@@ -5453,6 +5530,8 @@ def fsdp_rank(rank, world, dev):
     torch.cuda.empty_cache()
     full = make_mesh_compat((world // FSDP_RANKS, 2, 2, 1),
                             ("rep", "pod", "data", "model"))
+    tp_mesh = make_mesh_compat((world // FSDP_RANKS, 2, 2),
+                               ("rep", "data", "model"))["data", "model"]
     group = tdist.new_group(list(range(FSDP_RANKS)))
     if rank >= FSDP_RANKS:
         return None
@@ -5466,14 +5545,15 @@ def fsdp_rank(rank, world, dev):
     # the single-process step once, on rank 0, which gathers each FSDP
     # run's parameters to hold them against it
     t0 = time.perf_counter()
-    single = _fsdp_single(cfg, dev) if rank == 0 else None
+    single = (_fsdp_single(cfg, dev, tp="tp" in parts) if rank == 0
+              else None)
     out = {"rank": rank, "single_s": time.perf_counter() - t0, "runs": {}}
     if rank == 0:
         out["single"] = {mb: single[mb]["metrics"] for mb in FSDP_MB}
         out["reversed"] = single["reversed_metrics"]
     tdist.barrier(group=group)
     last = None
-    for name, ranks in FSDP_MESHES:
+    for name, ranks in (FSDP_MESHES if "fsdp" in parts else ()):
         for mb in FSDP_MB:
             if ranks == 2 and pod != 0:
                 tdist.barrier(group=group)
@@ -5497,14 +5577,25 @@ def fsdp_rank(rank, world, dev):
             torch.cuda.empty_cache()
             if ranks == 2:
                 tdist.barrier(group=group)
-    del single
+    if "tp" in parts:
+        # the TP part drops stablelm's single-process step once it has
+        # used it
+        box = [single]
+        del single
+        out["tp"] = tp_train_part(rank, dev, tp_mesh, box, group)
+    else:
+        del single
     torch.cuda.empty_cache()
-    out["compressed"] = _fsdp_compressed(dev, meshes["pod2xdata2"], rank)
-    out["checkpoint"] = _fsdp_checkpoint(cfg, dev, last, layouts, meshes,
-                                         rank, group)
+    if "fsdp" in parts:
+        out["compressed"] = _fsdp_compressed(dev, meshes["pod2xdata2"],
+                                             rank)
+        out["checkpoint"] = _fsdp_checkpoint(cfg, dev, last, layouts,
+                                             meshes, rank, group)
     del last
     torch.cuda.empty_cache()
-    out["seconds"] = time.perf_counter() - t_start
+    # the FSDP part's own seconds (the TP part reports its own)
+    out["seconds"] = time.perf_counter() - t_start - out.get(
+        "tp", {}).get("seconds", 0.0)
     return out
 
 
@@ -5660,6 +5751,371 @@ def fsdp_kernel_records(outs, fsdp_seconds):
                  f"2); the phase {fsdp_seconds:.1f} s)"}]
 
 
+# ---------------------------------------------------------------------------
+# FSDP x TP training (run by the dist phase's ranks 0-3, after the FSDP part)
+# ---------------------------------------------------------------------------
+
+# Full width, FSDP over data 2 and tensor parallelism over model 2: the
+# dense GQA stablelm-1.6b at the FSDP part's 2 of 24 layers (its
+# single-process card step is the FSDP part's), and the MoE + MLA
+# deepseek-v2-lite-16b at 1 of its 27 (its fp32 state, 12 GB at one
+# layer with 64 experts, whole on rank 0 for the single-process step and
+# kept on the host beside the four ranks' quarters; 2 layers fit, 11.7
+# GB a rank, but cost the smoke its time limit).  Each in the compute
+# dtype of its config (bf16) at microbatches 1 and 2, and in fp32 at
+# microbatch 1.
+TP_ARCHS = {ARCH: FSDP_LAYERS, "deepseek-v2-lite-16b": 1}
+TP_MESH = (2, 2)
+# (dtype, microbatches) of each arch's runs: fp32 for stablelm only (the
+# smoke's time; deepseek's fp32 step agreed to 5.2e-6 in gradient,
+# PERF.md §6 PR 29).
+TP_RUNS = {ARCH: [("bfloat16", 1), ("bfloat16", 2), ("float32", 1)],
+           "deepseek-v2-lite-16b": [("bfloat16", 1), ("bfloat16", 2)]}
+
+
+def tp_counts_per_step(cfg, tp):
+    """K1 launches of one tensor-parallel train step of a rank:
+    ``train_counts_per_step``'s at the rank's local shapes, the experts
+    ``E / tp`` of them, and each row-parallel projection (``wo``,
+    ``w_down``, the shared experts' down) K1's ``none`` program with an
+    fp32 output where the single-card step drains the residual (``res``):
+    the same count of launches, keyed ``none``."""
+    if cfg.moe is not None and cfg.moe.n_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=cfg.moe.n_experts // tp))
+    counts = collections.Counter(train_counts_per_step(cfg))
+    counts["none"] += counts.pop("res", 0)
+    return dict(counts)
+
+
+def _tp_init(lay, dev, group):
+    """The layout's train state, drawn one rank at a time (each rank
+    draws the whole fp32 masters before keeping its quarter)."""
+    import torch.distributed as tdist
+
+    state = None
+    for r in range(FSDP_RANKS):
+        tdist.barrier(group=group)
+        if r == tdist.get_rank():
+            state = lay.init_state(0, dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    tdist.barrier(group=group)
+    return state
+
+
+def _sq_dists(lay, tree, want, scale=1.0):
+    """Each leaf of the rank-local ``tree`` (times ``scale``) gathered
+    whole on rank 0, one leaf at a time, and its squared distance from
+    ``want``'s leaf and ``want``'s squared norm there (rank 0's result;
+    a collective)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for k in sorted(tree):
+        whole = lay.shardings[k].gather(tree[k] * scale, to_first=True)
+        if want is not None:
+            w = want[k].to(dev)
+            out[k] = [float(((whole.to(dev) - w).double() ** 2).sum()),
+                      float((w.double() ** 2).sum())]
+            del w
+        del whole
+    return out
+
+
+def _tp_run(cfg, dev, lay, hooks, mb, group, ref):
+    """Tensor-parallel steps of one microbatch count: per step the global
+    metrics, the wall (all ranks in step), this rank's K1 launches and
+    routes, and the bytes each ``model``-axis site all-reduced; after the
+    first step each leaf's clipped gradient, and after the last its
+    parameters, held on rank 0 against ``ref``'s (the single-process
+    step's)."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as D
+
+    state = _tp_init(lay, dev, group)
+    opt = adamw.AdamWConfig(**FSDP_OPT)
+    step_fn = T.build_train_step(cfg, opt, microbatches=mb,
+                                 reshard_params=hooks[0],
+                                 reshard_grads=hooks[1], donate=True)
+    want = {k: n * mb for k, n in tp_counts_per_step(cfg,
+                                                     lay.model).items()}
+    route = "wgmma" if cfg.dtype() == torch.bfloat16 else "simt"
+    steps = []
+    run = {"route": route}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(FSDP_STEPS):
+        b = lay.local_batch(T.cast_batch(_fsdp_batch(cfg, i), cfg, dev))
+        before, routes = dict(K.launch_counts), dict(K.route_counts)
+        wire = dict(D.tp_wire_bytes)
+        tdist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: n - before.get(k, 0) for k, n in
+                    K.launch_counts.items() if n != before.get(k, 0)}
+        steps.append({"step": i + 1, "wall_ms": wall,
+                      "metrics": {k: float(v) for k, v in m.items()},
+                      "local_tokens": int(b["tokens"].numel()),
+                      "mask_tokens": float(b["mask"].sum()),
+                      "launches": launches, "want": want,
+                      "routes": route_delta(routes),
+                      "wire": {k: v - wire.get(k, 0) for k, v in
+                               D.tp_wire_bytes.items()
+                               if v != wire.get(k, 0)},
+                      "want_wire": lay.tp_wire_plan(
+                          FSDP_SEQ, int(b["tokens"].shape[0]), mb)})
+        if i == 0:
+            run["grad2"] = _sq_dists(lay, state.opt.m, ref and ref[
+                f"grad0 {mb}"], 1.0 / (1 - opt.b1))
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["final2"] = _sq_dists(lay, state.params,
+                              ref and ref[mb]["final"])
+    run["steps"] = steps
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return run
+
+
+def tp_train_part(rank, dev, mesh, box, group):
+    """This rank's part of the tensor-parallel training check: for each
+    of ``TP_ARCHS`` and each (dtype, microbatches) of ``TP_RUNS``, the
+    single-process card step on the whole batch (on rank 0; stablelm's
+    bf16 one is the FSDP part's, ``box``'s one item, dropped after use;
+    the others kept on the host), then the FSDP x TP steps, rank 0
+    gathering each leaf's gradient and parameters one at a time to hold
+    them against the single-process step's."""
+    import torch.distributed as tdist
+
+    from repro_torch.train import fsdp
+
+    t_start = time.perf_counter()
+    out = {"rank": rank, "runs": {}, "single_s": {}, "single": {},
+           "reversed": {}}
+    for name, layers in TP_ARCHS.items():
+        for dt in dict.fromkeys(d for d, _ in TP_RUNS[name]):
+            cfg = dataclasses.replace(get_config(name), n_layers=layers,
+                                      compute_dtype=dt)
+            mbs = tuple(mb for d, mb in TP_RUNS[name] if d == dt)
+            key = f"{name} {dt}"
+            if name == ARCH and dt == get_config(name).compute_dtype:
+                ref = box.pop()
+            else:
+                t0 = time.perf_counter()
+                ref = (_fsdp_single(cfg, dev, "cpu", tp=True, mbs=mbs)
+                       if rank == 0 else None)
+                out["single_s"][key] = time.perf_counter() - t0
+                tdist.barrier(group=group)
+            if rank == 0:
+                out["single"][key] = {mb: ref[mb]["metrics"] for mb in mbs}
+                out["reversed"][key] = ref["reversed_metrics"]
+            hooks = fsdp.weight_hoist(cfg, mesh)
+            lay = hooks[0].layout
+            for mb in mbs:
+                run = _tp_run(cfg, dev, lay, hooks, mb, group, ref)
+                if rank == 0:
+                    run["chg2"] = {k: float(((ref[mb]["final"][k].to(dev)
+                                              - ref["start"][k].to(dev))
+                                             .double() ** 2).sum())
+                                   for k in ref["start"]}
+                    for w in ("witness2", "perturbed2", "grad_norm2",
+                              "perturbed_grad2"):
+                        run[w] = ref[w]
+                out["runs"][f"{key} mb{mb}"] = run
+            del ref
+            torch.cuda.empty_cache()
+            tdist.barrier(group=group)
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def _tp_failures(outs):
+    """Every check of the tensor-parallel part, against the
+    single-process step and across ranks; returns (failures, summary).
+    Each leaf: its first clipped gradient within the larger of TOL_GRAD
+    (TOL_F32 in fp32) and FSDP_WITNESS_X times its witness (the
+    single-process step with its masters perturbed by PERTURB) relative
+    L2 of the single-process step's, and its change over the steps
+    within the larger of TOL_GRAD and FSDP_WITNESS_X times the larger of
+    its two witnesses (the batch's rows reversed, the FSDP part's; the
+    masters perturbed: the tensor-parallel step's partial sums round its
+    bf16 activations and gradients elsewhere, which the row order alone
+    does not, and an MoE step then routes some tokens elsewhere)."""
+    bad = []
+    tps = [o["fsdp"]["tp"] for o in outs if o.get("fsdp")]
+    summary = {}
+    for name, layers in TP_ARCHS.items():
+        for dt, mb in TP_RUNS[name]:
+            key = f"{name} {dt} mb{mb}"
+            single = tps[0]["single"][f"{name} {dt}"]
+            runs = [t["runs"][key] for t in tps]
+            f32 = dt == "float32"
+            tol_metric = TOL_F32 if f32 else TOL_LOSS
+            worst_metric = 0.0
+            for i in range(FSDP_STEPS):
+                want = single[mb][i]
+                for r, run in enumerate(runs):
+                    s = run["steps"][i]
+                    for m in ("loss", "grad_norm"):
+                        rel = abs(s["metrics"][m] - want[m]) / abs(want[m])
+                        worst_metric = max(worst_metric, rel)
+                        if not (math.isfinite(s["metrics"][m])
+                                and rel <= tol_metric):
+                            bad.append(f"tp {key} rank {r} step {i + 1} "
+                                       f"{m} {s['metrics'][m]} vs {want[m]}")
+                    if s["launches"] != s["want"]:
+                        bad.append(f"tp {key} rank {r} step {i + 1} K1 "
+                                   f"launches {s['launches']} != "
+                                   f"{s['want']}")
+                    if s["routes"] != {f"{run['route']} {k}": n
+                                       for k, n in s["want"].items()}:
+                        bad.append(f"tp {key} rank {r} step {i + 1} routes "
+                                   f"{s['routes']}")
+                    wire = dict(s["wire"])
+                    norm = wire.pop("norm", 0)
+                    if wire != s["want_wire"] or not 0 < norm <= 16:
+                        bad.append(f"tp {key} rank {r} step {i + 1} wire "
+                                   f"bytes {s['wire']} != {s['want_wire']}"
+                                   " (+ the norm's two scalars)")
+            run0 = runs[0]          # rank 0 holds the whole leaves
+            tol_grad = TOL_F32 if f32 else TOL_GRAD
+            worst_grad = worst_leaf = worst_over = 0.0
+            witness = {}
+            for k, (d2, w2) in run0["grad2"].items():
+                rel = math.sqrt(d2 / w2) if w2 else math.sqrt(d2)
+                n2 = run0["grad_norm2"][k]
+                wit = math.sqrt(run0["perturbed_grad2"][k] / n2) if n2 \
+                    else 0.0
+                lim = max(tol_grad, FSDP_WITNESS_X * wit)
+                worst_grad = max(worst_grad, rel)
+                if not rel <= lim:
+                    bad.append(f"tp {key} {k}: first gradient {rel} > {lim} "
+                               f"relative L2 (the larger of {tol_grad} and "
+                               f"{FSDP_WITNESS_X} times its witness {wit})")
+            for k, (d2, _) in run0["final2"].items():
+                c2 = run0["chg2"][k]
+                wit = [math.sqrt(run0[w][k] / c2) if c2 else 0.0
+                       for w in ("witness2", "perturbed2")]
+                witness[k] = wit
+                rel = math.sqrt(d2 / c2) if c2 else math.sqrt(d2)
+                lim = max(TOL_GRAD, FSDP_WITNESS_X * max(wit))
+                worst_leaf = max(worst_leaf, rel)
+                worst_over = max(worst_over, rel / lim)
+                if not rel <= lim:
+                    bad.append(f"tp {key} {k}: change {rel} > {lim} "
+                               f"(the larger of {TOL_GRAD} and "
+                               f"{FSDP_WITNESS_X} times its witnesses "
+                               f"{wit})")
+            summary[key] = {
+                "layers": layers, "mesh": "data 2, model 2",
+                "local_tokens": runs[0]["steps"][0]["local_tokens"],
+                "mask_tokens_by_rank": [run["steps"][0]["mask_tokens"]
+                                        for run in runs],
+                "worst_metric_rel": worst_metric,
+                "worst_first_gradient_rel_l2": worst_grad,
+                "worst_leaf_change_rel_l2": worst_leaf,
+                "worst_leaf_over_limit": worst_over,
+                "witnesses_rel_l2_by_leaf (rows reversed, masters "
+                "perturbed)": witness,
+                "k1_launches_per_step": sum(runs[0]["steps"][0][
+                    "launches"].values()),
+                "tp_wire_bytes_per_step": runs[0]["steps"][0]["wire"],
+                "peak_gb_by_rank": [run["peak_gb"] for run in runs],
+                "step_wall_ms_by_rank": [[s["wall_ms"] for s in run["steps"]]
+                                         for run in runs],
+                "step_wall_ms": [max(run["steps"][i]["wall_ms"]
+                                     for run in runs)
+                                 for i in range(FSDP_STEPS)]}
+    return bad, summary
+
+
+def tp_planned_bytes(name, layers, rows, mb):
+    """The dry run's planned tensor-parallel all-reduce bytes of the same
+    config, mesh and microbatch count (``launch.dryrun.tp_reduce_bytes``),
+    printed beside the counted ones (ROADMAP.md §3 reconciles them)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    return dryrun.tp_reduce_bytes(cfg, "train", FSDP_SEQ, rows,
+                                  abstract_mesh(TP_MESH, ("data", "model")),
+                                  mb)
+
+
+def print_tp(outs, card_line):
+    phase("tp: FSDP x TP on (data 2, model 2), full width: "
+          + ", ".join(f"{n} at {layers} of {get_config(n).n_layers} layers"
+                      for n, layers in TP_ARCHS.items())
+          + f"; {FSDP_STEPS} steps of {FSDP_BATCH} x {FSDP_SEQ} tokens")
+    tps = [o["fsdp"]["tp"] for o in outs if o.get("fsdp")]
+    for t in tps:
+        print(f"tp rank {t['rank']}: {t['seconds']:.1f} s" + (
+            f" (single-process steps {json.dumps(t['single_s'])} s)"
+            if t["rank"] == 0 else ""))
+        for key, run in t["runs"].items():
+            for s in run["steps"]:
+                print(f"tp rank {t['rank']} {key} step {s['step']} "
+                      + json.dumps({k: s[k] for k in (
+                          "metrics", "wall_ms", "local_tokens",
+                          "mask_tokens", "launches", "routes", "wire")}))
+    print("tp single-process card step on the whole batch "
+          + json.dumps(tps[0]["single"]) + "; its rows reversed (the "
+          "witness) " + json.dumps(tps[0]["reversed"]))
+    bad, summary = _tp_failures(outs)
+    for key, row in summary.items():
+        name, dt, mb = key.split(" ")
+        row["planned_tp_bytes_per_step"] = tp_planned_bytes(
+            name, TP_ARCHS[name], FSDP_BATCH // TP_MESH[0], int(mb[2:]))
+        print(f"tp summary {key} " + json.dumps(row))
+    print(f"e2e tp step walls by rank (gloo transport through pinned host "
+          f"copies, ranks sharing one card, not NVLink; {card_line}): "
+          + json.dumps({k: v["step_wall_ms_by_rank"]
+                        for k, v in summary.items()}))
+    if bad:
+        raise AssertionError("tp part:\n" + "\n".join(bad))
+    return summary
+
+
+# (key, GEMM, m, n, k, out dtype) of K1 at stablelm-1.6b's local shapes
+# on (data 2, model 2): 4 x 128 tokens a rank, n or k halved.
+TP_K1_GEMMS = [
+    ("none", "tp wq fwd", 512, 1024, 2048, None),
+    ("none nt", "tp wq dx", 512, 2048, 1024, torch.float32),
+    ("none tn", "tp wq dW", 2048, 1024, 512, None),
+    (GLU_SAVE, "tp gate+up fwd", 512, 2816, 2048, None),
+    ("none", "tp wo row-parallel", 512, 2048, 1024, torch.float32),
+    ("none", "tp w_down row-parallel", 512, 2048, 2816, torch.float32),
+    ("none", "tp head", 512, 50176, 2048, torch.float32)]
+
+
+def tp_kernel_records(outs, tp_seconds):
+    """K1 at the tensor-parallel local shapes against its plain version
+    and timed (kernel, plain version, the same layout's torch.matmul,
+    bound); the kernels line's record is the row-parallel w_down's, its
+    launches rank 0's ``none`` launches over its runs."""
+    cases = [(key, name, m, n, k, od, torch.bfloat16)
+             for key, name, m, n, k, od in TP_K1_GEMMS]
+    worst = k1f_parity(cases, "the tensor-parallel local shapes", 16)
+    rows = k1f_times(TP_K1_GEMMS, "K1 at the tensor-parallel local shapes")
+    t0 = next(o["fsdp"]["tp"] for o in outs if o.get("fsdp"))
+    launches = sum(s["launches"].get("none", 0)
+                   for key, run in t0["runs"].items() if "bfloat16" in key
+                   for s in run["steps"])
+    row = next(r for r in rows if r["gemm"] == "tp w_down row-parallel")
+    return [{
+        "name": "ca_gemm_program[none] tp row-parallel", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES, "launches": launches,
+        "max_abs_err": max(worst.values()), "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "k1_route": "wgmma", "matmul_bf16_out_ms": row["matmul_ms"],
+        "shape": f"w_down m={row['m']} n={row['n']} k={row['k']} bf16, "
+                 f"fp32 out (rank 0 of (data 2, model 2); the part "
+                 f"{tp_seconds:.1f} s)"}]
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     t_start = time.perf_counter()
@@ -5686,16 +6142,22 @@ def main(argv=None):
             print("record " + json.dumps(record))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
-    if argv in (["--only", "dist"], ["--only", "fsdp"]):
+    if argv in (["--only", "dist"], ["--only", "fsdp"], ["--only", "tp"]):
         # A partial run for work on the dist phase alone (with its FSDP
-        # part), or on the FSDP part alone: only K1's source, no kernels
-        # line, no result.
+        # and TP parts), or on the FSDP part or the TP part alone: only
+        # K1's source, no kernels line, no result.
         build((K.SOURCE,))
-        parts = ("dist", "fsdp") if argv[1] == "dist" else ("fsdp",)
+        parts = {"dist": ("dist", "fsdp", "tp"), "fsdp": ("fsdp",),
+                 "tp": ("tp",)}[argv[1]]
         dres = dist_phase(card_line, parts)
-        records = fsdp_kernel_records(dres["outs"], dres["fsdp_seconds"])
+        records = []
         if "dist" in parts:
-            records = dist_kernel_records(dres) + records
+            records += dist_kernel_records(dres)
+        if "fsdp" in parts:
+            records += fsdp_kernel_records(dres["outs"],
+                                           dres["fsdp_seconds"])
+        if "tp" in parts:
+            records += tp_kernel_records(dres["outs"], dres["tp_seconds"])
         for record in records:
             print("record " + json.dumps(record))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
@@ -5714,7 +6176,7 @@ def main(argv=None):
     if argv:
         raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
                          "--only train [ARCH ...] | --only robust | "
-                         f"--only dist | --only fsdp], got {argv}")
+                         f"--only dist | --only fsdp | --only tp], got {argv}")
     prefetch_tables()
     build()
     worst = parity()
@@ -5940,6 +6402,7 @@ def main(argv=None):
     kernels += train_arch_records(tarchs)
     kernels += dist_kernel_records(dres)
     kernels += fsdp_kernel_records(dres["outs"], dres["fsdp_seconds"])
+    kernels += tp_kernel_records(dres["outs"], dres["tp_seconds"])
     # Only the robust phase's plans failed, degraded, refused or
     # re-dispatched anything: every later phase added nothing.
     print("guarded counters at the end " + json.dumps(

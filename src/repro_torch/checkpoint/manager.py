@@ -35,7 +35,8 @@ package, whichever wrote it.
 * **Sharded states and elastic restore.** ``save(..., shardings=...)``
   takes a tree of rank-local shards and, per leaf, its
   :class:`~repro_torch.sharding.rules.NamedSharding` (mesh and spec, as
-  ``launch.specs.state_inputs`` gives them): every rank of the mesh
+  ``launch.specs.state_inputs`` gives them, FSDP × TP included: a leaf
+  split over the batch axes and ``model`` at once): every rank of the mesh
   sends its shard of each leaf (a collective, so ``save_async`` gathers
   before its writer thread starts) to the mesh's first rank, which
   writes the reference's single-host layout.  A blocking sharded save

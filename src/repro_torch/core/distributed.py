@@ -422,6 +422,113 @@ class _Axis:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism of the training forward (over the ``model`` axis)
+# ---------------------------------------------------------------------------
+
+# Bytes this process handed to the ``model`` axis's all-reduces in a
+# tensor-parallel training step, by site: ``embed`` the vocab-parallel
+# lookup, ``row`` each row-parallel GEMM's fp32 output (the forward's and
+# a remat recompute's), ``col`` each column-parallel region's input
+# gradient, ``route`` the MoE routing weights' gradient, ``loss`` the
+# vocab-parallel cross-entropy's statistics, ``grads`` the gradients of
+# leaves held whole whose gradient a rank gets in part, ``norm`` the
+# clip's sum of squares.  The payload's bytes, each buffer once (as the
+# dry run plans them); read as a difference.
+tp_wire_bytes: Dict[str, int] = {}
+
+
+def _model_ctx():
+    from repro_torch.sharding.rules import model_parallel_state  # lazy: cycle
+
+    return model_parallel_state()
+
+
+def model_parallel_size() -> int:
+    """Ranks of the active ``model`` axis (1 outside
+    ``sharding.rules.model_parallel``)."""
+    ctx = _model_ctx()
+    return ctx.size if ctx is not None else 1
+
+
+def model_index() -> int:
+    """This rank's index along the active ``model`` axis (0 outside)."""
+    ctx = _model_ctx()
+    return ctx.index if ctx is not None else 0
+
+
+def _model_all_reduce(ctx, t: torch.Tensor, site: str,
+                      op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = ctx.axis(t.device).all_reduce(t, op=op)
+    tp_wire_bytes[site] = (tp_wire_bytes.get(site, 0)
+                           + t.numel() * t.element_size())
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``model``
+    (each rank's column slice contributes a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mp, site):
+        ctx.mp, ctx.site, ctx.dtype = mp, site, x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _model_all_reduce(ctx.mp, g.float().contiguous(), ctx.site)
+        return out.to(ctx.dtype), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The fp32 sum over ``model`` forward; identity backward (every rank
+    holds the whole sum's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mp, site):
+        ctx.dtype = x.dtype
+        return _model_all_reduce(mp, x.float().contiguous(), site)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+def copy_to_model(x: torch.Tensor, site: str = "col") -> torch.Tensor:
+    """A replicated activation entering a tensor-parallel region: ``x``
+    itself, its gradient summed in fp32 over the active ``model`` axis.
+    The identity outside ``sharding.rules.model_parallel``."""
+    ctx = _model_ctx()
+    return x if ctx is None else _CopyToModel.apply(x, ctx, site)
+
+
+def reduce_from_model(x: torch.Tensor, site: str = "row") -> torch.Tensor:
+    """The sum over the active ``model`` axis of each rank's partial
+    ``x``, in fp32 (one all-reduce); the gradient passes unchanged.  The
+    identity outside ``sharding.rules.model_parallel``."""
+    ctx = _model_ctx()
+    return x if ctx is None else _ReduceFromModel.apply(x, ctx, site)
+
+
+def model_max(x: torch.Tensor, site: str = "loss") -> torch.Tensor:
+    """The elementwise max of ``x`` over the active ``model`` axis, no
+    gradient (``x`` itself outside the context)."""
+    ctx = _model_ctx()
+    if ctx is None:
+        return x
+    return _model_all_reduce(ctx, x.detach().float().contiguous(), site,
+                             op=dist.ReduceOp.MAX)
+
+
+def model_sum(x: torch.Tensor, site: str) -> torch.Tensor:
+    """``x`` summed in fp32 over the active ``model`` axis, no gradient
+    (``x`` itself outside the context)."""
+    ctx = _model_ctx()
+    if ctx is None:
+        return x
+    return _model_all_reduce(ctx, x.detach().float().contiguous(), site)
+
+
+# ---------------------------------------------------------------------------
 # Schedules
 # ---------------------------------------------------------------------------
 

@@ -507,6 +507,26 @@ def _glu_matmul(x: torch.Tensor, w_gate, w_up, *, activation: str = "silu",
     return y.reshape(*lead, n)
 
 
+def ca_einsum(spec: str, x: torch.Tensor, w, **kw) -> torch.Tensor:
+    """An einsum whose matmul-shaped specs (``...k,kn->...n``: ``w`` 2-D,
+    x's last index contracted, the output x's other indices then w's)
+    run on K1 through :func:`ca_matmul` (``kw`` its keywords); any other
+    spec is a plain fp32 einsum of the operands (the reference's
+    ``preferred_element_type=float32``), which takes no keywords."""
+    try:
+        lhs, out = spec.replace(" ", "").split("->")
+        a_spec, b_spec = lhs.split(",")
+    except ValueError:
+        a_spec = b_spec = out = None
+    if (b_spec is not None and len(b_spec) == 2 and a_spec[-1] == b_spec[0]
+            and out == a_spec[:-1] + b_spec[1]):
+        return ca_matmul(x, w, **kw)
+    if kw:
+        raise ValueError(f"ca_einsum({spec!r}) is not matmul-shaped: "
+                         f"{sorted(kw)} are ca_matmul's keywords")
+    return torch.einsum(spec, x.float(), w.float())
+
+
 def dist_local_matmul(a: torch.Tensor, b: torch.Tensor, *,  # repro: noqa RPR002 -- dist_matmul records once per collective dispatch
                       tile: Optional[TileConfig] = None) -> torch.Tensor:
     """One ring step's local GEMM of a distributed schedule

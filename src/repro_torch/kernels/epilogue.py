@@ -14,7 +14,7 @@ activation / gating / residual riding the drain phase's single write-back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -150,6 +150,22 @@ def spec_from_tag(tag: str) -> EpilogueSpec:
     return EpilogueSpec(activation=activation, has_bias=flags["bias"],
                         has_mul=flags["mul"], has_residual=flags["res"],
                         dequant=dequant)
+
+
+def stream_cost(tag: str) -> Tuple[int, bool]:
+    """(number of streamed (m, n) operands, has_bias) for a spec tag: the
+    drain-phase tiles the tuning space budgets shared memory for and the
+    I/O model charges one HBM read each.  A dequant stage's scale vectors
+    (O(bm + bn) against an O(bm·bn) accumulator) are not charged here;
+    ``core.io_model.epilogue_q_elements`` counts their reads."""
+    spec = spec_from_tag(tag)
+    return int(spec.has_mul) + int(spec.has_residual), spec.has_bias
+
+
+def with_dequant(tag: str, mode: str = "b") -> str:
+    """An epilogue tag with a dequant stage in front (``dqb`` or
+    ``dqab``; idempotent per mode)."""
+    return dataclasses.replace(spec_from_tag(tag), dequant=mode).tag()
 
 
 @dataclasses.dataclass

@@ -46,6 +46,9 @@ from repro_torch.obs.ledger import get_ledger
 _EPS = 1e-12
 _QMAX = 127.0  # symmetric int8 grid
 
+# The leaves of one layer's paged cache (:func:`make_paged_cache`).
+PAGED_KEYS = ("k", "v", "k_scale", "v_scale", "tables", "len")
+
 
 def is_paged(cache) -> bool:
     """A cache dict is paged iff it carries a block table."""

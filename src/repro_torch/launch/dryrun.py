@@ -188,6 +188,35 @@ def _embed_sharded(cfg: ModelConfig, mesh) -> bool:
             and _size(axis_sizes(mesh), specs["embed/table"][0]) > 1)
 
 
+def tp_reduce_bytes(cfg: ModelConfig, kind: str, seq_len: int, rows: int,
+                    mesh, microbatches: int = 1,
+                    gemms: Optional[List[Dict]] = None) -> Dict[str, float]:
+    """The all-reduce bytes a rank sends over the tensor-parallel specs
+    of one step (a train step's ``microbatches`` microbatches of
+    ``rows // microbatches`` of the rank's ``rows`` sequences), by term:
+    ``row`` each row-parallel (k-sharded) GEMM's output, ``col`` in
+    training each column-parallel (n-sharded) GEMM's input gradient, and
+    ``embed`` the vocab-sharded embedding lookup; each at its fp32
+    buffer's bytes, as the reference's HLO walk counts them.  A remat
+    forward doubles the layers' ``row`` term."""
+    mrows = rows // microbatches
+    if gemms is None:
+        gemms = step_gemms(cfg, kind, seq_len, mrows, mesh)
+    fwd = 2 if kind == "train" and cfg.remat else 1
+    out = {"row": 0.0, "col": 0.0, "embed": 0.0}
+    for g in gemms:
+        if g["k_sharded"]:
+            out["row"] += g["m"] * g["n"] * F32 * g["count"] * (
+                (1 if g["weight"] == "head/w" else fwd)
+                if kind == "train" else 1)
+        if kind == "train" and g["n_sharded"]:
+            out["col"] += g["m"] * g["k"] * F32 * g["count"]
+    if _embed_sharded(cfg, mesh):
+        tokens = mrows * (1 if kind == "decode" else seq_len)
+        out["embed"] = tokens * cfg.d_model * F32
+    return {k: v * microbatches for k, v in out.items() if v}
+
+
 def _dist_report(gemms, mesh, cfg, tokens_global: int) -> Dict:
     """The schedule ``choose_schedule`` picks for each serve GEMM that can
     ride ``dist_matmul``, at the global shape, and its planned bytes."""
@@ -255,28 +284,19 @@ def plan_cell(arch: str, shape_name: str, multi_pod: bool,
     gemm_rows = rows // mb
     gemms = step_gemms(cfg, shape.kind, L, gemm_rows, mesh)
     fwd = 2 if shape.kind == "train" and cfg.remat else 1
-    tokens = gemm_rows * (1 if shape.kind == "decode" else L)
     gemm_flops = attn = 0.0
-    reduce_bytes = 0.0
     for g in gemms:
         # the head is outside remat; training adds the dx and dW GEMMs
         passes = 1
         if shape.kind == "train":
             passes = (1 if g["weight"] == "head/w" else fwd) + 2
         gemm_flops += 2.0 * g["m"] * g["n"] * g["k"] * g["count"] * passes
-        if g["k_sharded"]:
-            reduce_bytes += g["m"] * g["n"] * F32 * g["count"] * (
-                (1 if g["weight"] == "head/w" else fwd)
-                if shape.kind == "train" else 1)
-        if shape.kind == "train" and g["n_sharded"]:
-            reduce_bytes += g["m"] * g["k"] * F32 * g["count"]
     attn = attention_flops(cfg, shape.kind, L, gemm_rows, mesh) * (
         fwd + 2 if shape.kind == "train" else 1)
-    if _embed_sharded(cfg, mesh):
-        reduce_bytes += tokens * cfg.d_model * F32
     gemm_flops *= mb
     attn *= mb
-    reduce_bytes *= mb
+    reduce_bytes = sum(tp_reduce_bytes(cfg, shape.kind, L, rows, mesh,
+                                       mb, gemms).values())
     if reduce_bytes:
         by_kind["all-reduce"] = by_kind.get("all-reduce", 0.0) + reduce_bytes
     art = {

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import copy_to_model, model_parallel_size
 from repro_torch.core.gemm import ca_matmul
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.flash_attn import attention_mask, chunked_attention
@@ -174,7 +175,9 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     token, then attends over the int8 pages."""
     B, L, _ = x.shape
     Dh = cfg.resolved_head_dim
-    H, Kv = cfg.n_heads, cfg.n_kv_heads
+    # the heads this rank holds: all of them, or its tensor-parallel slice
+    H, Kv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
+    x = copy_to_model(x)
     q = ca_matmul(x, p["wq"]).reshape(B, L, H, Dh)
     k = ca_matmul(x, p["wk"]).reshape(B, L, Kv, Dh)
     v = ca_matmul(x, p["wv"]).reshape(B, L, Kv, Dh)
@@ -212,9 +215,19 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
             else:
                 C = cache_len_for(cfg, max_len or L)
                 new_cache = kv_cache_from_prefill(k, v, positions, C)
-    epi = Epilogue(residual=residual) if residual is not None else None
-    y = ca_matmul(out.reshape(B, L, H * Dh), p["wo"], epilogue=epi)
+    y = _out_proj(out.reshape(B, L, H * Dh), p["wo"], residual)
     return y, new_cache
+
+
+def _out_proj(out, wo, residual):
+    """The output projection with the residual in its drain, or
+    tensor-parallel row-parallel (``models.common.row_parallel_out``)."""
+    if model_parallel_size() > 1:
+        return cm.row_parallel_out(
+            ca_matmul(out, wo, out_dtype=torch.float32), residual,
+            out.dtype)
+    epi = Epilogue(residual=residual) if residual is not None else None
+    return ca_matmul(out, wo, epilogue=epi)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +268,7 @@ def _mla_q(p, x, cfg: ModelConfig, positions):
         q = ca_matmul(cq, p["wq_b"])
     else:
         q = ca_matmul(x, p["wq"])
-    q = q.reshape(B, L, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q = q.reshape(B, L, -1, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, cm.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -296,8 +309,11 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     ``residual`` rides the output projection's drain."""
     B, L, _ = x.shape
     m = cfg.mla
-    H = cfg.n_heads
+    # the heads this rank holds: all, or its tensor-parallel slice of
+    # wq / wq_b, wkv_b and wo (wkv_a and kv_norm are whole on every rank)
+    H = p["wkv_b"].shape[-1] // (m.qk_nope_dim + m.v_head_dim)
     dt = x.dtype
+    x = copy_to_model(x)
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     c_kv, k_rope = _mla_ckv(p, x, cfg, positions)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
@@ -336,8 +352,7 @@ def mla_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
             new_cache = _slab_from_prefill(
                 {"c": c_kv, "k_rope": k_rope}, positions,
                 cache_len_for(cfg, max_len or L))
-    epi = Epilogue(residual=residual) if residual is not None else None
-    y = ca_matmul(out.reshape(B, L, H * m.v_head_dim), p["wo"], epilogue=epi)
+    y = _out_proj(out.reshape(B, L, H * m.v_head_dim), p["wo"], residual)
     return y, new_cache
 
 
@@ -352,6 +367,18 @@ def make_mla_cache(B: int, cache_len: int, cfg: ModelConfig, dtype,
         "pos": torch.full((B, cache_len), -1, dtype=torch.int32,
                           device=device),
     }
+
+
+def qkv_head_widths(cfg: ModelConfig) -> Dict[str, int]:
+    """The width of one head in each attention leaf with a ``qkv`` dim,
+    by its last key part (``sharding.rules.split_heads``)."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        qdim = m.qk_nope_dim + m.qk_rope_dim
+        return {"wq": qdim, "wq_b": qdim,
+                "wkv_b": m.qk_nope_dim + m.v_head_dim, "wo": m.v_head_dim}
+    Dh = cfg.resolved_head_dim
+    return {"wq": Dh, "wk": Dh, "wv": Dh, "wo": Dh}
 
 
 def attn_defs(cfg: ModelConfig, depth_scale: float = 1.0) -> Defs:

@@ -15,6 +15,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.distributed import (copy_to_model, model_index,
+                                          model_parallel_size,
+                                          reduce_from_model)
 from repro_torch.core.gemm import ca_glu_matmul, ca_matmul
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.program import (RmsPrologue, apply_rms_reference,
@@ -247,18 +250,52 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
     dual-branch program with the pre-FFN rms_norm folded into the x fetch;
     ``residual`` rides the down projection's single write-back.  Weights
     arrive in the compute dtype (cast once, at load) or as int8
-    :class:`QTensor` s, which pass to the GEMMs as they are."""
-    dt = x.dtype
+    :class:`QTensor` s, which pass to the GEMMs as they are.
+
+    Tensor-parallel (inside ``sharding.rules.model_parallel``, weights
+    this rank's ``mlp`` slices): the first program is column-parallel on
+    the local ``n`` after ``copy_to_model``, ``w_down`` row-parallel
+    (:func:`row_parallel_out`), the residual added once after the sum."""
+    if model_parallel_size() == 1:
+        down_epi = Epilogue(residual=residual) if residual is not None \
+            else None
+        return ca_matmul(_mlp_hidden(p, x, act, norm_gain, norm_eps),
+                         p["w_down"], epilogue=down_epi)
+    return row_parallel_out(
+        mlp_partial(p, copy_to_model(x), act, norm_gain, norm_eps),
+        residual, x.dtype)
+
+
+def _mlp_hidden(p, x, act, norm_gain, norm_eps) -> torch.Tensor:
     pro = RmsPrologue(gain=norm_gain, eps=norm_eps) \
         if norm_gain is not None else None
     if act == "silu":
-        h = ca_glu_matmul(x, p["w_gate"], p["w_up"], activation="silu",
-                          prologue=pro, out_dtype=dt)
-    else:
-        h = ca_matmul(x, p["w_up"], epilogue=Epilogue(activation="gelu"),
-                      prologue=pro)
-    down_epi = Epilogue(residual=residual) if residual is not None else None
-    return ca_matmul(h, p["w_down"], epilogue=down_epi)
+        return ca_glu_matmul(x, p["w_gate"], p["w_up"], activation="silu",
+                             prologue=pro, out_dtype=x.dtype)
+    return ca_matmul(x, p["w_up"], epilogue=Epilogue(activation="gelu"),
+                     prologue=pro)
+
+
+def mlp_partial(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
+                norm_gain: Optional[torch.Tensor] = None,
+                norm_eps: float = 1e-5) -> torch.Tensor:
+    """This rank's fp32 part of a tensor-parallel MLP's output: the
+    column-parallel first program on ``x`` (already past
+    ``copy_to_model``), then ``w_down``'s rows of this rank, K1's ``none``
+    program with an fp32 output."""
+    return ca_matmul(_mlp_hidden(p, x, act, norm_gain, norm_eps),
+                     p["w_down"], out_dtype=torch.float32)
+
+
+def row_parallel_out(partial: torch.Tensor,
+                     residual: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """A row-parallel GEMM's output: the fp32 partials summed over
+    ``model`` (``reduce_from_model``), then the residual, added once, and
+    the cast to ``dtype``."""
+    y = reduce_from_model(partial)
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +308,18 @@ def embed_defs(vocab: int, d: int) -> Defs:
 
 def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor,
                 dtype) -> torch.Tensor:
-    return p["table"][tokens].to(dtype)
+    """The rows of ``tokens``.  Tensor-parallel, the table is this rank's
+    ``vocab`` slice: the rows in its range are looked up, the rest zero,
+    and the fp32 sum over ``model`` gives every rank the whole lookup."""
+    table = p["table"]
+    if model_parallel_size() == 1:
+        return table[tokens].to(dtype)
+    rows = table.shape[0]
+    local = tokens - model_index() * rows
+    own = (local >= 0) & (local < rows)
+    x = table[torch.where(own, local, 0)].float()
+    x = torch.where(own[..., None], x, 0.0)
+    return reduce_from_model(x, "embed").to(dtype)
 
 
 def unembed_defs(d: int, vocab: int, n_heads: int = 1) -> Defs:
@@ -285,7 +333,41 @@ def unembed_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """The logits head, fp32 out: one head on K1 (a QTensor head
     included); musicgen's ``n_heads`` codebook heads (``(n_heads, d, V)``
     -> ``(B, L, n_heads, V)``) as the reference computes them, an einsum
-    of the compute-dtype operands accumulated in fp32."""
+    of the compute-dtype operands accumulated in fp32.  Tensor-parallel,
+    the head is column-parallel: this rank's ``vocab`` columns of the
+    logits (``models.model.lm_loss`` takes them so)."""
     if n_heads == 1:
-        return ca_matmul(x, p["w"], out_dtype=torch.float32)
+        return ca_matmul(copy_to_model(x), p["w"], out_dtype=torch.float32)
     return torch.einsum("bld,hdv->blhv", x.float(), p["w"].float())
+
+
+# ---------------------------------------------------------------------------
+# Parameter counts and casts (the reference's helpers)
+# ---------------------------------------------------------------------------
+
+def count_params(params: Dict[str, object]) -> int:
+    """Elements of every leaf, an int8 :class:`QTensor` counted by its
+    payload (its scales not)."""
+    return int(sum(p.data.numel() if isinstance(p, QTensor) else p.numel()
+                   for p in params.values()))
+
+
+def wcast(w, dtype):
+    """A projection weight in the compute dtype; a :class:`QTensor`
+    passes as it is (its int8 payload is what the kernel streams)."""
+    if isinstance(w, QTensor):
+        return w
+    return w.to(dtype)
+
+
+def init_params(defs: Defs, seed: int = 0, dtype=torch.float32,
+                device=None) -> Dict[str, torch.Tensor]:
+    """Every def of ``defs`` drawn by its init law in ``dtype``, in sorted
+    key order from one ``torch.Generator`` seeded with ``seed`` (the
+    reference's laws; ``jax.random`` gives other numbers).  ``device``
+    defaults to the CPU here: the model's own ``models.model.init_params``
+    places the tree."""
+    device = torch.device(device or "cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {name: init_one(defs[name], gen, dtype, device)
+            for name in sorted(defs)}

@@ -35,7 +35,7 @@ shared block's own.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +48,12 @@ from repro_torch.models import blocks as blk
 from repro_torch.models import common as cm
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Defs
+from repro_torch.core.distributed import (model_index, model_max,
+                                          model_parallel_size,
+                                          reduce_from_model)
 from repro_torch.quant.scales import QTensor
-from repro_torch.sharding.rules import batch_mean, batch_sum
+from repro_torch.sharding.rules import (batch_mean, batch_sum,
+                                        recompute_contexts)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -322,7 +326,8 @@ def _transformer_stack(params, x, cfg: ModelConfig, *, positions, cache,
                                           cfg.n_layers)):
         if remat:
             x, aux_i = torch.utils.checkpoint.checkpoint(
-                _train_layer, p_i, x, cfg, positions, use_reentrant=False)
+                _train_layer, p_i, x, cfg, positions, use_reentrant=False,
+                context_fn=recompute_contexts)
         else:
             cache_i = {k: v[i] for k, v in layers.items()} \
                 if layers is not None else None
@@ -403,7 +408,8 @@ def _ssm_train_stack(params, x, emb0, shared_p, cfg: ModelConfig,
     e = cfg.shared_attn_every
     remat = cfg.remat and torch.is_grad_enabled()
     ckpt = (lambda fn, *a: torch.utils.checkpoint.checkpoint(
-        fn, *a, use_reentrant=False)) if remat else (lambda fn, *a: fn(*a))
+        fn, *a, use_reentrant=False, context_fn=recompute_contexts)) \
+        if remat else (lambda fn, *a: fn(*a))
     layer_ps = _layer_params(cm.subtree(params, "blocks"), cfg.n_layers)
 
     def mamba(p_i, h):
@@ -459,13 +465,18 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     all entries, or with ``mask`` (B, L) the sum over the masked entries
     over ``mask.sum()`` (codebooks then add up, as in the reference).  In
     a rank-local training step (``sharding.rules.batch_statistics``) the
-    numerator and the denominator are sums over the global batch."""
-    V = cfg.padded_vocab
-    if cfg.vocab_size < V:
-        pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e9)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    numerator and the denominator are sums over the global batch.
+    Tensor-parallel (``sharding.rules.model_parallel``) the logits are
+    this rank's vocab columns: :func:`_vocab_parallel_nll`."""
+    if model_parallel_size() > 1:
+        nll = _vocab_parallel_nll(logits, labels, cfg)
+    else:
+        V = cfg.padded_vocab
+        if cfg.vocab_size < V:
+            pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e9)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
         mask = mask.to(nll.dtype)
         while mask.dim() < nll.dim():
@@ -473,6 +484,45 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
         return batch_sum((nll * mask).sum()) / torch.clamp(
             batch_sum(mask.sum()), min=1.0)
     return batch_mean(nll.mean())
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """The per-token cross-entropy from this rank's vocab columns of the
+    logits (columns ``index · Vl`` on): the padded entries masked on their
+    global indices, the global max (no gradient: it cancels), the global
+    sum of exponentials and the label's logit, taken on the rank that owns
+    it, each an fp32 sum over ``model`` whose gradient passes to every
+    rank's own columns."""
+    Vl = logits.shape[-1]
+    lo = model_index() * Vl
+    z = logits.float()
+    if cfg.vocab_size < lo + Vl:
+        pad = torch.arange(lo, lo + Vl, device=z.device) >= cfg.vocab_size
+        z = z.masked_fill(pad, -1e9)
+    zmax = model_max(z.amax(dim=-1))
+    s = reduce_from_model(torch.exp(z - zmax[..., None]).sum(dim=-1), "loss")
+    lab = labels.long() - lo
+    own = (lab >= 0) & (lab < Vl)
+    picked = torch.gather(z, -1, torch.where(own, lab, 0)[..., None])[..., 0]
+    z_label = reduce_from_model(torch.where(own, picked, 0.0), "loss")
+    return zmax + torch.log(s) - z_label
+
+
+def tp_partial_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The leaves every ``model`` rank holds whole whose gradient each
+    rank gets only in part, so a tensor-parallel step sums it over
+    ``model``: the pre-FFN norm gain folded into the column-parallel
+    GLU's rms prologue (dense FFN), and MLA's latent leaves, which only
+    this rank's heads read (``wkv_a``, ``kv_norm``; with q-LoRA
+    ``wq_a``, ``q_norm``).  The router's gradient is whole on every rank
+    (``models.moe``)."""
+    defs = model_defs(cfg)
+    names = ["blocks/attn/wkv_a", "blocks/attn/kv_norm", "blocks/attn/wq_a",
+             "blocks/attn/q_norm"]
+    if not blk._is_moe(cfg):
+        names.append("blocks/norm_ffn/scale")
+    return tuple(k for k in names if k in defs)
 
 
 def prefill(params, batch_in, cfg: ModelConfig,

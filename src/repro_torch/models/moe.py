@@ -16,6 +16,16 @@ the k choices.  Shared experts are a silu MLP with the block's residual
 in their down projection's drain.  In a rank-local training step
 (``sharding.rules.batch_statistics``) the aux loss's two statistics are
 means over the global batch, as GSPMD computes them.
+
+Tensor-parallel (``sharding.rules.model_parallel``; the reference's
+``"expert": "model"`` rule): routing and dispatch stay whole on every
+rank, which sees the same tokens; each rank scatters only the pairs
+routed to its ``E / tp`` experts, runs the two expert GEMMs over them,
+and combines its part of the output, to which the shared experts (the
+dense MLP, column- then row-parallel) add theirs; one fp32 sum over
+``model`` and the residual, added once, finish the block.  The
+normalized tokens and the routing weights pass ``copy_to_model`` into
+that region, so the router's gradient is whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, round_up
+from repro_torch.core.distributed import (copy_to_model, model_index,
+                                          model_parallel_size)
 from repro_torch.core.gemm import ca_expert_glu_matmul, ca_expert_matmul
 from repro_torch.models import common as cm
 from repro_torch.models.common import Defs, ParamDef
@@ -110,25 +122,46 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     mo = cfg.moe
     E, k = mo.n_experts, mo.top_k
     dt = x.dtype
+    tp = model_parallel_size() > 1
 
     top_i, top_w, aux = route(x, p["router"], cfg)
     cap = capacity(cfg, L)
     idx, dest, keep = dispatch(top_i, E, cap)
     wgt = top_w.reshape(B, L * k)
+    # The experts this rank holds (all, or its tensor-parallel slice): a
+    # pair routed elsewhere goes to a spare expert row, dropped with the
+    # spare slot.
+    E_loc = p["w_gate"].shape[0]
+    eid, slot, take = idx, dest, keep
+    if tp:
+        x, wgt = copy_to_model(x), copy_to_model(wgt, "route")
+        local = idx - model_index() * E_loc
+        mine = (local >= 0) & (local < E_loc)
+        eid = torch.where(mine, local, E_loc)
+        slot = torch.where(mine, dest, cap)
+        take = keep & mine
 
     x_rep = x.repeat_interleave(k, dim=1)                     # (B, T, d)
     rows = torch.arange(B, device=x.device)[:, None].expand_as(idx)
-    xe = torch.zeros((B, E, cap + 1, d), dtype=dt, device=x.device)
-    xe[rows, idx, dest] = x_rep
-    xe = xe[:, :, :cap]                                       # (B, E, C, d)
+    xe = torch.zeros((B, E_loc + tp, cap + 1, d), dtype=dt, device=x.device)
+    xe[rows, eid, slot] = x_rep
+    xe = xe[:, :E_loc, :cap]                                  # (B, E, C, d)
 
     h = ca_expert_glu_matmul(xe, p["w_gate"], p["w_up"], out_dtype=dt)
     ye = ca_expert_matmul(h, p["w_down"], out_dtype=dt)
 
-    y_tok = ye[rows, idx, torch.clamp(dest, max=cap - 1)]     # (B, T, d)
-    y_tok = y_tok * (wgt * keep.float())[..., None].to(dt)
+    y_tok = ye[rows, torch.clamp(eid, max=E_loc - 1),
+               torch.clamp(slot, max=cap - 1)]                # (B, T, d)
+    y_tok = y_tok * (wgt * take.float())[..., None].to(dt)
     y = y_tok.reshape(B, L, k, d).sum(dim=2)
 
+    if tp:
+        if mo.n_shared_experts:
+            part = y.float() + cm.mlp_partial(cm.subtree(p, "shared"), x,
+                                              "silu")
+        else:
+            part = y.float()
+        return cm.row_parallel_out(part, residual, dt), aux
     if mo.n_shared_experts:
         y = y + cm.mlp_apply(cm.subtree(p, "shared"), x, "silu",
                              residual=residual)

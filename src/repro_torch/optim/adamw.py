@@ -16,7 +16,8 @@ at a time: the clipped fp32 gradient of one leaf lives at once.
 
 On a sharded state (``train.fsdp``) the update runs leaf by leaf on each
 rank's shards; the clip's global norm is the one cross-rank step
-(``norm_fn``: one all-reduce of the sum of squares).
+(``norm_fn``: the sums of squares all-reduced over the axes that split
+each leaf, FSDP's batch axes and tensor parallelism's ``model``).
 
 ``allreduce_compressed`` mean-reduces gradients over one named mesh axis
 with bf16 or int8 wire compression and error feedback (the quantization
@@ -75,6 +76,24 @@ def global_norm(tree: Params) -> torch.Tensor:
                           for k in sorted(tree)))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def clip_by_global_norm(tree: Params, max_norm: float,
+                        norm_fn: Optional[Callable[[Params],
+                                                   torch.Tensor]] = None):
+    """``(tree scaled so its global norm is at most max_norm, the
+    norm)``: each leaf times ``min(1, max_norm / norm)`` in fp32 (the
+    reference's bf16 × fp32 promotes).  ``norm_fn`` gives the norm where
+    the leaves are shards (``train.fsdp.FsdpLayout.global_norm``);
+    default :func:`global_norm`.  :func:`update` applies the same scale
+    leaf by leaf instead, so the clipped fp32 tree never lives whole."""
+    norm = (norm_fn or global_norm)(tree)
+    scale = _clip_scale(norm, max_norm)
+    return {k: g.float() * scale for k, g in tree.items()}, norm
+
+
 def init(params: Params) -> AdamWState:
     device = next(iter(params.values())).device
     zeros = {k: torch.zeros_like(p, dtype=torch.float32)
@@ -106,8 +125,7 @@ def update(grads: Params, state: AdamWState, params: Params,
         # leaf below (g.float() · scale, in fp32 as its bf16 × fp32
         # promotes).
         gnorm = (norm_fn or global_norm)(grads)
-        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
+        scale = _clip_scale(gnorm, cfg.clip_norm)
     count = state.count + 1
     lr = lr_at(cfg, state.count)
     b1c = 1 - cfg.b1 ** count.float()

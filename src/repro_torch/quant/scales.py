@@ -229,6 +229,11 @@ def quantize(x: torch.Tensor, axis: int = -2, block: int = 0,
 # Static activation quantization (the w8a8 serve path's quantize-on-entry)
 # ---------------------------------------------------------------------------
 
+def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    """The values ``q`` stands for, in ``dtype`` (:meth:`QTensor.dequantize`)."""
+    return q.dequantize(dtype)
+
+
 def expand_act_scale(scale, k: int, block: int = 0,
                      device=None) -> torch.Tensor:
     """Broadcast a static activation scale over the contraction axis: a

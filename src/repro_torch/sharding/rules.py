@@ -22,10 +22,19 @@ of GSPMD computing a statistic over the global batch: inside it,
 
 FSDP: with ``fsdp=True`` the 'embed' logical axis (rows of most weight
 matrices) is also sharded over the data axis.
+
+Tensor parallelism in a rank-local training step: :func:`tp_dims` gives
+the tensor dim of each leaf that the TP layout shards over ``model``,
+:func:`split_heads` the leaves whose ``qkv`` shard is not a whole number
+of heads (``train.fsdp.tp_refusal`` raises on them), and inside :class:`model_parallel` the model code runs on this
+rank's slices (``core.distributed.copy_to_model`` /
+``reduce_from_model``).  :func:`recompute_contexts` carries these
+contexts into a remat recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -101,6 +110,41 @@ def pspecs_for_defs(defs: "Defs", mesh, *, fsdp: bool = False,
             for k, d in defs.items()}
 
 
+def tp_dims(defs: "Defs", mesh, axis: str = "model"
+            ) -> Dict[str, Optional[int]]:
+    """For each leaf, the tensor dim that the TP layout
+    (``pspecs_for_defs(defs, mesh, fsdp=False)``) shards over ``axis``,
+    or ``None`` where the leaf is held whole on every rank of it."""
+    out: Dict[str, Optional[int]] = {}
+    for k, spec in pspecs_for_defs(defs, mesh, fsdp=False).items():
+        dims = [i for i, e in enumerate(spec) if axis in spec_axes(e)]
+        out[k] = dims[0] if dims else None
+    return out
+
+
+def split_heads(defs: "Defs", mesh, head_widths: Mapping[str, int],
+                axis: str = "model") -> Dict[str, str]:
+    """The leaves whose ``qkv`` dim the TP layout shards over ``axis``
+    into a slice that is not a whole number of heads: leaf -> why.
+    ``head_widths`` maps a leaf's last key part (``wq``, ``wkv_b``, ...)
+    to the width of one of its heads."""
+    sizes = axis_sizes(mesh)
+    n = sizes.get(axis, 1)
+    out = {}
+    for k, dim in tp_dims(defs, mesh, axis).items():
+        d = defs[k]
+        if dim is None or d.axes[dim] != "qkv":
+            continue
+        width = head_widths.get(k.rsplit("/", 1)[-1])
+        if width is None:
+            continue
+        local = d.shape[dim] // n
+        if local % width:
+            out[k] = (f"{d.shape[dim]} columns, heads of {width}, over "
+                      f"{axis} = {n}: {local} columns a rank")
+    return out
+
+
 def spec_axes(entry) -> Tuple[str, ...]:
     """The mesh axes of one spec entry, major first."""
     if entry is None:
@@ -174,13 +218,16 @@ class NamedSharding:
         """This rank's slice of the global ``full`` (a view)."""
         return full[self.local_slices(tuple(full.shape), coords)]
 
-    def gather(self, local: torch.Tensor, to_first: bool = False):
+    def gather(self, local: torch.Tensor, to_first: bool = False,
+               axes: Optional[Sequence[str]] = None):
         """The global tensor from this rank's slice: an all-gather over
         each sharded dim's axes of more than one rank, innermost first,
         on the schedules' transport (``core.distributed._Axis``: pinned host copies for card
         tensors under gloo).  With ``to_first`` only the mesh's first rank
-        (every coordinate 0) receives it, the others return ``None``.  A
-        collective: every rank of the mesh calls it."""
+        (every coordinate 0) receives it, the others return ``None``.
+        ``axes`` limits the gather to those mesh axes (the slice stays
+        split over the others).  A collective: every rank of the mesh
+        calls it."""
         from repro_torch.core.distributed import _Axis  # lazy: cycle
 
         sizes = axis_sizes(self.mesh)
@@ -189,7 +236,7 @@ class NamedSharding:
             for a in reversed(spec_axes(self._entry(dim))):
                 if out is None:      # dropped out at an inner axis
                     return None
-                if sizes[a] == 1:
+                if sizes[a] == 1 or (axes is not None and a not in axes):
                     continue
                 ax = _Axis(self.mesh, a, local.device)
                 out = (ax.gather_to_first(out.contiguous(), dim) if to_first
@@ -370,3 +417,63 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     if pol is None:
         return x
     return batch_sum(x) / pol.ranks
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism of a rank-local training step
+# ---------------------------------------------------------------------------
+
+_model = threading.local()
+
+
+class model_parallel:
+    """Context: the forward runs on this rank's tensor-parallel slices of
+    the weights, over a ``model`` axis of ``size`` ranks at ``index``.
+    ``axis(device)`` is the axis's transport (``core.distributed._Axis``),
+    made when a collective first needs it.  Inside it the model code takes
+    the Megatron layout: a column-parallel GEMM's input passes
+    ``copy_to_model`` and a row-parallel GEMM's fp32 output
+    ``reduce_from_model`` (``core.distributed``)."""
+
+    def __init__(self, axis: Callable, size: int, index: int):
+        self.axis = axis
+        self.size = size
+        self.index = index
+
+    def __enter__(self):
+        self.prev = getattr(_model, "cur", None)
+        _model.cur = self
+        return self
+
+    def __exit__(self, *exc):
+        _model.cur = self.prev
+
+
+def model_parallel_state() -> Optional[model_parallel]:
+    """The active :class:`model_parallel` context of more than one rank,
+    or ``None`` (the forward holds whole weights)."""
+    cur = getattr(_model, "cur", None)
+    return cur if cur is not None and cur.size > 1 else None
+
+
+@contextlib.contextmanager
+def _entered(batch, model, policy):
+    prev = (getattr(_batch, "cur", None), getattr(_model, "cur", None),
+            getattr(_policy, "cur", None))
+    _batch.cur, _model.cur, _policy.cur = batch, model, policy
+    try:
+        yield
+    finally:
+        _batch.cur, _model.cur, _policy.cur = prev
+
+
+def recompute_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint``: this module's
+    contexts as the forward sees them, entered again around the
+    recompute, which runs in the backward, on the autograd engine's own
+    thread for card tensors (these contexts are per thread).  The
+    recompute then issues the forward's collectives again, on every rank
+    in the same order."""
+    saved = (getattr(_batch, "cur", None), getattr(_model, "cur", None),
+             getattr(_policy, "cur", None))
+    return contextlib.nullcontext(), _entered(*saved)

@@ -1,47 +1,54 @@
-"""FSDP training on a named mesh: the weight-hoist reshard hooks of the
-reference's ``lower_cell`` (``src/repro/launch/dryrun.py:86-110``), run
-rank-local over ``torch.distributed``.
+"""FSDP × TP training on a named mesh: the weight-hoist reshard hooks of
+the reference's ``lower_cell`` (``src/repro/launch/dryrun.py:86-110``),
+run rank-local over ``torch.distributed``.
 
 The reference states the layout and GSPMD partitions one global program:
 the fp32 masters and both AdamW moments live sharded over the batch axes
-(``pspecs_for_defs(fsdp=True, fsdp_axes=batch_axes(mesh))``, ZeRO-3),
-``reshard_params`` constrains the step's cast bf16 copy to the
-tensor-parallel layout (one all-gather a step, hoisted out of the
-microbatch loop), and ``reshard_grads`` constrains each microbatch's
-gradients back onto the FSDP layout (a reduce-scatter, ZeRO-2).  Here
-each rank runs the step on its own slice of the global batch and the
-hooks move the bytes themselves:
+(``pspecs_for_defs(fsdp=True, fsdp_axes=batch_axes(mesh))``, ZeRO-3) and,
+where the mesh has a ``model`` axis, over it too (the tensor-parallel
+dims: ``vocab``, ``qkv``, ``mlp``, ``expert``), ``reshard_params``
+constrains the step's cast bf16 copy to the tensor-parallel layout (one
+all-gather a step, hoisted out of the microbatch loop), and
+``reshard_grads`` constrains each microbatch's gradients back onto the
+FSDP layout (a reduce-scatter, ZeRO-2).  Here each rank runs the step on
+its own slice of the global batch and its own tensor-parallel slices of
+the weights, and the hooks move the bytes themselves:
 
-* ``reshard_params`` all-gathers every leaf from its FSDP shard to the
-  whole (the TP-only layout: the mesh's ``model`` axis has size 1);
-* ``reshard_grads`` mean-reduce-scatters every gradient onto its FSDP
-  shard, summed in fp32: over each batch axis, major first, an
-  all-to-all of the blocks (the first in the gradient's own dtype, then
-  the fp32 partial sums) and a local sum (gloo has no reduce-scatter);
-  it mean-reduces the leaves that every rank holds whole.  Given meta
-  tensors (the microbatch accumulator's zeros) it returns meta tensors
-  of the shard shapes.
+* ``reshard_params`` all-gathers every leaf over the batch axes only:
+  each leaf keeps its ``model`` shard (the reference's ``tp_specs``);
+* ``reshard_grads`` first sums over ``model`` the gradients of the
+  leaves every model rank holds whole but gets only in part
+  (``models.model.tp_partial_leaves``), then mean-reduce-scatters every
+  gradient onto its FSDP shard, summed in fp32: over each batch axis,
+  major first, an all-to-all of the blocks (the first in the gradient's
+  own dtype, then the fp32 partial sums) and a local sum (gloo has no
+  reduce-scatter); it mean-reduces the leaves that every batch rank
+  holds whole.  Given meta tensors (the microbatch accumulator's zeros)
+  it returns meta tensors of the shard shapes.
 
 Both are callables with a ``layout`` (:class:`FsdpLayout`), from which
 ``train.step.build_train_step`` also takes what GSPMD would compute over
 the global batch and the global tree: the loss's batch statistics
 (``sharding.rules.batch_statistics``: the masked loss's numerator and
-denominator, the MoE aux's two means) and the clip's global norm, whose
-sum of squares is all-reduced once over the shards, a leaf that every
-rank holds whole counted once.  Collectives on card tensors under a
-backend other than NCCL go through pinned host copies
+denominator, the MoE aux's two means), the forward's tensor-parallel
+context (``sharding.rules.model_parallel``: the vocab-parallel embedding
+and cross-entropy, column- and row-parallel projections, the experts
+split over ``model``) and the clip's global norm.  Collectives on card
+tensors under a backend other than NCCL go through pinned host copies
 (``core.distributed._Axis``).
 
-The layout itself takes any mesh: the dry run plans the hooks' bytes on
-the production meshes from it.  Running the step on a mesh whose
-``model`` axis is larger than 1 raises (the hooks, ``init_state``,
-``local_batch`` and ``build_train_step``): the reference shards a
-training forward over ``model`` only inside its compile-only dry run,
-and the port has no tensor-parallel training forward.
+The layout takes any mesh: the dry run plans the hooks' bytes on the
+production meshes from it.  On a mesh whose ``model`` axis is larger
+than 1 the step runs for the two families a CPU case holds against the
+reference (``TP_TRAIN_ARCHS``: the dense GQA stablelm-1.6b and the MoE +
+MLA deepseek-v2-lite-16b); every other arch raises a ``ValueError`` that
+names what is missing (the hooks, ``init_state``, ``local_batch`` and
+``build_train_step``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -54,14 +61,67 @@ from repro_torch.sharding import rules
 Tree = Dict[str, torch.Tensor]
 
 
+# The archs whose tensor-parallel training step (model > 1) a CPU case
+# holds against the reference (tests/test_torch_train_tp.py).
+TP_TRAIN_ARCHS = ("stablelm-1.6b", "deepseek-v2-lite-16b")
+
+
+def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
+    """Why the port does not train ``cfg`` tensor-parallel on ``mesh``
+    (``None`` where it does, or where ``model`` is 1): what is missing,
+    named."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import model_defs
+
+    tp = axis_sizes(mesh).get("model", 1)
+    if tp == 1:
+        return None
+    why = []
+    if cfg.family in ("ssm", "hybrid"):
+        why.append("the 'ssm' axis: no tensor-parallel Mamba2 mixer "
+                   "(in_proj, the conv channels and out_proj split over "
+                   "'model')")
+    if cfg.n_codebooks > 1:
+        why.append(f"the ({cfg.n_codebooks}, d, V) codebook heads: no "
+                   "vocab-parallel codebook loss")
+    defs = model_defs(cfg)
+    if cfg.family not in ("ssm",):
+        split = rules.split_heads(defs, mesh, A.qkv_head_widths(cfg))
+        if split:
+            why.append("split heads: the 'qkv' shard is not a whole number "
+                       "of heads (" + "; ".join(
+                           f"{k}: {v}" for k, v in sorted(split.items()))
+                       + ")")
+    dims = rules.tp_dims(defs, mesh)
+    whole = sorted(k for k, d in defs.items()
+                   if dims[k] is None and set(d.axes) & {"vocab", "mlp",
+                                                         "qkv", "expert"}
+                   and not set(d.axes) & {"ssm"})
+    if whole:
+        why.append(f"a tensor-parallel dim that does not divide over "
+                   f"model = {tp}: {', '.join(whole)} held whole")
+    if "blocks/moe/w_gate" in defs and dims["blocks/moe/w_gate"] != 1:
+        why.append(f"{cfg.moe.n_experts} experts do not divide over "
+                   f"model = {tp}")
+    if not why and cfg.name not in TP_TRAIN_ARCHS:
+        why.append(f"a CPU case holding {cfg.name}'s tensor-parallel step "
+                   f"against the reference (held: "
+                   f"{', '.join(TP_TRAIN_ARCHS)})")
+    if not why:
+        return None
+    return (f"tensor-parallel training of {cfg.name} on model = {tp} is "
+            "missing " + "; ".join(why))
+
+
 class FsdpLayout:
-    """Each parameter's FSDP sharding over the batch axes of ``mesh`` (a
-    named ``DeviceMesh``, or an ``AbstractMesh`` for planning), and the
-    collectives of the rank-local FSDP step.  Process groups are touched
-    only when a collective runs."""
+    """Each parameter's FSDP × TP sharding (FSDP over the batch axes of
+    ``mesh``, tensor parallelism over its ``model`` axis; ``mesh`` a named
+    ``DeviceMesh``, or an ``AbstractMesh`` for planning), and the
+    collectives of the rank-local step.  Process groups are touched only
+    when a collective runs."""
 
     def __init__(self, cfg: ModelConfig, mesh):
-        from repro_torch.models.model import model_defs
+        from repro_torch.models.model import model_defs, tp_partial_leaves
 
         sizes = axis_sizes(mesh)
         self.model = sizes.get("model", 1)
@@ -76,23 +136,23 @@ class FsdpLayout:
             self.defs, mesh, fsdp=True, fsdp_axes=self.axes)
         self.tp = rules.shardings_for_defs(self.defs, mesh, fsdp=False)
         # The tensor dim of each leaf sharded over the batch axes (all of
-        # them, major first: the rules shard 'embed' over all or none).
+        # them, major first: the rules shard 'embed' over all or none),
+        # and the one sharded over 'model'.
         self.dims: Dict[str, Optional[int]] = {}
         for k, sh in self.shardings.items():
             dims = [i for i, e in enumerate(sh.spec)
                     if set(rules.spec_axes(e)) & set(self.axes)]
             self.dims[k] = dims[0] if dims else None
+        self.tp_dims = rules.tp_dims(self.defs, mesh)
+        self.partial = (tp_partial_leaves(cfg) if self.model > 1 else ())
+        self.refusal = tp_refusal(cfg, mesh)
         self._axes = {}
 
     def require_runnable(self) -> None:
-        """Raise unless the step can run on this mesh (``model`` 1)."""
-        if self.model > 1:
-            raise ValueError(
-                f"FSDP training on a mesh with model = {self.model}: the "
-                "port has no tensor-parallel training forward (the "
-                "reference shards one over 'model' only in its "
-                "compile-only dry run); use a mesh whose model axis has "
-                "size 1")
+        """Raise unless the step can run on this mesh: ``model`` 1, or
+        nothing missing for ``tp_refusal``."""
+        if self.refusal:
+            raise ValueError(self.refusal)
 
     # -- transport ---------------------------------------------------------
     def _axis(self, name: str, device: torch.device):
@@ -113,24 +173,34 @@ class FsdpLayout:
         """The context in which the loss's batch statistics are global."""
         return rules.batch_statistics(self.batch_sum, self.ranks)
 
+    def model_parallel(self):
+        """The forward's tensor-parallel context over ``model`` (a no-op
+        context where ``model`` is 1)."""
+        if self.model == 1:
+            return contextlib.nullcontext()
+        return rules.model_parallel(
+            lambda device: self._axis("model", device), self.model,
+            self.mesh.get_local_rank("model"))
+
     # -- the hooks ---------------------------------------------------------
     def gather(self, k: str, local: torch.Tensor) -> torch.Tensor:
-        """Leaf ``k`` whole from this rank's FSDP shard: its
+        """Leaf ``k``'s tensor-parallel shard (the whole leaf where
+        ``model`` is 1) from this rank's FSDP shard: its
         ``NamedSharding``'s all-gather over the batch axes."""
         d = self.dims[k]
         if d is None:
             return local
         if local.is_meta:
-            return torch.empty(self.defs[k].shape, dtype=local.dtype,
-                               device="meta")
-        return self.shardings[k].gather(local)
+            return torch.empty(self.tp[k].shard_shape(self.defs[k].shape),
+                               dtype=local.dtype, device="meta")
+        return self.shardings[k].gather(local, axes=self.axes)
 
     def reduce_scatter(self, k: str, full: torch.Tensor) -> torch.Tensor:
-        """The fp32 mean over the batch ranks of gradient ``k``, this
-        rank's FSDP shard of it."""
+        """The fp32 mean over the batch ranks of gradient ``k`` (of the
+        leaf's tensor-parallel shard), this rank's FSDP shard of it."""
         d = self.dims[k]
         if full.is_meta:
-            shape = self.shardings[k].shard_shape(full.shape)
+            shape = self.shardings[k].shard_shape(self.defs[k].shape)
             return torch.empty(shape, dtype=torch.float32, device="meta")
         out = full
         for a in self.axes:                 # major first
@@ -140,8 +210,9 @@ class FsdpLayout:
         return (out / self.ranks).contiguous()
 
     def reshard_params(self, tree: Tree) -> Tree:
-        """Each leaf whole on every rank, a fresh autograd leaf where the
-        input required grad (the step's cast copy)."""
+        """Each leaf's tensor-parallel shard on every rank, a fresh
+        autograd leaf where the input required grad (the step's cast
+        copy)."""
         self.require_runnable()
         out = {}
         for k, v in tree.items():
@@ -151,23 +222,45 @@ class FsdpLayout:
 
     def reshard_grads(self, tree: Tree) -> Tree:
         self.require_runnable()
-        return {k: self.reduce_scatter(k, g) for k, g in tree.items()}
+        from repro_torch.core.distributed import model_sum
+
+        out = {}
+        with self.model_parallel():
+            for k, g in tree.items():
+                if k in self.partial and not g.is_meta:
+                    g = model_sum(g, "grads").to(g.dtype)
+                out[k] = self.reduce_scatter(k, g)
+        return out
 
     # -- the optimizer's one cross-rank step --------------------------------
     def global_norm(self, grads: Tree) -> torch.Tensor:
-        """The L2 norm of the global gradient from its shards: the sharded
-        leaves' sums of squares all-reduced once, the whole leaves' added
-        once."""
+        """The L2 norm of the global gradient from its shards: each leaf's
+        sum of squares summed over the axes that split it, a leaf held
+        whole on every rank of an axis counted once: the batch-sharded
+        leaves' sums all-reduced once over the batch axes (the
+        model-sharded among them first over ``model``), the model-sharded
+        leaves held whole over the batch axes over ``model``, the rest
+        added once."""
+        from repro_torch.core.distributed import model_sum
+
         dev = next(iter(grads.values())).device
-        sharded = torch.zeros((), dtype=torch.float32, device=dev)
-        whole = torch.zeros((), dtype=torch.float32, device=dev)
+        zero = lambda: torch.zeros((), dtype=torch.float32,  # noqa: E731
+                                   device=dev)
+        sums = {(b, m): zero() for b in (True, False) for m in (True, False)}
         for k in sorted(grads):
             sq = torch.sum(torch.square(grads[k].float()))
-            if self.dims[k] is None:
-                whole = whole + sq
+            key = (self.dims[k] is not None,
+                   self.model > 1 and self.tp_dims[k] is not None)
+            sums[key] = sums[key] + sq
+        with self.model_parallel():
+            batch = sums[(True, False)]
+            if self.model > 1:
+                batch = batch + model_sum(sums[(True, True)], "norm")
+                whole = (model_sum(sums[(False, True)], "norm")
+                         + sums[(False, False)])
             else:
-                sharded = sharded + sq
-        return torch.sqrt(self.batch_sum(sharded) + whole)
+                whole = sums[(False, False)]
+        return torch.sqrt(self.batch_sum(batch) + whole)
 
     # -- state and batch ----------------------------------------------------
     def shard(self, params: Tree) -> Tree:
@@ -178,7 +271,9 @@ class FsdpLayout:
     def init_state(self, seed: int = 0, device=None):
         """The train state of this rank: every rank draws the same fp32
         masters from ``seed`` (``train.step.init_state``'s) and keeps its
-        shards; zero moments of the shards' shapes."""
+        FSDP × TP shards (the model ranks of one batch group the same
+        FSDP rows of their own TP slices); zero moments of the shards'
+        shapes."""
         from repro_torch.models import model as M
         from repro_torch.optim import adamw
         from repro_torch.train.step import TrainState
@@ -196,7 +291,7 @@ class FsdpLayout:
         from repro_torch.train.step import TrainState
 
         def whole(tree):
-            return {k: self.gather(k, v) for k, v in tree.items()}
+            return {k: self.shardings[k].gather(v) for k, v in tree.items()}
 
         return TrainState(state.step, whole(state.params), adamw.AdamWState(
             state.opt.count, whole(state.opt.m), whole(state.opt.v)))
@@ -204,7 +299,7 @@ class FsdpLayout:
     def local_batch(self, batch: Tree) -> Tree:
         """This rank's rows of a global batch, by the batch-axes split of
         ``launch.specs.train_inputs`` (the whole batch where it does not
-        divide)."""
+        divide): the model ranks of one batch group hold the same rows."""
         from repro_torch.launch.specs import train_inputs
 
         self.require_runnable()
@@ -214,6 +309,36 @@ class FsdpLayout:
         _, shardings = train_inputs(self.cfg, shape, self.mesh)
         return {k: shardings[k].local(v).contiguous()
                 for k, v in batch.items()}
+
+    def tp_wire_plan(self, seq_len: int, rows: int,
+                     microbatches: int = 1) -> Dict[str, int]:
+        """The bytes each site of this rank's tensor-parallel step hands
+        to the ``model`` axis's all-reduces
+        (``core.distributed.tp_wire_bytes``), one step of
+        ``microbatches`` microbatches over the rank's ``rows`` sequences
+        of ``seq_len`` tokens; the clip's ``norm`` site (two fp32
+        scalars) aside.  A microbatch of T tokens: ``embed`` one (T, d)
+        fp32 lookup; ``row`` each layer's attention output once a forward
+        (twice with remat) and its FFN's once (a remat recompute stops
+        after the FFN's last GEMM, before its sum); ``col`` one input
+        gradient a region (each layer's attention and FFN, the head);
+        ``loss`` three (T,) statistics; ``route`` the (T, top_k) routing
+        weights' gradient a MoE layer; ``grads`` the
+        ``models.model.tp_partial_leaves`` in fp32.  Empty where
+        ``model`` is 1."""
+        if self.model == 1:
+            return {}
+        cfg = self.cfg
+        tokens = rows // microbatches * seq_len
+        n, act = cfg.n_layers, tokens * cfg.d_model * 4
+        fwd = 2 if cfg.remat else 1
+        out = {"embed": act, "row": n * (fwd + 1) * act,
+               "col": (2 * n + 1) * act, "loss": 3 * tokens * 4,
+               "grads": sum(math.prod(self.tp[k].shard_shape(
+                   self.defs[k].shape)) * 4 for k in self.partial)}
+        if cfg.moe is not None and cfg.moe.n_experts:
+            out["route"] = n * tokens * cfg.moe.top_k * 4
+        return {k: v * microbatches for k, v in out.items()}
 
     # -- the plan ----------------------------------------------------------
     def step_bytes(self, microbatches: int = 1) -> Dict[str, float]:
@@ -262,8 +387,9 @@ class _Hook:
 def weight_hoist(cfg: ModelConfig, mesh) -> Tuple[_Hook, _Hook]:
     """``(reshard_params, reshard_grads)`` for ``build_train_step`` on
     ``mesh``: the reference's ``weight_hoist`` hooks (see the module
-    docstring).  On a mesh whose ``model`` axis is larger than 1 they
-    build (the dry run plans with their layout) and refuse to run."""
+    docstring).  They build for any arch and mesh (the dry run plans
+    with their layout); they run where ``tp_refusal`` finds nothing
+    missing."""
     layout = FsdpLayout(cfg, mesh)
     return (_Hook(layout, layout.reshard_params),
             _Hook(layout, layout.reshard_grads))

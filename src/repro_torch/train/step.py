@@ -26,7 +26,8 @@ reference's does.  The reference's sharding hooks
 after the cast, after each microbatch's gradients, and on the fp32
 accumulator's zeros.  ``train.fsdp.weight_hoist`` builds the FSDP pair:
 each rank then steps its shards of the masters and moments on its slice
-of the global batch (``train.fsdp``).
+of the global batch, and on a mesh whose ``model`` axis is larger than 1
+its tensor-parallel slices of the weights (``train.fsdp``).
 """
 
 from __future__ import annotations
@@ -122,7 +123,11 @@ def build_train_step(
     and the clip's norm global over the ranks; with them the state holds
     this rank's shards and the batch this rank's rows
     (``FsdpLayout.local_batch``), and the metrics are the global step's
-    on every rank."""
+    on every rank.  On a mesh whose ``model`` axis is larger than 1 the
+    forward and backward also run inside the layout's
+    ``sharding.rules.model_parallel`` context, on each leaf's
+    tensor-parallel shard; the loss statistics stay global over the batch
+    axes."""
     if warmup_gemm_rows:
         # train=True adds the backward GEMMs' transposed layouts and their
         # dact-prologue variants to the plan set.
@@ -145,6 +150,8 @@ def build_train_step(
         layout.require_runnable()
     stats = (layout.batch_statistics if layout is not None
              else contextlib.nullcontext)
+    tensor_parallel = (layout.model_parallel if layout is not None
+                       else contextlib.nullcontext)
     norm_fn = layout.global_norm if layout is not None else None
 
     def local_grads(params_c, batch: Batch):
@@ -181,7 +188,7 @@ def build_train_step(
         params_c = cast_params(state.params, cfg)
         if reshard_params is not None:
             params_c = reshard_params(params_c)
-        with stats():
+        with stats(), tensor_parallel():
             grads, metrics = local_grads(params_c, batch)
         del params_c
         new_params, new_opt, opt_metrics = adamw.update(

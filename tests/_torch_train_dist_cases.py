@@ -244,26 +244,43 @@ def _port_fsdp(meshes):
     return out
 
 
+# The archs a mesh with model > 1 refuses to train (the tensor-parallel
+# step runs for stablelm-1.6b and deepseek-v2-lite-16b alone), each with
+# the words its refusal must name: what is missing.
+TP_REFUSED = {"mamba2-370m": "'ssm' axis", "zamba2-7b": "'ssm' axis",
+              "musicgen-large": "codebook heads",
+              "granite-20b": "split heads",
+              "h2o-danube-3-4b": "CPU case holding",
+              "mixtral-8x7b": "CPU case holding",
+              "minicpm3-4b": "CPU case holding",
+              "qwen2-vl-72b": "CPU case holding"}
+
+
 def _port_model_axis():
-    """A hook pair on a mesh whose model axis is 2 builds (the dry run
-    plans with it) but refuses to step."""
+    """On (data 2, model 2) the hooks of each arch the tensor-parallel
+    step leaves out build (the dry run plans with them) and refuse to
+    step: the step builder and the gradient hook raise, naming it."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.train import fsdp
     from repro_torch.train import step as T
 
-    cfg = small_cfg(ARCHS[0])
-    rp, rg = fsdp.weight_hoist(cfg, abstract_mesh((2, 2), ("data",
-                                                           "model")))
-    msgs = []
-    for call in (lambda: T.build_train_step(cfg, reshard_params=rp,
-                                            reshard_grads=rg),
-                 lambda: rg({})):
-        try:
-            call()
-            msgs.append(None)
-        except ValueError as e:
-            msgs.append(str(e))
-    return {"model axis errors": msgs}
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    out = {}
+    for arch in TP_REFUSED:
+        cfg = get_config(arch)
+        rp, rg = fsdp.weight_hoist(cfg, mesh)
+        msgs = []
+        for call in (lambda: T.build_train_step(cfg, reshard_params=rp,
+                                                reshard_grads=rg),
+                     lambda: rg({})):
+            try:
+                call()
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+        out[f"model axis errors {arch}"] = msgs
+    return out
 
 
 def _port_port_checkpoint(meshes, path, rank):

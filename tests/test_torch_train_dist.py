@@ -31,8 +31,10 @@ inputs:
   MoE step's first gradient depends on its microbatches (deepseek's
   ``blocks/moe/shared/w_down[0, 56, 56]``: 2.0e-4 with 1, 7.7e-9 with
   2).
-* A mesh with model > 1 builds its hooks (the dry run plans with them)
-  and refuses to step.
+* On a mesh with model > 1 each arch the tensor-parallel step leaves
+  out (the ssm axis, the codebook heads, split heads, and the archs no
+  CPU case holds) builds its hooks (the dry run plans with them) and
+  refuses to step, naming what is missing.
 * Elastic restore: the reference's checkpoint restores on 1, 2 and 4
   ranks, each rank's shards bit-equal to their slices of what ``np.load``
   reads from its file; a port state saved from 4 ranks (blocking and
@@ -240,9 +242,12 @@ def test_fsdp_step_matches_the_reference(runs, single, arch, mesh, mb):
 
 
 def test_model_axis_above_one_refuses_to_step(runs):
+    """Each arch the tensor-parallel step leaves out raises on (data 2,
+    model 2), naming itself and what is missing."""
     _, port = runs
-    for msg in port[0]["model axis errors"]:
-        assert msg and "tensor-parallel training forward" in msg
+    for arch, words in C.TP_REFUSED.items():
+        for msg in port[0][f"model axis errors {arch}"]:
+            assert msg and arch in msg and words in msg, (arch, msg)
 
 
 @pytest.mark.parametrize("ranks", [1, 2, 4])
