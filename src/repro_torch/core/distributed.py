@@ -50,6 +50,7 @@ step_comm) + drain``.  Its default target is ``core/hardware.H100``
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -437,22 +438,49 @@ class _Axis:
 tp_wire_bytes: Dict[str, int] = {}
 
 
-def _model_ctx():
-    from repro_torch.sharding.rules import model_parallel_state  # lazy: cycle
+_model = threading.local()
 
-    return model_parallel_state()
+
+class model_parallel:
+    """Context: the forward runs on this rank's tensor-parallel slices of
+    the weights, over a ``model`` axis of ``size`` ranks at ``index``.
+    ``axis(device)`` is the axis's transport (``core.distributed._Axis``),
+    made when a collective first needs it.  Inside it the model code takes
+    the Megatron layout: a column-parallel GEMM's input passes
+    ``copy_to_model`` and a row-parallel GEMM's fp32 output
+    ``reduce_from_model`` (``core.distributed``)."""
+
+    def __init__(self, axis: Callable, size: int, index: int):
+        self.axis = axis
+        self.size = size
+        self.index = index
+
+    def __enter__(self):
+        self.prev = getattr(_model, "cur", None)
+        _model.cur = self
+        return self
+
+    def __exit__(self, *exc):
+        _model.cur = self.prev
+
+
+def model_parallel_state() -> Optional[model_parallel]:
+    """The active :class:`model_parallel` context of more than one rank,
+    or ``None`` (the forward holds whole weights)."""
+    cur = getattr(_model, "cur", None)
+    return cur if cur is not None and cur.size > 1 else None
 
 
 def model_parallel_size() -> int:
     """Ranks of the active ``model`` axis (1 outside
-    ``sharding.rules.model_parallel``)."""
-    ctx = _model_ctx()
+    :class:`model_parallel`)."""
+    ctx = model_parallel_state()
     return ctx.size if ctx is not None else 1
 
 
 def model_index() -> int:
     """This rank's index along the active ``model`` axis (0 outside)."""
-    ctx = _model_ctx()
+    ctx = model_parallel_state()
     return ctx.index if ctx is not None else 0
 
 
@@ -496,23 +524,23 @@ class _ReduceFromModel(torch.autograd.Function):
 def copy_to_model(x: torch.Tensor, site: str = "col") -> torch.Tensor:
     """A replicated activation entering a tensor-parallel region: ``x``
     itself, its gradient summed in fp32 over the active ``model`` axis.
-    The identity outside ``sharding.rules.model_parallel``."""
-    ctx = _model_ctx()
+    The identity outside :class:`model_parallel`."""
+    ctx = model_parallel_state()
     return x if ctx is None else _CopyToModel.apply(x, ctx, site)
 
 
 def reduce_from_model(x: torch.Tensor, site: str = "row") -> torch.Tensor:
     """The sum over the active ``model`` axis of each rank's partial
     ``x``, in fp32 (one all-reduce); the gradient passes unchanged.  The
-    identity outside ``sharding.rules.model_parallel``."""
-    ctx = _model_ctx()
+    identity outside :class:`model_parallel`."""
+    ctx = model_parallel_state()
     return x if ctx is None else _ReduceFromModel.apply(x, ctx, site)
 
 
 def model_max(x: torch.Tensor, site: str = "loss") -> torch.Tensor:
     """The elementwise max of ``x`` over the active ``model`` axis, no
     gradient (``x`` itself outside the context)."""
-    ctx = _model_ctx()
+    ctx = model_parallel_state()
     if ctx is None:
         return x
     return _model_all_reduce(ctx, x.detach().float().contiguous(), site,
@@ -522,7 +550,7 @@ def model_max(x: torch.Tensor, site: str = "loss") -> torch.Tensor:
 def model_sum(x: torch.Tensor, site: str) -> torch.Tensor:
     """``x`` summed in fp32 over the active ``model`` axis, no gradient
     (``x`` itself outside the context)."""
-    ctx = _model_ctx()
+    ctx = model_parallel_state()
     if ctx is None:
         return x
     return _model_all_reduce(ctx, x.detach().float().contiguous(), site)

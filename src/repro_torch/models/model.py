@@ -49,7 +49,6 @@ from repro_torch.models import common as cm
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import Defs
 from repro_torch.core.distributed import (model_index, model_max,
-                                          model_parallel_size,
                                           reduce_from_model)
 from repro_torch.quant.scales import QTensor
 from repro_torch.sharding.rules import (batch_mean, batch_sum,
@@ -461,22 +460,15 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal LM cross-entropy over (B, L, V) fp32 logits and (B, L)
     labels, or (B, L, Cb, V) and (B, L, Cb) with codebooks: the padded
-    vocab entries held at -1e9, an fp32 log-softmax, and the mean over
+    vocab entries held at -1e9, an fp32 log-sum-exp, and the mean over
     all entries, or with ``mask`` (B, L) the sum over the masked entries
     over ``mask.sum()`` (codebooks then add up, as in the reference).  In
     a rank-local training step (``sharding.rules.batch_statistics``) the
     numerator and the denominator are sums over the global batch.
-    Tensor-parallel (``sharding.rules.model_parallel``) the logits are
-    this rank's vocab columns: :func:`_vocab_parallel_nll`."""
-    if model_parallel_size() > 1:
-        nll = _vocab_parallel_nll(logits, labels, cfg)
-    else:
-        V = cfg.padded_vocab
-        if cfg.vocab_size < V:
-            pad = torch.arange(V, device=logits.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad, -1e9)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    Tensor-parallel (``core.distributed.model_parallel``) the logits are
+    this rank's vocab columns; :func:`_vocab_parallel_nll` takes both
+    (outside the context its sums over ``model`` are the identity)."""
+    nll = _vocab_parallel_nll(logits, labels, cfg)
     if mask is not None:
         mask = mask.to(nll.dtype)
         while mask.dim() < nll.dim():
@@ -490,23 +482,26 @@ def _vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
                         cfg: ModelConfig) -> torch.Tensor:
     """The per-token cross-entropy from this rank's vocab columns of the
     logits (columns ``index · Vl`` on): the padded entries masked on their
-    global indices, the global max (no gradient: it cancels), the global
-    sum of exponentials and the label's logit, taken on the rank that owns
-    it, each an fp32 sum over ``model`` whose gradient passes to every
-    rank's own columns."""
+    global indices, this rank's log-sum-exp (one fused pass over its
+    columns), the global one from the ranks' (their max, no gradient: it
+    cancels; then the fp32 sum of their exponentials over ``model``), and
+    the label's logit, taken on the rank that owns it and summed over
+    ``model``.  The gradient of each sum passes to every rank's own
+    columns.  On one rank the global log-sum-exp is the local one."""
     Vl = logits.shape[-1]
     lo = model_index() * Vl
     z = logits.float()
     if cfg.vocab_size < lo + Vl:
         pad = torch.arange(lo, lo + Vl, device=z.device) >= cfg.vocab_size
         z = z.masked_fill(pad, -1e9)
-    zmax = model_max(z.amax(dim=-1))
-    s = reduce_from_model(torch.exp(z - zmax[..., None]).sum(dim=-1), "loss")
+    lse = torch.logsumexp(z, dim=-1)
+    top = model_max(lse).detach()
+    lse = top + torch.log(reduce_from_model(torch.exp(lse - top), "loss"))
     lab = labels.long() - lo
     own = (lab >= 0) & (lab < Vl)
     picked = torch.gather(z, -1, torch.where(own, lab, 0)[..., None])[..., 0]
     z_label = reduce_from_model(torch.where(own, picked, 0.0), "loss")
-    return zmax + torch.log(s) - z_label
+    return lse - z_label
 
 
 def tp_partial_leaves(cfg: ModelConfig) -> Tuple[str, ...]:

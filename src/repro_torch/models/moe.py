@@ -17,7 +17,7 @@ in their down projection's drain.  In a rank-local training step
 (``sharding.rules.batch_statistics``) the aux loss's two statistics are
 means over the global batch, as GSPMD computes them.
 
-Tensor-parallel (``sharding.rules.model_parallel``; the reference's
+Tensor-parallel (``core.distributed.model_parallel``; the reference's
 ``"expert": "model"`` rule): routing and dispatch stay whole on every
 rank, which sees the same tokens; each rank scatters only the pairs
 routed to its ``E / tp`` experts, runs the two expert GEMMs over them,

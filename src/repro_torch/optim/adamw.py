@@ -16,8 +16,9 @@ at a time: the clipped fp32 gradient of one leaf lives at once.
 
 On a sharded state (``train.fsdp``) the update runs leaf by leaf on each
 rank's shards; the clip's global norm is the one cross-rank step
-(``norm_fn``: the sums of squares all-reduced over the axes that split
-each leaf, FSDP's batch axes and tensor parallelism's ``model``).
+(:func:`update`'s ``norm_fn``: the sums of squares all-reduced over the
+axes that split each leaf, FSDP's batch axes and tensor parallelism's
+``model``).
 
 ``allreduce_compressed`` mean-reduces gradients over one named mesh axis
 with bf16 or int8 wire compression and error feedback (the quantization
@@ -80,16 +81,13 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(tree: Params, max_norm: float,
-                        norm_fn: Optional[Callable[[Params],
-                                                   torch.Tensor]] = None):
+def clip_by_global_norm(tree: Params, max_norm: float):
     """``(tree scaled so its global norm is at most max_norm, the
     norm)``: each leaf times ``min(1, max_norm / norm)`` in fp32 (the
-    reference's bf16 × fp32 promotes).  ``norm_fn`` gives the norm where
-    the leaves are shards (``train.fsdp.FsdpLayout.global_norm``);
-    default :func:`global_norm`.  :func:`update` applies the same scale
-    leaf by leaf instead, so the clipped fp32 tree never lives whole."""
-    norm = (norm_fn or global_norm)(tree)
+    reference's bf16 × fp32 promotes).  :func:`update` applies the same
+    scale leaf by leaf instead, so the clipped fp32 tree never lives
+    whole."""
+    norm = global_norm(tree)
     scale = _clip_scale(norm, max_norm)
     return {k: g.float() * scale for k, g in tree.items()}, norm
 

@@ -26,10 +26,10 @@ matrices) is also sharded over the data axis.
 Tensor parallelism in a rank-local training step: :func:`tp_dims` gives
 the tensor dim of each leaf that the TP layout shards over ``model``,
 :func:`split_heads` the leaves whose ``qkv`` shard is not a whole number
-of heads (``train.fsdp.tp_refusal`` raises on them), and inside :class:`model_parallel` the model code runs on this
-rank's slices (``core.distributed.copy_to_model`` /
-``reduce_from_model``).  :func:`recompute_contexts` carries these
-contexts into a remat recompute.
+of heads (``train.fsdp.tp_refusal`` raises on them).  Inside
+``core.distributed.model_parallel`` the model code runs on this rank's
+slices.  :func:`recompute_contexts` carries that context and this
+module's into a remat recompute.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import (TYPE_CHECKING, Callable, Dict, Mapping, NamedTuple,
 
 import torch
 
+from repro_torch.core.distributed import _model
 from repro_torch.launch.mesh import axis_sizes
 
 if TYPE_CHECKING:  # annotation-only (models imports its own modules)
@@ -420,41 +421,8 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism of a rank-local training step
+# The contexts a remat recompute enters again
 # ---------------------------------------------------------------------------
-
-_model = threading.local()
-
-
-class model_parallel:
-    """Context: the forward runs on this rank's tensor-parallel slices of
-    the weights, over a ``model`` axis of ``size`` ranks at ``index``.
-    ``axis(device)`` is the axis's transport (``core.distributed._Axis``),
-    made when a collective first needs it.  Inside it the model code takes
-    the Megatron layout: a column-parallel GEMM's input passes
-    ``copy_to_model`` and a row-parallel GEMM's fp32 output
-    ``reduce_from_model`` (``core.distributed``)."""
-
-    def __init__(self, axis: Callable, size: int, index: int):
-        self.axis = axis
-        self.size = size
-        self.index = index
-
-    def __enter__(self):
-        self.prev = getattr(_model, "cur", None)
-        _model.cur = self
-        return self
-
-    def __exit__(self, *exc):
-        _model.cur = self.prev
-
-
-def model_parallel_state() -> Optional[model_parallel]:
-    """The active :class:`model_parallel` context of more than one rank,
-    or ``None`` (the forward holds whole weights)."""
-    cur = getattr(_model, "cur", None)
-    return cur if cur is not None and cur.size > 1 else None
-
 
 @contextlib.contextmanager
 def _entered(batch, model, policy):
@@ -469,7 +437,8 @@ def _entered(batch, model, policy):
 
 def recompute_contexts():
     """``context_fn`` of ``torch.utils.checkpoint``: this module's
-    contexts as the forward sees them, entered again around the
+    contexts and ``core.distributed.model_parallel`` as the forward sees
+    them, entered again around the
     recompute, which runs in the backward, on the autograd engine's own
     thread for card tensors (these contexts are per thread).  The
     recompute then issues the forward's collectives again, on every rank

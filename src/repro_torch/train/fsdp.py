@@ -31,7 +31,7 @@ Both are callables with a ``layout`` (:class:`FsdpLayout`), from which
 the global batch and the global tree: the loss's batch statistics
 (``sharding.rules.batch_statistics``: the masked loss's numerator and
 denominator, the MoE aux's two means), the forward's tensor-parallel
-context (``sharding.rules.model_parallel``: the vocab-parallel embedding
+context (``core.distributed.model_parallel``: the vocab-parallel embedding
 and cross-entropy, column- and row-parallel projections, the experts
 split over ``model``) and the clip's global norm.  Collectives on card
 tensors under a backend other than NCCL go through pinned host copies
@@ -39,11 +39,11 @@ tensors under a backend other than NCCL go through pinned host copies
 
 The layout takes any mesh: the dry run plans the hooks' bytes on the
 production meshes from it.  On a mesh whose ``model`` axis is larger
-than 1 the step runs for the two families a CPU case holds against the
-reference (``TP_TRAIN_ARCHS``: the dense GQA stablelm-1.6b and the MoE +
-MLA deepseek-v2-lite-16b); every other arch raises a ``ValueError`` that
-names what is missing (the hooks, ``init_state``, ``local_batch`` and
-``build_train_step``).
+than 1 the step runs for what a CPU case holds against the reference
+(the dense GQA stablelm-1.6b and the MoE + MLA deepseek-v2-lite-16b);
+any arch with a feature no case holds, or a layout the step lacks,
+raises a ``ValueError`` that names what is missing (``tp_refusal``: the
+hooks, ``init_state``, ``local_batch`` and ``build_train_step``).
 """
 
 from __future__ import annotations
@@ -61,9 +61,27 @@ from repro_torch.sharding import rules
 Tree = Dict[str, torch.Tensor]
 
 
-# The archs whose tensor-parallel training step (model > 1) a CPU case
-# holds against the reference (tests/test_torch_train_tp.py).
-TP_TRAIN_ARCHS = ("stablelm-1.6b", "deepseek-v2-lite-16b")
+def _tp_unheld(cfg: ModelConfig) -> list:
+    """The features of ``cfg`` that no CPU case holds tensor-parallel
+    against the reference.  ``tests/_torch_train_tp_cases.py`` holds a
+    dense GQA stack (RoPE, SwiGLU, token ids in, untied head) and an MoE
+    stack with shared experts under full-rank-Q MLA."""
+    out = []
+    if cfg.sliding_window:
+        out.append(f"a sliding window ({cfg.sliding_window} tokens)")
+    if cfg.rope_kind != "rope":
+        out.append(f"{cfg.rope_kind.replace('mrope', 'M-RoPE')} positions")
+    if cfg.frontend != "tokens":
+        out.append(f"the '{cfg.frontend}' frontend")
+    if cfg.act != "silu":
+        out.append(f"a plain {cfg.act} MLP (not a GLU)")
+    if cfg.tie_embeddings:
+        out.append("tied embeddings")
+    if cfg.moe is not None and cfg.attn_kind != "mla":
+        out.append("experts beside GQA attention")
+    if cfg.mla is not None and cfg.mla.q_lora_rank:
+        out.append(f"q-LoRA (rank {cfg.mla.q_lora_rank})")
+    return out
 
 
 def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
@@ -103,10 +121,8 @@ def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     if "blocks/moe/w_gate" in defs and dims["blocks/moe/w_gate"] != 1:
         why.append(f"{cfg.moe.n_experts} experts do not divide over "
                    f"model = {tp}")
-    if not why and cfg.name not in TP_TRAIN_ARCHS:
-        why.append(f"a CPU case holding {cfg.name}'s tensor-parallel step "
-                   f"against the reference (held: "
-                   f"{', '.join(TP_TRAIN_ARCHS)})")
+    why += [f"a CPU case holding {what} tensor-parallel"
+            for what in _tp_unheld(cfg)]
     if not why:
         return None
     return (f"tensor-parallel training of {cfg.name} on model = {tp} is "
@@ -176,9 +192,11 @@ class FsdpLayout:
     def model_parallel(self):
         """The forward's tensor-parallel context over ``model`` (a no-op
         context where ``model`` is 1)."""
+        from repro_torch.core.distributed import model_parallel
+
         if self.model == 1:
             return contextlib.nullcontext()
-        return rules.model_parallel(
+        return model_parallel(
             lambda device: self._axis("model", device), self.model,
             self.mesh.get_local_rank("model"))
 

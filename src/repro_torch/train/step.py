@@ -125,7 +125,7 @@ def build_train_step(
     (``FsdpLayout.local_batch``), and the metrics are the global step's
     on every rank.  On a mesh whose ``model`` axis is larger than 1 the
     forward and backward also run inside the layout's
-    ``sharding.rules.model_parallel`` context, on each leaf's
+    ``core.distributed.model_parallel`` context, on each leaf's
     tensor-parallel shard; the loss statistics stay global over the batch
     axes."""
     if warmup_gemm_rows:

@@ -246,14 +246,15 @@ def _port_fsdp(meshes):
 
 # The archs a mesh with model > 1 refuses to train (the tensor-parallel
 # step runs for stablelm-1.6b and deepseek-v2-lite-16b alone), each with
-# the words its refusal must name: what is missing.
+# the words its refusal must name: what is missing, a layout the step
+# lacks or a feature no CPU case holds.
 TP_REFUSED = {"mamba2-370m": "'ssm' axis", "zamba2-7b": "'ssm' axis",
               "musicgen-large": "codebook heads",
               "granite-20b": "split heads",
-              "h2o-danube-3-4b": "CPU case holding",
-              "mixtral-8x7b": "CPU case holding",
-              "minicpm3-4b": "CPU case holding",
-              "qwen2-vl-72b": "CPU case holding"}
+              "h2o-danube-3-4b": "sliding window",
+              "mixtral-8x7b": "experts beside GQA",
+              "minicpm3-4b": "q-LoRA",
+              "qwen2-vl-72b": "M-RoPE"}
 
 
 def _port_model_axis():

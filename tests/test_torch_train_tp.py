@@ -271,6 +271,22 @@ def test_k1_programs_per_step_match_the_smoke_formula(runs, arch, mesh, mb):
             assert out[f"{key} programs {i}"] == want, (out["rank"], i)
 
 
+@pytest.mark.parametrize("arch", C.ARCHS)
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+def test_held_archs_are_not_refused(arch, reduced):
+    """The archs these cases hold step tensor-parallel at full width and
+    at the cases' reduced width: the refusal reads features, and theirs
+    are the ones a case holds."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.train.fsdp import tp_refusal
+
+    cfg = (get_reduced if reduced else get_config)(arch)
+    for shape in ((2, 2), (1, 4)):
+        mesh = abstract_mesh(shape, ("data", "model"))
+        assert tp_refusal(cfg, mesh) is None, (arch, shape)
+
+
 @pytest.mark.parametrize("where", ["data2", "one"])
 def test_tp_state_restores_on_fewer_ranks(runs, where):
     _, port = runs
