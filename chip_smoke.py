@@ -285,9 +285,11 @@ Phases (any failure raises and the script exits non-zero):
    checksummed in each layout (``_digest``: 64-bit sums of its bits)
    and all equal, rank 0's chunk bit-equal to its restore.  Then the
    same four ranks train FSDP x TP on (data 2, model 2)
-   (``tp_train_part``): full-width stablelm-1.6b at 2 layers and
-   deepseek-v2-lite-16b (MLA, 64 experts, 32 a rank) at 1, bf16 at
-   microbatches 1 and 2 and fp32 at 1: loss and grad_norm
+   (``tp_train_part``): full-width stablelm-1.6b at 2 layers,
+   deepseek-v2-lite-16b (MLA, 64 experts, 32 a rank) at 1, mamba2-370m
+   at 2 (16 SSD heads a rank) and zamba2-7b at 6 (one full group, one
+   shared-block application), bf16 at microbatches 1 and 2 (the Mamba2
+   archs: 1) and fp32 at 1: loss and grad_norm
    within TOL_LOSS (TOL_F32 in fp32) of the single-process card step
    (stablelm's the FSDP part's), each leaf's first gradient within the
    larger of TOL_GRAD (TOL_F32) and twice its witness, each leaf's
@@ -297,12 +299,12 @@ Phases (any failure raises and the script exits non-zero):
    of forward and backward on K1: bf16 wgmma, fp32 SIMT), its
    ``model``-axis bytes by site equal to ``FsdpLayout.tp_wire_plan``
    (the dry run's planned bytes printed beside them), its walls
-   printed; K1 at stablelm's local shapes against its plain version,
-   timed beside the same layout's torch.matmul.  Any rank's failure
-   fails the script.  ``python3 chip_smoke.py --only dist`` runs the
+   printed; K1 at stablelm's and mamba2's local shapes against its
+   plain version, timed beside the same layout's torch.matmul.  Any
+   rank's failure fails the script.  ``python3 chip_smoke.py --only dist`` runs the
    card and K1's build and this phase alone, ``--only fsdp`` its FSDP
-   part alone, ``--only tp`` its TP part alone (no kernels line, no
-   result).
+   part alone, ``--only tp [ARCH ...]`` its TP part alone, of the
+   configurations named (default all; no kernels line, no result).
 
 The last two lines are the kernels' JSON record and the result JSON.
 """
@@ -5007,10 +5009,12 @@ def _tp_decode_checks(dev, mesh, tp):
     return out
 
 
-def dist_rank(rank, world, backend, parts=("dist", "fsdp", "tp")):
+def dist_rank(rank, world, backend, parts=("dist", "fsdp", "tp"),
+              tp_archs=None):
     """One rank of the dist phase (run by ``spawn_ranks``): the
     distributed GEMM and TP decode checks, then the FSDP part and the
-    tensor-parallel training part."""
+    tensor-parallel training part (of ``tp_archs``, default all of
+    ``TP_ARCHS``)."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_mesh_compat, rank_device
@@ -5023,7 +5027,7 @@ def dist_rank(rank, world, backend, parts=("dist", "fsdp", "tp")):
     if "dist" in parts:
         out.update(_dist_rank_checks(rank, world, backend, dev))
     if "fsdp" in parts or "tp" in parts:
-        out["fsdp"] = fsdp_rank(rank, world, dev, parts)
+        out["fsdp"] = fsdp_rank(rank, world, dev, parts, tp_archs)
         tdist.barrier()
     return out
 
@@ -5082,11 +5086,12 @@ def _dist_failures(outs):
     return bad
 
 
-def dist_phase(card_line, parts=("dist", "fsdp", "tp")):
+def dist_phase(card_line, parts=("dist", "fsdp", "tp"), tp_archs=None):
     """The dist phase: eight ranks drive dist_matmul at every schedule and
     the full-width TP decode block, then four of them the FSDP part
     (``fsdp_rank``) and the tensor-parallel training part
-    (``tp_train_part``); any rank's failure fails it."""
+    (``tp_train_part``, of ``tp_archs``, default all); any rank's failure
+    fails it."""
     from repro_torch.launch.mesh import spawn_ranks
 
     phase("dist: dist_matmul and the tensor-parallel decode block, "
@@ -5102,7 +5107,7 @@ def dist_phase(card_line, parts=("dist", "fsdp", "tp")):
           f"{DIST_WORLD}; {card_line}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    outs = spawn_ranks(dist_rank, DIST_WORLD, (backend, parts),
+    outs = spawn_ranks(dist_rank, DIST_WORLD, (backend, parts, tp_archs),
                        timeout=900, backend=backend)
     seconds = time.perf_counter() - t0
     res = {"outs": outs, "seconds": seconds, "backend": backend,
@@ -5359,20 +5364,13 @@ def _fsdp_single(cfg, dev, keep=None, tp=False, mbs=FSDP_MB):
     return out
 
 
-def _fsdp_distances(whole, single, mb):
-    """Each leaf's squared distance of the FSDP run's gathered
-    parameters from the single-process step's, and the single-process
-    step's squared change over the steps (on rank 0)."""
-    dist2, chg2 = {}, {}
+def _fsdp_changes(single, mb):
+    """Each leaf's squared change over the single-process step's steps
+    (on rank 0)."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    for k, p in whole.items():
-        p = p.to(dev)
-        fin = single[mb]["final"][k].to(dev)
-        st = single["start"][k].to(dev)
-        dist2[k] = float(((p - fin).double() ** 2).sum())
-        chg2[k] = float(((fin - st).double() ** 2).sum())
-        del fin, st
-    return dist2, chg2
+    return {k: float(((fin.to(dev) - single["start"][k].to(dev)).double()
+                      ** 2).sum())
+            for k, fin in single[mb]["final"].items()}
 
 
 def _fsdp_run(cfg, dev, layout, hooks, mb, group):
@@ -5515,10 +5513,11 @@ def _fsdp_checkpoint(cfg, dev, state, layouts, meshes, rank, group):
     return out
 
 
-def fsdp_rank(rank, world, dev, parts=("fsdp", "tp")):
+def fsdp_rank(rank, world, dev, parts=("fsdp", "tp"), tp_archs=None):
     """This rank's part of the FSDP phase and of the tensor-parallel
-    training part (every dist rank calls it: the meshes and the group are
-    built by all; ranks past FSDP_RANKS wait)."""
+    training part of ``tp_archs`` (default all of ``TP_ARCHS``; every
+    dist rank calls it: the meshes and the group are built by all; ranks
+    past FSDP_RANKS wait)."""
     import torch.distributed as tdist
 
     from repro_torch.launch.mesh import make_mesh_compat
@@ -5544,11 +5543,12 @@ def fsdp_rank(rank, world, dev, parts=("fsdp", "tp")):
     pod = full.get_local_rank("pod")
     # the single-process step once, on rank 0, which gathers each FSDP
     # run's parameters to hold them against it
+    tp_archs = tuple(tp_archs or TP_ARCHS)
     t0 = time.perf_counter()
-    single = (_fsdp_single(cfg, dev, tp="tp" in parts) if rank == 0
-              else None)
+    single = (_fsdp_single(cfg, dev, tp="tp" in parts) if rank == 0 and (
+        "fsdp" in parts or ARCH in tp_archs) else None)
     out = {"rank": rank, "single_s": time.perf_counter() - t0, "runs": {}}
-    if rank == 0:
+    if single is not None:
         out["single"] = {mb: single[mb]["metrics"] for mb in FSDP_MB}
         out["reversed"] = single["reversed_metrics"]
     tdist.barrier(group=group)
@@ -5562,13 +5562,13 @@ def fsdp_rank(rank, world, dev, parts=("fsdp", "tp")):
             run, state = _fsdp_run(cfg, dev, lay, hooks[name], mb,
                                    group if ranks == 4 else
                                    meshes["data2"].get_group("data"))
-            whole = {k: lay.shardings[k].gather(v, to_first=True)
-                     for k, v in state.params.items()}
+            # each leaf's squared distance from the single-process step's
+            dist = _sq_dists(lay, state.params,
+                             single[mb]["final"] if rank == 0 else None)
             if rank == 0:
-                run["dist2"], run["chg2"] = _fsdp_distances(whole, single,
-                                                            mb)
+                run["dist2"] = {k: d2 for k, (d2, _) in dist.items()}
+                run["chg2"] = _fsdp_changes(single, mb)
                 run["witness2"] = single["witness2"]
-            del whole
             out["runs"][f"{name} mb{mb}"] = run
             if name == "pod2xdata2" and mb == FSDP_MB[-1]:
                 last = state
@@ -5582,7 +5582,8 @@ def fsdp_rank(rank, world, dev, parts=("fsdp", "tp")):
         # used it
         box = [single]
         del single
-        out["tp"] = tp_train_part(rank, dev, tp_mesh, box, group)
+        out["tp"] = tp_train_part(rank, dev, tp_mesh, box, group,
+                                  tp_archs)
     else:
         del single
     torch.cuda.empty_cache()
@@ -5757,14 +5758,18 @@ def fsdp_kernel_records(outs, fsdp_seconds):
 
 # Full width, FSDP over data 2 and tensor parallelism over model 2: the
 # dense GQA stablelm-1.6b at the FSDP part's 2 of 24 layers (its
-# single-process card step is the FSDP part's), and the MoE + MLA
+# single-process card step is the FSDP part's), the MoE + MLA
 # deepseek-v2-lite-16b at 1 of its 27 (its fp32 state, 12 GB at one
 # layer with 64 experts, whole on rank 0 for the single-process step and
 # kept on the host beside the four ranks' quarters; 2 layers fit, 11.7
-# GB a rank, but cost the smoke its time limit).  Each in the compute
-# dtype of its config (bf16) at microbatches 1 and 2, and in fp32 at
-# microbatch 1.
-TP_ARCHS = {ARCH: FSDP_LAYERS, "deepseek-v2-lite-16b": 1}
+# GB a rank, but cost the smoke its time limit), the Mamba2 stack
+# mamba2-370m at 2 of its 48 layers (16 SSD heads a rank) and zamba2-7b
+# at 6 of its 81 (one full group: one shared-block application; 56 SSD
+# heads a rank).  Each in the compute dtype of its config (bf16) at
+# microbatches 1 and 2 (the Mamba2 archs: 1, for the smoke's time; the
+# CPU tests hold their microbatches), and in fp32 at microbatch 1.
+TP_ARCHS = {ARCH: FSDP_LAYERS, "deepseek-v2-lite-16b": 1,
+            "mamba2-370m": 2, "zamba2-7b": 6}
 TP_MESH = (2, 2)
 # (dtype, microbatches) of each arch's runs.  The fp32 step holds the
 # layout to TOL_F32, where the bf16 steps' limits take witnesses: for
@@ -5772,7 +5777,9 @@ TP_MESH = (2, 2)
 # gradients, the experts' split, MLA's partial leaves).
 TP_RUNS = {ARCH: [("bfloat16", 1), ("bfloat16", 2), ("float32", 1)],
            "deepseek-v2-lite-16b": [("bfloat16", 1), ("bfloat16", 2),
-                                    ("float32", 1)]}
+                                    ("float32", 1)],
+           "mamba2-370m": [("bfloat16", 1), ("float32", 1)],
+           "zamba2-7b": [("bfloat16", 1), ("float32", 1)]}
 
 
 def tp_counts_per_step(cfg, tp):
@@ -5781,7 +5788,9 @@ def tp_counts_per_step(cfg, tp):
     ``E / tp`` of them, and each row-parallel projection (``wo``,
     ``w_down``, the shared experts' down) K1's ``none`` program with an
     fp32 output where the single-card step drains the residual (``res``):
-    the same count of launches, keyed ``none``."""
+    the same count of launches, keyed ``none``.  A Mamba2 layer's
+    in_proj is one launch on its heads' columns and its out_proj one
+    row-parallel ``none``, as on one card."""
     if cfg.moe is not None and cfg.moe.n_experts:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, n_experts=cfg.moe.n_experts // tp))
@@ -5807,20 +5816,50 @@ def _tp_init(lay, dev, group):
 
 
 def _sq_dists(lay, tree, want, scale=1.0):
-    """Each leaf of the rank-local ``tree`` (times ``scale``) gathered
-    whole on rank 0, one leaf at a time, and its squared distance from
-    ``want``'s leaf and ``want``'s squared norm there (rank 0's result;
-    a collective)."""
-    dev = torch.device("cuda", torch.cuda.current_device())
+    """Each leaf of the rank-local ``tree`` (times ``scale``): its squared
+    distance from ``want``'s leaf and ``want``'s squared norm, on the
+    mesh's first rank (a collective of the mesh's ranks).  Each slice of
+    a leaf goes once, from the first rank that holds it, to the first
+    rank, which sums over the slices on the card: no leaf is assembled
+    whole (``NamedSharding.gather``'s cats and copies cost the host more
+    than the transfer)."""
+    import torch.distributed as tdist
+
+    grid = lay.mesh.mesh
+    ranks = [int(r) for r in grid.flatten()]
+    coords = {r: dict(zip(lay.mesh.mesh_dim_names,
+                          (int(i) for i in (grid == r).nonzero()[0])))
+              for r in ranks}
+    me, first = tdist.get_rank(), ranks[0]
     out = {}
     for k in sorted(tree):
-        whole = lay.shardings[k].gather(tree[k] * scale, to_first=True)
-        if want is not None:
-            w = want[k].to(dev)
-            out[k] = [float(((whole.to(dev) - w).double() ** 2).sum()),
-                      float((w.double() ** 2).sum())]
-            del w
-        del whole
+        shape = lay.defs[k].shape
+        holder = {}           # each distinct slice -> the first rank with it
+        for r in ranks:
+            sl = lay.shardings[k].local_slices(shape, coords[r])
+            holder.setdefault(tuple((s.start, s.stop) for s in sl), r)
+        local = (tree[k] * scale).contiguous()
+        pinned = local.is_cuda
+        if me != first:
+            if me in holder.values():
+                buf = torch.empty(local.shape, dtype=local.dtype,
+                                  pin_memory=pinned)
+                tdist.send(buf.copy_(local), dst=first)
+            continue
+        w = want[k].to(local.device) if want is not None else None
+        d2 = 0.0
+        for sl, r in holder.items():
+            blk = local
+            if r != first:
+                buf = torch.empty(local.shape, dtype=local.dtype,
+                                  pin_memory=pinned)
+                tdist.recv(buf, src=r)
+                blk = buf.to(local.device, non_blocking=True)
+            if w is not None:
+                d2 += float(((blk - w[tuple(slice(a, b) for a, b in sl)])
+                             .double() ** 2).sum())
+        if w is not None:
+            out[k] = [d2, float((w.double() ** 2).sum())]
     return out
 
 
@@ -5830,7 +5869,7 @@ def _tp_run(cfg, dev, lay, hooks, mb, group, ref):
     routes, and the bytes each ``model``-axis site all-reduced; after the
     first step each leaf's clipped gradient, and after the last its
     parameters, held on rank 0 against ``ref``'s (the single-process
-    step's)."""
+    step's; the seconds those checks take, ``check_s``)."""
     import torch.distributed as tdist
 
     from repro_torch.core import distributed as D
@@ -5870,33 +5909,39 @@ def _tp_run(cfg, dev, lay, hooks, mb, group, ref):
                       "want_wire": lay.tp_wire_plan(
                           FSDP_SEQ, int(b["tokens"].shape[0]), mb)})
         if i == 0:
+            t0 = time.perf_counter()
             run["grad2"] = _sq_dists(lay, state.opt.m, ref and ref[
                 f"grad0 {mb}"], 1.0 / (1 - opt.b1))
+            run["check_s"] = time.perf_counter() - t0
     run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
     run["final2"] = _sq_dists(lay, state.params,
                               ref and ref[mb]["final"])
+    run["check_s"] += time.perf_counter() - t0
     run["steps"] = steps
     del state, step_fn
     torch.cuda.empty_cache()
     return run
 
 
-def tp_train_part(rank, dev, mesh, box, group):
+def tp_train_part(rank, dev, mesh, box, group, archs):
     """This rank's part of the tensor-parallel training check: for each
-    of ``TP_ARCHS`` and each (dtype, microbatches) of ``TP_RUNS``, the
+    of ``archs`` and each (dtype, microbatches) of ``TP_RUNS``, the
     single-process card step on the whole batch (on rank 0; stablelm's
     bf16 one is the FSDP part's, ``box``'s one item, dropped after use;
-    the others kept on the host), then the FSDP x TP steps, rank 0
-    gathering each leaf's gradient and parameters one at a time to hold
-    them against the single-process step's."""
+    the others kept on the host), then the FSDP x TP steps, each leaf's
+    gradient and parameters sent to rank 0 slice by slice
+    (:func:`_sq_dists`) to hold them against the single-process
+    step's."""
     import torch.distributed as tdist
 
     from repro_torch.train import fsdp
 
     t_start = time.perf_counter()
-    out = {"rank": rank, "runs": {}, "single_s": {}, "single": {},
-           "reversed": {}}
-    for name, layers in TP_ARCHS.items():
+    out = {"rank": rank, "archs": archs, "runs": {}, "single_s": {},
+           "single": {}, "reversed": {}}
+    for name in archs:
+        layers = TP_ARCHS[name]
         for dt in dict.fromkeys(d for d, _ in TP_RUNS[name]):
             cfg = dataclasses.replace(get_config(name), n_layers=layers,
                                       compute_dtype=dt)
@@ -5948,7 +5993,8 @@ def _tp_failures(outs):
     bad = []
     tps = [o["fsdp"]["tp"] for o in outs if o.get("fsdp")]
     summary = {}
-    for name, layers in TP_ARCHS.items():
+    for name in tps[0]["archs"]:
+        layers = TP_ARCHS[name]
         for dt, mb in TP_RUNS[name]:
             key = f"{name} {dt} mb{mb}"
             single = tps[0]["single"][f"{name} {dt}"]
@@ -6050,15 +6096,17 @@ def tp_planned_bytes(name, layers, rows, mb):
 
 
 def print_tp(outs, card_line):
-    phase("tp: FSDP x TP on (data 2, model 2), full width: "
-          + ", ".join(f"{n} at {layers} of {get_config(n).n_layers} layers"
-                      for n, layers in TP_ARCHS.items())
-          + f"; {FSDP_STEPS} steps of {FSDP_BATCH} x {FSDP_SEQ} tokens")
     tps = [o["fsdp"]["tp"] for o in outs if o.get("fsdp")]
+    phase("tp: FSDP x TP on (data 2, model 2), full width: "
+          + ", ".join(f"{n} at {TP_ARCHS[n]} of {get_config(n).n_layers} "
+                      "layers" for n in tps[0]["archs"])
+          + f"; {FSDP_STEPS} steps of {FSDP_BATCH} x {FSDP_SEQ} tokens")
     for t in tps:
         print(f"tp rank {t['rank']}: {t['seconds']:.1f} s" + (
-            f" (single-process steps {json.dumps(t['single_s'])} s)"
-            if t["rank"] == 0 else ""))
+            f" (single-process steps {json.dumps(t['single_s'])} s; "
+            "the checks of the first gradients and the parameters "
+            + json.dumps({k: r["check_s"] for k, r in t["runs"].items()})
+            + " s)" if t["rank"] == 0 else ""))
         for key, run in t["runs"].items():
             for s in run["steps"]:
                 print(f"tp rank {t['rank']} {key} step {s['step']} "
@@ -6083,8 +6131,10 @@ def print_tp(outs, card_line):
     return summary
 
 
-# (key, GEMM, m, n, k, out dtype) of K1 at stablelm-1.6b's local shapes
-# on (data 2, model 2): 4 x 128 tokens a rank, n or k halved.
+# (key, GEMM, m, n, k, out dtype) of K1 at stablelm-1.6b's and
+# mamba2-370m's local shapes on (data 2, model 2): 4 x 128 tokens a rank,
+# n or k halved; mamba2's in_proj on its 16 heads' columns (z and x 1024
+# each, B and C 256, dt 16).
 TP_K1_GEMMS = [
     ("none", "tp wq fwd", 512, 1024, 2048, None),
     ("none nt", "tp wq dx", 512, 2048, 1024, torch.float32),
@@ -6092,14 +6142,22 @@ TP_K1_GEMMS = [
     (GLU_SAVE, "tp gate+up fwd", 512, 2816, 2048, None),
     ("none", "tp wo row-parallel", 512, 2048, 1024, torch.float32),
     ("none", "tp w_down row-parallel", 512, 2048, 2816, torch.float32),
-    ("none", "tp head", 512, 50176, 2048, torch.float32)]
+    ("none", "tp head", 512, 50176, 2048, torch.float32),
+    ("none", "tp mamba2 in_proj fwd", 512, 2320, 1024, None),
+    ("none nt", "tp mamba2 in_proj dx", 512, 1024, 2320, torch.float32),
+    ("none tn", "tp mamba2 in_proj dW", 1024, 2320, 512, None),
+    ("none", "tp mamba2 out_proj row-parallel", 512, 1024, 1024,
+     torch.float32)]
 
 
 def tp_kernel_records(outs, tp_seconds):
     """K1 at the tensor-parallel local shapes against its plain version
     and timed (kernel, plain version, the same layout's torch.matmul,
-    bound); the kernels line's record is the row-parallel w_down's, its
-    launches rank 0's ``none`` launches over its runs."""
+    bound); the kernels line's records are the row-parallel w_down's,
+    its launches rank 0's ``none`` launches over its bf16 runs, and
+    mamba2-370m's local in_proj's, its launches rank 0's ``none``
+    launches over mamba2-370m's bf16 runs (in_proj, out_proj and the
+    head)."""
     cases = [(key, name, m, n, k, od, torch.bfloat16)
              for key, name, m, n, k, od in TP_K1_GEMMS]
     worst = k1f_parity(cases, "the tensor-parallel local shapes", 16)
@@ -6109,6 +6167,11 @@ def tp_kernel_records(outs, tp_seconds):
                    for key, run in t0["runs"].items() if "bfloat16" in key
                    for s in run["steps"])
     row = next(r for r in rows if r["gemm"] == "tp w_down row-parallel")
+    mrow = next(r for r in rows if r["gemm"] == "tp mamba2 in_proj fwd")
+    mamba = sum(s["launches"].get("none", 0)
+                for key, run in t0["runs"].items()
+                if key.startswith("mamba2-370m bfloat16")
+                for s in run["steps"])
     return [{
         "name": "ca_gemm_program[none] tp row-parallel", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES, "launches": launches,
@@ -6118,7 +6181,17 @@ def tp_kernel_records(outs, tp_seconds):
         "k1_route": "wgmma", "matmul_bf16_out_ms": row["matmul_ms"],
         "shape": f"w_down m={row['m']} n={row['n']} k={row['k']} bf16, "
                  f"fp32 out (rank 0 of (data 2, model 2); the part "
-                 f"{tp_seconds:.1f} s)"}]
+                 f"{tp_seconds:.1f} s)"}] + ([{
+        "name": "ca_gemm_program[none] tp mamba2 in_proj", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES, "launches": mamba,
+        "max_abs_err": max(worst.values()), "ms": mrow["ms"],
+        "plain_ms": mrow["plain_ms"], "bound_ms": mrow["bound_ms"],
+        # torch.matmul of the same bf16 operands, bf16 out: the function
+        "bound_by": mrow["bound_by"], "library_ms": mrow["matmul_ms"],
+        "k1_route": "wgmma",
+        "shape": f"in_proj m={mrow['m']} n={mrow['n']} k={mrow['k']} bf16 "
+                 "(16 heads' z, x, dt columns and B, C whole; rank 0 of "
+                 "(data 2, model 2))"}] if mamba else [])
 
 
 def main(argv=None):
@@ -6147,14 +6220,17 @@ def main(argv=None):
             print("record " + json.dumps(record))
         print(f"total {time.perf_counter() - t_start:.1f} s (partial run)")
         return
-    if argv in (["--only", "dist"], ["--only", "fsdp"], ["--only", "tp"]):
+    if argv in (["--only", "dist"], ["--only", "fsdp"]) or (
+            argv[:2] == ["--only", "tp"]
+            and set(argv[2:]) <= set(TP_ARCHS)):
         # A partial run for work on the dist phase alone (with its FSDP
-        # and TP parts), or on the FSDP part or the TP part alone: only
-        # K1's source, no kernels line, no result.
+        # and TP parts), or on the FSDP part or the TP part alone (of the
+        # configurations named after it, default all): only K1's source,
+        # no kernels line, no result.
         build((K.SOURCE,))
         parts = {"dist": ("dist", "fsdp", "tp"), "fsdp": ("fsdp",),
                  "tp": ("tp",)}[argv[1]]
-        dres = dist_phase(card_line, parts)
+        dres = dist_phase(card_line, parts, tuple(argv[2:]) or None)
         records = []
         if "dist" in parts:
             records += dist_kernel_records(dres)
@@ -6181,7 +6257,8 @@ def main(argv=None):
     if argv:
         raise SystemExit("usage: chip_smoke.py [--only archs [ARCH ...] | "
                          "--only train [ARCH ...] | --only robust | "
-                         f"--only dist | --only fsdp | --only tp], got {argv}")
+                         f"--only dist | --only fsdp | --only tp [ARCH ...]], "
+                         f"got {argv}")
     prefetch_tables()
     build()
     worst = parity()

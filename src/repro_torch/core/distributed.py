@@ -426,13 +426,16 @@ class _Axis:
 # Tensor parallelism of the training forward (over the ``model`` axis)
 # ---------------------------------------------------------------------------
 
-# Bytes this process handed to the ``model`` axis's all-reduces in a
+# Bytes this process handed to the ``model`` axis's collectives in a
 # tensor-parallel training step, by site: ``embed`` the vocab-parallel
 # lookup, ``row`` each row-parallel GEMM's fp32 output (the forward's and
 # a remat recompute's), ``col`` each column-parallel region's input
 # gradient, ``route`` the MoE routing weights' gradient, ``loss`` the
-# vocab-parallel cross-entropy's statistics, ``grads`` the gradients of
-# leaves held whole whose gradient a rank gets in part, ``norm`` the
+# vocab-parallel cross-entropy's statistics, ``ssm_norm`` the Mamba2
+# gated norm's sum of squares (forward and backward), ``grads`` the
+# gradients of leaves held whole whose gradient a rank gets in part,
+# ``ssm_fused`` the Mamba2 fused leaves' all-gather (this rank's shard)
+# and their gradients' reduce-scatter (the whole gradient), ``norm`` the
 # clip's sum of squares.  The payload's bytes, each buffer once (as the
 # dry run plans them); read as a difference.
 tp_wire_bytes: Dict[str, int] = {}
@@ -484,11 +487,16 @@ def model_index() -> int:
     return ctx.index if ctx is not None else 0
 
 
+def count_tp_bytes(site: str, t: torch.Tensor) -> None:
+    """Add ``t``'s bytes to :data:`tp_wire_bytes` at ``site``."""
+    tp_wire_bytes[site] = (tp_wire_bytes.get(site, 0)
+                           + t.numel() * t.element_size())
+
+
 def _model_all_reduce(ctx, t: torch.Tensor, site: str,
                       op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = ctx.axis(t.device).all_reduce(t, op=op)
-    tp_wire_bytes[site] = (tp_wire_bytes.get(site, 0)
-                           + t.numel() * t.element_size())
+    count_tp_bytes(site, t)
     return out
 
 
@@ -521,6 +529,21 @@ class _ReduceFromModel(torch.autograd.Function):
         return g.to(ctx.dtype), None, None
 
 
+class _AllReduceModel(torch.autograd.Function):
+    """The fp32 sum over ``model`` forward and backward: a statistic each
+    rank adds its part to and each rank's own consumers read."""
+
+    @staticmethod
+    def forward(ctx, x, mp, site):
+        ctx.mp, ctx.site, ctx.dtype = mp, site, x.dtype
+        return _model_all_reduce(mp, x.float().contiguous(), site)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _model_all_reduce(ctx.mp, g.float().contiguous(), ctx.site)
+        return out.to(ctx.dtype), None, None
+
+
 def copy_to_model(x: torch.Tensor, site: str = "col") -> torch.Tensor:
     """A replicated activation entering a tensor-parallel region: ``x``
     itself, its gradient summed in fp32 over the active ``model`` axis.
@@ -535,6 +558,15 @@ def reduce_from_model(x: torch.Tensor, site: str = "row") -> torch.Tensor:
     identity outside :class:`model_parallel`."""
     ctx = model_parallel_state()
     return x if ctx is None else _ReduceFromModel.apply(x, ctx, site)
+
+
+def model_allreduce(x: torch.Tensor, site: str) -> torch.Tensor:
+    """The fp32 sum over the active ``model`` axis of each rank's part of
+    ``x``, its gradient summed over ``model`` too (every rank's consumers
+    of the sum add to it).  The identity outside
+    :class:`model_parallel`."""
+    ctx = model_parallel_state()
+    return x if ctx is None else _AllReduceModel.apply(x, ctx, site)
 
 
 def model_max(x: torch.Tensor, site: str = "loss") -> torch.Tensor:

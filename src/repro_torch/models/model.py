@@ -508,16 +508,32 @@ def tp_partial_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
     """The leaves every ``model`` rank holds whole whose gradient each
     rank gets only in part, so a tensor-parallel step sums it over
     ``model``: the pre-FFN norm gain folded into the column-parallel
-    GLU's rms prologue (dense FFN), and MLA's latent leaves, which only
-    this rank's heads read (``wkv_a``, ``kv_norm``; with q-LoRA
-    ``wq_a``, ``q_norm``).  The router's gradient is whole on every rank
+    GLU's rms prologue (dense FFN, and zamba2's shared block), MLA's
+    latent leaves, which only this rank's heads read (``wkv_a``,
+    ``kv_norm``; with q-LoRA ``wq_a``, ``q_norm``), and the Mamba2
+    mixer's per-head vectors, of which each rank reads its heads'
+    entries.  The router's gradient is whole on every rank
     (``models.moe``)."""
     defs = model_defs(cfg)
     names = ["blocks/attn/wkv_a", "blocks/attn/kv_norm", "blocks/attn/wq_a",
-             "blocks/attn/q_norm"]
+             "blocks/attn/q_norm", "blocks/mixer/a_log",
+             "blocks/mixer/d_skip", "blocks/mixer/dt_bias",
+             "shared/norm_ffn/scale"]
     if not blk._is_moe(cfg):
         names.append("blocks/norm_ffn/scale")
     return tuple(k for k in names if k in defs)
+
+
+def tp_whole_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The leaves whose state a tensor-parallel step keeps split over
+    ``model`` but whose copy each rank's forward reads whole: the Mamba2
+    mixer's fused ``[z | x | B | C | dt]`` columns and ``[x | B | C]``
+    conv channels, whose contiguous shards do not line up with SSD heads
+    (each rank reads its heads' columns and ``B`` and ``C``,
+    ``models.ssm.tp_columns``)."""
+    defs = model_defs(cfg)
+    return tuple(k for k in ("blocks/mixer/in_proj", "blocks/mixer/conv_w",
+                             "blocks/mixer/conv_b") if k in defs)
 
 
 def prefill(params, batch_in, cfg: ModelConfig,

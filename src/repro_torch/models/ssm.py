@@ -13,6 +13,20 @@ Rounding follows the reference: the causal conv accumulates in fp32 and
 casts to the serve dtype, ``silu`` and the scan run in fp32, the gated
 RMSNorm reads ``y * silu(z)`` cast to the serve dtype; the conv cache is
 kept in the serve dtype, the SSM state in fp32.
+
+Tensor-parallel (train mode inside ``core.distributed.model_parallel``;
+``train.fsdp`` hands each rank ``in_proj``, ``conv_w`` and ``conv_b``
+whole, ``norm`` and ``out_proj``'s rows as its ``ssm`` slices): each rank
+runs ``h / tp`` SSD heads.  Its columns of ``in_proj`` (its ``z``, ``x``
+and ``dt``, with ``B`` and ``C`` whole) make one local projection, one K1
+launch; its conv channels, its slices of ``a_log``, ``d_skip`` and
+``dt_bias``, and the scan over its heads follow.  The gated norm's sum of
+squares is summed over ``model`` (``core.distributed.model_allreduce``,
+whose backward sums too: each rank's channels consume it), and
+``out_proj`` is row-parallel (``models.common.row_parallel_out``).  The
+contiguous ``ssm`` shards of the fused leaves do not line up with heads,
+so each rank's gradient of them is partial: ``train.fsdp`` sums it over
+``model``.
 """
 
 from __future__ import annotations
@@ -23,7 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import (copy_to_model, model_allreduce,
+                                          model_index, model_parallel_size)
 from repro_torch.core.gemm import ca_matmul
+from repro_torch.kernels.program import apply_rms_reference
 from repro_torch.models import common as cm
 from repro_torch.models.common import Defs, ParamDef
 
@@ -51,15 +68,36 @@ def mamba2_defs(cfg: ModelConfig, depth_scale: float = 1.0) -> Defs:
     }
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    """in_proj's output as views: z, x, B, C and dt."""
-    s, d, di, h, n, g = _dims(cfg)
+def _split_proj(zxbcdt: torch.Tensor, di: int, gn: int):
+    """in_proj's output as views: z and x (``di`` columns each), B and C
+    (``gn`` each) and dt."""
     z = zxbcdt[..., :di]
     xin = zxbcdt[..., di:2 * di]
-    b = zxbcdt[..., 2 * di:2 * di + g * n]
-    c = zxbcdt[..., 2 * di + g * n:2 * di + 2 * g * n]
-    dt = zxbcdt[..., 2 * di + 2 * g * n:]
+    b = zxbcdt[..., 2 * di:2 * di + gn]
+    c = zxbcdt[..., 2 * di + gn:2 * di + 2 * gn]
+    dt = zxbcdt[..., 2 * di + 2 * gn:]
     return z, xin, b, c, dt
+
+
+def tp_columns(cfg: ModelConfig, tp: int, index: int) -> Dict[str, list]:
+    """The columns of the fused leaves that rank ``index`` of ``tp``
+    reads, as ``(start, stop)`` ranges in order: ``in_proj``'s its ``z``
+    and ``x`` columns, ``B`` and ``C`` whole and its ``dt`` columns;
+    the conv's its ``x`` channels, then ``B`` and ``C``."""
+    s, d, di, h, n, g = _dims(cfg)
+    dil, hl = di // tp, h // tp
+    c0, h0 = index * dil, index * hl
+    bc = (2 * di, 2 * di + 2 * g * n)
+    return {"in_proj": [(c0, c0 + dil), (di + c0, di + c0 + dil), bc,
+                        (bc[1] + h0, bc[1] + h0 + hl)],
+            "conv": [(c0, c0 + dil), (di, di + 2 * g * n)]}
+
+
+def _columns(t: torch.Tensor, spans) -> torch.Tensor:
+    """The columns (last dim) of ``t`` in ``spans``, one gather (its
+    backward scatters into zeros of ``t``'s shape)."""
+    idx = torch.cat([torch.arange(a, b, device=t.device) for a, b in spans])
+    return torch.index_select(t, t.dim() - 1, idx)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -135,15 +173,31 @@ def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     new_cache): prefill's cache from the prompt (the conv window
     left-padded with zeros for a prompt shorter than it), decode's the
     updated one (new tensors: the model writes them into its stacked
-    cache)."""
+    cache).  Inside ``model_parallel`` train mode runs this rank's heads
+    (see the module docstring); prefill and decode raise there."""
     s, d, di, h, n, g = _dims(cfg)
     B, L, _ = x.shape
     dt_ = x.dtype
     P = s.head_dim
     K = s.conv_kernel
+    tp = model_parallel_size()
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    h0, hl = 0, h
+    if tp > 1:
+        if mode != "train":
+            raise ValueError(f"the tensor-parallel Mamba2 mixer runs train "
+                             f"mode only, not {mode!r}")
+        hl, index = h // tp, model_index()
+        h0 = index * hl
+        cols = tp_columns(cfg, tp, index)
+        w_in = _columns(w_in, cols["in_proj"])
+        conv_w = _columns(conv_w, cols["conv"])
+        conv_b = _columns(conv_b, cols["conv"])
+        x = copy_to_model(x)
+    dil = hl * P
 
-    zxbcdt = ca_matmul(x, p["in_proj"])
-    z, xin, b, c, dtv = _split_proj(cfg, zxbcdt)
+    zxbcdt = ca_matmul(x, w_in)
+    z, xin, b, c, dtv = _split_proj(zxbcdt, dil, g * n)
     conv_in = torch.cat([xin, b, c], dim=-1)
 
     new_cache = None
@@ -151,23 +205,25 @@ def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         if cache is None or L != 1:
             raise ValueError("mamba2 decode takes one token and a cache")
         hist = torch.cat([cache["conv"].to(dt_), conv_in], dim=1)
-        conv_out = _causal_conv(hist, p["conv_w"], p["conv_b"])[:, -1:]
+        conv_out = _causal_conv(hist, conv_w, conv_b)[:, -1:]
         new_conv = hist[:, 1:]
     else:
-        conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+        conv_out = _causal_conv(conv_in, conv_w, conv_b)
         new_conv = conv_in[:, -(K - 1):] if L >= K \
             else F.pad(conv_in, (0, 0, K - 1 - L, 0))
     conv_out = F.silu(conv_out.float())
 
-    xs = conv_out[..., :di].reshape(B, L, h, P)
-    bs = conv_out[..., di:di + g * n].reshape(B, L, g, n)
-    cs = conv_out[..., di + g * n:].reshape(B, L, g, n)
+    xs = conv_out[..., :dil].reshape(B, L, hl, P)
+    bs = conv_out[..., dil:dil + g * n].reshape(B, L, g, n)
+    cs = conv_out[..., dil + g * n:].reshape(B, L, g, n)
     rep = h // g
-    b_h = bs.repeat_interleave(rep, dim=2)            # (B, L, H, N) fp32
-    c_h = cs.repeat_interleave(rep, dim=2)
+    # (B, L, H, N) fp32, this rank's heads
+    b_h = bs.repeat_interleave(rep, dim=2)[:, :, h0:h0 + hl]
+    c_h = cs.repeat_interleave(rep, dim=2)[:, :, h0:h0 + hl]
 
-    a = -torch.exp(p["a_log"].float())                # (H,) < 0
-    dt_act = F.softplus(dtv.float() + p["dt_bias"].float())   # (B, L, H)
+    a = -torch.exp(p["a_log"][h0:h0 + hl].float())    # (H,) < 0
+    dt_act = F.softplus(dtv.float()
+                        + p["dt_bias"][h0:h0 + hl].float())   # (B, L, H)
     da = dt_act * a
     xdt = xs * dt_act[..., None]
 
@@ -181,9 +237,25 @@ def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         if mode == "prefill":
             new_cache = {"conv": new_conv.contiguous(), "ssm": s_fin}
 
-    y = y + xs * p["d_skip"].float()[None, None, :, None]
-    y = y.reshape(B, L, di)
+    y = y + xs * p["d_skip"][h0:h0 + hl].float()[None, None, :, None]
+    y = y.reshape(B, L, dil)
     # gated RMSNorm (Mamba2): norm(y * silu(z))
-    y = cm.rms_norm((y * F.silu(z.float())).to(dt_), p["norm"],
-                    cfg.norm_eps)
-    return ca_matmul(y, p["out_proj"]), new_cache
+    y = (y * F.silu(z.float())).to(dt_)
+    if tp == 1:
+        return ca_matmul(cm.rms_norm(y, p["norm"], cfg.norm_eps),
+                         p["out_proj"]), new_cache
+    y = _tp_rms_norm(y, p["norm"], cfg.norm_eps, di)
+    return cm.row_parallel_out(
+        ca_matmul(y, p["out_proj"], out_dtype=torch.float32), None,
+        dt_), new_cache
+
+
+def _tp_rms_norm(y: torch.Tensor, gain: torch.Tensor, eps: float,
+                 width: int) -> torch.Tensor:
+    """``models.common.rms_norm`` of a row split over ``model``: this
+    rank's ``y`` and ``gain`` columns, the fp32 sum of squares summed
+    over the ranks (``ssm_norm``) and divided by the whole ``width``."""
+    yf = y.float()
+    ss = model_allreduce(torch.sum(yf * yf, dim=-1, keepdim=True),
+                         "ssm_norm")
+    return apply_rms_reference(y, torch.rsqrt(ss / width + eps), gain)

@@ -15,10 +15,17 @@ its own slice of the global batch and its own tensor-parallel slices of
 the weights, and the hooks move the bytes themselves:
 
 * ``reshard_params`` all-gathers every leaf over the batch axes only:
-  each leaf keeps its ``model`` shard (the reference's ``tp_specs``);
+  each leaf keeps its ``model`` shard (the reference's ``tp_specs``),
+  but for the Mamba2 mixer's fused leaves (``models.model.
+  tp_whole_leaves``: ``in_proj``, ``conv_w``, ``conv_b``), which it also
+  all-gathers over ``model``: their contiguous shards do not line up
+  with the SSD heads a rank runs;
 * ``reshard_grads`` first sums over ``model`` the gradients of the
   leaves every model rank holds whole but gets only in part
-  (``models.model.tp_partial_leaves``), then mean-reduce-scatters every
+  (``models.model.tp_partial_leaves``) and reduce-scatters over
+  ``model`` those of the fused leaves onto their contiguous shards (the
+  ranks' partial ``B`` and ``C`` gradients summed, the zeros outside
+  each rank's columns dropped), then mean-reduce-scatters every
   gradient onto its FSDP shard, summed in fp32: over each batch axis,
   major first, an all-to-all of the blocks (the first in the gradient's
   own dtype, then the fp32 partial sums) and a local sum (gloo has no
@@ -33,15 +40,18 @@ the global batch and the global tree: the loss's batch statistics
 denominator, the MoE aux's two means), the forward's tensor-parallel
 context (``core.distributed.model_parallel``: the vocab-parallel embedding
 and cross-entropy, column- and row-parallel projections, the experts
-split over ``model``) and the clip's global norm.  Collectives on card
+split over ``model``, the Mamba2 mixer's heads split over it) and the
+clip's global norm.  Collectives on card
 tensors under a backend other than NCCL go through pinned host copies
 (``core.distributed._Axis``).
 
 The layout takes any mesh: the dry run plans the hooks' bytes on the
 production meshes from it.  On a mesh whose ``model`` axis is larger
 than 1 the step runs for what a CPU case holds against the reference
-(the dense GQA stablelm-1.6b and the MoE + MLA deepseek-v2-lite-16b);
-any arch with a feature no case holds, or a layout the step lacks,
+(the dense GQA stablelm-1.6b, the MoE + MLA deepseek-v2-lite-16b, the
+Mamba2 stack mamba2-370m and zamba2-7b's hybrid of Mamba2 layers and a
+shared attention block); any arch with a feature no case holds, or a
+layout the step lacks (SSD heads that do not divide over ``model``),
 raises a ``ValueError`` that names what is missing (``tp_refusal``: the
 hooks, ``init_state``, ``local_batch`` and ``build_train_step``).
 """
@@ -64,8 +74,9 @@ Tree = Dict[str, torch.Tensor]
 def _tp_unheld(cfg: ModelConfig) -> list:
     """The features of ``cfg`` that no CPU case holds tensor-parallel
     against the reference.  ``tests/_torch_train_tp_cases.py`` holds a
-    dense GQA stack (RoPE, SwiGLU, token ids in, untied head) and an MoE
-    stack with shared experts under full-rank-Q MLA."""
+    dense GQA stack (RoPE, SwiGLU, token ids in, untied head), an MoE
+    stack with shared experts under full-rank-Q MLA, a Mamba2 stack and
+    a hybrid of Mamba2 layers and a weight-shared GQA + SwiGLU block."""
     out = []
     if cfg.sliding_window:
         out.append(f"a sliding window ({cfg.sliding_window} tokens)")
@@ -96,9 +107,10 @@ def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
         return None
     why = []
     if cfg.family in ("ssm", "hybrid"):
-        why.append("the 'ssm' axis: no tensor-parallel Mamba2 mixer "
-                   "(in_proj, the conv channels and out_proj split over "
-                   "'model')")
+        heads = cfg.ssm.n_heads(cfg.d_model)    # d_inner = heads x P
+        if heads % tp:
+            why.append(f"SSD heads that divide over model = {tp} (the "
+                       f"Mamba2 mixer splits its {heads} heads)")
     if cfg.n_codebooks > 1:
         why.append(f"the ({cfg.n_codebooks}, d, V) codebook heads: no "
                    "vocab-parallel codebook loss")
@@ -113,8 +125,8 @@ def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     dims = rules.tp_dims(defs, mesh)
     whole = sorted(k for k, d in defs.items()
                    if dims[k] is None and set(d.axes) & {"vocab", "mlp",
-                                                         "qkv", "expert"}
-                   and not set(d.axes) & {"ssm"})
+                                                         "qkv", "expert",
+                                                         "ssm"})
     if whole:
         why.append(f"a tensor-parallel dim that does not divide over "
                    f"model = {tp}: {', '.join(whole)} held whole")
@@ -137,7 +149,8 @@ class FsdpLayout:
     when a collective runs."""
 
     def __init__(self, cfg: ModelConfig, mesh):
-        from repro_torch.models.model import model_defs, tp_partial_leaves
+        from repro_torch.models.model import (model_defs, tp_partial_leaves,
+                                              tp_whole_leaves)
 
         sizes = axis_sizes(mesh)
         self.model = sizes.get("model", 1)
@@ -161,6 +174,11 @@ class FsdpLayout:
             self.dims[k] = dims[0] if dims else None
         self.tp_dims = rules.tp_dims(self.defs, mesh)
         self.partial = (tp_partial_leaves(cfg) if self.model > 1 else ())
+        # The leaves whose tensor-parallel copy is whole over 'model'
+        # (their state stays split over it).
+        self.whole = tuple(k for k in tp_whole_leaves(cfg)
+                           if self.tp_dims[k] is not None) \
+            if self.model > 1 else ()
         self.refusal = tp_refusal(cfg, mesh)
         self._axes = {}
 
@@ -202,16 +220,25 @@ class FsdpLayout:
 
     # -- the hooks ---------------------------------------------------------
     def gather(self, k: str, local: torch.Tensor) -> torch.Tensor:
-        """Leaf ``k``'s tensor-parallel shard (the whole leaf where
+        """Leaf ``k``'s copy the forward reads (the whole leaf where
         ``model`` is 1) from this rank's FSDP shard: its
-        ``NamedSharding``'s all-gather over the batch axes."""
-        d = self.dims[k]
-        if d is None:
-            return local
+        ``NamedSharding``'s all-gather over the batch axes, and for the
+        leaves of ``self.whole`` an all-gather over ``model``
+        (``ssm_fused``)."""
         if local.is_meta:
-            return torch.empty(self.tp[k].shard_shape(self.defs[k].shape),
-                               dtype=local.dtype, device="meta")
-        return self.shardings[k].gather(local, axes=self.axes)
+            shape = self.defs[k].shape if k in self.whole \
+                else self.tp[k].shard_shape(self.defs[k].shape)
+            return torch.empty(shape, dtype=local.dtype, device="meta")
+        out = local
+        if self.dims[k] is not None:
+            out = self.shardings[k].gather(local, axes=self.axes)
+        if k in self.whole:
+            from repro_torch.core.distributed import count_tp_bytes
+
+            count_tp_bytes("ssm_fused", out)
+            out = self._axis("model", out.device).gather(out.contiguous(),
+                                                         self.tp_dims[k])
+        return out
 
     def reduce_scatter(self, k: str, full: torch.Tensor) -> torch.Tensor:
         """The fp32 mean over the batch ranks of gradient ``k`` (of the
@@ -240,13 +267,19 @@ class FsdpLayout:
 
     def reshard_grads(self, tree: Tree) -> Tree:
         self.require_runnable()
-        from repro_torch.core.distributed import model_sum
+        from repro_torch.core.distributed import count_tp_bytes, model_sum
 
         out = {}
         with self.model_parallel():
             for k, g in tree.items():
                 if k in self.partial and not g.is_meta:
                     g = model_sum(g, "grads").to(g.dtype)
+                elif k in self.whole and not g.is_meta:
+                    # the ranks' partial gradients of the whole leaf summed
+                    # onto this rank's 'model' shard
+                    count_tp_bytes("ssm_fused", g)
+                    g = self._axis("model", g.device).reduce_scatter(
+                        g.contiguous(), self.tp_dims[k])
                 out[k] = self.reduce_scatter(k, g)
         return out
 
@@ -331,32 +364,77 @@ class FsdpLayout:
     def tp_wire_plan(self, seq_len: int, rows: int,
                      microbatches: int = 1) -> Dict[str, int]:
         """The bytes each site of this rank's tensor-parallel step hands
-        to the ``model`` axis's all-reduces
-        (``core.distributed.tp_wire_bytes``), one step of
-        ``microbatches`` microbatches over the rank's ``rows`` sequences
-        of ``seq_len`` tokens; the clip's ``norm`` site (two fp32
-        scalars) aside.  A microbatch of T tokens: ``embed`` one (T, d)
-        fp32 lookup; ``row`` each layer's attention output once a forward
-        (twice with remat) and its FFN's once (a remat recompute stops
-        after the FFN's last GEMM, before its sum); ``col`` one input
-        gradient a region (each layer's attention and FFN, the head);
-        ``loss`` three (T,) statistics; ``route`` the (T, top_k) routing
-        weights' gradient a MoE layer; ``grads`` the
-        ``models.model.tp_partial_leaves`` in fp32.  Empty where
-        ``model`` is 1."""
+        to the ``model`` axis (``core.distributed.tp_wire_bytes``), one
+        step of ``microbatches`` microbatches over the rank's ``rows``
+        sequences of ``seq_len`` tokens; the clip's ``norm`` site (two
+        fp32 scalars) aside.  A microbatch of T tokens: ``embed`` one
+        (T, d) fp32 lookup; ``row`` each layer's attention output once a
+        forward (twice with remat) and its FFN's once (a remat recompute
+        stops after the FFN's last GEMM, before its sum), a Mamba2 layer's
+        out_proj once (a hybrid's twice with remat: the segment's
+        recompute runs it whole, but for a partial last segment's last
+        layer) and a shared-block application as a transformer layer;
+        ``col`` one input gradient a region (each layer's attention and
+        FFN or Mamba2 mixer, each shared-block application's attention and
+        FFN, the head); ``loss`` three (T,) statistics; ``route`` the
+        (T, top_k) routing weights' gradient a MoE layer; ``ssm_norm`` a
+        (T,) statistic each forward of a Mamba2 layer (``_mamba_forwards``)
+        and one in its backward; ``grads`` the
+        ``models.model.tp_partial_leaves`` in fp32; ``ssm_fused`` the
+        leaves of ``self.whole`` in the cast dtype: this rank's shard once
+        a step (the all-gather) and the whole gradient a microbatch (the
+        reduce-scatter).  Empty where ``model`` is 1."""
         if self.model == 1:
             return {}
         cfg = self.cfg
         tokens = rows // microbatches * seq_len
         n, act = cfg.n_layers, tokens * cfg.d_model * 4
         fwd = 2 if cfg.remat else 1
-        out = {"embed": act, "row": n * (fwd + 1) * act,
-               "col": (2 * n + 1) * act, "loss": 3 * tokens * 4,
+        out = {"embed": act, "loss": 3 * tokens * 4,
                "grads": sum(math.prod(self.tp[k].shard_shape(
                    self.defs[k].shape)) * 4 for k in self.partial)}
+        if cfg.family in ("ssm", "hybrid"):
+            from repro_torch.models.model import n_shared_applications
+
+            apps = n_shared_applications(cfg)
+            forwards = self._mamba_forwards()
+            rows_m = sum(f - 1 if cfg.remat and cfg.shared_attn_every
+                         else 1 for f in forwards)
+            out.update(row=(rows_m + apps * (fwd + 1)) * act,
+                       col=(n + 2 * apps + 1) * act,
+                       ssm_norm=sum(f + 1 for f in forwards) * tokens * 4)
+            out["ssm_fused"] = sum(math.prod(self.defs[k].shape)
+                                   * self._cast_size(k) for k in self.whole)
+        else:
+            out.update(row=n * (fwd + 1) * act, col=(2 * n + 1) * act)
         if cfg.moe is not None and cfg.moe.n_experts:
             out["route"] = n * tokens * cfg.moe.top_k * 4
-        return {k: v * microbatches for k, v in out.items()}
+        out = {k: v * microbatches for k, v in out.items()}
+        if self.whole:
+            out["ssm_fused"] += sum(
+                math.prod(self.tp[k].shard_shape(self.defs[k].shape))
+                * self._cast_size(k) for k in self.whole)
+        return out
+
+    def _mamba_forwards(self) -> list:
+        """How many times each Mamba2 layer's forward runs in a step: once,
+        twice with remat, and in a hybrid (a checkpoint a segment around
+        the layers' own) three times, but twice for a partial last
+        segment's last layer, which feeds no checkpoint inside the segment
+        (its recompute stops before it)."""
+        cfg = self.cfg
+        n, e = cfg.n_layers, cfg.shared_attn_every
+        if not cfg.remat:
+            return [1] * n
+        if not e:
+            return [2] * n
+        return [2 if (i == n - 1 and n % e) else 3 for i in range(n)]
+
+    def _cast_size(self, k: str) -> int:
+        """The itemsize of leaf ``k`` in the step's cast copy
+        (``train.step.cast_params``)."""
+        return self.cfg.dtype().itemsize if len(self.defs[k].shape) >= 2 \
+            else 4
 
     # -- the plan ----------------------------------------------------------
     def step_bytes(self, microbatches: int = 1) -> Dict[str, float]:
@@ -368,20 +446,28 @@ class FsdpLayout:
         (n−1)/n of what is left of the leaf, the first axis in the cast
         dtype and the later ones in fp32; and the ring all-reduce of the
         leaves every rank holds whole, 2(n−1)/n of them in fp32 an
-        axis."""
+        axis.  The leaves of ``self.whole`` (a ``model`` axis of m ranks)
+        add (m−1)/m of the whole leaf to each: its all-gather over
+        ``model`` once a step and its gradient's reduce-scatter over
+        ``model`` a microbatch, both in the cast dtype; the batch axes'
+        reduce-scatter then sends fp32."""
         sizes = axis_sizes(self.mesh)
-        comp = self.cfg.dtype().itemsize
         frac = (self.ranks - 1) / self.ranks
         out = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
         for k, d in self.defs.items():
             n = math.prod(self.tp[k].shard_shape(d.shape))
-            cast = comp if len(d.shape) >= 2 else 4
+            cast = first = self._cast_size(k)
+            if k in self.whole:
+                model = (self.model - 1) * n * cast
+                out["all-gather"] += model
+                out["reduce-scatter"] += model
+                first = 4
             if self.dims[k] is None:
                 out["all-reduce"] += sum(2 * (sizes[a] - 1) / sizes[a]
                                          for a in self.axes) * n * 4
                 continue
             out["all-gather"] += frac * n * cast
-            left, size = n, cast
+            left, size = n, first
             for a in self.axes:
                 out["reduce-scatter"] += (sizes[a] - 1) / sizes[a] * left \
                     * size

@@ -245,30 +245,35 @@ def _port_fsdp(meshes):
 
 
 # The archs a mesh with model > 1 refuses to train (the tensor-parallel
-# step runs for stablelm-1.6b and deepseek-v2-lite-16b alone), each with
-# the words its refusal must name: what is missing, a layout the step
-# lacks or a feature no CPU case holds.
-TP_REFUSED = {"mamba2-370m": "'ssm' axis", "zamba2-7b": "'ssm' axis",
-              "musicgen-large": "codebook heads",
+# step runs for stablelm-1.6b, deepseek-v2-lite-16b, mamba2-370m and
+# zamba2-7b alone), each with the words its refusal must name: what is
+# missing, a layout the step lacks or a feature no CPU case holds; on
+# (data 2, model 2) but where TP_REFUSED_MESH names another mesh
+# (mamba2-370m's 32 SSD heads on a model axis of 3).
+TP_REFUSED = {"musicgen-large": "codebook heads",
               "granite-20b": "split heads",
               "h2o-danube-3-4b": "sliding window",
               "mixtral-8x7b": "experts beside GQA",
               "minicpm3-4b": "q-LoRA",
-              "qwen2-vl-72b": "M-RoPE"}
+              "qwen2-vl-72b": "M-RoPE",
+              "mamba2-370m": "SSD heads"}
+TP_REFUSED_MESH = {"mamba2-370m": (2, 3)}
 
 
 def _port_model_axis():
-    """On (data 2, model 2) the hooks of each arch the tensor-parallel
-    step leaves out build (the dry run plans with them) and refuse to
-    step: the step builder and the gradient hook raise, naming it."""
+    """On (data 2, model 2), or the arch's mesh of ``TP_REFUSED_MESH``,
+    the hooks of each arch the tensor-parallel step leaves out build (the
+    dry run plans with them) and refuse to step: the step builder and the
+    gradient hook raise, naming it."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.train import fsdp
     from repro_torch.train import step as T
 
-    mesh = abstract_mesh((2, 2), ("data", "model"))
     out = {}
     for arch in TP_REFUSED:
+        mesh = abstract_mesh(TP_REFUSED_MESH.get(arch, (2, 2)),
+                             ("data", "model"))
         cfg = get_config(arch)
         rp, rg = fsdp.weight_hoist(cfg, mesh)
         msgs = []

@@ -3,10 +3,11 @@ sides: the configurations, meshes and microbatch counts; the global
 batch, the starting masters and the optimizer are those of
 ``_torch_train_dist_cases.py``.
 
-``python tests/_torch_train_tp_cases.py OUT_DIR`` computes the
-reference's side (``repro``, 4 forced host devices) into ``OUT_DIR``:
-its single-device ``build_train_step`` on the whole batch for each arch
-and microbatch count (and the first gradient its AdamW took), and its own
+``python tests/_torch_train_tp_cases.py OUT_DIR ARCH`` computes the
+reference's side for ``ARCH`` (``repro``, 4 forced host devices) into
+``OUT_DIR/ref ARCH.npz`` (one process an arch, run side by side):
+its single-device ``build_train_step`` on the whole batch for each
+microbatch count (and the first gradient its AdamW took), and its own
 weight-hoisted GSPMD step, built as ``lower_cell`` builds it (its
 ``reshard_params`` / ``reshard_grads`` hooks, the FSDP state specs, the
 activation-sharding context) on a (data 2, model 2) CPU mesh and
@@ -28,14 +29,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import _torch_train_dist_cases as DC  # noqa: E402
 
-ARCHS = DC.ARCHS
+# the FSDP cases' archs and the Mamba2 families
+ARCHS = DC.ARCHS + ("mamba2-370m", "zamba2-7b")
 MICROBATCHES = DC.MICROBATCHES
 B, L, STEPS, OPT = DC.B, DC.L, DC.STEPS, DC.OPT
 WORLD = 4
 # (name, (data, model)) of the port's 4 ranks
 MESHES = {"data2xmodel2": (2, 2), "data1xmodel4": (1, 4)}
 CASES = [("stablelm-1.6b", "data2xmodel2"), ("stablelm-1.6b", "data1xmodel4"),
-         ("deepseek-v2-lite-16b", "data2xmodel2")]
+         ("deepseek-v2-lite-16b", "data2xmodel2"),
+         ("mamba2-370m", "data2xmodel2"), ("mamba2-370m", "data1xmodel4"),
+         ("zamba2-7b", "data2xmodel2")]
 GSPMD_MESH = "data2xmodel2"
 CKPT_CASE = ("stablelm-1.6b", GSPMD_MESH, 1)
 
@@ -53,22 +57,20 @@ batch = DC.batch
 # The reference's side (run as a script: it forces 4 host devices)
 # ---------------------------------------------------------------------------
 
-def _reference(out_dir):
+def _reference(out_dir, arch):
     import jax
 
     jax.devices()   # the backend up, before the dry run's flag is set
     out = {}
-    for arch in ARCHS:
-        for mb in MICROBATCHES:
-            out.update(_reference_single(arch, mb))
+    for mb in MICROBATCHES:
+        out.update(_reference_single(arch, mb))
     hlo = {}
-    for arch in ARCHS:
-        for mb in MICROBATCHES:
-            got, coll = _reference_gspmd(arch, mb)
-            out.update(got)
-            hlo[case_key(arch, mb, GSPMD_MESH)] = coll
+    for mb in MICROBATCHES:
+        got, coll = _reference_gspmd(arch, mb)
+        out.update(got)
+        hlo[case_key(arch, mb, GSPMD_MESH)] = coll
     out["gspmd collective bytes"] = np.array(json.dumps(hlo))
-    np.savez(os.path.join(out_dir, "ref.npz"), **out)
+    np.savez(os.path.join(out_dir, f"ref {arch}.npz"), **out)
 
 
 def _initial(arch):
@@ -182,6 +184,9 @@ def port_ranks(rank, world, ckpt_dir):
     import torch
 
     torch.manual_seed(0)
+    # two intra-op threads a rank: four ranks of the host's default each
+    # oversubscribe its cores several times over
+    torch.set_num_threads(2)
     meshes = _meshes()
     out = {"rank": rank}
     for arch, mesh_name in CASES:
@@ -289,4 +294,4 @@ if __name__ == "__main__":
     os.environ["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count="
                                f"{WORLD} " + os.environ.get("XLA_FLAGS", ""))
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    _reference(sys.argv[1])
+    _reference(sys.argv[1], sys.argv[2])

@@ -243,7 +243,8 @@ def test_fsdp_step_matches_the_reference(runs, single, arch, mesh, mb):
 
 def test_model_axis_above_one_refuses_to_step(runs):
     """Each arch the tensor-parallel step leaves out raises on (data 2,
-    model 2), naming itself and what is missing."""
+    model 2), and mamba2-370m on a model axis that does not divide its
+    SSD heads, naming itself and what is missing."""
     _, port = runs
     for arch, words in C.TP_REFUSED.items():
         for msg in port[0][f"model axis errors {arch}"]:
