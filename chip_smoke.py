@@ -289,7 +289,10 @@ Phases (any failure raises and the script exits non-zero):
    deepseek-v2-lite-16b (MLA, 64 experts, 32 a rank) at 1, mamba2-370m
    at 2 (16 SSD heads a rank) and zamba2-7b at 6 (one full group, one
    shared-block application), bf16 at microbatches 1 and 2 (the Mamba2
-   archs: 1) and fp32 at 1: loss and grad_norm
+   archs: 1) and fp32 at 1; h2o-danube-3-4b, minicpm3-4b and
+   musicgen-large at 2 layers, granite-20b (its one KV head read whole),
+   mixtral-8x7b (4 experts a rank) and qwen2-vl-72b at 1, bf16 at
+   microbatch 1 (granite and musicgen also fp32): loss and grad_norm
    within TOL_LOSS (TOL_F32 in fp32) of the single-process card step
    (stablelm's the FSDP part's), each leaf's first gradient within the
    larger of TOL_GRAD (TOL_F32) and twice its witness, each leaf's
@@ -299,8 +302,9 @@ Phases (any failure raises and the script exits non-zero):
    of forward and backward on K1: bf16 wgmma, fp32 SIMT), its
    ``model``-axis bytes by site equal to ``FsdpLayout.tp_wire_plan``
    (the dry run's planned bytes printed beside them), its walls
-   printed; K1 at stablelm's and mamba2's local shapes against its
-   plain version, timed beside the same layout's torch.matmul.  Any
+   printed; K1 at stablelm's, mamba2's and granite's local shapes
+   against its plain version, timed beside the same layout's
+   torch.matmul.  Any
    rank's failure fails the script.  ``python3 chip_smoke.py --only dist`` runs the
    card and K1's build and this phase alone, ``--only fsdp`` its FSDP
    part alone, ``--only tp [ARCH ...]`` its TP part alone, of the
@@ -320,6 +324,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -5231,12 +5236,14 @@ def _fsdp_cfg():
 
 
 def _fsdp_batch(cfg, step):
-    """Global batch ``step``: SyntheticLM tokens, a mask keeping all of
+    """Global batch ``step``: SyntheticLM tokens (an ``embeds``
+    frontend's rows from :class:`_EmbedRows`), a mask keeping all of
     rows 0-1, ~70 % of rows 2-3, 16 tokens of rows 4-5 and half of row 7,
     so the ranks' counts differ."""
     b = batch_for_model(cfg, DataConfig(
         vocab_size=cfg.vocab_size, seq_len=FSDP_SEQ,
-        global_batch=FSDP_BATCH, seed=0), step)
+        global_batch=FSDP_BATCH, seed=0), step,
+        table=None if cfg.frontend == "tokens" else _EmbedRows(cfg.d_model))
     rng = np.random.RandomState(step)
     mask = np.ones((FSDP_BATCH, FSDP_SEQ), np.float32)
     mask[2:4] = (rng.rand(2, FSDP_SEQ) > 0.3).astype(np.float32)
@@ -5244,6 +5251,25 @@ def _fsdp_batch(cfg, step):
     mask[7, FSDP_SEQ // 2:] = 0.0
     b["mask"] = mask
     return b
+
+
+class _EmbedRows:
+    """The embeds frontend's table for the FSDP x TP batches: the first
+    TABLE_ROWS rows of ``data.pipeline.embed_table``'s (its
+    ``RandomState(0)`` stream), a token's row at its id modulo TABLE_ROWS.
+    The whole table (qwen2-vl-72b's 152064 x 8192) takes tens of seconds
+    on the host, and each rank draws its batches itself."""
+
+    _rows = {}
+
+    def __init__(self, d):
+        if d not in self._rows:
+            self._rows[d] = (np.random.RandomState(0).randn(TABLE_ROWS, d)
+                             .astype(np.float32) * 0.02)
+        self.rows = self._rows[d]
+
+    def __getitem__(self, tokens):
+        return self.rows[tokens % TABLE_ROWS]
 
 
 def _digest(t):
@@ -5294,34 +5320,30 @@ PERTURB = 2.0 ** -20
 
 def _fsdp_single(cfg, dev, keep=None, tp=False, mbs=FSDP_MB):
     """The single-process card step on the whole batch, each microbatch
-    count of ``mbs`` (run by rank 0 alone): its metrics and its final
-    parameters, kept beside the starting masters, on the card or on
-    ``keep`` (the host, for a state too large to keep beside the
-    ranks').  Then the witness: the same step with the batch's rows
-    reversed (the same loss, every sum over rows in another order), each
-    leaf's squared distance from the first run.  With ``tp`` also each
-    run's first clipped gradient (its first moment over 1 - b1) and a
-    second witness, the step with its masters perturbed by ``PERTURB``:
-    each leaf's squared distance from the first run in its change
-    (``perturbed2``) and in its first gradient (``perturbed_grad2``,
-    beside the first run's squared norm, ``grad_norm2``)."""
+    count of ``mbs`` (run by rank 0 alone): its metrics, its final
+    parameters (on the card or on ``keep``: the host, for a state too
+    large to keep beside the ranks') and each leaf's squared change from
+    the starting masters (``chg2``).  Then the witness: the same step
+    with the batch's rows reversed (the same loss, every sum over rows
+    in another order), each leaf's squared distance from the first run.
+    With ``tp`` also each run's first clipped gradient (its first moment
+    over 1 - b1) and a second witness, the step with its masters
+    perturbed by ``PERTURB``: each leaf's squared distance from the
+    first run in its change (``perturbed2``) and in its first gradient
+    (``perturbed_grad2``, beside the first run's squared norm,
+    ``grad_norm2``).  The starting masters are drawn again on the card
+    where a distance needs them (:func:`_start_masters`), never kept."""
     keep = keep or dev
     b1 = adamw.AdamWConfig(**FSDP_OPT).b1
 
-    def kept(tree, copy=False):
-        return {k: v.to(keep, copy=copy) for k, v in tree.items()}
+    def kept(tree):
+        return {k: v.to(keep) for k, v in tree.items()}
 
     out = {}
     for mb in mbs + (("reversed", "perturbed") if tp else ("reversed",)):
         state = T.init_state(cfg, seed=0, device=dev)
         if mb == "perturbed":
-            gen = torch.Generator(device=dev).manual_seed(7)
-            for v in state.params.values():
-                v.mul_(1 + PERTURB * torch.randn(v.shape, generator=gen,
-                                                 device=dev))
-            start = {k: v.clone() for k, v in state.params.items()}
-        if "start" not in out:      # the step below donates the state
-            out["start"] = kept(state.params, copy=True)
+            _perturb_(state.params, dev)
         step_fn = T.build_train_step(
             cfg, adamw.AdamWConfig(**FSDP_OPT),
             microbatches=mb if mb in mbs else 1, donate=True)
@@ -5335,42 +5357,71 @@ def _fsdp_single(cfg, dev, keep=None, tp=False, mbs=FSDP_MB):
             if i == 0 and tp and mb in mbs:
                 out[f"grad0 {mb}"] = kept({k: v / (1 - b1) for k, v in
                                            state.opt.m.items()})
+            if i == 0 and tp and mb == mbs[0]:
+                out["grad_norm2"] = {k: _sq_norm([(1, v / (1 - b1))], dev)
+                                     for k, v in state.opt.m.items()}
             if i == 0 and mb == "perturbed":
                 g0 = out[f"grad0 {mbs[0]}"]
-                out["grad_norm2"], out["perturbed_grad2"] = {}, {}
-                for k, v in state.opt.m.items():
-                    want = g0[k].to(dev).double()
-                    out["grad_norm2"][k] = float((want ** 2).sum())
-                    out["perturbed_grad2"][k] = float(
-                        ((v / (1 - b1)).double() - want).pow(2).sum())
-                    del want
+                out["perturbed_grad2"] = {k: _sq_norm(
+                    [(1, v / (1 - b1)), (-1, g0[k])], dev)
+                    for k, v in state.opt.m.items()}
+        one = out[mbs[0]]["final"] if mb not in mbs else None
         if mb == "perturbed":
-            one, st = out[mbs[0]]["final"], out["start"]
-            out["perturbed2"] = {k: float((((state.params[k] - start[k])
-                                            - (one[k] - st[k]).to(dev))
-                                           .double() ** 2).sum())
-                                 for k in one}
-            del start
+            start = _start_masters(cfg, dev, perturbed=True)
+            st = _start_masters(cfg, dev)
+            out["perturbed2"] = {k: _sq_norm(
+                [(1, state.params[k]), (-1, start[k]), (-1, one[k]),
+                 (1, st[k])], dev) for k in one}
+            del start, st
+        elif mb == "reversed":
+            # the witness now, so that the reversed run's parameters are
+            # let go of before the next run
+            out["witness2"] = {k: _sq_norm(
+                [(1, state.params[k]), (-1, one[k])], dev) for k in one}
+            out["reversed_metrics"] = metrics
         else:
-            out[mb] = {"metrics": metrics, "final": (
-                state.params if mb == "reversed" else kept(state.params))}
+            st = _start_masters(cfg, dev)
+            out[mb] = {"metrics": metrics, "final": kept(state.params),
+                       "chg2": {k: _sq_norm([(1, v), (-1, st[k])], dev)
+                                for k, v in state.params.items()}}
+            del st
         del state, step_fn
         torch.cuda.empty_cache()
-    rev = out.pop("reversed")
-    one = out[mbs[0]]["final"]
-    out["witness2"] = {k: float(((rev["final"][k] - one[k].to(dev)).double()
-                                 ** 2).sum()) for k in one}
-    out["reversed_metrics"] = rev["metrics"]
     return out
 
 
-def _fsdp_changes(single, mb):
-    """Each leaf's squared change over the single-process step's steps
-    (on rank 0)."""
-    dev = torch.device("cuda", torch.cuda.current_device())
-    return {k: float(((fin.to(dev) - single["start"][k].to(dev)).double()
-                      ** 2).sum())
-            for k, fin in single[mb]["final"].items()}
+def _start_masters(cfg, dev, perturbed=False):
+    """The fp32 masters every single-process run starts from
+    (``train.step.init_state``'s, seed 0), drawn again on the card: as
+    quick as a copy kept on the host is to bring back (qwen2-vl-72b's
+    8.5 GB), and nothing held between; ``perturbed``: the perturbed
+    run's (:func:`_perturb_`)."""
+    params = M.init_params(cfg, 0, dev, masters=True)
+    if perturbed:
+        _perturb_(params, dev)
+    return params
+
+
+def _perturb_(params, dev):
+    """Each of the masters scaled in place by 1 + PERTURB · N(0, 1), from
+    one generator of seed 7 in the tree's order."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for v in params.values():
+        v.mul_(1 + PERTURB * torch.randn(v.shape, generator=gen,
+                                         device=dev))
+
+
+def _sq_norm(terms, dev, chunk=1 << 26):
+    """The fp64 sum of squares of ``sum(c * t for c, t in terms)`` (the
+    tensors of one shape, on the card or the host), summed over chunks of
+    ``chunk`` elements moved to ``dev``: a whole fp64 copy of qwen2-vl's
+    head (1.25 G elements) alone would take 10 GB of the card."""
+    flat = [(c, t.reshape(-1)) for c, t in terms]
+    total = 0.0
+    for lo in range(0, flat[0][1].numel(), chunk):
+        x = sum(c * t[lo:lo + chunk].to(dev).double() for c, t in flat)
+        total += float((x * x).sum())
+    return total
 
 
 def _fsdp_run(cfg, dev, layout, hooks, mb, group):
@@ -5398,7 +5449,8 @@ def _fsdp_run(cfg, dev, layout, hooks, mb, group):
                     K.launch_counts.items() if n != before.get(k, 0)}
         steps.append({"step": i + 1, "wall_ms": wall,
                       "metrics": {k: float(v) for k, v in m.items()},
-                      "local_tokens": int(b["tokens"].numel()),
+                      "local_tokens": int(b["labels"].shape[0]
+                                          * b["labels"].shape[1]),
                       "mask_tokens": float(b["mask"].sum()),
                       "launches": launches, "want": want,
                       "routes": route_delta(routes)})
@@ -5567,7 +5619,7 @@ def fsdp_rank(rank, world, dev, parts=("fsdp", "tp"), tp_archs=None):
                              single[mb]["final"] if rank == 0 else None)
             if rank == 0:
                 run["dist2"] = {k: d2 for k, (d2, _) in dist.items()}
-                run["chg2"] = _fsdp_changes(single, mb)
+                run["chg2"] = single[mb]["chg2"]
                 run["witness2"] = single["witness2"]
             out["runs"][f"{name} mb{mb}"] = run
             if name == "pod2xdata2" and mb == FSDP_MB[-1]:
@@ -5767,10 +5819,29 @@ def fsdp_kernel_records(outs, fsdp_seconds):
 # at 6 of its 81 (one full group: one shared-block application; 56 SSD
 # heads a rank).  Each in the compute dtype of its config (bf16) at
 # microbatches 1 and 2 (the Mamba2 archs: 1, for the smoke's time; the
-# CPU tests hold their microbatches), and in fp32 at microbatch 1.
+# CPU tests hold their microbatches), and in fp32 at microbatch 1.  Then
+# h2o-danube-3-4b (a window of 8192, past the 128 tokens), minicpm3-4b
+# (q-LoRA MLA, 20 heads a rank) and musicgen-large (the codebook heads
+# over embeds) at 2 layers; granite-20b (one KV head, read whole; a GELU
+# MLP), mixtral-8x7b (4 of its 8 experts a rank beside GQA: 1.71 B
+# parameters at one layer) and qwen2-vl-72b (M-RoPE over embeds; its
+# 1.25 B-parameter head: 2.12 B at one layer) at 1, the single-process
+# step's results kept on the host: bf16 at microbatch 1, and granite and
+# musicgen, which carry the whole KV head and the codebook heads'
+# input-gradient sum, fp32 at microbatch 1 too.
 TP_ARCHS = {ARCH: FSDP_LAYERS, "deepseek-v2-lite-16b": 1,
-            "mamba2-370m": 2, "zamba2-7b": 6}
+            "mamba2-370m": 2, "zamba2-7b": 6, "h2o-danube-3-4b": 2,
+            "minicpm3-4b": 2, "musicgen-large": 2, "granite-20b": 1,
+            "mixtral-8x7b": 1, "qwen2-vl-72b": 1}
 TP_MESH = (2, 2)
+# The single-process step's results (its start, finals and first
+# gradients) stay on the card for a configuration of at most this many
+# parameters (mixtral-8x7b at one layer, 1.72 G: 20.6 GB beside the four
+# ranks' 11 GB each), and on the host above it (qwen2-vl-72b at one
+# layer, 2.12 G: its ranks take 15.3 GB each), where each run moves
+# them over PCIe both ways (mixtral's, kept there: the single-process
+# steps 26.1 s and the checks 12.3 s of its 51.5 s on an H100).
+TP_REF_ON_CARD = 1.8e9
 # (dtype, microbatches) of each arch's runs.  The fp32 step holds the
 # layout to TOL_F32, where the bf16 steps' limits take witnesses: for
 # deepseek it is the one exact check of the MoE path (router and routing
@@ -5779,7 +5850,13 @@ TP_RUNS = {ARCH: [("bfloat16", 1), ("bfloat16", 2), ("float32", 1)],
            "deepseek-v2-lite-16b": [("bfloat16", 1), ("bfloat16", 2),
                                     ("float32", 1)],
            "mamba2-370m": [("bfloat16", 1), ("float32", 1)],
-           "zamba2-7b": [("bfloat16", 1), ("float32", 1)]}
+           "zamba2-7b": [("bfloat16", 1), ("float32", 1)],
+           "h2o-danube-3-4b": [("bfloat16", 1)],
+           "minicpm3-4b": [("bfloat16", 1)],
+           "musicgen-large": [("bfloat16", 1), ("float32", 1)],
+           "granite-20b": [("bfloat16", 1), ("float32", 1)],
+           "mixtral-8x7b": [("bfloat16", 1)],
+           "qwen2-vl-72b": [("bfloat16", 1)]}
 
 
 def tp_counts_per_step(cfg, tp):
@@ -5846,7 +5923,7 @@ def _sq_dists(lay, tree, want, scale=1.0):
                                   pin_memory=pinned)
                 tdist.send(buf.copy_(local), dst=first)
             continue
-        w = want[k].to(local.device) if want is not None else None
+        w = want[k] if want is not None else None    # the card or the host
         d2 = 0.0
         for sl, r in holder.items():
             blk = local
@@ -5856,10 +5933,10 @@ def _sq_dists(lay, tree, want, scale=1.0):
                 tdist.recv(buf, src=r)
                 blk = buf.to(local.device, non_blocking=True)
             if w is not None:
-                d2 += float(((blk - w[tuple(slice(a, b) for a, b in sl)])
-                             .double() ** 2).sum())
+                d2 += _sq_norm([(1, blk), (-1, w[tuple(
+                    slice(a, b) for a, b in sl)])], local.device)
         if w is not None:
-            out[k] = [d2, float((w.double() ** 2).sum())]
+            out[k] = [d2, _sq_norm([(1, w)], local.device)]
     return out
 
 
@@ -5899,7 +5976,8 @@ def _tp_run(cfg, dev, lay, hooks, mb, group, ref):
                     K.launch_counts.items() if n != before.get(k, 0)}
         steps.append({"step": i + 1, "wall_ms": wall,
                       "metrics": {k: float(v) for k, v in m.items()},
-                      "local_tokens": int(b["tokens"].numel()),
+                      "local_tokens": int(b["labels"].shape[0]
+                                          * b["labels"].shape[1]),
                       "mask_tokens": float(b["mask"].sum()),
                       "launches": launches, "want": want,
                       "routes": route_delta(routes),
@@ -5907,7 +5985,7 @@ def _tp_run(cfg, dev, lay, hooks, mb, group, ref):
                                D.tp_wire_bytes.items()
                                if v != wire.get(k, 0)},
                       "want_wire": lay.tp_wire_plan(
-                          FSDP_SEQ, int(b["tokens"].shape[0]), mb)})
+                          FSDP_SEQ, int(b["labels"].shape[0]), mb)})
         if i == 0:
             t0 = time.perf_counter()
             run["grad2"] = _sq_dists(lay, state.opt.m, ref and ref[
@@ -5938,6 +6016,14 @@ def tp_train_part(rank, dev, mesh, box, group, archs):
     from repro_torch.train import fsdp
 
     t_start = time.perf_counter()
+    # Segments that grow in place: the single-process step of
+    # qwen2-vl-72b (its 1.25 G-parameter head's AdamW temporaries, 4.64
+    # GiB each) otherwise finds the card's free memory in blocks too
+    # small, beside the other seven ranks' contexts.
+    with warnings.catch_warnings():     # renamed, not yet gone
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:True")
     out = {"rank": rank, "archs": archs, "runs": {}, "single_s": {},
            "single": {}, "reversed": {}}
     for name in archs:
@@ -5951,7 +6037,10 @@ def tp_train_part(rank, dev, mesh, box, group, archs):
                 ref = box.pop()
             else:
                 t0 = time.perf_counter()
-                ref = (_fsdp_single(cfg, dev, "cpu", tp=True, mbs=mbs)
+                on_card = sum(math.prod(d.shape) for d in M.model_defs(
+                    cfg).values()) <= TP_REF_ON_CARD
+                ref = (_fsdp_single(cfg, dev, None if on_card else "cpu",
+                                    tp=True, mbs=mbs)
                        if rank == 0 else None)
                 out["single_s"][key] = time.perf_counter() - t0
                 tdist.barrier(group=group)
@@ -5960,17 +6049,20 @@ def tp_train_part(rank, dev, mesh, box, group, archs):
                 out["reversed"][key] = ref["reversed_metrics"]
             hooks = fsdp.weight_hoist(cfg, mesh)
             lay = hooks[0].layout
+            t0 = time.perf_counter()
             for mb in mbs:
                 run = _tp_run(cfg, dev, lay, hooks, mb, group, ref)
                 if rank == 0:
-                    run["chg2"] = {k: float(((ref[mb]["final"][k].to(dev)
-                                              - ref["start"][k].to(dev))
-                                             .double() ** 2).sum())
-                                   for k in ref["start"]}
+                    run["chg2"] = ref[mb]["chg2"]
                     for w in ("witness2", "perturbed2", "grad_norm2",
                               "perturbed_grad2"):
                         run[w] = ref[w]
                 out["runs"][f"{key} mb{mb}"] = run
+            if rank == 0:
+                print(f"tp {key}: the single-process steps "
+                      f"{out['single_s'].get(key, 0.0):.1f} s, the TP runs "
+                      f"{time.perf_counter() - t0:.1f} s (at "
+                      f"{time.perf_counter() - t_start:.1f} s)", flush=True)
             del ref
             torch.cuda.empty_cache()
             tdist.barrier(group=group)
@@ -6131,10 +6223,11 @@ def print_tp(outs, card_line):
     return summary
 
 
-# (key, GEMM, m, n, k, out dtype) of K1 at stablelm-1.6b's and
-# mamba2-370m's local shapes on (data 2, model 2): 4 x 128 tokens a rank,
-# n or k halved; mamba2's in_proj on its 16 heads' columns (z and x 1024
-# each, B and C 256, dt 16).
+# (key, GEMM, m, n, k, out dtype) of K1 at stablelm-1.6b's,
+# mamba2-370m's and granite-20b's local shapes on (data 2, model 2): 4 x
+# 128 tokens a rank, n or k halved; mamba2's in_proj on its 16 heads'
+# columns (z and x 1024 each, B and C 256, dt 16); granite's GELU w_up
+# with its rms prologue and saved preacts, and its row-parallel w_down.
 TP_K1_GEMMS = [
     ("none", "tp wq fwd", 512, 1024, 2048, None),
     ("none nt", "tp wq dx", 512, 2048, 1024, torch.float32),
@@ -6147,6 +6240,9 @@ TP_K1_GEMMS = [
     ("none nt", "tp mamba2 in_proj dx", 512, 1024, 2320, torch.float32),
     ("none tn", "tp mamba2 in_proj dW", 1024, 2320, 512, None),
     ("none", "tp mamba2 out_proj row-parallel", 512, 1024, 1024,
+     torch.float32),
+    (GELU_SAVE, "tp granite w_up fwd", 512, 12288, 6144, None),
+    ("none", "tp granite w_down row-parallel", 512, 6144, 12288,
      torch.float32)]
 
 
@@ -6154,44 +6250,68 @@ def tp_kernel_records(outs, tp_seconds):
     """K1 at the tensor-parallel local shapes against its plain version
     and timed (kernel, plain version, the same layout's torch.matmul,
     bound); the kernels line's records are the row-parallel w_down's,
-    its launches rank 0's ``none`` launches over its bf16 runs, and
+    its launches rank 0's ``none`` launches over its bf16 runs;
     mamba2-370m's local in_proj's, its launches rank 0's ``none``
     launches over mamba2-370m's bf16 runs (in_proj, out_proj and the
-    head)."""
+    head); and granite-20b's local GELU w_up with its saved preacts and
+    its row-parallel w_down, their launches rank 0's ``rms>gelu``
+    save_preact and ``none`` launches over granite's bf16 runs (the
+    latter also its q, k, v, o and head)."""
     cases = [(key, name, m, n, k, od, torch.bfloat16)
              for key, name, m, n, k, od in TP_K1_GEMMS]
     worst = k1f_parity(cases, "the tensor-parallel local shapes", 16)
     rows = k1f_times(TP_K1_GEMMS, "K1 at the tensor-parallel local shapes")
     t0 = next(o["fsdp"]["tp"] for o in outs if o.get("fsdp"))
-    launches = sum(s["launches"].get("none", 0)
-                   for key, run in t0["runs"].items() if "bfloat16" in key
+
+    def launches(key, arch=None):
+        return sum(s["launches"].get(key, 0)
+                   for run_key, run in t0["runs"].items()
+                   if "bfloat16" in run_key
+                   and (arch is None or run_key.startswith(arch + " "))
                    for s in run["steps"])
-    row = next(r for r in rows if r["gemm"] == "tp w_down row-parallel")
-    mrow = next(r for r in rows if r["gemm"] == "tp mamba2 in_proj fwd")
-    mamba = sum(s["launches"].get("none", 0)
-                for key, run in t0["runs"].items()
-                if key.startswith("mamba2-370m bfloat16")
-                for s in run["steps"])
-    return [{
-        "name": "ca_gemm_program[none] tp row-parallel", "route": "cuda",
-        "source": SOURCE, "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(worst.values()), "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "k1_route": "wgmma", "matmul_bf16_out_ms": row["matmul_ms"],
-        "shape": f"w_down m={row['m']} n={row['n']} k={row['k']} bf16, "
-                 f"fp32 out (rank 0 of (data 2, model 2); the part "
-                 f"{tp_seconds:.1f} s)"}] + ([{
-        "name": "ca_gemm_program[none] tp mamba2 in_proj", "route": "cuda",
-        "source": SOURCE, "replaces": REPLACES, "launches": mamba,
-        "max_abs_err": max(worst.values()), "ms": mrow["ms"],
-        "plain_ms": mrow["plain_ms"], "bound_ms": mrow["bound_ms"],
+
+    def record(name, gemm, n_launches, shape, library="library_ms",
+               extra=None):
+        row = next(r for r in rows if r["gemm"] == gemm)
+        return dict({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": n_launches,
+            "max_abs_err": max(worst.values()), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row[library],
+            "k1_route": "wgmma",
+            "shape": shape.format(**row)}, **(extra or {}))
+
+    out = [record(
+        "ca_gemm_program[none] tp row-parallel", "tp w_down row-parallel",
+        launches("none"),
+        "w_down m={m} n={n} k={k} bf16, fp32 out (rank 0 of (data 2, "
+        f"model 2); the part {tp_seconds:.1f} s)",
+        extra={"matmul_bf16_out_ms": next(
+            r for r in rows if r["gemm"] == "tp w_down row-parallel")[
+                "matmul_ms"]})]
+    mamba = launches("none", "mamba2-370m")
+    if mamba:
         # torch.matmul of the same bf16 operands, bf16 out: the function
-        "bound_by": mrow["bound_by"], "library_ms": mrow["matmul_ms"],
-        "k1_route": "wgmma",
-        "shape": f"in_proj m={mrow['m']} n={mrow['n']} k={mrow['k']} bf16 "
-                 "(16 heads' z, x, dt columns and B, C whole; rank 0 of "
-                 "(data 2, model 2))"}] if mamba else [])
+        out.append(record(
+            "ca_gemm_program[none] tp mamba2 in_proj",
+            "tp mamba2 in_proj fwd", mamba,
+            "in_proj m={m} n={n} k={k} bf16 (16 heads' z, x, dt columns "
+            "and B, C whole; rank 0 of (data 2, model 2))",
+            library="matmul_ms"))
+    granite = launches(GELU_SAVE, "granite-20b")
+    if granite:
+        out += [record(
+            f"ca_gemm_program[{GELU_SAVE}] tp granite w_up",
+            "tp granite w_up fwd", granite,
+            "w_up m={m} n={n} k={k} bf16, the rms prologue, GELU and the "
+            "fp32 preacts saved (rank 0 of (data 2, model 2))"), record(
+            "ca_gemm_program[none] tp granite row-parallel",
+            "tp granite w_down row-parallel",
+            launches("none", "granite-20b"),
+            "w_down m={m} n={n} k={k} bf16, fp32 out (rank 0 of (data 2, "
+            "model 2))")]
+    return out
 
 
 def main(argv=None):

@@ -1,7 +1,8 @@
 """Granite-20B code [arXiv:2405.04324; hf] — llama-arch with MQA (kv=1).
 
-52 layers, d_model=6144, 48 heads, single KV head (replicated over the
-model axis), d_ff=24576 with GELU MLP (GPT-BigCode lineage).
+52 layers, d_model=6144, 48 heads, single KV head (its state sharded
+over the model axis like any 'qkv' leaf; a tensor-parallel step reads
+its copy whole), d_ff=24576 with GELU MLP (GPT-BigCode lineage).
 Full attention: long_500k skipped.
 """
 import dataclasses

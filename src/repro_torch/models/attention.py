@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch import kvcache as kvc
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.distributed import copy_to_model, model_parallel_size
+from repro_torch.core.distributed import (copy_to_model, model_index,
+                                          model_parallel_size)
 from repro_torch.core.gemm import ca_matmul
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.flash_attn import attention_mask, chunked_attention
@@ -162,6 +163,17 @@ def gqa_defs(cfg: ModelConfig, depth_scale: float = 1.0) -> Defs:
     }
 
 
+def kv_whole(cfg: ModelConfig, tp: int) -> bool:
+    """Whether a tensor-parallel step over ``tp`` ranks reads the GQA KV
+    projections whole: where ``model`` splits the KV heads (fewer of
+    them than ranks, granite-20b's one head on 2 or 4) and each rank's
+    query heads read one KV head (``tp`` a multiple of the KV heads, the
+    query heads dividing over ``tp``).  Where the KV heads divide over
+    ``tp`` the projections stay column-parallel."""
+    return (cfg.attn_kind == "gqa" and tp > 1 and cfg.n_kv_heads % tp != 0
+            and tp % cfg.n_kv_heads == 0 and cfg.n_heads % tp == 0)
+
+
 def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
               step: Optional[int] = None, mode: str = "train",
               max_len: Optional[int] = None, residual=None):
@@ -177,10 +189,18 @@ def gqa_apply(p, x, cfg: ModelConfig, *, positions, cache=None,
     Dh = cfg.resolved_head_dim
     # the heads this rank holds: all of them, or its tensor-parallel slice
     H, Kv = p["wq"].shape[-1] // Dh, p["wk"].shape[-1] // Dh
+    wk, wv = p["wk"], p["wv"]
+    if kv_whole(cfg, model_parallel_size()):
+        # wk and wv read whole (``train.fsdp``): the KV head of this
+        # rank's query heads, the only one they read
+        lo = model_index() * H // (cfg.n_heads // cfg.n_kv_heads) * Dh
+        if Kv > 1:
+            wk, wv = (w[..., lo:lo + Dh].contiguous() for w in (wk, wv))
+        Kv = 1
     x = copy_to_model(x)
     q = ca_matmul(x, p["wq"]).reshape(B, L, H, Dh)
-    k = ca_matmul(x, p["wk"]).reshape(B, L, Kv, Dh)
-    v = ca_matmul(x, p["wv"]).reshape(B, L, Kv, Dh)
+    k = ca_matmul(x, wk).reshape(B, L, Kv, Dh)
+    v = ca_matmul(x, wv).reshape(B, L, Kv, Dh)
     sections = cfg.mrope_sections if cfg.rope_kind == "mrope" else None
     q = cm.apply_rope(q, positions, cfg.rope_theta, sections)
     k = cm.apply_rope(k, positions, cfg.rope_theta, sections)

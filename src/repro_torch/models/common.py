@@ -343,10 +343,12 @@ def unembed_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     included); musicgen's ``n_heads`` codebook heads (``(n_heads, d, V)``
     -> ``(B, L, n_heads, V)``) as the reference computes them, an einsum
     of the compute-dtype operands accumulated in fp32.  Tensor-parallel,
-    the head is column-parallel: this rank's ``vocab`` columns of the
-    logits (``models.model.lm_loss`` takes them so)."""
+    each head is column-parallel: this rank's ``vocab`` columns of the
+    logits (``models.model.lm_loss`` takes them so), ``x`` past
+    ``copy_to_model``, so its gradient sums the ranks' parts."""
+    x = copy_to_model(x)
     if n_heads == 1:
-        return ca_matmul(copy_to_model(x), p["w"], out_dtype=torch.float32)
+        return ca_matmul(x, p["w"], out_dtype=torch.float32)
     return torch.einsum("bld,hdv->blhv", x.float(), p["w"].float())
 
 

@@ -524,16 +524,22 @@ def tp_partial_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(k for k in names if k in defs)
 
 
-def tp_whole_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The leaves whose state a tensor-parallel step keeps split over
-    ``model`` but whose copy each rank's forward reads whole: the Mamba2
-    mixer's fused ``[z | x | B | C | dt]`` columns and ``[x | B | C]``
-    conv channels, whose contiguous shards do not line up with SSD heads
-    (each rank reads its heads' columns and ``B`` and ``C``,
-    ``models.ssm.tp_columns``)."""
+def tp_whole_leaves(cfg: ModelConfig, tp: int = 1) -> Tuple[str, ...]:
+    """The leaves whose state a tensor-parallel step over ``tp`` ranks
+    keeps split over ``model`` but whose copy each rank's forward reads
+    whole: the Mamba2 mixer's fused ``[z | x | B | C | dt]`` columns and
+    ``[x | B | C]`` conv channels, whose contiguous shards do not line up
+    with SSD heads (each rank reads its heads' columns and ``B`` and
+    ``C``, ``models.ssm.tp_columns``); and the GQA KV projections where
+    ``model`` splits a KV head (``models.attention.kv_whole``: each rank
+    reads the KV head of its query heads)."""
     defs = model_defs(cfg)
-    return tuple(k for k in ("blocks/mixer/in_proj", "blocks/mixer/conv_w",
-                             "blocks/mixer/conv_b") if k in defs)
+    names = ["blocks/mixer/in_proj", "blocks/mixer/conv_w",
+             "blocks/mixer/conv_b"]
+    if attn.kv_whole(cfg, tp):
+        names += [f"{p}/attn/{w}" for p in ("blocks", "shared")
+                  for w in ("wk", "wv")]
+    return tuple(k for k in names if k in defs)
 
 
 def prefill(params, batch_in, cfg: ModelConfig,

@@ -16,16 +16,18 @@ the weights, and the hooks move the bytes themselves:
 
 * ``reshard_params`` all-gathers every leaf over the batch axes only:
   each leaf keeps its ``model`` shard (the reference's ``tp_specs``),
-  but for the Mamba2 mixer's fused leaves (``models.model.
-  tp_whole_leaves``: ``in_proj``, ``conv_w``, ``conv_b``), which it also
-  all-gathers over ``model``: their contiguous shards do not line up
-  with the SSD heads a rank runs;
+  but for the leaves of ``models.model.tp_whole_leaves``, which it also
+  all-gathers over ``model``: the Mamba2 mixer's fused ``in_proj``,
+  ``conv_w`` and ``conv_b``, whose contiguous shards do not line up
+  with the SSD heads a rank runs, and the KV projections ``wk`` and
+  ``wv`` where ``model`` splits a KV head (granite-20b's one head),
+  whose shard is part of the head a rank's query heads read;
 * ``reshard_grads`` first sums over ``model`` the gradients of the
   leaves every model rank holds whole but gets only in part
   (``models.model.tp_partial_leaves``) and reduce-scatters over
-  ``model`` those of the fused leaves onto their contiguous shards (the
-  ranks' partial ``B`` and ``C`` gradients summed, the zeros outside
-  each rank's columns dropped), then mean-reduce-scatters every
+  ``model`` those of the whole-read leaves onto their contiguous shards
+  (the ranks' partial ``B`` and ``C`` or KV gradients summed, the zeros
+  outside each rank's columns dropped), then mean-reduce-scatters every
   gradient onto its FSDP shard, summed in fp32: over each batch axis,
   major first, an all-to-all of the blocks (the first in the gradient's
   own dtype, then the fp32 partial sums) and a local sum (gloo has no
@@ -47,13 +49,20 @@ tensors under a backend other than NCCL go through pinned host copies
 
 The layout takes any mesh: the dry run plans the hooks' bytes on the
 production meshes from it.  On a mesh whose ``model`` axis is larger
-than 1 the step runs for what a CPU case holds against the reference
-(the dense GQA stablelm-1.6b, the MoE + MLA deepseek-v2-lite-16b, the
+than 1 the step runs every arch of ``configs.list_archs()`` that a CPU
+case holds against the reference: the dense GQA stacks (stablelm-1.6b;
+h2o-danube-3-4b with its sliding window; granite-20b's one KV head,
+whose projections the step reads whole over ``model``, and its GELU
+MLP), the MoE + MLA deepseek-v2-lite-16b, the q-LoRA MLA minicpm3-4b,
+mixtral-8x7b's experts beside GQA, qwen2-vl-72b's M-RoPE and
+musicgen-large's codebook heads over the ``embeds`` frontend, the
 Mamba2 stack mamba2-370m and zamba2-7b's hybrid of Mamba2 layers and a
-shared attention block); any arch with a feature no case holds, or a
-layout the step lacks (SSD heads that do not divide over ``model``),
-raises a ``ValueError`` that names what is missing (``tp_refusal``: the
-hooks, ``init_state``, ``local_batch`` and ``build_train_step``).
+shared attention block.  A layout the step lacks (SSD heads or query
+heads that do not divide over ``model``, KV heads split so that a
+rank's query heads straddle two of them, experts or tensor-parallel
+dims that do not divide) or a feature no case holds (tied embeddings)
+raises a ``ValueError`` that names what is missing (``tp_refusal``:
+the hooks, ``init_state``, ``local_batch`` and ``build_train_step``).
 """
 
 from __future__ import annotations
@@ -73,26 +82,21 @@ Tree = Dict[str, torch.Tensor]
 
 def _tp_unheld(cfg: ModelConfig) -> list:
     """The features of ``cfg`` that no CPU case holds tensor-parallel
-    against the reference.  ``tests/_torch_train_tp_cases.py`` holds a
-    dense GQA stack (RoPE, SwiGLU, token ids in, untied head), an MoE
-    stack with shared experts under full-rank-Q MLA, a Mamba2 stack and
-    a hybrid of Mamba2 layers and a weight-shared GQA + SwiGLU block."""
-    out = []
-    if cfg.sliding_window:
-        out.append(f"a sliding window ({cfg.sliding_window} tokens)")
-    if cfg.rope_kind != "rope":
-        out.append(f"{cfg.rope_kind.replace('mrope', 'M-RoPE')} positions")
-    if cfg.frontend != "tokens":
-        out.append(f"the '{cfg.frontend}' frontend")
-    if cfg.act != "silu":
-        out.append(f"a plain {cfg.act} MLP (not a GLU)")
-    if cfg.tie_embeddings:
-        out.append("tied embeddings")
-    if cfg.moe is not None and cfg.attn_kind != "mla":
-        out.append("experts beside GQA attention")
-    if cfg.mla is not None and cfg.mla.q_lora_rank:
-        out.append(f"q-LoRA (rank {cfg.mla.q_lora_rank})")
-    return out
+    against the reference.  ``tests/_torch_train_tp_cases.py`` holds
+    every arch of ``configs.list_archs()``: dense GQA stacks (RoPE,
+    SwiGLU or GELU, a sliding window, one KV head read whole), MoE
+    stacks beside full-rank-Q MLA and beside GQA, q-LoRA MLA, M-RoPE and
+    the codebook heads over the ``embeds`` frontend, a Mamba2 stack and
+    a hybrid of Mamba2 layers and a weight-shared attention block; none
+    ties its embeddings."""
+    return ["tied embeddings"] if cfg.tie_embeddings else []
+
+
+def whole_site(k: str) -> str:
+    """The ``core.distributed.tp_wire_bytes`` site of a leaf of
+    ``models.model.tp_whole_leaves``: ``ssm_fused`` the Mamba2 mixer's
+    fused leaves, ``kv_head`` the KV projections."""
+    return "ssm_fused" if "/mixer/" in k else "kv_head"
 
 
 def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
@@ -100,7 +104,7 @@ def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
     (``None`` where it does, or where ``model`` is 1): what is missing,
     named."""
     from repro_torch.models import attention as A
-    from repro_torch.models.model import model_defs
+    from repro_torch.models.model import model_defs, tp_whole_leaves
 
     tp = axis_sizes(mesh).get("model", 1)
     if tp == 1:
@@ -111,12 +115,11 @@ def tp_refusal(cfg: ModelConfig, mesh) -> Optional[str]:
         if heads % tp:
             why.append(f"SSD heads that divide over model = {tp} (the "
                        f"Mamba2 mixer splits its {heads} heads)")
-    if cfg.n_codebooks > 1:
-        why.append(f"the ({cfg.n_codebooks}, d, V) codebook heads: no "
-                   "vocab-parallel codebook loss")
     defs = model_defs(cfg)
     if cfg.family not in ("ssm",):
-        split = rules.split_heads(defs, mesh, A.qkv_head_widths(cfg))
+        whole = set(tp_whole_leaves(cfg, tp))
+        split = {k: v for k, v in rules.split_heads(
+            defs, mesh, A.qkv_head_widths(cfg)).items() if k not in whole}
         if split:
             why.append("split heads: the 'qkv' shard is not a whole number "
                        "of heads (" + "; ".join(
@@ -176,9 +179,8 @@ class FsdpLayout:
         self.partial = (tp_partial_leaves(cfg) if self.model > 1 else ())
         # The leaves whose tensor-parallel copy is whole over 'model'
         # (their state stays split over it).
-        self.whole = tuple(k for k in tp_whole_leaves(cfg)
-                           if self.tp_dims[k] is not None) \
-            if self.model > 1 else ()
+        self.whole = tuple(k for k in tp_whole_leaves(cfg, self.model)
+                           if self.tp_dims[k] is not None)
         self.refusal = tp_refusal(cfg, mesh)
         self._axes = {}
 
@@ -224,7 +226,7 @@ class FsdpLayout:
         ``model`` is 1) from this rank's FSDP shard: its
         ``NamedSharding``'s all-gather over the batch axes, and for the
         leaves of ``self.whole`` an all-gather over ``model``
-        (``ssm_fused``)."""
+        (:func:`whole_site`)."""
         if local.is_meta:
             shape = self.defs[k].shape if k in self.whole \
                 else self.tp[k].shard_shape(self.defs[k].shape)
@@ -235,7 +237,7 @@ class FsdpLayout:
         if k in self.whole:
             from repro_torch.core.distributed import count_tp_bytes
 
-            count_tp_bytes("ssm_fused", out)
+            count_tp_bytes(whole_site(k), out)
             out = self._axis("model", out.device).gather(out.contiguous(),
                                                          self.tp_dims[k])
         return out
@@ -277,7 +279,7 @@ class FsdpLayout:
                 elif k in self.whole and not g.is_meta:
                     # the ranks' partial gradients of the whole leaf summed
                     # onto this rank's 'model' shard
-                    count_tp_bytes("ssm_fused", g)
+                    count_tp_bytes(whole_site(k), g)
                     g = self._axis("model", g.device).reduce_scatter(
                         g.contiguous(), self.tp_dims[k])
                 out[k] = self.reduce_scatter(k, g)
@@ -350,7 +352,11 @@ class FsdpLayout:
     def local_batch(self, batch: Tree) -> Tree:
         """This rank's rows of a global batch, by the batch-axes split of
         ``launch.specs.train_inputs`` (the whole batch where it does not
-        divide): the model ranks of one batch group hold the same rows."""
+        divide): the model ranks of one batch group hold the same rows.
+        The stream (``tokens`` or ``embeds``), ``labels`` (a codebook
+        stream each) and ``mask`` take their specs; ``positions``, where
+        a batch carries them ((B, L), or (B, L, 3) with M-RoPE), split as
+        ``mask`` does."""
         from repro_torch.launch.specs import train_inputs
 
         self.require_runnable()
@@ -358,8 +364,10 @@ class FsdpLayout:
         shape = ShapeConfig("batch", int(ref.shape[1]), int(ref.shape[0]),
                             "train")
         _, shardings = train_inputs(self.cfg, shape, self.mesh)
-        return {k: shardings[k].local(v).contiguous()
-                for k, v in batch.items()}
+        rows = shardings["mask"].spec[0]
+        return {k: (shardings[k] if k in shardings else rules.NamedSharding(
+            self.mesh, (rows,) + (None,) * (v.dim() - 1))).local(v)
+            .contiguous() for k, v in batch.items()}
 
     def tp_wire_plan(self, seq_len: int, rows: int,
                      microbatches: int = 1) -> Dict[str, int]:
@@ -368,29 +376,32 @@ class FsdpLayout:
         step of ``microbatches`` microbatches over the rank's ``rows``
         sequences of ``seq_len`` tokens; the clip's ``norm`` site (two
         fp32 scalars) aside.  A microbatch of T tokens: ``embed`` one
-        (T, d) fp32 lookup; ``row`` each layer's attention output once a
-        forward (twice with remat) and its FFN's once (a remat recompute
-        stops after the FFN's last GEMM, before its sum), a Mamba2 layer's
-        out_proj once (a hybrid's twice with remat: the segment's
-        recompute runs it whole, but for a partial last segment's last
-        layer) and a shared-block application as a transformer layer;
-        ``col`` one input gradient a region (each layer's attention and
-        FFN or Mamba2 mixer, each shared-block application's attention and
-        FFN, the head); ``loss`` three (T,) statistics; ``route`` the
-        (T, top_k) routing weights' gradient a MoE layer; ``ssm_norm`` a
-        (T,) statistic each forward of a Mamba2 layer (``_mamba_forwards``)
-        and one in its backward; ``grads`` the
-        ``models.model.tp_partial_leaves`` in fp32; ``ssm_fused`` the
-        leaves of ``self.whole`` in the cast dtype: this rank's shard once
-        a step (the all-gather) and the whole gradient a microbatch (the
-        reduce-scatter).  Empty where ``model`` is 1."""
+        (T, d) fp32 lookup (none from the ``embeds`` frontend); ``row``
+        each layer's attention output once a forward (twice with remat)
+        and its FFN's once (a remat recompute stops after the FFN's last
+        GEMM, before its sum), a Mamba2 layer's out_proj once (a hybrid's
+        twice with remat: the segment's recompute runs it whole, but for
+        a partial last segment's last layer) and a shared-block
+        application as a transformer layer; ``col`` one input gradient a
+        region (each layer's attention and FFN or Mamba2 mixer, each
+        shared-block application's attention and FFN, the head or the
+        codebook heads); ``loss`` three (T,) statistics a codebook;
+        ``route`` the (T, top_k) routing weights' gradient a MoE layer;
+        ``ssm_norm`` a (T,) statistic each forward of a Mamba2 layer
+        (``_mamba_forwards``) and one in its backward; ``grads`` the
+        ``models.model.tp_partial_leaves`` in fp32; ``ssm_fused`` and
+        ``kv_head`` the leaves of ``self.whole`` (:func:`whole_site`) in
+        the cast dtype: this rank's shard once a step (the all-gather)
+        and the whole gradient a microbatch (the reduce-scatter).  Empty
+        where ``model`` is 1; a site that moves nothing is left out."""
         if self.model == 1:
             return {}
         cfg = self.cfg
         tokens = rows // microbatches * seq_len
         n, act = cfg.n_layers, tokens * cfg.d_model * 4
         fwd = 2 if cfg.remat else 1
-        out = {"embed": act, "loss": 3 * tokens * 4,
+        out = {"embed": act if cfg.frontend == "tokens" else 0,
+               "loss": 3 * tokens * max(1, cfg.n_codebooks) * 4,
                "grads": sum(math.prod(self.tp[k].shard_shape(
                    self.defs[k].shape)) * 4 for k in self.partial)}
         if cfg.family in ("ssm", "hybrid"):
@@ -403,18 +414,19 @@ class FsdpLayout:
             out.update(row=(rows_m + apps * (fwd + 1)) * act,
                        col=(n + 2 * apps + 1) * act,
                        ssm_norm=sum(f + 1 for f in forwards) * tokens * 4)
-            out["ssm_fused"] = sum(math.prod(self.defs[k].shape)
-                                   * self._cast_size(k) for k in self.whole)
         else:
             out.update(row=n * (fwd + 1) * act, col=(2 * n + 1) * act)
         if cfg.moe is not None and cfg.moe.n_experts:
             out["route"] = n * tokens * cfg.moe.top_k * 4
+        for k in self.whole:         # the whole gradient's reduce-scatter
+            site = whole_site(k)
+            out[site] = out.get(site, 0) + math.prod(
+                self.defs[k].shape) * self._cast_size(k)
         out = {k: v * microbatches for k, v in out.items()}
-        if self.whole:
-            out["ssm_fused"] += sum(
-                math.prod(self.tp[k].shard_shape(self.defs[k].shape))
-                * self._cast_size(k) for k in self.whole)
-        return out
+        for k in self.whole:         # this rank's shard's all-gather
+            out[whole_site(k)] += math.prod(self.tp[k].shard_shape(
+                self.defs[k].shape)) * self._cast_size(k)
+        return {k: v for k, v in out.items() if v}
 
     def _mamba_forwards(self) -> list:
         """How many times each Mamba2 layer's forward runs in a step: once,

@@ -244,27 +244,22 @@ def _port_fsdp(meshes):
     return out
 
 
-# The archs a mesh with model > 1 refuses to train (the tensor-parallel
-# step runs for stablelm-1.6b, deepseek-v2-lite-16b, mamba2-370m and
-# zamba2-7b alone), each with the words its refusal must name: what is
-# missing, a layout the step lacks or a feature no CPU case holds; on
-# (data 2, model 2) but where TP_REFUSED_MESH names another mesh
-# (mamba2-370m's 32 SSD heads on a model axis of 3).
-TP_REFUSED = {"musicgen-large": "codebook heads",
-              "granite-20b": "split heads",
-              "h2o-danube-3-4b": "sliding window",
-              "mixtral-8x7b": "experts beside GQA",
-              "minicpm3-4b": "q-LoRA",
-              "qwen2-vl-72b": "M-RoPE",
-              "mamba2-370m": "SSD heads"}
-TP_REFUSED_MESH = {"mamba2-370m": (2, 3)}
+# The archs a mesh with model > 1 refuses to train, each with the words
+# its refusal must name: a layout the step lacks, on the arch's mesh of
+# TP_REFUSED_MESH (mamba2-370m's 32 SSD heads on a model axis of 3;
+# minicpm3-4b's 40 heads on 16 ranks, 240 query columns a rank against
+# heads of 96), else (data 2, model 2).  Every arch steps on (data 2,
+# model 2) and (data 1, model 4).
+TP_REFUSED = {"mamba2-370m": "SSD heads",
+              "minicpm3-4b": "split heads"}
+TP_REFUSED_MESH = {"mamba2-370m": (2, 3), "minicpm3-4b": (1, 16)}
 
 
 def _port_model_axis():
-    """On (data 2, model 2), or the arch's mesh of ``TP_REFUSED_MESH``,
-    the hooks of each arch the tensor-parallel step leaves out build (the
-    dry run plans with them) and refuse to step: the step builder and the
-    gradient hook raise, naming it."""
+    """On the arch's mesh of ``TP_REFUSED_MESH`` (else (data 2, model
+    2)) the hooks of each arch of ``TP_REFUSED`` build (the dry run plans
+    with them) and refuse to step: the step builder and the gradient hook
+    raise, naming it."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.train import fsdp

@@ -1,7 +1,9 @@
 """Shared cases of the tensor-parallel training parity tests, read by both
-sides: the configurations, meshes and microbatch counts; the global
-batch, the starting masters and the optimizer are those of
-``_torch_train_dist_cases.py``.
+sides: the configurations (the reduced ones, a few changed:
+``CFG_CHANGES``), meshes and microbatch counts, the global batch (that of
+``_torch_train_dist_cases.py``, with embeddings and codebook labels for
+the archs that take them) and the starting masters; the optimizer is
+``_torch_train_dist_cases.py``'s.
 
 ``python tests/_torch_train_tp_cases.py OUT_DIR ARCH`` computes the
 reference's side for ``ARCH`` (``repro``, 4 forced host devices) into
@@ -29,8 +31,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import _torch_train_dist_cases as DC  # noqa: E402
 
-# the FSDP cases' archs and the Mamba2 families
-ARCHS = DC.ARCHS + ("mamba2-370m", "zamba2-7b")
+# the FSDP cases' archs and the Mamba2 families (test_torch_train_tp.py),
+# then the other six (test_torch_train_tp_archs.py): two modules, so that
+# the test run's workers take one each
+BASE_ARCHS = DC.ARCHS + ("mamba2-370m", "zamba2-7b")
+MORE_ARCHS = ("h2o-danube-3-4b", "minicpm3-4b", "mixtral-8x7b",
+              "qwen2-vl-72b", "granite-20b", "musicgen-large")
+ARCHS = BASE_ARCHS + MORE_ARCHS
 MICROBATCHES = DC.MICROBATCHES
 B, L, STEPS, OPT = DC.B, DC.L, DC.STEPS, DC.OPT
 WORLD = 4
@@ -39,18 +46,65 @@ MESHES = {"data2xmodel2": (2, 2), "data1xmodel4": (1, 4)}
 CASES = [("stablelm-1.6b", "data2xmodel2"), ("stablelm-1.6b", "data1xmodel4"),
          ("deepseek-v2-lite-16b", "data2xmodel2"),
          ("mamba2-370m", "data2xmodel2"), ("mamba2-370m", "data1xmodel4"),
-         ("zamba2-7b", "data2xmodel2")]
+         ("zamba2-7b", "data2xmodel2"),
+         ("h2o-danube-3-4b", "data2xmodel2"), ("minicpm3-4b", "data2xmodel2"),
+         ("mixtral-8x7b", "data2xmodel2"), ("mixtral-8x7b", "data1xmodel4"),
+         ("qwen2-vl-72b", "data2xmodel2"), ("granite-20b", "data2xmodel2"),
+         ("granite-20b", "data1xmodel4"), ("musicgen-large", "data2xmodel2")]
 GSPMD_MESH = "data2xmodel2"
 CKPT_CASE = ("stablelm-1.6b", GSPMD_MESH, 1)
+# What each case's config changes in the reduced config, on both sides:
+# a window short enough to mask keys at L = 16, and minicpm3's heads
+# made 4 (the reduced 5 split over model = 2; the full config's 40
+# divide over 2, 4 and 8).
+CFG_CHANGES = {"h2o-danube-3-4b": dict(sliding_window=8),
+               "mixtral-8x7b": dict(sliding_window=8),
+               "minicpm3-4b": dict(n_heads=4, n_kv_heads=4)}
 
 
 def case_key(arch, mb, mesh=None):
     return DC.case_key(arch, mb, mesh)
 
 
-small_cfg = DC.small_cfg
-masters = DC.masters
-batch = DC.batch
+def small_cfg(arch, package="port"):
+    """The reduced config of ``arch`` with ``CFG_CHANGES``, from either
+    package."""
+    import dataclasses
+
+    return dataclasses.replace(DC.small_cfg(arch, package),
+                               **CFG_CHANGES.get(arch, {}))
+
+
+def masters(arch):
+    """The fp32 masters both sides start from: the port's seed-0 init of
+    :func:`small_cfg`."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    torch.manual_seed(0)
+    return {k: v.numpy() for k, v in M.init_params(
+        small_cfg(arch), 0, "cpu", masters=True).items()}
+
+
+def batch(arch):
+    """``_torch_train_dist_cases.batch``'s global batch; for the
+    ``embeds`` frontend the token ids become (B, L, d) embeddings drawn
+    from a seed, and with codebooks the labels (B, L, n_codebooks) ids
+    drawn from it.  Neither carries positions: the model takes the
+    text position, on all three M-RoPE streams, as the reference's
+    pipeline (``data.pipeline.batch_for_model``) leaves it to."""
+    cfg = small_cfg(arch)
+    out = DC.batch(arch)
+    if cfg.frontend == "tokens":
+        return out
+    rng = np.random.RandomState(11)
+    out["embeds"] = (rng.randn(B, L, cfg.d_model) * 0.5).astype(np.float32)
+    del out["tokens"]
+    if cfg.n_codebooks > 1:
+        out["labels"] = rng.randint(0, cfg.vocab_size,
+                                    (B, L, cfg.n_codebooks)).astype(np.int32)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +234,8 @@ def _meshes():
     return out
 
 
-def port_ranks(rank, world, ckpt_dir):
+def port_ranks(rank, world, ckpt_dir, archs):
+    """The cases of ``archs`` on this rank."""
     import torch
 
     torch.manual_seed(0)
@@ -190,6 +245,8 @@ def port_ranks(rank, world, ckpt_dir):
     meshes = _meshes()
     out = {"rank": rank}
     for arch, mesh_name in CASES:
+        if arch not in archs:
+            continue
         for mb in MICROBATCHES:
             got, state = _port_case(arch, meshes[mesh_name], mb)
             out.update({f"{case_key(arch, mb, mesh_name)} {k}": v
@@ -224,7 +281,15 @@ def _port_case(arch, mesh, mb):
     step = T.build_train_step(cfg, adamw.AdamWConfig(**OPT), microbatches=mb,
                               reshard_params=rp, reshard_grads=rg)
     local = lay.local_batch(T.cast_batch(batch(arch), cfg, "cpu"))
-    out = {"local rows": int(local["tokens"].shape[0])}
+    out = {"local rows": int(local["labels"].shape[0])}
+    if cfg.rope_kind == "mrope":
+        # positions, where a batch carries them, split as its rows: each
+        # global row's index in both
+        rows = torch.arange(B)[:, None].expand(B, L)
+        got = lay.local_batch({"labels": rows, "positions": rows[
+            ..., None].expand(B, L, 3)})
+        out["positions split as the rows"] = bool(torch.equal(
+            got["positions"], got["labels"][..., None].expand(-1, -1, 3)))
     for i in range(STEPS):
         before = dict(D.tp_wire_bytes)
         with _counting_programs() as calls:

@@ -31,10 +31,10 @@ inputs:
   MoE step's first gradient depends on its microbatches (deepseek's
   ``blocks/moe/shared/w_down[0, 56, 56]``: 2.0e-4 with 1, 7.7e-9 with
   2).
-* On a mesh with model > 1 each arch the tensor-parallel step leaves
-  out (the ssm axis, the codebook heads, split heads, and the archs no
-  CPU case holds) builds its hooks (the dry run plans with them) and
-  refuses to step, naming what is missing.
+* On a mesh with model > 1 whose layout the tensor-parallel step lacks
+  (SSD heads or query heads split over ``model``) an arch builds its
+  hooks (the dry run plans with them) and refuses to step, naming what
+  is missing.
 * Elastic restore: the reference's checkpoint restores on 1, 2 and 4
   ranks, each rank's shards bit-equal to their slices of what ``np.load``
   reads from its file; a port state saved from 4 ranks (blocking and
@@ -242,9 +242,10 @@ def test_fsdp_step_matches_the_reference(runs, single, arch, mesh, mb):
 
 
 def test_model_axis_above_one_refuses_to_step(runs):
-    """Each arch the tensor-parallel step leaves out raises on (data 2,
-    model 2), and mamba2-370m on a model axis that does not divide its
-    SSD heads, naming itself and what is missing."""
+    """Each arch on a mesh whose layout the tensor-parallel step lacks
+    raises, naming itself and what is missing: mamba2-370m on a model
+    axis that does not divide its SSD heads, minicpm3-4b on one that
+    splits its query heads."""
     _, port = runs
     for arch, words in C.TP_REFUSED.items():
         for msg in port[0][f"model axis errors {arch}"]:

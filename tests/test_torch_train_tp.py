@@ -50,6 +50,7 @@ import pytest
 
 import _torch_train_tp_cases as C
 from _torch_isolation import isolated_port_state  # noqa: F401  (autouse)
+from repro_torch.configs import list_archs
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import abstract_mesh, spawn_ranks
 from repro_torch.train.fsdp import FsdpLayout
@@ -66,17 +67,17 @@ def _env():
     return env
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both sides at once: the reference's in a subprocess an arch while
-    the port's 4 ranks run."""
+def run_both(tmp_path_factory, archs):
+    """Both sides of the cases of ``archs`` at once: the reference's in a
+    subprocess an arch while the port's 4 ranks run."""
     out_dir = tmp_path_factory.mktemp("train_tp")
     procs = [subprocess.Popen(
         [sys.executable, str(REPO / "tests" / "_torch_train_tp_cases.py"),
          str(out_dir), arch], env=_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for arch in C.ARCHS]
+        stderr=subprocess.STDOUT, text=True) for arch in archs]
     try:
-        port = spawn_ranks(C.port_ranks, C.WORLD, (str(out_dir / "ckpt"),),
+        port = spawn_ranks(C.port_ranks, C.WORLD,
+                           (str(out_dir / "ckpt"), tuple(archs)),
                            timeout=180)
         logs = [proc.communicate(timeout=180)[0] for proc in procs]
     finally:
@@ -85,13 +86,18 @@ def runs(tmp_path_factory):
                 proc.kill()
                 proc.communicate()
     ref, hlo = {}, {}
-    for proc, log, arch in zip(procs, logs, C.ARCHS):
+    for proc, log, arch in zip(procs, logs, archs):
         assert proc.returncode == 0, log
         got = dict(np.load(out_dir / f"ref {arch}.npz"))
         hlo.update(json.loads(str(got.pop("gspmd collective bytes"))))
         ref.update(got)
     ref["gspmd collective bytes"] = json.dumps(hlo)
     return ref, port
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return run_both(tmp_path_factory, C.BASE_ARCHS)
 
 
 def _params_close(got, want, grad0, label):
@@ -128,8 +134,19 @@ def _metrics_close(got, want, label):
                                            err_msg=f"{label} {name} {i}")
 
 
-CASES = [(a, m, mb) for a, m in C.CASES for mb in C.MICROBATCHES]
-IDS = [f"{a}-{m}-mb{mb}" for a, m, mb in CASES]
+def cases(archs):
+    """The (arch, mesh, microbatches) cases of ``archs`` and their ids."""
+    out = [(a, m, mb) for a, m in C.CASES if a in archs
+           for mb in C.MICROBATCHES]
+    return out, [f"{a}-{m}-mb{mb}" for a, m, mb in out]
+
+
+def gspmd_cases(archs):
+    out = [(a, mb) for a in archs for mb in C.MICROBATCHES]
+    return out, [f"{a}-mb{mb}" for a, mb in out]
+
+
+CASES, IDS = cases(C.BASE_ARCHS)
 
 
 @pytest.mark.parametrize("arch,mesh,mb", CASES, ids=IDS)
@@ -152,8 +169,7 @@ def test_tp_step_matches_the_single_device_reference(runs, arch, mesh, mb):
                   f"{key} vs the single-device step")
 
 
-GSPMD = [(a, mb) for a in C.ARCHS for mb in C.MICROBATCHES]
-GSPMD_IDS = [f"{a}-mb{mb}" for a, mb in GSPMD]
+GSPMD, GSPMD_IDS = gspmd_cases(C.BASE_ARCHS)
 
 
 @pytest.mark.parametrize("arch,mb", GSPMD, ids=GSPMD_IDS)
@@ -215,16 +231,24 @@ def _mamba_forwards(cfg):
     return [2 if i == n - 1 and n % e else 3 for i in range(n)]
 
 
-def _port_sites(cfg, tokens, fwd):
+def _kv_whole(cfg, model):
+    """Whether the step reads the KV projections whole: GQA whose KV
+    heads ``model`` splits, each rank's query heads inside one."""
+    kv = cfg.n_kv_heads
+    return cfg.attn_kind == "gqa" and kv % model and model % kv == 0
+
+
+def _port_sites(cfg, tokens, fwd, model):
     """The bytes each site of the port's step hands to ``model``, one
     microbatch of ``tokens`` tokens (the formulas the port's layout
-    gives, ``core.distributed.tp_wire_bytes``'s docstring); the fused
-    Mamba2 leaves' once-a-step gather aside (:func:`_fused_gather`)."""
+    gives, ``core.distributed.tp_wire_bytes``'s docstring); the
+    whole-read leaves' once-a-step gather aside (:func:`_whole_gather`)."""
     d, n = cfg.d_model, cfg.n_layers
     act = tokens * d * F32
-    sites = {"embed": act,
-             # the global max, sum of exponentials and label logit
-             "loss": 3 * tokens * F32}
+    # the global max, sum of exponentials and label logit, a codebook
+    sites = {"loss": 3 * tokens * max(1, cfg.n_codebooks) * F32}
+    if cfg.frontend == "tokens":
+        sites["embed"] = act
     if cfg.family in ("ssm", "hybrid"):
         s = cfg.ssm
         h, di = s.n_heads(d), s.d_inner(d)
@@ -252,42 +276,69 @@ def _port_sites(cfg, tokens, fwd):
     # wo at every forward (a remat recompute too), the FFN's sum once:
     # the recompute stops before it (nothing after saves)
     sites["row"] = n * (fwd + 1) * act
-    # one input gradient a region: attention, FFN, the head
+    # one input gradient a region: attention, FFN, the head (the codebook
+    # heads one region)
     sites["col"] = (2 * n + 1) * act
-    if cfg.moe is not None and cfg.moe.n_experts:
-        sites["route"] = n * tokens * cfg.moe.top_k * F32
+    moe = cfg.moe is not None and cfg.moe.n_experts
+    grads = 0 if moe else n * d                # norm_ffn/scale
+    if cfg.mla is not None:
         m = cfg.mla
-        sites["grads"] = n * (d * (m.kv_lora_rank + m.qk_rope_dim)
-                              + m.kv_lora_rank) * F32
-    else:
-        sites["grads"] = n * d * F32           # norm_ffn/scale
+        # wkv_a, kv_norm; with q-LoRA wq_a, q_norm
+        grads += n * (d * (m.kv_lora_rank + m.qk_rope_dim) + m.kv_lora_rank
+                      + (d + 1) * m.q_lora_rank)
+    if grads:
+        sites["grads"] = grads * F32
+    if moe:
+        sites["route"] = n * tokens * cfg.moe.top_k * F32
+    if _kv_whole(cfg, model):
+        # the whole gradients of wk and wv reduce-scattered
+        sites["kv_head"] = n * 2 * d * cfg.n_kv_heads \
+            * cfg.resolved_head_dim * F32
     return sites
 
 
-def _fused_gather(cfg, model):
-    """The fused Mamba2 leaves' all-gather over ``model``: this rank's
-    shard of each, once a step."""
-    if cfg.family not in ("ssm", "hybrid"):
-        return 0
-    return _port_sites(cfg, 1, 1)["ssm_fused"] // model
+def _whole_gather(cfg, model):
+    """The whole-read leaves' all-gather over ``model``: this rank's shard
+    of each, once a step, by site."""
+    sites = _port_sites(cfg, 1, 1, model)
+    return {k: sites[k] // model for k in ("ssm_fused", "kv_head")
+            if k in sites}
 
 
-def _plan_gap(cfg, act, fwd):
+def _plan_gap(cfg, act, fwd, tokens):
     """What the dry run plans beyond the port's ``row`` and ``col``
-    sites: each FFN's (a dense or MoE layer's, a shared application's)
-    and each plain Mamba2 layer's last all-reduce again in the remat
-    recompute, which the port stops before (ROADMAP.md §3); one input
-    gradient per column-parallel GEMM where the port sums a region's
-    GEMMs first (wq, wk, wv; gate and up; MLA: wq alone; MoE: shared
-    gate and up); a Mamba2 mixer has one, in_proj."""
+    sites, for ``tokens`` tokens of (T, d) activations of ``act`` bytes:
+    each FFN's (a dense or MoE layer's, a shared application's) and each
+    plain Mamba2 layer's last all-reduce again in the remat recompute,
+    which the port stops before (ROADMAP.md §3), less the sum of the
+    experts' outputs, which the plan (its k-sharded GEMMs) leaves out
+    where no shared expert's down projection carries it; one input
+    gradient per column-parallel GEMM (at the GEMM's own k: MLA's wq_b
+    reads the q-LoRA rank) where the port sums a region's GEMMs first
+    (wq, wk, wv; gate and up or the GELU's up; MLA: wq or wq_b; MoE:
+    shared gate and up), the codebook heads' none (the plan takes 2-D
+    GEMMs); a Mamba2 mixer has one, in_proj."""
     n, e = cfg.n_layers, cfg.shared_attn_every
     if cfg.family == "ssm":
         return n * (fwd - 1) * act, 0
     if cfg.family == "hybrid":
         apps = n // e
         return (apps + (n % e > 0)) * (fwd - 1) * act, apps * 3 * act
-    col_gemms = (3 + 2) if cfg.moe is None else (1 + 2)
-    return n * (fwd - 1) * act, n * (col_gemms - 2) * act
+    if cfg.mla is None:
+        attn = 3 * act
+    elif cfg.mla.q_lora_rank:
+        attn = tokens * cfg.mla.q_lora_rank * F32
+    else:
+        attn = act
+    moe = cfg.moe is not None and cfg.moe.n_experts
+    if not moe:
+        ffn = (2 if cfg.act == "silu" else 1) * act
+    else:
+        ffn = 2 * act if cfg.moe.n_shared_experts else 0
+    head = act if cfg.n_codebooks == 1 else 0
+    ffn_row = 0 if moe and not cfg.moe.n_shared_experts else n * fwd * act
+    return (n * fwd * act + ffn_row - n * (fwd + 1) * act,
+            n * (attn + ffn) + head - (2 * n + 1) * act)
 
 
 @pytest.mark.parametrize("arch,mesh,mb", CASES, ids=IDS)
@@ -303,14 +354,15 @@ def test_tp_wire_bytes_against_the_plan(runs, arch, mesh, mb):
     fwd = 2 if cfg.remat else 1
     amesh = abstract_mesh((data, model), ("data", "model"))
     plan = dryrun.tp_reduce_bytes(cfg, "train", C.L, rows, amesh, mb)
-    sites = {k: v * mb for k, v in _port_sites(cfg, tokens, fwd).items()}
-    if "ssm_fused" in sites:
-        sites["ssm_fused"] += _fused_gather(cfg, model)
+    sites = {k: v * mb for k, v in _port_sites(cfg, tokens, fwd,
+                                               model).items()}
+    for k, v in _whole_gather(cfg, model).items():
+        sites[k] += v
     # the layout's own account (the smoke holds the card's counts to it)
     assert FsdpLayout(cfg, amesh).tp_wire_plan(C.L, rows, mb) == sites
     act = tokens * cfg.d_model * F32 * mb
-    row_gap, col_gap = _plan_gap(cfg, act, fwd)
-    assert plan["embed"] == sites["embed"]
+    row_gap, col_gap = _plan_gap(cfg, act, fwd, tokens * mb)
+    assert plan.get("embed", 0) == sites.get("embed", 0)
     assert plan["row"] - sites["row"] == row_gap
     assert plan["col"] - sites["col"] == col_gap
     for i in range(C.STEPS):
@@ -354,14 +406,27 @@ def test_held_archs_are_not_refused(arch, reduced):
     """The archs these cases hold step tensor-parallel at full width and
     at the cases' reduced width: the refusal reads features, and theirs
     are the ones a case holds."""
-    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.train.fsdp import tp_refusal
 
-    cfg = (get_reduced if reduced else get_config)(arch)
+    cfg = C.small_cfg(arch) if reduced else get_config(arch)
     for shape in ((2, 2), (1, 4)):
         mesh = abstract_mesh(shape, ("data", "model"))
         assert tp_refusal(cfg, mesh) is None, (arch, shape)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_steps_tensor_parallel(arch):
+    """Every configuration of the port steps tensor-parallel on (data 2,
+    model 2) and (data 1, model 4): ``tp_refusal`` finds nothing
+    missing."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.fsdp import tp_refusal
+
+    for shape in ((2, 2), (1, 4)):
+        mesh = abstract_mesh(shape, ("data", "model"))
+        assert tp_refusal(get_config(arch), mesh) is None, (arch, shape)
 
 
 @pytest.mark.parametrize("where", ["data2", "one"])
