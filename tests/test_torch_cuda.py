@@ -1499,3 +1499,92 @@ def test_cuda_dist_local_matmul_launches_k1(m, n, k):
     want = K.ca_gemm_program_reference(a, (bs[0],), out_dtype=torch.float32)
     assert (got - want).abs().max().item() <= 1e-4 * (
         1 + want.abs().max().item())
+
+
+# -- the port's examples (examples/torch_port/) on the card -------------------
+
+def _example(name):
+    """``examples/torch_port/<name>.py`` as the module
+    ``torch_port.<name>``."""
+    import importlib
+    import pathlib
+    import sys
+
+    examples = str(pathlib.Path(__file__).resolve().parents[1] / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    return importlib.import_module(f"torch_port.{name}")
+
+
+@pytest.mark.cuda
+def test_cuda_quickstart_example_runs_k1(capsys):
+    """The quickstart's GEMM is one K1 launch on the SIMT route (fp32),
+    within the float tolerance of a float64 host product, and the script
+    prints the route it took."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    qs = _example("quickstart")
+    K.reset_launch_counts()
+    err, route = qs.gemm_check()
+    assert K.launch_counts == {"none": 1}
+    assert route == "simt none"
+    rng = np.random.RandomState(0)
+    scale = np.abs(rng.randn(512, 384) @ rng.randn(384, 256)).max()
+    assert err <= 1e-4 * (1 + scale), err
+    qs.main([])
+    out = capsys.readouterr().out
+    assert "K1 route: simt none) vs float64 host product" in out
+    assert len(out.splitlines()) == 10
+
+
+def _serve_example_card_and_cpu(quantize, chaos=False):
+    """The serve example's stablelm-1.6b from the same seeded weights,
+    on the card and on the CPU (the GEMM fallback on, as outside the
+    test suite); returns both results and the card run's K1 launches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.gemm import gemm_fallback
+    from repro_torch.models import model as M
+
+    serve = _example("serve_lm").serve_arch
+    arch = "stablelm-1.6b"
+    p_cpu = M.init_params(get_reduced(arch), seed=0, device="cpu")
+    p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
+    with gemm_fallback(True):
+        K.reset_launch_counts()
+        card = serve(arch, p_gpu, quantize=quantize, chaos=chaos)
+        torch.cuda.synchronize()
+        launches = sum(K.launch_counts.values())
+        cpu = serve(arch, p_cpu, quantize=quantize, chaos=chaos,
+                    device="cpu")
+    return card, cpu, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", ["none", "int8", "w8a8"])
+def test_cuda_serve_lm_example_greedy_matches_cpu(quantize):
+    """The serve example on the card: every GEMM on K1, the greedy
+    tokens identical to the same function's on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    card, cpu, launches = _serve_example_card_and_cpu(quantize)
+    assert launches > 0
+    assert [card["done"][u].status for u in (0, 1)] == ["done", "done"]
+    assert card["done"][0].generated == cpu["done"][0].generated
+    assert len(card["done"][1].generated) == 6
+
+
+@pytest.mark.cuda
+def test_cuda_serve_lm_example_chaos_matches_cpu():
+    """``--chaos --quantize int8`` on the card: the same statuses, quant
+    levels and injections as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    card, cpu, launches = _serve_example_card_and_cpu("int8", chaos=True)
+    assert launches > 0
+    outcome = lambda res: [  # noqa: E731
+        (u, r.status, r.quant_level, r.degraded_to)
+        for u, r in sorted(res["done"].items())]
+    assert outcome(card) == outcome(cpu)
+    assert [s for _, s, _, _ in outcome(card)] == [
+        "failed", "degraded", "degraded", "done"]
+    assert sorted(card["plan"].injected) == sorted(cpu["plan"].injected)

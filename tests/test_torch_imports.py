@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` nor ``chip_smoke.py``
-imports JAX or the reference package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, no script of
+``examples/torch_port/`` nor ``chip_smoke.py`` imports JAX or the
+reference package ``repro``."""
 
 import ast
 import os
@@ -11,11 +12,19 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+EXAMPLES = REPO / "examples"
+PORT_EXAMPLES = EXAMPLES / "torch_port"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _guarded_files():
+    """Every file that must import neither JAX nor ``repro``: the
+    package, ``chip_smoke.py`` and the port's examples."""
+    return _port_files() + sorted(PORT_EXAMPLES.glob("*.py"))
 
 
 def _module_name(path):
@@ -34,8 +43,9 @@ def _imported_roots(tree):
 
 
 def test_no_jax_or_reference_imports_in_source():
-    files = _port_files()
+    files = _guarded_files()
     assert len(files) > 15
+    assert PORT_EXAMPLES / "serve_lm.py" in files
     bad = [(str(f.relative_to(REPO)), root) for f in files
            for root in _imported_roots(ast.parse(f.read_text()))
            if root in FORBIDDEN]
@@ -65,6 +75,26 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert f"imported {len(modules)}" in out.stdout
+
+
+def test_every_port_example_imports_with_jax_and_repro_blocked():
+    modules = [f"torch_port.{f.stem}"
+               for f in sorted(PORT_EXAMPLES.glob("*.py"))]
+    code = _BLOCKER.format(forbidden=FORBIDDEN, modules=modules)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(EXAMPLES)]))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(modules)}" in out.stdout
+
+
+def test_every_reference_example_has_a_port():
+    """Each of the reference's ``examples/*.py`` has a script of the same
+    name in ``examples/torch_port/``."""
+    ref = {f.name for f in EXAMPLES.glob("*.py")}
+    assert len(ref) == 4
+    assert ref <= {f.name for f in PORT_EXAMPLES.glob("*.py")}
 
 
 def test_every_reference_config_and_the_serve_launcher_have_a_port():
